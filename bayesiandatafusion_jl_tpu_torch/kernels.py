@@ -1,0 +1,95 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+The sources under ``csrc/`` are compiled by ``nvcc`` for ``sm_90a`` (H100)
+into one shared library with a plain C interface, at first use, into
+``_build/`` beside this file, and loaded with ``ctypes``.  Nothing is built
+or loaded when the module is imported: the CPU tests import every module and
+this machine class has no ``nvcc``.
+"""
+from __future__ import annotations
+
+import ctypes
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from typing import List, Optional
+
+_PKG = os.path.dirname(os.path.abspath(__file__))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(_PKG, "_build")
+LIB_PATH = os.path.join(BUILD_DIR, "libbdf_torch_kernels.so")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+
+_lib: Optional[ctypes.CDLL] = None
+# what the build in this process did: seconds (None when an up-to-date
+# library was reused) and the compiler's output
+_report: dict = {"seconds": None, "log": ""}
+
+
+def sources() -> List[str]:
+    return sorted(os.path.join(CSRC, f) for f in os.listdir(CSRC)
+                  if f.endswith(".cu"))
+
+
+def _nvcc() -> str:
+    for cand in (shutil.which("nvcc"),
+                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                              "bin", "nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+                       "toolkit (set CUDA_HOME or put nvcc on PATH)")
+
+
+def build() -> str:
+    """Compile ``csrc/*.cu`` into ``_build/`` unless an up-to-date library
+    is there; returns the library path.  The library is written to a
+    temporary name and renamed, so concurrent processes never load a
+    half-written file."""
+    srcs = sources()
+    if (os.path.exists(LIB_PATH) and os.path.getmtime(LIB_PATH)
+            >= max(os.path.getmtime(s) for s in srcs)):
+        return LIB_PATH
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *srcs],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                               f"{proc.stdout}\n{proc.stderr}")
+        os.replace(tmp, LIB_PATH)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+    _report["seconds"] = time.perf_counter() - t0
+    _report["log"] = proc.stdout + proc.stderr
+    return LIB_PATH
+
+
+def load() -> ctypes.CDLL:
+    """The kernel library (built on first call), with its C signatures."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(build())
+        p, ll, d, i = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_double,
+                       ctypes.c_int)
+        for fn in (lib.bdf_chol_sample_packed_f32,
+                   lib.bdf_chol_sample_packed_f64):
+            fn.restype = i
+            fn.argtypes = [p, ll, ll, p, d, p, ll, ll, p, p, i, i, p]
+        _lib = lib
+    return _lib
+
+
+def build_report() -> dict:
+    """Seconds and compiler output (``-Xptxas -v``: registers, shared
+    memory, spills) of the build this process ran; ``seconds`` is None when
+    an up-to-date library was reused."""
+    return dict(_report)
