@@ -2,10 +2,10 @@
 
 A port of ``bayesiandatafusion_jl_tpu`` (JAX on a TPU), which stays the
 reference.  This package imports torch and numpy only — never jax
-or the JAX package.  It covers the main path so far: one 2-ary relation,
-the dense int8 pair Gramian and the packed Cholesky sampler (a CUDA kernel
-for ``sm_90a``, built from ``csrc/`` at first use).  See ROADMAP.md for
-what is still to port.
+or the JAX package.  It covers the main path so far, at any rank K: one
+2-ary relation, the dense int8 pair Gramian and the Cholesky samplers (CUDA
+kernels for ``sm_90a``, built from ``csrc/`` at first use).  See ROADMAP.md
+for what is still to port.
 """
 
 from .models.data import Entity, IndexedDF, Relation, RelationData

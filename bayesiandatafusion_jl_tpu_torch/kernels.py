@@ -1,10 +1,11 @@
 """Build and load the port's hand-written CUDA kernels.
 
-The sources under ``csrc/`` are compiled by ``nvcc`` for ``sm_90a`` (H100)
-into one shared library with a plain C interface, at first use, into
-``_build/`` beside this file, and loaded with ``ctypes``.  Nothing is built
-or loaded when the module is imported: the CPU tests import every module and
-this machine class has no ``nvcc``.
+The sources under ``csrc/`` are compiled by ``nvcc`` for ``sm_90a`` (H100),
+one ``nvcc`` per source, all started together, and linked into one shared
+library with a plain C interface, at first use, into ``_build/`` beside
+this file, and loaded with ``ctypes``.  Nothing is built or loaded when the
+module is imported: the CPU tests import every module and this machine
+class has no ``nvcc``.
 """
 from __future__ import annotations
 
@@ -21,7 +22,7 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 LIB_PATH = os.path.join(BUILD_DIR, "libbdf_torch_kernels.so")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-O3", "-Xcompiler", "-fPIC"]
 
 
 _lib: Optional[ctypes.CDLL] = None
@@ -45,31 +46,44 @@ def _nvcc() -> str:
                        "toolkit (set CUDA_HOME or put nvcc on PATH)")
 
 
+def _run_all(cmds: List[List[str]]) -> str:
+    """Run the commands concurrently; return their joined output, or raise
+    with it if any failed (every process is waited for either way)."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    log = "".join(outs)
+    bad = [(c[-1], p.returncode) for c, p in zip(cmds, procs)
+           if p.returncode != 0]
+    if bad:
+        raise RuntimeError(f"nvcc failed for {bad}:\n{log}")
+    return log
+
+
 def build() -> str:
     """Compile ``csrc/*.cu`` into ``_build/`` unless an up-to-date library
-    is there; returns the library path.  The library is written to a
-    temporary name and renamed, so concurrent processes never load a
-    half-written file."""
+    is there (newer than every source and header); returns the library
+    path.  The library is linked to a temporary name and renamed, so
+    concurrent processes never load a half-written file."""
     srcs = sources()
+    deps = srcs + [os.path.join(CSRC, f) for f in os.listdir(CSRC)
+                   if f.endswith(".cuh")]
     if (os.path.exists(LIB_PATH) and os.path.getmtime(LIB_PATH)
-            >= max(os.path.getmtime(s) for s in srcs)):
+            >= max(os.path.getmtime(s) for s in deps)):
         return LIB_PATH
     os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    try:
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *srcs],
-                              capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{proc.stdout}\n{proc.stderr}")
-        os.replace(tmp, LIB_PATH)
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [os.path.join(tmp, os.path.basename(s) + ".o") for s in srcs]
+        log = _run_all([[nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o", o,
+                         s] for s, o in zip(srcs, objs)])
+        lib = os.path.join(tmp, "lib.so")
+        log += _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", lib, *objs]])
+        os.replace(lib, LIB_PATH)
     _report["seconds"] = time.perf_counter() - t0
-    _report["log"] = proc.stdout + proc.stderr
+    _report["log"] = log
     return LIB_PATH
 
 
@@ -81,9 +95,14 @@ def load() -> ctypes.CDLL:
         p, ll, d, i = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_double,
                        ctypes.c_int)
         for fn in (lib.bdf_chol_sample_packed_f32,
-                   lib.bdf_chol_sample_packed_f64):
+                   lib.bdf_chol_sample_packed_f64,
+                   lib.bdf_chol_sample_packed_slab_f32,
+                   lib.bdf_chol_sample_packed_slab_f64):
             fn.restype = i
             fn.argtypes = [p, ll, ll, p, d, p, ll, ll, p, p, i, i, p]
+        for fn in (lib.bdf_chol_inv_f32, lib.bdf_chol_inv_f64):
+            fn.restype = i
+            fn.argtypes = [p, p, i, i, p]
         _lib = lib
     return _lib
 

@@ -2,14 +2,18 @@
 ``models/engine.py`` main path.
 
 The slice this port covers: one 2-ary relation without side features, the
-dense int8 pair Gramian (ops/dense_gram.py) and the packed-triangle
-Cholesky sampler (ops/chol_packed.py, a CUDA kernel on the GPU), K <= 32.
-Each sweep, for each entity in turn:
+dense int8 pair Gramian (ops/dense_gram.py) and the Cholesky samplers, at
+any K.  Each sweep, for each entity in turn:
 
   (mu, Lambda) <- Normal-Wishart draw from U                 (ops/hyper.py)
   P, b         <- alpha-folded int8 pair Gramian of the partner
                   factors, plus the prior term Lambda mu
   U            <- u ~ N(P'^-1 b, P'^-1) per row, P' = P + Lambda
+
+The sampler branches on K as the JAX engine does (engine.py:821, :924-946):
+K <= 96 keeps P packed ([K(K+1)/2, N], ops/chol_packed.py: the K1 kernel
+up to K = 32, K2 above); K > 96 expands it to [N, K, K] for the blocked
+sampler (ops/mvn.chol_sample_dispatch: the K5 kernel up to K = 128).
 
 then the test tuples are predicted (clamped per sample) and the posterior
 mean and RMSEs are updated.  Options outside the slice raise
@@ -29,9 +33,10 @@ import numpy as np
 import torch
 
 from ..ops import dense_gram as dg
-from ..ops.chol_packed import MAX_K, chol_sample_packed
+from ..ops.chol_packed import K2_MAX_K, chol_sample_packed_dispatch
 from ..ops.gramian import predict_tuples
 from ..ops.hyper import normal_wishart_update
+from ..ops.mvn import chol_sample_dispatch
 from ..utils.config import MacauConfig
 from ..utils.rng import build_random_spec, draw_all
 from .data import RelationData, resolved_alpha, resolved_alpha_sample
@@ -69,9 +74,6 @@ def _check_slice(rd: RelationData, cfg: MacauConfig) -> None:
             missing.append("alpha sampling (ROADMAP M7)")
     if len(rd.entities) != 2:
         missing.append("entities outside the relation (ROADMAP M7)")
-    if cfg.num_latent > MAX_K:
-        missing.append(f"num_latent > {MAX_K}: packed column-slab sampler "
-                       f"(ROADMAP K2)")
     if missing:
         raise NotImplementedError("not ported yet: " + "; ".join(missing))
     rel = rd.relations[0]
@@ -184,13 +186,24 @@ class MacauEngine:
             ent["mu"], ent["Lambda"] = mu, Lambda
             mode = rs.entity_ids.index(ei)
             partner = ents[rs.entity_ids[1 - mode]]["U"]
+            xi = randoms[f"e{ei}.xi"]
+            packed = cfg.num_latent <= K2_MAX_K
             P, b_d = dg.dense_gram_contrib(prob.pair, prob.tri, partner,
-                                           mode, rels[0]["alpha"], dtype)
+                                           mode, rels[0]["alpha"], dtype,
+                                           packed=packed)
             # prior term Lambda mu for every row, plus the data term
-            b = (mu @ Lambda)[:, None] + b_d[:, :es.n]
-            ent["U"] = chol_sample_packed(P[:, :es.n], b,
-                                          randoms[f"e{ei}.xi"], Lambda,
-                                          cfg.chol_jitter, transposed=True)
+            if packed:
+                b = (mu @ Lambda)[:, None] + b_d[:, :es.n]
+                ent["U"] = chol_sample_packed_dispatch(
+                    P[:, :es.n], b, xi, Lambda, cfg.chol_jitter,
+                    transposed=True)
+            else:
+                # P is the Gramian's fresh [n, K, K] expansion; the
+                # dispatch adds Lambda to it in place, which saves an
+                # [n, K, K] copy (4.7 GB at K=128 on ML-10M)
+                b = (mu @ Lambda) + b_d
+                ent["U"] = chol_sample_dispatch(P, b, xi, Lambda,
+                                                cfg.chol_jitter)
             metrics[f"e{ei}.unorm"] = torch.linalg.norm(ent["U"])
 
         preds = dict(state["pred"])

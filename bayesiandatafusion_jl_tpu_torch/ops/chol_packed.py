@@ -1,16 +1,24 @@
-"""Packed-triangle Cholesky sampler: u ~ N(P'^-1 b, P'^-1) per row.
+"""Packed-triangle Cholesky samplers: u ~ N(P'^-1 b, P'^-1) per row.
 
-Port of ``bayesiandatafusion_jl_tpu/ops/pallas_chol.py``
-``chol_sample_packed`` (:192, TPU kernel ``_chol_sample_packed_kernel``
-:178).  P' = unpack(Pp) + Lambda (+ jitter I), with Pp the K(K+1)/2 upper
-triangle of each row's precision in ``np.triu_indices`` order, and
-u = L^-T (L^-1 b + xi) for L = chol(P').  K <= 32.
+Port of ``bayesiandatafusion_jl_tpu/ops/pallas_chol.py`` :192-386.
+P' = unpack(Pp) + Lambda (+ jitter I), with Pp the K(K+1)/2 upper triangle
+of each row's precision in ``np.triu_indices`` order, and
+u = L^-T (L^-1 b + xi) for L = chol(P').  Two kernels cover the K ladder:
 
-``chol_sample_packed`` launches the CUDA kernel
-(``csrc/chol_sample_packed.cu``) for tensors on a CUDA device and runs the
+- ``chol_sample_packed`` (K <= 32): ``csrc/chol_sample_packed.cu`` (K1),
+  port of ``chol_sample_packed`` :192 (TPU kernel
+  ``_chol_sample_packed_kernel`` :178);
+- ``chol_sample_packed_tiled`` (32 < K <= 96):
+  ``csrc/chol_sample_packed_slab.cu`` (K2), port of
+  ``chol_sample_packed_tiled`` :315 (TPU kernel
+  ``_chol_sample_packed_slab_kernel`` :269).
+
+Both launch their CUDA kernel for tensors on a CUDA device and run the one
 plain version, ``chol_sample_packed_plain``, for tensors on the CPU.
 """
 from __future__ import annotations
+
+from typing import List
 
 import torch
 from torch.linalg import solve_triangular
@@ -18,7 +26,17 @@ from torch.linalg import solve_triangular
 from .. import kernels
 from .dense_gram import tri_maps
 
-MAX_K = 32
+# the K range of each kernel
+K1_MAX_K = 32
+K2_MAX_K = 96
+
+
+def tri_offsets(K: int) -> List[int]:
+    """off[j] = packed index of the diagonal (j, j) in ``np.triu_indices``
+    order.  The upper triangle row by row is the lower triangle column by
+    column, so packed[off[j] + (k - j)] = L-column entry (k, j) for k >= j:
+    every column slab of the Cholesky recurrence is a contiguous range."""
+    return [j * K - j * (j - 1) // 2 for j in range(K)]
 
 
 def _unpack_layout(Pp, b, K, transposed):
@@ -39,9 +57,9 @@ def chol_sample_packed_plain(Pp: torch.Tensor, b: torch.Tensor,
                              xi: torch.Tensor, Lambda: torch.Tensor,
                              jitter: float = 0.0,
                              transposed: bool = True) -> torch.Tensor:
-    """The plain torch version: unpack through the ``tri_maps`` index, add
-    Lambda + jitter I, batched Cholesky and two triangular solves.
-    Runs on any device; returns u [B, K]."""
+    """The plain torch version of both packed samplers, for any K: unpack
+    through the ``tri_maps`` index, add Lambda + jitter I, batched Cholesky
+    and two triangular solves.  Runs on any device; returns u [B, K]."""
     chol_sample_packed_plain.calls += 1
     K = Lambda.shape[0]
     B, _ = _unpack_layout(Pp, b, K, transposed)
@@ -62,39 +80,25 @@ def chol_sample_packed_plain(Pp: torch.Tensor, b: torch.Tensor,
 chol_sample_packed_plain.calls = 0
 
 
-def chol_sample_packed(Pp: torch.Tensor, b: torch.Tensor, xi: torch.Tensor,
-                       Lambda: torch.Tensor, jitter: float = 0.0,
-                       transposed: bool = True) -> torch.Tensor:
-    """Sample u [B, K] from packed precision rows.
-
-    ``transposed=True`` (the engine's layout): Pp [K(K+1)/2, B] and
-    b [K, B], as the Gramian emits them; ``False``: Pp [B, C], b [B, K].
-    Pp and b may be strided views (the kernel takes both strides); xi
-    [B, K] and Lambda [K, K] must be contiguous on the kernel path.
-
-    CPU tensors run the plain version; CUDA tensors launch the kernel on
-    the current stream (``chol_sample_packed.launches`` counts launches)
-    or raise — there is no fallback.
-    """
+def _launch(name, k_min, k_max, Pp, b, xi, Lambda, jitter, transposed):
+    """Check the operands and launch kernel ``bdf_{name}_{f32|f64}`` on the
+    current stream; returns u [B, K].  Raises on what the kernel does not
+    take and on a failed launch — there is no fallback."""
     K = Lambda.shape[0]
     B, _ = _unpack_layout(Pp, b, K, transposed)
-    if Pp.device.type == "cpu":
-        return chol_sample_packed_plain(Pp, b, xi, Lambda, jitter,
-                                        transposed)
     if Pp.device.type != "cuda":
         raise RuntimeError(f"no kernel for device {Pp.device}")
     dtype = Pp.dtype
     if dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"chol_sample_packed kernel takes float32/float64, "
-                        f"got {dtype}")
-    if not 1 <= K <= MAX_K:
-        raise ValueError(f"chol_sample_packed kernel takes K <= {MAX_K}, "
+        raise TypeError(f"{name} kernel takes float32/float64, got {dtype}")
+    if not k_min <= K <= k_max:
+        raise ValueError(f"{name} kernel takes {k_min} <= K <= {k_max}, "
                          f"got {K}")
-    for name, t in (("b", b), ("xi", xi), ("Lambda", Lambda)):
+    for arg, t in (("b", b), ("xi", xi), ("Lambda", Lambda)):
         if t.device != Pp.device:
-            raise ValueError(f"{name} is on {t.device}, Pp on {Pp.device}")
+            raise ValueError(f"{arg} is on {t.device}, Pp on {Pp.device}")
         if t.dtype != dtype:
-            raise TypeError(f"{name} is {t.dtype}, Pp is {dtype}")
+            raise TypeError(f"{arg} is {t.dtype}, Pp is {dtype}")
     if tuple(xi.shape) != (B, K) or not xi.is_contiguous():
         raise ValueError(f"xi must be contiguous [{B}, {K}]")
     if tuple(Lambda.shape) != (K, K) or not Lambda.is_contiguous():
@@ -105,18 +109,74 @@ def chol_sample_packed(Pp: torch.Tensor, b: torch.Tensor, xi: torch.Tensor,
                   else (b.stride(1), b.stride(0)))
     u = torch.empty((B, K), dtype=dtype, device=Pp.device)
     lib = kernels.load()
-    fn = (lib.bdf_chol_sample_packed_f32 if dtype == torch.float32
-          else lib.bdf_chol_sample_packed_f64)
+    suffix = "f32" if dtype == torch.float32 else "f64"
+    fn = getattr(lib, f"bdf_{name}_{suffix}")
     stream = torch.cuda.current_stream(Pp.device).cuda_stream
     with torch.cuda.device(Pp.device):
         rc = fn(Pp.data_ptr(), p_sc, p_sr, Lambda.data_ptr(), float(jitter),
                 b.data_ptr(), b_sk, b_sr, xi.data_ptr(), u.data_ptr(), B, K,
                 stream)
     if rc != 0:
-        raise RuntimeError(f"chol_sample_packed kernel launch failed: CUDA "
-                           f"error {rc}")
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
+    return u
+
+
+def chol_sample_packed(Pp: torch.Tensor, b: torch.Tensor, xi: torch.Tensor,
+                       Lambda: torch.Tensor, jitter: float = 0.0,
+                       transposed: bool = True) -> torch.Tensor:
+    """Sample u [B, K] from packed precision rows, K <= 32 (K1).
+
+    ``transposed=True`` (the engine's layout): Pp [K(K+1)/2, B] and
+    b [K, B], as the Gramian emits them; ``False``: Pp [B, C], b [B, K].
+    Pp and b may be strided views (the kernel takes both strides); xi
+    [B, K] and Lambda [K, K] must be contiguous on the kernel path.
+
+    CPU tensors run the plain version; CUDA tensors launch the kernel on
+    the current stream (``chol_sample_packed.launches`` counts launches)
+    or raise — there is no fallback.
+    """
+    if Pp.device.type == "cpu":
+        return chol_sample_packed_plain(Pp, b, xi, Lambda, jitter,
+                                        transposed)
+    u = _launch("chol_sample_packed", 1, K1_MAX_K, Pp, b, xi, Lambda,
+                jitter, transposed)
     chol_sample_packed.launches += 1
     return u
 
 
 chol_sample_packed.launches = 0
+
+
+def chol_sample_packed_tiled(Pp: torch.Tensor, b: torch.Tensor,
+                             xi: torch.Tensor, Lambda: torch.Tensor,
+                             jitter: float = 0.0,
+                             transposed: bool = True) -> torch.Tensor:
+    """The same draw for 32 < K <= 96 (K2, the packed column-slab kernel).
+    Layouts, strides and the CPU/CUDA split as in ``chol_sample_packed``;
+    ``chol_sample_packed_tiled.launches`` counts launches."""
+    if Pp.device.type == "cpu":
+        return chol_sample_packed_plain(Pp, b, xi, Lambda, jitter,
+                                        transposed)
+    u = _launch("chol_sample_packed_slab", K1_MAX_K + 1, K2_MAX_K, Pp, b,
+                xi, Lambda, jitter, transposed)
+    chol_sample_packed_tiled.launches += 1
+    return u
+
+
+chol_sample_packed_tiled.launches = 0
+
+
+def chol_sample_packed_dispatch(Pp: torch.Tensor, b: torch.Tensor,
+                                xi: torch.Tensor, Lambda: torch.Tensor,
+                                jitter: float = 0.0,
+                                transposed: bool = True) -> torch.Tensor:
+    """The packed sampler across the K ladder: K1 for K <= 32, K2 for
+    32 < K <= 96; larger K has no packed sampler (the engine takes the
+    full-P branch there)."""
+    K = Lambda.shape[0]
+    if K <= K1_MAX_K:
+        return chol_sample_packed(Pp, b, xi, Lambda, jitter, transposed)
+    if K <= K2_MAX_K:
+        return chol_sample_packed_tiled(Pp, b, xi, Lambda, jitter,
+                                        transposed)
+    raise ValueError(f"no packed sampler for K={K} > {K2_MAX_K}")

@@ -5,8 +5,8 @@ the host side (``int8_pair_ok`` :1073, and the store that
 ``build_dense_pair`` :263 and ``quantize_dense_pair`` :1114 make, built
 over the observed cells only) and the per-sweep side (``_tri_maps``,
 ``_quantize_cols``, ``_floor_scale``, ``_q8`` and the s8 branch of
-``dense_gram_contrib`` :1319-1421 for arity 2, packed, in the transposed
-[C, N] layout).
+``dense_gram_contrib`` :1319-1430 for arity 2: packed in the transposed
+[C, N] layout, or unpacked to [N, K, K]).
 
 Per sweep and per focus mode, with the stored int8 observation counts M8
 and statically quantized centered values W8 (both [N_focus, N_partner]),
@@ -94,10 +94,11 @@ def build_int8_pair(idx: np.ndarray, centered: np.ndarray,
     """The stored int8 pair of one 2-ary relation, on ``device``.
 
     Returns ``{"M8": [M0, M1], "W8": [W0, W1], "deg": [d0, d1],
-    "w_scale": float}`` where M{f}/W{f} hold the pair with focus mode f's axis leading —
-    [N_f, N_partner], padded to STORE_ALIGN, partner axis contiguous (the
-    contraction axis of both of f's products) — and d{f} the observation
-    count of every (padded) focus row, for the PD ridge.
+    "w_scale": float, "shape": (N0, N1)}`` where M{f}/W{f} hold the pair
+    with focus mode f's axis leading — [N_f, N_partner], padded to
+    STORE_ALIGN, partner axis contiguous (the contraction axis of both of
+    f's products) — d{f} the observation count of every (padded) focus row,
+    for the PD ridge, and ``shape`` the true (unpadded) extents.
 
     The JAX package accumulates dense [N0, N1] host arrays (counts, and
     centered values in ``store_dtype``'s accumulator) and quantizes W on one
@@ -132,17 +133,18 @@ def build_int8_pair(idx: np.ndarray, centered: np.ndarray,
     deg = [torch.from_numpy(np.bincount(idx[:, f], minlength=pad[f])
                             .astype(np.float32)).to(device)
            for f in range(2)]
-    return {"M8": M8, "W8": W8, "deg": deg, "w_scale": float(w_scale)}
+    return {"M8": M8, "W8": W8, "deg": deg, "w_scale": float(w_scale),
+            "shape": tuple(n)}
 
 
-def tri_index(K: int, device) -> Tuple[torch.Tensor, torch.Tensor,
-                                       torch.Tensor]:
-    """(iu, ju, diag) as index tensors on ``device``; diag lists the packed
-    positions of the K diagonal entries."""
-    iu, ju, _ = tri_maps(K)
+def tri_index(K: int, device) -> Tuple[torch.Tensor, ...]:
+    """(iu, ju, diag, expand) as index tensors on ``device``: ``tri_maps``'
+    triangle pairs and expand index, and the packed positions of the K
+    diagonal entries."""
+    iu, ju, expand = tri_maps(K)
     dc = np.nonzero(iu == ju)[0]
     return tuple(torch.from_numpy(a.astype(np.int64)).to(device)
-                 for a in (iu, ju, dc))
+                 for a in (iu, ju, dc, expand))
 
 
 # ---------------------------------------------------------------------------
@@ -192,11 +194,14 @@ def _dequant(S: torch.Tensor, s: torch.Tensor, extra: float,
 
 def dense_gram_contrib(pair: Dict[str, object], tri, partner: torch.Tensor,
                        mode: int, alpha: torch.Tensor,
-                       out_dtype: torch.dtype
+                       out_dtype: torch.dtype, packed: bool = True
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One focus mode's alpha-folded contribution, in the sampler's layout:
-    P [K(K+1)/2, N_f_stored] (packed triangle, PD ridge included) and
-    b [K, N_f_stored]; columns past the true N_f are zero.
+    """One focus mode's alpha-folded contribution.  ``packed=True``, the
+    packed samplers' layout: P [K(K+1)/2, N_f_stored] (packed triangle, PD
+    ridge included) and b [K, N_f_stored]; columns past the true N_f are
+    zero.  ``packed=False``, the full-P sampler's: P [N_f, K, K] and
+    b [N_f, K], pads stripped, P expanded through ``tri_maps``' index (the
+    same numbers as the packed layout; JAX dense_gram.py:1418-1430).
 
     ``pair`` is ``build_int8_pair``'s store, ``tri`` = ``tri_index(K)``,
     ``partner`` the other entity's factors [N_partner, K].  The partners
@@ -206,7 +211,7 @@ def dense_gram_contrib(pair: Dict[str, object], tri, partner: torch.Tensor,
     Mf, Wf = pair["M8"][mode], pair["W8"][mode]
     n_pp = Mf.shape[1]
     K = partner.shape[1]
-    iu, ju, dc = tri
+    iu, ju, dc, expand = tri
     U = partner.to(torch.float32)
     if U.shape[0] < n_pp:
         U = torch.cat([U, U.new_zeros((n_pp - U.shape[0], K))])
@@ -223,4 +228,9 @@ def dense_gram_contrib(pair: Dict[str, object], tri, partner: torch.Tensor,
     P[dc] += (rdeg * step)[None, :]
     b = _dequant(int8_matmul(U8, Wf.mT), sU, pair["w_scale"], alpha,
                  out_dtype)
-    return P, b
+    if packed:
+        return P, b
+    n = pair["shape"][mode]
+    Pt = P[:, :n].mT.contiguous()                     # [n, C]
+    del P     # free the packed copy before the expand allocates [n, K*K]
+    return Pt[:, expand].view(n, K, K), b[:, :n].mT

@@ -125,6 +125,34 @@ def test_dense_gram_contrib_matches_jax(mode, xla_cpu_ridge):
     np.testing.assert_array_equal(Pt[:, :n_f], Pj)
 
 
+@pytest.mark.parametrize("mode", [0, 1])
+def test_dense_gram_contrib_unpacked_matches_jax(mode, xla_cpu_ridge):
+    """The unpacked output the full-P branch (K > 96) consumes: P [n, K, K]
+    and b [n, K] with the pads stripped, bitwise equal to the JAX
+    package's packed=False, batch-leading output (float64)."""
+    n0, n1, K = 41, 30, 6
+    idx, cen, pair = _pair(n0, n1, 0.5, 5, np.float64)
+    rng = np.random.default_rng(3)
+    partner = rng.standard_normal(((n1, n0)[mode], K))
+    M, W = jdg.build_dense_pair(idx, cen, (n0, n1), np.float64)
+    M8, W8, w_scale = jdg.quantize_dense_pair(M, W)
+    deg = np.bincount(idx[:, mode], minlength=(n0, n1)[mode])
+    Pj, bj = jax.jit(functools.partial(
+        jdg.dense_gram_contrib, focus_axis=mode, dims=(n0, n1),
+        out_dtype=jnp.float64, op_dtype=jnp.float64, packed=False,
+        w_scale=w_scale))(
+        jnp.asarray(M8), jnp.asarray(W8), [jnp.asarray(partner)],
+        ridge_deg=jnp.asarray(deg, jnp.float32),
+        alpha=jnp.asarray(2.5, jnp.float64))
+    Pt, bt_ = tdg.dense_gram_contrib(
+        pair, tdg.tri_index(K, "cpu"), torch.from_numpy(partner), mode,
+        torch.tensor(2.5, dtype=torch.float64), torch.float64, packed=False)
+    n_f = (n0, n1)[mode]
+    assert tuple(Pt.shape) == (n_f, K, K) and tuple(bt_.shape) == (n_f, K)
+    np.testing.assert_array_equal(bt_.numpy(), np.asarray(bj))
+    np.testing.assert_array_equal(Pt.numpy(), np.asarray(Pj))
+
+
 @pytest.mark.parametrize("K", [1, 6, 8, 32, 46])
 def test_ridge_step_matches_jax(K):
     """The ridge's float32 step mean(s) * sqrt(K) / 2 over the C = K(K+1)/2

@@ -1,5 +1,5 @@
-"""The port's Gibbs sweep against the JAX engine (int8 pair path, packed
-Pallas sampler in interpret mode), with injected randoms."""
+"""The port's Gibbs sweep against the JAX engine (int8 pair path, Pallas
+samplers in interpret mode), with injected randoms, across the K ladder."""
 import dataclasses
 import functools
 
@@ -11,15 +11,19 @@ import torch
 from jax.experimental import pallas as pl
 
 import bayesiandatafusion_jl_tpu as bdf
+from bayesiandatafusion_jl_tpu.models import engine as jax_engine_mod
 from bayesiandatafusion_jl_tpu.models.datasets import \
     synthetic_ratings as jax_synthetic_ratings
 from bayesiandatafusion_jl_tpu.models.engine import MacauEngine
+from bayesiandatafusion_jl_tpu.ops import pallas_chol as jax_pallas_chol
 from bayesiandatafusion_jl_tpu.ops.hyper import \
     normal_wishart_update as jax_nw_update
 from bayesiandatafusion_jl_tpu.utils.config import MacauConfig
 from bayesiandatafusion_jl_tpu.utils.rng import draw_all_numpy
 import bayesiandatafusion_jl_tpu_torch as bt
+from bayesiandatafusion_jl_tpu_torch.models import engine as torch_engine_mod
 from bayesiandatafusion_jl_tpu_torch.models.datasets import synthetic_ratings
+from bayesiandatafusion_jl_tpu_torch.ops import chol_blocked, chol_packed
 from bayesiandatafusion_jl_tpu_torch.ops import dense_gram as tdg
 from bayesiandatafusion_jl_tpu_torch.ops.hyper import normal_wishart_update
 from bayesiandatafusion_jl_tpu_torch.utils import rng as trng
@@ -42,7 +46,32 @@ def xla_cpu_ridge(monkeypatch):
     monkeypatch.setattr(tdg, "ridge_step", xla_cpu_ridge_step)
 
 
-def _engines(idx, vals, shape, n_test, dtype, K, seed=5):
+@pytest.fixture
+def branches(monkeypatch):
+    """Records which sampler each engine's sweep called, as (engine, name)
+    pairs: the JAX engine's packed dispatch and its K2 kernel function (at
+    trace time) and its full-P dispatch; the port's packed dispatch, its K2
+    wrapper and its full-P dispatch."""
+    seen = []
+
+    def spy(mod, name, tag):
+        fn = getattr(mod, name)
+
+        def wrapped(*a, **kw):
+            seen.append(tag)
+            return fn(*a, **kw)
+        monkeypatch.setattr(mod, name, wrapped)
+
+    spy(jax_pallas_chol, "chol_sample_packed_dispatch", ("jax", "packed"))
+    spy(jax_pallas_chol, "chol_sample_packed_tiled", ("jax", "K2"))
+    spy(jax_engine_mod, "chol_sample_dispatch", ("jax", "full"))
+    spy(torch_engine_mod, "chol_sample_packed_dispatch", ("port", "packed"))
+    spy(chol_packed, "chol_sample_packed_tiled", ("port", "K2"))
+    spy(torch_engine_mod, "chol_sample_dispatch", ("port", "full"))
+    return seen
+
+
+def _engines(idx, vals, shape, n_test, dtype, K, seed=5, pallas="on"):
     """The JAX and the port's engine on the same data and test split."""
     rd_j = bdf.RelationData.from_indexed_df(bdf.IndexedDF(idx, vals, shape))
     rd_t = bt.RelationData.from_indexed_df(bt.IndexedDF(idx, vals, shape))
@@ -50,7 +79,7 @@ def _engines(idx, vals, shape, n_test, dtype, K, seed=5):
     rd_t.assign_to_test(0, n_test, seed=7)
     common = dict(num_latent=K, dtype=dtype, seed=seed, verbose=False,
                   clamp=(1.0, 5.0))
-    ej = MacauEngine(rd_j, MacauConfig(pallas="on", dense_gram=True,
+    ej = MacauEngine(rd_j, MacauConfig(pallas=pallas, dense_gram=True,
                                        dense_int8=True, **common))
     et = bt.MacauEngine(rd_t, bt.MacauConfig(dense_int8=True, **common))
     return ej, et
@@ -81,29 +110,62 @@ def _run_both(ej, et, n_sweeps, dtype, check=None):
     return state_j, state_t, mj, mt
 
 
-def test_slice_f64_matches_jax_engine(interpret_pallas, xla_cpu_ridge):
-    """U, mu, Lambda after every sweep and the sample RMSE agree to 1e-8
-    (the contract of tests/test_oracle_equiv.py) in float64."""
+def _f64_engines(K, pallas="on"):
+    """Both engines in float64 on one small ratings matrix."""
     rng = np.random.default_rng(0)
     n0, n1 = 60, 45
     mask = rng.random((n0, n1)) < 0.5
     R = np.clip(np.round((3 + rng.standard_normal((n0, n1))) * 2) / 2, 1, 5)
     idx = np.stack(np.nonzero(mask), 1)
-    ej, et = _engines(idx, R[mask], (n0, n1), 120, "float64", K=8)
+    return _engines(idx, R[mask], (n0, n1), 120, "float64", K=K,
+                    pallas=pallas)
 
-    def check(s, sj, st, mj, mt):
-        for ei in range(2):
-            for key in ("U", "mu", "Lambda"):
-                np.testing.assert_allclose(
-                    st["ent"][ei][key], sj["ent"][ei][key], rtol=1e-8,
-                    atol=1e-8, err_msg=f"{key} sweep {s} entity {ei}")
-        np.testing.assert_allclose(mt["r0.rmse_sample"],
-                                   mj["r0.rmse_sample"], rtol=1e-8)
-        np.testing.assert_allclose(st["pred"]["r0"]["sum"],
-                                   sj["pred"]["r0"]["sum"], rtol=1e-8,
-                                   atol=1e-8)
 
-    _run_both(ej, et, 3, "float64", check)
+def _check_f64(s, sj, st, mj, mt):
+    """U, mu, Lambda after every sweep, the sample RMSE and the prediction
+    sums agree to 1e-8 (the contract of tests/test_oracle_equiv.py)."""
+    for ei in range(2):
+        for key in ("U", "mu", "Lambda"):
+            np.testing.assert_allclose(
+                st["ent"][ei][key], sj["ent"][ei][key], rtol=1e-8,
+                atol=1e-8, err_msg=f"{key} sweep {s} entity {ei}")
+    np.testing.assert_allclose(mt["r0.rmse_sample"],
+                               mj["r0.rmse_sample"], rtol=1e-8)
+    np.testing.assert_allclose(st["pred"]["r0"]["sum"],
+                               sj["pred"]["r0"]["sum"], rtol=1e-8,
+                               atol=1e-8)
+
+
+def test_slice_f64_matches_jax_engine(interpret_pallas, xla_cpu_ridge):
+    """U, mu, Lambda after every sweep and the sample RMSE agree to 1e-8
+    (the contract of tests/test_oracle_equiv.py) in float64."""
+    ej, et = _f64_engines(K=8)
+    _run_both(ej, et, 3, "float64", _check_f64)
+
+
+def test_slab_f64_matches_jax_engine(interpret_pallas, xla_cpu_ridge,
+                                     branches):
+    """K=36: both engines keep P packed and sample with the column-slab
+    sampler (K2; the JAX one in interpret mode), 3 float64 sweeps to 1e-8.
+    The JAX kernel is traced once per entity, in its jitted sweep."""
+    ej, et = _f64_engines(K=36)
+    _run_both(ej, et, 3, "float64", _check_f64)
+    assert set(branches) == {("jax", "packed"), ("jax", "K2"),
+                             ("port", "packed"), ("port", "K2")}
+    assert branches.count(("port", "K2")) == 6
+    assert branches.count(("jax", "K2")) == 2
+
+
+def test_blocked_f64_matches_jax_engine(xla_cpu_ridge, branches):
+    """K=100: both engines take the full-P branch (the JAX one with its XLA
+    reference sampler, pallas="off"); the port's runs the blocked sampler,
+    two 64-wide panels per entity.  3 float64 sweeps to 1e-8."""
+    ej, et = _f64_engines(K=100, pallas="off")
+    before = chol_blocked.chol_inv_plain.calls
+    _run_both(ej, et, 3, "float64", _check_f64)
+    assert set(branches) == {("jax", "full"), ("port", "full")}
+    assert branches.count(("port", "full")) == 6
+    assert chol_blocked.chol_inv_plain.calls == before + 12
 
 
 def test_slice_f32_chain_matches_jax_engine(interpret_pallas):
@@ -196,7 +258,6 @@ def test_macau_runs_and_reports():
     (dict(checkpoint_every=5, checkpoint_path="ck.npz"), "M10"),
     (dict(output_prefix="out"), "M10"),
     (dict(log_file="log.jsonl"), "M10"),
-    (dict(num_latent=40), "K2"),
 ])
 def test_unported_options_raise(kwargs, item):
     """An option outside the slice raises, naming its ROADMAP item, when

@@ -10,7 +10,8 @@ import torch
 
 import bayesiandatafusion_jl_tpu_torch as bt
 from bayesiandatafusion_jl_tpu_torch.models.datasets import synthetic_ratings
-from bayesiandatafusion_jl_tpu_torch.ops import chol_packed, dense_gram
+from bayesiandatafusion_jl_tpu_torch.ops import (chol_blocked, chol_packed,
+                                                 dense_gram)
 from bayesiandatafusion_jl_tpu_torch.utils.convert import (state_from_numpy,
                                                            state_to_numpy)
 from bayesiandatafusion_jl_tpu_torch.utils.rng import draw_all_numpy
@@ -27,12 +28,29 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("K, B", [(32, 71_567), (32, 10_681), (8, 1_000)])
+@pytest.mark.parametrize("K, B", [(32, 71_567), (32, 10_681), (8, 1_000),
+                                  (40, 1_000), (64, 10_681), (96, 4_000)])
 def test_chol_kernel_matches_plain(cuda, K, B):
-    """The kernel against its plain version at the main path's shapes (the
-    check chip_smoke.py runs)."""
+    """The packed sampler's kernel for K (K1 up to 32, K2 above) against
+    its plain version (the check chip_smoke.py runs)."""
     import chip_smoke
     r = chip_smoke.check_chol_kernel(K, B, timing=False)
+    assert r["ok"], r
+
+
+@pytest.mark.parametrize("K, B", [(64, 10_681), (64, 1_000), (20, 333)])
+def test_chol_inv_kernel_matches_plain(cuda, K, B):
+    """K5 against its plain version, W exactly zero above the diagonal."""
+    import chip_smoke
+    r = chip_smoke.check_chol_inv(K, B, timing=False)
+    assert r["ok"], r
+
+
+@pytest.mark.parametrize("K, B", [(128, 4_000), (100, 1_000)])
+def test_blocked_sampler_matches_plain(cuda, K, B):
+    """The blocked sampler on K5 against chol_sample on torch.linalg."""
+    import chip_smoke
+    r = chip_smoke.check_blocked(K, B, timing=False)
     assert r["ok"], r
 
 
@@ -41,33 +59,38 @@ def test_int8_contraction_exact(cuda):
     assert all(chip_smoke.check_int8_contraction())
 
 
-def test_engine_cuda_matches_cpu(cuda, monkeypatch):
+@pytest.mark.parametrize("K, kernel, per_sweep", [
+    (8, chol_packed.chol_sample_packed, 2),
+    (36, chol_packed.chol_sample_packed_tiled, 2),
+    (100, chol_blocked.chol_inv, 4)])
+def test_engine_cuda_matches_cpu(cuda, monkeypatch, K, kernel, per_sweep):
     """Three float64 sweeps with injected randoms on the card and on the
-    CPU.  The int8 products are exact and the rest is float64 rounding,
-    once the PD ridge's float32 mean is summed in one fixed order on both
-    devices (torch's own sum rounds differently on each, which moves the
-    chain by ~1e-9)."""
+    CPU, through K1 (K=8), K2 (K=36) and K5 (K=100, two panels per
+    entity).  The int8 products are exact and the rest is float64
+    rounding, once the PD ridge's float32 mean is summed in one fixed order
+    on both devices (torch's own sum rounds differently on each, which
+    moves the chain by ~1e-9)."""
     monkeypatch.setattr(dense_gram, "ridge_step", xla_cpu_ridge_step)
     df = synthetic_ratings(300, 200, 12_000, seed=3)
     engines = {}
     for dev in ("cpu", "cuda"):
         rd = bt.RelationData.from_indexed_df(df)
         rd.assign_to_test(0, 1_000, seed=7)
-        cfg = bt.MacauConfig(num_latent=8, dtype="float64", verbose=False,
+        cfg = bt.MacauConfig(num_latent=K, dtype="float64", verbose=False,
                              clamp=(1.0, 5.0), seed=4)
         engines[dev] = bt.MacauEngine(rd, cfg, device=dev)
     st = engines["cpu"].init_state()
     states = {"cpu": st, "cuda": state_from_numpy(state_to_numpy(st), cuda,
                                                   torch.float64)}
     rng = np.random.default_rng(1)
-    launches = chol_packed.chol_sample_packed.launches
+    launches = kernel.launches
     for s in range(3):
         randoms = draw_all_numpy(rng, engines["cpu"].problem.random_spec)
         for dev in ("cpu", "cuda"):
             r = {k: torch.from_numpy(v).to(dev) for k, v in randoms.items()}
             states[dev], _ = engines[dev]._sweep_with_randoms(
                 states[dev], r, 1.0)
-    assert chol_packed.chol_sample_packed.launches == launches + 6
+    assert kernel.launches == launches + 3 * per_sweep
     a, b = state_to_numpy(states["cpu"]), state_to_numpy(states["cuda"])
     for ei in range(2):
         for key in ("U", "mu", "Lambda"):

@@ -39,5 +39,7 @@ def test_scan_covers_the_port():
     for must in ("chip_smoke.py",
                  "bayesiandatafusion_jl_tpu_torch/models/engine.py",
                  "bayesiandatafusion_jl_tpu_torch/ops/chol_packed.py",
+                 "bayesiandatafusion_jl_tpu_torch/ops/chol_blocked.py",
+                 "bayesiandatafusion_jl_tpu_torch/ops/mvn.py",
                  "bayesiandatafusion_jl_tpu_torch/kernels.py"):
         assert must in rel
