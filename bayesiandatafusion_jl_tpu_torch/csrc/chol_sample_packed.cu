@@ -7,9 +7,7 @@
 //     P' = unpack(Pp[:, r]) + (Lambda + jitter I),   L = chol(P'),
 //     u[r] = L^-T (L^-1 b[:, r] + xi[r])
 //
-// with the TPU kernel's operation order: right-looking factorization
-// (d = sqrt, inv = 1/d, column scaled by inv, trailing update), then forward
-// and backward substitution with a true division by the diagonal.
+// with the TPU kernel's operation order (warp_chol.cuh `lane_chol_sample`).
 //
 // What bounds it on an H100: per row it reads C = K(K+1)/2 packed floats
 // (528 * 4 B = 2.1 KB at K = 32) plus 2K floats of b and xi, and does about
@@ -26,9 +24,12 @@
 // of the [C, B] layout coalesce; rows past B are masked, so no padding.  Then
 // lane i of a row's warp holds row i of the trailing matrix in registers
 // (a[0..i], 32 registers at K = 32 instead of the 528 one thread would need),
-// and the pivot column is broadcast with __shfl_sync.  The shared tile rows
+// and the pivot column is broadcast with __shfl_sync (`lane_chol_sample`,
+// warp_chol.cuh, shared with K3).  The shared tile rows
 // are padded to 9 entries so the per-lane reads hit distinct banks.
 #include <cuda_runtime.h>
+
+#include "warp_chol.cuh"
 
 namespace {
 
@@ -36,7 +37,6 @@ constexpr int kMaxK = 32;
 constexpr int kRows = 8;              // rows (= warps) per block
 constexpr int kPitch = kRows + 1;     // shared tile pitch, bank-conflict free
 constexpr int kMaxC = kMaxK * (kMaxK + 1) / 2;
-constexpr unsigned kFull = 0xffffffffu;
 
 template <typename T>
 __global__ void __launch_bounds__(kRows * 32)
@@ -80,56 +80,9 @@ chol_sample_packed_kernel(const T* __restrict__ Pp, long long p_sc,
     }
   }
 
-  // right-looking factorization: after step j, lane i > j holds L[i][j]
-#pragma unroll
-  for (int j = 0; j < kMaxK; ++j) {
-    if (j < K) {
-      const T d = sqrt(__shfl_sync(kFull, a[j], j));
-      const T inv = T(1) / d;
-      if (lane == j) {
-        a[j] = d;
-      } else if (lane > j) {
-        a[j] = a[j] * inv;
-      }
-      const T lij = a[j];
-#pragma unroll
-      for (int k = j + 1; k < kMaxK; ++k) {
-        if (k < K) {
-          const T lkj = __shfl_sync(kFull, a[j], k);
-          if (lane >= k) a[k] = a[k] - lij * lkj;
-        }
-      }
-    }
-  }
-
-  // forward solve L y = b: lane i subtracts L[i][k] y[k] in ascending k
-  T s = lane < K ? tile_b[lane * kPitch + w] : T(0);
-  T y = T(0);
-#pragma unroll
-  for (int k = 0; k < kMaxK; ++k) {
-    if (k < K) {
-      const T yk = __shfl_sync(kFull, s / a[k], k);
-      if (lane == k) y = yk;
-      if (lane > k) s = s - a[k] * yk;
-    }
-  }
-
-  // backward solve L^T u = y + xi: L[k][i] lives on lane k, so lane k sends
-  // its product L[k][i] u[k] and lane i subtracts them in ascending k
-  const T v = y + (lane < K ? xi[row * K + lane] : T(0));
-  T uval = T(0);
-#pragma unroll
-  for (int i = kMaxK - 1; i >= 0; --i) {
-    if (i < K) {
-      const T prod = a[i] * uval;
-      T t = v;
-#pragma unroll
-      for (int k = i + 1; k < kMaxK; ++k) {
-        if (k < K) t = t - __shfl_sync(kFull, prod, k);
-      }
-      if (lane == i) uval = t / a[i];
-    }
-  }
+  const T b_lane = lane < K ? tile_b[lane * kPitch + w] : T(0);
+  const T xi_lane = lane < K ? xi[row * K + lane] : T(0);
+  const T uval = lane_chol_sample<T, kMaxK>(a, b_lane, xi_lane, K, lane);
   if (lane < K) u[row * K + lane] = uval;
 }
 

@@ -103,6 +103,12 @@ def load() -> ctypes.CDLL:
         for fn in (lib.bdf_chol_inv_f32, lib.bdf_chol_inv_f64):
             fn.restype = i
             fn.argtypes = [p, p, i, i, p]
+        for fn in (lib.bdf_chol_sample_full_f32,
+                   lib.bdf_chol_sample_full_f64,
+                   lib.bdf_chol_sample_full_slab_f32,
+                   lib.bdf_chol_sample_full_slab_f64):
+            fn.restype = i
+            fn.argtypes = [p, p, d, p, p, p, i, i, p]
         _lib = lib
     return _lib
 

@@ -1,19 +1,28 @@
 """The Gibbs sweep engine, ``macau()`` — port of the JAX package's
 ``models/engine.py`` main path.
 
-The slice this port covers: one 2-ary relation without side features, the
-dense int8 pair Gramian (ops/dense_gram.py) and the Cholesky samplers, at
-any K.  Each sweep, for each entity in turn:
+The slice this port covers: one 2-ary relation without side features, at
+any K, with either Gramian path:
+
+- the dense int8 pair (``dense_gram`` None or True; ops/dense_gram.py);
+- the bucketed gather path (``dense_gram=False``; ops/layout.py and
+  ops/gramian.py), with ``accumulation`` "segment" or "planned".
+
+Each sweep, for each entity in turn:
 
   (mu, Lambda) <- Normal-Wishart draw from U                 (ops/hyper.py)
-  P, b         <- alpha-folded int8 pair Gramian of the partner
-                  factors, plus the prior term Lambda mu
+  P, b         <- alpha-scaled Gramian of the partner factors over the
+                  entity's observations, plus the prior term Lambda mu
   U            <- u ~ N(P'^-1 b, P'^-1) per row, P' = P + Lambda
 
-The sampler branches on K as the JAX engine does (engine.py:821, :924-946):
-K <= 96 keeps P packed ([K(K+1)/2, N], ops/chol_packed.py: the K1 kernel
-up to K = 32, K2 above); K > 96 expands it to [N, K, K] for the blocked
-sampler (ops/mvn.chol_sample_dispatch: the K5 kernel up to K = 128).
+The sampler branches as the JAX engine does (engine.py:821, :924-951).  On
+the int8 pair path, K <= 96 keeps P packed ([K(K+1)/2, N],
+ops/chol_packed.py: the K1 kernel up to K = 32, K2 above) and K > 96
+expands it to [N, K, K].  The gather path always assembles a full
+[N, K, K] P.  Full P goes to ops/mvn.chol_sample_dispatch: the K3 kernel
+up to K = 32, K4 up to 96, the blocked sampler on K5 up to 128.  With
+"segment" accumulation Lambda is left out of P and added by the sampler;
+with "planned" it is in the accumulator.
 
 then the test tuples are predicted (clamped per sample) and the posterior
 mean and RMSEs are updated.  Options outside the slice raise
@@ -34,7 +43,9 @@ import torch
 
 from ..ops import dense_gram as dg
 from ..ops.chol_packed import K2_MAX_K, chol_sample_packed_dispatch
-from ..ops.gramian import predict_tuples
+from ..ops.gramian import (assemble_precision, assemble_precision_planned,
+                           plan_accumulation, predict_tuples)
+from ..ops.layout import build_mode_layout
 from ..ops.hyper import normal_wishart_update
 from ..ops.mvn import chol_sample_dispatch
 from ..utils.config import MacauConfig
@@ -76,10 +87,28 @@ def _check_slice(rd: RelationData, cfg: MacauConfig) -> None:
         missing.append("entities outside the relation (ROADMAP M7)")
     if missing:
         raise NotImplementedError("not ported yet: " + "; ".join(missing))
+    if cfg.dense_gram is False:
+        return
+    if cfg.accumulation == "planned":
+        raise NotImplementedError(
+            "not ported yet: accumulation='planned' with the dense pair "
+            "(ROADMAP M6); it applies to the gather path (dense_gram=False)")
     rel = rd.relations[0]
     if not dg.int8_pair_ok(rel.data.idx, rel.data.shape):
         raise NotImplementedError(
             "relation not int8-eligible: float dense pair (ROADMAP M3)")
+
+
+def _resolve_device(device) -> torch.device:
+    """The engine's device.  The default is the CUDA card; without one it
+    raises rather than run on the CPU, which only an explicit "cpu" asks
+    for."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: the engine runs on the card by default; pass "
+            "device='cpu' to run the plain versions on the CPU")
+    return dev
 
 
 class CompiledProblem:
@@ -100,10 +129,15 @@ class CompiledProblem:
             nnz=rel.data.nnz, n_test=len(rel.test_vals),
             mean_value=mean_value)]
         t0 = time.perf_counter()
-        self.pair = dg.build_int8_pair(
-            rel.data.idx, rel.data.vals - mean_value, rel.data.shape,
-            config.np_dtype(), device)
-        self.tri = dg.tri_index(config.num_latent, device)
+        self.gather = config.dense_gram is False
+        self.pair = self.tri = None
+        if self.gather:
+            self._build_layouts(rel, mean_value, config, device)
+        else:
+            self.pair = dg.build_int8_pair(
+                rel.data.idx, rel.data.vals - mean_value, rel.data.shape,
+                config.np_dtype(), device)
+            self.tri = dg.tri_index(config.num_latent, device)
         self.test = {}
         if rel.test_idx.shape[0]:
             self.test["r0"] = {
@@ -118,14 +152,52 @@ class CompiledProblem:
             [es.n for es in self.entity_specs], config.num_latent,
             config.resolved_nu0())
 
+    def _build_layouts(self, rel, mean_value, config, device):
+        """The gather path's device arrays (JAX engine :277-300, :387-399):
+        per mode ``layouts["r0m{mode}"]``, a list of buckets (``inst`` and
+        ``part`` int32, ``val`` and ``mask`` in the compute dtype); with
+        "planned" accumulation, per entity ``acc_plan["e{ei}"]``.  Records
+        the seconds to build and upload them (``layout_seconds``) and the
+        padded observation count per mode (``padded_nnz``)."""
+        dtype = getattr(torch, config.dtype)
+        centered = rel.data.vals - mean_value
+        self.layouts, self.padded_nnz, host_inst = {}, [], {}
+        t0 = time.perf_counter()
+        for mode in range(rel.arity):
+            ml = build_mode_layout(
+                rel.data.idx, centered, mode, rel.entities[mode].count,
+                widths=config.bucket_widths, row_pad=config.row_pad,
+                dtype=config.np_dtype())
+            key = f"r0m{mode}"
+            host_inst[key] = [b.inst for b in ml.buckets]
+            self.padded_nnz.append(ml.padded_nnz)
+            self.layouts[key] = [
+                {"inst": torch.from_numpy(b.inst).to(device),
+                 "part": [torch.from_numpy(p).to(device) for p in b.part],
+                 "val": torch.from_numpy(b.val).to(device),
+                 "mask": torch.from_numpy(b.mask).to(device)}
+                for b in ml.buckets]
+        self.acc_plan = {}
+        if config.accumulation == "planned":
+            for ei, es in enumerate(self.entity_specs):
+                modes = [m for m, e in enumerate(self.rel_specs[0].entity_ids)
+                         if e == ei]
+                plan = plan_accumulation(
+                    [a for m in modes for a in host_inst[f"r0m{m}"]], es.n)
+                plan = {k: torch.from_numpy(v).to(device)
+                        for k, v in plan.items()}
+                plan["has"] = plan["has"].to(dtype)
+                self.acc_plan[f"e{ei}"] = plan
+        self.layout_seconds = time.perf_counter() - t0
+
 
 class MacauEngine:
     """Gibbs engine for one RelationData graph on one device."""
 
     def __init__(self, rd: RelationData, config: MacauConfig,
-                 device="cpu"):
+                 device="cuda"):
         self.config = config
-        self.device = torch.device(device)
+        self.device = _resolve_device(device)
         if self.device.type == "cuda":
             # the Normal-Wishart products (K x K, [K, N] @ [N, K]) and the
             # prior term run in full float32, as on the JAX package's
@@ -187,6 +259,11 @@ class MacauEngine:
             mode = rs.entity_ids.index(ei)
             partner = ents[rs.entity_ids[1 - mode]]["U"]
             xi = randoms[f"e{ei}.xi"]
+            if prob.gather:
+                ent["U"] = self._gather_sample(ent, ei, mode, partner, xi,
+                                               rels[0]["alpha"])
+                metrics[f"e{ei}.unorm"] = torch.linalg.norm(ent["U"])
+                continue
             packed = cfg.num_latent <= K2_MAX_K
             P, b_d = dg.dense_gram_contrib(prob.pair, prob.tri, partner,
                                            mode, rels[0]["alpha"], dtype,
@@ -224,6 +301,29 @@ class MacauEngine:
             metrics["r0.rmse_avg"] = torch.sqrt(
                 torch.mean((pmean - te["vals"]) ** 2))
         return {"ent": ents, "rel": rels, "pred": preds}, metrics
+
+    def _gather_sample(self, ent, ei, mode, partner, xi, alpha):
+        """The gather path's draw of entity ``ei`` (JAX engine :924-951):
+        assemble P and b over the mode's buckets, then the full-P sampler.
+        "segment" leaves Lambda out of P for the sampler to add (in
+        registers for K3, on load for K4); "planned" puts it in the
+        accumulator and samples without it."""
+        cfg = self.config
+        prob = self.problem
+        n = prob.entity_specs[ei].n
+        gd = getattr(torch, cfg.gram_dtype) if cfg.gram_dtype else None
+        contribs = [(alpha, [partner], ba)
+                    for ba in prob.layouts[f"r0m{mode}"]]
+        if cfg.accumulation == "planned":
+            P, b = assemble_precision_planned(
+                ent["Lambda"], ent["mu"], contribs, n,
+                prob.acc_plan[f"e{ei}"], gram_dtype=gd)
+            lam = None
+        else:
+            P, b = assemble_precision(ent["Lambda"], ent["mu"], contribs, n,
+                                      gram_dtype=gd, fuse_lambda=True)
+            lam = ent["Lambda"]
+        return chol_sample_dispatch(P, b, xi, lam, cfg.chol_jitter)
 
     # -- run loops -----------------------------------------------------------
     def run(self, state=None, num_sweeps: Optional[int] = None,
@@ -327,10 +427,11 @@ def macau(data: RelationData,
           verbose: bool = True,
           seed: int = 1234,
           config: Optional[MacauConfig] = None,
-          device="cpu",
+          device="cuda",
           **kwargs) -> Dict[str, Any]:
     """Bayesian factorization of a RelationData graph by Gibbs sampling on
-    ``device``; extra kwargs go into MacauConfig."""
+    ``device`` (the CUDA card unless the caller asks for "cpu"); extra
+    kwargs go into MacauConfig."""
     if config is None:
         config = MacauConfig(
             num_latent=num_latent, burnin=burnin, psamples=psamples,

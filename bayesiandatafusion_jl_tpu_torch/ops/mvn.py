@@ -1,14 +1,17 @@
 """Batched Cholesky factorize-and-sample on a full P (port of ``ops/mvn.py``
 ``chol_sample`` and ``chol_sample_dispatch``).  ``chol_sample`` is plain
-torch: the reference the packed samplers (ops/chol_packed.py) are checked
+torch: the reference the blocked sampler (ops/chol_blocked.py) is checked
 against, and the sampler above K = 128."""
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 from torch.linalg import solve_triangular
 
 from .chol_blocked import chol_sample_blocked
-from .chol_packed import K2_MAX_K
+from .chol_full import (K3_MAX_K, K4_MAX_K, chol_sample_full,
+                        chol_sample_full_tiled)
 
 # the widest K the blocked kernel path takes (the JAX package's Pallas
 # samplers stop there too: ``use_pallas_chol``)
@@ -30,25 +33,29 @@ def chol_sample(P: torch.Tensor, b: torch.Tensor, xi: torch.Tensor,
 
 
 def chol_sample_dispatch(P: torch.Tensor, b: torch.Tensor, xi: torch.Tensor,
-                         Lambda: torch.Tensor, jitter: float = 0.0
-                         ) -> torch.Tensor:
-    """The full-P sampler across K, for P [B, K, K] and b/xi [B, K], with
-    P' = P + Lambda (+ jitter I).  Lambda is added to P IN PLACE: the caller
-    hands over a fresh P, and this saves a [B, K, K] copy (4.7 GB at K=128
-    and B=71,567).
+                         Lambda: Optional[torch.Tensor] = None,
+                         jitter: float = 0.0) -> torch.Tensor:
+    """The full-P sampler across K (JAX ``mvn.chol_sample_dispatch`` :64),
+    for P [B, K, K] and b/xi [B, K], with P' = P + Lambda (+ jitter I) when
+    Lambda is given, else P (+ jitter I):
 
+    - K <= 32: ``chol_sample_full`` (the K3 kernel on CUDA), Lambda added
+      in registers;
+    - 32 < K <= 96: ``chol_sample_full_tiled`` (K4), Lambda added on load;
     - 96 < K <= 128: ``chol_sample_blocked`` (the K5 kernel on CUDA);
     - K > 128: ``chol_sample`` on torch.linalg, as the JAX package leaves
-      that range to XLA;
-    - K <= 96: not ported — the full-P kernels K3/K4 serve only the gather
-      path (ROADMAP M6); the engine takes the packed branch there.
-    """
+      that range to XLA.
+
+    Above K = 96, Lambda is added to P IN PLACE: the caller hands over a
+    fresh P, and this saves a [B, K, K] copy (4.7 GB at K = 128 and
+    B = 71,567)."""
     K = P.shape[-1]
-    if K <= K2_MAX_K:
-        raise NotImplementedError(
-            f"not ported yet: the full-P sampler for K={K} <= "
-            f"{K2_MAX_K} (ROADMAP K3/K4, gather path M6)")
-    P += Lambda
+    if K <= K3_MAX_K:
+        return chol_sample_full(P, b, xi, Lambda, jitter)
+    if K <= K4_MAX_K:
+        return chol_sample_full_tiled(P, b, xi, Lambda, jitter)
+    if Lambda is not None:
+        P += Lambda
     if K <= BLOCKED_MAX_K:
         return chol_sample_blocked(P, b, xi, jitter)
     return chol_sample(P, b, xi, jitter)

@@ -11,20 +11,32 @@ Phases, each fatal on failure (nonzero exit, no result line):
 3. kernels vs plain: each sampler kernel against its plain torch version
    on random SPD problems at the main paths' shapes, float32 and float64,
    both held against the float64 plain version: K1 (packed, K <= 32), K2
-   (packed column-slab, 32 < K <= 96), K5 (panel factor-inverse, K <= 64)
-   and the blocked K = 128 sampler built on K5 against ``torch.linalg``;
+   (packed column-slab, 32 < K <= 96), K3 (full P, K <= 32, with and
+   without Lambda), K4 (full-P column-slab, 32 < K <= 96), K5 (panel
+   factor-inverse, K <= 64) and the blocked K = 128 sampler built on K5
+   against ``torch.linalg``;
 4. int8 contraction: ``torch._int_mm`` equals a float64 matmul of the same
    codes exactly, at ML-10M shapes;
 5. main paths: ML-10M-shaped synthetic BPMF (71,567 x 10,681, 10,000,054
-   ratings, float32), made once, through ``MacauEngine.benchmark`` at
-   K = 32, 64, 96 and 128.  Every sweep must sample both entities through
-   the path's kernel (K1, K2, K2, K5 twice per entity), the plain versions
-   must not run, and the RMSEs must lie in the JAX chain's bands where the
-   JAX package has one.
+   ratings, float32), made once, through ``MacauEngine.benchmark``:
+   - the int8 pair path at K = 32, 64, 96 and 128.  Every sweep must
+     sample both entities through the path's kernel (K1, K2, K2, K5 twice
+     per entity);
+   - the gather path (``dense_gram=False``, bfloat16 gather, the bench's
+     25-width bucket ladder) at K = 32 and 64 with "segment" accumulation
+     and at K = 32 with "planned".  Every sweep must sample both entities
+     through K3 (K = 32) or K4 (K = 64); each path also reports a
+     ``torch.profiler`` split of a few sweeps and whether two runs of the
+     same seed give the same U.
+   On every path the plain versions and the other paths' kernels must not
+   run, and the RMSEs must lie in the JAX chain's bands where the JAX
+   package has one.
 
 The last lines are the card's ``nvidia-smi`` name and power limit, a JSON
-object describing the kernels and the ``{"ok": true, "device": ...}`` line.
+object describing the kernels (with each one's bound on this card) and
+the ``{"ok": true, "device": ...}`` line.
 """
+import functools
 import json
 import math
 import os
@@ -43,8 +55,20 @@ PATHS = {32: (40, 3, 0.6926, 0.6567),
          64: (40, 3, 0.7294, None),
          96: (20, 3, 0.7473, None),
          128: (20, 1, None, None)}
+# The gather paths: (K, accumulation, sweeps per window, timed windows).
+# The planned path runs one timed window of 40 sweeps, so that the same
+# anchors as at K = 32 apply to it.
+GATHER_PATHS = ((32, "segment", 40, 3), (64, "segment", 40, 3),
+                (32, "planned", 40, 1))
+# the bench's 25-step width ladder (bench.py:24-25)
+BENCH_WIDTHS = (8, 12, 16, 20, 24, 28, 32, 40, 48, 56, 64, 80, 96, 112, 128,
+                160, 192, 224, 256, 320, 384, 512, 768, 1024, 2048)
 KERNEL_ERR_FACTOR = 10.0     # kernel error <= 10x the f32 plain version's
 F64_KERNEL_TOL = 1e-9        # float64 kernel vs float64 plain version
+# H100 SXM peaks (NVIDIA's data sheet, at 700 W): HBM bytes/s and float32
+# FLOP/s outside the tensor cores, for the kernels' bounds
+HBM_BYTES_S = 3.35e12
+F32_FLOP_S = 67e12
 
 
 def require(cond, what):
@@ -148,6 +172,61 @@ def check_chol_kernel(K, B, timing=True, seed=0, jitter=0.25):
     return r
 
 
+def check_full_kernel(K, B, lam=True, timing=True, seed=0, jitter=0.25):
+    """The full-P sampler's kernel for this K (K3 for K <= 32, K4 above),
+    with or without Lambda, float32 and float64, and the float32 plain
+    version against the float64 plain version; P [B, K, K] contiguous, as
+    the gather path's assembly hands it over."""
+    import torch
+    from bayesiandatafusion_jl_tpu_torch.ops.chol_full import (
+        K3_MAX_K, chol_sample_full, chol_sample_full_plain,
+        chol_sample_full_tiled)
+    fn = chol_sample_full if K <= K3_MAX_K else chol_sample_full_tiled
+    P, g = spd_full(K, B, seed)
+    Lam = None
+    if lam:
+        A = torch.randn((K, K), generator=g, dtype=P.dtype, device=P.device)
+        Lam = 0.04 * A @ A.T + torch.eye(K, dtype=P.dtype, device=P.device)
+    b = torch.randn((B, K), generator=g, dtype=P.dtype, device=P.device)
+    xi = torch.randn((B, K), generator=g, dtype=P.dtype, device=P.device)
+    ref = chol_sample_full_plain(P, b, xi, Lam, jitter)
+    kern64 = fn(P, b, xi, Lam, jitter)
+    args32 = [t.float() for t in (P, b, xi)] + [
+        None if Lam is None else Lam.float()]
+    del P
+    kern = fn(*args32, jitter)
+    plain = chol_sample_full_plain(*args32, jitter)
+    r = {"K": K, "B": B, "lam": lam, **_verdict(kern, plain, kern64, ref)}
+    if timing:
+        r["kernel_ms"] = cuda_ms(lambda: fn(*args32, jitter), 20)
+        r["plain_ms"] = cuda_ms(
+            lambda: chol_sample_full_plain(*args32, jitter), 5)
+    return r
+
+
+def sampler_bound(K, B, lam=True):
+    """(bytes, FLOP) a float32 sampler must spend on B rows: read each
+    row's triangle, b and xi (and Lambda) once, write u once; factor
+    (K^3/3) and two triangular solves (2 K^2)."""
+    C = K * (K + 1) // 2
+    nbytes = 4 * (B * (C + 3 * K) + (K * K if lam else 0))
+    return nbytes, B * (K ** 3 / 3 + 2 * K * K)
+
+
+def chol_inv_bound(K, B):
+    """(bytes, FLOP) of K5 on B float32 panels: read each triangle once,
+    write each full W once; factor (K^3/3) and invert L (K^3/3)."""
+    return 4 * B * (K * (K + 1) // 2 + K * K), B * (2 * K ** 3 / 3)
+
+
+def bound_ms(nbytes, flop):
+    """The least time on the card: the larger of bytes over the HBM rate
+    and FLOP over the float32 rate; and which of the two it is."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_S, flop / F32_FLOP_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
 def check_chol_inv(K, B, timing=True, seed=0):
     """K5 (float32 and float64) and the float32 plain version against the
     float64 plain version; W must be exactly zero above the diagonal."""
@@ -219,11 +298,15 @@ def check_int8_contraction(n_rows=2048, K=32, seed=1):
 def counters():
     """(function, attribute) of each kernel wrapper's launch count and each
     plain version's call count, by name."""
-    from bayesiandatafusion_jl_tpu_torch.ops import chol_blocked, chol_packed
+    from bayesiandatafusion_jl_tpu_torch.ops import (chol_blocked, chol_full,
+                                                     chol_packed)
     return {"K1": (chol_packed.chol_sample_packed, "launches"),
             "K2": (chol_packed.chol_sample_packed_tiled, "launches"),
+            "K3": (chol_full.chol_sample_full, "launches"),
+            "K4": (chol_full.chol_sample_full_tiled, "launches"),
             "K5": (chol_blocked.chol_inv, "launches"),
             "plain_packed": (chol_packed.chol_sample_packed_plain, "calls"),
+            "plain_full": (chol_full.chol_sample_full_plain, "calls"),
             "plain_inv": (chol_blocked.chol_inv_plain, "calls")}
 
 
@@ -254,16 +337,32 @@ def time_int8_products(pair, K):
               flush=True)
 
 
-def run_path(rd, K):
-    """One main path: the ML-10M benchmark protocol at rank K, with the
-    kernels' counts set to 0 just before it and read just after."""
+def path_kernel(K, gather):
+    """(counter, launches per sweep) of the sampler a path must run."""
+    if gather and K <= 32:
+        return "K3", 2
+    if gather and K <= 96:
+        return "K4", 2
+    if K <= 32:
+        return "K1", 2
+    if K <= 96:
+        return "K2", 2
+    return "K5", 4
+
+
+def run_path(rd, K, sweeps, repeats, anchor_s, anchor_avg, **opts):
+    """One main path: the ML-10M benchmark protocol at rank K (``opts``
+    select the gather path), with the kernels' counts set to 0 just before
+    it and read just after."""
     import torch
     from bayesiandatafusion_jl_tpu_torch.models.engine import MacauEngine
     from bayesiandatafusion_jl_tpu_torch.utils.config import MacauConfig
-    sweeps, repeats, anchor_s, anchor_avg = PATHS[K]
     cfg = MacauConfig(num_latent=K, burnin=sweeps, psamples=0,
                       clamp=(1.0, 5.0), verbose=False, dtype="float32",
-                      seed=42, dense_int8=True)
+                      seed=42, **opts)
+    gather = cfg.dense_gram is False
+    label = (f"gather {cfg.accumulation} K={K}" if gather
+             else f"int8 pair K={K}")
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -277,31 +376,103 @@ def run_path(rd, K):
     wins = out["ms_per_sweep"]
     med = sorted(wins)[len(wins) // 2]
     n_rows = sum(es.n for es in eng.problem.entity_specs)
-    print(f"# path K={K}: ms/sweep per window {wins}, median {med:.3f}; "
+    prob = eng.problem
+    built = (f"layout {prob.layout_seconds:.1f} s, padded nnz per mode "
+             f"{prob.padded_nnz}" if gather
+             else f"pair store {prob.build_seconds:.1f} s")
+    print(f"# path {label}: ms/sweep per window {wins}, median {med:.3f}; "
           f"rows/s {n_rows / med * 1e3:.1f}; rmse_sample@{sweeps} "
           f"{out['rmse_at_sweeps']:.4f}; rmse_avg {m['r0.rmse_avg']:.4f}; "
           f"peak memory {peak_gb:.2f} GB; counts {counts}; engine build "
-          f"{build_s:.1f} s (pair store {eng.problem.build_seconds:.1f} s)",
-          flush=True)
+          f"{build_s:.1f} s ({built})", flush=True)
     total_sweeps = sweeps * (repeats + 1)
-    want = {"K1": 2 * total_sweeps if K <= 32 else 0,
-            "K2": 2 * total_sweeps if 32 < K <= 96 else 0,
-            "K5": 2 * 2 * total_sweeps if 96 < K <= 128 else 0,
-            "plain_packed": 0, "plain_inv": 0}
-    require(counts == want, f"K={K}: counts {counts} for {total_sweeps} "
+    tag, per_sweep = path_kernel(K, gather)
+    want = {k: 0 for k in counts}
+    want[tag] = per_sweep * total_sweeps
+    require(counts == want, f"{label}: counts {counts} for {total_sweeps} "
                             f"sweeps, want {want}")
     vals = [*wins, out["rmse_at_sweeps"], *m.values()]
     require(all(math.isfinite(v) for v in vals),
-            f"K={K}: non-finite metrics {m}")
+            f"{label}: non-finite metrics {m}")
     if anchor_s is not None:
         require(abs(out["rmse_at_sweeps"] - anchor_s) <= RMSE_BAND,
-                f"K={K}: rmse_sample@{sweeps} {out['rmse_at_sweeps']} "
+                f"{label}: rmse_sample@{sweeps} {out['rmse_at_sweeps']} "
                 f"outside {anchor_s} +- {RMSE_BAND}")
     if anchor_avg is not None:
         require(abs(m["r0.rmse_avg"] - anchor_avg) <= RMSE_BAND,
-                f"K={K}: rmse_avg {m['r0.rmse_avg']} outside "
+                f"{label}: rmse_avg {m['r0.rmse_avg']} outside "
                 f"{anchor_avg} +- {RMSE_BAND}")
     return eng, counts
+
+
+# kernel-name fragments of each part of a gather sweep (torch.profiler)
+SPLIT = (("sampler", ("chol_sample", "chol_inv")),
+         ("gather", ("gather_kernel", "indexSelect")),
+         ("segment sum", ("indexFunc",)),
+         ("bmm", ("gemm", "gemv", "cutlass", "xmma", "sm90_")))
+
+
+def profile_split(eng, warm=2, sweeps=3):
+    """Device milliseconds per sweep by part of the sweep (SPLIT, the rest
+    under "rest"), the device idle share and the largest kernels, from a
+    ``torch.profiler`` trace of ``sweeps`` sweeps after ``warm``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    state = eng.init_state()
+    for s in range(warm):
+        state, _ = eng._sweep(state, s, 0.0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for s in range(warm, warm + sweeps):
+            state, _ = eng._sweep(state, s, 0.0)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[e.name] = (by_name.get(e.name, 0.0)
+                               + e.time_range.elapsed_us() / 1e3)
+    split = {part: 0.0 for part, _ in SPLIT}
+    split["rest"] = 0.0
+    for name, ms in by_name.items():
+        part = next((p for p, frags in SPLIT
+                     if any(f in name for f in frags)), "rest")
+        split[part] += ms / sweeps
+    device_ms = sum(split.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    return {"split_ms": split, "device_ms": device_ms,
+            "wall_ms": wall_ms / sweeps,
+            "idle": 1.0 - device_ms * sweeps / wall_ms,
+            "top": [(n[:60], ms / sweeps) for n, ms in top]}
+
+
+def time_gathers(eng, K):
+    """CUDA-event time of the gather step alone: one bfloat16
+    ``index_select`` over all of a mode's partner indices, per mode."""
+    import torch
+    prob = eng.problem
+    out = []
+    for mode in range(2):
+        idx = torch.cat([ba["part"][0].reshape(-1)
+                         for ba in prob.layouts[f"r0m{mode}"]])
+        partner = prob.entity_specs[prob.rel_specs[0].entity_ids[1 - mode]]
+        U = torch.randn((partner.n, K), device="cuda").to(torch.bfloat16)
+        ms = cuda_ms(lambda: U.index_select(0, idx), 10)
+        out.append((idx.numel(), ms))
+    return out
+
+
+def same_seed_runs(eng, sweeps=3):
+    """Whether two runs of ``sweeps`` sweeps from the same seed give the
+    same U, bit for bit, and the largest difference."""
+    import torch
+    a = eng.run(num_sweeps=sweeps)["state"]["ent"]
+    b = eng.run(num_sweeps=sweeps)["state"]["ent"]
+    same = all(torch.equal(x["U"], y["U"]) for x, y in zip(a, b))
+    diff = max(float((x["U"] - y["U"]).abs().max()) for x, y in zip(a, b))
+    return same, diff
 
 
 def main() -> int:
@@ -338,6 +509,12 @@ def main() -> int:
                                        (8, 1_000))),
             ("K2", check_chol_kernel, ((64, 71_567), (64, 10_681),
                                        (96, 71_567), (40, 1_000))),
+            ("K3", check_full_kernel, ((32, 71_567), (32, 10_681),
+                                       (8, 1_000))),
+            ("K3 no Lambda", functools.partial(check_full_kernel, lam=False),
+             ((32, 71_567), (32, 10_681), (8, 1_000))),
+            ("K4", check_full_kernel, ((64, 71_567), (64, 10_681),
+                                       (96, 71_567), (40, 1_000))),
             ("K5", check_chol_inv, ((64, 71_567), (64, 1_000))),
             ("blocked", check_blocked, ((128, 71_567),))):
         for K, B in shapes:
@@ -362,30 +539,61 @@ def main() -> int:
     rd.assign_to_test(0, min(100_000, df.nnz // 10), seed=7)
     print(f"# data: {time.perf_counter() - t0:.1f} s (nnz={df.nnz}, "
           f"shape={df.shape})", flush=True)
-    launches = {"K1": 0, "K2": 0, "K5": 0}
-    for K in PATHS:
-        eng, counts = run_path(rd, K)
+    launches = dict.fromkeys(("K1", "K2", "K3", "K4", "K5"), 0)
+    for K, (sweeps, repeats, anchor_s, anchor_avg) in PATHS.items():
+        eng, counts = run_path(rd, K, sweeps, repeats, anchor_s, anchor_avg,
+                               dense_int8=True)
         for k in launches:
             launches[k] += counts[k]
         if K == 32:
             time_int8_products(eng.problem.pair, K)
         del eng
+    for K, acc, sweeps, repeats in GATHER_PATHS:
+        anchor_s, anchor_avg = PATHS[K][2:]
+        eng, counts = run_path(rd, K, sweeps, repeats, anchor_s, anchor_avg,
+                               dense_gram=False, gram_dtype="bfloat16",
+                               bucket_widths=BENCH_WIDTHS, row_pad=8,
+                               accumulation=acc)
+        for k in launches:
+            launches[k] += counts[k]
+        prof = profile_split(eng)
+        print(f"# profile gather {acc} K={K}: device ms/sweep "
+              f"{prof['device_ms']:.3f} of {prof['wall_ms']:.3f} wall, idle "
+              f"{prof['idle']:.1%}; split "
+              f"{ {k: round(v, 3) for k, v in prof['split_ms'].items()} }; "
+              f"top kernels {prof['top']}", flush=True)
+        for mode, (n, ms) in enumerate(time_gathers(eng, K)):
+            print(f"# gather alone, gather {acc} K={K} mode {mode}: {n} "
+                  f"rows in {ms:.3f} ms ({n / ms * 1e3:.4g} rows/s)",
+                  flush=True)
+        same, diff = same_seed_runs(eng)
+        print(f"# same seed twice, gather {acc} K={K}: U bitwise equal "
+              f"{same}, max |diff| {diff:.3e}", flush=True)
+        require(math.isfinite(diff), f"gather {acc} K={K}: non-finite U")
+        del eng
 
     src = "bayesiandatafusion_jl_tpu_torch/csrc/"
+    jax_src = "bayesiandatafusion_jl_tpu/ops/pallas_chol.py:"
     rows = []
-    for tag, name, source, replaces, shape in (
-            ("K1", "chol_sample_packed", "chol_sample_packed.cu",
-             "bayesiandatafusion_jl_tpu/ops/pallas_chol.py:178", (32, 71_567)),
+    for tag, name, source, line, (K, B) in (
+            ("K1", "chol_sample_packed", "chol_sample_packed.cu", 178,
+             (32, 71_567)),
             ("K2", "chol_sample_packed_slab", "chol_sample_packed_slab.cu",
-             "bayesiandatafusion_jl_tpu/ops/pallas_chol.py:269", (64, 71_567)),
-            ("K5", "chol_inv", "chol_inv.cu",
-             "bayesiandatafusion_jl_tpu/ops/pallas_chol.py:389",
-             (64, 71_567))):
-        r = checks[(tag, *shape)]
+             269, (64, 71_567)),
+            ("K3", "chol_sample_full", "chol_sample_full.cu", 29,
+             (32, 71_567)),
+            ("K4", "chol_sample_full_slab", "chol_sample_full_slab.cu", 77,
+             (64, 71_567)),
+            ("K5", "chol_inv", "chol_inv.cu", 389, (64, 71_567))):
+        r = checks[(tag, K, B)]
+        b_ms, b_by = bound_ms(*(chol_inv_bound(K, B) if tag == "K5"
+                                else sampler_bound(K, B)))
         rows.append({"name": name, "route": "cuda", "source": src + source,
-                     "replaces": replaces, "launches": launches[tag],
+                     "replaces": jax_src + str(line),
+                     "launches": launches[tag],
                      "max_abs_err": r["kernel_err"], "ms": r["kernel_ms"],
-                     "plain_ms": r["plain_ms"]})
+                     "plain_ms": r["plain_ms"], "bound_ms": b_ms,
+                     "bound_by": b_by, "library_ms": None})
     print(nvidia_smi_line())
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -88,9 +88,21 @@ def test_chol_sample_dispatch_routes(K, panels):
 
 
 def test_chol_sample_dispatch_leaves_packed_range_to_gather_path():
+    """K <= 96 is the gather path's range: the dispatch samples it with the
+    full-P samplers (K4 here, tests/test_torch_chol_full.py), not the
+    blocked one, and leaves P as it was."""
     K = 96
-    P, _ = _spd(2, K, seed=0)
-    z = torch.zeros((2, K), dtype=torch.float64)
-    with pytest.raises(NotImplementedError, match="K3/K4.*M6"):
-        mvn.chol_sample_dispatch(torch.from_numpy(P), z, z,
-                                 torch.eye(K, dtype=torch.float64))
+    P, rng = _spd(2, K, seed=0)
+    b = rng.standard_normal((2, K))
+    xi = rng.standard_normal((2, K))
+    Pt = torch.from_numpy(P.copy())
+    before = chol_blocked.chol_inv_plain.calls
+    got = mvn.chol_sample_dispatch(Pt, torch.from_numpy(b),
+                                   torch.from_numpy(xi),
+                                   torch.eye(K, dtype=torch.float64))
+    want = mvn.chol_sample(torch.from_numpy(P + np.eye(K)),
+                           torch.from_numpy(b), torch.from_numpy(xi))
+    assert chol_blocked.chol_inv_plain.calls == before
+    np.testing.assert_array_equal(Pt.numpy(), P)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-10,
+                               atol=1e-10)

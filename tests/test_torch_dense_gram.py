@@ -189,7 +189,7 @@ def test_engine_store_and_split_match_jax():
                                        dense_gram=True, dense_int8=True,
                                        verbose=False))
     et = TorchEngine(rd_t, TorchConfig(num_latent=4, dtype="float64",
-                                       verbose=False))
+                                       verbose=False), device="cpu")
     np.testing.assert_array_equal(rd_t.relations[0].test_idx,
                                   rd_j.relations[0].test_idx)
     np.testing.assert_array_equal(et.problem.test["r0"]["vals"].numpy(),

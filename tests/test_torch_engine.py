@@ -1,7 +1,9 @@
-"""The port's Gibbs sweep against the JAX engine (int8 pair path, Pallas
-samplers in interpret mode), with injected randoms, across the K ladder."""
+"""The port's Gibbs sweep against the JAX engine (the int8 pair path and
+the bucketed gather path, Pallas samplers in interpret mode), with injected
+randoms, across the K ladder."""
 import dataclasses
 import functools
+import inspect
 
 import jax
 import jax.numpy as jnp
@@ -23,7 +25,8 @@ from bayesiandatafusion_jl_tpu.utils.rng import draw_all_numpy
 import bayesiandatafusion_jl_tpu_torch as bt
 from bayesiandatafusion_jl_tpu_torch.models import engine as torch_engine_mod
 from bayesiandatafusion_jl_tpu_torch.models.datasets import synthetic_ratings
-from bayesiandatafusion_jl_tpu_torch.ops import chol_blocked, chol_packed
+from bayesiandatafusion_jl_tpu_torch.ops import (chol_blocked, chol_full,
+                                                 chol_packed, mvn)
 from bayesiandatafusion_jl_tpu_torch.ops import dense_gram as tdg
 from bayesiandatafusion_jl_tpu_torch.ops.hyper import normal_wishart_update
 from bayesiandatafusion_jl_tpu_torch.utils import rng as trng
@@ -52,36 +55,62 @@ def branches(monkeypatch):
     pairs: the JAX engine's packed dispatch and its K2 kernel function (at
     trace time) and its full-P dispatch; the port's packed dispatch, its K2
     wrapper and its full-P dispatch."""
-    seen = []
+    return _spies(monkeypatch, [
+        (jax_pallas_chol, "chol_sample_packed_dispatch", ("jax", "packed")),
+        (jax_pallas_chol, "chol_sample_packed_tiled", ("jax", "K2")),
+        (jax_engine_mod, "chol_sample_dispatch", ("jax", "full")),
+        (torch_engine_mod, "chol_sample_packed_dispatch",
+         ("port", "packed")),
+        (chol_packed, "chol_sample_packed_tiled", ("port", "K2")),
+        (torch_engine_mod, "chol_sample_dispatch", ("port", "full"))])
 
-    def spy(mod, name, tag):
+
+def _spies(monkeypatch, targets):
+    """Record (engine, name) for each call of each (module, attr, tag)."""
+    seen = []
+    for mod, name, tag in targets:
         fn = getattr(mod, name)
 
-        def wrapped(*a, **kw):
-            seen.append(tag)
-            return fn(*a, **kw)
+        def wrapped(*a, _fn=fn, _tag=tag, **kw):
+            seen.append(_tag)
+            return _fn(*a, **kw)
         monkeypatch.setattr(mod, name, wrapped)
-
-    spy(jax_pallas_chol, "chol_sample_packed_dispatch", ("jax", "packed"))
-    spy(jax_pallas_chol, "chol_sample_packed_tiled", ("jax", "K2"))
-    spy(jax_engine_mod, "chol_sample_dispatch", ("jax", "full"))
-    spy(torch_engine_mod, "chol_sample_packed_dispatch", ("port", "packed"))
-    spy(chol_packed, "chol_sample_packed_tiled", ("port", "K2"))
-    spy(torch_engine_mod, "chol_sample_dispatch", ("port", "full"))
     return seen
 
 
-def _engines(idx, vals, shape, n_test, dtype, K, seed=5, pallas="on"):
-    """The JAX and the port's engine on the same data and test split."""
+@pytest.fixture
+def gather_branches(monkeypatch):
+    """Records the non-packed branch of each engine: its accumulation
+    ("segment" or "planned"), its full-P dispatch and the sampler it chose
+    (JAX: its K3 kernel function, at trace time; the port: its K3 and K4
+    wrappers)."""
+    return _spies(monkeypatch, [
+        (jax_engine_mod, "assemble_precision", ("jax", "segment")),
+        (jax_engine_mod, "assemble_precision_planned", ("jax", "planned")),
+        (jax_engine_mod, "chol_sample_dispatch", ("jax", "full")),
+        (jax_pallas_chol, "chol_sample_pallas", ("jax", "K3")),
+        (torch_engine_mod, "assemble_precision", ("port", "segment")),
+        (torch_engine_mod, "assemble_precision_planned",
+         ("port", "planned")),
+        (torch_engine_mod, "chol_sample_dispatch", ("port", "full")),
+        (mvn, "chol_sample_full", ("port", "K3")),
+        (mvn, "chol_sample_full_tiled", ("port", "K4"))])
+
+
+def _engines(idx, vals, shape, n_test, dtype, K, seed=5, pallas="on",
+             **opts):
+    """The JAX and the port's engine on the same data and test split, the
+    port's on the CPU.  ``opts`` go into both configs; the default is the
+    int8 pair path."""
     rd_j = bdf.RelationData.from_indexed_df(bdf.IndexedDF(idx, vals, shape))
     rd_t = bt.RelationData.from_indexed_df(bt.IndexedDF(idx, vals, shape))
     rd_j.assign_to_test(0, n_test, seed=7)
     rd_t.assign_to_test(0, n_test, seed=7)
     common = dict(num_latent=K, dtype=dtype, seed=seed, verbose=False,
-                  clamp=(1.0, 5.0))
-    ej = MacauEngine(rd_j, MacauConfig(pallas=pallas, dense_gram=True,
-                                       dense_int8=True, **common))
-    et = bt.MacauEngine(rd_t, bt.MacauConfig(dense_int8=True, **common))
+                  clamp=(1.0, 5.0),
+                  **{"dense_gram": True, "dense_int8": True, **opts})
+    ej = MacauEngine(rd_j, MacauConfig(pallas=pallas, **common))
+    et = bt.MacauEngine(rd_t, bt.MacauConfig(**common), device="cpu")
     return ej, et
 
 
@@ -110,7 +139,7 @@ def _run_both(ej, et, n_sweeps, dtype, check=None):
     return state_j, state_t, mj, mt
 
 
-def _f64_engines(K, pallas="on"):
+def _f64_engines(K, pallas="on", **opts):
     """Both engines in float64 on one small ratings matrix."""
     rng = np.random.default_rng(0)
     n0, n1 = 60, 45
@@ -118,7 +147,7 @@ def _f64_engines(K, pallas="on"):
     R = np.clip(np.round((3 + rng.standard_normal((n0, n1))) * 2) / 2, 1, 5)
     idx = np.stack(np.nonzero(mask), 1)
     return _engines(idx, R[mask], (n0, n1), 120, "float64", K=K,
-                    pallas=pallas)
+                    pallas=pallas, **opts)
 
 
 def _check_f64(s, sj, st, mj, mt):
@@ -181,6 +210,87 @@ def test_slice_f32_chain_matches_jax_engine(interpret_pallas):
     assert np.isfinite(rt) and abs(rt - rj) < 1e-2, (rt, rj)
 
 
+@pytest.mark.parametrize("accumulation", ["segment", "planned"])
+def test_gather_f64_matches_jax_engine(interpret_pallas, gather_branches,
+                                       accumulation):
+    """dense_gram=False, K=8: both engines take the non-packed branch and
+    sample with K3 (the JAX one in interpret mode, traced once per entity);
+    "segment" hands Lambda to the sampler, "planned" puts it in P.  U, mu
+    and Lambda agree to 1e-8 after each of 3 float64 sweeps."""
+    ej, et = _f64_engines(K=8, dense_gram=False, accumulation=accumulation)
+    assert et.problem.gather and not ej.problem.dense_plans
+    _run_both(ej, et, 3, "float64", _check_f64)
+    assert set(gather_branches) == {
+        ("jax", accumulation), ("jax", "full"), ("jax", "K3"),
+        ("port", accumulation), ("port", "full"), ("port", "K3")}
+    assert gather_branches.count(("port", "K3")) == 6
+    assert gather_branches.count(("jax", "K3")) == 2
+
+
+def test_gather_k4_f64_matches_jax_engine(gather_branches):
+    """dense_gram=False, K=36: the port samples with K4 (plain version),
+    Lambda added on load; the JAX engine with its XLA reference sampler
+    (pallas="off": its K4 kernel costs ~25 s a trace in interpret mode,
+    and tests/test_torch_chol_full.py holds the two kernels' plain
+    versions together), Lambda in P.  3 float64 sweeps to 1e-8."""
+    ej, et = _f64_engines(K=36, pallas="off", dense_gram=False)
+    _run_both(ej, et, 3, "float64", _check_f64)
+    assert set(gather_branches) == {
+        ("jax", "segment"), ("jax", "full"),
+        ("port", "segment"), ("port", "full"), ("port", "K4")}
+    assert gather_branches.count(("port", "K4")) == 6
+
+
+def test_gather_f32_chain_matches_jax_engine(interpret_pallas):
+    """The gather path in float32 with gram_dtype="bfloat16" over 20
+    sweeps of synthetic ratings: only the posterior-mean RMSE is held, to
+    1e-2, as the chains drift apart by rounding."""
+    df = jax_synthetic_ratings(300, 200, 12_000, seed=1)
+    ej, et = _engines(df.idx, df.vals, df.shape, 1_000, "float32", K=8,
+                      dense_gram=False, gram_dtype="bfloat16",
+                      bucket_widths=(8, 16, 32, 64, 128))
+    before = chol_full.chol_sample_full_plain.calls
+    _, _, mj, mt = _run_both(ej, et, 20, "float32")
+    assert chol_full.chol_sample_full_plain.calls == before + 40
+    rj, rt = float(mj["r0.rmse_avg"]), float(mt["r0.rmse_avg"])
+    assert np.isfinite(rt) and abs(rt - rj) < 1e-2, (rt, rj)
+
+
+def test_gather_macau_runs_and_reports():
+    """macau() on the gather path, on the CPU: dense_int8 is not read
+    there, so dense_int8=False is accepted; the layout is recorded."""
+    df = synthetic_ratings(120, 80, 3_000, seed=2)
+    rd = bt.RelationData.from_indexed_df(df)
+    rd.assign_to_test(0, 300, seed=7)
+    res = bt.macau(rd, num_latent=4, burnin=3, psamples=3, clamp=(1, 5),
+                   verbose=False, device="cpu", dense_gram=False,
+                   dense_int8=False, accumulation="planned", row_pad=1)
+    assert 0.3 < res["RMSE"] < 1.5
+    eng = bt.MacauEngine(rd, bt.MacauConfig(num_latent=4, verbose=False,
+                                            dense_gram=False), device="cpu")
+    prob = eng.problem
+    assert prob.pair is None and prob.acc_plan == {}
+    assert sum(prob.padded_nnz) >= 2 * (df.nnz - 300)
+    assert all(ba["inst"].dtype == torch.int32
+               for ba in prob.layouts["r0m0"])
+
+
+def test_engine_default_device_is_cuda(monkeypatch):
+    """MacauEngine and macau run on the card unless the caller asks for
+    the CPU; without a card the default raises instead of falling back."""
+    for fn in (bt.MacauEngine.__init__, bt.macau):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    rd = bt.RelationData.from_indexed_df(synthetic_ratings(30, 20, 200))
+    cfg = bt.MacauConfig(num_latent=4, burnin=1, psamples=1, verbose=False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        bt.MacauEngine(rd, cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        bt.macau(rd, config=cfg)
+    assert bt.MacauEngine(rd, cfg, device="cpu").device.type == "cpu"
+    assert "history" in bt.macau(rd, config=cfg, device="cpu")
+
+
 def test_normal_wishart_update_matches_jax():
     rng = np.random.default_rng(3)
     N, K, b0, nu0 = 50, 6, 2.0, 6.0
@@ -237,7 +347,7 @@ def test_macau_runs_and_reports():
     seen = []
     eng = bt.MacauEngine(rd, bt.MacauConfig(num_latent=4, burnin=3,
                                             psamples=3, clamp=(1, 5),
-                                            verbose=False))
+                                            verbose=False), device="cpu")
     res = eng.run(callback=lambda s, phase, m, dt: seen.append(phase))
     assert seen == ["burnin"] * 3 + ["sample"] * 3
     assert 0.3 < res["RMSE"] < 1.5
@@ -251,8 +361,8 @@ def test_macau_runs_and_reports():
 
 @pytest.mark.parametrize("kwargs, item", [
     (dict(alpha_sample=True), "M7"),
-    (dict(dense_gram=False), "M6"),
-    (dict(accumulation="planned"), "M6"),
+    (dict(dense_fused_tol=0.01), "M9"),
+    (dict(metrics_every=4), "M4"),
     (dict(dense_int8=False), "M3"),
     (dict(dense_fused=True), "M9"),
     (dict(checkpoint_every=5, checkpoint_path="ck.npz"), "M10"),
@@ -267,7 +377,7 @@ def test_unported_options_raise(kwargs, item):
     rd = bt.RelationData.from_indexed_df(df)
     with pytest.raises(NotImplementedError, match=item):
         bt.MacauEngine(rd, bt.MacauConfig(
-            **{"num_latent": 4, "verbose": False, **kwargs}))
+            **{"num_latent": 4, "verbose": False, **kwargs}), device="cpu")
 
 
 @pytest.mark.parametrize("kwargs, item", [
@@ -280,18 +390,28 @@ def test_unported_macau_kwargs_raise(kwargs, item):
     through macau() and through MacauConfig alike."""
     rd = bt.RelationData.from_indexed_df(synthetic_ratings(30, 20, 200))
     with pytest.raises(NotImplementedError, match=item):
-        bt.macau(rd, num_latent=4, verbose=False, **kwargs)
+        bt.macau(rd, num_latent=4, verbose=False, device="cpu", **kwargs)
     with pytest.raises(NotImplementedError, match=item):
         bt.MacauConfig(num_latent=4, **kwargs)
 
 
 def test_config_fields_cover_jax_config():
     """Every JAX config field is ported, listed as unported, or one of the
-    TPU layout knobs the port has no use for."""
+    TPU-only knobs the port has no use for; the gather path's fields keep
+    the JAX defaults and validation."""
     jax_f = {f.name for f in dataclasses.fields(MacauConfig)}
     port_f = {f.name for f in dataclasses.fields(bt.MacauConfig)}
-    tpu_only = {"pallas", "gram_dtype", "dense_gram_budget_gb",
-                "bucket_widths", "row_pad"}
+    tpu_only = {"pallas", "dense_gram_budget_gb"}
+    gather = {"dense_gram", "accumulation", "gram_dtype", "bucket_widths",
+              "row_pad"}
+    assert gather <= port_f
+    for name in gather:
+        assert getattr(bt.MacauConfig(), name) == getattr(MacauConfig(),
+                                                          name), name
+    with pytest.raises(ValueError, match="accumulation"):
+        bt.MacauConfig(accumulation="window")
+    with pytest.raises(ValueError, match="gram_dtype"):
+        bt.MacauConfig(gram_dtype="float16")
     assert port_f <= jax_f
     assert not set(UNPORTED_FIELDS) & port_f
     assert jax_f == port_f | set(UNPORTED_FIELDS) | tpu_only
@@ -306,4 +426,5 @@ def test_unported_data_raises():
         bt.IndexedDF(np.unique(idx, axis=0), np.ones(len(np.unique(
             idx, axis=0))), (5, 4, 3)))
     with pytest.raises(NotImplementedError, match="M7"):
-        bt.MacauEngine(rd, bt.MacauConfig(num_latent=3, verbose=False))
+        bt.MacauEngine(rd, bt.MacauConfig(num_latent=3, verbose=False),
+                       device="cpu")

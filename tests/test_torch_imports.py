@@ -40,6 +40,9 @@ def test_scan_covers_the_port():
                  "bayesiandatafusion_jl_tpu_torch/models/engine.py",
                  "bayesiandatafusion_jl_tpu_torch/ops/chol_packed.py",
                  "bayesiandatafusion_jl_tpu_torch/ops/chol_blocked.py",
+                 "bayesiandatafusion_jl_tpu_torch/ops/chol_full.py",
+                 "bayesiandatafusion_jl_tpu_torch/ops/gramian.py",
+                 "bayesiandatafusion_jl_tpu_torch/ops/layout.py",
                  "bayesiandatafusion_jl_tpu_torch/ops/mvn.py",
                  "bayesiandatafusion_jl_tpu_torch/kernels.py"):
         assert must in rel
