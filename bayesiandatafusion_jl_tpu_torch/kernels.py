@@ -109,6 +109,12 @@ def load() -> ctypes.CDLL:
                    lib.bdf_chol_sample_full_slab_f64):
             fn.restype = i
             fn.argtypes = [p, p, d, p, p, p, i, i, p]
+        lib.bdf_ytab_quantize.restype = i
+        lib.bdf_ytab_quantize.argtypes = [p, ll, ll, i, ctypes.c_float, p, p,
+                                          p, ll, p]
+        lib.bdf_fused_pair_i8.restype = i
+        lib.bdf_fused_pair_i8.argtypes = [p, ll, ll, i, p, i, i, ll, i, p, p,
+                                          p, p, p, p, p, p]
         _lib = lib
     return _lib
 

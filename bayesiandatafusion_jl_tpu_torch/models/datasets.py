@@ -6,6 +6,9 @@ datasets.py``: the same generator, so the same seed gives the same data
 """
 from __future__ import annotations
 
+import os
+from concurrent.futures import ThreadPoolExecutor
+
 import numpy as np
 
 from .data import IndexedDF
@@ -55,3 +58,55 @@ def synthetic_ratings(n_users: int, n_movies: int, nnz: int,
     vals = np.clip(np.round(vals * 2) / 2, 1.0, 5.0)
     idx = np.stack([u, m], axis=1)
     return IndexedDF(idx, vals, (n_users, n_movies))
+
+
+def _sorted_unique(a: np.ndarray) -> np.ndarray:
+    """``np.unique(a)`` for a large integer array, by one sort and a
+    neighbour compare: the same array, without ``np.unique``'s own path,
+    which under numpy 2.3 has run two orders of magnitude slower than a
+    sort on 10^8 int64 keys."""
+    a = np.sort(a)
+    if a.size:
+        a = a[np.concatenate(([True], a[1:] != a[:-1]))]
+    return a
+
+
+def netflix_synthetic(n_users: int = 480_189, n_movies: int = 17_770,
+                      nnz: int = 100_480_507, rank: int = 32, seed: int = 9,
+                      chunk: int = 1_000_000) -> IndexedDF:
+    """Netflix-prize-shaped synthetic ratings: integer stars 1..5 from a
+    rank-``rank`` model, every (user, movie) cell at most once, ``nnz``
+    cells drawn uniformly.
+
+    The JAX bench's generator (``bench.py:353-370``, the ``netflix``
+    family): the same calls in the same order, so the same seed gives the
+    same bytes (``_sorted_unique`` stands for ``np.unique``, with the same
+    result).  The factor products U[i1] . V[i2] are summed ``chunk``
+    observations at a time, on up to 8 threads (numpy releases the GIL in
+    the gathers and the sums), each row the same products and sum as in
+    one pass, so the host never holds the two [nnz, rank] gathers whole
+    (2 x 12.9 GB in float32 at full size); ``chunk=None`` takes one pass.
+    """
+    n1, n2, r = n_users, n_movies, rank
+    rng = np.random.default_rng(seed)
+    key = _sorted_unique(rng.integers(0, n1 * n2, int(nnz * 1.02),
+                                      dtype=np.int64))
+    key = rng.permutation(key)[:nnz] if key.size > nnz else key
+    nnz = key.size
+    i1 = (key // n2).astype(np.int32)
+    i2 = (key % n2).astype(np.int32)
+    del key
+    U = rng.standard_normal((n1, r), dtype=np.float32) / np.sqrt(r)
+    V = rng.standard_normal((n2, r), dtype=np.float32) / np.sqrt(r)
+    step = nnz if chunk is None else max(1, int(chunk))
+
+    def part(a):
+        return np.einsum("nk,nk->n", U[i1[a:a + step]], V[i2[a:a + step]])
+    with ThreadPoolExecutor(min(8, os.cpu_count() or 1)) as pool:
+        score = np.concatenate(list(pool.map(part, range(0, nnz, step))))
+    del U, V
+    score = score * np.sqrt(r) * 0.9 + 0.55 * rng.standard_normal(
+        nnz, dtype=np.float32)
+    vals = np.clip(np.rint(3.6 + 1.1 * score), 1.0, 5.0).astype(np.float32)
+    del score
+    return IndexedDF(np.stack([i1, i2], 1), vals, (n1, n2))

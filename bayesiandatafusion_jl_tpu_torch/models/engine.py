@@ -5,6 +5,10 @@ The slice this port covers: one 2-ary relation without side features, at
 any K, with either Gramian path:
 
 - the dense int8 pair (``dense_gram`` None or True; ops/dense_gram.py);
+- the fused sparse regime (``dense_fused=True``): one stored int8 value
+  array, contracted per mode by K8 (ops/fused_pair.py) against the
+  partner table that K7 (ops/ytab.py) quantizes each sweep; always packed
+  (K <= 96), without a gather-path residual;
 - the bucketed gather path (``dense_gram=False``; ops/layout.py and
   ops/gramian.py), with ``accumulation`` "segment" or "planned".
 
@@ -87,16 +91,42 @@ def _check_slice(rd: RelationData, cfg: MacauConfig) -> None:
         missing.append("entities outside the relation (ROADMAP M7)")
     if missing:
         raise NotImplementedError("not ported yet: " + "; ".join(missing))
-    if cfg.dense_gram is False:
-        return
-    if cfg.accumulation == "planned":
+    if cfg.dense_gram is not False and cfg.accumulation == "planned":
         raise NotImplementedError(
             "not ported yet: accumulation='planned' with the dense pair "
             "(ROADMAP M6); it applies to the gather path (dense_gram=False)")
-    rel = rd.relations[0]
-    if not dg.int8_pair_ok(rel.data.idx, rel.data.shape):
+
+
+def _plan_fused(rel, cfg: MacauConfig):
+    """``fused_pair_plan``'s (s, m, keep) when the relation takes the fused
+    path (JAX engine :128-179), else None; raises NotImplementedError for
+    the fused cases outside the slice."""
+    if cfg.dense_fused is not True or cfg.dense_gram is False:
+        return None
+    plan = dg.fused_pair_plan(rel.data.idx, rel.data.vals, rel.data.shape,
+                              tol=cfg.dense_fused_tol)
+    if not dg.plan_fused_rels([rel.data.shape], cfg.dense_gram,
+                              cfg.dense_fused, [plan and plan[:2]]):
+        return None
+    s, m, keep = plan
+    if not keep.all():
         raise NotImplementedError(
-            "relation not int8-eligible: float dense pair (ROADMAP M3)")
+            "not ported yet: a fused relation with a gather-path residual "
+            f"({int((~keep).sum())} duplicate or zero-code observations) "
+            "needs packed_bucket_accum (ROADMAP M6/M9)")
+    if cfg.num_latent > K2_MAX_K:
+        raise NotImplementedError(
+            f"not ported yet: the fused path at K={cfg.num_latent} > "
+            f"{K2_MAX_K} (the non-packed branch on K8's non-flip kernels, "
+            "ROADMAP M9)")
+    vals = rel.data.vals
+    if not (cfg.dense_int8 and dg.fused_int8_ok(
+            dg.fused_code_bound(vals, s, m), rel.data.shape,
+            idx=rel.data.idx, abs_codes=dg.fused_abs_codes(vals, s, m))):
+        raise NotImplementedError(
+            "not ported yet: a fused relation off the s8 path, the float "
+            "fused kernels (ROADMAP M3/M9)")
+    return plan
 
 
 def _resolve_device(device) -> torch.device:
@@ -130,10 +160,21 @@ class CompiledProblem:
             mean_value=mean_value)]
         t0 = time.perf_counter()
         self.gather = config.dense_gram is False
-        self.pair = self.tri = None
+        self.pair = self.tri = self.fused = None
+        plan = None if self.gather else _plan_fused(rel, config)
+        self.plan_seconds = time.perf_counter() - t0
         if self.gather:
             self._build_layouts(rel, mean_value, config, device)
+        elif plan is not None:
+            self.fused = dg.build_fused_store(rel.data.idx, rel.data.vals,
+                                              rel.data.shape, plan[0],
+                                              plan[1], device)
+            self.tri = dg.tri_index(config.num_latent, device)
         else:
+            if not dg.int8_pair_ok(rel.data.idx, rel.data.shape):
+                raise NotImplementedError(
+                    "relation not int8-eligible: float dense pair "
+                    "(ROADMAP M3)")
             self.pair = dg.build_int8_pair(
                 rel.data.idx, rel.data.vals - mean_value, rel.data.shape,
                 config.np_dtype(), device)
@@ -265,9 +306,16 @@ class MacauEngine:
                 metrics[f"e{ei}.unorm"] = torch.linalg.norm(ent["U"])
                 continue
             packed = cfg.num_latent <= K2_MAX_K
-            P, b_d = dg.dense_gram_contrib(prob.pair, prob.tri, partner,
-                                           mode, rels[0]["alpha"], dtype,
-                                           packed=packed)
+            if prob.fused is not None:
+                # one fused contribution (K7, then K8 on the stored V8),
+                # in the transposed [C, N] layout (JAX engine :821-923)
+                P, b_d = dg.fused_gram_contrib_i8(
+                    prob.fused, prob.tri, partner, mode, rels[0]["alpha"],
+                    dtype, rs.mean_value)
+            else:
+                P, b_d = dg.dense_gram_contrib(prob.pair, prob.tri, partner,
+                                               mode, rels[0]["alpha"], dtype,
+                                               packed=packed)
             # prior term Lambda mu for every row, plus the data term
             if packed:
                 b = (mu @ Lambda)[:, None] + b_d[:, :es.n]

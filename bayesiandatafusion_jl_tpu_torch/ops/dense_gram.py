@@ -1,15 +1,16 @@
-"""Dense int8 pair Gramian for 2-ary relations.
+"""Dense int8 Gramians for 2-ary relations: the int8 pair and the fused
+single array.
 
-Port of the s8 pair path of ``bayesiandatafusion_jl_tpu/ops/dense_gram.py``:
-the host side (``int8_pair_ok`` :1073, and the store that
+Port of the s8 paths of ``bayesiandatafusion_jl_tpu/ops/dense_gram.py``.
+
+The int8 pair: the host side (``int8_pair_ok`` :1073, and the store that
 ``build_dense_pair`` :263 and ``quantize_dense_pair`` :1114 make, built
 over the observed cells only) and the per-sweep side (``_tri_maps``,
 ``_quantize_cols``, ``_floor_scale``, ``_q8`` and the s8 branch of
 ``dense_gram_contrib`` :1319-1430 for arity 2: packed in the transposed
-[C, N] layout, or unpacked to [N, K, K]).
-
-Per sweep and per focus mode, with the stored int8 observation counts M8
-and statically quantized centered values W8 (both [N_focus, N_partner]),
+[C, N] layout, or unpacked to [N, K, K]).  Per sweep and per focus mode,
+with the stored int8 observation counts M8 and statically quantized
+centered values W8 (both [N_focus, N_partner]),
 
     P[c, n] = sum_p M8[n, p] Y8[c, p] * sY[c] * alpha  (+ PD ridge on c = (i, i))
     b[k, n] = sum_p W8[n, p] U8[k, p] * sU[k] * w_scale * alpha
@@ -18,16 +19,29 @@ where Y = U[:, iu] * U[:, ju] is the partners' packed triangle table and
 Y8/U8 are its and U's per-row int8 quantizations.  The int8 x int8 ->
 int32 products are exact (``int8_pair_ok`` bounds them below 2^31) and run
 on ``torch._int_mm``, as the JAX package leaves them to an XLA einsum.
+
+The fused sparse regime (the second half of this file, JAX :336-1070):
+one stored int8 array V8 of value codes e, v = s (e + m) at the observed
+cells and 0 elsewhere, from which both modes' Gramians are contracted with
+the observation mask derived on the fly (K8, ``ops/fused_pair.py``)
+against the per-sweep quantized partner table (K7, ``ops/ytab.py``):
+
+    P = (V8 != 0) @ Ypack,   b = s (V8 @ U) + (s m - mean) ((V8 != 0) @ U)
+
+Half the int8 pair's bytes, and no value quantization: the encoding is
+exact or the path is not taken.
 """
 from __future__ import annotations
 
-from typing import Dict, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from . import fused_pair
+
 INV127 = float(np.float32(1.0 / 127.0))
-_TINY = float(np.finfo(np.float32).tiny)
+TINY = float(np.finfo(np.float32).tiny)
 # the stored pair's dims are padded to this multiple: torch._int_mm on CUDA
 # needs the contraction and output widths to be multiples of 8; the pad
 # cells are exact zeros, so every output on the pad extent is 0
@@ -160,7 +174,7 @@ def q8(A: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
 def quantize_rows(A: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-row int8 quantization of a float32 table A [R, n]: scales
     s = max(max_p |A[r, p]| / 127, tiny) and codes round(A / s)."""
-    s = torch.clamp_min(A.abs().amax(dim=1) * INV127, _TINY)
+    s = torch.clamp_min(A.abs().amax(dim=1) * INV127, TINY)
     return q8(A, s[:, None]), s
 
 
@@ -234,3 +248,320 @@ def dense_gram_contrib(pair: Dict[str, object], tri, partner: torch.Tensor,
     Pt = P[:, :n].mT.contiguous()                     # [n, C]
     del P     # free the packed copy before the expand allocates [n, K*K]
     return Pt[:, expand].view(n, K, K), b[:, :n].mT
+
+
+# ---------------------------------------------------------------------------
+# the fused sparse regime: host side (numpy)
+# ---------------------------------------------------------------------------
+
+def fused_pair_encode(idx: np.ndarray, vals: np.ndarray,
+                      shape: Sequence[int]) -> Optional[Tuple[float, int]]:
+    """The strict fused encoding (JAX :336): ``(s, m)`` such that every
+    observed value is v = s (e + m) with e a nonzero int8 and no residual
+    (no duplicate cell, no value on the zero-code level), else None."""
+    plan = fused_pair_plan(idx, vals, shape, tol=None)
+    if plan is None or not plan[2].all():
+        return None
+    return plan[0], plan[1]
+
+
+def fused_pair_plan(idx: np.ndarray, vals: np.ndarray,
+                    shape: Sequence[int], tol: Optional[float] = None):
+    """The fused path's planner (JAX :371): ``None`` or ``(s, m, keep)``.
+
+    ``s`` is the step of an exact value grid of at most 255 levels or,
+    with ``tol``, the coarsest-first uniform grid whose rounding error
+    s/2 <= tol leaves a free shift level; ``m`` the shift (an unused level
+    first, else the least-populated one); ``keep`` marks the observations
+    V8 holds, the first encodable one per (i, j) cell.  The rest
+    (duplicates, the zero-code level) would ride the gather path as an
+    exact-valued residual.  Decided from (idx, vals, shape, tol) alone."""
+    if idx.shape[1] != 2 or idx.shape[0] == 0:
+        return None
+    v64 = np.asarray(vals, np.float64)
+    d = np.unique(v64)
+    s = None
+    if d.size <= 255:
+        # exact grid: every value an integer multiple of the step
+        se = float(np.min(np.diff(d))) if d.size > 1 else (
+            abs(float(d[0])) if d[0] != 0 else 1.0)
+        if np.isfinite(se) and se > 0:
+            q = d / se
+            qd = np.rint(q)
+            if (np.max(np.abs(q - qd)) <= 1e-9
+                    and np.max(np.abs(qd * se - d))
+                    <= 1e-9 * max(1.0, float(np.abs(d).max()))
+                    and qd.max() - qd.min() <= 254):
+                s = se
+    if s is None:
+        if tol is None or not np.isfinite(tol) or tol <= 0:
+            return None
+        # uniform grids within tol, finest first; the first with an unused
+        # level in its feasible shift window has no zero-code residual
+        rng_v = float(d[-1] - d[0])
+        if rng_v <= 0:
+            s = abs(float(d[0])) if d[0] != 0 else 1.0
+            if s / 2.0 > tol:
+                return None
+        else:
+            l_min = max(2, int(np.ceil(rng_v / (2.0 * tol))))
+            if l_min > 253:
+                return None
+            cand = sorted({max(l_min, int(253 * f))
+                           for f in (1.0, 0.97, 0.93, 0.88, 0.82, 0.75,
+                                     0.65, 0.5, 0.35, 0.2)},
+                          reverse=True)
+            cand = [L for L in cand if L >= l_min]
+            s = rng_v / cand[0]
+            for L in cand:
+                sc = rng_v / L
+                qc = np.rint(d / sc).astype(np.int64)
+                lo_c, hi_c = int(qc.min()), int(qc.max())
+                if hi_c - lo_c > 254:
+                    continue
+                w_lo, w_hi = hi_c - 127, lo_c + 127
+                if w_lo > w_hi:
+                    continue
+                window = np.arange(w_lo, w_hi + 1)
+                if (~np.isin(window, qc)).any():
+                    s = sc
+                    break
+    qi = np.rint(d / s).astype(np.int64)
+    lo, hi = int(qi.min()), int(qi.max())
+    if hi - lo > 254:
+        return None
+    used = set(int(x) for x in qi)
+    # shift: an unused level first, then the smallest |e| range
+    best_free, best_used = None, None
+    for m in range(lo - 1, hi + 2):
+        emax = max(abs(lo - m), abs(hi - m))
+        if emax > 127:
+            continue
+        if m in used:
+            if best_used is None or emax < best_used[1]:
+                best_used = (m, emax)
+        elif best_free is None or emax < best_free[1]:
+            best_free = (m, emax)
+    if best_free is None and best_used is not None:
+        # every feasible level is used: the least-populated one (lowest m
+        # on ties) becomes the zero-code residual
+        w_lo, w_hi = max(hi - 127, lo), min(lo + 127, hi)
+        full = np.bincount(np.rint(v64 / s).astype(np.int64) - lo,
+                           minlength=hi - lo + 1)
+        counts = full[w_lo - lo:w_hi - lo + 1]
+        best_used = (w_lo + int(np.argmin(counts)), 0)
+    best = best_free if best_free is not None else best_used
+    if best is None:
+        return None
+    m = best[0]
+    q_obs = np.rint(v64 / s).astype(np.int64)
+    encodable = q_obs != m
+    keep = np.zeros(idx.shape[0], bool)
+    pos = np.nonzero(encodable)[0]
+    if pos.size:
+        lin = (idx[pos, 0].astype(np.int64) * int(shape[1])
+               + idx[pos, 1])
+        srt = np.sort(lin)
+        if not (srt[1:] == srt[:-1]).any():
+            # no cell twice: every observation is its cell's first (one
+            # plain sort, much cheaper at 10^8 cells than the stable
+            # argsort of np.unique(return_index))
+            keep[pos] = True
+        else:
+            _, first = np.unique(lin, return_index=True)
+            keep[pos[first]] = True
+    if not keep.any():
+        return None
+    return float(s), int(m), keep
+
+
+def encode_fused_values(vals: np.ndarray, s: float, m: int) -> np.ndarray:
+    """int8 codes e = rint(v / s) - m (JAX :507)."""
+    return (np.rint(np.asarray(vals, np.float64) / s) - m).astype(np.int8)
+
+
+def fused_code_bound(vals: np.ndarray, s: float, m: int) -> int:
+    """max |e| over the stored codes (JAX :745)."""
+    if len(vals) == 0:
+        return 1
+    e = np.rint(np.asarray(vals, np.float64) / s) - m
+    return int(np.max(np.abs(e)))
+
+
+def fused_abs_codes(vals: np.ndarray, s: float, m: int) -> np.ndarray:
+    """|e| over the stored codes, the weights of the per-fiber bound
+    (JAX :783)."""
+    return np.abs(np.rint(np.asarray(vals, np.float64) / s) - m)
+
+
+def fused_int8_ok(emax: int, shape: Sequence[int],
+                  idx: Optional[np.ndarray] = None,
+                  abs_codes: Optional[np.ndarray] = None) -> bool:
+    """No int32 sum of the s8 contraction can overflow (JAX :753).  One
+    output sums over one observed fiber with |partner code| <= 127, so
+    with (idx, abs_codes) the exact bound is 127 * the largest per-fiber
+    sum of |e| along either axis; without them, the dense worst case
+    127 * emax * (max extent + 8192)."""
+    if idx is not None and abs_codes is not None and idx.shape[0]:
+        worst = 1.0
+        for ax in range(idx.shape[1]):
+            worst = max(worst, float(np.bincount(
+                idx[:, ax], weights=np.asarray(abs_codes, np.float64))
+                .max()))
+        return 127.0 * worst < 2.0 ** 31 * 0.95
+    n_c = max(int(d) for d in shape) + 8192
+    return 127.0 * max(emax, 1) * n_c < 2.0 ** 31 * 0.95
+
+
+def plan_fused_rels(shapes: Sequence[Tuple[int, ...]],
+                    dense_gram: Optional[bool],
+                    dense_fused: Optional[bool],
+                    fused_enc: Sequence) -> Dict[int, Tuple[float, int]]:
+    """The relations that take the fused path (JAX :183): ri -> (s, m).
+
+    ``dense_fused=True`` takes every fused-encodable 2-ary relation.  The
+    JAX package's ``None`` is an auto rule on a TPU HBM budget
+    (``dense_gram_budget_gb``) and TPU-measured rates; the port has no
+    H100 planner yet (ROADMAP M6), so ``None``, like ``False``, keeps the
+    int8 pair."""
+    if dense_fused is not True or dense_gram is False:
+        return {}
+    return {ri: enc for ri, (shape, enc) in enumerate(zip(shapes, fused_enc))
+            if enc is not None and len(shape) == 2}
+
+
+def build_fused_store(idx: np.ndarray, vals: np.ndarray,
+                      shape: Sequence[int], s: float, m: int, device
+                      ) -> Dict[str, object]:
+    """The fused path's device store (JAX ``build_fused_values_device``
+    :527 and the engine's ridge degrees, engine.py:180-194).
+
+    Returns ``{"V8": [n0p, n1p] int8, "deg": [d0, d1], "shape": (n0, n1),
+    "scale": s, "shift": m}``: the codes scattered from the observations
+    into one zeroed array on the device (one orientation only: K8
+    contracts along either axis), its extents rounded up to STORE_ALIGN
+    (K8 loads 16-byte rows; pad cells are 0 = unobserved), and d{f} the
+    float32 observation count of every stored row of mode f, for the PD
+    ridge.  The observations must hold one code per cell (``keep`` of
+    ``fused_pair_plan`` all True)."""
+    n = [int(d) for d in shape]
+    pad = [-(-d // STORE_ALIGN) * STORE_ALIGN for d in n]
+    V8 = torch.zeros(pad, dtype=torch.int8, device=device)
+    ij = torch.from_numpy(np.ascontiguousarray(idx, np.int32)).to(device)
+    lin = ij[:, 0].to(torch.int64) * pad[1] + ij[:, 1]
+    del ij
+    V8.view(-1)[lin] = torch.from_numpy(
+        encode_fused_values(vals, s, m)).to(device)
+    del lin
+    deg = [torch.from_numpy(np.bincount(idx[:, f], minlength=pad[f])
+                            .astype(np.float32)).to(device)
+           for f in range(2)]
+    return {"V8": V8, "deg": deg, "shape": tuple(n), "scale": float(s),
+            "shift": int(m)}
+
+
+# ---------------------------------------------------------------------------
+# the fused sparse regime: per sweep (torch)
+# ---------------------------------------------------------------------------
+
+def fused_quantize(partner: torch.Tensor, pad_rows: Optional[int] = None):
+    """The partner operands of one fused contraction (JAX :788): (YZ8T
+    [C + K, pad_rows] int8, Z8T [K, pad_rows] int8 (a view of YZ8T's last
+    K rows), s_yz [C + K], s_z [K] float32), ``_quantize_cols`` of the
+    packed-triangle table and of the factors, transposed, with rows past
+    the partner count zero.
+
+    Always K7 on the card (``ops/ytab.ytab_quantize``): the JAX gates
+    (K <= 64, 2e8 table cells) are a TPU compile cap and fusion trade-off,
+    and the kernel equals the plain quantization bit for bit."""
+    from . import ytab      # imported here: ytab uses this module's helpers
+    K = partner.shape[-1]
+    C = K * (K + 1) // 2
+    YZ8T, s_yz = ytab.ytab_quantize(partner, out_rows=pad_rows)
+    return YZ8T, YZ8T[C:], s_yz, s_yz[C:]
+
+
+def fused_pair_contract_i8(V8: torch.Tensor, YZ8T: torch.Tensor,
+                           focus_axis: int, K: int, n_focus: int,
+                           dq: Optional[Tuple[torch.Tensor, ...]] = None):
+    """The raw fused contraction (JAX :834) in the kernel layout
+    (``flip_out``): exact int32 PM [C + K, n_focus] and BV [K, n_focus], or
+    with ``dq`` K8's dequant epilogue.  YZ8T spans V8's contraction extent
+    (``fused_quantize``'s ``pad_rows``)."""
+    n_contract = V8.shape[1 - focus_axis]
+    if YZ8T.shape[1] != n_contract:
+        raise ValueError(f"YZ8T spans {YZ8T.shape[1]} partner rows, V8's "
+                         f"contraction extent is {n_contract}")
+    return fused_pair.fused_pair_contract(V8, YZ8T, focus_axis, K, n_focus,
+                                          dq)
+
+
+def _add_ridge(Pt: torch.Tensor, s_tri: torch.Tensor, K: int,
+               deg: torch.Tensor, dc: torch.Tensor) -> None:
+    """The PD safety ridge in place on the packed diagonal rows of Pt
+    [C, n] (JAX :950-955): float32 step mean(s_tri) * sqrt(K) / 2 times
+    sqrt(deg), cast to Pt's dtype."""
+    step = ridge_step(s_tri, K)
+    rdeg = torch.sqrt(deg.to(torch.float32))
+    Pt[dc] += (rdeg * step).to(Pt.dtype)[None, :]
+
+
+def _b_consts(scale, shift, mean, dtype, device):
+    return (torch.tensor(scale, dtype=dtype, device=device),
+            torch.tensor(scale * shift - mean, dtype=dtype, device=device))
+
+
+def fused_finish_i8(PM: torch.Tensor, BV: torch.Tensor, s_yz: torch.Tensor,
+                    s_z: torch.Tensor, K: int, out_dtype: torch.dtype,
+                    scale: float, shift: int, mean: float,
+                    dc: torch.Tensor, ridge_deg: torch.Tensor):
+    """Dequantize and center the raw int32 sums of the kernel layout (JAX
+    :904, its ``pre_transposed`` branch, without the alpha fold: the
+    float64 caller multiplies by alpha after it): Pt [C, n] and b [K, n]
+    in ``out_dtype``, b = s BVf + (s m - mean) PMf[C:], the ridge on Pt's
+    diagonal rows."""
+    C = PM.shape[0] - K
+    PMf = PM.to(out_dtype) * s_yz.to(out_dtype)[:, None]
+    BVf = BV.to(out_dtype) * s_z.to(out_dtype)[:, None]
+    c1, c0 = _b_consts(scale, shift, mean, out_dtype, PM.device)
+    b = c1 * BVf + c0 * PMf[C:]
+    Pt = PMf[:C]
+    _add_ridge(Pt, s_yz[:C], K, ridge_deg, dc)
+    return Pt, b
+
+
+def fused_gram_contrib_i8(store: Dict[str, object], tri,
+                          partner: torch.Tensor, mode: int,
+                          alpha: torch.Tensor, out_dtype: torch.dtype,
+                          mean: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One focus mode's alpha-folded fused contribution in the packed
+    samplers' transposed layout (JAX :978, ``packed=transposed=True``):
+    P [C, n_f] (PD ridge included) and b [K, n_f], n_f the true focus
+    count.  ``store`` is ``build_fused_store``'s, ``tri`` = ``tri_index(K)``,
+    ``partner`` the other entity's factors [N_partner, K].
+
+    float32 takes K8's dequant epilogue with the alpha-folded scales
+    (:1008-1049); float64 takes the raw int32 sums, the finish and then
+    the alpha multiply (:1050-1070), as the JAX package does."""
+    V8 = store["V8"]
+    n_f = store["shape"][mode]
+    K = partner.shape[1]
+    C = K * (K + 1) // 2
+    dc = tri[2]
+    deg = store["deg"][mode][:n_f]
+    scale, shift = store["scale"], store["shift"]
+    YZ8T, _, s_yz, s_z = fused_quantize(partner, pad_rows=V8.shape[1 - mode])
+    if out_dtype == torch.float32:
+        af = alpha.to(torch.float32)
+        syz_e, sz_e = s_yz * af, s_z * af
+        Pt, PMm, BVf = fused_pair_contract_i8(V8, YZ8T, mode, K, n_f,
+                                              dq=(syz_e, sz_e))
+        c1, c0 = _b_consts(scale, shift, mean, out_dtype, V8.device)
+        b = c1 * BVf + c0 * PMm
+        _add_ridge(Pt, syz_e[:C], K, deg, dc)
+        return Pt, b
+    PM, BV = fused_pair_contract_i8(V8, YZ8T, mode, K, n_f)
+    Pt, b = fused_finish_i8(PM, BV, s_yz, s_z, K, out_dtype, scale, shift,
+                            mean, dc, deg)
+    alpha = alpha.to(out_dtype)
+    return alpha * Pt, alpha * b

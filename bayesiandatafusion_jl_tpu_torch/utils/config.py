@@ -26,7 +26,6 @@ UNPORTED_FIELDS = {
                      "dual_refine", "cg_tol", "cg_maxiter",
                      "cg_nystrom_rank"), "M8"),
     **dict.fromkeys(("alpha_a0", "alpha_b0"), "M7"),
-    **dict.fromkeys(("dense_fused", "dense_fused_tol"), "M9"),
     **dict.fromkeys(("metrics_every", "sweeps_per_dispatch", "trace_dir"),
                     "M4"),
     **dict.fromkeys(("log_file", "output_prefix", "checkpoint_every",
@@ -65,6 +64,17 @@ class MacauConfig:
     # the int8 pair store; False (the float pair) is ROADMAP M3.  The
     # gather path does not read it.
     dense_int8: bool = True
+    # the fused sparse regime (ops/dense_gram.py, second half): one stored
+    # int8 value array V8 instead of the pair, the mask derived on the fly.
+    # True = wherever ``fused_pair_plan`` encodes the relation (the int8
+    # pair otherwise); None or False = the int8 pair.  The JAX package's
+    # None is an auto rule on a TPU HBM budget (``dense_gram_budget_gb``);
+    # the port has no H100 planner yet (ROADMAP M6), as for ``dense_gram``.
+    dense_fused: Optional[bool] = None
+    # bounded-error grids for continuous values: admit the finest uniform
+    # int8 grid whose rounding error s/2 <= dense_fused_tol (None = exact
+    # grids only); the JAX package's contract (``fused_pair_plan``)
+    dense_fused_tol: Optional[float] = None
 
     # --- gather path ---
     # partner gather/contraction dtype: None = compute dtype; "bfloat16"

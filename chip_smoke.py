@@ -14,7 +14,10 @@ Phases, each fatal on failure (nonzero exit, no result line):
    (packed column-slab, 32 < K <= 96), K3 (full P, K <= 32, with and
    without Lambda), K4 (full-P column-slab, 32 < K <= 96), K5 (panel
    factor-inverse, K <= 64) and the blocked K = 128 sampler built on K5
-   against ``torch.linalg``;
+   against ``torch.linalg``; K7 (the quantized partner table) and K8 (the
+   masked-pair contraction, both focus modes, raw int32 and the dequant
+   epilogue) bit for bit against their plain versions, K7 at the Netflix
+   and ML-10M shapes, K8 on small ragged stores;
 4. int8 contraction: ``torch._int_mm`` equals a float64 matmul of the same
    codes exactly, at ML-10M shapes;
 5. main paths: ML-10M-shaped synthetic BPMF (71,567 x 10,681, 10,000,054
@@ -27,10 +30,21 @@ Phases, each fatal on failure (nonzero exit, no result line):
      and at K = 32 with "planned".  Every sweep must sample both entities
      through K3 (K = 32) or K4 (K = 64); each path also reports a
      ``torch.profiler`` split of a few sweeps and whether two runs of the
-     same seed give the same U.
+     same seed give the same U;
+   - the fused path (``dense_fused=True``) at K = 32 and 64, one timed
+     window of 40 sweeps: K7 and K8 twice a sweep and the packed sampler
+     (K1, K2), K8 held bitwise against its plain version on the path's
+     own store;
+6. the Netflix fused path at full width: the JAX bench's Netflix-shaped
+   ratings (480,189 x 17,770, 100,480,507 stars 1..5, seed 9), K = 32,
+   one stored 8.5 GB int8 array, the JAX bench's protocol (8 sweeps a
+   window, 3 timed windows): K8 and K7 twice a sweep, K1 for both
+   entities, rmse_sample@8 in the JAX chain's band; a ``torch.profiler``
+   split; K8 bitwise against its plain version at this shape in both
+   modes, and the library's ``torch._int_mm`` on the materialized mask.
    On every path the plain versions and the other paths' kernels must not
    run, and the RMSEs must lie in the JAX chain's bands where the JAX
-   package has one.
+   package has one.  Each phase prints its seconds.
 
 The last lines are the card's ``nvidia-smi`` name and power limit, a JSON
 object describing the kernels (with each one's bound on this card) and
@@ -65,10 +79,20 @@ BENCH_WIDTHS = (8, 12, 16, 20, 24, 28, 32, 40, 48, 56, 64, 80, 96, 112, 128,
                 160, 192, 224, 256, 320, 384, 512, 768, 1024, 2048)
 KERNEL_ERR_FACTOR = 10.0     # kernel error <= 10x the f32 plain version's
 F64_KERNEL_TOL = 1e-9        # float64 kernel vs float64 plain version
-# H100 SXM peaks (NVIDIA's data sheet, at 700 W): HBM bytes/s and float32
-# FLOP/s outside the tensor cores, for the kernels' bounds
+# H100 SXM peaks (NVIDIA's data sheet, at 700 W): HBM bytes/s, float32
+# FLOP/s outside the tensor cores and dense int8 tensor-core OP/s, for the
+# kernels' bounds
 HBM_BYTES_S = 3.35e12
 F32_FLOP_S = 67e12
+INT8_OP_S = 1979e12
+# The fused sparse regime on the JAX bench's netflix data (bench.py:329-421,
+# seed 9): rmse_sample after 8 sweeps of the JAX chain
+# (docs/BENCH_R5_RUNS.md:29), a chain-noise band as for ML-10M
+NETFLIX_ANCHOR = 0.7055
+NETFLIX_SWEEPS, NETFLIX_WINDOWS = 8, 3
+# ML-10M through the fused path: one timed window of 40 sweeps at K = 32
+# and 64, held to the int8 pair's @40 anchors
+FUSED_ML_PATHS = (32, 64)
 
 
 def require(cond, what):
@@ -219,10 +243,45 @@ def chol_inv_bound(K, B):
     return 4 * B * (K * (K + 1) // 2 + K * K), B * (2 * K ** 3 / 3)
 
 
-def bound_ms(nbytes, flop):
+def ytab_bound(n, K):
+    """(bytes, operations) of K7 on n partner rows: read U twice (one pass
+    each), write the [C + K, n] int8 codes once; ~10 operations a cell
+    (product, |.|, max, divide, round, clip) on the float32 units."""
+    ck = K * (K + 1) // 2 + K
+    return 2 * 4 * n * K + ck * n, 10 * ck * n
+
+
+def fused_pair_bound(shape, stored, K, focus, nnz):
+    """(bytes, int8 operations) of K8's function for one focus mode: read
+    the stored V8 and the partner table once, write the float32 dq outputs
+    once (C + 2K rows of the focus count); a multiply-add into each of the
+    C + 2K outputs for each of the ``nnz`` observed cells, the work this
+    data needs (the zero cells add nothing)."""
+    C = K * (K + 1) // 2
+    nf = shape[focus]
+    n_contract = stored[1 - focus]
+    nbytes = stored[0] * stored[1] + (C + K) * n_contract + 4 * (C + 2 * K) * nf
+    return nbytes, 2 * nnz * (C + 2 * K)
+
+
+def fused_pair_dense_ops(shape, K):
+    """The int8 operations of K8's design, which multiplies every cell of
+    the true extent, observed or not, on the tensor cores: 2 n0 n1 (C + 2K)."""
+    return 2 * shape[0] * shape[1] * (K * (K + 1) // 2 + 2 * K)
+
+
+def count_observed(V8, rows=16_384):
+    """The nonzero cells of V8, counted a block of rows at a time."""
+    import torch
+    return sum(int(torch.count_nonzero(V8[r:r + rows]).item())
+               for r in range(0, V8.shape[0], rows))
+
+
+def bound_ms(nbytes, flop, rate=F32_FLOP_S):
     """The least time on the card: the larger of bytes over the HBM rate
-    and FLOP over the float32 rate; and which of the two it is."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_S, flop / F32_FLOP_S
+    and operations over ``rate`` (float32 by default); and which of the two
+    it is."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_S, flop / rate
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -274,6 +333,110 @@ def check_blocked(K, B, timing=True, seed=0, jitter=0.25):
     return r
 
 
+def check_ytab(n, K, n_valid=None, timing=True, seed=0):
+    """K7 against its plain version on random factors U [n, K] (float32),
+    bit for bit: codes (rows padded to a multiple of 16, as the engine asks)
+    and scales."""
+    import torch
+    from bayesiandatafusion_jl_tpu_torch.ops.ytab import (
+        ytab_quantize, ytab_quantize_plain)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    U = torch.randn((n, K), generator=g, device="cuda")
+    rows = -(-n // 16) * 16
+    kern, s_k = ytab_quantize(U, n_valid, rows)
+    plain, s_p = ytab_quantize_plain(U, n_valid, rows)
+    torch.cuda.synchronize()
+    diff = max((kern.int() - plain.int()).abs().max().item(),
+               (s_k - s_p).abs().max().item())
+    r = {"n": n, "K": K, "n_valid": n_valid, "max_abs_err": diff,
+         "ok": bool(torch.equal(kern, plain) and torch.equal(s_k, s_p))}
+    if timing:
+        r["kernel_ms"] = cuda_ms(lambda: ytab_quantize(U, n_valid, rows), 20)
+        r["plain_ms"] = cuda_ms(
+            lambda: ytab_quantize_plain(U, n_valid, rows), 5)
+    return r
+
+
+def random_store(true, seed=0, density=0.1):
+    """A random fused store: V8 int8 codes in -5..5 on the true extent
+    (zero-padded to multiples of 16), as ``build_fused_store`` lays it
+    out."""
+    import torch
+    from bayesiandatafusion_jl_tpu_torch.ops.dense_gram import STORE_ALIGN
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    stored = [-(-d // STORE_ALIGN) * STORE_ALIGN for d in true]
+    V8 = torch.zeros(stored, dtype=torch.int8, device="cuda")
+    obs = torch.rand(true, generator=g, device="cuda") < density
+    codes = torch.randint(-5, 6, true, generator=g, device="cuda")
+    V8[:true[0], :true[1]] = (codes * obs).to(torch.int8)
+    return V8
+
+
+def check_fused_pair(V8, shape, K, focus, timing=True, seed=0):
+    """K8 against its plain version on the stored V8 (true extents
+    ``shape``) for one focus mode, the partner table K7's codes of random
+    factors and random dequant scales, bit for bit in both epilogues (the
+    int32 sums are exact and both sides convert and multiply them the same
+    way)."""
+    import torch
+    from bayesiandatafusion_jl_tpu_torch.ops.fused_pair import (
+        fused_pair_contract, fused_pair_plain)
+    from bayesiandatafusion_jl_tpu_torch.ops.ytab import ytab_quantize
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    n_contract = V8.shape[1 - focus]
+    nf = shape[focus]
+    U = torch.randn((shape[1 - focus], K), generator=g, device="cuda")
+    YZ8T, s = ytab_quantize(U, out_rows=n_contract)
+    dq = (s * 2.5, s[-K:] * 2.5)
+    raw_k = fused_pair_contract(V8, YZ8T, focus, K, nf)
+    raw_p = fused_pair_plain(V8, YZ8T, focus, K, nf)
+    dq_k = fused_pair_contract(V8, YZ8T, focus, K, nf, dq=dq)
+    dq_p = fused_pair_plain(V8, YZ8T, focus, K, nf, dq=dq)
+    torch.cuda.synchronize()
+    pairs = list(zip(raw_k, raw_p)) + list(zip(dq_k, dq_p))
+    err = max((a.double() - b.double()).abs().max().item() for a, b in pairs)
+    r = {"shape": tuple(shape), "K": K, "focus": focus, "max_abs_err": err,
+         "ok": all(torch.equal(a, b) for a, b in pairs)}
+    del raw_k, raw_p, dq_k, dq_p, pairs
+    if timing:
+        r["raw_ms"] = cuda_ms(
+            lambda: fused_pair_contract(V8, YZ8T, focus, K, nf), 10)
+        r["kernel_ms"] = cuda_ms(
+            lambda: fused_pair_contract(V8, YZ8T, focus, K, nf, dq=dq), 10)
+        r["plain_ms"] = cuda_ms(
+            lambda: fused_pair_plain(V8, YZ8T, focus, K, nf, dq=dq), 2)
+        b = fused_pair_bound(shape, V8.shape, K, focus, count_observed(V8))
+        r["bound_ms"], r["bound_by"] = bound_ms(*b, rate=INT8_OP_S)
+        dense = fused_pair_dense_ops(shape, K)
+        r["dense_bound_ms"] = dense / INT8_OP_S * 1e3
+        r["tops"] = dense / r["kernel_ms"] * 1e-9
+    return r
+
+
+def time_int8_library(V8, K, seed=0):
+    """The library's time for K8's mode-0 function: ``torch._int_mm`` of
+    the materialized 0/1 mask against the partner table and of V8 against
+    the factor codes (two calls; the mask's materialization is not
+    timed), and whether its int32 sums equal the kernel's."""
+    import torch
+    from bayesiandatafusion_jl_tpu_torch.ops.fused_pair import \
+        fused_pair_contract
+    from bayesiandatafusion_jl_tpu_torch.ops.ytab import ytab_quantize
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    U = torch.randn((V8.shape[1], K), generator=g, device="cuda")
+    YZ8T, _ = ytab_quantize(U, out_rows=V8.shape[1])
+    Z8T = YZ8T[-K:]
+    mask = (V8 != 0).to(torch.int8)
+
+    def lib():
+        return torch._int_mm(mask, YZ8T.mT), torch._int_mm(V8, Z8T.mT)
+    ms = cuda_ms(lib, 5)
+    pm, bv = lib()
+    PM, BV = fused_pair_contract(V8, YZ8T, 0, K, V8.shape[0])
+    same = bool(torch.equal(pm.mT, PM) and torch.equal(bv.mT, BV))
+    return ms, same
+
+
 def check_int8_contraction(n_rows=2048, K=32, seed=1):
     """torch._int_mm's int32 products equal float64 matmuls of the same
     int8 codes exactly, for a block of rows of each mode at ML-10M shapes
@@ -299,15 +462,20 @@ def counters():
     """(function, attribute) of each kernel wrapper's launch count and each
     plain version's call count, by name."""
     from bayesiandatafusion_jl_tpu_torch.ops import (chol_blocked, chol_full,
-                                                     chol_packed)
+                                                     chol_packed, fused_pair,
+                                                     ytab)
     return {"K1": (chol_packed.chol_sample_packed, "launches"),
             "K2": (chol_packed.chol_sample_packed_tiled, "launches"),
             "K3": (chol_full.chol_sample_full, "launches"),
             "K4": (chol_full.chol_sample_full_tiled, "launches"),
             "K5": (chol_blocked.chol_inv, "launches"),
+            "K7": (ytab.ytab_quantize, "launches"),
+            "K8": (fused_pair.fused_pair_contract, "launches"),
             "plain_packed": (chol_packed.chol_sample_packed_plain, "calls"),
             "plain_full": (chol_full.chol_sample_full_plain, "calls"),
-            "plain_inv": (chol_blocked.chol_inv_plain, "calls")}
+            "plain_inv": (chol_blocked.chol_inv_plain, "calls"),
+            "plain_ytab": (ytab.ytab_quantize_plain, "calls"),
+            "plain_fused": (fused_pair.fused_pair_plain, "calls")}
 
 
 def read_counts():
@@ -337,23 +505,22 @@ def time_int8_products(pair, K):
               flush=True)
 
 
-def path_kernel(K, gather):
-    """(counter, launches per sweep) of the sampler a path must run."""
-    if gather and K <= 32:
-        return "K3", 2
+def path_kernels(K, gather, fused):
+    """{counter: launches per sweep} of the kernels a path must run: its
+    sampler, and on the fused path K7 and K8 once per mode."""
     if gather and K <= 96:
-        return "K4", 2
-    if K <= 32:
-        return "K1", 2
-    if K <= 96:
-        return "K2", 2
-    return "K5", 4
+        return {"K3" if K <= 32 else "K4": 2}
+    want = {"K1": 2} if K <= 32 else {"K2": 2} if K <= 96 else {"K5": 4}
+    if fused:
+        want.update(K7=2, K8=2)
+    return want
 
 
-def run_path(rd, K, sweeps, repeats, anchor_s, anchor_avg, **opts):
-    """One main path: the ML-10M benchmark protocol at rank K (``opts``
-    select the gather path), with the kernels' counts set to 0 just before
-    it and read just after."""
+def run_path(rd, K, sweeps, repeats, anchor_s, anchor_avg, name="ML-10M",
+             **opts):
+    """One main path: the benchmark protocol at rank K (``opts`` select the
+    gather or the fused path), with the kernels' counts set to 0 just
+    before it and read just after."""
     import torch
     from bayesiandatafusion_jl_tpu_torch.models.engine import MacauEngine
     from bayesiandatafusion_jl_tpu_torch.utils.config import MacauConfig
@@ -361,34 +528,47 @@ def run_path(rd, K, sweeps, repeats, anchor_s, anchor_avg, **opts):
                       clamp=(1.0, 5.0), verbose=False, dtype="float32",
                       seed=42, **opts)
     gather = cfg.dense_gram is False
-    label = (f"gather {cfg.accumulation} K={K}" if gather
-             else f"int8 pair K={K}")
+    fused = bool(cfg.dense_fused)
+    label = name + " " + (f"gather {cfg.accumulation} K={K}" if gather
+                          else f"fused K={K}" if fused
+                          else f"int8 pair K={K}")
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     eng = MacauEngine(rd, cfg, device="cuda")
     build_s = time.perf_counter() - t0
+    prob = eng.problem
+    require(fused == (prob.fused is not None),
+            f"{label}: the fused store was {'not ' if fused else ''}built")
     zero_counts()
+    t0 = time.perf_counter()
     out = eng.benchmark(sweeps, repeats=repeats)
+    bench_s = time.perf_counter() - t0
     counts = read_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     m = out["metrics"]
     wins = out["ms_per_sweep"]
     med = sorted(wins)[len(wins) // 2]
-    n_rows = sum(es.n for es in eng.problem.entity_specs)
-    prob = eng.problem
-    built = (f"layout {prob.layout_seconds:.1f} s, padded nnz per mode "
-             f"{prob.padded_nnz}" if gather
-             else f"pair store {prob.build_seconds:.1f} s")
+    n_rows = sum(es.n for es in prob.entity_specs)
+    if gather:
+        built = (f"layout {prob.layout_seconds:.1f} s, padded nnz per mode "
+                 f"{prob.padded_nnz}")
+    elif fused:
+        built = (f"fused_pair_plan {prob.plan_seconds:.1f} s, V8 build "
+                 f"{prob.build_seconds - prob.plan_seconds:.1f} s, V8 "
+                 f"{tuple(prob.fused['V8'].shape)}")
+    else:
+        built = f"pair store {prob.build_seconds:.1f} s"
     print(f"# path {label}: ms/sweep per window {wins}, median {med:.3f}; "
           f"rows/s {n_rows / med * 1e3:.1f}; rmse_sample@{sweeps} "
           f"{out['rmse_at_sweeps']:.4f}; rmse_avg {m['r0.rmse_avg']:.4f}; "
           f"peak memory {peak_gb:.2f} GB; counts {counts}; engine build "
-          f"{build_s:.1f} s ({built})", flush=True)
+          f"{build_s:.1f} s ({built}); benchmark {bench_s:.1f} s with its "
+          f"warm window", flush=True)
     total_sweeps = sweeps * (repeats + 1)
-    tag, per_sweep = path_kernel(K, gather)
     want = {k: 0 for k in counts}
-    want[tag] = per_sweep * total_sweeps
+    for tag, per_sweep in path_kernels(K, gather, fused).items():
+        want[tag] = per_sweep * total_sweeps
     require(counts == want, f"{label}: counts {counts} for {total_sweeps} "
                             f"sweeps, want {want}")
     vals = [*wins, out["rmse_at_sweeps"], *m.values()]
@@ -412,9 +592,18 @@ SPLIT = (("sampler", ("chol_sample", "chol_inv")),
          ("bmm", ("gemm", "gemv", "cutlass", "xmma", "sm90_")))
 
 
-def profile_split(eng, warm=2, sweeps=3):
-    """Device milliseconds per sweep by part of the sweep (SPLIT, the rest
-    under "rest"), the device idle share and the largest kernels, from a
+# ... and of a fused sweep: K8 per focus mode (the demangled or mangled
+# template argument), K7, the packed sampler
+FUSED_SPLIT = (("K8 mode 0", ("fused_pair_kernel<0", "fused_pair_kernelILi0")),
+               ("K8 mode 1", ("fused_pair_kernel<1", "fused_pair_kernelILi1")),
+               ("K7", ("ytab_",)),
+               ("K1/K2", ("chol_sample_packed",)))
+
+
+def profile_split(eng, warm=2, sweeps=3, split=SPLIT):
+    """Device milliseconds per sweep by part of the sweep (``split``, the
+    rest under "rest"), the device idle share and the largest kernels (ms
+    per sweep, and launches in the trace, to show a lost event), from a
     ``torch.profiler`` trace of ``sweeps`` sweeps after ``warm``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -422,30 +611,32 @@ def profile_split(eng, warm=2, sweeps=3):
     for s in range(warm):
         state, _ = eng._sweep(state, s, 0.0)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
         t0 = time.perf_counter()
         for s in range(warm, warm + sweeps):
             state, _ = eng._sweep(state, s, 0.0)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    by_name = {}
+    by_name, launches = {}, {}
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             by_name[e.name] = (by_name.get(e.name, 0.0)
                                + e.time_range.elapsed_us() / 1e3)
-    split = {part: 0.0 for part, _ in SPLIT}
-    split["rest"] = 0.0
+            launches[e.name] = launches.get(e.name, 0) + 1
+    parts = {part: 0.0 for part, _ in split}
+    parts["rest"] = 0.0
     for name, ms in by_name.items():
-        part = next((p for p, frags in SPLIT
+        part = next((p for p, frags in split
                      if any(f in name for f in frags)), "rest")
-        split[part] += ms / sweeps
+        parts[part] += ms / sweeps
+    split = parts
     device_ms = sum(split.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     return {"split_ms": split, "device_ms": device_ms,
             "wall_ms": wall_ms / sweeps,
             "idle": 1.0 - device_ms * sweeps / wall_ms,
-            "top": [(n[:60], ms / sweeps) for n, ms in top]}
+            "top": [(n[:60], ms / sweeps, launches[n]) for n, ms in top]}
 
 
 def time_gathers(eng, K):
@@ -476,20 +667,28 @@ def same_seed_runs(eng, sweeps=3):
 
 
 def main() -> int:
+    import numpy as np
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     from bayesiandatafusion_jl_tpu_torch import kernels
     from bayesiandatafusion_jl_tpu_torch.models.data import RelationData
-    from bayesiandatafusion_jl_tpu_torch.models.datasets import \
-        load_movielens
+    from bayesiandatafusion_jl_tpu_torch.models.datasets import (
+        load_movielens, netflix_synthetic)
 
     torch.cuda.set_device(0)
     torch.backends.cuda.matmul.allow_tf32 = False
     card = nvidia_smi_line()
     print(f"# device: {torch.cuda.get_device_name(0)} | {card} | torch "
-          f"{torch.__version__} cuda {torch.version.cuda}", flush=True)
+          f"{torch.__version__} cuda {torch.version.cuda} | numpy "
+          f"{np.__version__} | {os.cpu_count()} CPUs", flush=True)
+    clock = [time.perf_counter()]
+
+    def phase_done(name):
+        now = time.perf_counter()
+        print(f"# phase {name}: {now - clock[0]:.1f} s", flush=True)
+        clock[0] = now
 
     # -- build --------------------------------------------------------------
     if os.path.exists(kernels.LIB_PATH):
@@ -501,11 +700,13 @@ def main() -> int:
     for line in rep["log"].splitlines():
         if "registers" in line or "spill" in line or "Compiling" in line:
             print(f"#   {line.strip()}")
+    phase_done("build")
 
     # -- kernels vs plain ---------------------------------------------------
     checks = {}
     for tag, fn, shapes in (
             ("K1", check_chol_kernel, ((32, 71_567), (32, 10_681),
+                                       (32, 480_189), (32, 17_770),
                                        (8, 1_000))),
             ("K2", check_chol_kernel, ((64, 71_567), (64, 10_681),
                                        (96, 71_567), (40, 1_000))),
@@ -526,6 +727,26 @@ def main() -> int:
                   f"ms, plain {r['plain_ms']:.4f} ms", flush=True)
             require(r["ok"], f"{tag} disagrees with its plain version: {r}")
             torch.cuda.empty_cache()
+    for n, K, n_valid in ((480_189, 32, None), (17_770, 32, None),
+                          (71_567, 32, None), (10_681, 32, None),
+                          (71_567, 64, None), (10_681, 64, None),
+                          (1_001, 36, 900)):
+        r = check_ytab(n, K, n_valid)
+        checks[("K7", K, n)] = r
+        print(f"# K7 n={n} K={K} n_valid={n_valid}: bitwise {r['ok']} "
+              f"(max diff {r['max_abs_err']}); kernel {r['kernel_ms']:.4f} "
+              f"ms, plain {r['plain_ms']:.4f} ms, bound "
+              f"{bound_ms(*ytab_bound(n, K))[0]:.4f} ms", flush=True)
+        require(r["ok"], f"K7 disagrees with its plain version: {r}")
+        torch.cuda.empty_cache()
+    for true, K in (((1_000, 777), 32), ((300, 2_000), 8), ((129, 257), 36)):
+        V8 = random_store(true, seed=K)
+        for focus in (0, 1):
+            r = check_fused_pair(V8, true, K, focus)
+            print_fused_check("small ragged", r)
+            require(r["ok"], f"K8 disagrees with its plain version: {r}")
+        del V8
+    phase_done("kernels vs plain")
 
     # -- int8 contraction ----------------------------------------------------
     exact = check_int8_contraction()
@@ -533,35 +754,34 @@ def main() -> int:
     require(all(exact), "torch._int_mm is not exact")
 
     # -- main paths ----------------------------------------------------------
-    t0 = time.perf_counter()
     df = load_movielens("10m", seed=0)
     rd = RelationData.from_indexed_df(df, relation_name="ratings")
     rd.assign_to_test(0, min(100_000, df.nnz // 10), seed=7)
-    print(f"# data: {time.perf_counter() - t0:.1f} s (nnz={df.nnz}, "
-          f"shape={df.shape})", flush=True)
-    launches = dict.fromkeys(("K1", "K2", "K3", "K4", "K5"), 0)
+    print(f"# data: nnz={df.nnz}, shape={df.shape}", flush=True)
+    phase_done("ML-10M data")
+    launches = dict.fromkeys(("K1", "K2", "K3", "K4", "K5", "K7", "K8"), 0)
+
+    def tally(counts):
+        for k in launches:
+            launches[k] += counts[k]
+
     for K, (sweeps, repeats, anchor_s, anchor_avg) in PATHS.items():
         eng, counts = run_path(rd, K, sweeps, repeats, anchor_s, anchor_avg,
                                dense_int8=True)
-        for k in launches:
-            launches[k] += counts[k]
+        tally(counts)
         if K == 32:
             time_int8_products(eng.problem.pair, K)
         del eng
+    phase_done("ML-10M int8 pair paths")
     for K, acc, sweeps, repeats in GATHER_PATHS:
         anchor_s, anchor_avg = PATHS[K][2:]
         eng, counts = run_path(rd, K, sweeps, repeats, anchor_s, anchor_avg,
                                dense_gram=False, gram_dtype="bfloat16",
                                bucket_widths=BENCH_WIDTHS, row_pad=8,
                                accumulation=acc)
-        for k in launches:
-            launches[k] += counts[k]
+        tally(counts)
         prof = profile_split(eng)
-        print(f"# profile gather {acc} K={K}: device ms/sweep "
-              f"{prof['device_ms']:.3f} of {prof['wall_ms']:.3f} wall, idle "
-              f"{prof['idle']:.1%}; split "
-              f"{ {k: round(v, 3) for k, v in prof['split_ms'].items()} }; "
-              f"top kernels {prof['top']}", flush=True)
+        print_profile(f"gather {acc} K={K}", prof)
         for mode, (n, ms) in enumerate(time_gathers(eng, K)):
             print(f"# gather alone, gather {acc} K={K} mode {mode}: {n} "
                   f"rows in {ms:.3f} ms ({n / ms * 1e3:.4g} rows/s)",
@@ -571,6 +791,58 @@ def main() -> int:
               f"{same}, max |diff| {diff:.3e}", flush=True)
         require(math.isfinite(diff), f"gather {acc} K={K}: non-finite U")
         del eng
+    phase_done("ML-10M gather paths")
+    for K in FUSED_ML_PATHS:
+        eng, counts = run_path(rd, K, 40, 1, PATHS[K][2], None,
+                               dense_fused=True)
+        tally(counts)
+        st = eng.problem.fused
+        for focus in (0, 1):
+            r = check_fused_pair(st["V8"], st["shape"], K, focus)
+            print_fused_check("ML-10M", r)
+            require(r["ok"], f"K8 disagrees with its plain version: {r}")
+        if K == 32:
+            same, diff = same_seed_runs(eng)
+            print(f"# same seed twice, fused K={K}: U bitwise equal {same}, "
+                  f"max |diff| {diff:.3e}", flush=True)
+            require(math.isfinite(diff), f"fused K={K}: non-finite U")
+        del eng, st
+    del rd, df
+    phase_done("ML-10M fused paths")
+
+    # -- the Netflix fused path, full width ---------------------------------
+    t0 = time.perf_counter()
+    df = netflix_synthetic()
+    gen_s = time.perf_counter() - t0
+    rd = RelationData.from_indexed_df(df, relation_name="ratings")
+    rd.assign_to_test(0, 100_000, seed=7)
+    print(f"# netflix data: generation {gen_s:.1f} s, with the test split "
+          f"{time.perf_counter() - t0:.1f} s (nnz={df.nnz}, shape={df.shape})",
+          flush=True)
+    del df
+    phase_done("Netflix data")
+    eng, counts = run_path(rd, 32, NETFLIX_SWEEPS, NETFLIX_WINDOWS,
+                           NETFLIX_ANCHOR, None, name="Netflix",
+                           dense_fused=True, dense_int8=True)
+    tally(counts)
+    phase_done("Netflix path")
+    prof = profile_split(eng, split=FUSED_SPLIT)
+    print_profile("Netflix fused K=32", prof)
+    st = eng.problem.fused
+    nf_checks = []
+    for focus in (0, 1):
+        r = check_fused_pair(st["V8"], st["shape"], 32, focus)
+        print_fused_check("Netflix", r)
+        require(r["ok"], f"K8 disagrees with its plain version: {r}")
+        nf_checks.append(r)
+        torch.cuda.empty_cache()
+    lib_ms, lib_same = time_int8_library(st["V8"], 32)
+    print(f"# library, Netflix mode 0: torch._int_mm of the materialized "
+          f"mask and of V8 (materialization not timed) {lib_ms:.3f} ms; "
+          f"int32 sums equal K8's: {lib_same}", flush=True)
+    require(lib_same, "torch._int_mm and K8 disagree")
+    del eng, st, rd
+    phase_done("Netflix kernels")
 
     src = "bayesiandatafusion_jl_tpu_torch/csrc/"
     jax_src = "bayesiandatafusion_jl_tpu/ops/pallas_chol.py:"
@@ -594,6 +866,23 @@ def main() -> int:
                      "max_abs_err": r["kernel_err"], "ms": r["kernel_ms"],
                      "plain_ms": r["plain_ms"], "bound_ms": b_ms,
                      "bound_by": b_by, "library_ms": None})
+    r = checks[("K7", 32, 480_189)]
+    b_ms, b_by = bound_ms(*ytab_bound(480_189, 32))
+    rows.append({"name": "ytab_quantize", "route": "cuda",
+                 "source": src + "ytab_quantize.cu",
+                 "replaces": "bayesiandatafusion_jl_tpu/ops/pallas_ytab.py:125",
+                 "launches": launches["K7"], "max_abs_err": r["max_abs_err"],
+                 "ms": r["kernel_ms"], "plain_ms": r["plain_ms"],
+                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
+    r = nf_checks[0]
+    rows.append({"name": "fused_pair_i8", "route": "cuda",
+                 "source": src + "fused_pair_i8.cu",
+                 "replaces": "bayesiandatafusion_jl_tpu/ops/pallas_fused.py:345",
+                 "launches": launches["K8"], "max_abs_err": r["max_abs_err"],
+                 "ms": r["kernel_ms"], "plain_ms": r["plain_ms"],
+                 "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                 "library_ms": lib_ms})
+    print(f"# total: {time.perf_counter() - T_START:.1f} s", flush=True)
     print(nvidia_smi_line())
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
@@ -601,6 +890,27 @@ def main() -> int:
         "count": torch.cuda.device_count()}}))
     return 0
 
+
+def print_profile(label, prof):
+    print(f"# profile {label}: device ms/sweep {prof['device_ms']:.3f} of "
+          f"{prof['wall_ms']:.3f} wall, idle {prof['idle']:.1%}; split "
+          f"{ {k: round(v, 3) for k, v in prof['split_ms'].items()} }; "
+          f"top kernels {prof['top']}", flush=True)
+
+
+def print_fused_check(label, r):
+    line = (f"# K8 {label} {r['shape']} K={r['K']} focus {r['focus']}: "
+            f"bitwise {r['ok']} (max diff {r['max_abs_err']})")
+    if "kernel_ms" in r:
+        line += (f"; dq {r['kernel_ms']:.4f} ms ({r['tops']:.1f} dense "
+                 f"TOP/s), raw {r['raw_ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
+                 f"{r['bound_ms']:.4f} ms ({r['bound_by']}); the dense-MMA "
+                 f"design's floor {r['dense_bound_ms']:.4f} ms (every cell "
+                 f"at the int8 peak)")
+    print(line, flush=True)
+
+
+T_START = time.perf_counter()
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -17,6 +17,7 @@ from bayesiandatafusion_jl_tpu.models import engine as jax_engine_mod
 from bayesiandatafusion_jl_tpu.models.datasets import \
     synthetic_ratings as jax_synthetic_ratings
 from bayesiandatafusion_jl_tpu.models.engine import MacauEngine
+from bayesiandatafusion_jl_tpu.ops import dense_gram as jax_dense_gram
 from bayesiandatafusion_jl_tpu.ops import pallas_chol as jax_pallas_chol
 from bayesiandatafusion_jl_tpu.ops.hyper import \
     normal_wishart_update as jax_nw_update
@@ -26,7 +27,8 @@ import bayesiandatafusion_jl_tpu_torch as bt
 from bayesiandatafusion_jl_tpu_torch.models import engine as torch_engine_mod
 from bayesiandatafusion_jl_tpu_torch.models.datasets import synthetic_ratings
 from bayesiandatafusion_jl_tpu_torch.ops import (chol_blocked, chol_full,
-                                                 chol_packed, mvn)
+                                                 chol_packed, fused_pair,
+                                                 mvn, ytab)
 from bayesiandatafusion_jl_tpu_torch.ops import dense_gram as tdg
 from bayesiandatafusion_jl_tpu_torch.ops.hyper import normal_wishart_update
 from bayesiandatafusion_jl_tpu_torch.utils import rng as trng
@@ -95,6 +97,23 @@ def gather_branches(monkeypatch):
         (torch_engine_mod, "chol_sample_dispatch", ("port", "full")),
         (mvn, "chol_sample_full", ("port", "K3")),
         (mvn, "chol_sample_full_tiled", ("port", "K4"))])
+
+
+@pytest.fixture
+def fused_branches(monkeypatch):
+    """Records the fused packed branch of each engine: its fused s8
+    contribution, the JAX engine's masked-pair kernel function (at trace
+    time) and each engine's packed dispatch."""
+    from bayesiandatafusion_jl_tpu.ops import pallas_fused
+    return _spies(monkeypatch, [
+        (jax_dense_gram, "fused_gram_contrib_i8", ("jax", "fused")),
+        (pallas_fused, "fused_pair_pallas", ("jax", "K8")),
+        (jax_pallas_chol, "chol_sample_packed_dispatch", ("jax", "packed")),
+        (jax_engine_mod, "chol_sample_dispatch", ("jax", "full")),
+        (tdg, "fused_gram_contrib_i8", ("port", "fused")),
+        (torch_engine_mod, "chol_sample_packed_dispatch",
+         ("port", "packed")),
+        (torch_engine_mod, "chol_sample_dispatch", ("port", "full"))])
 
 
 def _engines(idx, vals, shape, n_test, dtype, K, seed=5, pallas="on",
@@ -256,6 +275,58 @@ def test_gather_f32_chain_matches_jax_engine(interpret_pallas):
     assert np.isfinite(rt) and abs(rt - rj) < 1e-2, (rt, rj)
 
 
+@pytest.mark.parametrize("K", [8, 36])
+def test_fused_f64_matches_jax_engine(interpret_pallas, xla_cpu_ridge,
+                                      fused_branches, K):
+    """dense_fused=True: both engines store one int8 value array and take
+    the fused packed branch, one s8 contribution per entity (the JAX
+    engine's masked-pair kernel in interpret mode on its block-padded
+    store; the port's K7 and K8 plain versions), then the packed sampler
+    (K1 at K=8, K2 at K=36).  U, mu and Lambda agree to 1e-8 after each
+    of 3 float64 sweeps."""
+    ej, et = _f64_engines(K=K, dense_fused=True)
+    assert ej.problem.fused_i8.get(0) and not ej.problem.fused_keep
+    assert et.problem.fused is not None and et.problem.pair is None
+    calls = (ytab.ytab_quantize_plain.calls,
+             fused_pair.fused_pair_plain.calls)
+    _run_both(ej, et, 3, "float64", _check_f64)
+    assert set(fused_branches) == {("jax", "fused"), ("jax", "K8"),
+                                   ("jax", "packed"), ("port", "fused"),
+                                   ("port", "packed")}
+    assert fused_branches.count(("port", "fused")) == 6
+    assert fused_branches.count(("jax", "fused")) == 2
+    assert (ytab.ytab_quantize_plain.calls,
+            fused_pair.fused_pair_plain.calls) == (calls[0] + 6,
+                                                   calls[1] + 6)
+
+
+def test_fused_f32_chain_matches_pair_chain():
+    """The fused path in float32 against the int8 pair on the same ratings
+    and randoms, 20 sweeps: the two quantize the data differently (exact
+    codes against a per-relation value scale), so only the posterior-mean
+    RMSE is held, to 3e-2."""
+    df = synthetic_ratings(300, 200, 12_000, seed=1)
+    rmse = {}
+    for fused in (False, True):
+        rd = bt.RelationData.from_indexed_df(df)
+        rd.assign_to_test(0, 1_000, seed=7)
+        eng = bt.MacauEngine(rd, bt.MacauConfig(
+            num_latent=8, dtype="float32", seed=5, verbose=False,
+            clamp=(1.0, 5.0), dense_fused=fused), device="cpu")
+        assert (eng.problem.fused is not None) == fused
+        state = eng.init_state()
+        rng = np.random.default_rng(999)
+        for s in range(20):
+            randoms = trng.draw_all_numpy(rng, eng.problem.random_spec,
+                                          np.dtype("float32"))
+            state, m = eng._sweep_with_randoms(
+                state, {k: torch.from_numpy(v) for k, v in randoms.items()},
+                1.0 if s >= 10 else 0.0)
+        rmse[fused] = float(m["r0.rmse_avg"])
+    assert np.isfinite(rmse[True]) and abs(rmse[True] - rmse[False]) < 3e-2, \
+        rmse
+
+
 def test_gather_macau_runs_and_reports():
     """macau() on the gather path, on the CPU: dense_int8 is not read
     there, so dense_int8=False is accepted; the layout is recorded."""
@@ -359,21 +430,27 @@ def test_macau_runs_and_reports():
     assert np.isfinite(out["rmse_at_sweeps"])
 
 
-@pytest.mark.parametrize("kwargs, item", [
-    (dict(alpha_sample=True), "M7"),
-    (dict(dense_fused_tol=0.01), "M9"),
-    (dict(metrics_every=4), "M4"),
-    (dict(dense_int8=False), "M3"),
-    (dict(dense_fused=True), "M9"),
-    (dict(checkpoint_every=5, checkpoint_path="ck.npz"), "M10"),
-    (dict(output_prefix="out"), "M10"),
-    (dict(log_file="log.jsonl"), "M10"),
+@pytest.mark.parametrize("kwargs, item, dup", [
+    (dict(alpha_sample=True), "M7", 0),
+    (dict(dense_fused=True), "M9", 5),
+    (dict(metrics_every=4), "M4", 0),
+    (dict(dense_int8=False), "M3", 0),
+    (dict(dense_fused=True, num_latent=100), "M9", 0),
+    (dict(checkpoint_every=5, checkpoint_path="ck.npz"), "M10", 0),
+    (dict(output_prefix="out"), "M10", 0),
+    (dict(log_file="log.jsonl"), "M10", 0),
 ])
-def test_unported_options_raise(kwargs, item):
+def test_unported_options_raise(kwargs, item, dup):
     """An option outside the slice raises, naming its ROADMAP item, when
     the config is made (options the port has no field for, dense_int8) or
-    when the engine sees it with the data (alpha sampling, K)."""
+    when the engine sees it with the data (alpha sampling; the fused path
+    with a duplicate-cell residual, ``dup`` repeated observations, or at
+    K > 96)."""
     df = synthetic_ratings(30, 20, 200, seed=0)
+    if dup:
+        df = bt.IndexedDF(np.concatenate([df.idx, df.idx[:dup]]),
+                          np.concatenate([df.vals, df.vals[:dup]]),
+                          df.shape)
     rd = bt.RelationData.from_indexed_df(df)
     with pytest.raises(NotImplementedError, match=item):
         bt.MacauEngine(rd, bt.MacauConfig(
@@ -397,15 +474,16 @@ def test_unported_macau_kwargs_raise(kwargs, item):
 
 def test_config_fields_cover_jax_config():
     """Every JAX config field is ported, listed as unported, or one of the
-    TPU-only knobs the port has no use for; the gather path's fields keep
-    the JAX defaults and validation."""
+    TPU-only knobs the port has no use for; the gather path's and the
+    fused path's fields keep the JAX defaults and validation."""
     jax_f = {f.name for f in dataclasses.fields(MacauConfig)}
     port_f = {f.name for f in dataclasses.fields(bt.MacauConfig)}
     tpu_only = {"pallas", "dense_gram_budget_gb"}
     gather = {"dense_gram", "accumulation", "gram_dtype", "bucket_widths",
               "row_pad"}
-    assert gather <= port_f
-    for name in gather:
+    fused = {"dense_fused", "dense_fused_tol"}
+    assert gather | fused <= port_f
+    for name in gather | fused:
         assert getattr(bt.MacauConfig(), name) == getattr(MacauConfig(),
                                                           name), name
     with pytest.raises(ValueError, match="accumulation"):

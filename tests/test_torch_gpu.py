@@ -11,7 +11,8 @@ import torch
 import bayesiandatafusion_jl_tpu_torch as bt
 from bayesiandatafusion_jl_tpu_torch.models.datasets import synthetic_ratings
 from bayesiandatafusion_jl_tpu_torch.ops import (chol_blocked, chol_full,
-                                                 chol_packed, dense_gram)
+                                                 chol_packed, dense_gram,
+                                                 fused_pair, ytab)
 from bayesiandatafusion_jl_tpu_torch.utils.convert import (state_from_numpy,
                                                            state_to_numpy)
 from bayesiandatafusion_jl_tpu_torch.utils.rng import draw_all_numpy
@@ -66,6 +67,30 @@ def test_blocked_sampler_matches_plain(cuda, K, B):
     assert r["ok"], r
 
 
+@pytest.mark.parametrize("n, K, n_valid", [(17_770, 32, None),
+                                            (1_001, 36, 900), (333, 8, None),
+                                            (4_000, 96, 3_999),
+                                            (71_567, 64, None)])
+def test_ytab_kernel_matches_plain(cuda, n, K, n_valid):
+    """K7 against its plain version, codes and scales bit for bit."""
+    import chip_smoke
+    r = chip_smoke.check_ytab(n, K, n_valid, timing=False)
+    assert r["ok"], r
+
+
+@pytest.mark.parametrize("focus", [0, 1])
+@pytest.mark.parametrize("true, K", [((1_000, 777), 32), ((300, 2_000), 8),
+                                     ((129, 257), 36), ((64, 48), 64),
+                                     ((2_048, 640), 96)])
+def test_fused_pair_kernel_matches_plain(cuda, true, K, focus):
+    """K8 against its plain version on ragged stores, raw int32 and the
+    dq epilogue, bit for bit."""
+    import chip_smoke
+    V8 = chip_smoke.random_store(true, seed=K)
+    r = chip_smoke.check_fused_pair(V8, true, K, focus, timing=False)
+    assert r["ok"], r
+
+
 def test_int8_contraction_exact(cuda):
     import chip_smoke
     assert all(chip_smoke.check_int8_contraction())
@@ -103,6 +128,49 @@ def test_engine_cuda_matches_cpu(cuda, monkeypatch, K, kernel, per_sweep):
             states[dev], _ = engines[dev]._sweep_with_randoms(
                 states[dev], r, 1.0)
     assert kernel.launches == launches + 3 * per_sweep
+    a, b = state_to_numpy(states["cpu"]), state_to_numpy(states["cuda"])
+    for ei in range(2):
+        for key in ("U", "mu", "Lambda"):
+            np.testing.assert_allclose(b["ent"][ei][key], a["ent"][ei][key],
+                                       rtol=1e-9, atol=1e-9)
+
+
+@pytest.mark.parametrize("K", [8, 36])
+def test_fused_engine_cuda_matches_cpu(cuda, monkeypatch, K):
+    """The fused path (dense_fused=True), three float64 sweeps with
+    injected randoms on the card and on the CPU: K7 and K8 launch twice a
+    sweep on the card and their plain versions run only for the CPU
+    engine; the int32 sums are exact, so the chains agree to float64
+    rounding (the ridge's float32 mean summed in one fixed order)."""
+    monkeypatch.setattr(dense_gram, "ridge_step", xla_cpu_ridge_step)
+    df = synthetic_ratings(300, 200, 12_000, seed=3)
+    engines = {}
+    for dev in ("cpu", "cuda"):
+        rd = bt.RelationData.from_indexed_df(df)
+        rd.assign_to_test(0, 1_000, seed=7)
+        cfg = bt.MacauConfig(num_latent=K, dtype="float64", verbose=False,
+                             clamp=(1.0, 5.0), seed=4, dense_fused=True)
+        engines[dev] = bt.MacauEngine(rd, cfg, device=dev)
+        assert engines[dev].problem.fused is not None
+    st = engines["cpu"].init_state()
+    states = {"cpu": st, "cuda": state_from_numpy(state_to_numpy(st), cuda,
+                                                  torch.float64)}
+    rng = np.random.default_rng(1)
+    counts = (ytab.ytab_quantize.launches,
+              fused_pair.fused_pair_contract.launches,
+              ytab.ytab_quantize_plain.calls,
+              fused_pair.fused_pair_plain.calls)
+    for s in range(3):
+        randoms = draw_all_numpy(rng, engines["cpu"].problem.random_spec)
+        for dev in ("cpu", "cuda"):
+            r = {k: torch.from_numpy(v).to(dev) for k, v in randoms.items()}
+            states[dev], _ = engines[dev]._sweep_with_randoms(
+                states[dev], r, 1.0)
+    assert (ytab.ytab_quantize.launches,
+            fused_pair.fused_pair_contract.launches,
+            ytab.ytab_quantize_plain.calls,
+            fused_pair.fused_pair_plain.calls) == tuple(
+        c + 6 for c in counts)
     a, b = state_to_numpy(states["cpu"]), state_to_numpy(states["cuda"])
     for ei in range(2):
         for key in ("U", "mu", "Lambda"):

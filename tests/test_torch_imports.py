@@ -41,6 +41,9 @@ def test_scan_covers_the_port():
                  "bayesiandatafusion_jl_tpu_torch/ops/chol_packed.py",
                  "bayesiandatafusion_jl_tpu_torch/ops/chol_blocked.py",
                  "bayesiandatafusion_jl_tpu_torch/ops/chol_full.py",
+                 "bayesiandatafusion_jl_tpu_torch/ops/fused_pair.py",
+                 "bayesiandatafusion_jl_tpu_torch/ops/ytab.py",
+                 "bayesiandatafusion_jl_tpu_torch/models/datasets.py",
                  "bayesiandatafusion_jl_tpu_torch/ops/gramian.py",
                  "bayesiandatafusion_jl_tpu_torch/ops/layout.py",
                  "bayesiandatafusion_jl_tpu_torch/ops/mvn.py",
