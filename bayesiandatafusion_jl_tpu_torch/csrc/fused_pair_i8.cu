@@ -2,10 +2,11 @@
 // orientations of the fused sparse regime from ONE stored int8 value array.
 //
 // Replaces the TPU kernels of bayesiandatafusion_jl_tpu/ops/pallas_fused.py
-// `fused_pair_pallas` (:345) in its s8 flip_out variants: raw int32
-// `_kern_focus_rows_i8_t` (:127) / `_kern_focus_cols_i8_t` (:158) and the
+// `fused_pair_pallas` (:345) in its s8 variants: flip_out raw int32
+// `_kern_focus_rows_i8_t` (:127) / `_kern_focus_cols_i8_t` (:158), the
 // dequantizing `_kern_focus_rows_i8_tq` (:182) / `_kern_focus_cols_i8_tq`
-// (:218).  With V8 [n0, n1] the stored codes (0 = unobserved) and YZ8T
+// (:218), and the natural layout `_kern_focus_rows_i8` (:83) /
+// `_kern_focus_cols_i8` (:106).  With V8 [n0, n1] the stored codes (0 = unobserved) and YZ8T
 // [C+K, n_contract] the partner table [Ypack | U] quantized per row (K7),
 // it computes for the focus mode f (f = 0: V8's rows, contracting n1;
 // f = 1: V8's columns, contracting n0)
@@ -18,7 +19,10 @@
 // sampler's [., n_focus] layout: raw int32 PM and BV, or the float32
 // dequant epilogue Pt = PM[:C] * syz[:C], PMm = PM[C:] * syz[C:],
 // BVf = BV * sz (one int32 -> float32 conversion and one float32 multiply
-// per element, as the plain version does).
+// per element, as the plain version does); or raw int32 in the natural
+// layout PM [n_focus, C + K], BV [n_focus, K], which the full-P branch
+// (K > 96) finishes and expands to [n_focus, K, K].  There each thread's
+// two adjacent sums of an mma tile land side by side in memory.
 //
 // What bounds it on an H100: 2 n0 n1 (C + 2K) int8 operations, 1.01e13 at
 // the Netflix shape (480,189 x 17,770, K = 32), 5.1 ms at the 1,979 TOP/s
@@ -52,19 +56,11 @@
 // shorter one, whose address arithmetic is cheaper).  V8 is read once per
 // column tile: 5 times a mode at K = 32 (608 virtual columns), mostly from
 // L2, since the column tiles of one focus tile are neighbours in the grid.
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "fused_pair.cuh"
 
 namespace {
 
-constexpr int BM = 128;        // focus rows per CTA
-constexpr int BN = 128;        // virtual output columns per CTA
-constexpr int BK = 128;        // contraction bytes per stage
-constexpr int WARP_N = 32;     // columns per warp; the value columns start
-                               // at a multiple of it
-constexpr int NTHREADS = 256;
-constexpr int TILE = BM * BK;  // bytes of one stage of A (mask and B the
-                               // same)
+using namespace fused_pair;
 
 struct Args {
   const int8_t* v8;      // [n0, n1], n0 and n1 multiples of 16
@@ -72,31 +68,14 @@ struct Args {
   const int8_t* yzt;     // [C + K, n_contract]
   int C, K, ckp;         // ckp: first value column (C + K rounded up)
   long long nf;          // focus rows written (<= stored focus extent)
-  int* pm;               // raw: [C + K, nf]
-  int* bv;               // raw: [K, nf]
+  int* pm;               // raw: [C + K, nf], natural layout [nf, C + K]
+  int* bv;               // raw: [K, nf], natural layout [nf, K]
   const float* syz;      // dq: [C + K] scales of the mask columns
   const float* sz;       // dq: [K] scales of the value columns
   float* pt;             // dq: [C, nf]
   float* pmm;            // dq: [K, nf]
   float* bvf;            // dq: [K, nf]
 };
-
-template <int FOCUS>
-__device__ __forceinline__ int swz(int row) {
-  return FOCUS == 0 ? (row ^ (row >> 2)) & 7
-                    : (row ^ (row >> 2) ^ (row >> 4)) & 7;
-}
-
-// byte offset of 16-byte chunk `ch` of tile row `row`
-template <int FOCUS>
-__device__ __forceinline__ int soff(int row, int ch) {
-  return row * BK + ((ch ^ swz<FOCUS>(row)) << 4);
-}
-
-// word q of a 16-byte vector (q a compile-time constant once unrolled)
-__device__ __forceinline__ uint32_t word(const uint4& v, int q) {
-  return q == 0 ? v.x : q == 1 ? v.y : q == 2 ? v.z : v.w;
-}
 
 __device__ __forceinline__ uint32_t mask4(uint32_t w) {
   return __vcmpne4(w, 0u) & 0x01010101u;
@@ -111,15 +90,8 @@ __device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// YZ8T row feeding virtual column v, or -1 for a pad column
-__device__ __forceinline__ int src_row(const Args& a, int v) {
-  const int ck = a.C + a.K;
-  if (v < ck) return v;
-  if (v >= a.ckp && v - a.ckp < a.K) return a.C + (v - a.ckp);
-  return -1;
-}
-
-template <int FOCUS, bool DQ>
+// DQ: the dequant epilogue; NAT (raw only): the natural output layout
+template <int FOCUS, bool DQ, bool NAT>
 __global__ void __launch_bounds__(NTHREADS)
 fused_pair_kernel(const Args a) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -139,7 +111,7 @@ fused_pair_kernel(const Args a) {
   const int8_t* bsrc[4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    const int s = src_row(a, v0 + (tid >> 3) + 32 * i);
+    const int s = src_row(a.C, a.K, a.ckp, v0 + (tid >> 3) + 32 * i);
     bsrc[i] = s < 0 ? nullptr : a.yzt + static_cast<long long>(s) * n_contract;
   }
 
@@ -279,12 +251,15 @@ fused_pair_kernel(const Args a) {
               const float f = static_cast<float>(val) * a.syz[v];
               if (v < a.C) a.pt[v * a.nf + m] = f;
               else a.pmm[(v - a.C) * a.nf + m] = f;
+            } else if constexpr (NAT) {
+              a.pm[m * ck + v] = val;
             } else {
               a.pm[v * a.nf + m] = val;
             }
           } else if (v >= a.ckp && v - a.ckp < a.K) {
             const int k = v - a.ckp;
             if constexpr (DQ) a.bvf[k * a.nf + m] = static_cast<float>(val) * a.sz[k];
+            else if constexpr (NAT) a.bv[m * a.K + k] = val;
             else a.bv[k * a.nf + m] = val;
           }
         }
@@ -293,10 +268,10 @@ fused_pair_kernel(const Args a) {
   }
 }
 
-template <int FOCUS, bool DQ>
+template <int FOCUS, bool DQ, bool NAT>
 int launch(const Args& a, void* stream) {
   const int smem = 6 * TILE;
-  auto kern = fused_pair_kernel<FOCUS, DQ>;
+  auto kern = fused_pair_kernel<FOCUS, DQ, NAT>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -315,14 +290,16 @@ int launch(const Args& a, void* stream) {
 // with n0 and n1 multiples of 16; yzt is contiguous [C + K, n_contract]
 // int8 (n_contract = n1 for focus 0, n0 for focus 1); nf <= the focus
 // extent.  dq = 0: pm [C + K, nf] and bv [K, nf] int32; dq = 1: syz [C + K]
-// and sz [K] float32 scales, pt [C, nf], pmm and bvf [K, nf] float32.
+// and sz [K] float32 scales, pt [C, nf], pmm and bvf [K, nf] float32;
+// dq = 2: the natural layout, pm [nf, C + K] and bv [nf, K] int32.
 // Returns the launch's CUDA error (0 on success).
 extern "C" int bdf_fused_pair_i8(const void* v8, long long n0, long long n1,
                                  int focus, const void* yzt, int C, int K,
                                  long long nf, int dq, void* pm, void* bv,
                                  const void* syz, const void* sz, void* pt,
                                  void* pmm, void* bvf, void* stream) {
-  if (n0 % 16 || n1 % 16 || C < 1 || K < 1 || (focus != 0 && focus != 1))
+  if (n0 % 16 || n1 % 16 || C < 1 || K < 1 || (focus != 0 && focus != 1) ||
+      dq < 0 || dq > 2)
     return static_cast<int>(cudaErrorInvalidValue);
   Args a;
   a.v8 = static_cast<const int8_t*>(v8);
@@ -341,6 +318,10 @@ extern "C" int bdf_fused_pair_i8(const void* v8, long long n0, long long n1,
   a.pmm = static_cast<float*>(pmm);
   a.bvf = static_cast<float*>(bvf);
   if (focus == 0)
-    return dq ? launch<0, true>(a, stream) : launch<0, false>(a, stream);
-  return dq ? launch<1, true>(a, stream) : launch<1, false>(a, stream);
+    return dq == 1   ? launch<0, true, false>(a, stream)
+           : dq == 2 ? launch<0, false, true>(a, stream)
+                     : launch<0, false, false>(a, stream);
+  return dq == 1   ? launch<1, true, false>(a, stream)
+         : dq == 2 ? launch<1, false, true>(a, stream)
+                   : launch<1, false, false>(a, stream);
 }

@@ -7,8 +7,11 @@ any K, with either Gramian path:
 - the dense int8 pair (``dense_gram`` None or True; ops/dense_gram.py);
 - the fused sparse regime (``dense_fused=True``): one stored int8 value
   array, contracted per mode by K8 (ops/fused_pair.py) against the
-  partner table that K7 (ops/ytab.py) quantizes each sweep; always packed
-  (K <= 96), without a gather-path residual;
+  partner table, which K7 (ops/ytab.py) quantizes each sweep on the s8
+  path (``dense_int8`` and the int32 bound ``fused_int8_ok``) and which is
+  a float table in ``gram_dtype`` otherwise.  Observations the one array
+  cannot hold (a second rating of a cell, the zero-code level) ride the
+  gather path as an exact-valued residual beside it;
 - the bucketed gather path (``dense_gram=False``; ops/layout.py and
   ops/gramian.py), with ``accumulation`` "segment" or "planned".
 
@@ -20,11 +23,13 @@ Each sweep, for each entity in turn:
   U            <- u ~ N(P'^-1 b, P'^-1) per row, P' = P + Lambda
 
 The sampler branches as the JAX engine does (engine.py:821, :924-951).  On
-the int8 pair path, K <= 96 keeps P packed ([K(K+1)/2, N],
-ops/chol_packed.py: the K1 kernel up to K = 32, K2 above) and K > 96
-expands it to [N, K, K].  The gather path always assembles a full
-[N, K, K] P.  Full P goes to ops/mvn.chol_sample_dispatch: the K3 kernel
-up to K = 32, K4 up to 96, the blocked sampler on K5 up to 128.  With
+the int8 pair and fused paths, K <= 96 keeps P packed ([K(K+1)/2, N],
+ops/chol_packed.py: the K1 kernel up to K = 32, K2 above; the fused
+residual is accumulated in that layout) and K > 96 expands it to
+[N, K, K] (the fused residual through ``assemble_precision``).  The
+gather path always assembles a full [N, K, K] P.  Full P goes to
+ops/mvn.chol_sample_dispatch: the K3 kernel up to K = 32, K4 up to 96,
+the blocked sampler on K5 up to 128.  With
 "segment" accumulation Lambda is left out of P and added by the sampler;
 with "planned" it is in the accumulator.
 
@@ -48,7 +53,8 @@ import torch
 from ..ops import dense_gram as dg
 from ..ops.chol_packed import K2_MAX_K, chol_sample_packed_dispatch
 from ..ops.gramian import (assemble_precision, assemble_precision_planned,
-                           plan_accumulation, predict_tuples)
+                           packed_bucket_accum, plan_accumulation,
+                           predict_tuples)
 from ..ops.layout import build_mode_layout
 from ..ops.hyper import normal_wishart_update
 from ..ops.mvn import chol_sample_dispatch
@@ -99,8 +105,7 @@ def _check_slice(rd: RelationData, cfg: MacauConfig) -> None:
 
 def _plan_fused(rel, cfg: MacauConfig):
     """``fused_pair_plan``'s (s, m, keep) when the relation takes the fused
-    path (JAX engine :128-179), else None; raises NotImplementedError for
-    the fused cases outside the slice."""
+    path (JAX engine :128-179), else None."""
     if cfg.dense_fused is not True or cfg.dense_gram is False:
         return None
     plan = dg.fused_pair_plan(rel.data.idx, rel.data.vals, rel.data.shape,
@@ -108,24 +113,6 @@ def _plan_fused(rel, cfg: MacauConfig):
     if not dg.plan_fused_rels([rel.data.shape], cfg.dense_gram,
                               cfg.dense_fused, [plan and plan[:2]]):
         return None
-    s, m, keep = plan
-    if not keep.all():
-        raise NotImplementedError(
-            "not ported yet: a fused relation with a gather-path residual "
-            f"({int((~keep).sum())} duplicate or zero-code observations) "
-            "needs packed_bucket_accum (ROADMAP M6/M9)")
-    if cfg.num_latent > K2_MAX_K:
-        raise NotImplementedError(
-            f"not ported yet: the fused path at K={cfg.num_latent} > "
-            f"{K2_MAX_K} (the non-packed branch on K8's non-flip kernels, "
-            "ROADMAP M9)")
-    vals = rel.data.vals
-    if not (cfg.dense_int8 and dg.fused_int8_ok(
-            dg.fused_code_bound(vals, s, m), rel.data.shape,
-            idx=rel.data.idx, abs_codes=dg.fused_abs_codes(vals, s, m))):
-        raise NotImplementedError(
-            "not ported yet: a fused relation off the s8 path, the float "
-            "fused kernels (ROADMAP M3/M9)")
     return plan
 
 
@@ -161,16 +148,21 @@ class CompiledProblem:
         t0 = time.perf_counter()
         self.gather = config.dense_gram is False
         self.pair = self.tri = self.fused = None
+        self.fused_i8 = False
+        self.layouts, self.acc_plan, self.padded_nnz = {}, {}, []
+        self.residual_nnz = 0
         plan = None if self.gather else _plan_fused(rel, config)
         self.plan_seconds = time.perf_counter() - t0
         if self.gather:
             self._build_layouts(rel, mean_value, config, device)
         elif plan is not None:
-            self.fused = dg.build_fused_store(rel.data.idx, rel.data.vals,
-                                              rel.data.shape, plan[0],
-                                              plan[1], device)
-            self.tri = dg.tri_index(config.num_latent, device)
+            self._build_fused(rel, mean_value, config, device, *plan)
         else:
+            if not config.dense_int8:
+                raise NotImplementedError(
+                    "not ported yet: float dense pair (dense_int8=False "
+                    "on a relation that does not take the fused path) "
+                    "(ROADMAP M3)")
             if not dg.int8_pair_ok(rel.data.idx, rel.data.shape):
                 raise NotImplementedError(
                     "relation not int8-eligible: float dense pair "
@@ -193,20 +185,45 @@ class CompiledProblem:
             [es.n for es in self.entity_specs], config.num_latent,
             config.resolved_nu0())
 
-    def _build_layouts(self, rel, mean_value, config, device):
+    def _build_fused(self, rel, mean_value, config, device, s, m, keep):
+        """The fused path's store (JAX engine :163-198, :272-300): V8, the
+        ridge degrees and the s8 decision ``fused_i8`` from the kept
+        observations only; the rest (``residual_nnz`` of them) get the
+        gather path's bucket layouts with their exact centered values
+        (``mean_value`` is over all observations)."""
+        idx, vals = rel.data.idx, rel.data.vals
+        if not keep.all():
+            idx, vals = idx[keep], vals[keep]
+        self.fused_i8 = bool(config.dense_int8 and dg.fused_int8_ok(
+            dg.fused_code_bound(vals, s, m), rel.data.shape, idx=idx,
+            abs_codes=dg.fused_abs_codes(vals, s, m)))
+        self.fused = dg.build_fused_store(idx, vals, rel.data.shape, s, m,
+                                          device)
+        del idx, vals
+        self.tri = dg.tri_index(config.num_latent, device)
+        if not keep.all():
+            rows = np.nonzero(~keep)[0]
+            self.residual_nnz = int(rows.size)
+            self._build_layouts(rel, mean_value, config, device, rows)
+
+    def _build_layouts(self, rel, mean_value, config, device, rows=None):
         """The gather path's device arrays (JAX engine :277-300, :387-399):
         per mode ``layouts["r0m{mode}"]``, a list of buckets (``inst`` and
         ``part`` int32, ``val`` and ``mask`` in the compute dtype); with
         "planned" accumulation, per entity ``acc_plan["e{ei}"]``.  Records
         the seconds to build and upload them (``layout_seconds``) and the
-        padded observation count per mode (``padded_nnz``)."""
+        padded observation count per mode (``padded_nnz``).  ``rows``
+        selects the observations (the fused path's residual); None takes
+        all."""
         dtype = getattr(torch, config.dtype)
-        centered = rel.data.vals - mean_value
+        idx, centered = rel.data.idx, rel.data.vals - mean_value
+        if rows is not None:
+            idx, centered = idx[rows], centered[rows]
         self.layouts, self.padded_nnz, host_inst = {}, [], {}
         t0 = time.perf_counter()
         for mode in range(rel.arity):
             ml = build_mode_layout(
-                rel.data.idx, centered, mode, rel.entities[mode].count,
+                idx, centered, mode, rel.entities[mode].count,
                 widths=config.bucket_widths, row_pad=config.row_pad,
                 dtype=config.np_dtype())
             key = f"r0m{mode}"
@@ -300,35 +317,31 @@ class MacauEngine:
             mode = rs.entity_ids.index(ei)
             partner = ents[rs.entity_ids[1 - mode]]["U"]
             xi = randoms[f"e{ei}.xi"]
+            alpha = rels[0]["alpha"]
+            packed = cfg.num_latent <= K2_MAX_K
             if prob.gather:
                 ent["U"] = self._gather_sample(ent, ei, mode, partner, xi,
-                                               rels[0]["alpha"])
-                metrics[f"e{ei}.unorm"] = torch.linalg.norm(ent["U"])
-                continue
-            packed = cfg.num_latent <= K2_MAX_K
-            if prob.fused is not None:
-                # one fused contribution (K7, then K8 on the stored V8),
-                # in the transposed [C, N] layout (JAX engine :821-923)
-                P, b_d = dg.fused_gram_contrib_i8(
-                    prob.fused, prob.tri, partner, mode, rels[0]["alpha"],
-                    dtype, rs.mean_value)
+                                               alpha)
+            elif prob.fused is not None:
+                ent["U"] = self._fused_sample(ent, ei, mode, partner, xi,
+                                              alpha, packed)
             else:
                 P, b_d = dg.dense_gram_contrib(prob.pair, prob.tri, partner,
-                                               mode, rels[0]["alpha"], dtype,
+                                               mode, alpha, dtype,
                                                packed=packed)
-            # prior term Lambda mu for every row, plus the data term
-            if packed:
-                b = (mu @ Lambda)[:, None] + b_d[:, :es.n]
-                ent["U"] = chol_sample_packed_dispatch(
-                    P[:, :es.n], b, xi, Lambda, cfg.chol_jitter,
-                    transposed=True)
-            else:
-                # P is the Gramian's fresh [n, K, K] expansion; the
-                # dispatch adds Lambda to it in place, which saves an
-                # [n, K, K] copy (4.7 GB at K=128 on ML-10M)
-                b = (mu @ Lambda) + b_d
-                ent["U"] = chol_sample_dispatch(P, b, xi, Lambda,
-                                                cfg.chol_jitter)
+                # prior term Lambda mu for every row, plus the data term
+                if packed:
+                    b = (mu @ Lambda)[:, None] + b_d[:, :es.n]
+                    ent["U"] = chol_sample_packed_dispatch(
+                        P[:, :es.n], b, xi, Lambda, cfg.chol_jitter,
+                        transposed=True)
+                else:
+                    # P is the Gramian's fresh [n, K, K] expansion; the
+                    # dispatch adds Lambda to it in place, which saves an
+                    # [n, K, K] copy (4.7 GB at K=128 on ML-10M)
+                    b = (mu @ Lambda) + b_d
+                    ent["U"] = chol_sample_dispatch(P, b, xi, Lambda,
+                                                    cfg.chol_jitter)
             metrics[f"e{ei}.unorm"] = torch.linalg.norm(ent["U"])
 
         preds = dict(state["pred"])
@@ -349,6 +362,54 @@ class MacauEngine:
             metrics["r0.rmse_avg"] = torch.sqrt(
                 torch.mean((pmean - te["vals"]) ** 2))
         return {"ent": ents, "rel": rels, "pred": preds}, metrics
+
+    def _fused_sample(self, ent, ei, mode, partner, xi, alpha, packed):
+        """The fused path's draw of entity ``ei`` (JAX engine :821-946,
+        :1011-1032): one fused contribution from the stored V8, on the s8
+        kernels (K7, then K8) or, off the s8 path, on the float ones with
+        the table in ``gram_dtype`` and alpha multiplied in afterwards;
+        plus the residual's buckets where the relation has one.  Packed
+        (K <= 96) everything is in the transposed [C, n] layout and the
+        residual is added into the fused contribution in place; above, P
+        is the full [n, K, K] and the residual comes through
+        ``assemble_precision``."""
+        cfg = self.config
+        prob = self.problem
+        n = prob.entity_specs[ei].n
+        mu, Lambda = ent["mu"], ent["Lambda"]
+        mean = prob.rel_specs[0].mean_value
+        gd = getattr(torch, cfg.gram_dtype) if cfg.gram_dtype else None
+        if prob.fused_i8:
+            P, b_d = dg.fused_gram_contrib_i8(prob.fused, prob.tri, partner,
+                                              mode, alpha, self.dtype, mean,
+                                              packed=packed)
+        else:
+            P, b_d = dg.fused_gram_contrib(
+                prob.fused, prob.tri, partner, mode, self.dtype,
+                gd or self.dtype, mean, packed=packed, transposed=packed)
+            P *= alpha          # the kernel's fresh output, or its expansion
+            b_d *= alpha
+        contribs = [(alpha, [partner], ba)
+                    for ba in prob.layouts.get(f"r0m{mode}", ())]
+        if packed:
+            if contribs:
+                packed_bucket_accum(contribs, n, cfg.num_latent,
+                                    gram_dtype=gd, transposed=True,
+                                    out=(P, b_d), tri=prob.tri)
+            b = (mu @ Lambda)[:, None] + b_d
+            return chol_sample_packed_dispatch(P, b, xi, Lambda,
+                                               cfg.chol_jitter,
+                                               transposed=True)
+        if contribs:
+            P_r, b = assemble_precision(Lambda, mu, contribs, n,
+                                        gram_dtype=gd, fuse_lambda=True)
+            P += P_r
+            del P_r
+            b += b_d
+        else:
+            b = (mu @ Lambda) + b_d
+        # P is fresh; the dispatch adds Lambda to it in place
+        return chol_sample_dispatch(P, b, xi, Lambda, cfg.chol_jitter)
 
     def _gather_sample(self, ent, ei, mode, partner, xi, alpha):
         """The gather path's draw of entity ``ei`` (JAX engine :924-951):

@@ -23,13 +23,17 @@ on ``torch._int_mm``, as the JAX package leaves them to an XLA einsum.
 The fused sparse regime (the second half of this file, JAX :336-1070):
 one stored int8 array V8 of value codes e, v = s (e + m) at the observed
 cells and 0 elsewhere, from which both modes' Gramians are contracted with
-the observation mask derived on the fly (K8, ``ops/fused_pair.py``)
-against the per-sweep quantized partner table (K7, ``ops/ytab.py``):
+the observation mask derived on the fly (K8, ``ops/fused_pair.py``):
 
     P = (V8 != 0) @ Ypack,   b = s (V8 @ U) + (s m - mean) ((V8 != 0) @ U)
 
-Half the int8 pair's bytes, and no value quantization: the encoding is
-exact or the path is not taken.
+against the per-sweep quantized partner table (K7, ``ops/ytab.py``;
+``fused_gram_contrib_i8``, exact int32 sums) or, for a relation off the s8
+path, against the float table (``fused_gram_contrib``).  Half the int8
+pair's bytes, and no value quantization: the encoding is exact (or within
+``dense_fused_tol``), and what it cannot hold (a cell's second
+observation, the zero-code level) is left to the gather path as a
+residual (``fused_pair_plan``'s keep mask).
 """
 from __future__ import annotations
 
@@ -361,18 +365,31 @@ def fused_pair_plan(idx: np.ndarray, vals: np.ndarray,
     if pos.size:
         lin = (idx[pos, 0].astype(np.int64) * int(shape[1])
                + idx[pos, 1])
-        srt = np.sort(lin)
-        if not (srt[1:] == srt[:-1]).any():
-            # no cell twice: every observation is its cell's first (one
-            # plain sort, much cheaper at 10^8 cells than the stable
-            # argsort of np.unique(return_index))
-            keep[pos] = True
-        else:
-            _, first = np.unique(lin, return_index=True)
-            keep[pos[first]] = True
+        keep[pos[_first_per_key(lin, int(shape[0]) * int(shape[1]))]] = True
     if not keep.any():
         return None
     return float(s), int(m), keep
+
+
+def _first_per_key(key: np.ndarray, key_bound: int) -> np.ndarray:
+    """The position of the first occurrence of every distinct value of
+    ``key`` (non-negative int64 below ``key_bound``), by position:
+    ``np.sort(np.unique(key, return_index=True)[1])``.
+
+    One plain sort of (key, position) packed into one int64, then a
+    neighbour compare, where the bits allow (8.5e9 cells x 1.0e8
+    observations at the Netflix shape take 61): much cheaper at 10^8 keys
+    than the stable argsort of ``np.unique(return_index=True)``."""
+    n = key.shape[0]
+    bits = max(int(n - 1).bit_length(), 1)
+    if int(key_bound).bit_length() + bits > 62:
+        return np.sort(np.unique(key, return_index=True)[1])
+    comp = (key << bits) | np.arange(n, dtype=np.int64)
+    comp.sort()
+    cell = comp >> bits
+    first = np.ones(n, bool)
+    np.not_equal(cell[1:], cell[:-1], out=first[1:])
+    return np.sort(comp[first] & ((1 << bits) - 1))
 
 
 def encode_fused_values(vals: np.ndarray, s: float, m: int) -> np.ndarray:
@@ -442,8 +459,9 @@ def build_fused_store(idx: np.ndarray, vals: np.ndarray,
     contracts along either axis), its extents rounded up to STORE_ALIGN
     (K8 loads 16-byte rows; pad cells are 0 = unobserved), and d{f} the
     float32 observation count of every stored row of mode f, for the PD
-    ridge.  The observations must hold one code per cell (``keep`` of
-    ``fused_pair_plan`` all True)."""
+    ridge.  The observations must hold one nonzero code per cell: the ones
+    ``fused_pair_plan`` keeps (the rest is the gather-path residual and
+    counts neither in V8 nor in the degrees, JAX engine :172-194)."""
     n = [int(d) for d in shape]
     pad = [-(-d // STORE_ALIGN) * STORE_ALIGN for d in n]
     V8 = torch.zeros(pad, dtype=torch.int8, device=device)
@@ -464,46 +482,81 @@ def build_fused_store(idx: np.ndarray, vals: np.ndarray,
 # the fused sparse regime: per sweep (torch)
 # ---------------------------------------------------------------------------
 
-def fused_quantize(partner: torch.Tensor, pad_rows: Optional[int] = None):
+def quantize_table_t(partner: torch.Tensor, n_rows: int, tri
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The quantized partner table by torch ops, in K7's layout: (YZ8T
+    [C + K, n_rows] int8, s [C + K] float32) of the float32 table
+    [Ypack | U], per table column as ``quantize_rows`` does it (the int8
+    pair path's quantization at every K).  ``tri`` = ``tri_index(K)``."""
+    iu, ju = tri[:2]
+    n, K = partner.shape
+    C = len(iu)
+    UT = partner.new_zeros((K, n_rows), dtype=torch.float32)
+    UT[:, :n] = partner.to(torch.float32).mT
+    YZ8T = torch.empty((C + K, n_rows), dtype=torch.int8,
+                       device=partner.device)
+    s = torch.empty(C + K, dtype=torch.float32, device=partner.device)
+    YZ8T[:C], s[:C] = quantize_rows(UT[iu] * UT[ju])
+    YZ8T[C:], s[C:] = quantize_rows(UT)
+    return YZ8T, s
+
+
+def fused_quantize(partner: torch.Tensor, pad_rows: Optional[int] = None,
+                   tri=None):
     """The partner operands of one fused contraction (JAX :788): (YZ8T
     [C + K, pad_rows] int8, Z8T [K, pad_rows] int8 (a view of YZ8T's last
     K rows), s_yz [C + K], s_z [K] float32), ``_quantize_cols`` of the
     packed-triangle table and of the factors, transposed, with rows past
     the partner count zero.
 
-    Always K7 on the card (``ops/ytab.ytab_quantize``): the JAX gates
-    (K <= 64, 2e8 table cells) are a TPU compile cap and fusion trade-off,
-    and the kernel equals the plain quantization bit for bit."""
+    K7 up to its K = 96 (``ops/ytab.ytab_quantize``; the JAX gates,
+    K <= 64 and 2e8 table cells, are a TPU compile cap and fusion
+    trade-off, and the kernel equals the plain quantization bit for bit).
+    Above it, on either device, torch ops make and quantize the table
+    (``quantize_table_t``; ``tri`` = ``tri_index(K)`` saves rebuilding the
+    index), as the JAX package leaves K > 64 to XLA: the same codes and
+    scales."""
     from . import ytab      # imported here: ytab uses this module's helpers
     K = partner.shape[-1]
     C = K * (K + 1) // 2
-    YZ8T, s_yz = ytab.ytab_quantize(partner, out_rows=pad_rows)
+    if K <= ytab.K7_MAX_K:
+        YZ8T, s_yz = ytab.ytab_quantize(partner, out_rows=pad_rows)
+    else:
+        YZ8T, s_yz = quantize_table_t(
+            partner, partner.shape[0] if pad_rows is None else pad_rows,
+            tri_index(K, partner.device) if tri is None else tri)
     return YZ8T, YZ8T[C:], s_yz, s_yz[C:]
 
 
 def fused_pair_contract_i8(V8: torch.Tensor, YZ8T: torch.Tensor,
                            focus_axis: int, K: int, n_focus: int,
-                           dq: Optional[Tuple[torch.Tensor, ...]] = None):
-    """The raw fused contraction (JAX :834) in the kernel layout
-    (``flip_out``): exact int32 PM [C + K, n_focus] and BV [K, n_focus], or
-    with ``dq`` K8's dequant epilogue.  YZ8T spans V8's contraction extent
+                           dq: Optional[Tuple[torch.Tensor, ...]] = None,
+                           flip_out: bool = True):
+    """The raw fused contraction (JAX :834): exact int32 PM and BV in the
+    kernel layout ([C + K, n_focus], [K, n_focus]; ``flip_out``), there
+    also through K8's dequant epilogue ``dq``, or in the natural layout
+    ([n_focus, C + K], [n_focus, K]).  YZ8T spans V8's contraction extent
     (``fused_quantize``'s ``pad_rows``)."""
     n_contract = V8.shape[1 - focus_axis]
     if YZ8T.shape[1] != n_contract:
         raise ValueError(f"YZ8T spans {YZ8T.shape[1]} partner rows, V8's "
                          f"contraction extent is {n_contract}")
     return fused_pair.fused_pair_contract(V8, YZ8T, focus_axis, K, n_focus,
-                                          dq)
+                                          dq, flip_out=flip_out)
 
 
 def _add_ridge(Pt: torch.Tensor, s_tri: torch.Tensor, K: int,
-               deg: torch.Tensor, dc: torch.Tensor) -> None:
-    """The PD safety ridge in place on the packed diagonal rows of Pt
-    [C, n] (JAX :950-955): float32 step mean(s_tri) * sqrt(K) / 2 times
-    sqrt(deg), cast to Pt's dtype."""
+               deg: torch.Tensor, dc: torch.Tensor,
+               natural: bool = False) -> None:
+    """The PD safety ridge in place on the packed diagonal entries of Pt
+    ([C, n], or [n, C] with ``natural``; JAX :950-955, :965-969): float32
+    step mean(s_tri) * sqrt(K) / 2 times sqrt(deg), cast to Pt's dtype."""
     step = ridge_step(s_tri, K)
-    rdeg = torch.sqrt(deg.to(torch.float32))
-    Pt[dc] += (rdeg * step).to(Pt.dtype)[None, :]
+    ridge = (torch.sqrt(deg.to(torch.float32)) * step).to(Pt.dtype)
+    if natural:
+        Pt[:, dc] += ridge[:, None]
+    else:
+        Pt[dc] += ridge[None, :]
 
 
 def _b_consts(scale, shift, mean, dtype, device):
@@ -514,44 +567,69 @@ def _b_consts(scale, shift, mean, dtype, device):
 def fused_finish_i8(PM: torch.Tensor, BV: torch.Tensor, s_yz: torch.Tensor,
                     s_z: torch.Tensor, K: int, out_dtype: torch.dtype,
                     scale: float, shift: int, mean: float,
-                    dc: torch.Tensor, ridge_deg: torch.Tensor):
-    """Dequantize and center the raw int32 sums of the kernel layout (JAX
-    :904, its ``pre_transposed`` branch, without the alpha fold: the
-    float64 caller multiplies by alpha after it): Pt [C, n] and b [K, n]
-    in ``out_dtype``, b = s BVf + (s m - mean) PMf[C:], the ridge on Pt's
-    diagonal rows."""
-    C = PM.shape[0] - K
-    PMf = PM.to(out_dtype) * s_yz.to(out_dtype)[:, None]
-    BVf = BV.to(out_dtype) * s_z.to(out_dtype)[:, None]
+                    dc: torch.Tensor, ridge_deg: torch.Tensor,
+                    pre_transposed: bool = True,
+                    alpha: Optional[torch.Tensor] = None):
+    """Dequantize and center the raw int32 sums (JAX :904): b = s BVf +
+    (s m - mean) PMf[C:], the ridge on P's packed diagonal.
+    ``pre_transposed``: the kernel layout in and out, Pt [C, n] and b
+    [K, n]; else the natural one, Pt [n, C] (a view of the dequantized
+    [n, C + K] sums) and b [n, K].  ``alpha`` folds the relation's
+    precision into the float32 dequant scales, as the JAX package does in
+    float32; without it the (float64) caller multiplies afterwards."""
+    if alpha is not None:
+        af = alpha.to(torch.float32)
+        s_yz, s_z = s_yz * af, s_z * af
     c1, c0 = _b_consts(scale, shift, mean, out_dtype, PM.device)
-    b = c1 * BVf + c0 * PMf[C:]
-    Pt = PMf[:C]
-    _add_ridge(Pt, s_yz[:C], K, ridge_deg, dc)
+    if pre_transposed:
+        C = PM.shape[0] - K
+        PMf = PM.to(out_dtype) * s_yz.to(out_dtype)[:, None]
+        BVf = BV.to(out_dtype) * s_z.to(out_dtype)[:, None]
+        b = c1 * BVf + c0 * PMf[C:]
+        Pt = PMf[:C]
+    else:
+        C = PM.shape[1] - K
+        PMf = PM.to(out_dtype) * s_yz.to(out_dtype)
+        BVf = BV.to(out_dtype) * s_z.to(out_dtype)
+        b = c1 * BVf + c0 * PMf[:, C:]
+        Pt = PMf[:, :C]
+    _add_ridge(Pt, s_yz[:C], K, ridge_deg, dc, natural=not pre_transposed)
     return Pt, b
+
+
+def _expand(Pt: torch.Tensor, expand: torch.Tensor, K: int) -> torch.Tensor:
+    """[n, C] packed triangles -> [n, K, K] through ``tri_maps``' index."""
+    return Pt.index_select(1, expand).view(Pt.shape[0], K, K)
 
 
 def fused_gram_contrib_i8(store: Dict[str, object], tri,
                           partner: torch.Tensor, mode: int,
                           alpha: torch.Tensor, out_dtype: torch.dtype,
-                          mean: float) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One focus mode's alpha-folded fused contribution in the packed
-    samplers' transposed layout (JAX :978, ``packed=transposed=True``):
-    P [C, n_f] (PD ridge included) and b [K, n_f], n_f the true focus
-    count.  ``store`` is ``build_fused_store``'s, ``tri`` = ``tri_index(K)``,
-    ``partner`` the other entity's factors [N_partner, K].
+                          mean: float, packed: bool = True
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One focus mode's alpha-folded fused s8 contribution (JAX :978).
+    ``packed`` (with the JAX ``transposed``): the packed samplers'
+    transposed layout, P [C, n_f] (PD ridge included) and b [K, n_f], n_f
+    the true focus count.  Else the full-P sampler's, P [n_f, K, K] and b
+    [n_f, K], from K8's natural layout.  ``store`` is
+    ``build_fused_store``'s, ``tri`` = ``tri_index(K)``, ``partner`` the
+    other entity's factors [N_partner, K].
 
-    float32 takes K8's dequant epilogue with the alpha-folded scales
-    (:1008-1049); float64 takes the raw int32 sums, the finish and then
-    the alpha multiply (:1050-1070), as the JAX package does."""
+    Packed, float32 takes K8's dequant epilogue with the alpha-folded
+    scales (:1008-1049).  Otherwise the raw int32 sums go through the
+    finish: in float32 with alpha folded into its scales, in float64
+    followed by the alpha multiply (:1050-1070), as in the JAX package."""
     V8 = store["V8"]
     n_f = store["shape"][mode]
     K = partner.shape[1]
     C = K * (K + 1) // 2
-    dc = tri[2]
+    dc, expand = tri[2], tri[3]
     deg = store["deg"][mode][:n_f]
     scale, shift = store["scale"], store["shift"]
-    YZ8T, _, s_yz, s_z = fused_quantize(partner, pad_rows=V8.shape[1 - mode])
-    if out_dtype == torch.float32:
+    YZ8T, _, s_yz, s_z = fused_quantize(partner, pad_rows=V8.shape[1 - mode],
+                                        tri=tri)
+    f64 = out_dtype == torch.float64
+    if packed and out_dtype == torch.float32:
         af = alpha.to(torch.float32)
         syz_e, sz_e = s_yz * af, s_z * af
         Pt, PMm, BVf = fused_pair_contract_i8(V8, YZ8T, mode, K, n_f,
@@ -560,8 +638,61 @@ def fused_gram_contrib_i8(store: Dict[str, object], tri,
         b = c1 * BVf + c0 * PMm
         _add_ridge(Pt, syz_e[:C], K, deg, dc)
         return Pt, b
-    PM, BV = fused_pair_contract_i8(V8, YZ8T, mode, K, n_f)
+    PM, BV = fused_pair_contract_i8(V8, YZ8T, mode, K, n_f, flip_out=packed)
+    del YZ8T
     Pt, b = fused_finish_i8(PM, BV, s_yz, s_z, K, out_dtype, scale, shift,
-                            mean, dc, deg)
-    alpha = alpha.to(out_dtype)
-    return alpha * Pt, alpha * b
+                            mean, dc, deg, pre_transposed=packed,
+                            alpha=None if f64 else alpha)
+    del PM, BV      # the int32 sums, before the expand allocates [n, K*K]
+    if f64:
+        alpha = alpha.to(out_dtype)
+        Pt, b = alpha * Pt, alpha * b
+    return (Pt, b) if packed else (_expand(Pt, expand, K), b)
+
+
+def fused_table(partner: torch.Tensor, op_dtype: torch.dtype, n_rows: int,
+                tri) -> torch.Tensor:
+    """The float fused path's partner table YZT = [Ypack | U] transposed,
+    [C + K, n_rows] in ``op_dtype`` (JAX :612-614): the factors are cast to
+    ``op_dtype`` first and the triangle products U[:, i] U[:, j] are taken
+    (and rounded) in it, the two places where the JAX package rounds.
+    Columns past the partner count are zero."""
+    iu, ju = tri[:2]
+    n, K = partner.shape
+    UT = partner.new_zeros((K, n_rows), dtype=op_dtype)
+    UT[:, :n] = partner.to(op_dtype).mT
+    return torch.cat([UT[iu] * UT[ju], UT])
+
+
+def fused_gram_contrib(store: Dict[str, object], tri, partner: torch.Tensor,
+                       mode: int, out_dtype: torch.dtype,
+                       op_dtype: torch.dtype, mean: float,
+                       packed: bool = False, transposed: bool = False
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One focus mode's fused contribution with float operands (JAX :574),
+    for a relation off the s8 path: P = (V8 != 0) @ Ypack and the centered
+    b = s (V8 @ U) + (s m - mean) ((V8 != 0) @ U), with the table in
+    ``op_dtype`` and float32 sums (float64 for a float64 table), cast to
+    ``out_dtype``.  No ridge and no alpha: the caller multiplies.
+
+    ``packed`` and ``transposed``: P [C, n_f] and b [K, n_f] from K8's
+    ``flip_out`` layout; ``packed`` alone: P [n_f, C] and b [n_f, K];
+    neither: P [n_f, K, K].  P is a view of the kernel's fresh output where
+    it is packed, so the caller may scale it in place."""
+    if transposed and not packed:
+        raise ValueError("transposed requires packed=True")
+    V8 = store["V8"]
+    n_f = store["shape"][mode]
+    K = partner.shape[1]
+    C = K * (K + 1) // 2
+    YZT = fused_table(partner, op_dtype, V8.shape[1 - mode], tri)
+    PM, BV = fused_pair.fused_pair_contract(V8, YZT, mode, K, n_f,
+                                            flip_out=transposed)
+    del YZT
+    PM, BV = PM.to(out_dtype), BV.to(out_dtype)
+    c1, c0 = _b_consts(store["scale"], store["shift"], mean, out_dtype,
+                       V8.device)
+    if transposed:
+        return PM[:C], c1 * BV + c0 * PM[C:]
+    Pt, b = PM[:, :C], c1 * BV + c0 * PM[:, C:]
+    return (Pt, b) if packed else (_expand(Pt, tri[3], K), b)

@@ -2,7 +2,8 @@
 (the gather path), and test-tuple prediction.
 
 Port of ``bayesiandatafusion_jl_tpu/ops/gramian.py``: ``bucket_gramian``
-:38, ``assemble_precision`` :118, ``plan_accumulation`` :253,
+:38, ``assemble_precision`` :118, ``packed_bucket_accum`` :175,
+``plan_accumulation`` :253,
 ``assemble_precision_planned`` :296 and ``predict_tuples`` :333.  For
 entity rows i with observations o,
 
@@ -155,6 +156,83 @@ def assemble_precision(
         P_acc = segP if fuse_lambda else P_acc + segP
         b_acc = b_acc + _segment_sum(b_cat, inst, n)
     return P_acc.reshape(n, K, K).contiguous(), b_acc.contiguous()
+
+
+# Transient budget of the packed accumulation, in bytes of the larger of a
+# chunk's [rows, K, K] Gramian block and its [rows, W, K] gather: a bucket
+# over it accumulates in row chunks, each segment-summed into the persistent
+# accumulator.  The Netflix-shaped residual (one duplicate rating for each
+# of ~460k users: 1.9 GB of [rows, 32, 32] float32 blocks at once) runs in
+# 4 chunks beside the 8.5 GB value array.
+_PACKED_CHUNK_BYTES = 5e8
+
+
+def packed_bucket_accum(contribs, n: int, K: int, gram_dtype=None,
+                        transposed: bool = False, out=None, tri=None):
+    """Packed-triangle accumulation of bucket contributions: (Pp [n, C],
+    b [n, K]) with C = K(K+1)/2, alpha-scaled, or with ``transposed``
+    (Pp [C, n], b [K, n]), the packed samplers' layout.  ``out`` = (Pp, b)
+    accumulators of that layout are added to in place and returned: the
+    fused path's residual goes straight into the fused contribution, with
+    neither an [n, C] buffer of its own nor a transposed pass over it.
+    ``tri`` = ``dense_gram.tri_index(K, device)``, the triangle's index
+    tensors already on the device, as the engine passes it; without it (the
+    JAX signature, which the parity tests call, as they do the natural
+    layout and ``out=None``) the index is made and uploaded in the call.
+
+    It lets the packed branch take gather contributions, the hybrid fused
+    relations' exact-valued residual buckets.  ``bucket_gramian``'s P is
+    symmetric bit for bit (commuting products, the same W-reduction), so
+    its upper triangle is exact.  A bucket over ``_PACKED_CHUNK_BYTES``
+    runs in row chunks; that changes the order of the segment sums, not a
+    row's own Gramian.  Returns (None, None) for no contribs and no
+    ``out``."""
+    if not contribs:
+        return (None, None) if out is None else out
+    val0 = contribs[0][2]["val"]
+    dev, dtype = val0.device, val0.dtype
+    if tri is None:
+        tri = [torch.from_numpy(a.astype(np.int64)).to(dev)
+               for a in np.triu_indices(K)]
+    sel = tri[0] * K + tri[1]
+    C = sel.numel()
+    if out is None:
+        out = (torch.zeros((C, n) if transposed else (n, C), dtype=dtype,
+                           device=dev),
+               torch.zeros((K, n) if transposed else (n, K), dtype=dtype,
+                           device=dev))
+    Pp, b_acc = out
+    cast = {}     # each partner table converted to gram_dtype once
+    for alpha, partner_factors, ba in contribs:
+        if gram_dtype is not None:
+            for U in partner_factors:
+                if id(U) not in cast:
+                    cast[id(U)] = U.to(gram_dtype)
+            partner_factors = [cast[id(U)] for U in partner_factors]
+        rows, W = ba["val"].shape
+        per_row = max(K * K * ba["val"].element_size(),
+                      W * K * partner_factors[0].element_size()
+                      * len(partner_factors))
+        n_chunks = max(1, min(int(np.ceil(float(rows) * per_row
+                                          / _PACKED_CHUNK_BYTES)), rows))
+        cr = -(-rows // n_chunks)
+        for start in range(0, rows, cr):
+            sl = slice(start, min(start + cr, rows))
+            P, b = bucket_gramian(partner_factors,
+                                  [p[sl] for p in ba["part"]], ba["val"][sl],
+                                  ba["mask"][sl], gram_dtype=gram_dtype)
+            Pp_rows = P.view(P.shape[0], K * K).index_select(1, sel)
+            del P
+            Pp_rows *= alpha
+            b = b * alpha
+            inst = ba["inst"][sl]
+            if transposed:
+                Pp.index_add_(1, inst, Pp_rows.mT)
+                b_acc.index_add_(1, inst, b.mT)
+            else:
+                Pp.index_add_(0, inst, Pp_rows)
+                b_acc.index_add_(0, inst, b)
+    return Pp, b_acc
 
 
 def plan_accumulation(inst_arrays: Sequence[np.ndarray], n: int):

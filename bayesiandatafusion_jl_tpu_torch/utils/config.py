@@ -2,7 +2,7 @@
 
 The fields keep the JAX package's names, meanings and defaults, except
 that ``dense_int8`` defaults to True: the int8 pair store is the only
-dense Gramian this port has.  The JAX options the port does not implement
+dense pair this port has.  The JAX options the port does not implement
 yet are not fields: passing one raises ``NotImplementedError`` naming its
 ROADMAP item, whether through ``MacauConfig(...)`` or ``macau(**kwargs)``.
 The TPU-only knobs (``pallas``, ``dense_gram_budget_gb``) are absent
@@ -61,8 +61,11 @@ class MacauConfig:
     # TPU-measured constants; the port has no H100 planner yet (ROADMAP
     # M6), so None keeps the pair.
     dense_gram: Optional[bool] = None
-    # the int8 pair store; False (the float pair) is ROADMAP M3.  The
-    # gather path does not read it.
+    # int8 operands on the dense paths.  False puts a fused relation on the
+    # float kernels (table in ``gram_dtype``, else the compute dtype); for a
+    # relation that takes the pair it would be the float pair, ROADMAP M3,
+    # refused when the problem is compiled.  The gather path does not read
+    # it.
     dense_int8: bool = True
     # the fused sparse regime (ops/dense_gram.py, second half): one stored
     # int8 value array V8 instead of the pair, the mask derived on the fly.
@@ -76,7 +79,7 @@ class MacauConfig:
     # grids only); the JAX package's contract (``fused_pair_plan``)
     dense_fused_tol: Optional[float] = None
 
-    # --- gather path ---
+    # --- gather path, the fused residual and the float fused table ---
     # partner gather/contraction dtype: None = compute dtype; "bfloat16"
     # gathers in bf16 and contracts with float32 accumulation and output
     gram_dtype: Optional[str] = None
@@ -101,10 +104,6 @@ class MacauConfig:
             raise ValueError(f"unknown accumulation {self.accumulation!r}")
         if self.gram_dtype not in (None, "bfloat16"):
             raise ValueError(f"unsupported gram_dtype {self.gram_dtype!r}")
-        if not self.dense_int8 and self.dense_gram is not False:
-            raise NotImplementedError(
-                "not ported yet: float dense pair (dense_int8=False) "
-                "(ROADMAP M3)")
 
     def np_dtype(self):
         return np.dtype(self.dtype)

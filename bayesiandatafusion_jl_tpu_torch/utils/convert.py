@@ -3,7 +3,9 @@
 Both engines keep the state as the same nested structure —
 ``{"ent": [{"U", "mu", "Lambda", ...}], "rel": [{"alpha"}],
 "pred": {"r0": {"sum", "sum2", "n"}}}`` — the JAX one as arrays, the port
-as tensors.  A JAX state enters here as numpy (``jax.device_get``).
+as tensors.  A JAX state enters here as numpy (``jax.device_get``).  No
+Gramian path adds to it: the fused path's store, its residual layouts and
+its float tables belong to the compiled problem, not to the state.
 """
 from __future__ import annotations
 

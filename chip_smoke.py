@@ -15,9 +15,12 @@ Phases, each fatal on failure (nonzero exit, no result line):
    without Lambda), K4 (full-P column-slab, 32 < K <= 96), K5 (panel
    factor-inverse, K <= 64) and the blocked K = 128 sampler built on K5
    against ``torch.linalg``; K7 (the quantized partner table) and K8 (the
-   masked-pair contraction, both focus modes, raw int32 and the dequant
-   epilogue) bit for bit against their plain versions, K7 at the Netflix
-   and ML-10M shapes, K8 on small ragged stores;
+   masked-pair contraction, both focus modes: K8a raw int32 and the
+   dequant epilogue, K8b the natural layout) bit for bit against their
+   plain versions, K7 at the Netflix and ML-10M shapes, K8 on small ragged
+   stores; K8c and K8d (float operands: bfloat16 on the tensor cores,
+   float32 and float64 by FMA; flip_out and natural layout) within
+   FLOAT_TOL of the largest sum;
 4. int8 contraction: ``torch._int_mm`` equals a float64 matmul of the same
    codes exactly, at ML-10M shapes;
 5. main paths: ML-10M-shaped synthetic BPMF (71,567 x 10,681, 10,000,054
@@ -32,16 +35,32 @@ Phases, each fatal on failure (nonzero exit, no result line):
      ``torch.profiler`` split of a few sweeps and whether two runs of the
      same seed give the same U;
    - the fused path (``dense_fused=True``) at K = 32 and 64, one timed
-     window of 40 sweeps: K7 and K8 twice a sweep and the packed sampler
-     (K1, K2), K8 held bitwise against its plain version on the path's
-     own store;
-6. the Netflix fused path at full width: the JAX bench's Netflix-shaped
+     window of 40 sweeps: K7 and K8a twice a sweep and the packed sampler
+     (K1, K2), K8a held bitwise against its plain version on the path's
+     own store; at K = 128 (K8b, the torch quantization, the blocked
+     sampler on K5; a 20-sweep window); and off the s8 path
+     (``dense_int8=False``): a bfloat16 table at K = 64 (K8c, K2) and
+     K = 128 (K8d, K5), a float32 table at K = 32 (K8c's FMA variant);
+     K8b and K8d held against their plain versions at the K = 128 store
+     and timed beside the library's product on a materialized mask;
+6. the Netflix fused paths at full width: the JAX bench's Netflix-shaped
    ratings (480,189 x 17,770, 100,480,507 stars 1..5, seed 9), K = 32,
    one stored 8.5 GB int8 array, the JAX bench's protocol (8 sweeps a
-   window, 3 timed windows): K8 and K7 twice a sweep, K1 for both
-   entities, rmse_sample@8 in the JAX chain's band; a ``torch.profiler``
-   split; K8 bitwise against its plain version at this shape in both
-   modes, and the library's ``torch._int_mm`` on the materialized mask.
+   window, 3 timed windows), rmse_sample@8 in the JAX chain's band and a
+   ``torch.profiler`` split for each:
+   - the s8 path: K8a and K7 twice a sweep, K1 for both entities; K8a
+     bitwise against its plain version at this shape in both modes, and
+     the library's ``torch._int_mm`` on the materialized mask;
+   - the float path (``dense_int8=False``, a bfloat16 table): K8c twice a
+     sweep; K8c against its plain version at this shape in both modes,
+     and the library's bfloat16 ``torch.matmul`` on the materialized mask;
+   - ``netflix_cont``: the stars jittered by +-0.45, no exact grid: the
+     planner's uniform grid within ``dense_fused_tol=0.0125``, on the s8
+     path;
+   - ``netflix_dup``: every 67th rating a second time (1,499,710 more
+     observations), which the one array cannot hold: they ride the gather
+     path as a residual, added into the s8 contribution in the packed
+     layout.
    On every path the plain versions and the other paths' kernels must not
    run, and the RMSEs must lie in the JAX chain's bands where the JAX
    package has one.  Each phase prints its seconds.
@@ -66,13 +85,13 @@ import time
 RMSE_BAND = 0.02
 # K: (sweeps per window, timed windows, rmse_sample anchor, rmse_avg anchor)
 PATHS = {32: (40, 3, 0.6926, 0.6567),
-         64: (40, 3, 0.7294, None),
-         96: (20, 3, 0.7473, None),
+         64: (40, 1, 0.7294, None),
+         96: (20, 1, 0.7473, None),
          128: (20, 1, None, None)}
 # The gather paths: (K, accumulation, sweeps per window, timed windows).
 # The planned path runs one timed window of 40 sweeps, so that the same
 # anchors as at K = 32 apply to it.
-GATHER_PATHS = ((32, "segment", 40, 3), (64, "segment", 40, 3),
+GATHER_PATHS = ((32, "segment", 40, 3), (64, "segment", 40, 1),
                 (32, "planned", 40, 1))
 # the bench's 25-step width ladder (bench.py:24-25)
 BENCH_WIDTHS = (8, 12, 16, 20, 24, 28, 32, 40, 48, 56, 64, 80, 96, 112, 128,
@@ -90,9 +109,28 @@ INT8_OP_S = 1979e12
 # (docs/BENCH_R5_RUNS.md:29), a chain-noise band as for ML-10M
 NETFLIX_ANCHOR = 0.7055
 NETFLIX_SWEEPS, NETFLIX_WINDOWS = 8, 3
+# the same data with every 67th observation a second time (bench.py:382-385,
+# ``netflix_dup``): the JAX chain's rmse_sample after 8 sweeps
+# (docs/BENCH_R5_RUNS.md:47)
+NETFLIX_DUP_ANCHOR = 0.7052
+# the same cells with the stars jittered by +-0.45 (bench.py:388-405,
+# ``netflix_cont``): no exact grid, so the fused path engages through
+# ``dense_fused_tol``; the JAX chain's rmse_sample after 8 sweeps
+# (docs/BENCH_R5_RUNS.md:33)
+NETFLIX_CONT_ANCHOR = 0.7586
+NETFLIX_CONT_TOL = 0.0125
 # ML-10M through the fused path: one timed window of 40 sweeps at K = 32
 # and 64, held to the int8 pair's @40 anchors
 FUSED_ML_PATHS = (32, 64)
+# ML-10M through the rest of the fused path, one timed window each: (K,
+# sweeps a window, options).  K = 128 takes the natural-layout kernels and
+# the full-P branch; dense_int8=False the float kernels, with a bfloat16
+# table or (gram_dtype None) a float32 one, the FMA variant.  K = 128 has
+# no JAX anchor: its rmse_sample is held to this run's int8 pair at K = 128.
+FUSED_ML_MORE = ((128, 20, dict(dense_int8=True)),
+                 (64, 40, dict(dense_int8=False, gram_dtype="bfloat16")),
+                 (128, 20, dict(dense_int8=False, gram_dtype="bfloat16")),
+                 (32, 40, dict(dense_int8=False)))
 
 
 def require(cond, what):
@@ -413,28 +451,127 @@ def check_fused_pair(V8, shape, K, focus, timing=True, seed=0):
     return r
 
 
-def time_int8_library(V8, K, seed=0):
-    """The library's time for K8's mode-0 function: ``torch._int_mm`` of
-    the materialized 0/1 mask against the partner table and of V8 against
-    the factor codes (two calls; the mask's materialization is not
-    timed), and whether its int32 sums equal the kernel's."""
+BF16_FLOP_S = 989e12
+# a float variant's sums against the float64 sums of the same (rounded)
+# table: the rounding of the float32 accumulation only (exact products),
+# relative to the largest sum
+FLOAT_TOL = {"bfloat16": 1e-5, "float32": 1e-5, "float64": 1e-10}
+
+
+def check_fused_variant(V8, shape, K, focus, table, flip_out, timing=True,
+                        seed=0):
+    """K8's other variants on the stored V8 (true extents ``shape``) for one
+    focus mode: ``table`` "int8" (K7's codes of random factors up to
+    K = 96, the torch quantization above; the natural layout, K8b, bit for
+    bit against its plain version) or "bfloat16", "float32", "float64" (the
+    float table of random factors; ``flip_out`` K8c, else K8d).  A float
+    variant is held to FLOAT_TOL of the largest sum against the plain
+    version on the same table widened to float64, the exact sums; its
+    plain version's own error against them is reported beside it."""
     import torch
+    from bayesiandatafusion_jl_tpu_torch.ops import dense_gram as dg
+    from bayesiandatafusion_jl_tpu_torch.ops.fused_pair import (
+        fused_pair_contract, fused_pair_plain)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    n_contract = V8.shape[1 - focus]
+    nf = shape[focus]
+    U = torch.randn((shape[1 - focus], K), generator=g, device="cuda")
+    tri = dg.tri_index(K, "cuda")
+    if table == "int8":
+        YZT = dg.fused_quantize(U, pad_rows=n_contract, tri=tri)[0]
+    else:
+        YZT = dg.fused_table(U, getattr(torch, table), n_contract, tri)
+
+    def max_diff(xs, ys):
+        return max((a.double() - b.double()).abs().max().item()
+                   for a, b in zip(xs, ys))
+    kern = fused_pair_contract(V8, YZT, focus, K, nf, flip_out=flip_out)
+    plain = fused_pair_plain(V8, YZT, focus, K, nf, flip_out=flip_out)
+    torch.cuda.synchronize()
+    r = {"shape": tuple(shape), "K": K, "focus": focus, "table": table,
+         "flip_out": flip_out}
+    if table == "int8":
+        r["max_abs_err"] = max_diff(kern, plain)
+        r["ok"] = all(torch.equal(a, b) for a, b in zip(kern, plain))
+        r["max_abs"] = max(b.abs().max().item() for b in plain)
+    else:
+        exact = plain if table == "float64" else fused_pair_plain(
+            V8, YZT.double(), focus, K, nf, flip_out=flip_out)
+        r["max_abs"] = max(b.abs().max().item() for b in exact)
+        r["max_abs_err"] = max_diff(kern, exact)
+        r["plain_err"] = max_diff(plain, exact)
+        r["ok"] = (all(bool(torch.isfinite(a).all().item()) for a in kern)
+                   and r["max_abs_err"] <= FLOAT_TOL[table] * r["max_abs"])
+        del exact
+    del kern, plain
+    if timing:
+        r["kernel_ms"] = cuda_ms(
+            lambda: fused_pair_contract(V8, YZT, focus, K, nf,
+                                        flip_out=flip_out), 5)
+        r["plain_ms"] = cuda_ms(
+            lambda: fused_pair_plain(V8, YZT, focus, K, nf,
+                                     flip_out=flip_out), 2)
+        C = K * (K + 1) // 2
+        rate = {"int8": INT8_OP_S, "bfloat16": BF16_FLOP_S}.get(table,
+                                                                F32_FLOP_S)
+        nbytes = (V8.numel() + YZT.numel() * YZT.element_size()
+                  + 4 * (C + 2 * K) * nf)
+        r["bound_ms"], r["bound_by"] = bound_ms(
+            nbytes, 2 * count_observed(V8) * (C + 2 * K), rate=rate)
+        dense = fused_pair_dense_ops(shape, K)
+        r["dense_bound_ms"] = dense / rate * 1e3
+        r["tops"] = dense / r["kernel_ms"] * 1e-9
+    return r
+
+
+def print_variant_check(label, r):
+    tag = ("K8b" if r["table"] == "int8" else
+           "K8c" if r["flip_out"] else "K8d")
+    line = (f"# {tag} {label} {r['shape']} K={r['K']} focus {r['focus']} "
+            f"{r['table']}: ok {r['ok']} (max |diff| {r['max_abs_err']:.3e} "
+            f"of max |sum| {r['max_abs']:.3e}")
+    line += (f"; the plain version's {r['plain_err']:.3e})"
+             if "plain_err" in r else ")")
+    if "kernel_ms" in r:
+        line += (f"; kernel {r['kernel_ms']:.4f} ms ({r['tops']:.1f} dense "
+                 f"TOP/s), plain {r['plain_ms']:.4f} ms, bound "
+                 f"{r['bound_ms']:.4f} ms ({r['bound_by']}); the dense-MMA "
+                 f"design's floor {r['dense_bound_ms']:.4f} ms")
+    print(line, flush=True)
+
+
+def time_mask_library(V8, K, table="int8", seed=0):
+    """The library's time for K8's mode-0 function: one product of the
+    materialized 0/1 mask against the partner table and one of V8's codes
+    against the factors (two calls; making the mask and, for a float
+    table, the codes in its type is not timed) — ``torch._int_mm`` for an
+    int8 table, ``torch.matmul`` in the table's type (its output rounded
+    to that type) for a float one.  For int8, also whether its int32 sums
+    equal the kernel's."""
+    import torch
+    from bayesiandatafusion_jl_tpu_torch.ops import dense_gram as dg
     from bayesiandatafusion_jl_tpu_torch.ops.fused_pair import \
         fused_pair_contract
-    from bayesiandatafusion_jl_tpu_torch.ops.ytab import ytab_quantize
     g = torch.Generator(device="cuda").manual_seed(seed)
     U = torch.randn((V8.shape[1], K), generator=g, device="cuda")
-    YZ8T, _ = ytab_quantize(U, out_rows=V8.shape[1])
-    Z8T = YZ8T[-K:]
-    mask = (V8 != 0).to(torch.int8)
+    tri = dg.tri_index(K, "cuda")
+    if table == "int8":
+        YZT = dg.fused_quantize(U, pad_rows=V8.shape[1], tri=tri)[0]
+        mask, codes, mm = (V8 != 0).to(torch.int8), V8, torch._int_mm
+    else:
+        dt = getattr(torch, table)
+        YZT = dg.fused_table(U, dt, V8.shape[1], tri)
+        mask, codes, mm = (V8 != 0).to(dt), V8.to(dt), torch.matmul
+    ZT = YZT[-K:]
 
     def lib():
-        return torch._int_mm(mask, YZ8T.mT), torch._int_mm(V8, Z8T.mT)
+        return mm(mask, YZT.mT), mm(codes, ZT.mT)
     ms = cuda_ms(lib, 5)
+    if table != "int8":
+        return ms, None
     pm, bv = lib()
-    PM, BV = fused_pair_contract(V8, YZ8T, 0, K, V8.shape[0])
-    same = bool(torch.equal(pm.mT, PM) and torch.equal(bv.mT, BV))
-    return ms, same
+    PM, BV = fused_pair_contract(V8, YZT, 0, K, V8.shape[0], flip_out=False)
+    return ms, bool(torch.equal(pm, PM) and torch.equal(bv, BV))
 
 
 def check_int8_contraction(n_rows=2048, K=32, seed=1):
@@ -470,7 +607,10 @@ def counters():
             "K4": (chol_full.chol_sample_full_tiled, "launches"),
             "K5": (chol_blocked.chol_inv, "launches"),
             "K7": (ytab.ytab_quantize, "launches"),
-            "K8": (fused_pair.fused_pair_contract, "launches"),
+            "K8a": (fused_pair.fused_pair_contract, "launches_i8_flip"),
+            "K8b": (fused_pair.fused_pair_contract, "launches_i8_nat"),
+            "K8c": (fused_pair.fused_pair_contract, "launches_f_flip"),
+            "K8d": (fused_pair.fused_pair_contract, "launches_f_nat"),
             "plain_packed": (chol_packed.chol_sample_packed_plain, "calls"),
             "plain_full": (chol_full.chol_sample_full_plain, "calls"),
             "plain_inv": (chol_blocked.chol_inv_plain, "calls"),
@@ -505,14 +645,19 @@ def time_int8_products(pair, K):
               flush=True)
 
 
-def path_kernels(K, gather, fused):
+def path_kernels(K, gather, fused, i8=True):
     """{counter: launches per sweep} of the kernels a path must run: its
-    sampler, and on the fused path K7 and K8 once per mode."""
+    sampler, and on the fused path K8 once per mode (by operand type and
+    layout) and, on its s8 kernels up to K = 96, K7."""
     if gather and K <= 96:
         return {"K3" if K <= 32 else "K4": 2}
     want = {"K1": 2} if K <= 32 else {"K2": 2} if K <= 96 else {"K5": 4}
     if fused:
-        want.update(K7=2, K8=2)
+        packed = K <= 96
+        want[("K8a" if packed else "K8b") if i8 else
+             ("K8c" if packed else "K8d")] = 2
+        if i8 and packed:
+            want["K7"] = 2
     return want
 
 
@@ -520,7 +665,8 @@ def run_path(rd, K, sweeps, repeats, anchor_s, anchor_avg, name="ML-10M",
              **opts):
     """One main path: the benchmark protocol at rank K (``opts`` select the
     gather or the fused path), with the kernels' counts set to 0 just
-    before it and read just after."""
+    before it and read just after.  Returns the engine, the counts and the
+    benchmark's result."""
     import torch
     from bayesiandatafusion_jl_tpu_torch.models.engine import MacauEngine
     from bayesiandatafusion_jl_tpu_torch.utils.config import MacauConfig
@@ -529,9 +675,6 @@ def run_path(rd, K, sweeps, repeats, anchor_s, anchor_avg, name="ML-10M",
                       seed=42, **opts)
     gather = cfg.dense_gram is False
     fused = bool(cfg.dense_fused)
-    label = name + " " + (f"gather {cfg.accumulation} K={K}" if gather
-                          else f"fused K={K}" if fused
-                          else f"int8 pair K={K}")
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -539,7 +682,18 @@ def run_path(rd, K, sweeps, repeats, anchor_s, anchor_avg, name="ML-10M",
     build_s = time.perf_counter() - t0
     prob = eng.problem
     require(fused == (prob.fused is not None),
-            f"{label}: the fused store was {'not ' if fused else ''}built")
+            f"{name} K={K}: the fused store was {'not ' if fused else ''}"
+            f"built")
+    require(not fused or prob.fused_i8 == cfg.dense_int8,
+            f"{name} K={K}: the fused path's s8 decision is {prob.fused_i8}")
+    if gather:
+        label = f"{name} gather {cfg.accumulation} K={K}"
+    elif fused:
+        table = "s8" if prob.fused_i8 else (cfg.gram_dtype or cfg.dtype)
+        label = (f"{name} fused {table} K={K}"
+                 + (" with residual" if prob.residual_nnz else ""))
+    else:
+        label = f"{name} int8 pair K={K}"
     zero_counts()
     t0 = time.perf_counter()
     out = eng.benchmark(sweeps, repeats=repeats)
@@ -557,6 +711,13 @@ def run_path(rd, K, sweeps, repeats, anchor_s, anchor_avg, name="ML-10M",
         built = (f"fused_pair_plan {prob.plan_seconds:.1f} s, V8 build "
                  f"{prob.build_seconds - prob.plan_seconds:.1f} s, V8 "
                  f"{tuple(prob.fused['V8'].shape)}")
+        if prob.residual_nnz:
+            rows = [sum(ba["inst"].shape[0] for ba in prob.layouts[k])
+                    for k in ("r0m0", "r0m1")]
+            built += (f", residual {prob.residual_nnz} observations, bucket "
+                      f"rows per mode {rows}, padded cells per mode "
+                      f"{prob.padded_nnz}, layouts "
+                      f"{prob.layout_seconds:.1f} s")
     else:
         built = f"pair store {prob.build_seconds:.1f} s"
     print(f"# path {label}: ms/sweep per window {wins}, median {med:.3f}; "
@@ -567,7 +728,8 @@ def run_path(rd, K, sweeps, repeats, anchor_s, anchor_avg, name="ML-10M",
           f"warm window", flush=True)
     total_sweeps = sweeps * (repeats + 1)
     want = {k: 0 for k in counts}
-    for tag, per_sweep in path_kernels(K, gather, fused).items():
+    for tag, per_sweep in path_kernels(K, gather, fused,
+                                       prob.fused_i8).items():
         want[tag] = per_sweep * total_sweeps
     require(counts == want, f"{label}: counts {counts} for {total_sweeps} "
                             f"sweeps, want {want}")
@@ -582,7 +744,7 @@ def run_path(rd, K, sweeps, repeats, anchor_s, anchor_avg, name="ML-10M",
         require(abs(m["r0.rmse_avg"] - anchor_avg) <= RMSE_BAND,
                 f"{label}: rmse_avg {m['r0.rmse_avg']} outside "
                 f"{anchor_avg} +- {RMSE_BAND}")
-    return eng, counts
+    return eng, counts, out
 
 
 # kernel-name fragments of each part of a gather sweep (torch.profiler)
@@ -594,10 +756,24 @@ SPLIT = (("sampler", ("chol_sample", "chol_inv")),
 
 # ... and of a fused sweep: K8 per focus mode (the demangled or mangled
 # template argument), K7, the packed sampler
-FUSED_SPLIT = (("K8 mode 0", ("fused_pair_kernel<0", "fused_pair_kernelILi0")),
-               ("K8 mode 1", ("fused_pair_kernel<1", "fused_pair_kernelILi1")),
+FUSED_SPLIT = (("K8 mode 0", ("fused_pair_kernel<0", "fused_pair_kernelILi0",
+                              "fused_pair_bf16_kernel<0",
+                              "fused_pair_bf16_kernelILi0",
+                              "fused_pair_fma_kernel<float, 0",
+                              "fused_pair_fma_kernelIfLi0")),
+               ("K8 mode 1", ("fused_pair_kernel<1", "fused_pair_kernelILi1",
+                              "fused_pair_bf16_kernel<1",
+                              "fused_pair_bf16_kernelILi1",
+                              "fused_pair_fma_kernel<float, 1",
+                              "fused_pair_fma_kernelIfLi1")),
                ("K7", ("ytab_",)),
-               ("K1/K2", ("chol_sample_packed",)))
+               ("K1/K2/K5", ("chol_sample_packed", "chol_inv")),
+               # the residual's parts; the gathers are also the float
+               # table's and the expand's, the GEMM kernels also the hyper
+               # draws' (a fused sweep without a residual shows how much)
+               ("gather", ("gather_kernel", "indexSelect")),
+               ("segment sum", ("indexFunc", "index_add")),
+               ("bmm and gemm", ("gemm", "gemv", "cutlass", "xmma", "sm90_")))
 
 
 def profile_split(eng, warm=2, sweeps=3, split=SPLIT):
@@ -673,7 +849,8 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     from bayesiandatafusion_jl_tpu_torch import kernels
-    from bayesiandatafusion_jl_tpu_torch.models.data import RelationData
+    from bayesiandatafusion_jl_tpu_torch.models.data import (IndexedDF,
+                                                             RelationData)
     from bayesiandatafusion_jl_tpu_torch.models.datasets import (
         load_movielens, netflix_synthetic)
 
@@ -745,6 +922,16 @@ def main() -> int:
             r = check_fused_pair(V8, true, K, focus)
             print_fused_check("small ragged", r)
             require(r["ok"], f"K8 disagrees with its plain version: {r}")
+        for focus in (0, 1):
+            for table, flip in (("int8", False), ("bfloat16", True),
+                                ("bfloat16", False), ("float32", True),
+                                ("float32", False), ("float64", True),
+                                ("float64", False)):
+                r = check_fused_variant(V8, true, K, focus, table, flip,
+                                        timing=False)
+                print_variant_check("small ragged", r)
+                require(r["ok"], f"K8 variant disagrees with its plain "
+                                 f"version: {r}")
         del V8
     phase_done("kernels vs plain")
 
@@ -759,26 +946,30 @@ def main() -> int:
     rd.assign_to_test(0, min(100_000, df.nnz // 10), seed=7)
     print(f"# data: nnz={df.nnz}, shape={df.shape}", flush=True)
     phase_done("ML-10M data")
-    launches = dict.fromkeys(("K1", "K2", "K3", "K4", "K5", "K7", "K8"), 0)
+    launches = dict.fromkeys(("K1", "K2", "K3", "K4", "K5", "K7", "K8a",
+                              "K8b", "K8c", "K8d"), 0)
+    rmse_pair = {}
 
     def tally(counts):
         for k in launches:
             launches[k] += counts[k]
 
     for K, (sweeps, repeats, anchor_s, anchor_avg) in PATHS.items():
-        eng, counts = run_path(rd, K, sweeps, repeats, anchor_s, anchor_avg,
-                               dense_int8=True)
+        eng, counts, out = run_path(rd, K, sweeps, repeats, anchor_s,
+                                    anchor_avg, dense_int8=True)
         tally(counts)
+        rmse_pair[K] = out["rmse_at_sweeps"]
         if K == 32:
             time_int8_products(eng.problem.pair, K)
         del eng
     phase_done("ML-10M int8 pair paths")
     for K, acc, sweeps, repeats in GATHER_PATHS:
         anchor_s, anchor_avg = PATHS[K][2:]
-        eng, counts = run_path(rd, K, sweeps, repeats, anchor_s, anchor_avg,
-                               dense_gram=False, gram_dtype="bfloat16",
-                               bucket_widths=BENCH_WIDTHS, row_pad=8,
-                               accumulation=acc)
+        eng, counts, _ = run_path(rd, K, sweeps, repeats, anchor_s,
+                                  anchor_avg, dense_gram=False,
+                                  gram_dtype="bfloat16",
+                                  bucket_widths=BENCH_WIDTHS, row_pad=8,
+                                  accumulation=acc)
         tally(counts)
         prof = profile_split(eng)
         print_profile(f"gather {acc} K={K}", prof)
@@ -793,8 +984,8 @@ def main() -> int:
         del eng
     phase_done("ML-10M gather paths")
     for K in FUSED_ML_PATHS:
-        eng, counts = run_path(rd, K, 40, 1, PATHS[K][2], None,
-                               dense_fused=True)
+        eng, counts, _ = run_path(rd, K, 40, 1, PATHS[K][2], None,
+                                  dense_fused=True)
         tally(counts)
         st = eng.problem.fused
         for focus in (0, 1):
@@ -807,8 +998,47 @@ def main() -> int:
                   f"max |diff| {diff:.3e}", flush=True)
             require(math.isfinite(diff), f"fused K={K}: non-finite U")
         del eng, st
-    del rd, df
     phase_done("ML-10M fused paths")
+    ml_checks = {}
+    for K, sweeps, opts in FUSED_ML_MORE:
+        eng, counts, out = run_path(rd, K, sweeps, 1, PATHS[K][2], None,
+                                    dense_fused=True, **opts)
+        tally(counts)
+        if K == 128:
+            require(abs(out["rmse_at_sweeps"] - rmse_pair[128]) <= RMSE_BAND,
+                    f"fused K=128: rmse_sample@{sweeps} "
+                    f"{out['rmse_at_sweeps']} outside this run's int8 pair's "
+                    f"{rmse_pair[128]} +- {RMSE_BAND}")
+        st = eng.problem.fused
+        i8 = eng.problem.fused_i8
+        table = "int8" if i8 else (opts.get("gram_dtype") or "float32")
+        prof = profile_split(eng, split=FUSED_SPLIT)
+        print_profile(f"ML-10M fused {table} K={K}", prof)
+        del eng
+        torch.cuda.empty_cache()
+        # the variant this path launches (K8b, K8c bf16, K8d, the FMA one),
+        # both modes, at the path's own store and K
+        for focus in (0, 1):
+            r = check_fused_variant(st["V8"], st["shape"], K, focus, table,
+                                    flip_out=K <= 96)
+            print_variant_check("ML-10M", r)
+            require(r["ok"], f"K8 variant disagrees with its plain "
+                             f"version: {r}")
+            ml_checks[(table, K, focus)] = r
+            torch.cuda.empty_cache()
+        if K == 128:
+            ml_lib_ms, same = time_mask_library(st["V8"], K, table)
+            print(f"# library, ML-10M K=128 mode 0, {table}: the "
+                  f"product on the materialized mask and on V8 "
+                  f"(materialization not timed) {ml_lib_ms:.3f} ms"
+                  + (f"; int32 sums equal K8b's: {same}" if i8 else ""),
+                  flush=True)
+            require(same is not False, "torch._int_mm and K8b disagree")
+            ml_checks[(table, K, "library")] = ml_lib_ms
+        del st
+        torch.cuda.empty_cache()
+    del rd, df
+    phase_done("ML-10M fused paths, K = 128 and float")
 
     # -- the Netflix fused path, full width ---------------------------------
     t0 = time.perf_counter()
@@ -819,16 +1049,16 @@ def main() -> int:
     print(f"# netflix data: generation {gen_s:.1f} s, with the test split "
           f"{time.perf_counter() - t0:.1f} s (nnz={df.nnz}, shape={df.shape})",
           flush=True)
-    del df
     phase_done("Netflix data")
-    eng, counts = run_path(rd, 32, NETFLIX_SWEEPS, NETFLIX_WINDOWS,
-                           NETFLIX_ANCHOR, None, name="Netflix",
-                           dense_fused=True, dense_int8=True)
+    eng, counts, _ = run_path(rd, 32, NETFLIX_SWEEPS, NETFLIX_WINDOWS,
+                              NETFLIX_ANCHOR, None, name="Netflix",
+                              dense_fused=True, dense_int8=True)
     tally(counts)
     phase_done("Netflix path")
     prof = profile_split(eng, split=FUSED_SPLIT)
     print_profile("Netflix fused K=32", prof)
     st = eng.problem.fused
+    del eng
     nf_checks = []
     for focus in (0, 1):
         r = check_fused_pair(st["V8"], st["shape"], 32, focus)
@@ -836,13 +1066,94 @@ def main() -> int:
         require(r["ok"], f"K8 disagrees with its plain version: {r}")
         nf_checks.append(r)
         torch.cuda.empty_cache()
-    lib_ms, lib_same = time_int8_library(st["V8"], 32)
+    lib_ms, lib_same = time_mask_library(st["V8"], 32)
     print(f"# library, Netflix mode 0: torch._int_mm of the materialized "
           f"mask and of V8 (materialization not timed) {lib_ms:.3f} ms; "
           f"int32 sums equal K8's: {lib_same}", flush=True)
     require(lib_same, "torch._int_mm and K8 disagree")
-    del eng, st, rd
+    del st
+    torch.cuda.empty_cache()
     phase_done("Netflix kernels")
+
+    # -- the Netflix float fused path ---------------------------------------
+    eng, counts, _ = run_path(rd, 32, NETFLIX_SWEEPS, NETFLIX_WINDOWS,
+                              NETFLIX_ANCHOR, None, name="Netflix",
+                              dense_fused=True, dense_int8=False,
+                              gram_dtype="bfloat16")
+    tally(counts)
+    prof = profile_split(eng, split=FUSED_SPLIT)
+    print_profile("Netflix fused bfloat16 K=32", prof)
+    st = eng.problem.fused
+    del eng
+    nf_float = []
+    for focus in (0, 1):
+        r = check_fused_variant(st["V8"], st["shape"], 32, focus, "bfloat16",
+                                flip_out=True)
+        print_variant_check("Netflix", r)
+        require(r["ok"], f"K8c disagrees with its plain version: {r}")
+        nf_float.append(r)
+        torch.cuda.empty_cache()
+    lib_float_ms, _ = time_mask_library(st["V8"], 32, "bfloat16")
+    print(f"# library, Netflix mode 0, bfloat16: torch.matmul of the "
+          f"materialized mask and of V8's codes, 17.1 GB each in bfloat16 "
+          f"(materialization not timed) {lib_float_ms:.3f} ms", flush=True)
+    del st, rd
+    torch.cuda.empty_cache()
+    phase_done("Netflix float fused path")
+
+    # -- netflix_cont: continuous values on a bounded-error grid ------------
+    t0 = time.perf_counter()
+    jitter = np.random.default_rng(17).uniform(-0.45, 0.45, df.nnz)
+    rd = RelationData.from_indexed_df(
+        IndexedDF(df.idx, df.vals.astype(np.float32)
+                  + jitter.astype(np.float32), df.shape),
+        relation_name="ratings")
+    del jitter
+    rd.assign_to_test(0, 100_000, seed=7)
+    print(f"# netflix_cont data: {time.perf_counter() - t0:.1f} s with the "
+          f"test split", flush=True)
+    eng, counts, _ = run_path(rd, 32, NETFLIX_SWEEPS, NETFLIX_WINDOWS,
+                              NETFLIX_CONT_ANCHOR, None, name="netflix_cont",
+                              dense_fused=True, dense_int8=True,
+                              gram_dtype="bfloat16",
+                              dense_fused_tol=NETFLIX_CONT_TOL,
+                              bucket_widths=BENCH_WIDTHS)
+    tally(counts)
+    st = eng.problem.fused
+    print(f"# netflix_cont took the s8 fused path on the grid of step "
+          f"{st['scale']:.6f} (rounding error <= {st['scale'] / 2:.6f}), "
+          f"shift {st['shift']}, with a residual of "
+          f"{eng.problem.residual_nnz} observations", flush=True)
+    require(st["scale"] / 2 <= NETFLIX_CONT_TOL,
+            f"netflix_cont: grid step {st['scale']} over the tolerance")
+    del eng, st, rd
+    torch.cuda.empty_cache()
+    phase_done("netflix_cont path")
+
+    # -- netflix_dup: the hybrid residual -----------------------------------
+    t0 = time.perf_counter()
+    dsel = np.arange(0, df.nnz, 67)
+    df = IndexedDF(np.concatenate([df.idx, df.idx[dsel]]),
+                   np.concatenate([df.vals, df.vals[dsel]]), df.shape)
+    rd = RelationData.from_indexed_df(df, relation_name="ratings")
+    rd.assign_to_test(0, 100_000, seed=7)
+    print(f"# netflix_dup data: +{len(dsel)} duplicate observations, nnz="
+          f"{df.nnz}, {time.perf_counter() - t0:.1f} s with the test split",
+          flush=True)
+    del df, dsel
+    eng, counts, _ = run_path(rd, 32, NETFLIX_SWEEPS, NETFLIX_WINDOWS,
+                              NETFLIX_DUP_ANCHOR, None, name="netflix_dup",
+                              dense_fused=True, dense_int8=True,
+                              gram_dtype="bfloat16",
+                              bucket_widths=BENCH_WIDTHS)
+    tally(counts)
+    require(eng.problem.residual_nnz > 1_400_000,
+            f"netflix_dup: residual of {eng.problem.residual_nnz}")
+    prof = profile_split(eng, split=FUSED_SPLIT)
+    print_profile("netflix_dup fused K=32", prof)
+    del eng, rd
+    torch.cuda.empty_cache()
+    phase_done("netflix_dup path")
 
     src = "bayesiandatafusion_jl_tpu_torch/csrc/"
     jax_src = "bayesiandatafusion_jl_tpu/ops/pallas_chol.py:"
@@ -874,14 +1185,27 @@ def main() -> int:
                  "launches": launches["K7"], "max_abs_err": r["max_abs_err"],
                  "ms": r["kernel_ms"], "plain_ms": r["plain_ms"],
                  "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
-    r = nf_checks[0]
-    rows.append({"name": "fused_pair_i8", "route": "cuda",
-                 "source": src + "fused_pair_i8.cu",
-                 "replaces": "bayesiandatafusion_jl_tpu/ops/pallas_fused.py:345",
-                 "launches": launches["K8"], "max_abs_err": r["max_abs_err"],
-                 "ms": r["kernel_ms"], "plain_ms": r["plain_ms"],
-                 "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-                 "library_ms": lib_ms})
+    fused_src = "bayesiandatafusion_jl_tpu/ops/pallas_fused.py:"
+    for tag, name, source, line, r, lib in (
+            ("K8a", "fused_pair_i8", "fused_pair_i8.cu", 127, nf_checks[0],
+             lib_ms),
+            ("K8b", "fused_pair_i8_natural", "fused_pair_i8.cu", 83,
+             ml_checks[("int8", 128, 0)],
+             ml_checks[("int8", 128, "library")]),
+            ("K8c", "fused_pair_float", "fused_pair_f.cu", 252, nf_float[0],
+             lib_float_ms),
+            ("K8d", "fused_pair_float_natural", "fused_pair_f.cu", 303,
+             ml_checks[("bfloat16", 128, 0)],
+             ml_checks[("bfloat16", 128, "library")])):
+        rows.append({"name": name, "route": "cuda", "source": src + source,
+                     "replaces": fused_src + str(line),
+                     "launches": launches[tag],
+                     "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"],
+                     "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                     "bound_by": r["bound_by"], "library_ms": lib})
+    for row in rows:
+        require(row["launches"] > 0, f"{row['name']} never launched on a "
+                                     f"main path")
     print(f"# total: {time.perf_counter() - T_START:.1f} s", flush=True)
     print(nvidia_smi_line())
     print(json.dumps({"kernels": rows}))

@@ -1,6 +1,7 @@
-"""The port's Gibbs sweep against the JAX engine (the int8 pair path and
-the bucketed gather path, Pallas samplers in interpret mode), with injected
-randoms, across the K ladder."""
+"""The port's Gibbs sweep against the JAX engine (the int8 pair path, the
+bucketed gather path and the fused path with its residual, float and
+K > 96 variants; Pallas kernels in interpret mode), with injected randoms,
+across the K ladder."""
 import dataclasses
 import functools
 import inspect
@@ -18,6 +19,7 @@ from bayesiandatafusion_jl_tpu.models.datasets import \
     synthetic_ratings as jax_synthetic_ratings
 from bayesiandatafusion_jl_tpu.models.engine import MacauEngine
 from bayesiandatafusion_jl_tpu.ops import dense_gram as jax_dense_gram
+from bayesiandatafusion_jl_tpu.ops import gramian as jax_gramian
 from bayesiandatafusion_jl_tpu.ops import pallas_chol as jax_pallas_chol
 from bayesiandatafusion_jl_tpu.ops.hyper import \
     normal_wishart_update as jax_nw_update
@@ -101,16 +103,24 @@ def gather_branches(monkeypatch):
 
 @pytest.fixture
 def fused_branches(monkeypatch):
-    """Records the fused packed branch of each engine: its fused s8
-    contribution, the JAX engine's masked-pair kernel function (at trace
-    time) and each engine's packed dispatch."""
+    """Records the fused branches of each engine: its fused contribution
+    (s8 "fused", float "fused_float"), the JAX engine's masked-pair kernel
+    function (at trace time), the residual's accumulation (packed
+    "residual", through ``assemble_precision`` "segment") and each engine's
+    packed and full-P dispatch."""
     from bayesiandatafusion_jl_tpu.ops import pallas_fused
     return _spies(monkeypatch, [
         (jax_dense_gram, "fused_gram_contrib_i8", ("jax", "fused")),
+        (jax_dense_gram, "fused_gram_contrib", ("jax", "fused_float")),
         (pallas_fused, "fused_pair_pallas", ("jax", "K8")),
+        (jax_gramian, "packed_bucket_accum", ("jax", "residual")),
+        (jax_engine_mod, "assemble_precision", ("jax", "segment")),
         (jax_pallas_chol, "chol_sample_packed_dispatch", ("jax", "packed")),
         (jax_engine_mod, "chol_sample_dispatch", ("jax", "full")),
         (tdg, "fused_gram_contrib_i8", ("port", "fused")),
+        (tdg, "fused_gram_contrib", ("port", "fused_float")),
+        (torch_engine_mod, "packed_bucket_accum", ("port", "residual")),
+        (torch_engine_mod, "assemble_precision", ("port", "segment")),
         (torch_engine_mod, "chol_sample_packed_dispatch",
          ("port", "packed")),
         (torch_engine_mod, "chol_sample_dispatch", ("port", "full"))])
@@ -158,15 +168,30 @@ def _run_both(ej, et, n_sweeps, dtype, check=None):
     return state_j, state_t, mj, mt
 
 
-def _f64_engines(K, pallas="on", **opts):
-    """Both engines in float64 on one small ratings matrix."""
+def _small_ratings(residual=None):
+    """(idx, vals, shape) of one small ratings matrix on the half-star
+    grid.  ``residual`` makes the fused planner leave some observations to
+    the gather path: "duplicates" rates 9 cells a second time;
+    "zero_level" puts the values on a 255-level grid with every level
+    used, so that one level gets the zero code."""
     rng = np.random.default_rng(0)
     n0, n1 = 60, 45
     mask = rng.random((n0, n1)) < 0.5
     R = np.clip(np.round((3 + rng.standard_normal((n0, n1))) * 2) / 2, 1, 5)
-    idx = np.stack(np.nonzero(mask), 1)
-    return _engines(idx, R[mask], (n0, n1), 120, "float64", K=K,
-                    pallas=pallas, **opts)
+    idx, vals = np.stack(np.nonzero(mask), 1), R[mask]
+    if residual == "duplicates":
+        idx = np.concatenate([idx, idx[:9]])
+        vals = np.concatenate([vals, rng.integers(2, 11, 9) * 0.5])
+    elif residual == "zero_level":
+        vals = 1.0 + (rng.permutation(len(vals)) % 255) * (4.0 / 256)
+    return idx, vals, (n0, n1)
+
+
+def _f64_engines(K, pallas="on", residual=None, **opts):
+    """Both engines in float64 on one small ratings matrix."""
+    idx, vals, shape = _small_ratings(residual)
+    return _engines(idx, vals, shape, 120, "float64", K=K, pallas=pallas,
+                    **opts)
 
 
 def _check_f64(s, sj, st, mj, mt):
@@ -298,6 +323,138 @@ def test_fused_f64_matches_jax_engine(interpret_pallas, xla_cpu_ridge,
     assert (ytab.ytab_quantize_plain.calls,
             fused_pair.fused_pair_plain.calls) == (calls[0] + 6,
                                                    calls[1] + 6)
+
+
+def _fused_counts():
+    return (ytab.ytab_quantize_plain.calls, fused_pair.fused_pair_plain.calls)
+
+
+@pytest.mark.parametrize("residual", ["duplicates", "zero_level"])
+def test_fused_residual_f64_matches_jax_engine(interpret_pallas,
+                                               xla_cpu_ridge, fused_branches,
+                                               residual):
+    """A fused relation with a gather-path residual, K=8: cells rated
+    twice, or a value grid whose every level is used (one level takes the
+    zero code).  Both engines keep the first encodable observation per
+    cell in V8 (ridge degrees and the int32 bound from those alone), give
+    the rest bucket layouts with exact centered values, and add them to
+    the fused s8 contribution in the packed layout.  3 float64 sweeps to
+    1e-8."""
+    ej, et = _f64_engines(K=8, residual=residual, dense_fused=True)
+    keep = ej.problem.fused_keep[0]
+    assert et.problem.residual_nnz == int((~keep).sum()) > 0
+    assert et.problem.fused_i8 and ej.problem.fused_i8[0]
+    np.testing.assert_array_equal(
+        et.problem.fused["deg"][0].numpy()[:60],
+        np.asarray(ej.problem.arrays["dense"]["r0"]["deg_m0"])[:60])
+    calls = _fused_counts()
+    _run_both(ej, et, 3, "float64", _check_f64)
+    assert set(fused_branches) == {
+        ("jax", "fused"), ("jax", "K8"), ("jax", "residual"),
+        ("jax", "packed"), ("port", "fused"), ("port", "residual"),
+        ("port", "packed")}
+    assert fused_branches.count(("port", "residual")) == 6
+    assert _fused_counts() == (calls[0] + 6, calls[1] + 6)
+
+
+@pytest.mark.parametrize("K, declined", [(8, False), (36, False), (8, True)])
+def test_fused_float_f64_matches_jax_engine(monkeypatch, fused_branches, K,
+                                            declined):
+    """The fused path off the s8 kernels: ``dense_int8=False``, or a
+    relation that fails the int32 bound ``fused_int8_ok`` (``declined``:
+    the bound patched to refuse in both packages).  Both engines take the
+    float contribution, the table in the compute dtype, alpha multiplied
+    in afterwards; the JAX engine with pallas="off" (its float kernels
+    give float32 sums, the XLA fallback float64), so it samples from the
+    full P where the port keeps P packed (K1 at K=8, K2 at K=36).  3
+    float64 sweeps to 1e-8."""
+    if declined:
+        monkeypatch.setattr(jax_dense_gram, "fused_int8_ok",
+                            lambda *a, **k: False)
+        monkeypatch.setattr(tdg, "fused_int8_ok", lambda *a, **k: False)
+    ej, et = _f64_engines(K=K, pallas="off", dense_fused=True,
+                          dense_int8=declined)
+    assert ej.problem.fused_rels and not ej.problem.fused_i8[0]
+    assert et.problem.fused is not None and not et.problem.fused_i8
+    calls = _fused_counts()
+    _run_both(ej, et, 3, "float64", _check_f64)
+    assert set(fused_branches) == {
+        ("jax", "fused_float"), ("jax", "segment"), ("jax", "full"),
+        ("port", "fused_float"), ("port", "packed")}
+    assert fused_branches.count(("port", "fused_float")) == 6
+    assert _fused_counts() == (calls[0], calls[1] + 6)
+
+
+@pytest.mark.parametrize("int8, residual", [(True, None), (False, None),
+                                            (True, "duplicates")])
+def test_fused_k100_f64_matches_jax_engine(xla_cpu_ridge, fused_branches,
+                                           int8, residual):
+    """The fused path at K=100, above the packed samplers: both engines
+    take the natural-layout contribution (s8: raw int32 sums, the finish
+    with the ridge on the diagonal columns, the alpha multiply; float: the
+    compute-dtype table), expand it to [n, K, K] and sample from the full
+    P (the JAX engine with pallas="off", the port with the blocked
+    sampler); duplicates come in through ``assemble_precision``.  3 float64
+    sweeps to 1e-8."""
+    ej, et = _f64_engines(K=100, pallas="off", residual=residual,
+                          dense_fused=True, dense_int8=int8)
+    assert et.problem.fused_i8 == int8 == ej.problem.fused_i8[0]
+    assert (et.problem.residual_nnz > 0) == (residual is not None)
+    calls = _fused_counts()
+    inv = chol_blocked.chol_inv_plain.calls
+    _run_both(ej, et, 3, "float64", _check_f64)
+    kind = "fused" if int8 else "fused_float"
+    want = {("jax", kind), ("jax", "segment"), ("jax", "full"),
+            ("port", kind), ("port", "full")}
+    if residual:
+        want.add(("port", "segment"))
+    assert set(fused_branches) == want
+    assert fused_branches.count(("port", "segment")) == (6 if residual else 0)
+    # K=100 is above K7: the table is quantized by torch ops on any device
+    assert _fused_counts() == (calls[0], calls[1] + 6)
+    assert chol_blocked.chol_inv_plain.calls == inv + 12
+
+
+@pytest.mark.parametrize("variant", ["float_bf16", "duplicates"])
+def test_fused_f32_variants_match_s8_chain(variant):
+    """float32 chains of 20 sweeps on the same ratings and randoms: the
+    float fused path with a bfloat16 table, and the s8 path with every
+    11th observation rated again (a gather-path residual with a bfloat16
+    gather), against the plain s8 fused chain.  They round differently
+    (and the second sees more data), so only the posterior-mean RMSE is
+    held, to 3e-2."""
+    df = synthetic_ratings(300, 200, 12_000, seed=1)
+    rmse = {}
+    for name in ("s8", variant):
+        idx, vals = df.idx, df.vals
+        opts = {}
+        if name == "float_bf16":
+            opts = dict(dense_int8=False, gram_dtype="bfloat16")
+        elif name == "duplicates":
+            idx = np.concatenate([idx, idx[::11]])
+            vals = np.concatenate([vals, vals[::11]])
+            opts = dict(gram_dtype="bfloat16")
+        rd = bt.RelationData.from_indexed_df(
+            bt.IndexedDF(idx, vals, df.shape))
+        rd.assign_to_test(0, np.arange(0, 12_000, 12))
+        eng = bt.MacauEngine(rd, bt.MacauConfig(
+            num_latent=8, dtype="float32", seed=5, verbose=False,
+            clamp=(1.0, 5.0), dense_fused=True, **opts), device="cpu")
+        prob = eng.problem
+        assert prob.fused is not None
+        assert prob.fused_i8 == (name != "float_bf16")
+        assert (prob.residual_nnz > 0) == (name == "duplicates")
+        state = eng.init_state()
+        rng = np.random.default_rng(999)
+        for s in range(20):
+            randoms = trng.draw_all_numpy(rng, prob.random_spec,
+                                          np.dtype("float32"))
+            state, m = eng._sweep_with_randoms(
+                state, {k: torch.from_numpy(v) for k, v in randoms.items()},
+                1.0 if s >= 10 else 0.0)
+        rmse[name] = float(m["r0.rmse_avg"])
+    assert np.isfinite(rmse[variant]) and \
+        abs(rmse[variant] - rmse["s8"]) < 3e-2, rmse
 
 
 def test_fused_f32_chain_matches_pair_chain():
@@ -432,25 +589,27 @@ def test_macau_runs_and_reports():
 
 @pytest.mark.parametrize("kwargs, item, dup", [
     (dict(alpha_sample=True), "M7", 0),
-    (dict(dense_fused=True), "M9", 5),
+    (dict(accumulation="planned"), "M6", 0),
     (dict(metrics_every=4), "M4", 0),
     (dict(dense_int8=False), "M3", 0),
-    (dict(dense_fused=True, num_latent=100), "M9", 0),
+    (dict(dense_int8=False, dense_fused=True), "M3", 5),
     (dict(checkpoint_every=5, checkpoint_path="ck.npz"), "M10", 0),
     (dict(output_prefix="out"), "M10", 0),
     (dict(log_file="log.jsonl"), "M10", 0),
 ])
 def test_unported_options_raise(kwargs, item, dup):
     """An option outside the slice raises, naming its ROADMAP item, when
-    the config is made (options the port has no field for, dense_int8) or
-    when the engine sees it with the data (alpha sampling; the fused path
-    with a duplicate-cell residual, ``dup`` repeated observations, or at
-    K > 96)."""
+    the config is made (options the port has no field for) or when the
+    engine sees it with the data: alpha sampling; "planned" accumulation
+    with a dense path; the float pair, which ``dense_int8=False`` asks for
+    on a relation that does not take the fused path, by its config or
+    because the planner finds no grid for it (``dup`` observations moved
+    off the half-star grid)."""
     df = synthetic_ratings(30, 20, 200, seed=0)
     if dup:
-        df = bt.IndexedDF(np.concatenate([df.idx, df.idx[:dup]]),
-                          np.concatenate([df.vals, df.vals[:dup]]),
-                          df.shape)
+        vals = df.vals.copy()
+        vals[:dup] += np.pi / 10
+        df = bt.IndexedDF(df.idx, vals, df.shape)
     rd = bt.RelationData.from_indexed_df(df)
     with pytest.raises(NotImplementedError, match=item):
         bt.MacauEngine(rd, bt.MacauConfig(
@@ -486,6 +645,11 @@ def test_config_fields_cover_jax_config():
     for name in gather | fused:
         assert getattr(bt.MacauConfig(), name) == getattr(MacauConfig(),
                                                           name), name
+    # dense_int8=False builds: with dense_fused it selects the float fused
+    # kernels; the float pair is refused when the problem is compiled
+    cfg = bt.MacauConfig(dense_int8=False, dense_fused=True)
+    assert cfg.dense_int8 is False and cfg.dense_fused is True
+    assert bt.MacauConfig(dense_int8=False).dense_gram is None
     with pytest.raises(ValueError, match="accumulation"):
         bt.MacauConfig(accumulation="window")
     with pytest.raises(ValueError, match="gram_dtype"):

@@ -1,9 +1,10 @@
 """The port's fused sparse regime against the JAX package: the host planner
 and encoding (numpy, bit for bit), the quantized partner table (K7's plain
 version against ``ytab_quantize_pallas``), the masked-pair contraction (K8's
-plain version against ``fused_pair_pallas``), both in interpret mode, the
-per-mode contribution ``fused_gram_contrib_i8``, and the Netflix-shaped
-generator."""
+plain version against ``fused_pair_pallas``: int8 and float operands, the
+``flip_out`` and the natural layout), both in interpret mode, the per-mode
+contributions ``fused_gram_contrib_i8`` (packed and expanded) and
+``fused_gram_contrib`` (float), and the Netflix-shaped generator."""
 import functools
 import zlib
 
@@ -111,6 +112,17 @@ def test_fused_plan_residual_cases():
         s, m, keep = tdg.fused_pair_plan(idx, vals, (30, 30), tol=tol)
         assert (~keep).sum() == n_out
         assert (tdg.encode_fused_values(vals[keep], s, m) != 0).all()
+
+
+@pytest.mark.parametrize("key_bound", [900, 2 ** 61])
+def test_first_per_key_equals_unique(key_bound):
+    """The planner's first observation per cell: one sort of (key,
+    position) packed into an int64 where the bits allow, ``np.unique``
+    where they do not; both give ``np.unique(return_index=True)``'s
+    positions."""
+    key = np.random.default_rng(3).integers(0, 900, 5_000)
+    want = np.sort(np.unique(key, return_index=True)[1])
+    np.testing.assert_array_equal(tdg._first_per_key(key, key_bound), want)
 
 
 def test_fused_int8_ok_matches_jax():
@@ -251,6 +263,91 @@ def test_fused_pair_plain_matches_pallas(interpret_pallas, focus_axis, n0,
 
 
 @pytest.mark.parametrize("focus_axis", [0, 1])
+@pytest.mark.parametrize("n0, n1, true", [(64, 256, (64, 256)),
+                                          (48, 384, (37, 371))])
+def test_fused_pair_natural_matches_pallas(interpret_pallas, focus_axis, n0,
+                                           n1, true):
+    """K8b: the plain version's natural layout equals fused_pair_pallas
+    (interpret mode, the s8 kernels without flip_out) bit for bit, raw
+    int32 PM [n_focus, C + K] and BV [n_focus, K]; on a zero-padded store
+    the port writes the true focus extent."""
+    K = 5
+    C = K * (K + 1) // 2
+    V8, YZ8, _, _ = _contract_inputs(n0, n1, true, K, focus_axis,
+                                     77 + focus_axis + n0)
+    nf = true[focus_axis]
+    PMj, BVj = fused_pair_pallas(jnp.asarray(V8), jnp.asarray(YZ8),
+                                 jnp.asarray(YZ8[:, C:]), focus_axis)
+    PM, BV = fused_pair.fused_pair_contract(
+        torch.from_numpy(V8), torch.from_numpy(YZ8.T.copy()), focus_axis, K,
+        nf, flip_out=False)
+    assert PM.dtype == BV.dtype == torch.int32
+    assert tuple(PM.shape) == (nf, C + K) and tuple(BV.shape) == (nf, K)
+    np.testing.assert_array_equal(PM.numpy(), np.asarray(PMj)[:nf])
+    np.testing.assert_array_equal(BV.numpy(), np.asarray(BVj)[:nf])
+    with pytest.raises(ValueError, match="dq epilogue"):
+        fused_pair.fused_pair_contract(
+            torch.from_numpy(V8), torch.from_numpy(YZ8.T.copy()), focus_axis,
+            K, nf, dq=(torch.ones(C + K), torch.ones(K)), flip_out=False)
+
+
+FLOAT_TOL = {"float64": 1e-10, "float32": 1e-5, "bfloat16": 1e-5}
+
+
+@pytest.mark.parametrize("flip_out", [True, False])
+@pytest.mark.parametrize("focus_axis", [0, 1])
+@pytest.mark.parametrize("dtype", ["float64", "float32", "bfloat16"])
+def test_fused_pair_float_matches_pallas(interpret_pallas, dtype, focus_axis,
+                                         flip_out):
+    """K8c (flip_out) and K8d (natural): the plain version on a float
+    table against fused_pair_pallas (interpret mode, the float kernels) on
+    the same table, the mask and the codes cast to its type: float32 and
+    bfloat16 to 1e-5 of the largest sum (the order of the float32 sums
+    only: the bfloat16 table is rounded once, before both).  The TPU
+    kernels give float32 sums for a float64 table too, so the float64 case
+    is held to 1e-10 against a float64 numpy product and to float32
+    rounding against the kernel."""
+    K = 5
+    C = K * (K + 1) // 2
+    n0, n1, true = 48, 384, (37, 371)
+    V8, _, _, _ = _contract_inputs(n0, n1, true, K, focus_axis,
+                                   5 + focus_axis)
+    rng = np.random.default_rng(12)
+    nc = (n1, n0)[focus_axis]
+    nf = true[focus_axis]
+    YZ = rng.standard_normal((nc, C + K)).astype(
+        np.float64 if dtype == "float64" else np.float32)
+    jyz = jnp.asarray(YZ, dtype=jnp.dtype(dtype))
+    tyz = torch.from_numpy(YZ).to(getattr(torch, dtype))
+    np.testing.assert_array_equal(np.asarray(jyz.astype(jnp.float32)),
+                                  tyz.float().numpy())
+    want = fused_pair_pallas(jnp.asarray(V8), jyz, jyz[:, C:], focus_axis,
+                             flip_out=flip_out)
+    before = fused_pair.fused_pair_plain.calls
+    got = fused_pair.fused_pair_contract(
+        torch.from_numpy(V8), tyz.mT.contiguous(), focus_axis, K, nf,
+        flip_out=flip_out)
+    assert fused_pair.fused_pair_plain.calls == before + 1
+    Vf = (V8 if focus_axis == 0 else V8.T).astype(np.float64)
+    table = tyz.double().numpy()
+    exact = ((Vf != 0) @ table, Vf @ table[:, C:])
+    for g, w, e in zip(got, want, exact):
+        assert g.dtype == (torch.float64 if dtype == "float64"
+                           else torch.float32)
+        w = np.asarray(w, np.float64)
+        g = g.double().numpy()
+        if flip_out:
+            g, w = g.T, w.T
+        assert g.shape == (nf, e.shape[1])
+        top = np.abs(e).max()
+        np.testing.assert_allclose(g, e[:nf], rtol=0,
+                                   atol=FLOAT_TOL[dtype] * top)
+        np.testing.assert_allclose(
+            g, w[:nf], rtol=0,
+            atol=(1e-6 if dtype == "float64" else FLOAT_TOL[dtype]) * top)
+
+
+@pytest.mark.parametrize("focus_axis", [0, 1])
 def test_fused_pair_contract_i8_takes_the_stored_extent(focus_axis):
     """fused_pair_contract_i8 takes a partner table as long as V8's
     contraction extent (``fused_quantize`` pads it there) and gives the
@@ -326,6 +423,128 @@ def test_fused_gram_contrib_matches_jax(interpret_pallas, xla_cpu_ridge,
     np.testing.assert_allclose(Pt.numpy(), Pj, rtol=1e-6)
     np.testing.assert_allclose(bt_.numpy(), bj, rtol=1e-6,
                                atol=1e-6 * np.abs(bj).max())
+
+
+def _contrib_problem(focus_axis, dtype):
+    """A small star-rated relation with its exact encoding, the JAX
+    package's V8 padded to (64, 256), partner factors and ridge degrees
+    over the padded focus extent."""
+    rng = np.random.default_rng(67 + focus_axis)
+    n0, n1, K = 58, 230, 5
+    idx = _coo(rng, n0, n1, 900)
+    vals = rng.integers(1, 6, 900).astype(np.float64)
+    s, m = tdg.fused_pair_encode(idx, vals, (n0, n1))
+    V8j = np.zeros((64, 256), np.int8)
+    V8j[:n0, :n1] = jdg.build_fused_values(idx, vals, (n0, n1), s, m)
+    n_f, n_p = (n0, n1)[focus_axis], (n1, n0)[focus_axis]
+    U = rng.standard_normal((n_p, K)).astype(dtype)
+    deg = np.zeros(V8j.shape[focus_axis], np.float32)
+    deg[:n_f] = np.bincount(idx[:, focus_axis], minlength=n_f)
+    store = tdg.build_fused_store(idx, vals, (n0, n1), s, m, "cpu")
+    return dict(idx=idx, vals=vals, mean=float(vals.mean()), s=s, m=m,
+                V8j=V8j, U=U, deg=deg, store=store, dims=(n0, n1), n_f=n_f,
+                K=K)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("focus_axis", [0, 1])
+def test_fused_gram_contrib_i8_unpacked_matches_jax(xla_cpu_ridge, dtype,
+                                                    focus_axis):
+    """fused_gram_contrib_i8 with ``packed=False`` (the K > 96 branch): the
+    natural-layout int32 sums, the finish with the ridge on the diagonal
+    columns and the expand to [n, K, K], against the JAX package's
+    (compiled, its XLA contraction; the store padded past ``dims``).
+    float64, with the alpha multiply after the finish, has P bitwise (the
+    ridge included); float32, with alpha folded into the dequant scales, is
+    bitwise off the diagonal.  b's two products and sum, and in float32 the
+    ridge add, XLA contracts into fused multiply-adds, which round once
+    where the port rounds twice: a few ulps."""
+    p = _contrib_problem(focus_axis, dtype)
+    K, n_f = p["K"], p["n_f"]
+    alpha = 2.5
+    jdt = jnp.dtype(dtype)
+    Pj, bj = jax.jit(functools.partial(
+        jdg.fused_gram_contrib_i8, focus_axis=focus_axis, out_dtype=jdt,
+        scale=p["s"], shift=p["m"], mean=p["mean"], packed=False,
+        dims=p["dims"], use_pallas=False))(
+        jnp.asarray(p["V8j"]), jnp.asarray(p["U"]),
+        ridge_deg=jnp.asarray(p["deg"]), alpha=jnp.asarray(alpha, jdt))
+    Pj, bj = np.asarray(Pj), np.asarray(bj)
+    tdt = getattr(torch, dtype)
+    before = fused_pair.fused_pair_plain.calls
+    Pt, bt_ = tdg.fused_gram_contrib_i8(
+        p["store"], tdg.tri_index(K, "cpu"), torch.from_numpy(p["U"]),
+        focus_axis, torch.tensor(alpha, dtype=tdt), tdt, p["mean"],
+        packed=False)
+    assert fused_pair.fused_pair_plain.calls == before + 1
+    assert Pt.dtype == bt_.dtype == tdt
+    assert tuple(Pt.shape) == (n_f, K, K) and tuple(bt_.shape) == (n_f, K)
+    assert Pj.shape == (n_f, K, K)
+    if dtype == "float64":
+        np.testing.assert_array_equal(Pt.numpy(), Pj)
+        np.testing.assert_allclose(bt_.numpy(), bj, rtol=1e-13,
+                                   atol=1e-13 * np.abs(bj).max())
+        return
+    off = ~np.eye(K, dtype=bool)
+    np.testing.assert_array_equal(Pt.numpy()[:, off], Pj[:, off])
+    np.testing.assert_allclose(Pt.numpy(), Pj, rtol=1e-6)
+    np.testing.assert_allclose(bt_.numpy(), bj, rtol=1e-6,
+                               atol=1e-6 * np.abs(bj).max())
+
+
+@pytest.mark.parametrize("layout", ["full", "packed", "transposed"])
+@pytest.mark.parametrize("dtype", ["float64", "float32", "bfloat16"])
+@pytest.mark.parametrize("focus_axis", [0, 1])
+def test_fused_gram_contrib_float_matches_jax(focus_axis, dtype, layout):
+    """fused_gram_contrib, the float contribution of a relation off the s8
+    path, against the JAX package's (its XLA contraction; the store padded
+    past ``dims``), in the three output layouts: the table built in the
+    operand dtype (factors cast, then the triangle products rounded in
+    it), no ridge and no alpha.  float64 to 1e-10, float32 and a bfloat16
+    table (float32 sums and output) to 1e-5 of the largest entry: the
+    order of the sums only, which needs the table rounded at the same two
+    places."""
+    out = "float64" if dtype == "float64" else "float32"
+    p = _contrib_problem(focus_axis, out)
+    K, n_f = p["K"], p["n_f"]
+    packed, transposed = layout != "full", layout == "transposed"
+    Pj, bj = jdg.fused_gram_contrib(
+        jnp.asarray(p["V8j"]), jnp.asarray(p["U"]), focus_axis,
+        jnp.dtype(out), jnp.dtype(dtype), p["s"], p["m"], p["mean"],
+        packed=packed, transposed=transposed, dims=p["dims"])
+    Pt, bt_ = tdg.fused_gram_contrib(
+        p["store"], tdg.tri_index(K, "cpu"), torch.from_numpy(p["U"]),
+        focus_axis, getattr(torch, out), getattr(torch, dtype), p["mean"],
+        packed=packed, transposed=transposed)
+    C = K * (K + 1) // 2
+    want = {"full": ((n_f, K, K), (n_f, K)), "packed": ((n_f, C), (n_f, K)),
+            "transposed": ((C, n_f), (K, n_f))}[layout]
+    assert (tuple(Pt.shape), tuple(bt_.shape)) == want
+    assert Pt.dtype == bt_.dtype == getattr(torch, out)
+    for got, ref in ((Pt, Pj), (bt_, bj)):
+        ref = np.asarray(ref)
+        np.testing.assert_allclose(got.numpy(), ref, rtol=0,
+                                   atol=FLOAT_TOL[dtype] * np.abs(ref).max())
+    # the bfloat16 table is not the float32 one: its rounding shows
+    if dtype == "bfloat16":
+        P32, _ = tdg.fused_gram_contrib(
+            p["store"], tdg.tri_index(K, "cpu"), torch.from_numpy(p["U"]),
+            focus_axis, torch.float32, torch.float32, p["mean"],
+            packed=packed, transposed=transposed)
+        assert float((P32 - Pt).abs().max()) > 1e-3
+
+
+@pytest.mark.parametrize("K, n, pad", [(6, 21, 32), (100, 40, 48)])
+def test_quantize_table_t_matches_k7_plain(K, n, pad):
+    """Above K7's K = 96 the table is quantized by torch ops in the
+    transposed layout (``quantize_table_t``): the same codes and scales as
+    K7's plain version gives at any K."""
+    U = torch.from_numpy(np.random.default_rng(4 + K).standard_normal(
+        (n, K)).astype(np.float32))
+    want8, want_s = ytab.ytab_quantize(U, out_rows=pad)
+    got8, got_s = tdg.quantize_table_t(U, pad, tdg.tri_index(K, "cpu"))
+    assert got8.dtype == torch.int8 and got8.is_contiguous()
+    assert torch.equal(got8, want8) and torch.equal(got_s, want_s)
 
 
 # ---------------------------------------------------------------------------

@@ -91,6 +91,28 @@ def test_fused_pair_kernel_matches_plain(cuda, true, K, focus):
     assert r["ok"], r
 
 
+@pytest.mark.parametrize("focus", [0, 1])
+@pytest.mark.parametrize("table, flip_out", [
+    ("int8", False), ("bfloat16", True), ("bfloat16", False),
+    ("float32", True), ("float32", False), ("float64", True),
+    ("float64", False)])
+@pytest.mark.parametrize("true, K", [((1_000, 777), 32), ((300, 2_000), 8),
+                                     ((129, 257), 36), ((640, 2_048), 100),
+                                     ((2_048, 640), 128)])
+def test_fused_pair_variants_match_plain(cuda, true, K, table, flip_out,
+                                         focus):
+    """K8b (int8 table, natural layout) bit for bit against its plain
+    version; K8c (float table, flip_out) and K8d (natural) within
+    chip_smoke.FLOAT_TOL of the largest sum against the plain version on
+    the same table in float64 (the rounding of the float32 sums); on
+    ragged stores, up to K = 128."""
+    import chip_smoke
+    V8 = chip_smoke.random_store(true, seed=K)
+    r = chip_smoke.check_fused_variant(V8, true, K, focus, table, flip_out,
+                                       timing=False)
+    assert r["ok"], r
+
+
 def test_int8_contraction_exact(cuda):
     import chip_smoke
     assert all(chip_smoke.check_int8_contraction())
@@ -171,6 +193,77 @@ def test_fused_engine_cuda_matches_cpu(cuda, monkeypatch, K):
             ytab.ytab_quantize_plain.calls,
             fused_pair.fused_pair_plain.calls) == tuple(
         c + 6 for c in counts)
+    a, b = state_to_numpy(states["cpu"]), state_to_numpy(states["cuda"])
+    for ei in range(2):
+        for key in ("U", "mu", "Lambda"):
+            np.testing.assert_allclose(b["ent"][ei][key], a["ent"][ei][key],
+                                       rtol=1e-9, atol=1e-9)
+
+
+FUSED_CASES = {
+    # name: (K, options, duplicates, fused_pair_contract's counter,
+    #        K7 launches a sweep)
+    "residual": (8, dict(), True, "launches_i8_flip", 2),
+    "float": (8, dict(dense_int8=False), False, "launches_f_flip", 0),
+    "float_slab": (36, dict(dense_int8=False), False, "launches_f_flip", 0),
+    "k100": (100, dict(), False, "launches_i8_nat", 0),
+    "k100_float": (100, dict(dense_int8=False), False, "launches_f_nat", 0),
+    "k100_residual": (100, dict(), True, "launches_i8_nat", 0),
+}
+
+
+@pytest.mark.parametrize("case", sorted(FUSED_CASES))
+def test_fused_variants_engine_cuda_matches_cpu(cuda, monkeypatch, case):
+    """The rest of the fused path, three float64 sweeps with injected
+    randoms on the card and on the CPU: a duplicate-cell residual (packed
+    at K=8, through assemble_precision at K=100), the float kernels
+    (``dense_int8=False``, a float64 table) and K=100 (the natural-layout
+    kernels and the blocked sampler).  The card launches its K8 variant
+    twice a sweep (and K7 on the packed s8 path) and runs no plain version;
+    the chains agree to float64 rounding."""
+    K, opts, dup, variant, k7 = FUSED_CASES[case]
+    monkeypatch.setattr(dense_gram, "ridge_step", xla_cpu_ridge_step)
+    df = synthetic_ratings(300, 200, 12_000, seed=3)
+    if dup:
+        df = bt.IndexedDF(np.concatenate([df.idx, df.idx[::40]]),
+                          np.concatenate([df.vals, df.vals[::40][::-1]]),
+                          df.shape)
+    engines = {}
+    for dev in ("cpu", "cuda"):
+        rd = bt.RelationData.from_indexed_df(df)
+        rd.assign_to_test(0, 1_000, seed=7)
+        cfg = bt.MacauConfig(num_latent=K, dtype="float64", verbose=False,
+                             clamp=(1.0, 5.0), seed=4, dense_fused=True,
+                             **opts)
+        engines[dev] = bt.MacauEngine(rd, cfg, device=dev)
+        prob = engines[dev].problem
+        assert prob.fused is not None
+        assert prob.fused_i8 == opts.get("dense_int8", True)
+        assert (prob.residual_nnz > 0) == dup
+    st = engines["cpu"].init_state()
+    states = {"cpu": st, "cuda": state_from_numpy(state_to_numpy(st), cuda,
+                                                  torch.float64)}
+    rng = np.random.default_rng(1)
+    contract = fused_pair.fused_pair_contract
+
+    def counts():
+        return (getattr(contract, variant), contract.launches,
+                ytab.ytab_quantize.launches, ytab.ytab_quantize_plain.calls,
+                fused_pair.fused_pair_plain.calls)
+    plain = {}
+    before = counts()
+    for s in range(3):
+        randoms = draw_all_numpy(rng, engines["cpu"].problem.random_spec)
+        for dev in ("cpu", "cuda"):
+            r = {k: torch.from_numpy(v).to(dev) for k, v in randoms.items()}
+            c0 = counts()[3:]
+            states[dev], _ = engines[dev]._sweep_with_randoms(
+                states[dev], r, 1.0)
+            plain[dev] = tuple(a - b for a, b in zip(counts()[3:], c0))
+    assert plain["cuda"] == (0, 0)
+    after = counts()
+    assert tuple(a - b for a, b in zip(after[:3], before[:3])) == (
+        6, 6, 3 * k7)
     a, b = state_to_numpy(states["cpu"]), state_to_numpy(states["cuda"])
     for ei in range(2):
         for key in ("U", "mu", "Lambda"):

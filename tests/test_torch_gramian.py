@@ -1,7 +1,8 @@
 """The port's gather-path Gramian (ops/gramian.py) against the JAX
 package's: per-bucket Gramians (one pass and row-chunked), the segment-sum
-assembly with and without Lambda, the accumulation plan and the planned
-assembly, in float64 to 1e-12; the bfloat16 gather against JAX's bfloat16
+assembly with and without Lambda, the packed accumulation of the fused
+path's residual, the accumulation plan and the planned assembly, in float64
+to 1e-12; the bfloat16 gather against JAX's bfloat16
 contraction at float32 tolerance."""
 import jax.numpy as jnp
 import numpy as np
@@ -103,6 +104,62 @@ def test_assemble_precision_matches_jax(mode, fuse_lambda):
                                atol=1e-12)
     np.testing.assert_allclose(bt.numpy(), np.asarray(bj), rtol=1e-12,
                                atol=1e-12)
+
+
+@pytest.mark.parametrize("chunked", [False, True])
+@pytest.mark.parametrize("mode", [0, 1])
+def test_packed_bucket_accum_matches_jax(monkeypatch, mode, chunked):
+    """The packed accumulation (Pp [n, C], b [n, K], alpha-scaled) against
+    JAX's, in one pass and with a budget so small that every bucket runs
+    in row chunks (both packages then chunk; the segment sums add in
+    another order, float64 rounding).  The transposed layout and the
+    in-place ``out`` accumulators give the same sums."""
+    _, _, ml, U, _, _ = _problem(np.float64, mode=mode, seed=7 + mode)
+    n = SHAPE[mode]
+    if chunked:
+        monkeypatch.setattr(jgr, "_PACKED_CHUNK_BYTES", 2_000)
+        monkeypatch.setattr(tgr, "_PACKED_CHUNK_BYTES", 2_000)
+    Pj, bj = jgr.packed_bucket_accum(_contribs(ml, U, 2.5, "jax"), n, K)
+    contribs = _contribs(ml, U, 2.5, "torch")
+    calls = []
+    orig = tgr.bucket_gramian
+    monkeypatch.setattr(tgr, "bucket_gramian",
+                        lambda *a, **k: calls.append(1) or orig(*a, **k))
+    Pt, bt = tgr.packed_bucket_accum(contribs, n, K)
+    assert (len(calls) > len(contribs)) == chunked
+    C = K * (K + 1) // 2
+    assert tuple(Pt.shape) == (n, C) and tuple(bt.shape) == (n, K)
+    np.testing.assert_allclose(Pt.numpy(), np.asarray(Pj), rtol=1e-12,
+                               atol=1e-12)
+    np.testing.assert_allclose(bt.numpy(), np.asarray(bj), rtol=1e-12,
+                               atol=1e-12)
+    base = (torch.full((C, n), 3.0, dtype=torch.float64),
+            torch.full((K, n), -1.0, dtype=torch.float64))
+    PT, bT = tgr.packed_bucket_accum(contribs, n, K, transposed=True,
+                                     out=base)
+    assert PT is base[0] and bT is base[1]
+    np.testing.assert_allclose(PT.numpy().T - 3.0, Pt.numpy(), rtol=1e-12,
+                               atol=1e-12)
+    np.testing.assert_allclose(bT.numpy().T + 1.0, bt.numpy(), rtol=1e-12,
+                               atol=1e-12)
+    assert tgr.packed_bucket_accum([], n, K) == (None, None)
+
+
+def test_packed_bucket_accum_bf16_matches_jax():
+    """gram_dtype bfloat16 in float32: the residual's partners and values
+    gathered in bf16, contracted with float32 accumulation on both sides;
+    only the order of the float32 sums differs."""
+    _, _, ml, U, _, _ = _problem(np.float32, seed=5)
+    n = SHAPE[0]
+    Pj, bj = jgr.packed_bucket_accum(_contribs(ml, U, 2.5, "jax"), n, K,
+                                     gram_dtype=jnp.bfloat16)
+    Pt, bt = tgr.packed_bucket_accum(_contribs(ml, U, 2.5, "torch"), n, K,
+                                     gram_dtype=torch.bfloat16)
+    assert Pt.dtype == torch.float32 and np.asarray(Pj).dtype == np.float32
+    np.testing.assert_allclose(Pt.numpy(), np.asarray(Pj), rtol=2e-6,
+                               atol=2e-5)
+    np.testing.assert_allclose(bt.numpy(), np.asarray(bj), rtol=2e-6,
+                               atol=2e-5)
 
 
 @pytest.mark.parametrize("mode", [0, 1])
