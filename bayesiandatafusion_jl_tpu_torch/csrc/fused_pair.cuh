@@ -1,13 +1,15 @@
 // Shared by the fused masked-pair kernels (fused_pair_i8.cu, the int8
-// tensor-core variants; fused_pair_f.cu, the float-operand variants): the
-// CTA tile, the swizzled shared-memory layout and the "virtual column" map.
+// tensor-core variants; fused_pair_f.cu, the float-operand variants) and
+// the int8 pair contraction (pair_contract_i8.cu): the CTA tile, the
+// swizzled shared-memory layout and the "virtual column" map.
 //
-// Both families compute, for a CTA, 128 focus rows x 128 virtual output
+// All of them compute, for a CTA, 128 focus rows x 128 virtual output
 // columns from shared-memory tiles with 128-byte rows (128 int8 or 64 bf16
-// contraction elements a stage).  The virtual columns are [0, ckp) the mask
-// columns (partner-table rows 0 .. C+K-1, padded up to ckp) and
-// [ckp, ckp + K) the value columns (table rows C .. C+K-1 again, against
-// the raw codes).
+// contraction elements a stage).  The virtual columns are [0, ckp) the
+// first operand's columns (partner-table rows 0 .. n_first-1, padded up to
+// ckp: the mask columns of the fused kernels, n_first = C + K; the M8
+// columns of the pair, n_first = C) and [ckp, ckp + K) the value columns
+// (table rows C .. C+K-1, against the raw codes or W8).
 #pragma once
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -45,9 +47,12 @@ __device__ __forceinline__ uint32_t word(const uint4& v, int q) {
   return q == 0 ? v.x : q == 1 ? v.y : q == 2 ? v.z : v.w;
 }
 
-// partner-table row feeding virtual column v, or -1 for a pad column
-__device__ __forceinline__ int src_row(int C, int K, int ckp, int v) {
-  if (v < C + K) return v;
+// partner-table row feeding virtual column v, or -1 for a pad column: the
+// first n_first columns read rows 0 .. n_first-1, the K value columns from
+// ckp on read rows C .. C+K-1
+__device__ __forceinline__ int src_row(int n_first, int C, int K, int ckp,
+                                       int v) {
+  if (v < n_first) return v;
   if (v >= ckp && v - ckp < K) return C + (v - ckp);
   return -1;
 }

@@ -108,7 +108,7 @@ fused_pair_bf16_kernel(const Args a) {
   const unsigned char* bsrc[4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    const int s = src_row(a.C, a.K, a.ckp, v0 + (tid >> 3) + 32 * i);
+    const int s = src_row(a.C + a.K, a.C, a.K, a.ckp, v0 + (tid >> 3) + 32 * i);
     bsrc[i] = s < 0 ? nullptr
                     : static_cast<const unsigned char*>(a.yzt) +
                           2 * static_cast<long long>(s) * n_contract;
@@ -309,7 +309,7 @@ fused_pair_fma_kernel(const Args a) {
       if (row < a.n0 && col < a.n1) c = a.v8[row * a.n1 + col];
       sA[k][m] = raw ? static_cast<T>(c) : static_cast<T>(c != 0);
       const int kb = e & (FK - 1), vb = e >> 4;
-      const int s = src_row(a.C, a.K, a.ckp, v0 + vb);
+      const int s = src_row(a.C + a.K, a.C, a.K, a.ckp, v0 + vb);
       T b = T(0);
       if (s >= 0 && k0 + kb < n_contract)
         b = yzt[static_cast<long long>(s) * n_contract + k0 + kb];

@@ -111,7 +111,7 @@ fused_pair_kernel(const Args a) {
   const int8_t* bsrc[4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    const int s = src_row(a.C, a.K, a.ckp, v0 + (tid >> 3) + 32 * i);
+    const int s = src_row(a.C + a.K, a.C, a.K, a.ckp, v0 + (tid >> 3) + 32 * i);
     bsrc[i] = s < 0 ? nullptr : a.yzt + static_cast<long long>(s) * n_contract;
   }
 

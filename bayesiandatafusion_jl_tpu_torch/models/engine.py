@@ -4,7 +4,10 @@
 The slice this port covers: one 2-ary relation without side features, at
 any K, with either Gramian path:
 
-- the dense int8 pair (``dense_gram`` None or True; ops/dense_gram.py);
+- the dense pair (``dense_gram`` None or True; ops/dense_gram.py): the
+  int8 pair, contracted by K6 (ops/pair_contract.py) against the partner
+  table K7 quantizes each sweep (``dense_int8`` and the int32 bound
+  ``int8_pair_ok``), or the float pair on ``torch.matmul`` otherwise;
 - the fused sparse regime (``dense_fused=True``): one stored int8 value
   array, contracted per mode by K8 (ops/fused_pair.py) against the
   partner table, which K7 (ops/ytab.py) quantizes each sweep on the s8
@@ -23,7 +26,7 @@ Each sweep, for each entity in turn:
   U            <- u ~ N(P'^-1 b, P'^-1) per row, P' = P + Lambda
 
 The sampler branches as the JAX engine does (engine.py:821, :924-951).  On
-the int8 pair and fused paths, K <= 96 keeps P packed ([K(K+1)/2, N],
+the dense pair and fused paths, K <= 96 keeps P packed ([K(K+1)/2, N],
 ops/chol_packed.py: the K1 kernel up to K = 32, K2 above; the fused
 residual is accumulated in that layout) and K > 96 expands it to
 [N, K, K] (the fused residual through ``assemble_precision``).  The
@@ -148,7 +151,7 @@ class CompiledProblem:
         t0 = time.perf_counter()
         self.gather = config.dense_gram is False
         self.pair = self.tri = self.fused = None
-        self.fused_i8 = False
+        self.fused_i8 = self.pair_i8 = False
         self.layouts, self.acc_plan, self.padded_nnz = {}, {}, []
         self.residual_nnz = 0
         plan = None if self.gather else _plan_fused(rel, config)
@@ -158,18 +161,20 @@ class CompiledProblem:
         elif plan is not None:
             self._build_fused(rel, mean_value, config, device, *plan)
         else:
-            if not config.dense_int8:
-                raise NotImplementedError(
-                    "not ported yet: float dense pair (dense_int8=False "
-                    "on a relation that does not take the fused path) "
-                    "(ROADMAP M3)")
-            if not dg.int8_pair_ok(rel.data.idx, rel.data.shape):
-                raise NotImplementedError(
-                    "relation not int8-eligible: float dense pair "
-                    "(ROADMAP M3)")
-            self.pair = dg.build_int8_pair(
-                rel.data.idx, rel.data.vals - mean_value, rel.data.shape,
-                config.np_dtype(), device)
+            # the int8 pair where asked for and eligible (JAX engine
+            # :113-118), else the float pair in the JAX store dtype (:109-112)
+            centered = rel.data.vals - mean_value
+            self.pair_i8 = bool(config.dense_int8 and dg.int8_pair_ok(
+                rel.data.idx, rel.data.shape))
+            if self.pair_i8:
+                self.pair = dg.build_int8_pair(
+                    rel.data.idx, centered, rel.data.shape,
+                    config.np_dtype(), device)
+            else:
+                self.pair = dg.build_dense_pair(
+                    rel.data.idx, centered, rel.data.shape,
+                    getattr(torch, config.gram_dtype or config.dtype),
+                    device)
             self.tri = dg.tri_index(config.num_latent, device)
         self.test = {}
         if rel.test_idx.shape[0]:
@@ -326,9 +331,10 @@ class MacauEngine:
                 ent["U"] = self._fused_sample(ent, ei, mode, partner, xi,
                                               alpha, packed)
             else:
-                P, b_d = dg.dense_gram_contrib(prob.pair, prob.tri, partner,
-                                               mode, alpha, dtype,
-                                               packed=packed)
+                contrib = (dg.int8_pair_contrib if prob.pair_i8
+                           else dg.float_pair_contrib)
+                P, b_d = contrib(prob.pair, prob.tri, partner, mode, alpha,
+                                 dtype, packed=packed)
                 # prior term Lambda mu for every row, plus the data term
                 if packed:
                     b = (mu @ Lambda)[:, None] + b_d[:, :es.n]

@@ -1,24 +1,35 @@
-"""Dense int8 Gramians for 2-ary relations: the int8 pair and the fused
-single array.
+"""Dense Gramians for 2-ary relations: the int8 pair, the float pair and
+the fused single array.
 
-Port of the s8 paths of ``bayesiandatafusion_jl_tpu/ops/dense_gram.py``.
+Port of the arity-2 paths of ``bayesiandatafusion_jl_tpu/ops/dense_gram.py``.
 
-The int8 pair: the host side (``int8_pair_ok`` :1073, and the store that
+The pairs: the host side (``int8_pair_ok`` :1073, and the stores that
 ``build_dense_pair`` :263 and ``quantize_dense_pair`` :1114 make, built
-over the observed cells only) and the per-sweep side (``_tri_maps``,
-``_quantize_cols``, ``_floor_scale``, ``_q8`` and the s8 branch of
-``dense_gram_contrib`` :1319-1430 for arity 2: packed in the transposed
-[C, N] layout, or unpacked to [N, K, K]).  Per sweep and per focus mode,
-with the stored int8 observation counts M8 and statically quantized
-centered values W8 (both [N_focus, N_partner]),
+over the observed cells only) and the per-sweep side
+(``dense_gram_contrib`` :1236 for arity 2).  One stored pair [N0, N1] per
+relation, M the observation counts and W the sums of the centered values,
+contracted along either axis; the outputs are packed in the transposed
+[C, N] layout (C = K(K+1)/2) or unpacked to [N, K, K].
 
-    P[c, n] = sum_p M8[n, p] Y8[c, p] * sY[c] * alpha  (+ PD ridge on c = (i, i))
-    b[k, n] = sum_p W8[n, p] U8[k, p] * sU[k] * w_scale * alpha
+The int8 pair (the s8 branch, :1319-1430): M8 the counts, W8 the values
+quantized on one static scale w_scale = max|W| / 127.  Per sweep and per
+focus mode f, against the partner factors' table quantized per row
+(``fused_quantize``: K7 up to K = 96, torch ops above),
+
+    P[c, n] = sum_p M8_f[n, p] Y8[c, p] * sY[c] * alpha  (+ PD ridge on c = (i, i))
+    b[k, n] = sum_p W8_f[n, p] U8[k, p] * sU[k] * w_scale * alpha
 
 where Y = U[:, iu] * U[:, ju] is the partners' packed triangle table and
 Y8/U8 are its and U's per-row int8 quantizations.  The int8 x int8 ->
 int32 products are exact (``int8_pair_ok`` bounds them below 2^31) and run
-on ``torch._int_mm``, as the JAX package leaves them to an XLA einsum.
+on K6 (``ops/pair_contract.py``), which reads the one store along either
+axis, with the dequant in its epilogue (float32) or after it (float64).
+
+The float pair (the float branch, :1431-1463): M and W in the store dtype
+(bfloat16 under ``gram_dtype="bfloat16"``, else the compute dtype), and per
+sweep P = M_f Ypack and b = W_f U with the table in the same dtype, on
+``torch.matmul`` as the JAX package leaves them to an XLA einsum, alpha
+multiplied in afterwards.
 
 The fused sparse regime (the second half of this file, JAX :336-1070):
 one stored int8 array V8 of value codes e, v = s (e + m) at the observed
@@ -43,13 +54,16 @@ import numpy as np
 import torch
 
 from . import fused_pair
+from .pair_contract import pair_contract
 
 INV127 = float(np.float32(1.0 / 127.0))
 TINY = float(np.finfo(np.float32).tiny)
-# the stored pair's dims are padded to this multiple: torch._int_mm on CUDA
-# needs the contraction and output widths to be multiples of 8; the pad
-# cells are exact zeros, so every output on the pad extent is 0
+# the int8 stores' extents are padded to this multiple: K6 and K8 load
+# 16-byte rows of the store and of the partner table along the
+# contraction; the pad cells are exact zeros, so they add nothing
 STORE_ALIGN = 16
+# elements of one widened slice of a bfloat16 float pair (256 MB in float32)
+_WIDEN_ELEMS = 1 << 26
 
 
 def tri_maps(K: int) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
@@ -106,52 +120,82 @@ def _quantize_values(W: np.ndarray, w_scale: float) -> np.ndarray:
     return np.clip(q, -127, 127).astype(np.int8)
 
 
+def _observed_cells(idx: np.ndarray, centered: np.ndarray,
+                    shape: Sequence[int], acc):
+    """(rows, cols, count, wsum) over the observed cells of a 2-ary
+    relation, each cell once: its observation count and the sum of its
+    centered values in ``acc``, added in order of appearance
+    (``np.add.at``), as the JAX package's dense accumulation adds them."""
+    n1 = int(shape[1])
+    lin = idx[:, 0].astype(np.int64) * n1 + idx[:, 1].astype(np.int64)
+    cells, inv = np.unique(lin, return_inverse=True)
+    count = np.bincount(inv, minlength=cells.size)
+    wsum = np.zeros(cells.size, acc)
+    np.add.at(wsum, inv, np.asarray(centered, acc))
+    return cells // n1, cells % n1, count, wsum
+
+
+def _scatter(shape, rows, cols, values, dtype, device) -> torch.Tensor:
+    """A zeroed ``shape`` array on ``device`` with ``values`` (cast to
+    ``dtype`` there) at the cells (rows, cols)."""
+    t = torch.zeros(tuple(shape), dtype=dtype, device=device)
+    t[torch.from_numpy(rows).to(device), torch.from_numpy(cols).to(device)] = \
+        torch.from_numpy(values).to(device).to(dtype)
+    return t
+
+
 def build_int8_pair(idx: np.ndarray, centered: np.ndarray,
                     shape: Sequence[int], store_dtype, device
                     ) -> Dict[str, object]:
     """The stored int8 pair of one 2-ary relation, on ``device``.
 
-    Returns ``{"M8": [M0, M1], "W8": [W0, W1], "deg": [d0, d1],
-    "w_scale": float, "shape": (N0, N1)}`` where M{f}/W{f} hold the pair
-    with focus mode f's axis leading — [N_f, N_partner], padded to
-    STORE_ALIGN, partner axis contiguous (the contraction axis of both of
-    f's products) — d{f} the observation count of every (padded) focus row,
-    for the PD ridge, and ``shape`` the true (unpadded) extents.
+    Returns ``{"M8": M8, "W8": W8, "deg": [d0, d1], "w_scale": float,
+    "shape": (N0, N1)}``: the counts and the quantized values [N0p, N1p],
+    each extent padded to STORE_ALIGN with zero cells, stored once (K6
+    contracts along either axis); d{f} the observation count of every
+    (padded) row of mode f, for the PD ridge; ``shape`` the true extents.
 
     The JAX package accumulates dense [N0, N1] host arrays (counts, and
     centered values in ``store_dtype``'s accumulator) and quantizes W on one
     static scale max|W| / 127.  Here the same sums are taken over the
-    observed cells only — ``np.add.at`` adds each cell's values in order of
-    appearance, as the dense accumulation does — and the cells' codes are
-    scattered into zeroed device arrays, so the bytes are the same.
+    observed cells only and the cells' codes are scattered into zeroed
+    device arrays, so the bytes are the same.
     """
     n = [int(s) for s in shape]
     pad = [-(-s // STORE_ALIGN) * STORE_ALIGN for s in n]
     acc = np.float64 if np.dtype(store_dtype) == np.float64 else np.float32
-    lin = idx[:, 0].astype(np.int64) * n[1] + idx[:, 1].astype(np.int64)
-    cells, inv = np.unique(lin, return_inverse=True)
-    count = np.bincount(inv, minlength=cells.size)
+    rows, cols, count, wsum = _observed_cells(idx, centered, n, acc)
     if count.max(initial=0) > 127:
         raise ValueError("observation counts exceed int8 "
                          "(int8_pair_ok not consulted)")
-    wsum = np.zeros(cells.size, acc)
-    np.add.at(wsum, inv, np.asarray(centered, acc))
     w_scale = _w_scale(float(np.abs(wsum).max(initial=0.0)))
-    codes = [torch.from_numpy(a).to(device) for a in
-             (count.astype(np.int8), _quantize_values(wsum, w_scale))]
-    rows = [torch.from_numpy(a).to(device)
-            for a in (cells // n[1], cells % n[1])]
-    M8, W8 = [], []
-    for f in range(2):
-        for out, v in zip((M8, W8), codes):
-            t = torch.zeros((pad[f], pad[1 - f]), dtype=torch.int8,
-                            device=device)
-            t[rows[f], rows[1 - f]] = v
-            out.append(t)
+    M8 = _scatter(pad, rows, cols, count.astype(np.int8), torch.int8, device)
+    W8 = _scatter(pad, rows, cols, _quantize_values(wsum, w_scale),
+                  torch.int8, device)
     deg = [torch.from_numpy(np.bincount(idx[:, f], minlength=pad[f])
                             .astype(np.float32)).to(device)
            for f in range(2)]
     return {"M8": M8, "W8": W8, "deg": deg, "w_scale": float(w_scale),
+            "shape": tuple(n)}
+
+
+def build_dense_pair(idx: np.ndarray, centered: np.ndarray,
+                     shape: Sequence[int], store_dtype: torch.dtype, device
+                     ) -> Dict[str, object]:
+    """The stored float pair of one 2-ary relation, on ``device`` (JAX
+    ``build_dense_pair`` :263 and the engine's store, engine.py:109-112,
+    :257-259): ``{"M": M, "W": W, "shape": (N0, N1)}``, the observation
+    counts and the centered value sums [N0, N1] in ``store_dtype``
+    (bfloat16 under ``gram_dtype="bfloat16"``, else the compute dtype).
+    The sums are taken over the observed cells in the JAX package's
+    accumulator (float64 for a float64 store, else float32), in order of
+    appearance, then scattered into zeroed device arrays and cast there."""
+    n = [int(s) for s in shape]
+    acc = np.float64 if store_dtype == torch.float64 else np.float32
+    rows, cols, count, wsum = _observed_cells(idx, centered, n, acc)
+    return {"M": _scatter(n, rows, cols, count.astype(acc), store_dtype,
+                          device),
+            "W": _scatter(n, rows, cols, wsum, store_dtype, device),
             "shape": tuple(n)}
 
 
@@ -191,67 +235,110 @@ def ridge_step(s: torch.Tensor, K: int) -> torch.Tensor:
     return s.sum() * c
 
 
-def int8_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Exact int32 a @ b for int8 a [m, k], b [k, n] (``torch._int_mm``;
-    on CUDA it needs m > 16, so a short ``a`` is zero-padded)."""
-    m = a.shape[0]
-    if a.is_cuda and m <= 16:
-        a = torch.cat([a, a.new_zeros((24 - m, a.shape[1]))])
-        return torch._int_mm(a, b)[:m]
-    return torch._int_mm(a, b)
-
-
-def _dequant(S: torch.Tensor, s: torch.Tensor, extra: float,
-             alpha: torch.Tensor, out_dtype: torch.dtype) -> torch.Tensor:
-    """S [R, n] int32 -> out_dtype, times the per-row scale: the float32
-    product s * extra cast to out_dtype, then times alpha."""
+def _dq_scale(s: torch.Tensor, extra: float, alpha: torch.Tensor,
+              out_dtype: torch.dtype) -> torch.Tensor:
+    """The per-row dequant scale: the float32 product s * extra cast to
+    out_dtype, then times alpha (JAX dense_gram.py:1356-1359)."""
     scale = (s * torch.tensor(extra, dtype=torch.float32)).to(out_dtype)
-    scale = scale * alpha.to(out_dtype)
-    return S.to(out_dtype) * scale[:, None]
+    return scale * alpha.to(out_dtype)
 
 
-def dense_gram_contrib(pair: Dict[str, object], tri, partner: torch.Tensor,
-                       mode: int, alpha: torch.Tensor,
-                       out_dtype: torch.dtype, packed: bool = True
-                       ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One focus mode's alpha-folded contribution.  ``packed=True``, the
-    packed samplers' layout: P [K(K+1)/2, N_f_stored] (packed triangle, PD
-    ridge included) and b [K, N_f_stored]; columns past the true N_f are
-    zero.  ``packed=False``, the full-P sampler's: P [N_f, K, K] and
-    b [N_f, K], pads stripped, P expanded through ``tri_maps``' index (the
-    same numbers as the packed layout; JAX dense_gram.py:1418-1430).
+def int8_pair_contrib(pair: Dict[str, object], tri, partner: torch.Tensor,
+                      mode: int, alpha: torch.Tensor, out_dtype: torch.dtype,
+                      packed: bool = True
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One focus mode's alpha-folded contribution from ``build_int8_pair``'s
+    store (JAX dense_gram.py:1319-1430).  ``packed=True``, the packed
+    samplers' layout: P [K(K+1)/2, N_f] (packed triangle, PD ridge
+    included) and b [K, N_f].  ``packed=False``, the full-P sampler's: P
+    [N_f, K, K], freshly allocated, and b [N_f, K].  N_f is the true focus
+    count.
 
-    ``pair`` is ``build_int8_pair``'s store, ``tri`` = ``tri_index(K)``,
-    ``partner`` the other entity's factors [N_partner, K].  The partners
-    are cast to float32 before the table and the quantization whatever
-    ``out_dtype`` is, as in the JAX package.
-    """
-    Mf, Wf = pair["M8"][mode], pair["W8"][mode]
-    n_pp = Mf.shape[1]
+    ``tri`` = ``tri_index(K)``, ``partner`` the other entity's factors
+    [N_partner, K], cast to float32 before the table and its quantization
+    whatever ``out_dtype`` is, as the JAX package does."""
+    M8, W8 = pair["M8"], pair["W8"]
+    n = pair["shape"][mode]
     K = partner.shape[1]
-    iu, ju, dc, expand = tri
-    U = partner.to(torch.float32)
-    if U.shape[0] < n_pp:
-        U = torch.cat([U, U.new_zeros((n_pp - U.shape[0], K))])
-    UT = U.mT.contiguous()                            # [K, n_pp]
-    Y8, sY = quantize_rows(UT[iu] * UT[ju])           # [C, n_pp]
-    U8, sU = quantize_rows(UT)
+    C = K * (K + 1) // 2
+    dc, expand = tri[2], tri[3]
+    YZ8T, _, s_yz, sU = fused_quantize(partner, pad_rows=M8.shape[1 - mode],
+                                       tri=tri)
+    sY = s_yz[:C]
     alpha = alpha.to(out_dtype)
-    P = _dequant(int8_matmul(Y8, Mf.mT), sY, 1.0, alpha, out_dtype)
+    w_scale = pair["w_scale"]
+    if out_dtype == torch.float32:
+        # K6's dequant epilogue, with the alpha-folded float32 scales
+        P, b = pair_contract(M8, W8, YZ8T, mode, K, n,
+                             dq=(_dq_scale(sY, 1.0, alpha, out_dtype),
+                                 _dq_scale(sU, w_scale, alpha, out_dtype)))
+    else:
+        PM, BV = pair_contract(M8, W8, YZ8T, mode, K, n)
+        del YZ8T
+        P = PM.to(out_dtype) * _dq_scale(sY, 1.0, alpha, out_dtype)[:, None]
+        b = BV.to(out_dtype) * _dq_scale(sU, w_scale, alpha,
+                                         out_dtype)[:, None]
+        del PM, BV
     # PD safety ridge (JAX dense_gram.py:1391-1414): ~1.7 sigma of the
     # per-row quantization noise, mean(sY) * sqrt(K) / 2 * alpha * sqrt(deg),
     # on the diagonal entries
     step = ridge_step(sY, K).to(out_dtype) * alpha
-    rdeg = torch.sqrt(pair["deg"][mode]).to(out_dtype)
+    rdeg = torch.sqrt(pair["deg"][mode][:n]).to(out_dtype)
     P[dc] += (rdeg * step)[None, :]
-    b = _dequant(int8_matmul(U8, Wf.mT), sU, pair["w_scale"], alpha,
-                 out_dtype)
     if packed:
         return P, b
-    n = pair["shape"][mode]
-    Pt = P[:, :n].mT.contiguous()                     # [n, C]
+    Pt = P.mT.contiguous()                            # [n, C]
     del P     # free the packed copy before the expand allocates [n, K*K]
-    return Pt[:, expand].view(n, K, K), b[:, :n].mT
+    return Pt[:, expand].view(n, K, K), b.mT
+
+
+def _contract(T: torch.Tensor, A: torch.Tensor, mode: int,
+              acc_dtype: torch.dtype) -> torch.Tensor:
+    """T [R, N_partner] against the stored float pair array A [N0, N1]
+    along mode ``mode``'s partner axis: [R, N_focus] in ``acc_dtype``.  A
+    store of another dtype (bfloat16) is widened with its table to
+    ``acc_dtype`` a slice of focus rows at a time: the products of bfloat16
+    values are exact there, and the sums in ``acc_dtype`` are the JAX
+    einsum's (``preferred_element_type``); torch's bfloat16 matmul would
+    round its output to bfloat16."""
+    if A.dtype == acc_dtype:
+        return T @ (A.mT if mode == 0 else A)
+    n_focus, n_part = A.shape[mode], A.shape[1 - mode]
+    Tw = T.to(acc_dtype)
+    out = torch.empty((T.shape[0], n_focus), dtype=acc_dtype,
+                      device=A.device)
+    step = max(1, _WIDEN_ELEMS // max(n_part, 1))
+    for r0 in range(0, n_focus, step):
+        r1 = min(r0 + step, n_focus)
+        blk = (A[r0:r1].mT if mode == 0 else A[:, r0:r1]).to(acc_dtype)
+        out[:, r0:r1] = Tw @ blk
+    return out
+
+
+def float_pair_contrib(pair: Dict[str, object], tri,
+                       partner: torch.Tensor, mode: int, alpha: torch.Tensor,
+                       out_dtype: torch.dtype, packed: bool = True
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One focus mode's alpha-folded contribution from ``build_dense_pair``'s
+    store (JAX dense_gram.py:1431-1463), in ``int8_pair_contrib``'s
+    layouts, without a ridge: the partners cast to the store dtype, the
+    packed triangle table made (and rounded) in it, the sums in
+    ``out_dtype``, alpha multiplied in afterwards.  Unpacked, the packed
+    triangle is expanded to [N_f, K, K]; the products are the same exact
+    U_i U_j as the full K^2 table's, which the JAX package takes on small
+    stores for a TPU latency trade-off."""
+    M, W = pair["M"], pair["W"]
+    K = partner.shape[1]
+    iu, ju, _, expand = tri
+    UT = partner.to(M.dtype).mT                       # [K, n_part]
+    alpha = alpha.to(out_dtype)
+    b = _contract(UT, W, mode, out_dtype)             # [K, n]
+    b *= alpha
+    P = _contract(UT[iu] * UT[ju], M, mode, out_dtype)
+    P *= alpha
+    if packed:
+        return P, b
+    return _expand(P.mT, expand, K), b.mT
 
 
 # ---------------------------------------------------------------------------

@@ -45,10 +45,12 @@ import torch
 from .. import kernels
 
 
-def _mm_i32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Exact int32 a @ b for int8 a [m, k], b [k, n]: ``torch._int_mm`` on
-    CUDA (zero-padded to the shapes it takes: m > 16, k and n multiples of
-    8), an int64 matmul on the CPU."""
+def int8_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Exact int32 a @ b for int8 a [m, k], b [k, n], for the plain
+    versions of K6 and K8: ``torch._int_mm`` on CUDA, an int64 matmul on
+    the CPU.  On CUDA the operands are zero-padded to the shapes it takes
+    (m > 16, k and n multiples of 8) and handed over in the layout cuBLAS's
+    int8 GEMM takes: a row-major, b column-major (a copy where b is not)."""
     if not a.is_cuda:
         return (a.to(torch.int64) @ b.to(torch.int64)).to(torch.int32)
     m, k = a.shape
@@ -56,9 +58,10 @@ def _mm_i32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     mp, kp, np_ = max(m, 17), -(-k // 8) * 8, -(-n // 8) * 8
     if (mp, kp) != (m, k):
         a = torch.nn.functional.pad(a, (0, kp - k, 0, mp - m))
+    bt = b.mT
     if (kp, np_) != (k, n):
-        b = torch.nn.functional.pad(b, (0, np_ - n, 0, kp - k))
-    return torch._int_mm(a, b)[:m, :n]
+        bt = torch.nn.functional.pad(bt, (0, kp - k, 0, np_ - n))
+    return torch._int_mm(a.contiguous(), bt.contiguous().mT)[:m, :n]
 
 
 def _epilogue(PM, BV, C, dq):
@@ -103,7 +106,7 @@ def fused_pair_plain(V8: torch.Tensor, YZT: torch.Tensor, focus_axis: int,
     if acc == torch.int32:
         def operands(v):
             return (v != 0).to(torch.int8), v
-        mm = _mm_i32
+        mm = int8_matmul
     else:
         YZT = YZT.to(acc)
 

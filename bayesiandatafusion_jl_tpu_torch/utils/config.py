@@ -1,10 +1,9 @@
 """Engine configuration (port of ``bayesiandatafusion_jl_tpu/utils/config.py``).
 
-The fields keep the JAX package's names, meanings and defaults, except
-that ``dense_int8`` defaults to True: the int8 pair store is the only
-dense pair this port has.  The JAX options the port does not implement
-yet are not fields: passing one raises ``NotImplementedError`` naming its
-ROADMAP item, whether through ``MacauConfig(...)`` or ``macau(**kwargs)``.
+The fields keep the JAX package's names, meanings and defaults.  The JAX
+options the port does not implement yet are not fields: passing one
+raises ``NotImplementedError`` naming its ROADMAP item, whether through
+``MacauConfig(...)`` or ``macau(**kwargs)``.
 The TPU-only knobs (``pallas``, ``dense_gram_budget_gb``) are absent
 altogether.
 """
@@ -55,22 +54,23 @@ class MacauConfig:
     dtype: str = "float32"  # "float64" for the CPU parity tests
     chol_jitter: float = 0.0
 
-    # Gramian path: None or True = the dense int8 pair (ops/dense_gram.py);
+    # Gramian path: None or True = the dense pair (ops/dense_gram.py);
     # False = every mode on the bucketed gather path (ops/layout.py,
     # ops/gramian.py).  The JAX package's None is an auto planner on
-    # TPU-measured constants; the port has no H100 planner yet (ROADMAP
-    # M6), so None keeps the pair.
+    # TPU-measured constants that can mix dense and gather modes in one
+    # relation; the port has no planner yet (ROADMAP F7: it waits for M7,
+    # which mixes them), so None keeps the pair.
     dense_gram: Optional[bool] = None
-    # int8 operands on the dense paths.  False puts a fused relation on the
-    # float kernels (table in ``gram_dtype``, else the compute dtype); for a
-    # relation that takes the pair it would be the float pair, ROADMAP M3,
-    # refused when the problem is compiled.  The gather path does not read
-    # it.
-    dense_int8: bool = True
+    # int8 operands on the dense paths: True stores the int8 pair (K6 and
+    # K7) for a relation that passes ``int8_pair_ok`` and puts a fused
+    # relation on the s8 kernels; False (the JAX default) stores the float
+    # pair (in ``gram_dtype``, else the compute dtype) and puts a fused
+    # relation on the float kernels.  The gather path does not read it.
+    dense_int8: bool = False
     # the fused sparse regime (ops/dense_gram.py, second half): one stored
     # int8 value array V8 instead of the pair, the mask derived on the fly.
-    # True = wherever ``fused_pair_plan`` encodes the relation (the int8
-    # pair otherwise); None or False = the int8 pair.  The JAX package's
+    # True = wherever ``fused_pair_plan`` encodes the relation (the pair
+    # otherwise); None or False = the pair.  The JAX package's
     # None is an auto rule on a TPU HBM budget (``dense_gram_budget_gb``);
     # the port has no H100 planner yet (ROADMAP M6), as for ``dense_gram``.
     dense_fused: Optional[bool] = None
@@ -79,7 +79,7 @@ class MacauConfig:
     # grids only); the JAX package's contract (``fused_pair_plan``)
     dense_fused_tol: Optional[float] = None
 
-    # --- gather path, the fused residual and the float fused table ---
+    # --- gather path, the fused residual, the float pair and fused table ---
     # partner gather/contraction dtype: None = compute dtype; "bfloat16"
     # gathers in bf16 and contracts with float32 accumulation and output
     gram_dtype: Optional[str] = None

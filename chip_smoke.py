@@ -20,14 +20,31 @@ Phases, each fatal on failure (nonzero exit, no result line):
    plain versions, K7 at the Netflix and ML-10M shapes, K8 on small ragged
    stores; K8c and K8d (float operands: bfloat16 on the tensor cores,
    float32 and float64 by FMA; flip_out and natural layout) within
-   FLOAT_TOL of the largest sum;
-4. int8 contraction: ``torch._int_mm`` equals a float64 matmul of the same
-   codes exactly, at ML-10M shapes;
+   FLOAT_TOL of the largest sum; K6 (the int8 pair contraction, both focus
+   modes from one stored pair, raw int32 and the dequant epilogue) bit for
+   bit against its plain version on small ragged stores, K = 4, 8, 15, 32
+   and 33;
+4. int8 contraction: the plain versions' ``torch._int_mm`` equals a
+   float64 matmul of the same codes exactly, at ML-10M shapes;
 5. main paths: ML-10M-shaped synthetic BPMF (71,567 x 10,681, 10,000,054
    ratings, float32), made once, through ``MacauEngine.benchmark``:
-   - the int8 pair path at K = 32, 64, 96 and 128.  Every sweep must
-     sample both entities through the path's kernel (K1, K2, K2, K5 twice
-     per entity);
+   - the int8 pair path at K = 32, 64, 96 and 128, the pair stored in one
+     orientation.  Every sweep must contract both modes through K6, with
+     the table quantized by K7 up to K = 96, and sample both entities
+     through the path's kernel (K1, K2, K2, K5 twice per entity); peak
+     memory must stay below the two-orientation store's (PR 2).  K6 is
+     held bit for bit against its plain version at each path's store and
+     K, both modes, and timed beside the library (two ``torch._int_mm``
+     and the dequant, on a transposed copy for mode 1) and, for mode 1,
+     beside its own mode 0 on a transposed copy; a ``torch.profiler``
+     split at K = 32 and 64;
+   - the float pair (``dense_int8=False``, the JAX default) at K = 32, one
+     timed window of 40 sweeps each with a float32 store and with a
+     bfloat16 one (``gram_dtype="bfloat16"``, widened to float32 a slice
+     at a time): ``torch.matmul`` products and K1; the contribution of
+     each mode held to FLOAT_PAIR_TOL of float64 sums of the same store
+     and table, and timed by CUDA events (a ``torch.profiler`` trace of
+     this path lost most of its kernel events);
    - the gather path (``dense_gram=False``, bfloat16 gather, the bench's
      25-width bucket ladder) at K = 32 and 64 with "segment" accumulation
      and at K = 32 with "planned".  Every sweep must sample both entities
@@ -61,9 +78,10 @@ Phases, each fatal on failure (nonzero exit, no result line):
      observations), which the one array cannot hold: they ride the gather
      path as a residual, added into the s8 contribution in the packed
      layout.
-   On every path the plain versions and the other paths' kernels must not
-   run, and the RMSEs must lie in the JAX chain's bands where the JAX
-   package has one.  Each phase prints its seconds.
+   On every path the plain versions, the other paths' kernels and
+   ``torch._int_mm`` (counted through a wrapper the script installs around
+   each run) must not run, and the RMSEs must lie in the JAX chain's bands
+   where the JAX package has one.  Each phase prints its seconds.
 
 The last lines are the card's ``nvidia-smi`` name and power limit, a JSON
 object describing the kernels (with each one's bound on this card) and
@@ -127,6 +145,20 @@ FUSED_ML_PATHS = (32, 64)
 # the full-P branch; dense_int8=False the float kernels, with a bfloat16
 # table or (gram_dtype None) a float32 one, the FMA variant.  K = 128 has
 # no JAX anchor: its rmse_sample is held to this run's int8 pair at K = 128.
+# the int8 pair's peak device memory on these paths with the pair stored
+# in two orientations (PERF.md, PR 2: NVIDIA H100 80GB HBM3, 700 W); one
+# orientation must come in below it
+TWO_ORIENTATION_PEAK_GB = {32: 3.78, 64: 5.64, 96: 8.67, 128: 15.19}
+# the float pair (dense_int8=False, the JAX default): one timed window of
+# 40 sweeps at K = 32 for each store dtype (``gram_dtype``: None stores the
+# compute dtype, float32; "bfloat16" as the bench configs ask), held to the
+# @40 anchor
+FLOAT_PAIR_K = 32
+FLOAT_PAIR_STORES = (None, "bfloat16")
+# the float pair's contribution against float64 sums of the same (rounded)
+# store and table: torch.matmul's float32 sums over up to 71,567 partners,
+# in cuBLAS's order, relative to the largest sum
+FLOAT_PAIR_TOL = 1e-4
 FUSED_ML_MORE = ((128, 20, dict(dense_int8=True)),
                  (64, 40, dict(dense_int8=False, gram_dtype="bfloat16")),
                  (128, 20, dict(dense_int8=False, gram_dtype="bfloat16")),
@@ -451,6 +483,131 @@ def check_fused_pair(V8, shape, K, focus, timing=True, seed=0):
     return r
 
 
+def pair_contract_bound(shape, stored, K, focus, nnz):
+    """(bytes, int8 operations) of K6's function for one focus mode: read
+    the stored M8 and W8 and the partner table once, write the float32 dq
+    outputs once (C + K rows of the focus count); a multiply-add into each
+    of the C + K outputs for each of the ``nnz`` observed cells, the work
+    this data needs (the zero cells add nothing)."""
+    C = K * (K + 1) // 2
+    nf = shape[focus]
+    n_contract = stored[1 - focus]
+    nbytes = (2 * stored[0] * stored[1] + (C + K) * n_contract
+              + 4 * (C + K) * nf)
+    return nbytes, 2 * nnz * (C + K)
+
+
+def pair_contract_dense_ops(shape, K):
+    """The int8 operations of K6's design, which multiplies every cell of
+    the true extent on the tensor cores: 2 n0 n1 (C + K)."""
+    return 2 * shape[0] * shape[1] * (K * (K + 1) // 2 + K)
+
+
+def random_pair(true, seed=0, density=0.1):
+    """A random int8 pair as ``build_int8_pair`` lays it out: counts 1..3
+    and value codes in -127..127 on the observed cells of the true extent,
+    one [n0, n1] array each, zero-padded to multiples of 16."""
+    import torch
+    from bayesiandatafusion_jl_tpu_torch.ops.dense_gram import STORE_ALIGN
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    stored = [-(-d // STORE_ALIGN) * STORE_ALIGN for d in true]
+    obs = torch.rand(true, generator=g, device="cuda") < density
+    out = {"shape": tuple(true)}
+    for key, lo, hi in (("M8", 1, 4), ("W8", -127, 128)):
+        t = torch.zeros(stored, dtype=torch.int8, device="cuda")
+        codes = torch.randint(lo, hi, true, generator=g, device="cuda")
+        t[:true[0], :true[1]] = (codes * obs).to(torch.int8)
+        out[key] = t
+    return out
+
+
+def check_pair_contract(pair, K, focus, timing=True, seed=0):
+    """K6 against its plain version on the stored pair (``build_int8_pair``
+    's layout, true extents ``pair["shape"]``) for one focus mode, the
+    partner table ``fused_quantize``'s codes of random factors (K7 up to
+    K = 96) and random dequant scales, bit for bit in both epilogues (the
+    int32 sums are exact and both sides convert and multiply them the same
+    way).  Timing adds the library's time for the same function: two
+    ``torch._int_mm`` products and the torch dequant, on the pair as it
+    is stored for mode 0 and on a transposed copy for mode 1 (the "TN"
+    layout the old path ran), with whether its sums equal K6's; and, for
+    mode 1, K6's mode 0 on that transposed copy, the cost of reading the
+    one store strided measured against a second stored orientation."""
+    import torch
+    from bayesiandatafusion_jl_tpu_torch.ops import dense_gram as dg
+    from bayesiandatafusion_jl_tpu_torch.ops.pair_contract import (
+        pair_contract, pair_contract_plain)
+    M8, W8, shape = pair["M8"], pair["W8"], pair["shape"]
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    C = K * (K + 1) // 2
+    n_contract = M8.shape[1 - focus]
+    nf = shape[focus]
+    U = torch.randn((shape[1 - focus], K), generator=g, device="cuda")
+    YZ8T = dg.fused_quantize(U, pad_rows=n_contract,
+                             tri=dg.tri_index(K, "cuda"))[0]
+    dq = tuple(torch.rand(n, generator=g, device="cuda") + 0.5
+               for n in (C, K))
+    raw_k = pair_contract(M8, W8, YZ8T, focus, K, nf)
+    raw_p = pair_contract_plain(M8, W8, YZ8T, focus, K, nf)
+    dq_k = pair_contract(M8, W8, YZ8T, focus, K, nf, dq=dq)
+    dq_p = pair_contract_plain(M8, W8, YZ8T, focus, K, nf, dq=dq)
+    torch.cuda.synchronize()
+    pairs = list(zip(raw_k, raw_p)) + list(zip(dq_k, dq_p))
+    err = max((a.double() - b.double()).abs().max().item() for a, b in pairs)
+    r = {"shape": tuple(shape), "K": K, "focus": focus, "max_abs_err": err,
+         "ok": all(torch.equal(a, b) for a, b in pairs)}
+    del raw_p, dq_k, dq_p, pairs
+    if not timing:
+        return r
+    r["raw_ms"] = cuda_ms(lambda: pair_contract(M8, W8, YZ8T, focus, K, nf),
+                          10)
+    r["kernel_ms"] = cuda_ms(
+        lambda: pair_contract(M8, W8, YZ8T, focus, K, nf, dq=dq), 10)
+    r["plain_ms"] = cuda_ms(
+        lambda: pair_contract_plain(M8, W8, YZ8T, focus, K, nf, dq=dq), 3)
+    b = pair_contract_bound(shape, M8.shape, K, focus, count_observed(M8))
+    r["bound_ms"], r["bound_by"] = bound_ms(*b, rate=INT8_OP_S)
+    dense = pair_contract_dense_ops(shape, K)
+    r["dense_bound_ms"] = dense / INT8_OP_S * 1e3
+    r["tops"] = dense / r["kernel_ms"] * 1e-9
+    # the focus-leading copies: the store itself for mode 0, a transposed
+    # copy for mode 1 (made here, for these timings only)
+    Mt, Wt = ((M8, W8) if focus == 0 else
+              (M8.mT.contiguous(), W8.mT.contiguous()))
+    Y8, Z8 = YZ8T[:C], YZ8T[C:]
+
+    def lib():
+        return (torch._int_mm(Y8, Mt.mT).float() * dq[0][:, None],
+                torch._int_mm(Z8, Wt.mT).float() * dq[1][:, None])
+    r["library_ms"] = cuda_ms(lib, 10)
+    pm, bv = torch._int_mm(Y8, Mt.mT), torch._int_mm(Z8, Wt.mT)
+    r["library_equal"] = bool(torch.equal(pm[:, :nf], raw_k[0])
+                              and torch.equal(bv[:, :nf], raw_k[1]))
+    del pm, bv, raw_k
+    if focus == 1:
+        r["transposed_ms"] = cuda_ms(
+            lambda: pair_contract(Mt, Wt, YZ8T, 0, K, nf, dq=dq), 10)
+    return r
+
+
+def print_pair_check(label, r):
+    line = (f"# K6 {label} {r['shape']} K={r['K']} focus {r['focus']}: "
+            f"bitwise {r['ok']} (max diff {r['max_abs_err']})")
+    if "kernel_ms" in r:
+        line += (f"; dq {r['kernel_ms']:.4f} ms ({r['tops']:.1f} dense "
+                 f"TOP/s), raw {r['raw_ms']:.4f} ms, plain "
+                 f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+                 f"({r['bound_by']}); the dense-MMA design's floor "
+                 f"{r['dense_bound_ms']:.4f} ms; library (two "
+                 f"torch._int_mm, TN, and the dequant) "
+                 f"{r['library_ms']:.4f} ms, sums equal "
+                 f"{r['library_equal']}")
+        if "transposed_ms" in r:
+            line += (f"; K6 mode 0 on a transposed copy "
+                     f"{r['transposed_ms']:.4f} ms")
+    print(line, flush=True)
+
+
 BF16_FLOP_S = 989e12
 # a float variant's sums against the float64 sums of the same (rounded)
 # table: the rounding of the float32 accumulation only (exact products),
@@ -575,11 +732,12 @@ def time_mask_library(V8, K, table="int8", seed=0):
 
 
 def check_int8_contraction(n_rows=2048, K=32, seed=1):
-    """torch._int_mm's int32 products equal float64 matmuls of the same
-    int8 codes exactly, for a block of rows of each mode at ML-10M shapes
-    (partner widths padded as the engine stores them)."""
+    """The plain versions' int8 products (``torch._int_mm``) equal float64
+    matmuls of the same int8 codes exactly, for a block of rows of each
+    mode at ML-10M shapes (partner widths padded as the engine stores
+    them)."""
     import torch
-    from bayesiandatafusion_jl_tpu_torch.ops.dense_gram import int8_matmul
+    from bayesiandatafusion_jl_tpu_torch.ops.fused_pair import int8_matmul
     g = torch.Generator(device="cuda").manual_seed(seed)
     C = K * (K + 1) // 2
     out = []
@@ -600,12 +758,13 @@ def counters():
     plain version's call count, by name."""
     from bayesiandatafusion_jl_tpu_torch.ops import (chol_blocked, chol_full,
                                                      chol_packed, fused_pair,
-                                                     ytab)
+                                                     pair_contract, ytab)
     return {"K1": (chol_packed.chol_sample_packed, "launches"),
             "K2": (chol_packed.chol_sample_packed_tiled, "launches"),
             "K3": (chol_full.chol_sample_full, "launches"),
             "K4": (chol_full.chol_sample_full_tiled, "launches"),
             "K5": (chol_blocked.chol_inv, "launches"),
+            "K6": (pair_contract.pair_contract, "launches"),
             "K7": (ytab.ytab_quantize, "launches"),
             "K8a": (fused_pair.fused_pair_contract, "launches_i8_flip"),
             "K8b": (fused_pair.fused_pair_contract, "launches_i8_nat"),
@@ -615,7 +774,8 @@ def counters():
             "plain_full": (chol_full.chol_sample_full_plain, "calls"),
             "plain_inv": (chol_blocked.chol_inv_plain, "calls"),
             "plain_ytab": (ytab.ytab_quantize_plain, "calls"),
-            "plain_fused": (fused_pair.fused_pair_plain, "calls")}
+            "plain_fused": (fused_pair.fused_pair_plain, "calls"),
+            "plain_pair": (pair_contract.pair_contract_plain, "calls")}
 
 
 def read_counts():
@@ -627,28 +787,11 @@ def zero_counts():
         setattr(f, a, 0)
 
 
-def time_int8_products(pair, K):
-    """CUDA-event times of one path's int8 P and b products, per mode, on
-    its stored pair (random codes of the path's shapes)."""
-    import torch
-    from bayesiandatafusion_jl_tpu_torch.ops.dense_gram import (
-        int8_matmul, quantize_rows)
-    C = K * (K + 1) // 2
-    for mode in range(2):
-        Mf, Wf = pair["M8"][mode], pair["W8"][mode]
-        Y8, _ = quantize_rows(torch.randn((C, Mf.shape[1]), device="cuda"))
-        U8, _ = quantize_rows(torch.randn((K, Mf.shape[1]), device="cuda"))
-        ms_p = cuda_ms(lambda: int8_matmul(Y8, Mf.mT), 10)
-        ms_b = cuda_ms(lambda: int8_matmul(U8, Wf.mT), 10)
-        print(f"# _int_mm K={K} mode {mode} (focus {Mf.shape[0]}, partner "
-              f"{Mf.shape[1]}): P {ms_p:.3f} ms, b {ms_b:.3f} ms",
-              flush=True)
-
-
 def path_kernels(K, gather, fused, i8=True):
     """{counter: launches per sweep} of the kernels a path must run: its
-    sampler, and on the fused path K8 once per mode (by operand type and
-    layout) and, on its s8 kernels up to K = 96, K7."""
+    sampler; on the fused path K8 once per mode (by operand type and
+    layout); on the int8 pair K6 once per mode; and on either s8 path, up
+    to K = 96, K7.  The float pair runs the sampler alone."""
     if gather and K <= 96:
         return {"K3" if K <= 32 else "K4": 2}
     want = {"K1": 2} if K <= 32 else {"K2": 2} if K <= 96 else {"K5": 4}
@@ -656,8 +799,10 @@ def path_kernels(K, gather, fused, i8=True):
         packed = K <= 96
         want[("K8a" if packed else "K8b") if i8 else
              ("K8c" if packed else "K8d")] = 2
-        if i8 and packed:
-            want["K7"] = 2
+    elif not gather and i8:
+        want["K6"] = 2
+    if not gather and i8 and K <= 96:
+        want["K7"] = 2
     return want
 
 
@@ -686,19 +831,36 @@ def run_path(rd, K, sweeps, repeats, anchor_s, anchor_avg, name="ML-10M",
             f"built")
     require(not fused or prob.fused_i8 == cfg.dense_int8,
             f"{name} K={K}: the fused path's s8 decision is {prob.fused_i8}")
+    pair_i8 = prob.pair_i8
+    require(gather or fused or pair_i8 == cfg.dense_int8,
+            f"{name} K={K}: the pair's int8 decision is {pair_i8}")
     if gather:
         label = f"{name} gather {cfg.accumulation} K={K}"
     elif fused:
         table = "s8" if prob.fused_i8 else (cfg.gram_dtype or cfg.dtype)
         label = (f"{name} fused {table} K={K}"
                  + (" with residual" if prob.residual_nnz else ""))
-    else:
+    elif pair_i8:
         label = f"{name} int8 pair K={K}"
+    else:
+        label = f"{name} float pair {cfg.gram_dtype or cfg.dtype} K={K}"
+    # torch._int_mm, the library's int8 GEMM, must not run on any path:
+    # count its calls through a wrapper installed for the run
+    int_mm, int_mm_calls = torch._int_mm, [0]
+
+    def counting_int_mm(*a, **kw):
+        int_mm_calls[0] += 1
+        return int_mm(*a, **kw)
+    torch._int_mm = counting_int_mm
     zero_counts()
-    t0 = time.perf_counter()
-    out = eng.benchmark(sweeps, repeats=repeats)
-    bench_s = time.perf_counter() - t0
-    counts = read_counts()
+    try:
+        t0 = time.perf_counter()
+        out = eng.benchmark(sweeps, repeats=repeats)
+        bench_s = time.perf_counter() - t0
+        counts = read_counts()
+    finally:
+        torch._int_mm = int_mm
+    counts["torch._int_mm"] = int_mm_calls[0]
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     m = out["metrics"]
     wins = out["ms_per_sweep"]
@@ -719,7 +881,9 @@ def run_path(rd, K, sweeps, repeats, anchor_s, anchor_avg, name="ML-10M",
                       f"{prob.padded_nnz}, layouts "
                       f"{prob.layout_seconds:.1f} s")
     else:
-        built = f"pair store {prob.build_seconds:.1f} s"
+        M = prob.pair["M8" if pair_i8 else "M"]
+        built = (f"pair store {prob.build_seconds:.1f} s, M and W "
+                 f"{tuple(M.shape)} {M.dtype}")
     print(f"# path {label}: ms/sweep per window {wins}, median {med:.3f}; "
           f"rows/s {n_rows / med * 1e3:.1f}; rmse_sample@{sweeps} "
           f"{out['rmse_at_sweeps']:.4f}; rmse_avg {m['r0.rmse_avg']:.4f}; "
@@ -728,8 +892,8 @@ def run_path(rd, K, sweeps, repeats, anchor_s, anchor_avg, name="ML-10M",
           f"warm window", flush=True)
     total_sweeps = sweeps * (repeats + 1)
     want = {k: 0 for k in counts}
-    for tag, per_sweep in path_kernels(K, gather, fused,
-                                       prob.fused_i8).items():
+    for tag, per_sweep in path_kernels(
+            K, gather, fused, prob.fused_i8 if fused else pair_i8).items():
         want[tag] = per_sweep * total_sweeps
     require(counts == want, f"{label}: counts {counts} for {total_sweeps} "
                             f"sweeps, want {want}")
@@ -776,6 +940,16 @@ FUSED_SPLIT = (("K8 mode 0", ("fused_pair_kernel<0", "fused_pair_kernelILi0",
                ("bmm and gemm", ("gemm", "gemv", "cutlass", "xmma", "sm90_")))
 
 
+# ... and of an int8 pair sweep: K6 per focus mode, K7, the sampler
+PAIR_SPLIT = (("K6 mode 0", ("pair_contract_kernel<0",
+                             "pair_contract_kernelILi0")),
+              ("K6 mode 1", ("pair_contract_kernel<1",
+                             "pair_contract_kernelILi1")),
+              ("K7", ("ytab_",)),
+              ("K1/K2/K5", ("chol_sample_packed", "chol_inv")),
+              ("gemm", ("gemm", "gemv", "cutlass", "xmma", "sm90_")))
+
+
 def profile_split(eng, warm=2, sweeps=3, split=SPLIT):
     """Device milliseconds per sweep by part of the sweep (``split``, the
     rest under "rest"), the device idle share and the largest kernels (ms
@@ -813,6 +987,47 @@ def profile_split(eng, warm=2, sweeps=3, split=SPLIT):
             "wall_ms": wall_ms / sweeps,
             "idle": 1.0 - device_ms * sweeps / wall_ms,
             "top": [(n[:60], ms / sweeps, launches[n]) for n, ms in top]}
+
+
+def check_float_pair_contrib(eng, seed=0):
+    """The path's float pair contribution (``float_pair_contrib``, packed,
+    float32 sums, alpha 2) on random partner factors, per focus mode:
+    held to FLOAT_PAIR_TOL of the largest sum against float64 sums of the
+    same store and the same table (made and rounded in the store dtype),
+    and timed by CUDA events."""
+    import torch
+    from bayesiandatafusion_jl_tpu_torch.ops import dense_gram as dg
+    prob = eng.problem
+    pair, K = prob.pair, eng.config.num_latent
+    iu, ju = prob.tri[:2]
+    C = K * (K + 1) // 2
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    alpha = torch.tensor(2.0, device="cuda")
+    out = []
+    for mode in range(2):
+        partner = torch.randn((pair["shape"][1 - mode], K), generator=g,
+                              device="cuda")
+        P, b = dg.float_pair_contrib(pair, prob.tri, partner, mode, alpha,
+                                     torch.float32)
+        UT = partner.to(pair["M"].dtype).mT
+        err, big = 0.0, 0.0
+        for got, T, A in ((P, UT[iu] * UT[ju], pair["M"]),
+                          (b, UT, pair["W"])):
+            A64 = A.double()
+            want = 2.0 * (T.double() @ (A64.mT if mode == 0 else A64))
+            del A64
+            err = max(err, (got.double() - want).abs().max().item())
+            big = max(big, want.abs().max().item())
+            del want
+        del P, b
+        torch.cuda.empty_cache()
+        ms = cuda_ms(lambda: dg.float_pair_contrib(
+            pair, prob.tri, partner, mode, alpha, torch.float32), 5)
+        n0, n1 = pair["shape"]
+        out.append({"mode": mode, "max_abs_err": err, "max_abs": big,
+                    "ok": err <= FLOAT_PAIR_TOL * big, "ms": ms,
+                    "tflops": 2 * n0 * n1 * (C + K) / ms * 1e-9})
+    return out
 
 
 def time_gathers(eng, K):
@@ -933,11 +1148,22 @@ def main() -> int:
                 require(r["ok"], f"K8 variant disagrees with its plain "
                                  f"version: {r}")
         del V8
+    # K = 15: C = 120 fills the M columns of one CTA, so the W columns get
+    # a CTA of their own (the others mix both operands in one CTA)
+    for true, K in (((1_000, 777), 32), ((300, 2_000), 8), ((129, 257), 33),
+                    ((64, 48), 4), ((200, 300), 15)):
+        pair = random_pair(true, seed=K)
+        for focus in (0, 1):
+            r = check_pair_contract(pair, K, focus, timing=False)
+            print_pair_check("small ragged", r)
+            require(r["ok"], f"K6 disagrees with its plain version: {r}")
+        del pair
     phase_done("kernels vs plain")
 
     # -- int8 contraction ----------------------------------------------------
     exact = check_int8_contraction()
-    print(f"# int8 contraction exact (mode 0, mode 1): {exact}", flush=True)
+    print(f"# the plain versions' int8 products exact (mode 0, mode 1): "
+          f"{exact}", flush=True)
     require(all(exact), "torch._int_mm is not exact")
 
     # -- main paths ----------------------------------------------------------
@@ -946,9 +1172,10 @@ def main() -> int:
     rd.assign_to_test(0, min(100_000, df.nnz // 10), seed=7)
     print(f"# data: nnz={df.nnz}, shape={df.shape}", flush=True)
     phase_done("ML-10M data")
-    launches = dict.fromkeys(("K1", "K2", "K3", "K4", "K5", "K7", "K8a",
-                              "K8b", "K8c", "K8d"), 0)
+    launches = dict.fromkeys(("K1", "K2", "K3", "K4", "K5", "K6", "K7",
+                              "K8a", "K8b", "K8c", "K8d"), 0)
     rmse_pair = {}
+    pair_checks = {}
 
     def tally(counts):
         for k in launches:
@@ -959,10 +1186,46 @@ def main() -> int:
                                     anchor_avg, dense_int8=True)
         tally(counts)
         rmse_pair[K] = out["rmse_at_sweeps"]
-        if K == 32:
-            time_int8_products(eng.problem.pair, K)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        print(f"# int8 pair K={K}: peak memory {peak_gb:.2f} GB with one "
+              f"stored orientation, {TWO_ORIENTATION_PEAK_GB[K]} GB with two",
+              flush=True)
+        require(peak_gb < TWO_ORIENTATION_PEAK_GB[K],
+                f"int8 pair K={K}: peak {peak_gb:.2f} GB")
+        if K in (32, 64):
+            prof = profile_split(eng, split=PAIR_SPLIT)
+            print_profile(f"ML-10M int8 pair K={K}", prof)
+        pair = eng.problem.pair
         del eng
+        torch.cuda.empty_cache()
+        # K6 at the path's own store and K, both modes
+        for focus in (0, 1):
+            r = check_pair_contract(pair, K, focus)
+            print_pair_check("ML-10M", r)
+            require(r["ok"] and r["library_equal"],
+                    f"K6 disagrees with its plain version or the "
+                    f"library: {r}")
+            pair_checks[(K, focus)] = r
+            torch.cuda.empty_cache()
+        del pair
     phase_done("ML-10M int8 pair paths")
+    for store in FLOAT_PAIR_STORES:
+        eng, counts, _ = run_path(rd, FLOAT_PAIR_K, 40, 1,
+                                  PATHS[FLOAT_PAIR_K][2], None,
+                                  dense_int8=False, dense_gram=True,
+                                  dense_fused=False, gram_dtype=store)
+        tally(counts)
+        for r in check_float_pair_contrib(eng):
+            print(f"# float pair {store or 'float32'} K={FLOAT_PAIR_K} mode "
+                  f"{r['mode']}: the contribution (table, two torch.matmul "
+                  f"with float32 sums, alpha) ok {r['ok']} (max |diff| "
+                  f"{r['max_abs_err']:.3e} of max |sum| {r['max_abs']:.3e} "
+                  f"against float64 sums), {r['ms']:.3f} ms, "
+                  f"{r['tflops']:.1f} TFLOP/s", flush=True)
+            require(r["ok"], f"the float pair's contribution is off: {r}")
+        del eng
+        torch.cuda.empty_cache()
+    phase_done("ML-10M float pair paths")
     for K, acc, sweeps, repeats in GATHER_PATHS:
         anchor_s, anchor_avg = PATHS[K][2:]
         eng, counts, _ = run_path(rd, K, sweeps, repeats, anchor_s,
@@ -985,7 +1248,7 @@ def main() -> int:
     phase_done("ML-10M gather paths")
     for K in FUSED_ML_PATHS:
         eng, counts, _ = run_path(rd, K, 40, 1, PATHS[K][2], None,
-                                  dense_fused=True)
+                                  dense_fused=True, dense_int8=True)
         tally(counts)
         st = eng.problem.fused
         for focus in (0, 1):
@@ -1177,6 +1440,14 @@ def main() -> int:
                      "max_abs_err": r["kernel_err"], "ms": r["kernel_ms"],
                      "plain_ms": r["plain_ms"], "bound_ms": b_ms,
                      "bound_by": b_by, "library_ms": None})
+    r = pair_checks[(32, 0)]
+    rows.append({"name": "pair_contract_i8", "route": "cuda",
+                 "source": src + "pair_contract_i8.cu",
+                 "replaces": "bayesiandatafusion_jl_tpu/ops/pallas_pair.py:137",
+                 "launches": launches["K6"], "max_abs_err": r["max_abs_err"],
+                 "ms": r["kernel_ms"], "plain_ms": r["plain_ms"],
+                 "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                 "library_ms": r["library_ms"]})
     r = checks[("K7", 32, 480_189)]
     b_ms, b_by = bound_ms(*ytab_bound(480_189, 32))
     rows.append({"name": "ytab_quantize", "route": "cuda",

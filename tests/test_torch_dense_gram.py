@@ -1,5 +1,6 @@
-"""The port's int8 pair Gramian against the JAX package's s8 branch of
-``dense_gram_contrib`` and its host-side pair build."""
+"""The port's int8 pair Gramian (``int8_pair_contrib``) against the JAX
+package's s8 branch of ``dense_gram_contrib`` and its host-side pair
+build."""
 import functools
 
 import jax
@@ -16,6 +17,8 @@ import bayesiandatafusion_jl_tpu_torch as bt
 from bayesiandatafusion_jl_tpu_torch.models.engine import \
     MacauEngine as TorchEngine
 from bayesiandatafusion_jl_tpu_torch.ops import dense_gram as tdg
+from bayesiandatafusion_jl_tpu_torch.ops.pair_contract import \
+    pair_contract_plain
 from bayesiandatafusion_jl_tpu_torch.utils.config import \
     MacauConfig as TorchConfig
 from _torch_xla_order import xla_cpu_ridge_step
@@ -49,54 +52,53 @@ def _pair(n0, n1, density, seed, dtype, dup=0):
 @pytest.mark.parametrize("dup", [0, 40])
 def test_int8_pair_build_matches_jax(dtype, dup):
     """The build over the observed cells gives the JAX package's dense
-    store bitwise, with and without repeated cells: M8, W8 and w_scale;
-    the per-focus copies are transposes, zero-padded."""
+    store bitwise, with and without repeated cells: M8, W8 and w_scale,
+    stored once in the relation's mode order, zero-padded."""
     n0, n1 = 37, 23
     idx, cen, pair = _pair(n0, n1, 0.4, 3, dtype, dup)
     M, W = jdg.build_dense_pair(idx, cen, (n0, n1), dtype)
     M8, W8, w_scale = jdg.quantize_dense_pair(M, W)
     assert pair["w_scale"] == w_scale
+    Ms, Ws = pair["M8"].numpy(), pair["W8"].numpy()
+    assert Ms.shape == Ws.shape == (48, 32)
+    for got, want in ((Ms, M8), (Ws, W8)):
+        np.testing.assert_array_equal(got[:n0, :n1], want)
+        assert not got[n0:].any() and not got[:, n1:].any()
     for f in range(2):
-        Mf, Wf = pair["M8"][f].numpy(), pair["W8"][f].numpy()
-        assert Mf.shape[0] % tdg.STORE_ALIGN == 0
-        assert Mf.shape[1] % tdg.STORE_ALIGN == 0
-        want_m, want_w = (M8, W8) if f == 0 else (M8.T, W8.T)
-        np.testing.assert_array_equal(Mf[:want_m.shape[0], :want_m.shape[1]],
-                                      want_m)
-        np.testing.assert_array_equal(Wf[:want_w.shape[0], :want_w.shape[1]],
-                                      want_w)
-        assert not Mf[want_m.shape[0]:].any()
-        assert not Mf[:, want_m.shape[1]:].any()
-        deg = np.bincount(idx[:, f], minlength=Mf.shape[0])
+        deg = np.bincount(idx[:, f], minlength=Ms.shape[f])
         np.testing.assert_array_equal(pair["deg"][f].numpy(), deg)
 
 
 @pytest.mark.parametrize("mode", [0, 1])
 def test_int8_contraction_sums_bitwise(mode):
-    """The int32 sums of the quantized products equal the JAX einsum's."""
+    """The int32 sums of the quantized products (K6's plain version on the
+    one stored pair, raw epilogue) equal the JAX einsums', both modes."""
     n0, n1, K = 41, 30, 5
+    C = K * (K + 1) // 2
     idx, cen, pair = _pair(n0, n1, 0.5, 4, np.float32)
-    M8 = pair["M8"][0][:n0, :n1].numpy()
+    M8, W8 = (pair[k][:n0, :n1].numpy() for k in ("M8", "W8"))
     n_p = (n1, n0)[mode]
     rng = np.random.default_rng(1)
-    A8 = rng.integers(-127, 128, (n_p, K + 3)).astype(np.int8)
+    A8 = rng.integers(-127, 128, (n_p, C + K)).astype(np.int8)
     spec = "ab,bz->za" if mode == 0 else "ab,az->zb"
-    want = np.asarray(jnp.einsum(spec, jnp.asarray(M8), jnp.asarray(A8),
-                                 preferred_element_type=jnp.int32))
-    Mf = pair["M8"][mode]
-    A8p = np.zeros((Mf.shape[1], K + 3), np.int8)
-    A8p[:n_p] = A8
-    got = tdg.int8_matmul(torch.from_numpy(A8p.T.copy()), Mf.mT).numpy()
-    assert got.dtype == np.int32
-    np.testing.assert_array_equal(got[:, :(n0, n1)[mode]], want)
-    assert not got[:, (n0, n1)[mode]:].any()
+    want = [np.asarray(jnp.einsum(spec, jnp.asarray(S), jnp.asarray(A),
+                                  preferred_element_type=jnp.int32))
+            for S, A in ((M8, A8[:, :C]), (W8, A8[:, C:]))]
+    YZ8T = np.zeros((C + K, pair["M8"].shape[1 - mode]), np.int8)
+    YZ8T[:, :n_p] = A8.T
+    got = pair_contract_plain(pair["M8"], pair["W8"],
+                              torch.from_numpy(YZ8T), mode, K, (n0, n1)[mode])
+    for g, w in zip(got, want):
+        assert g.dtype == torch.int32
+        np.testing.assert_array_equal(g.numpy(), w)
 
 
 @pytest.mark.parametrize("mode", [0, 1])
 def test_dense_gram_contrib_matches_jax(mode, xla_cpu_ridge):
     """P and b after dequantization, alpha fold and PD ridge, float64:
     elementwise arithmetic on exact int32 sums, equal scales and the same
-    float32 ridge mean, so bitwise equal."""
+    float32 ridge mean, so bitwise equal; the outputs span the true focus
+    count."""
     n0, n1, K = 41, 30, 6
     idx, cen, pair = _pair(n0, n1, 0.5, 5, np.float64)
     rng = np.random.default_rng(2)
@@ -114,15 +116,15 @@ def test_dense_gram_contrib_matches_jax(mode, xla_cpu_ridge):
         ridge_deg=jnp.asarray(deg, jnp.float32),
         alpha=jnp.asarray(alpha, jnp.float64))
     Pj, bj = np.asarray(Pj), np.asarray(bj)
-    Pt, bt_ = tdg.dense_gram_contrib(
+    Pt, bt_ = tdg.int8_pair_contrib(
         pair, tdg.tri_index(K, "cpu"), torch.from_numpy(partner), mode,
         torch.tensor(alpha, dtype=torch.float64), torch.float64)
     n_f = (n0, n1)[mode]
     Pt, bt_ = Pt.numpy(), bt_.numpy()
     assert Pt.dtype == bt_.dtype == np.float64
-    assert not Pt[:, n_f:].any() and not bt_[:, n_f:].any()
-    np.testing.assert_array_equal(bt_[:, :n_f], bj)
-    np.testing.assert_array_equal(Pt[:, :n_f], Pj)
+    assert Pt.shape == (K * (K + 1) // 2, n_f) and bt_.shape == (K, n_f)
+    np.testing.assert_array_equal(bt_, bj)
+    np.testing.assert_array_equal(Pt, Pj)
 
 
 @pytest.mark.parametrize("mode", [0, 1])
@@ -144,7 +146,7 @@ def test_dense_gram_contrib_unpacked_matches_jax(mode, xla_cpu_ridge):
         jnp.asarray(M8), jnp.asarray(W8), [jnp.asarray(partner)],
         ridge_deg=jnp.asarray(deg, jnp.float32),
         alpha=jnp.asarray(2.5, jnp.float64))
-    Pt, bt_ = tdg.dense_gram_contrib(
+    Pt, bt_ = tdg.int8_pair_contrib(
         pair, tdg.tri_index(K, "cpu"), torch.from_numpy(partner), mode,
         torch.tensor(2.5, dtype=torch.float64), torch.float64, packed=False)
     n_f = (n0, n1)[mode]
@@ -189,7 +191,8 @@ def test_engine_store_and_split_match_jax():
                                        dense_gram=True, dense_int8=True,
                                        verbose=False))
     et = TorchEngine(rd_t, TorchConfig(num_latent=4, dtype="float64",
-                                       verbose=False), device="cpu")
+                                       dense_int8=True, verbose=False),
+                     device="cpu")
     np.testing.assert_array_equal(rd_t.relations[0].test_idx,
                                   rd_j.relations[0].test_idx)
     np.testing.assert_array_equal(et.problem.test["r0"]["vals"].numpy(),
@@ -198,9 +201,9 @@ def test_engine_store_and_split_match_jax():
     assert et.problem.pair["w_scale"] == ej.problem.dense_w_scale[0]
     st = ej.problem.arrays["dense"]["r0"]
     pair = et.problem.pair
-    np.testing.assert_array_equal(pair["M8"][0][:n0, :n1].numpy(),
+    np.testing.assert_array_equal(pair["M8"][:n0, :n1].numpy(),
                                   np.asarray(st["M"]))
-    np.testing.assert_array_equal(pair["W8"][0][:n0, :n1].numpy(),
+    np.testing.assert_array_equal(pair["W8"][:n0, :n1].numpy(),
                                   np.asarray(st["W"]))
     for f in range(2):
         n_f = (n0, n1)[f]

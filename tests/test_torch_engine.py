@@ -427,13 +427,13 @@ def test_fused_f32_variants_match_s8_chain(variant):
     rmse = {}
     for name in ("s8", variant):
         idx, vals = df.idx, df.vals
-        opts = {}
+        opts = dict(dense_int8=True)
         if name == "float_bf16":
             opts = dict(dense_int8=False, gram_dtype="bfloat16")
         elif name == "duplicates":
             idx = np.concatenate([idx, idx[::11]])
             vals = np.concatenate([vals, vals[::11]])
-            opts = dict(gram_dtype="bfloat16")
+            opts = dict(dense_int8=True, gram_dtype="bfloat16")
         rd = bt.RelationData.from_indexed_df(
             bt.IndexedDF(idx, vals, df.shape))
         rd.assign_to_test(0, np.arange(0, 12_000, 12))
@@ -469,7 +469,8 @@ def test_fused_f32_chain_matches_pair_chain():
         rd.assign_to_test(0, 1_000, seed=7)
         eng = bt.MacauEngine(rd, bt.MacauConfig(
             num_latent=8, dtype="float32", seed=5, verbose=False,
-            clamp=(1.0, 5.0), dense_fused=fused), device="cpu")
+            clamp=(1.0, 5.0), dense_fused=fused, dense_int8=True),
+            device="cpu")
         assert (eng.problem.fused is not None) == fused
         state = eng.init_state()
         rng = np.random.default_rng(999)
@@ -575,7 +576,9 @@ def test_macau_runs_and_reports():
     seen = []
     eng = bt.MacauEngine(rd, bt.MacauConfig(num_latent=4, burnin=3,
                                             psamples=3, clamp=(1, 5),
-                                            verbose=False), device="cpu")
+                                            verbose=False, dense_int8=True),
+                         device="cpu")
+    assert eng.problem.pair_i8
     res = eng.run(callback=lambda s, phase, m, dt: seen.append(phase))
     assert seen == ["burnin"] * 3 + ["sample"] * 3
     assert 0.3 < res["RMSE"] < 1.5
@@ -587,29 +590,22 @@ def test_macau_runs_and_reports():
     assert np.isfinite(out["rmse_at_sweeps"])
 
 
-@pytest.mark.parametrize("kwargs, item, dup", [
-    (dict(alpha_sample=True), "M7", 0),
-    (dict(accumulation="planned"), "M6", 0),
-    (dict(metrics_every=4), "M4", 0),
-    (dict(dense_int8=False), "M3", 0),
-    (dict(dense_int8=False, dense_fused=True), "M3", 5),
-    (dict(checkpoint_every=5, checkpoint_path="ck.npz"), "M10", 0),
-    (dict(output_prefix="out"), "M10", 0),
-    (dict(log_file="log.jsonl"), "M10", 0),
+@pytest.mark.parametrize("kwargs, item", [
+    (dict(alpha_sample=True), "M7"),
+    (dict(accumulation="planned"), "M6"),
+    (dict(metrics_every=4), "M4"),
+    (dict(alpha_a0=2.0, alpha_b0=1.0), "M7"),
+    (dict(trace_dir="trace"), "M4"),
+    (dict(checkpoint_every=5, checkpoint_path="ck.npz"), "M10"),
+    (dict(output_prefix="out"), "M10"),
+    (dict(log_file="log.jsonl"), "M10"),
 ])
-def test_unported_options_raise(kwargs, item, dup):
+def test_unported_options_raise(kwargs, item):
     """An option outside the slice raises, naming its ROADMAP item, when
     the config is made (options the port has no field for) or when the
     engine sees it with the data: alpha sampling; "planned" accumulation
-    with a dense path; the float pair, which ``dense_int8=False`` asks for
-    on a relation that does not take the fused path, by its config or
-    because the planner finds no grid for it (``dup`` observations moved
-    off the half-star grid)."""
+    with a dense path."""
     df = synthetic_ratings(30, 20, 200, seed=0)
-    if dup:
-        vals = df.vals.copy()
-        vals[:dup] += np.pi / 10
-        df = bt.IndexedDF(df.idx, vals, df.shape)
     rd = bt.RelationData.from_indexed_df(df)
     with pytest.raises(NotImplementedError, match=item):
         bt.MacauEngine(rd, bt.MacauConfig(
@@ -645,8 +641,8 @@ def test_config_fields_cover_jax_config():
     for name in gather | fused:
         assert getattr(bt.MacauConfig(), name) == getattr(MacauConfig(),
                                                           name), name
-    # dense_int8=False builds: with dense_fused it selects the float fused
-    # kernels; the float pair is refused when the problem is compiled
+    # dense_int8=False selects the float fused kernels with dense_fused,
+    # the float pair without it
     cfg = bt.MacauConfig(dense_int8=False, dense_fused=True)
     assert cfg.dense_int8 is False and cfg.dense_fused is True
     assert bt.MacauConfig(dense_int8=False).dense_gram is None

@@ -12,7 +12,8 @@ import bayesiandatafusion_jl_tpu_torch as bt
 from bayesiandatafusion_jl_tpu_torch.models.datasets import synthetic_ratings
 from bayesiandatafusion_jl_tpu_torch.ops import (chol_blocked, chol_full,
                                                  chol_packed, dense_gram,
-                                                 fused_pair, ytab)
+                                                 fused_pair, pair_contract,
+                                                 ytab)
 from bayesiandatafusion_jl_tpu_torch.utils.convert import (state_from_numpy,
                                                            state_to_numpy)
 from bayesiandatafusion_jl_tpu_torch.utils.rng import draw_all_numpy
@@ -113,6 +114,20 @@ def test_fused_pair_variants_match_plain(cuda, true, K, table, flip_out,
     assert r["ok"], r
 
 
+@pytest.mark.parametrize("focus", [0, 1])
+@pytest.mark.parametrize("true, K", [((1_000, 777), 32), ((300, 2_000), 8),
+                                     ((129, 257), 33), ((64, 48), 4),
+                                     ((200, 300), 15), ((2_048, 640), 96),
+                                     ((640, 2_048), 128)])
+def test_pair_contract_kernel_matches_plain(cuda, true, K, focus):
+    """K6 against its plain version on ragged stores, raw int32 and the
+    dq epilogue, bit for bit, up to K = 128."""
+    import chip_smoke
+    pair = chip_smoke.random_pair(true, seed=K)
+    r = chip_smoke.check_pair_contract(pair, K, focus, timing=False)
+    assert r["ok"], r
+
+
 def test_int8_contraction_exact(cuda):
     import chip_smoke
     assert all(chip_smoke.check_int8_contraction())
@@ -123,13 +138,69 @@ def test_int8_contraction_exact(cuda):
     (36, chol_packed.chol_sample_packed_tiled, 2),
     (100, chol_blocked.chol_inv, 4)])
 def test_engine_cuda_matches_cpu(cuda, monkeypatch, K, kernel, per_sweep):
-    """Three float64 sweeps with injected randoms on the card and on the
-    CPU, through K1 (K=8), K2 (K=36) and K5 (K=100, two panels per
-    entity).  The int8 products are exact and the rest is float64
-    rounding, once the PD ridge's float32 mean is summed in one fixed order
-    on both devices (torch's own sum rounds differently on each, which
-    moves the chain by ~1e-9)."""
+    """The int8 pair, three float64 sweeps with injected randoms on the
+    card and on the CPU, through K1 (K=8), K2 (K=36) and K5 (K=100, two
+    panels per entity).  On the card K6 contracts each mode (twice a
+    sweep), K7 quantizes the table up to K = 96, and neither K6's plain
+    version nor ``torch._int_mm`` runs.  The int8 products are exact and
+    the rest is float64 rounding, once the PD ridge's float32 mean is
+    summed in one fixed order on both devices (torch's own sum rounds
+    differently on each, which moves the chain by ~1e-9)."""
     monkeypatch.setattr(dense_gram, "ridge_step", xla_cpu_ridge_step)
+    int_mm_calls = []
+    int_mm = torch._int_mm
+
+    def counting_int_mm(*a, **kw):
+        int_mm_calls.append(a[0].device.type)
+        return int_mm(*a, **kw)
+    monkeypatch.setattr(torch, "_int_mm", counting_int_mm)
+    df = synthetic_ratings(300, 200, 12_000, seed=3)
+    engines = {}
+    for dev in ("cpu", "cuda"):
+        rd = bt.RelationData.from_indexed_df(df)
+        rd.assign_to_test(0, 1_000, seed=7)
+        cfg = bt.MacauConfig(num_latent=K, dtype="float64", verbose=False,
+                             clamp=(1.0, 5.0), seed=4, dense_int8=True)
+        engines[dev] = bt.MacauEngine(rd, cfg, device=dev)
+        assert engines[dev].problem.pair_i8
+    st = engines["cpu"].init_state()
+    states = {"cpu": st, "cuda": state_from_numpy(state_to_numpy(st), cuda,
+                                                  torch.float64)}
+    rng = np.random.default_rng(1)
+    launches = (kernel.launches, pair_contract.pair_contract.launches,
+                ytab.ytab_quantize.launches)
+    plain = {}
+    for s in range(3):
+        randoms = draw_all_numpy(rng, engines["cpu"].problem.random_spec)
+        for dev in ("cpu", "cuda"):
+            r = {k: torch.from_numpy(v).to(dev) for k, v in randoms.items()}
+            c0 = pair_contract.pair_contract_plain.calls
+            states[dev], _ = engines[dev]._sweep_with_randoms(
+                states[dev], r, 1.0)
+            plain[dev] = pair_contract.pair_contract_plain.calls - c0
+    assert (kernel.launches, pair_contract.pair_contract.launches,
+            ytab.ytab_quantize.launches) == (
+        launches[0] + 3 * per_sweep, launches[1] + 6,
+        launches[2] + (6 if K <= 96 else 0))
+    assert plain == {"cpu": 2, "cuda": 0}
+    assert "cuda" not in int_mm_calls
+    a, b = state_to_numpy(states["cpu"]), state_to_numpy(states["cuda"])
+    for ei in range(2):
+        for key in ("U", "mu", "Lambda"):
+            np.testing.assert_allclose(b["ent"][ei][key], a["ent"][ei][key],
+                                       rtol=1e-9, atol=1e-9)
+
+
+@pytest.mark.parametrize("K, kernel, per_sweep", [
+    (8, chol_packed.chol_sample_packed, 2),
+    (36, chol_packed.chol_sample_packed_tiled, 2),
+    (100, chol_blocked.chol_inv, 4)])
+def test_float_pair_engine_cuda_matches_cpu(cuda, K, kernel, per_sweep):
+    """The float pair (``dense_int8=False``, the default), three float64
+    sweeps with injected randoms on the card and on the CPU: the products
+    on ``torch.matmul`` in float64, the sampler through K1 (K=8), K2
+    (K=36) or K5 (K=100, two panels per entity), no K6 and no K7; the
+    chains agree to float64 rounding (the sums in another order)."""
     df = synthetic_ratings(300, 200, 12_000, seed=3)
     engines = {}
     for dev in ("cpu", "cuda"):
@@ -138,11 +209,15 @@ def test_engine_cuda_matches_cpu(cuda, monkeypatch, K, kernel, per_sweep):
         cfg = bt.MacauConfig(num_latent=K, dtype="float64", verbose=False,
                              clamp=(1.0, 5.0), seed=4)
         engines[dev] = bt.MacauEngine(rd, cfg, device=dev)
+        assert not engines[dev].problem.pair_i8
+        assert engines[dev].problem.pair["M"].dtype == torch.float64
     st = engines["cpu"].init_state()
     states = {"cpu": st, "cuda": state_from_numpy(state_to_numpy(st), cuda,
                                                   torch.float64)}
     rng = np.random.default_rng(1)
     launches = kernel.launches
+    counts = (pair_contract.pair_contract.launches,
+              ytab.ytab_quantize.launches)
     for s in range(3):
         randoms = draw_all_numpy(rng, engines["cpu"].problem.random_spec)
         for dev in ("cpu", "cuda"):
@@ -150,11 +225,44 @@ def test_engine_cuda_matches_cpu(cuda, monkeypatch, K, kernel, per_sweep):
             states[dev], _ = engines[dev]._sweep_with_randoms(
                 states[dev], r, 1.0)
     assert kernel.launches == launches + 3 * per_sweep
+    assert (pair_contract.pair_contract.launches,
+            ytab.ytab_quantize.launches) == counts
     a, b = state_to_numpy(states["cpu"]), state_to_numpy(states["cuda"])
     for ei in range(2):
         for key in ("U", "mu", "Lambda"):
             np.testing.assert_allclose(b["ent"][ei][key], a["ent"][ei][key],
                                        rtol=1e-9, atol=1e-9)
+
+
+@pytest.mark.parametrize("mode", [0, 1])
+@pytest.mark.parametrize("store, K, packed", [
+    ("bfloat16", 8, True), ("bfloat16", 36, True), ("bfloat16", 100, False),
+    ("float32", 36, True)])
+def test_float_pair_contrib_cuda_matches_cpu(cuda, monkeypatch, store, K,
+                                             packed, mode):
+    """The float pair's contribution in float32 from a bfloat16 store
+    (``gram_dtype="bfloat16"``, widened to float32 a few focus rows at a
+    time) or a float32 one, on the card and on the CPU: the same products
+    summed in another order, 1e-5 of the largest sum."""
+    monkeypatch.setattr(dense_gram, "_WIDEN_ELEMS", 4_000)
+    df = synthetic_ratings(300, 200, 12_000, seed=3)
+    centered = df.vals - df.vals.mean()
+    partner = np.random.default_rng(K).standard_normal(
+        (df.shape[1 - mode], K)).astype(np.float32)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        pair = dense_gram.build_dense_pair(df.idx, centered, df.shape,
+                                           getattr(torch, store), dev)
+        out[dev] = dense_gram.float_pair_contrib(
+            pair, dense_gram.tri_index(K, dev),
+            torch.from_numpy(partner).to(dev), mode,
+            torch.tensor(2.0, device=dev), torch.float32, packed=packed)
+    for got, want in zip(out["cuda"], out["cpu"]):
+        assert got.dtype == want.dtype == torch.float32
+        assert got.shape == want.shape
+        want = want.numpy()
+        np.testing.assert_allclose(got.cpu().numpy(), want, rtol=0,
+                                   atol=1e-5 * np.abs(want).max())
 
 
 @pytest.mark.parametrize("K", [8, 36])
@@ -171,7 +279,8 @@ def test_fused_engine_cuda_matches_cpu(cuda, monkeypatch, K):
         rd = bt.RelationData.from_indexed_df(df)
         rd.assign_to_test(0, 1_000, seed=7)
         cfg = bt.MacauConfig(num_latent=K, dtype="float64", verbose=False,
-                             clamp=(1.0, 5.0), seed=4, dense_fused=True)
+                             clamp=(1.0, 5.0), seed=4, dense_fused=True,
+                             dense_int8=True)
         engines[dev] = bt.MacauEngine(rd, cfg, device=dev)
         assert engines[dev].problem.fused is not None
     st = engines["cpu"].init_state()
@@ -234,7 +343,7 @@ def test_fused_variants_engine_cuda_matches_cpu(cuda, monkeypatch, case):
         rd.assign_to_test(0, 1_000, seed=7)
         cfg = bt.MacauConfig(num_latent=K, dtype="float64", verbose=False,
                              clamp=(1.0, 5.0), seed=4, dense_fused=True,
-                             **opts)
+                             **{"dense_int8": True, **opts})
         engines[dev] = bt.MacauEngine(rd, cfg, device=dev)
         prob = engines[dev].problem
         assert prob.fused is not None
@@ -316,8 +425,11 @@ def test_benchmark_on_cuda(cuda):
     rd.assign_to_test(0, 5_000, seed=7)
     eng = bt.MacauEngine(rd, bt.MacauConfig(num_latent=16, burnin=5,
                                             psamples=0, clamp=(1, 5),
-                                            verbose=False), device="cuda")
+                                            verbose=False, dense_int8=True),
+                         device="cuda")
+    launches = pair_contract.pair_contract.launches
     out = eng.benchmark(5, repeats=2)
+    assert pair_contract.pair_contract.launches == launches + 2 * 15
     assert all(np.isfinite(out["ms_per_sweep"]))
     assert 0.5 < out["metrics"]["r0.rmse_avg"] < 1.5
 
