@@ -2,8 +2,9 @@
 
 A port of ``bayesiandatafusion_jl_tpu`` (JAX on a TPU), which stays the
 reference.  This package imports torch and numpy only — never jax
-or the JAX package.  It covers the main path so far, at any rank K: one
-2-ary relation, the dense int8 pair Gramian and the Cholesky samplers (CUDA
+or the JAX package.  It covers graphs of relations of any arity without
+side features, with fixed or sampled noise precisions, at any rank K: the
+dense pair, fused and gather Gramian paths and the Cholesky samplers (CUDA
 kernels for ``sm_90a``, built from ``csrc/`` at first use).  See ROADMAP.md
 for what is still to port.
 """

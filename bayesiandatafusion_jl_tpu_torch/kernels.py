@@ -121,6 +121,8 @@ def load() -> ctypes.CDLL:
         lib.bdf_pair_contract_i8.restype = i
         lib.bdf_pair_contract_i8.argtypes = [p, p, ll, ll, i, p, i, i, ll, i,
                                              p, p, p, p, p, p, p]
+        lib.bdf_windowed_expand.restype = i
+        lib.bdf_windowed_expand.argtypes = [p, ll, i, p, p, ll, p, p]
         _lib = lib
     return _lib
 

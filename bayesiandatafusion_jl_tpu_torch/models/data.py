@@ -1,13 +1,15 @@
 """Entity/Relation data model (numpy only).
 
-Port of ``bayesiandatafusion_jl_tpu/models/data.py``: the same classes and
-the same test split for the same seed.  The JAX package's copy cannot be
-imported here, since importing any of its modules imports jax.  Side
-features (``Entity(F=...)``) are ROADMAP M8 and raise.
+Port of ``bayesiandatafusion_jl_tpu/models/data.py``: the same classes, the
+same graph building (``add_relation``, ``from_matrix``) and the same test
+split for the same seed.  The JAX package's copy cannot be imported here,
+since importing any of its modules imports jax.  Side features
+(``Entity(F=...)``, ``from_matrix``'s ``feat1`` / ``feat2``) are ROADMAP M8
+and raise.
 """
 from __future__ import annotations
 
-from typing import List, Optional, Sequence, Union
+from typing import List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
@@ -40,10 +42,33 @@ class IndexedDF:
     def arity(self) -> int:
         return len(self.shape)
 
+    def degrees(self, mode: int) -> np.ndarray:
+        return np.bincount(self.idx[:, mode], minlength=self.shape[mode])
+
+    def index(self, mode: int) -> List[np.ndarray]:
+        """Inverted index: per-instance observation row ids."""
+        order = np.argsort(self.idx[:, mode], kind="stable")
+        ptr = np.concatenate([[0], np.cumsum(self.degrees(mode))])
+        return [order[ptr[i]:ptr[i + 1]] for i in range(self.shape[mode])]
+
     def remove_samples(self, rows: np.ndarray) -> "IndexedDF":
         keep = np.ones(self.nnz, bool)
         keep[np.asarray(rows, np.int64)] = False
         return IndexedDF(self.idx[keep], self.vals[keep], self.shape)
+
+    @classmethod
+    def from_dense(cls, m: np.ndarray) -> "IndexedDF":
+        """The nonzero cells of a dense array."""
+        m = np.asarray(m)
+        nz = np.nonzero(m)
+        return cls(np.stack(nz, axis=1), m[nz], m.shape)
+
+    @classmethod
+    def from_scipy(cls, m) -> "IndexedDF":
+        """The stored cells of a scipy sparse matrix (anything with
+        ``tocoo``)."""
+        coo = m.tocoo()
+        return cls(np.stack([coo.row, coo.col], axis=1), coo.data, coo.shape)
 
 
 class Entity:
@@ -123,6 +148,24 @@ class RelationData:
         self.relations: List[Relation] = list(relations or [])
 
     @classmethod
+    def from_matrix(cls, m, feat1=None, feat2=None,
+                    names: Tuple[str, str] = ("ent1", "ent2"),
+                    relation_name: str = "rel",
+                    class_cut: Optional[float] = None) -> "RelationData":
+        """One relation from a matrix: an IndexedDF, a scipy sparse matrix
+        (its stored cells) or a dense array (its nonzero cells)."""
+        if hasattr(m, "tocoo"):
+            df = IndexedDF.from_scipy(m)
+        elif isinstance(m, IndexedDF):
+            df = m
+        else:
+            df = IndexedDF.from_dense(np.asarray(m))
+        e1 = Entity(names[0], count=df.shape[0], F=feat1)
+        e2 = Entity(names[1], count=df.shape[1], F=feat2)
+        rel = Relation(df, relation_name, [e1, e2], class_cut=class_cut)
+        return cls([e1, e2], [rel])
+
+    @classmethod
     def from_indexed_df(cls, df: IndexedDF,
                         entities: Optional[Sequence[Entity]] = None,
                         relation_name: str = "rel",
@@ -132,6 +175,18 @@ class RelationData:
                         for d in range(df.arity)]
         rel = Relation(df, relation_name, entities, class_cut=class_cut)
         return cls(list(entities), [rel])
+
+    def add_relation(self, df: IndexedDF, name: str,
+                     entities: Sequence[Entity],
+                     class_cut: Optional[float] = None) -> Relation:
+        """Add a relation over ``entities`` (one per mode; an entity may
+        fill several modes, and entities new to the graph join it)."""
+        rel = Relation(df, name, entities, class_cut=class_cut)
+        for e in entities:
+            if e not in self.entities:
+                self.entities.append(e)
+        self.relations.append(rel)
+        return rel
 
     def set_precision(self, relation: Union[Relation, int, str],
                       alpha: float, sample: bool = False) -> None:

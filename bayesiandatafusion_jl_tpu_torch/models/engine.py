@@ -1,44 +1,50 @@
 """The Gibbs sweep engine, ``macau()`` — port of the JAX package's
-``models/engine.py`` main path.
+``models/engine.py``.
 
-The slice this port covers: one 2-ary relation without side features, at
-any K, with either Gramian path:
+The graphs this port covers: any set of relations without side features,
+of any arity, over shared entities (an entity may fill several modes of one
+relation, or none), with fixed or sampled noise precision alpha, at any
+K.  Each relation takes one Gramian path:
 
 - the dense pair (``dense_gram`` None or True; ops/dense_gram.py): the
   int8 pair, contracted by K6 (ops/pair_contract.py) against the partner
   table K7 quantizes each sweep (``dense_int8`` and the int32 bound
-  ``int8_pair_ok``), or the float pair on ``torch.matmul`` otherwise;
-- the fused sparse regime (``dense_fused=True``): one stored int8 value
-  array, contracted per mode by K8 (ops/fused_pair.py) against the
-  partner table, which K7 (ops/ytab.py) quantizes each sweep on the s8
-  path (``dense_int8`` and the int32 bound ``fused_int8_ok``) and which is
-  a float table in ``gram_dtype`` otherwise.  Observations the one array
-  cannot hold (a second rating of a cell, the zero-code level) ride the
-  gather path as an exact-valued residual beside it;
-- the bucketed gather path (``dense_gram=False``; ops/layout.py and
-  ops/gramian.py), with ``accumulation`` "segment" or "planned".
+  ``int8_pair_ok``; at arity 3 K6 takes the largest partner and a float
+  step the others), or the float pair on ``torch.matmul`` otherwise;
+- the fused sparse regime (``dense_fused=True``, 2-ary relations the
+  planner encodes): one stored int8 value array, contracted per mode by
+  K8 (ops/fused_pair.py) against the partner table, which K7 (ops/ytab.py)
+  quantizes each sweep on the s8 path (``dense_int8`` and the int32 bound
+  ``fused_int8_ok``) and which is a float table in ``gram_dtype``
+  otherwise.  Observations the one array cannot hold (a second rating of a
+  cell, the zero-code level) ride the gather path as an exact-valued
+  residual beside it;
+- the bucketed gather path (``dense_gram=False``, or a relation without
+  observations; ops/layout.py and ops/gramian.py), with ``accumulation``
+  "segment" or "planned".
 
 Each sweep, for each entity in turn:
 
   (mu, Lambda) <- Normal-Wishart draw from U                 (ops/hyper.py)
-  P, b         <- alpha-scaled Gramian of the partner factors over the
-                  entity's observations, plus the prior term Lambda mu
+  P, b         <- alpha-scaled Gramians of the partner factors over the
+                  entity's observations in every (relation, mode) it fills,
+                  plus the prior term Lambda mu
   U            <- u ~ N(P'^-1 b, P'^-1) per row, P' = P + Lambda
 
-The sampler branches as the JAX engine does (engine.py:821, :924-951).  On
-the dense pair and fused paths, K <= 96 keeps P packed ([K(K+1)/2, N],
-ops/chol_packed.py: the K1 kernel up to K = 32, K2 above; the fused
-residual is accumulated in that layout) and K > 96 expands it to
-[N, K, K] (the fused residual through ``assemble_precision``).  The
-gather path always assembles a full [N, K, K] P.  Full P goes to
-ops/mvn.chol_sample_dispatch: the K3 kernel up to K = 32, K4 up to 96,
-the blocked sampler on K5 up to 128.  With
-"segment" accumulation Lambda is left out of P and added by the sampler;
-with "planned" it is in the accumulator.
+then each sampled alpha is drawn from its relation's training residuals,
+and the test tuples of every relation are predicted (clamped per sample)
+and its posterior mean and RMSEs updated.
 
-then the test tuples are predicted (clamped per sample) and the posterior
-mean and RMSEs are updated.  Options outside the slice raise
-``NotImplementedError`` naming their ROADMAP item.
+The sampler branches as the JAX engine does (engine.py:821, :924-951): an
+entity with a dense contribution keeps P packed up to K = 96 under
+"segment" accumulation ([K(K+1)/2, N], ops/chol_packed.py: the K1 kernel
+up to K = 32, K2 above; its gather buckets are accumulated in that layout).
+Otherwise P is a full [N, K, K] (dense contributions expanded, buckets
+through ``assemble_precision``) for ops/mvn.chol_sample_dispatch: the K3
+kernel up to K = 32, K4 up to 96, the blocked sampler on K5 up to 128.
+With "segment" accumulation Lambda is left out of P and added by the
+sampler; with "planned" it is in the accumulator.  Options outside the
+port raise ``NotImplementedError`` naming their ROADMAP item.
 
 State is a plain dict of tensors with the JAX engine's keys
 (``utils/convert.py`` carries one across).  Randoms come from
@@ -59,7 +65,7 @@ from ..ops.gramian import (assemble_precision, assemble_precision_planned,
                            packed_bucket_accum, plan_accumulation,
                            predict_tuples)
 from ..ops.layout import build_mode_layout
-from ..ops.hyper import normal_wishart_update
+from ..ops.hyper import normal_wishart_update, sample_alpha
 from ..ops.mvn import chol_sample_dispatch
 from ..utils.config import MacauConfig
 from ..utils.rng import build_random_spec, draw_all
@@ -75,35 +81,19 @@ class EntitySpec:
 @dataclasses.dataclass(frozen=True)
 class RelationSpec:
     name: str
+    arity: int
     entity_ids: Tuple[int, ...]   # mode -> entity index
     nnz: int
     n_test: int
+    alpha_sample: bool
     mean_value: float
 
 
-def _check_slice(rd: RelationData, cfg: MacauConfig) -> None:
-    """Raise NotImplementedError for whatever the port does not cover."""
-    missing = []
-    if len(rd.relations) != 1:
-        missing.append("several relations / fusion graphs (ROADMAP M7)")
-    for rel in rd.relations:
-        if rel.arity != 2:
-            missing.append("relations of arity >= 3 (ROADMAP M7)")
-        if len({id(e) for e in rel.entities}) != rel.arity:
-            missing.append("an entity in two modes of one relation "
-                           "(ROADMAP M7)")
-        if rel.class_cut is not None:
-            missing.append("class_cut / AUC (ROADMAP M8)")
-        if resolved_alpha_sample(rel, cfg):
-            missing.append("alpha sampling (ROADMAP M7)")
-    if len(rd.entities) != 2:
-        missing.append("entities outside the relation (ROADMAP M7)")
-    if missing:
-        raise NotImplementedError("not ported yet: " + "; ".join(missing))
-    if cfg.dense_gram is not False and cfg.accumulation == "planned":
+def _check_slice(rd: RelationData) -> None:
+    """Raise NotImplementedError for what the port does not cover yet."""
+    if any(rel.class_cut is not None for rel in rd.relations):
         raise NotImplementedError(
-            "not ported yet: accumulation='planned' with the dense pair "
-            "(ROADMAP M6); it applies to the gather path (dense_gram=False)")
+            "not ported yet: class_cut / AUC (ROADMAP M8)")
 
 
 def _plan_fused(rel, cfg: MacauConfig):
@@ -132,107 +122,156 @@ def _resolve_device(device) -> torch.device:
 
 
 class CompiledProblem:
-    """The device arrays and static description of one RelationData."""
+    """The device arrays and static description of one RelationData graph.
+
+    Per relation ``ri``, ``kinds[ri]`` names its Gramian path: "pair" (the
+    dense pair, int8 where ``pair_i8s[ri]``), "fused" (the fused store, s8
+    where ``fused_i8s[ri]``, with a gather-path residual where
+    ``residual_nnzs[ri]``) or "gather"; ``stores[ri]`` holds the pair or
+    the fused store.  ``layouts["r{ri}m{mode}"]`` are the gather buckets of
+    every gather mode and fused residual."""
 
     def __init__(self, rd: RelationData, config: MacauConfig,
                  device: torch.device):
-        _check_slice(rd, config)
+        _check_slice(rd)
         dtype = getattr(torch, config.dtype)
         ent_index = {id(e): i for i, e in enumerate(rd.entities)}
         self.entity_specs = [EntitySpec(e.name, int(e.count))
                              for e in rd.entities]
-        rel = rd.relations[0]
-        mean_value = float(rel.data.vals.mean()) if rel.data.nnz else 0.0
-        self.rel_specs = [RelationSpec(
-            name=rel.name,
-            entity_ids=tuple(ent_index[id(e)] for e in rel.entities),
-            nnz=rel.data.nnz, n_test=len(rel.test_vals),
-            mean_value=mean_value)]
-        t0 = time.perf_counter()
-        self.gather = config.dense_gram is False
-        self.pair = self.tri = self.fused = None
-        self.fused_i8 = self.pair_i8 = False
+        self.rel_specs: List[RelationSpec] = []
+        self.kinds: List[str] = []
+        self.stores: List[Optional[dict]] = []
+        self.pair_i8s: List[bool] = []
+        self.fused_i8s: List[bool] = []
+        self.residual_nnzs: List[int] = []
         self.layouts, self.acc_plan, self.padded_nnz = {}, {}, []
-        self.residual_nnz = 0
-        plan = None if self.gather else _plan_fused(rel, config)
-        self.plan_seconds = time.perf_counter() - t0
-        if self.gather:
-            self._build_layouts(rel, mean_value, config, device)
-        elif plan is not None:
-            self._build_fused(rel, mean_value, config, device, *plan)
-        else:
-            # the int8 pair where asked for and eligible (JAX engine
-            # :113-118), else the float pair in the JAX store dtype (:109-112)
-            centered = rel.data.vals - mean_value
-            self.pair_i8 = bool(config.dense_int8 and dg.int8_pair_ok(
-                rel.data.idx, rel.data.shape))
-            if self.pair_i8:
-                self.pair = dg.build_int8_pair(
-                    rel.data.idx, centered, rel.data.shape,
-                    config.np_dtype(), device)
-            else:
-                self.pair = dg.build_dense_pair(
-                    rel.data.idx, centered, rel.data.shape,
-                    getattr(torch, config.gram_dtype or config.dtype),
-                    device)
-            self.tri = dg.tri_index(config.num_latent, device)
-        self.test = {}
-        if rel.test_idx.shape[0]:
-            self.test["r0"] = {
-                "idx": torch.from_numpy(rel.test_idx.astype(np.int64))
-                .to(device),
-                "vals": torch.from_numpy(rel.test_vals).to(device, dtype)}
+        self.test, self.train = {}, {}
+        self.layout_seconds = self.plan_seconds = 0.0
+        self._host_inst: Dict[str, List[np.ndarray]] = {}
+        t0 = time.perf_counter()
+        for ri, rel in enumerate(rd.relations):
+            mean_value = float(rel.data.vals.mean()) if rel.data.nnz else 0.0
+            rs = RelationSpec(
+                name=rel.name, arity=rel.arity,
+                entity_ids=tuple(ent_index[id(e)] for e in rel.entities),
+                nnz=rel.data.nnz, n_test=len(rel.test_vals),
+                alpha_sample=resolved_alpha_sample(rel, config),
+                mean_value=mean_value)
+            self.rel_specs.append(rs)
+            self._build_relation(ri, rel, mean_value, config, device)
+            if rel.test_idx.shape[0]:
+                self.test[f"r{ri}"] = {
+                    "idx": torch.from_numpy(rel.test_idx.astype(np.int64))
+                    .to(device),
+                    "vals": torch.from_numpy(rel.test_vals).to(device,
+                                                               dtype)}
+            if rs.alpha_sample:
+                # the training tuples and centered values, for the SSE of
+                # the alpha draw (JAX engine :344-347)
+                self.train[f"r{ri}"] = {
+                    "idx": torch.from_numpy(rel.data.idx.astype(np.int64))
+                    .to(device),
+                    "vals": torch.from_numpy(rel.data.vals - mean_value)
+                    .to(device, dtype)}
+        self.tri = (dg.tri_index(config.num_latent, device)
+                    if set(self.kinds) - {"gather"} else None)
+        if config.accumulation == "planned":
+            self._build_acc_plans(config, device)
+        del self._host_inst
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         self.build_seconds = time.perf_counter() - t0
-        self.init_alpha = [resolved_alpha(rel, config)]
+        self.init_alpha = [resolved_alpha(rel, config)
+                           for rel in rd.relations]
         self.random_spec = build_random_spec(
             [es.n for es in self.entity_specs], config.num_latent,
-            config.resolved_nu0())
+            config.resolved_nu0(), self.rel_specs, config.alpha_a0)
 
-    def _build_fused(self, rel, mean_value, config, device, s, m, keep):
+    def _build_relation(self, ri, rel, mean_value, config, device):
+        """Relation ``ri``'s store or bucket layouts.  The gather path for
+        every relation under ``dense_gram=False``, and for one without
+        observations (JAX ``plan_dense_modes`` skips those); else the
+        fused store where ``dense_fused`` asks and the planner encodes the
+        relation; else the pair: int8 where asked for and eligible (JAX
+        engine :113-118), else the float pair in the JAX store dtype
+        (:109-112)."""
+        store, pair_i8, fused_i8, resid = None, False, False, 0
+        plan = None
+        if config.dense_gram is not False and rel.data.nnz:
+            t0 = time.perf_counter()
+            plan = _plan_fused(rel, config)
+            self.plan_seconds += time.perf_counter() - t0
+        if config.dense_gram is False or not rel.data.nnz:
+            kind = "gather"
+            self._build_layouts(ri, rel, mean_value, config, device)
+        elif plan is not None:
+            kind = "fused"
+            store, fused_i8, resid = self._build_fused(
+                ri, rel, mean_value, config, device, *plan)
+        else:
+            kind = "pair"
+            centered = rel.data.vals - mean_value
+            pair_i8 = bool(config.dense_int8 and dg.int8_pair_ok(
+                rel.data.idx, rel.data.shape))
+            if pair_i8 and rel.arity > 3:
+                raise NotImplementedError(
+                    "not ported yet: the int8 pair at arity >= 4 (ROADMAP "
+                    "M12); dense_int8=False takes the float pair")
+            if pair_i8:
+                store = dg.build_int8_pair(rel.data.idx, centered,
+                                           rel.data.shape,
+                                           config.np_dtype(), device)
+            else:
+                store = dg.build_dense_pair(
+                    rel.data.idx, centered, rel.data.shape,
+                    getattr(torch, config.gram_dtype or config.dtype),
+                    device)
+        self.kinds.append(kind)
+        self.stores.append(store)
+        self.pair_i8s.append(pair_i8)
+        self.fused_i8s.append(fused_i8)
+        self.residual_nnzs.append(resid)
+
+    def _build_fused(self, ri, rel, mean_value, config, device, s, m, keep):
         """The fused path's store (JAX engine :163-198, :272-300): V8, the
-        ridge degrees and the s8 decision ``fused_i8`` from the kept
-        observations only; the rest (``residual_nnz`` of them) get the
-        gather path's bucket layouts with their exact centered values
-        (``mean_value`` is over all observations)."""
+        ridge degrees and the s8 decision from the kept observations only;
+        the rest get the gather path's bucket layouts with their exact
+        centered values (``mean_value`` is over all observations).
+        Returns (store, s8, residual observation count)."""
         idx, vals = rel.data.idx, rel.data.vals
         if not keep.all():
             idx, vals = idx[keep], vals[keep]
-        self.fused_i8 = bool(config.dense_int8 and dg.fused_int8_ok(
+        fused_i8 = bool(config.dense_int8 and dg.fused_int8_ok(
             dg.fused_code_bound(vals, s, m), rel.data.shape, idx=idx,
             abs_codes=dg.fused_abs_codes(vals, s, m)))
-        self.fused = dg.build_fused_store(idx, vals, rel.data.shape, s, m,
-                                          device)
+        store = dg.build_fused_store(idx, vals, rel.data.shape, s, m, device)
         del idx, vals
-        self.tri = dg.tri_index(config.num_latent, device)
+        resid = 0
         if not keep.all():
             rows = np.nonzero(~keep)[0]
-            self.residual_nnz = int(rows.size)
-            self._build_layouts(rel, mean_value, config, device, rows)
+            resid = int(rows.size)
+            self._build_layouts(ri, rel, mean_value, config, device, rows)
+        return store, fused_i8, resid
 
-    def _build_layouts(self, rel, mean_value, config, device, rows=None):
-        """The gather path's device arrays (JAX engine :277-300, :387-399):
-        per mode ``layouts["r0m{mode}"]``, a list of buckets (``inst`` and
-        ``part`` int32, ``val`` and ``mask`` in the compute dtype); with
-        "planned" accumulation, per entity ``acc_plan["e{ei}"]``.  Records
-        the seconds to build and upload them (``layout_seconds``) and the
-        padded observation count per mode (``padded_nnz``).  ``rows``
-        selects the observations (the fused path's residual); None takes
-        all."""
-        dtype = getattr(torch, config.dtype)
+    def _build_layouts(self, ri, rel, mean_value, config, device, rows=None):
+        """The gather path's device arrays for relation ``ri`` (JAX engine
+        :277-300): per mode ``layouts["r{ri}m{mode}"]``, a list of buckets
+        (``inst`` and ``part`` int32, ``val`` and ``mask`` in the compute
+        dtype).  Adds the seconds to build and upload them to
+        ``layout_seconds`` and the padded observation count of each mode to
+        ``padded_nnz``.  ``rows`` selects the observations (the fused
+        path's residual); None takes all."""
         idx, centered = rel.data.idx, rel.data.vals - mean_value
         if rows is not None:
             idx, centered = idx[rows], centered[rows]
-        self.layouts, self.padded_nnz, host_inst = {}, [], {}
         t0 = time.perf_counter()
         for mode in range(rel.arity):
             ml = build_mode_layout(
                 idx, centered, mode, rel.entities[mode].count,
                 widths=config.bucket_widths, row_pad=config.row_pad,
                 dtype=config.np_dtype())
-            key = f"r0m{mode}"
-            host_inst[key] = [b.inst for b in ml.buckets]
+            key = f"r{ri}m{mode}"
+            self._host_inst[key] = [b.inst for b in ml.buckets]
             self.padded_nnz.append(ml.padded_nnz)
             self.layouts[key] = [
                 {"inst": torch.from_numpy(b.inst).to(device),
@@ -240,18 +279,21 @@ class CompiledProblem:
                  "val": torch.from_numpy(b.val).to(device),
                  "mask": torch.from_numpy(b.mask).to(device)}
                 for b in ml.buckets]
-        self.acc_plan = {}
-        if config.accumulation == "planned":
-            for ei, es in enumerate(self.entity_specs):
-                modes = [m for m, e in enumerate(self.rel_specs[0].entity_ids)
-                         if e == ei]
-                plan = plan_accumulation(
-                    [a for m in modes for a in host_inst[f"r0m{m}"]], es.n)
-                plan = {k: torch.from_numpy(v).to(device)
-                        for k, v in plan.items()}
-                plan["has"] = plan["has"].to(dtype)
-                self.acc_plan[f"e{ei}"] = plan
-        self.layout_seconds = time.perf_counter() - t0
+        self.layout_seconds += time.perf_counter() - t0
+
+    def _build_acc_plans(self, config, device):
+        """Per entity ``acc_plan["e{ei}"]``, the "planned" accumulation's
+        static gather and overflow (JAX engine :420-432), over its gather
+        buckets in the sweep's order: relations, then modes."""
+        dtype = getattr(torch, config.dtype)
+        for ei, es in enumerate(self.entity_specs):
+            insts = [a for ri, rs in enumerate(self.rel_specs)
+                     for mode, e in enumerate(rs.entity_ids) if e == ei
+                     for a in self._host_inst.get(f"r{ri}m{mode}", ())]
+            plan = {k: torch.from_numpy(v).to(device)
+                    for k, v in plan_accumulation(insts, es.n).items()}
+            plan["has"] = plan["has"].to(dtype)
+            self.acc_plan[f"e{ei}"] = plan
 
 
 class MacauEngine:
@@ -304,141 +346,167 @@ class MacauEngine:
         return self._sweep_with_randoms(state, self.draw(s + 1), accumulate)
 
     def _sweep_with_randoms(self, state, randoms, accumulate: float):
+        """One Gibbs sweep (JAX engine :748-998): each entity in turn, then
+        the alpha draws, then the predictions."""
         cfg = self.config
-        dtype = self.dtype
         nu0 = cfg.resolved_nu0()
         prob = self.problem
-        rs = prob.rel_specs[0]
         metrics: Dict[str, torch.Tensor] = {}
         ents = [dict(e) for e in state["ent"]]
-        rels = state["rel"]
+        rels = list(state["rel"])
 
-        for ei, es in enumerate(prob.entity_specs):
+        for ei in range(len(prob.entity_specs)):
             ent = ents[ei]
             mu, Lambda = normal_wishart_update(
                 ent["U"], cfg.nw_b0, nu0, 2.0 * randoms[f"e{ei}.nw_g"],
                 randoms[f"e{ei}.nw_tri"], randoms[f"e{ei}.nw_mu"])
             ent["mu"], ent["Lambda"] = mu, Lambda
-            mode = rs.entity_ids.index(ei)
-            partner = ents[rs.entity_ids[1 - mode]]["U"]
-            xi = randoms[f"e{ei}.xi"]
-            alpha = rels[0]["alpha"]
-            packed = cfg.num_latent <= K2_MAX_K
-            if prob.gather:
-                ent["U"] = self._gather_sample(ent, ei, mode, partner, xi,
-                                               alpha)
-            elif prob.fused is not None:
-                ent["U"] = self._fused_sample(ent, ei, mode, partner, xi,
-                                              alpha, packed)
-            else:
-                contrib = (dg.int8_pair_contrib if prob.pair_i8
-                           else dg.float_pair_contrib)
-                P, b_d = contrib(prob.pair, prob.tri, partner, mode, alpha,
-                                 dtype, packed=packed)
-                # prior term Lambda mu for every row, plus the data term
-                if packed:
-                    b = (mu @ Lambda)[:, None] + b_d[:, :es.n]
-                    ent["U"] = chol_sample_packed_dispatch(
-                        P[:, :es.n], b, xi, Lambda, cfg.chol_jitter,
-                        transposed=True)
-                else:
-                    # P is the Gramian's fresh [n, K, K] expansion; the
-                    # dispatch adds Lambda to it in place, which saves an
-                    # [n, K, K] copy (4.7 GB at K=128 on ML-10M)
-                    b = (mu @ Lambda) + b_d
-                    ent["U"] = chol_sample_dispatch(P, b, xi, Lambda,
-                                                    cfg.chol_jitter)
+            # every (relation, mode) this entity fills, the partners read
+            # from the current state (the entity's own U too, in a relation
+            # where it fills two modes) (JAX engine :792-806)
+            dense, contribs = [], []
+            for ri, rs in enumerate(prob.rel_specs):
+                for mode, e in enumerate(rs.entity_ids):
+                    if e != ei:
+                        continue
+                    partners = [ents[rs.entity_ids[d]]["U"]
+                                for d in range(rs.arity) if d != mode]
+                    alpha = rels[ri]["alpha"]
+                    if prob.kinds[ri] != "gather":
+                        dense.append((ri, mode, partners, alpha))
+                    for ba in prob.layouts.get(f"r{ri}m{mode}", ()):
+                        contribs.append((alpha, partners, ba))
+            ent["U"] = self._sample(ei, ent, dense, contribs,
+                                    randoms[f"e{ei}.xi"])
             metrics[f"e{ei}.unorm"] = torch.linalg.norm(ent["U"])
 
+        # noise precisions (JAX engine :953-965)
+        for ri, rs in enumerate(prob.rel_specs):
+            if not rs.alpha_sample:
+                continue
+            tr = prob.train[f"r{ri}"]
+            pred_c = predict_tuples([ents[e]["U"] for e in rs.entity_ids],
+                                    tr["idx"], 0.0)
+            sse = torch.sum((tr["vals"] - pred_c) ** 2)
+            del pred_c
+            rels[ri] = {"alpha": sample_alpha(
+                sse, rs.nnz, randoms[f"r{ri}.alpha_g"], cfg.alpha_a0,
+                cfg.alpha_b0)}
+            metrics[f"r{ri}.alpha"] = rels[ri]["alpha"]
+
+        # prediction and the posterior mean (JAX engine :967-998)
         preds = dict(state["pred"])
-        if "r0" in preds:
-            te = prob.test["r0"]
-            factors = [ents[e]["U"] for e in rs.entity_ids]
-            p = predict_tuples(factors, te["idx"], rs.mean_value)
+        for ri, rs in enumerate(prob.rel_specs):
+            key = f"r{ri}"
+            if key not in preds:
+                continue
+            te = prob.test[key]
+            p = predict_tuples([ents[e]["U"] for e in rs.entity_ids],
+                               te["idx"], rs.mean_value)
             if cfg.clamp is not None:
                 p = torch.clamp(p, cfg.clamp[0], cfg.clamp[1])
-            pr = preds["r0"]
+            pr = preds[key]
             pr = {"sum": pr["sum"] + accumulate * p,
                   "sum2": pr["sum2"] + accumulate * p * p,
                   "n": pr["n"] + accumulate}
-            preds["r0"] = pr
-            metrics["r0.rmse_sample"] = torch.sqrt(
+            preds[key] = pr
+            metrics[f"{key}.rmse_sample"] = torch.sqrt(
                 torch.mean((p - te["vals"]) ** 2))
             pmean = pr["sum"] / torch.clamp_min(pr["n"], 1.0)
-            metrics["r0.rmse_avg"] = torch.sqrt(
+            metrics[f"{key}.rmse_avg"] = torch.sqrt(
                 torch.mean((pmean - te["vals"]) ** 2))
         return {"ent": ents, "rel": rels, "pred": preds}, metrics
 
-    def _fused_sample(self, ent, ei, mode, partner, xi, alpha, packed):
-        """The fused path's draw of entity ``ei`` (JAX engine :821-946,
-        :1011-1032): one fused contribution from the stored V8, on the s8
-        kernels (K7, then K8) or, off the s8 path, on the float ones with
-        the table in ``gram_dtype`` and alpha multiplied in afterwards;
-        plus the residual's buckets where the relation has one.  Packed
-        (K <= 96) everything is in the transposed [C, n] layout and the
-        residual is added into the fused contribution in place; above, P
-        is the full [n, K, K] and the residual comes through
-        ``assemble_precision``."""
+    def _sample(self, ei, ent, dense, contribs, xi):
+        """The draw of entity ``ei``'s rows from its ``dense``
+        contributions ((relation, mode, partners, alpha)) and its gather
+        buckets ``contribs`` ((alpha, partners, bucket)).
+
+        K <= 96 with a dense contribution and "segment" accumulation keeps
+        P packed (JAX engine :818-923): the dense contributions summed in
+        the transposed [C, n] layout, the buckets added into it
+        (``packed_bucket_accum``), then the packed sampler (K1, K2).
+        Otherwise (JAX :924-951) P is full: the buckets through
+        ``assemble_precision`` (Lambda left to the sampler) or
+        ``assemble_precision_planned`` (Lambda in P), the dense
+        contributions unpacked and added, then the full-P sampler (K3, K4,
+        the blocked one above K = 96); an entity with no contribution
+        draws from its prior."""
         cfg = self.config
-        prob = self.problem
-        n = prob.entity_specs[ei].n
+        K = cfg.num_latent
+        n = self.problem.entity_specs[ei].n
         mu, Lambda = ent["mu"], ent["Lambda"]
-        mean = prob.rel_specs[0].mean_value
         gd = getattr(torch, cfg.gram_dtype) if cfg.gram_dtype else None
-        if prob.fused_i8:
-            P, b_d = dg.fused_gram_contrib_i8(prob.fused, prob.tri, partner,
-                                              mode, alpha, self.dtype, mean,
-                                              packed=packed)
-        else:
-            P, b_d = dg.fused_gram_contrib(
-                prob.fused, prob.tri, partner, mode, self.dtype,
-                gd or self.dtype, mean, packed=packed, transposed=packed)
-            P *= alpha          # the kernel's fresh output, or its expansion
-            b_d *= alpha
-        contribs = [(alpha, [partner], ba)
-                    for ba in prob.layouts.get(f"r0m{mode}", ())]
-        if packed:
+        if K <= K2_MAX_K and dense and cfg.accumulation != "planned":
+            P = b = None
+            for ri, mode, partners, alpha in dense:
+                P_d, b_d = self._dense_contrib(ri, mode, partners, alpha,
+                                               packed=True)
+                # the first contribution is a fresh output, summed into
+                P, b = (P_d, b_d) if P is None else (P.add_(P_d),
+                                                     b.add_(b_d))
             if contribs:
-                packed_bucket_accum(contribs, n, cfg.num_latent,
-                                    gram_dtype=gd, transposed=True,
-                                    out=(P, b_d), tri=prob.tri)
-            b = (mu @ Lambda)[:, None] + b_d
+                packed_bucket_accum(contribs, n, K, gram_dtype=gd,
+                                    transposed=True, out=(P, b),
+                                    tri=self.problem.tri)
+            b = (mu @ Lambda)[:, None] + b
             return chol_sample_packed_dispatch(P, b, xi, Lambda,
                                                cfg.chol_jitter,
                                                transposed=True)
-        if contribs:
-            P_r, b = assemble_precision(Lambda, mu, contribs, n,
-                                        gram_dtype=gd, fuse_lambda=True)
-            P += P_r
-            del P_r
-            b += b_d
-        else:
-            b = (mu @ Lambda) + b_d
-        # P is fresh; the dispatch adds Lambda to it in place
-        return chol_sample_dispatch(P, b, xi, Lambda, cfg.chol_jitter)
-
-    def _gather_sample(self, ent, ei, mode, partner, xi, alpha):
-        """The gather path's draw of entity ``ei`` (JAX engine :924-951):
-        assemble P and b over the mode's buckets, then the full-P sampler.
-        "segment" leaves Lambda out of P for the sampler to add (in
-        registers for K3, on load for K4); "planned" puts it in the
-        accumulator and samples without it."""
-        cfg = self.config
-        prob = self.problem
-        n = prob.entity_specs[ei].n
-        gd = getattr(torch, cfg.gram_dtype) if cfg.gram_dtype else None
-        contribs = [(alpha, [partner], ba)
-                    for ba in prob.layouts[f"r0m{mode}"]]
+        lam = Lambda
         if cfg.accumulation == "planned":
             P, b = assemble_precision_planned(
-                ent["Lambda"], ent["mu"], contribs, n,
-                prob.acc_plan[f"e{ei}"], gram_dtype=gd)
+                Lambda, mu, contribs, n, self.problem.acc_plan[f"e{ei}"],
+                gram_dtype=gd)
             lam = None
-        else:
-            P, b = assemble_precision(ent["Lambda"], ent["mu"], contribs, n,
+        elif contribs or not dense:
+            P, b = assemble_precision(Lambda, mu, contribs, n,
                                       gram_dtype=gd, fuse_lambda=True)
-            lam = ent["Lambda"]
+        else:
+            # dense contributions alone: the first one's fresh [n, K, K]
+            # output is the accumulator, which saves an [n, K, K] buffer
+            # (4.7 GB at K = 128 on ML-10M)
+            P = None
+            b = mu @ Lambda
+        for ri, mode, partners, alpha in dense:
+            P_d, b_d = self._dense_contrib(ri, mode, partners, alpha,
+                                           packed=False)
+            P = P_d if P is None else P.add_(P_d)
+            b = b + b_d
+            del P_d
+        # P is fresh; the dispatch adds Lambda to it in place above K = 96
         return chol_sample_dispatch(P, b, xi, lam, cfg.chol_jitter)
+
+    def _dense_contrib(self, ri, mode, partners, alpha, packed):
+        """Relation ``ri``'s alpha-scaled contribution to focus ``mode``, in
+        the packed transposed layout (P [C, n], b [K, n]) or unpacked (P
+        [n, K, K], b [n, K]), fresh tensors either way: the int8 pair (K7
+        and K6; alpha folded into the dequant scales), the float pair, the
+        fused s8 store (K7 and K8; alpha folded) or the fused float store
+        (the table in ``gram_dtype``, alpha multiplied after) (JAX engine
+        :1000-1042)."""
+        cfg = self.config
+        prob = self.problem
+        store, dtype = prob.stores[ri], self.dtype
+        gd = getattr(torch, cfg.gram_dtype) if cfg.gram_dtype else None
+        if prob.kinds[ri] == "pair":
+            if prob.pair_i8s[ri]:
+                return dg.int8_pair_contrib(store, prob.tri, partners, mode,
+                                            alpha, dtype, packed=packed,
+                                            op_dtype=gd)
+            return dg.float_pair_contrib(store, prob.tri, partners, mode,
+                                         alpha, dtype, packed=packed)
+        mean = prob.rel_specs[ri].mean_value
+        if prob.fused_i8s[ri]:
+            return dg.fused_gram_contrib_i8(store, prob.tri, partners[0],
+                                            mode, alpha, dtype, mean,
+                                            packed=packed)
+        P, b = dg.fused_gram_contrib(store, prob.tri, partners[0], mode,
+                                     dtype, gd or dtype, mean, packed=packed,
+                                     transposed=packed)
+        P *= alpha          # the kernel's fresh output, or its expansion
+        b *= alpha
+        return P, b
 
     # -- run loops -----------------------------------------------------------
     def run(self, state=None, num_sweeps: Optional[int] = None,
@@ -475,8 +543,12 @@ class MacauEngine:
         device-to-host read of its last metrics.
 
         Returns ``{"ms_per_sweep": [per window], "metrics": {last sweep},
-        "rmse_at_sweeps": rmse_sample at sweep num_sweeps}``."""
-        if not self.problem.rel_specs[0].n_test:
+        "rmse_at_sweeps": rmse_sample at sweep num_sweeps}`` (of the first
+        relation with a test split)."""
+        prob = self.problem
+        first = next((ri for ri, rs in enumerate(prob.rel_specs)
+                      if rs.n_test), None)
+        if first is None:
             raise ValueError("benchmark needs a test split "
                              "(RelationData.assign_to_test)")
         cfg = self.config
@@ -487,12 +559,12 @@ class MacauEngine:
             for s in range(start, start + num_sweeps):
                 state, last = self._sweep(state, s,
                                           1.0 if s >= cfg.burnin else 0.0)
-            _ = float(last["r0.rmse_avg"])      # waits for the window
+            _ = float(last[f"r{first}.rmse_avg"])   # waits for the window
             dt = time.perf_counter() - t0
             return state, {k: float(v) for k, v in last.items()}, dt
 
         state, metrics, _ = run_window(state, 0)
-        rmse_at = metrics["r0.rmse_sample"]
+        rmse_at = metrics[f"r{first}.rmse_sample"]
         windows = []
         for r in range(repeats):
             state, metrics, dt = run_window(state, (r + 1) * num_sweeps)
@@ -502,35 +574,44 @@ class MacauEngine:
 
     def _print_sweep(self, s, phase, metrics):
         parts = [f"sweep {s + 1:4d} [{phase:6s}]"]
-        if "r0.rmse_avg" in metrics:
-            parts.append(f"{self.problem.rel_specs[0].name}: "
-                         f"RMSE={metrics['r0.rmse_avg']:.4f} "
-                         f"(sample {metrics['r0.rmse_sample']:.4f})")
+        for ri, rs in enumerate(self.problem.rel_specs):
+            if f"r{ri}.rmse_avg" in metrics:
+                parts.append(f"{rs.name}: "
+                             f"RMSE={metrics[f'r{ri}.rmse_avg']:.4f} "
+                             f"(sample {metrics[f'r{ri}.rmse_sample']:.4f})")
+            if f"r{ri}.alpha" in metrics:
+                parts.append(f"alpha_{rs.name}="
+                             f"{metrics[f'r{ri}.alpha']:.3g}")
         for ei in range(len(self.problem.entity_specs)):
             parts.append(f"|U{ei}|={metrics[f'e{ei}.unorm']:.1f}")
         parts.append(f"{metrics['time']:.3f}s")
         print("  ".join(parts), flush=True)
 
     def _results(self, state, history) -> Dict[str, Any]:
-        """Reference-style result dict: RMSE of the posterior mean and the
-        test predictions with their posterior stdev."""
+        """Reference-style result dict (JAX engine :1179): per relation with
+        a test split, under its name, the RMSE of the posterior mean and
+        the test predictions with their posterior stdev; relation 0's also
+        at the top level."""
         out: Dict[str, Any] = {"state": state, "history": history}
-        rs = self.problem.rel_specs[0]
-        if "r0" not in state["pred"]:
-            return out
-        pr = {k: v.detach().cpu().numpy() for k, v in
-              state["pred"]["r0"].items()}
-        n = max(float(pr["n"]), 1.0)
-        pmean = pr["sum"] / n
-        pvar = np.maximum(pr["sum2"] / n - pmean ** 2, 0.0)
-        te = self.problem.test["r0"]
-        te_idx = te["idx"].cpu().numpy()
-        te_val = te["vals"].cpu().numpy()
-        rel_out = {"RMSE": float(np.sqrt(np.mean((pmean - te_val) ** 2))),
-                   "predictions": {"idx": te_idx, "obs": te_val,
-                                   "pred": pmean, "stdev": np.sqrt(pvar)}}
-        out[rs.name] = rel_out
-        out.update(rel_out)
+        for ri, rs in enumerate(self.problem.rel_specs):
+            key = f"r{ri}"
+            if key not in state["pred"]:
+                continue
+            pr = {k: v.detach().cpu().numpy() for k, v in
+                  state["pred"][key].items()}
+            n = max(float(pr["n"]), 1.0)
+            pmean = pr["sum"] / n
+            pvar = np.maximum(pr["sum2"] / n - pmean ** 2, 0.0)
+            te = self.problem.test[key]
+            te_idx = te["idx"].cpu().numpy()
+            te_val = te["vals"].cpu().numpy()
+            rel_out = {"RMSE": float(np.sqrt(np.mean((pmean - te_val) ** 2))),
+                       "predictions": {"idx": te_idx, "obs": te_val,
+                                       "pred": pmean,
+                                       "stdev": np.sqrt(pvar)}}
+            out[rs.name] = rel_out
+            if ri == 0:
+                out.update(rel_out)
         return out
 
 

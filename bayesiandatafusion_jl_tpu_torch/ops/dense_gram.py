@@ -1,20 +1,22 @@
-"""Dense Gramians for 2-ary relations: the int8 pair, the float pair and
-the fused single array.
+"""Dense Gramians: the int8 pair and the float pair of a relation of any
+arity, and the fused single array of a 2-ary one.
 
-Port of the arity-2 paths of ``bayesiandatafusion_jl_tpu/ops/dense_gram.py``.
+Port of the dense paths of ``bayesiandatafusion_jl_tpu/ops/dense_gram.py``.
 
 The pairs: the host side (``int8_pair_ok`` :1073, and the stores that
 ``build_dense_pair`` :263 and ``quantize_dense_pair`` :1114 make, built
 over the observed cells only) and the per-sweep side
-(``dense_gram_contrib`` :1236 for arity 2).  One stored pair [N0, N1] per
-relation, M the observation counts and W the sums of the centered values,
-contracted along either axis; the outputs are packed in the transposed
-[C, N] layout (C = K(K+1)/2) or unpacked to [N, K, K].
+(``dense_gram_contrib`` :1236).  One stored pair per relation, M the
+observation counts and W the sums of the centered values; arity 2 keeps
+[N0, N1] and contracts it along either axis; arity 3 keeps its modes in
+``store_order`` (the largest first, the second largest last).  The
+outputs are packed in the transposed [C, N] layout (C = K(K+1)/2) or
+unpacked to [N, K, K].
 
 The int8 pair (the s8 branch, :1319-1430): M8 the counts, W8 the values
 quantized on one static scale w_scale = max|W| / 127.  Per sweep and per
-focus mode f, against the partner factors' table quantized per row
-(``fused_quantize``: K7 up to K = 96, torch ops above),
+focus mode f of a 2-ary relation, against the partner factors' table
+quantized per row (``fused_quantize``: K7 up to K = 96, torch ops above),
 
     P[c, n] = sum_p M8_f[n, p] Y8[c, p] * sY[c] * alpha  (+ PD ridge on c = (i, i))
     b[k, n] = sum_p W8_f[n, p] U8[k, p] * sU[k] * w_scale * alpha
@@ -24,12 +26,18 @@ Y8/U8 are its and U's per-row int8 quantizations.  The int8 x int8 ->
 int32 products are exact (``int8_pair_ok`` bounds them below 2^31) and run
 on K6 (``ops/pair_contract.py``), which reads the one store along either
 axis, with the dequant in its epilogue (float32) or after it (float64).
+At arity 3 that is the first of two steps: the largest partner (the first
+or the last store axis) contracted on K6 with the store read as a 2-D
+array, then the dequantized sums reduced against the other partners'
+float tables (the Hadamard context factorizes: (z o w)(z o w)^T =
+zz^T o ww^T, and the packed triangle commutes with it).
 
 The float pair (the float branch, :1431-1463): M and W in the store dtype
 (bfloat16 under ``gram_dtype="bfloat16"``, else the compute dtype), and per
-sweep P = M_f Ypack and b = W_f U with the table in the same dtype, on
-``torch.matmul`` as the JAX package leaves them to an XLA einsum, alpha
-multiplied in afterwards.
+sweep P = M_f Ypack and b = W_f U with the tables in the same dtype, on
+``torch.matmul`` (and ``torch.einsum`` for the smaller partners of a
+tensor) as the JAX package leaves them to an XLA einsum, alpha multiplied
+in afterwards.
 
 The fused sparse regime (the second half of this file, JAX :336-1070):
 one stored int8 array V8 of value codes e, v = s (e + m) at the observed
@@ -120,26 +128,56 @@ def _quantize_values(W: np.ndarray, w_scale: float) -> np.ndarray:
     return np.clip(q, -127, 127).astype(np.int8)
 
 
+def store_order(shape: Sequence[int]) -> Tuple[int, ...]:
+    """The relation's modes in the order its pair store keeps them.
+
+    Arity 2: as they are.  Arity >= 3: the largest extent first (``a``,
+    the first of the largest), the largest of the others last (``b``), the
+    rest between in mode order.  The s8 contraction's first step takes the
+    largest partner of the focus mode (``int8_pair_ok`` and JAX
+    ``dense_gram_contrib`` :1340-1346, by true extents, first on ties):
+    ``b`` for focus ``a``, ``a`` for every other focus.  So it is always
+    the trailing or the leading store axis, and the store read as a 2-D
+    array [(a, ...), b] or [a, (..., b)] hands it to K6 as mode 0 or 1."""
+    dims = [int(d) for d in shape]
+    if len(dims) == 2:
+        return (0, 1)
+    a = int(np.argmax(dims))
+    rest = [d for d in range(len(dims)) if d != a]
+    b = rest[int(np.argmax([dims[d] for d in rest]))]
+    return (a, *[d for d in rest if d != b], b)
+
+
+def big_partner(shape: Sequence[int], mode: int) -> int:
+    """The partner mode that the s8 contraction's first step takes for
+    focus ``mode``: the largest, the first of the largest on ties."""
+    parts = [d for d in range(len(shape)) if d != mode]
+    return parts[int(np.argmax([int(shape[d]) for d in parts]))]
+
+
 def _observed_cells(idx: np.ndarray, centered: np.ndarray,
-                    shape: Sequence[int], acc):
-    """(rows, cols, count, wsum) over the observed cells of a 2-ary
-    relation, each cell once: its observation count and the sum of its
+                    order: Sequence[int], extents: Sequence[int], acc):
+    """(cells, count, wsum) over the observed cells of a relation, each
+    cell once: its flat index in a store whose axes are the modes
+    ``order`` with ``extents``, its observation count and the sum of its
     centered values in ``acc``, added in order of appearance
     (``np.add.at``), as the JAX package's dense accumulation adds them."""
-    n1 = int(shape[1])
-    lin = idx[:, 0].astype(np.int64) * n1 + idx[:, 1].astype(np.int64)
+    lin = np.zeros(idx.shape[0], np.int64)
+    for d, n in zip(order, extents):
+        lin = lin * int(n) + idx[:, d].astype(np.int64)
     cells, inv = np.unique(lin, return_inverse=True)
     count = np.bincount(inv, minlength=cells.size)
     wsum = np.zeros(cells.size, acc)
     np.add.at(wsum, inv, np.asarray(centered, acc))
-    return cells // n1, cells % n1, count, wsum
+    return cells, count, wsum
 
 
-def _scatter(shape, rows, cols, values, dtype, device) -> torch.Tensor:
-    """A zeroed ``shape`` array on ``device`` with ``values`` (cast to
-    ``dtype`` there) at the cells (rows, cols)."""
-    t = torch.zeros(tuple(shape), dtype=dtype, device=device)
-    t[torch.from_numpy(rows).to(device), torch.from_numpy(cols).to(device)] = \
+def _scatter(extents, cells, values, dtype, device) -> torch.Tensor:
+    """A zeroed array of ``extents`` on ``device`` with ``values`` (cast to
+    ``dtype`` there) at the flat indices ``cells``."""
+    t = torch.zeros(tuple(int(n) for n in extents), dtype=dtype,
+                    device=device)
+    t.view(-1)[torch.from_numpy(cells).to(device)] = \
         torch.from_numpy(values).to(device).to(dtype)
     return t
 
@@ -147,56 +185,66 @@ def _scatter(shape, rows, cols, values, dtype, device) -> torch.Tensor:
 def build_int8_pair(idx: np.ndarray, centered: np.ndarray,
                     shape: Sequence[int], store_dtype, device
                     ) -> Dict[str, object]:
-    """The stored int8 pair of one 2-ary relation, on ``device``.
+    """The stored int8 pair of one relation, on ``device``.
 
-    Returns ``{"M8": M8, "W8": W8, "deg": [d0, d1], "w_scale": float,
-    "shape": (N0, N1)}``: the counts and the quantized values [N0p, N1p],
-    each extent padded to STORE_ALIGN with zero cells, stored once (K6
-    contracts along either axis); d{f} the observation count of every
-    (padded) row of mode f, for the PD ridge; ``shape`` the true extents.
+    Returns ``{"M8": M8, "W8": W8, "deg": [d_0, ...], "w_scale": float,
+    "shape": (N_0, ...), "order": store_order(shape)}``: the counts and the
+    quantized values, one array each with the modes in ``order`` (arity 2:
+    [N0p, N1p]; arity 3: [N_a p, N_c, N_b p]), the first and the last
+    extent padded to STORE_ALIGN with zero cells, stored once (K6
+    contracts along either end); d_f the observation count of every
+    (stored) row of mode f, for the PD ridge; ``shape`` the true extents in
+    mode order.
 
-    The JAX package accumulates dense [N0, N1] host arrays (counts, and
-    centered values in ``store_dtype``'s accumulator) and quantizes W on one
-    static scale max|W| / 127.  Here the same sums are taken over the
-    observed cells only and the cells' codes are scattered into zeroed
-    device arrays, so the bytes are the same.
+    The JAX package accumulates dense host arrays (counts, and centered
+    values in ``store_dtype``'s accumulator) and quantizes W on one static
+    scale max|W| / 127.  Here the same sums are taken over the observed
+    cells only and the cells' codes are scattered into zeroed device
+    arrays, so the bytes are the same.
     """
     n = [int(s) for s in shape]
-    pad = [-(-s // STORE_ALIGN) * STORE_ALIGN for s in n]
+    order = store_order(n)
+    extents = [n[d] for d in order]
+    extents[0] = -(-extents[0] // STORE_ALIGN) * STORE_ALIGN
+    extents[-1] = -(-extents[-1] // STORE_ALIGN) * STORE_ALIGN
+    stored = dict(zip(order, extents))
     acc = np.float64 if np.dtype(store_dtype) == np.float64 else np.float32
-    rows, cols, count, wsum = _observed_cells(idx, centered, n, acc)
+    cells, count, wsum = _observed_cells(idx, centered, order, extents, acc)
     if count.max(initial=0) > 127:
         raise ValueError("observation counts exceed int8 "
                          "(int8_pair_ok not consulted)")
     w_scale = _w_scale(float(np.abs(wsum).max(initial=0.0)))
-    M8 = _scatter(pad, rows, cols, count.astype(np.int8), torch.int8, device)
-    W8 = _scatter(pad, rows, cols, _quantize_values(wsum, w_scale),
+    M8 = _scatter(extents, cells, count.astype(np.int8), torch.int8, device)
+    W8 = _scatter(extents, cells, _quantize_values(wsum, w_scale),
                   torch.int8, device)
-    deg = [torch.from_numpy(np.bincount(idx[:, f], minlength=pad[f])
+    deg = [torch.from_numpy(np.bincount(idx[:, f], minlength=stored[f])
                             .astype(np.float32)).to(device)
-           for f in range(2)]
+           for f in range(len(n))]
     return {"M8": M8, "W8": W8, "deg": deg, "w_scale": float(w_scale),
-            "shape": tuple(n)}
+            "shape": tuple(n), "order": order}
 
 
 def build_dense_pair(idx: np.ndarray, centered: np.ndarray,
                      shape: Sequence[int], store_dtype: torch.dtype, device
                      ) -> Dict[str, object]:
-    """The stored float pair of one 2-ary relation, on ``device`` (JAX
+    """The stored float pair of one relation, on ``device`` (JAX
     ``build_dense_pair`` :263 and the engine's store, engine.py:109-112,
-    :257-259): ``{"M": M, "W": W, "shape": (N0, N1)}``, the observation
-    counts and the centered value sums [N0, N1] in ``store_dtype``
-    (bfloat16 under ``gram_dtype="bfloat16"``, else the compute dtype).
-    The sums are taken over the observed cells in the JAX package's
-    accumulator (float64 for a float64 store, else float32), in order of
-    appearance, then scattered into zeroed device arrays and cast there."""
+    :257-259): ``{"M": M, "W": W, "shape": (N_0, ...), "order": ...}``, the
+    observation counts and the centered value sums in ``store_dtype``
+    (bfloat16 under ``gram_dtype="bfloat16"``, else the compute dtype),
+    with the modes in ``store_order`` and no padding.  The sums are taken
+    over the observed cells in the JAX package's accumulator (float64 for
+    a float64 store, else float32), in order of appearance, then scattered
+    into zeroed device arrays and cast there."""
     n = [int(s) for s in shape]
+    order = store_order(n)
+    extents = [n[d] for d in order]
     acc = np.float64 if store_dtype == torch.float64 else np.float32
-    rows, cols, count, wsum = _observed_cells(idx, centered, n, acc)
-    return {"M": _scatter(n, rows, cols, count.astype(acc), store_dtype,
+    cells, count, wsum = _observed_cells(idx, centered, order, extents, acc)
+    return {"M": _scatter(extents, cells, count.astype(acc), store_dtype,
                           device),
-            "W": _scatter(n, rows, cols, wsum, store_dtype, device),
-            "shape": tuple(n)}
+            "W": _scatter(extents, cells, wsum, store_dtype, device),
+            "shape": tuple(n), "order": order}
 
 
 def tri_index(K: int, device) -> Tuple[torch.Tensor, ...]:
@@ -243,9 +291,108 @@ def _dq_scale(s: torch.Tensor, extra: float, alpha: torch.Tensor,
     return scale * alpha.to(out_dtype)
 
 
-def int8_pair_contrib(pair: Dict[str, object], tri, partner: torch.Tensor,
-                      mode: int, alpha: torch.Tensor, out_dtype: torch.dtype,
-                      packed: bool = True
+def _contract_dq(M8, W8, YZ8T, mode, K, n, sY, sU, w_scale, alpha,
+                 out_dtype):
+    """K6's contraction of focus ``mode`` (its first ``n`` rows),
+    dequantized with the alpha-folded scales: in K6's epilogue in float32,
+    after its raw int32 sums otherwise.  Returns ([C, n], [K, n])."""
+    syz = _dq_scale(sY, 1.0, alpha, out_dtype)
+    sz = _dq_scale(sU, w_scale, alpha, out_dtype)
+    if out_dtype == torch.float32:
+        return pair_contract(M8, W8, YZ8T, mode, K, n, dq=(syz, sz))
+    PM, BV = pair_contract(M8, W8, YZ8T, mode, K, n)
+    return PM.to(out_dtype) * syz[:, None], BV.to(out_dtype) * sz[:, None]
+
+
+def _step1_view(A: torch.Tensor, order: Sequence[int], big: int):
+    """The store A (modes ``order``) as the 2-D array whose one axis is the
+    ``big`` partner's: (view, the focus axis of that view, the store axes
+    of its focus side).  ``big`` is the last store axis ([(rest), big],
+    focus axis 0) or the first ([big, (rest)], focus axis 1)."""
+    if big == order[-1]:
+        return A.view(-1, A.shape[-1]), 0, list(range(A.dim() - 1))
+    if big != order[0]:
+        raise ValueError(f"mode {big} is at neither end of the store "
+                         f"order {tuple(order)}")
+    return A.view(A.shape[0], -1), 1, list(range(1, A.dim()))
+
+
+def _step2(S: torch.Tensor, axes: Sequence[int], extents: Sequence[int],
+           order: Sequence[int], true: Sequence[int], focus: int,
+           tables: Dict[int, torch.Tensor]) -> torch.Tensor:
+    """The second step of an arity >= 3 contraction: S [R, prod(extents)]
+    is the first step's output over the store ``axes`` (their stored
+    ``extents``), each reduced against its mode's table [N_d, R] but the
+    focus mode's, which is kept: [R, N_focus].  Extents padded past the
+    true count (``true``, by mode) are cut first."""
+    R = S.shape[0]
+    S = S.view(R, *extents)
+    letters = "abcdefgh"
+    idx = [slice(None)]
+    spec_in, spec_out, ops = "z", "", []
+    for ax, ext in zip(axes, extents):
+        d = order[ax]
+        idx.append(slice(0, true[d]) if ext != true[d] else slice(None))
+        spec_in += letters[ax]
+        if d == focus:
+            spec_out = letters[ax]
+        else:
+            ops.append((letters[ax] + "z", tables[d]))
+    S = S[tuple(idx)]
+    spec = ",".join([spec_in] + [sp for sp, _ in ops]) + "->z" + spec_out
+    return torch.einsum(spec, S, *[t for _, t in ops]).contiguous()
+
+
+def _tensor_int8_contrib(pair, tri, partners, mode, alpha, out_dtype,
+                         op_dtype):
+    """(P [C, n], b [K, n]) of focus ``mode`` from an arity >= 3 int8
+    store, alpha folded in, without the ridge (JAX dense_gram.py:1320-1390):
+    step 1 contracts the largest partner exactly in int32 on K6 against
+    its quantized table, the store read as 2-D (``_step1_view``), and
+    dequantizes (K6's epilogue in float32, after it otherwise); step 2
+    reduces the other partners against their float tables, made from the
+    float32 factors and rounded to ``op_dtype`` as the dequantized sums
+    are, and summed in ``out_dtype``."""
+    M8, W8, order = pair["M8"], pair["W8"], pair["order"]
+    true = pair["shape"]
+    K = partners[0].shape[1]
+    C = K * (K + 1) // 2
+    iu, ju = tri[:2]
+    factor = {d: U for d, U in zip(
+        [d for d in range(len(true)) if d != mode], partners)}
+    big = big_partner(true, mode)
+    M2, k6_mode, axes = _step1_view(M8, order, big)
+    W2 = W8.view(M2.shape)
+    extents = [M8.shape[ax] for ax in axes]
+    n_focus = int(np.prod(extents))
+    if k6_mode == 0:
+        # the focus side leads: only the true rows of its first axis
+        n_focus = n_focus // extents[0] * true[order[0]]
+        extents[0] = true[order[0]]
+    YZ8T, _, s_yz, sU = fused_quantize(factor[big],
+                                       pad_rows=M2.shape[1 - k6_mode],
+                                       tri=tri)
+    sY = s_yz[:C]
+    SP, Sb = _contract_dq(M2, W2, YZ8T, k6_mode, K, n_focus, sY, sU,
+                          pair["w_scale"], alpha, out_dtype)
+    del YZ8T
+
+    def rounded(t):
+        return t if op_dtype == out_dtype else t.to(op_dtype).to(out_dtype)
+    small = {d: U.to(torch.float32) for d, U in factor.items() if d != big}
+    P = _step2(rounded(SP), axes, extents, order, true, mode,
+               {d: rounded(Uf[:, iu] * Uf[:, ju]).to(out_dtype)
+                for d, Uf in small.items()})
+    del SP
+    b = _step2(rounded(Sb), axes, extents, order, true, mode,
+               {d: rounded(Uf).to(out_dtype) for d, Uf in small.items()})
+    return P, b, sY
+
+
+def int8_pair_contrib(pair: Dict[str, object], tri,
+                      partners: Sequence[torch.Tensor], mode: int,
+                      alpha: torch.Tensor, out_dtype: torch.dtype,
+                      packed: bool = True, op_dtype: torch.dtype = None
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One focus mode's alpha-folded contribution from ``build_int8_pair``'s
     store (JAX dense_gram.py:1319-1430).  ``packed=True``, the packed
@@ -254,31 +401,34 @@ def int8_pair_contrib(pair: Dict[str, object], tri, partner: torch.Tensor,
     [N_f, K, K], freshly allocated, and b [N_f, K].  N_f is the true focus
     count.
 
-    ``tri`` = ``tri_index(K)``, ``partner`` the other entity's factors
-    [N_partner, K], cast to float32 before the table and its quantization
-    whatever ``out_dtype`` is, as the JAX package does."""
-    M8, W8 = pair["M8"], pair["W8"]
+    ``tri`` = ``tri_index(K)``, ``partners`` the other modes' factors
+    [N_d, K] in mode order, cast to float32 before the tables and their
+    quantization whatever ``out_dtype`` is, as the JAX package does.
+    Arity 2 is one contraction on K6; arity 3 two steps
+    (``_tensor_int8_contrib``), the second with its operands rounded to
+    ``op_dtype`` (the JAX package's ``gram_dtype``; default
+    ``out_dtype``).  Arity 4 and up is not ported (ROADMAP M12)."""
+    arity = len(pair["shape"])
+    if arity > 3:
+        raise NotImplementedError(
+            "not ported yet: the int8 pair at arity >= 4 (ROADMAP M12)")
     n = pair["shape"][mode]
-    K = partner.shape[1]
+    K = partners[0].shape[1]
     C = K * (K + 1) // 2
     dc, expand = tri[2], tri[3]
-    YZ8T, _, s_yz, sU = fused_quantize(partner, pad_rows=M8.shape[1 - mode],
-                                       tri=tri)
-    sY = s_yz[:C]
     alpha = alpha.to(out_dtype)
-    w_scale = pair["w_scale"]
-    if out_dtype == torch.float32:
-        # K6's dequant epilogue, with the alpha-folded float32 scales
-        P, b = pair_contract(M8, W8, YZ8T, mode, K, n,
-                             dq=(_dq_scale(sY, 1.0, alpha, out_dtype),
-                                 _dq_scale(sU, w_scale, alpha, out_dtype)))
+    if arity > 2:
+        P, b, sY = _tensor_int8_contrib(pair, tri, partners, mode, alpha,
+                                        out_dtype, op_dtype or out_dtype)
     else:
-        PM, BV = pair_contract(M8, W8, YZ8T, mode, K, n)
+        M8, W8 = pair["M8"], pair["W8"]
+        YZ8T, _, s_yz, sU = fused_quantize(partners[0],
+                                           pad_rows=M8.shape[1 - mode],
+                                           tri=tri)
+        sY = s_yz[:C]
+        P, b = _contract_dq(M8, W8, YZ8T, mode, K, n, sY, sU,
+                            pair["w_scale"], alpha, out_dtype)
         del YZ8T
-        P = PM.to(out_dtype) * _dq_scale(sY, 1.0, alpha, out_dtype)[:, None]
-        b = BV.to(out_dtype) * _dq_scale(sU, w_scale, alpha,
-                                         out_dtype)[:, None]
-        del PM, BV
     # PD safety ridge (JAX dense_gram.py:1391-1414): ~1.7 sigma of the
     # per-row quantization noise, mean(sY) * sqrt(K) / 2 * alpha * sqrt(deg),
     # on the diagonal entries
@@ -294,13 +444,13 @@ def int8_pair_contrib(pair: Dict[str, object], tri, partner: torch.Tensor,
 
 def _contract(T: torch.Tensor, A: torch.Tensor, mode: int,
               acc_dtype: torch.dtype) -> torch.Tensor:
-    """T [R, N_partner] against the stored float pair array A [N0, N1]
-    along mode ``mode``'s partner axis: [R, N_focus] in ``acc_dtype``.  A
-    store of another dtype (bfloat16) is widened with its table to
-    ``acc_dtype`` a slice of focus rows at a time: the products of bfloat16
-    values are exact there, and the sums in ``acc_dtype`` are the JAX
-    einsum's (``preferred_element_type``); torch's bfloat16 matmul would
-    round its output to bfloat16."""
+    """T [R, N_partner] against a 2-D stored float array A [N0, N1] along
+    mode ``mode``'s partner axis: [R, N_focus] in ``acc_dtype``.  A store
+    of another dtype (bfloat16) is widened with its table to ``acc_dtype``
+    a slice of focus rows at a time: the products of bfloat16 values are
+    exact there, and the sums in ``acc_dtype`` are the JAX einsum's
+    (``preferred_element_type``); torch's bfloat16 matmul would round its
+    output to bfloat16."""
     if A.dtype == acc_dtype:
         return T @ (A.mT if mode == 0 else A)
     n_focus, n_part = A.shape[mode], A.shape[1 - mode]
@@ -316,25 +466,47 @@ def _contract(T: torch.Tensor, A: torch.Tensor, mode: int,
 
 
 def float_pair_contrib(pair: Dict[str, object], tri,
-                       partner: torch.Tensor, mode: int, alpha: torch.Tensor,
-                       out_dtype: torch.dtype, packed: bool = True
+                       partners: Sequence[torch.Tensor], mode: int,
+                       alpha: torch.Tensor, out_dtype: torch.dtype,
+                       packed: bool = True
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One focus mode's alpha-folded contribution from ``build_dense_pair``'s
     store (JAX dense_gram.py:1431-1463), in ``int8_pair_contrib``'s
     layouts, without a ridge: the partners cast to the store dtype, the
-    packed triangle table made (and rounded) in it, the sums in
-    ``out_dtype``, alpha multiplied in afterwards.  Unpacked, the packed
+    packed triangle tables made (and rounded) in it, the sums in
+    ``out_dtype``, alpha multiplied in afterwards.  At arity >= 3 the
+    largest partner is contracted first on ``torch.matmul`` (the store as
+    2-D, ``_step1_view``) and the others by ``torch.einsum``, as the JAX
+    package leaves its multi-operand einsum to XLA.  Unpacked, the packed
     triangle is expanded to [N_f, K, K]; the products are the same exact
     U_i U_j as the full K^2 table's, which the JAX package takes on small
     stores for a TPU latency trade-off."""
-    M, W = pair["M"], pair["W"]
-    K = partner.shape[1]
+    M, W, order = pair["M"], pair["W"], pair["order"]
+    true = pair["shape"]
+    K = partners[0].shape[1]
     iu, ju, _, expand = tri
-    UT = partner.to(M.dtype).mT                       # [K, n_part]
+    factor = {d: U.to(M.dtype).mT for d, U in zip(
+        [d for d in range(len(true)) if d != mode], partners)}  # [K, N_d]
     alpha = alpha.to(out_dtype)
-    b = _contract(UT, W, mode, out_dtype)             # [K, n]
+    if len(true) == 2:
+        UT = factor[1 - mode]
+        b = _contract(UT, W, mode, out_dtype)             # [K, n]
+        P = _contract(UT[iu] * UT[ju], M, mode, out_dtype)
+    else:
+        big = big_partner(true, mode)
+        M2, k2_mode, axes = _step1_view(M, order, big)
+        W2 = W.view(M2.shape)
+        extents = [M.shape[ax] for ax in axes]
+        UT = factor[big]
+        small = {d: t for d, t in factor.items() if d != big}
+        b = _step2(_contract(UT, W2, k2_mode, out_dtype), axes, extents,
+                   order, true, mode,
+                   {d: t.mT.to(out_dtype) for d, t in small.items()})
+        P = _step2(_contract(UT[iu] * UT[ju], M2, k2_mode, out_dtype), axes,
+                   extents, order, true, mode,
+                   {d: (t[iu] * t[ju]).mT.to(out_dtype)
+                    for d, t in small.items()})
     b *= alpha
-    P = _contract(UT[iu] * UT[ju], M, mode, out_dtype)
     P *= alpha
     if packed:
         return P, b

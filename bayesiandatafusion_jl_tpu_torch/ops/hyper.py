@@ -1,4 +1,5 @@
-"""Normal-Wishart hyperparameter draw (port of ``ops/hyper.py``).
+"""Hyperparameter draws (port of ``ops/hyper.py``): the Normal-Wishart
+prior of each entity and the noise precision alpha of a relation.
 
 Wishart sampling by the Bartlett decomposition on K x K matrices; every
 random number comes from the sweep's randoms dict (utils/rng.py).  Float32
@@ -62,3 +63,11 @@ def normal_wishart_from_moments(N: int, Sbar: torch.Tensor,
     b_sqrt = torch.sqrt(torch.tensor(b_star, dtype=Sbar.dtype))
     mu = mu_star + (M @ w)[:, 0] / b_sqrt
     return mu, Lambda
+
+
+def sample_alpha(sse: torch.Tensor, n_obs: int, g: torch.Tensor, a0: float,
+                 b0: float) -> torch.Tensor:
+    """alpha | residuals ~ Gamma(a0 + n_obs/2, rate = b0 + SSE/2), from the
+    pre-drawn standard Gamma(a0 + n_obs/2) variate ``g`` (JAX
+    ``ops/hyper.sample_alpha`` :105)."""
+    return g / (b0 + sse / 2.0)

@@ -24,7 +24,6 @@ UNPORTED_FIELDS = {
                      "beta_solver", "dual_budget_gb", "dual_cache_dir",
                      "dual_refine", "cg_tol", "cg_maxiter",
                      "cg_nystrom_rank"), "M8"),
-    **dict.fromkeys(("alpha_a0", "alpha_b0"), "M7"),
     **dict.fromkeys(("metrics_every", "sweeps_per_dispatch", "trace_dir"),
                     "M4"),
     **dict.fromkeys(("log_file", "output_prefix", "checkpoint_every",
@@ -46,20 +45,25 @@ class MacauConfig:
     # Normal-Wishart hyperprior: mu0 = 0, b0, W0 = I, nu0 (None = K)
     nw_b0: float = 2.0
     nw_nu0: Optional[float] = None
-    # noise precision of every relation (fixed; sampling is ROADMAP M7)
+    # noise precision of every relation: fixed, or (``alpha_sample``, or
+    # ``RelationData.set_precision(..., sample=True)``) drawn each sweep
+    # from Gamma(alpha_a0 + nnz/2, rate = alpha_b0 + SSE/2)
     alpha: float = 5.0
     alpha_sample: bool = False
+    alpha_a0: float = 1e-3
+    alpha_b0: float = 1e-3
 
     init_std: float = 0.3   # U ~ init_std * N(0, I)
     dtype: str = "float32"  # "float64" for the CPU parity tests
     chol_jitter: float = 0.0
 
-    # Gramian path: None or True = the dense pair (ops/dense_gram.py);
-    # False = every mode on the bucketed gather path (ops/layout.py,
-    # ops/gramian.py).  The JAX package's None is an auto planner on
-    # TPU-measured constants that can mix dense and gather modes in one
-    # relation; the port has no planner yet (ROADMAP F7: it waits for M7,
-    # which mixes them), so None keeps the pair.
+    # Gramian path: None or True = the dense pair (ops/dense_gram.py) for
+    # every relation with observations; False = every mode on the bucketed
+    # gather path (ops/layout.py, ops/gramian.py).  The JAX package's None
+    # is an auto planner on TPU-measured constants that can mix dense and
+    # gather modes; the engine takes such a mix (an entity sums dense and
+    # gather contributions), but the port has no H100 planner yet
+    # (ROADMAP F7, item 7), so None keeps the pair.
     dense_gram: Optional[bool] = None
     # int8 operands on the dense paths: True stores the int8 pair (K6 and
     # K7) for a relation that passes ``int8_pair_ok`` and puts a fused

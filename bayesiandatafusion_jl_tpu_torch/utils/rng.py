@@ -32,11 +32,16 @@ class DrawSpec:
 RandomSpec = Dict[str, DrawSpec]
 
 
-def build_random_spec(entity_sizes: Sequence[int], K: int,
-                      nu0: float) -> RandomSpec:
-    """Shapes of one sweep's draws for featureless entities with fixed
-    alpha — the keys and shapes of ``engine.build_random_spec`` in that
-    case (side features and alpha sampling add draws there)."""
+def build_random_spec(entity_sizes: Sequence[int], K: int, nu0: float,
+                      rel_specs: Sequence = (), alpha_a0: float = 0.0
+                      ) -> RandomSpec:
+    """Shapes of one sweep's draws for featureless entities — the keys,
+    shapes and Gamma parameters of the JAX ``engine.build_random_spec``
+    (:459-488) for the same graph: per entity its Normal-Wishart draws and
+    the latent rows' normals; per relation of ``rel_specs`` (objects with
+    ``alpha_sample`` and ``nnz``) whose alpha is sampled, the standard
+    Gamma(alpha_a0 + nnz/2) variate ``r{ri}.alpha_g``.  (Side features add
+    draws there; they are ROADMAP M8.)"""
     spec: RandomSpec = {}
     for ei, N in enumerate(entity_sizes):
         nu_star = nu0 + N
@@ -45,6 +50,10 @@ def build_random_spec(entity_sizes: Sequence[int], K: int,
         spec[f"e{ei}.nw_tri"] = DrawSpec("normal", (K, K))
         spec[f"e{ei}.nw_mu"] = DrawSpec("normal", (K,))
         spec[f"e{ei}.xi"] = DrawSpec("normal", (N, K))
+    for ri, rs in enumerate(rel_specs):
+        if rs.alpha_sample:
+            spec[f"r{ri}.alpha_g"] = DrawSpec(
+                "gamma", (), (alpha_a0 + rs.nnz / 2.0,))
     return spec
 
 

@@ -23,7 +23,13 @@ Phases, each fatal on failure (nonzero exit, no result line):
    FLOAT_TOL of the largest sum; K6 (the int8 pair contraction, both focus
    modes from one stored pair, raw int32 and the dequant epilogue) bit for
    bit against its plain version on small ragged stores, K = 4, 8, 15, 32
-   and 33;
+   and 33; the samplers and K7 also at the graph paths' shapes (K1 at
+   tensor's and fusion's entity counts, K3 at tensor_big's, K7 at their
+   largest partners' tables); K9 (the windowed expand) bit for bit
+   against its plain version on ragged plans (a hot window over several
+   blocks, empty windows, no observation at all), K = 8, 32, 64 and 128,
+   float32 and bfloat16, and
+   timed beside ``index_select`` at the ML-10M gather shape;
 4. int8 contraction: the plain versions' ``torch._int_mm`` equals a
    float64 matmul of the same codes exactly, at ML-10M shapes;
 5. main paths: ML-10M-shaped synthetic BPMF (71,567 x 10,681, 10,000,054
@@ -78,6 +84,27 @@ Phases, each fatal on failure (nonzero exit, no result line):
      observations), which the one array cannot hold: they ride the gather
      path as a residual, added into the s8 contribution in the packed
      layout.
+7. the graph paths, each built as its ``bench.py`` function builds it
+   (float32, seed 42, ``gram_dtype="bfloat16"``, the 25-width ladder, no
+   clamp), with a ``torch.profiler`` split:
+   - ``tensor``: 30,000 x 2,000 x 16, 5M cells, K = 32, the int8 pair at
+     arity 3 (store [30000, 16, 2000]): K6 for each mode's first step, K7
+     for each largest partner's table, K1 for the three entities; 15-sweep
+     windows, rmse_avg in the JAX band; K6 held against its plain version
+     on the store's two 2-D views;
+   - ``fusion``: 50,000 compounds sharing three int8 pairs (x 500, 3,000,
+     800; 10M cells): K6 and K7 six times a sweep, K1; rmse_avg of
+     ``ic50`` in the JAX band; K6 held against its plain version on each
+     pair's store, both focus modes; then one window with every alpha
+     sampled, the alphas finite, positive and moving;
+   - ``tensor_big``: 200,000 x 20,000 x 8, 30M cells, the gather path at
+     arity 3 (K3), 8-sweep windows, rmse_sample@8 in the JAX band, layout
+     seconds and peak memory;
+   - K9 at tensor_big's shape (the 200,000-row entity's factors, the
+     observations sorted by its id), held bit for bit and timed beside
+     ``index_select`` in bfloat16 and float32.  No engine path runs K9
+     (as in JAX): every path holds its launches to 0, and its row in the
+     kernels line says 0.
    On every path the plain versions, the other paths' kernels and
    ``torch._int_mm`` (counted through a wrapper the script installs around
    each run) must not run, and the RMSEs must lie in the JAX chain's bands
@@ -159,6 +186,16 @@ FLOAT_PAIR_STORES = (None, "bfloat16")
 # store and table: torch.matmul's float32 sums over up to 71,567 partners,
 # in cuBLAS's order, relative to the largest sum
 FLOAT_PAIR_TOL = 1e-4
+# The graph paths, as the JAX bench builds them (bench.py:194-326; seed 42,
+# float32, gram_dtype="bfloat16", the 25-width ladder, no clamp: the values
+# are Gaussian): (sweeps a window, timed windows) and the JAX chains' bands
+# (docs/BENCH_R5_RUNS.md:11,14,20): ``tensor`` rmse_avg after the
+# benchmark protocol, ``tensor_big`` rmse_sample@8, ``fusion`` rmse_avg of
+# ``ic50``
+TENSOR_RUN, TENSOR_ANCHOR = (15, 3), 0.4375
+FUSION_RUN, FUSION_ANCHOR = (15, 3), 0.4406
+TENSOR_BIG_RUN, TENSOR_BIG_ANCHOR = (8, 1), 0.4420
+GRAPH_OPTS = dict(gram_dtype="bfloat16", bucket_widths=BENCH_WIDTHS)
 FUSED_ML_MORE = ((128, 20, dict(dense_int8=True)),
                  (64, 40, dict(dense_int8=False, gram_dtype="bfloat16")),
                  (128, 20, dict(dense_int8=False, gram_dtype="bfloat16")),
@@ -753,11 +790,95 @@ def check_int8_contraction(n_rows=2048, K=32, seed=1):
     return out
 
 
+def windowed_expand_bytes(n_blocks, K, itemsize, table_rows):
+    """The bytes K9's function must move for a plan of ``n_blocks`` blocks:
+    write the [n_blocks * 1024, K] output once, read the lanes and the
+    window map once and each of the ``table_rows`` table rows its windows
+    cover once (a window read by several blocks counts once).  It does no
+    arithmetic."""
+    return (n_blocks * (1024 * (K * itemsize + 4) + 4)
+            + table_rows * K * itemsize)
+
+
+def window_rows(wmap, n_table):
+    """The table rows the plan's distinct windows cover."""
+    import numpy as np
+    w = np.unique(wmap).astype(np.int64)
+    return int(np.minimum(128, n_table - 128 * w).sum())
+
+
+def ragged_parts(n_table, n_obs, seed, hot=0, gap=0):
+    """Sorted partner ids: ``hot`` of them in window 0 (several 1024-slot
+    blocks), none in windows 1 .. ``gap`` (empty windows), the rest
+    uniform."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    lo = min(128 * (gap + 1), n_table - 1) if gap else 0
+    part = rng.integers(lo, n_table, n_obs)
+    part[:hot] = rng.integers(0, min(128, n_table), hot)
+    return np.sort(part).astype(np.int32)
+
+
+def check_windowed_expand(part, n_table, K, dtype, timing=True, seed=0):
+    """K9 against its plain version on random factors U [n_table, K] in
+    ``dtype`` for the plan of the sorted partner ids ``part``, bit for bit,
+    and every observation's slot holding its partner's row.  Timing adds
+    the library's time for the same rows: one ``index_select`` of the
+    observations' partner rows (in observation order, without the plan's
+    tail slots), and K9's bound."""
+    import torch
+    from bayesiandatafusion_jl_tpu_torch.ops.gather_expand import (
+        build_window_plan, windowed_expand, windowed_expand_plain)
+    t0 = time.perf_counter()
+    lanes, wmap, slot_of = build_window_plan(part, n_table)
+    plan_s = time.perf_counter() - t0
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    U = torch.randn((n_table, K), generator=g, device="cuda").to(
+        getattr(torch, dtype))
+    L = torch.from_numpy(lanes).to("cuda")
+    Wm = torch.from_numpy(wmap).to("cuda")
+    rows = torch.from_numpy(part).to("cuda").to(torch.int64)
+    kern = windowed_expand(U, L, Wm)
+    plain = windowed_expand_plain(U, L, Wm)
+    torch.cuda.synchronize()
+    err = (kern.double() - plain.double()).abs().max().item()
+    ok = bool(torch.equal(kern, plain))
+    ok = ok and bool(torch.equal(
+        kern[torch.from_numpy(slot_of).to("cuda")], U[rows]))
+    r = {"n_table": n_table, "n_obs": len(part), "K": K, "dtype": dtype,
+         "n_blocks": len(wmap), "plan_s": plan_s, "max_abs_err": err,
+         "ok": ok}
+    del kern, plain
+    if timing:
+        r["kernel_ms"] = cuda_ms(lambda: windowed_expand(U, L, Wm), 10)
+        r["plain_ms"] = cuda_ms(lambda: windowed_expand_plain(U, L, Wm), 3)
+        r["library_ms"] = cuda_ms(lambda: U.index_select(0, rows), 10)
+        r["bound_ms"], r["bound_by"] = bound_ms(windowed_expand_bytes(
+            len(wmap), K, U.element_size(), window_rows(wmap, n_table)), 0)
+    return r
+
+
+def print_expand_check(label, r):
+    line = (f"# K9 {label} table {r['n_table']} x K={r['K']} {r['dtype']}, "
+            f"{r['n_obs']} observations in {r['n_blocks']} blocks (plan "
+            f"{r['plan_s']:.2f} s): bitwise {r['ok']} (max diff "
+            f"{r['max_abs_err']})")
+    if "kernel_ms" in r:
+        line += (f"; kernel {r['kernel_ms']:.4f} ms "
+                 f"({r['n_blocks'] * 1024 / r['kernel_ms'] * 1e3:.4g} "
+                 f"slots/s), "
+                 f"plain {r['plain_ms']:.4f} ms, library (index_select) "
+                 f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+                 f"({r['bound_by']})")
+    print(line, flush=True)
+
+
 def counters():
     """(function, attribute) of each kernel wrapper's launch count and each
     plain version's call count, by name."""
     from bayesiandatafusion_jl_tpu_torch.ops import (chol_blocked, chol_full,
                                                      chol_packed, fused_pair,
+                                                     gather_expand,
                                                      pair_contract, ytab)
     return {"K1": (chol_packed.chol_sample_packed, "launches"),
             "K2": (chol_packed.chol_sample_packed_tiled, "launches"),
@@ -770,12 +891,14 @@ def counters():
             "K8b": (fused_pair.fused_pair_contract, "launches_i8_nat"),
             "K8c": (fused_pair.fused_pair_contract, "launches_f_flip"),
             "K8d": (fused_pair.fused_pair_contract, "launches_f_nat"),
+            "K9": (gather_expand.windowed_expand, "launches"),
             "plain_packed": (chol_packed.chol_sample_packed_plain, "calls"),
             "plain_full": (chol_full.chol_sample_full_plain, "calls"),
             "plain_inv": (chol_blocked.chol_inv_plain, "calls"),
             "plain_ytab": (ytab.ytab_quantize_plain, "calls"),
             "plain_fused": (fused_pair.fused_pair_plain, "calls"),
-            "plain_pair": (pair_contract.pair_contract_plain, "calls")}
+            "plain_pair": (pair_contract.pair_contract_plain, "calls"),
+            "plain_expand": (gather_expand.windowed_expand_plain, "calls")}
 
 
 def read_counts():
@@ -787,36 +910,80 @@ def zero_counts():
         setattr(f, a, 0)
 
 
-def path_kernels(K, gather, fused, i8=True):
-    """{counter: launches per sweep} of the kernels a path must run: its
-    sampler; on the fused path K8 once per mode (by operand type and
-    layout); on the int8 pair K6 once per mode; and on either s8 path, up
-    to K = 96, K7.  The float pair runs the sampler alone."""
-    if gather and K <= 96:
-        return {"K3" if K <= 32 else "K4": 2}
-    want = {"K1": 2} if K <= 32 else {"K2": 2} if K <= 96 else {"K5": 4}
-    if fused:
-        packed = K <= 96
-        want[("K8a" if packed else "K8b") if i8 else
-             ("K8c" if packed else "K8d")] = 2
-    elif not gather and i8:
-        want["K6"] = 2
-    if not gather and i8 and K <= 96:
-        want["K7"] = 2
+def graph_kernels(prob, K):
+    """{counter: launches per sweep} of the kernels a sweep must run, from
+    its compiled problem: per (relation, mode) of an int8 pair K6 once, of
+    a fused store its K8 variant once (by operand type and layout), and on
+    either s8 kind, up to K = 96, K7 once (the largest partner's table);
+    per entity, up to K = 96, the packed sampler (K1, K2) where it has a
+    dense contribution, else the full-P one (K3, K4), and above K = 96 K5
+    twice (the blocked sampler).  The float pair and the gather path
+    launch no kernel of their own."""
+    want = {}
+
+    def add(tag, n=1):
+        want[tag] = want.get(tag, 0) + n
+    packed = K <= 96
+    for ei in range(len(prob.entity_specs)):
+        dense = False
+        for ri, rs in enumerate(prob.rel_specs):
+            kind = prob.kinds[ri]
+            for e in rs.entity_ids:
+                if e != ei or kind == "gather":
+                    continue
+                dense = True
+                i8 = (prob.fused_i8s if kind == "fused" else
+                      prob.pair_i8s)[ri]
+                if kind == "fused":
+                    add(("K8a" if packed else "K8b") if i8 else
+                        ("K8c" if packed else "K8d"))
+                elif i8:
+                    add("K6")
+                if i8 and packed:
+                    add("K7")
+        if not packed:
+            add("K5", 2)
+        else:
+            add(("K1" if K <= 32 else "K2") if dense else
+                ("K3" if K <= 32 else "K4"))
     return want
 
 
+def counted(fn):
+    """``fn()``'s result and the counts of its run: every kernel's launches
+    and plain version's calls (set to 0 just before, read just after) and,
+    under "torch._int_mm", the calls of the library's int8 GEMM, which must
+    not run on any path (counted through a wrapper installed for the
+    run)."""
+    import torch
+    int_mm, int_mm_calls = torch._int_mm, [0]
+
+    def counting_int_mm(*a, **kw):
+        int_mm_calls[0] += 1
+        return int_mm(*a, **kw)
+    torch._int_mm = counting_int_mm
+    zero_counts()
+    try:
+        out = fn()
+        counts = read_counts()
+    finally:
+        torch._int_mm = int_mm
+    counts["torch._int_mm"] = int_mm_calls[0]
+    return out, counts
+
+
 def run_path(rd, K, sweeps, repeats, anchor_s, anchor_avg, name="ML-10M",
-             **opts):
+             clamp=(1.0, 5.0), graph=False, **opts):
     """One main path: the benchmark protocol at rank K (``opts`` select the
     gather or the fused path), with the kernels' counts set to 0 just
-    before it and read just after.  Returns the engine, the counts and the
-    benchmark's result."""
+    before it and read just after.  ``graph``: a graph of several
+    relations or a tensor, labelled by its relations.
+    Returns the engine, the counts and the benchmark's result."""
     import torch
     from bayesiandatafusion_jl_tpu_torch.models.engine import MacauEngine
     from bayesiandatafusion_jl_tpu_torch.utils.config import MacauConfig
     cfg = MacauConfig(num_latent=K, burnin=sweeps, psamples=0,
-                      clamp=(1.0, 5.0), verbose=False, dtype="float32",
+                      clamp=clamp, verbose=False, dtype="float32",
                       seed=42, **opts)
     gather = cfg.dense_gram is False
     fused = bool(cfg.dense_fused)
@@ -826,41 +993,35 @@ def run_path(rd, K, sweeps, repeats, anchor_s, anchor_avg, name="ML-10M",
     eng = MacauEngine(rd, cfg, device="cuda")
     build_s = time.perf_counter() - t0
     prob = eng.problem
-    require(fused == (prob.fused is not None),
+    require(fused == (prob.kinds[0] == "fused"),
             f"{name} K={K}: the fused store was {'not ' if fused else ''}"
             f"built")
-    require(not fused or prob.fused_i8 == cfg.dense_int8,
-            f"{name} K={K}: the fused path's s8 decision is {prob.fused_i8}")
-    pair_i8 = prob.pair_i8
+    require(not fused or prob.fused_i8s[0] == cfg.dense_int8,
+            f"{name} K={K}: the fused path's s8 decision is "
+            f"{prob.fused_i8s[0]}")
+    pair_i8 = prob.pair_i8s[0]
     require(gather or fused or pair_i8 == cfg.dense_int8,
             f"{name} K={K}: the pair's int8 decision is {pair_i8}")
-    if gather:
+    if graph:
+        rels = []
+        for rs, kind, i8 in zip(prob.rel_specs, prob.kinds, prob.pair_i8s):
+            dims = "x".join(str(prob.entity_specs[e].n)
+                            for e in rs.entity_ids)
+            rels.append(f"{rs.name} {dims} {kind}{' int8' if i8 else ''}")
+        label = f"{name} {' + '.join(rels)} K={K}"
+    elif gather:
         label = f"{name} gather {cfg.accumulation} K={K}"
     elif fused:
-        table = "s8" if prob.fused_i8 else (cfg.gram_dtype or cfg.dtype)
+        table = "s8" if prob.fused_i8s[0] else (cfg.gram_dtype or cfg.dtype)
         label = (f"{name} fused {table} K={K}"
-                 + (" with residual" if prob.residual_nnz else ""))
+                 + (" with residual" if prob.residual_nnzs[0] else ""))
     elif pair_i8:
         label = f"{name} int8 pair K={K}"
     else:
         label = f"{name} float pair {cfg.gram_dtype or cfg.dtype} K={K}"
-    # torch._int_mm, the library's int8 GEMM, must not run on any path:
-    # count its calls through a wrapper installed for the run
-    int_mm, int_mm_calls = torch._int_mm, [0]
-
-    def counting_int_mm(*a, **kw):
-        int_mm_calls[0] += 1
-        return int_mm(*a, **kw)
-    torch._int_mm = counting_int_mm
-    zero_counts()
-    try:
-        t0 = time.perf_counter()
-        out = eng.benchmark(sweeps, repeats=repeats)
-        bench_s = time.perf_counter() - t0
-        counts = read_counts()
-    finally:
-        torch._int_mm = int_mm
-    counts["torch._int_mm"] = int_mm_calls[0]
+    t0 = time.perf_counter()
+    out, counts = counted(lambda: eng.benchmark(sweeps, repeats=repeats))
+    bench_s = time.perf_counter() - t0
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     m = out["metrics"]
     wins = out["ms_per_sweep"]
@@ -869,19 +1030,24 @@ def run_path(rd, K, sweeps, repeats, anchor_s, anchor_avg, name="ML-10M",
     if gather:
         built = (f"layout {prob.layout_seconds:.1f} s, padded nnz per mode "
                  f"{prob.padded_nnz}")
+    elif graph:
+        built = "stores " + ", ".join(
+            f"{tuple(st['M8' if i8 else 'M'].shape)} order {st['order']}"
+            for st, i8 in zip(prob.stores, prob.pair_i8s))
     elif fused:
         built = (f"fused_pair_plan {prob.plan_seconds:.1f} s, V8 build "
                  f"{prob.build_seconds - prob.plan_seconds:.1f} s, V8 "
-                 f"{tuple(prob.fused['V8'].shape)}")
-        if prob.residual_nnz:
+                 f"{tuple(prob.stores[0]['V8'].shape)}")
+        if prob.residual_nnzs[0]:
             rows = [sum(ba["inst"].shape[0] for ba in prob.layouts[k])
                     for k in ("r0m0", "r0m1")]
-            built += (f", residual {prob.residual_nnz} observations, bucket "
+            built += (f", residual {prob.residual_nnzs[0]} observations, "
+                      f"bucket "
                       f"rows per mode {rows}, padded cells per mode "
                       f"{prob.padded_nnz}, layouts "
                       f"{prob.layout_seconds:.1f} s")
     else:
-        M = prob.pair["M8" if pair_i8 else "M"]
+        M = prob.stores[0]["M8" if pair_i8 else "M"]
         built = (f"pair store {prob.build_seconds:.1f} s, M and W "
                  f"{tuple(M.shape)} {M.dtype}")
     print(f"# path {label}: ms/sweep per window {wins}, median {med:.3f}; "
@@ -892,8 +1058,7 @@ def run_path(rd, K, sweeps, repeats, anchor_s, anchor_avg, name="ML-10M",
           f"warm window", flush=True)
     total_sweeps = sweeps * (repeats + 1)
     want = {k: 0 for k in counts}
-    for tag, per_sweep in path_kernels(
-            K, gather, fused, prob.fused_i8 if fused else pair_i8).items():
+    for tag, per_sweep in graph_kernels(prob, K).items():
         want[tag] = per_sweep * total_sweeps
     require(counts == want, f"{label}: counts {counts} for {total_sweeps} "
                             f"sweeps, want {want}")
@@ -998,7 +1163,7 @@ def check_float_pair_contrib(eng, seed=0):
     import torch
     from bayesiandatafusion_jl_tpu_torch.ops import dense_gram as dg
     prob = eng.problem
-    pair, K = prob.pair, eng.config.num_latent
+    pair, K = prob.stores[0], eng.config.num_latent
     iu, ju = prob.tri[:2]
     C = K * (K + 1) // 2
     g = torch.Generator(device="cuda").manual_seed(seed)
@@ -1007,8 +1172,8 @@ def check_float_pair_contrib(eng, seed=0):
     for mode in range(2):
         partner = torch.randn((pair["shape"][1 - mode], K), generator=g,
                               device="cuda")
-        P, b = dg.float_pair_contrib(pair, prob.tri, partner, mode, alpha,
-                                     torch.float32)
+        P, b = dg.float_pair_contrib(pair, prob.tri, [partner], mode,
+                                     alpha, torch.float32)
         UT = partner.to(pair["M"].dtype).mT
         err, big = 0.0, 0.0
         for got, T, A in ((P, UT[iu] * UT[ju], pair["M"]),
@@ -1022,7 +1187,7 @@ def check_float_pair_contrib(eng, seed=0):
         del P, b
         torch.cuda.empty_cache()
         ms = cuda_ms(lambda: dg.float_pair_contrib(
-            pair, prob.tri, partner, mode, alpha, torch.float32), 5)
+            pair, prob.tri, [partner], mode, alpha, torch.float32), 5)
         n0, n1 = pair["shape"]
         out.append({"mode": mode, "max_abs_err": err, "max_abs": big,
                     "ok": err <= FLOAT_PAIR_TOL * big, "ms": ms,
@@ -1055,6 +1220,154 @@ def same_seed_runs(eng, sweeps=3):
     same = all(torch.equal(x["U"], y["U"]) for x, y in zip(a, b))
     diff = max(float((x["U"] - y["U"]).abs().max()) for x, y in zip(a, b))
     return same, diff
+
+
+def tensor_pair_views(pair):
+    """The arity-3 int8 store as K6 reads it: (pair, focus) of its 2-D view
+    [(a, c), b] (focus 0: mode a's first step, contracting b) and of its
+    view [a, (c, b)] (focus 1: modes b and c, contracting a), each with the
+    extents K6 writes (the true a rows; every column of the second)."""
+    M8, W8 = pair["M8"], pair["W8"]
+    na = pair["shape"][pair["order"][0]]
+    nb = pair["shape"][pair["order"][-1]]
+    rows = M8.shape[0] * M8.shape[1]
+    return [({"M8": M8.view(rows, -1), "W8": W8.view(rows, -1),
+              "shape": (na * M8.shape[1], nb)}, 0),
+            ({"M8": M8.view(M8.shape[0], -1), "W8": W8.view(W8.shape[0], -1),
+              "shape": (na, M8.shape[1] * M8.shape[2])}, 1)]
+
+
+def run_graph_paths(tally):
+    """The graph paths, each built as the JAX bench builds it: ``tensor``
+    (int8 pair at arity 3: K6 for each mode's first step, K7 for each
+    largest partner's table, K1), ``fusion`` (three int8 pairs on one
+    compound entity: K6 and K7 six times a sweep, K1), the same graph with
+    every alpha sampled (one window), ``tensor_big`` (the gather path at
+    arity 3, K3) and K9 at tensor_big's shape, which no engine path runs
+    (as in JAX): held bitwise against its plain version and timed beside
+    ``index_select``.  K6 is held against its plain version on the stores
+    of ``tensor`` and ``fusion``.  Returns K9's checks by label."""
+    import torch
+    from bayesiandatafusion_jl_tpu_torch.models.data import RelationData
+    from bayesiandatafusion_jl_tpu_torch.models.datasets import (
+        fusion_synthetic, tensor_big_synthetic, tensor_synthetic)
+    from bayesiandatafusion_jl_tpu_torch.models.engine import MacauEngine
+    from bayesiandatafusion_jl_tpu_torch.utils.config import MacauConfig
+    clock = [time.perf_counter()]
+
+    def phase_done(name):
+        now = time.perf_counter()
+        print(f"# phase {name}: {now - clock[0]:.1f} s", flush=True)
+        clock[0] = now
+
+    # -- tensor: 30,000 x 2,000 x 16, 5M cells, the int8 pair at arity 3 --
+    t0 = time.perf_counter()
+    rd = RelationData.from_indexed_df(tensor_synthetic(),
+                                      relation_name="tensor")
+    rd.assign_to_test(0, 100_000, seed=7)
+    print(f"# tensor data: {time.perf_counter() - t0:.1f} s with the test "
+          f"split", flush=True)
+    eng, counts, _ = run_path(rd, 32, *TENSOR_RUN, None, TENSOR_ANCHOR,
+                              name="tensor", clamp=None, graph=True,
+                              dense_int8=True, **GRAPH_OPTS)
+    tally(counts)
+    pair = eng.problem.stores[0]
+    require(tuple(pair["M8"].shape) == (30_000, 16, 2_000),
+            f"tensor: store {tuple(pair['M8'].shape)}")
+    print_profile("tensor K=32", profile_split(eng, split=PAIR_SPLIT))
+    del eng
+    torch.cuda.empty_cache()
+    for view, focus in tensor_pair_views(pair):
+        r = check_pair_contract(view, 32, focus)
+        print_pair_check("tensor view", r)
+        require(r["ok"] and r["library_equal"],
+                f"K6 disagrees with its plain version or the library: {r}")
+        torch.cuda.empty_cache()
+    del pair, rd
+    phase_done("tensor path")
+
+    # -- fusion: 50,000 compounds x (500, 3,000, 800), three int8 pairs ----
+    t0 = time.perf_counter()
+    rd = fusion_synthetic()
+    rd.assign_to_test("ic50", 100_000, seed=7)
+    print(f"# fusion data: {time.perf_counter() - t0:.1f} s with the test "
+          f"split", flush=True)
+    eng, counts, _ = run_path(rd, 32, *FUSION_RUN, None, FUSION_ANCHOR,
+                              name="fusion", clamp=None, graph=True,
+                              dense_int8=True, **GRAPH_OPTS)
+    tally(counts)
+    print_profile("fusion K=32", profile_split(eng, split=PAIR_SPLIT))
+    stores = eng.problem.stores
+    del eng
+    torch.cuda.empty_cache()
+    for pair in stores:
+        for focus in (0, 1):
+            r = check_pair_contract(pair, 32, focus, timing=False)
+            print_pair_check("fusion pair", r)
+            require(r["ok"], f"K6 disagrees with its plain version: {r}")
+    del stores, pair
+    torch.cuda.empty_cache()
+    # every alpha sampled: one window of run(), the alphas read each sweep
+    for rel in rd.relations:
+        rd.set_precision(rel, 5.0, sample=True)
+    sweeps = FUSION_RUN[0]
+    cfg = MacauConfig(num_latent=32, burnin=sweeps, psamples=0, clamp=None,
+                      verbose=False, dtype="float32", seed=42,
+                      dense_int8=True, **GRAPH_OPTS)
+    eng = MacauEngine(rd, cfg, device="cuda")
+    t0 = time.perf_counter()
+    res, counts = counted(lambda: eng.run(num_sweeps=sweeps))
+    run_s = time.perf_counter() - t0
+    tally(counts)
+    want = {k: 0 for k in counts}
+    for tag, per_sweep in graph_kernels(eng.problem, 32).items():
+        want[tag] = per_sweep * sweeps
+    require(counts == want, f"fusion, alpha sampled: counts {counts}, "
+                            f"want {want}")
+    alphas = [[h[f"r{ri}.alpha"] for h in res["history"]]
+              for ri in range(len(rd.relations))]
+    print(f"# fusion, every alpha sampled: {sweeps} sweeps in {run_s:.1f} s "
+          f"(run(), a device read each sweep); alpha per relation, sweeps "
+          f"1 and {sweeps}: {[(a[0], a[-1]) for a in alphas]}; rmse_sample "
+          f"{res['history'][-1]['r0.rmse_sample']:.4f}; counts {counts}",
+          flush=True)
+    require(all(math.isfinite(x) and x > 0 for a in alphas for x in a)
+            and all(a[0] != a[-1] and a[-1] != 5.0 for a in alphas),
+            f"fusion: the sampled alphas did not move or are not positive: "
+            f"{alphas}")
+    del eng, rd, res
+    torch.cuda.empty_cache()
+    phase_done("fusion paths")
+
+    # -- tensor_big: 200,000 x 20,000 x 8, 30M cells, the gather path -----
+    t0 = time.perf_counter()
+    rd = RelationData.from_indexed_df(tensor_big_synthetic(),
+                                      relation_name="tensor")
+    rd.assign_to_test(0, 100_000, seed=7)
+    print(f"# tensor_big data: {time.perf_counter() - t0:.1f} s with the "
+          f"test split", flush=True)
+    eng, counts, _ = run_path(rd, 32, *TENSOR_BIG_RUN, TENSOR_BIG_ANCHOR,
+                              None, name="tensor_big", clamp=None,
+                              graph=True, dense_gram=False, **GRAPH_OPTS)
+    tally(counts)
+    print_profile("tensor_big K=32", profile_split(eng, warm=1, sweeps=2))
+    del eng
+    torch.cuda.empty_cache()
+    phase_done("tensor_big path")
+
+    # -- K9 at tensor_big's shape: no engine path runs it (as in JAX) ------
+    part = rd.relations[0].data.idx[:, 0]
+    n_table = rd.relations[0].data.shape[0]
+    checks = {}
+    for dtype in ("bfloat16", "float32"):
+        r = check_windowed_expand(part, n_table, 32, dtype)
+        print_expand_check("tensor_big", r)
+        require(r["ok"], f"K9 disagrees with its plain version: {r}")
+        checks[("tensor_big", dtype)] = r
+        torch.cuda.empty_cache()
+    del part, rd
+    phase_done("K9 at tensor_big")
+    return checks
 
 
 def main() -> int:
@@ -1097,13 +1410,18 @@ def main() -> int:
     # -- kernels vs plain ---------------------------------------------------
     checks = {}
     for tag, fn, shapes in (
+            # ML-10M, Netflix, then the graph paths' entities: tensor's
+            # and fusion's
             ("K1", check_chol_kernel, ((32, 71_567), (32, 10_681),
                                        (32, 480_189), (32, 17_770),
-                                       (8, 1_000))),
+                                       (8, 1_000), (32, 30_000),
+                                       (32, 2_000), (32, 16), (32, 50_000),
+                                       (32, 500), (32, 3_000), (32, 800))),
             ("K2", check_chol_kernel, ((64, 71_567), (64, 10_681),
                                        (96, 71_567), (40, 1_000))),
             ("K3", check_full_kernel, ((32, 71_567), (32, 10_681),
-                                       (8, 1_000))),
+                                       (8, 1_000), (32, 200_000),
+                                       (32, 20_000), (32, 8))),
             ("K3 no Lambda", functools.partial(check_full_kernel, lam=False),
              ((32, 71_567), (32, 10_681), (8, 1_000))),
             ("K4", check_full_kernel, ((64, 71_567), (64, 10_681),
@@ -1119,10 +1437,15 @@ def main() -> int:
                   f"ms, plain {r['plain_ms']:.4f} ms", flush=True)
             require(r["ok"], f"{tag} disagrees with its plain version: {r}")
             torch.cuda.empty_cache()
+    # Netflix, ML-10M, a ragged case, then the graph paths' tables:
+    # tensor's and fusion's largest partners
     for n, K, n_valid in ((480_189, 32, None), (17_770, 32, None),
                           (71_567, 32, None), (10_681, 32, None),
                           (71_567, 64, None), (10_681, 64, None),
-                          (1_001, 36, 900)):
+                          (1_001, 36, 900), (30_000, 32, None),
+                          (2_000, 32, None), (50_000, 32, None),
+                          (500, 32, None), (3_000, 32, None),
+                          (800, 32, None)):
         r = check_ytab(n, K, n_valid)
         checks[("K7", K, n)] = r
         print(f"# K7 n={n} K={K} n_valid={n_valid}: bitwise {r['ok']} "
@@ -1158,6 +1481,17 @@ def main() -> int:
             print_pair_check("small ragged", r)
             require(r["ok"], f"K6 disagrees with its plain version: {r}")
         del pair
+    # K9 on ragged plans: a 1,000-row table (not a multiple of 128), a hot
+    # window of 5 blocks, windows 1 and 2 empty; and a plan with no
+    # observation
+    for K in (8, 32, 64, 128):
+        for dtype in ("float32", "bfloat16"):
+            for n_obs in (20_000, 0):
+                r = check_windowed_expand(
+                    ragged_parts(1_000, n_obs, K, hot=min(n_obs, 5_000),
+                                 gap=2), 1_000, K, dtype, timing=False)
+                print_expand_check("small ragged", r)
+                require(r["ok"], f"K9 disagrees with its plain version: {r}")
     phase_done("kernels vs plain")
 
     # -- int8 contraction ----------------------------------------------------
@@ -1172,8 +1506,17 @@ def main() -> int:
     rd.assign_to_test(0, min(100_000, df.nnz // 10), seed=7)
     print(f"# data: nnz={df.nnz}, shape={df.shape}", flush=True)
     phase_done("ML-10M data")
+    # K9 at the ML-10M gather shape: the users' factors, the training
+    # observations sorted by user id
+    users = np.sort(rd.relations[0].data.idx[:, 0])
+    for dtype in ("bfloat16", "float32"):
+        r = check_windowed_expand(users, df.shape[0], 32, dtype)
+        print_expand_check("ML-10M", r)
+        require(r["ok"], f"K9 disagrees with its plain version: {r}")
+        torch.cuda.empty_cache()
+    del users
     launches = dict.fromkeys(("K1", "K2", "K3", "K4", "K5", "K6", "K7",
-                              "K8a", "K8b", "K8c", "K8d"), 0)
+                              "K8a", "K8b", "K8c", "K8d", "K9"), 0)
     rmse_pair = {}
     pair_checks = {}
 
@@ -1195,7 +1538,7 @@ def main() -> int:
         if K in (32, 64):
             prof = profile_split(eng, split=PAIR_SPLIT)
             print_profile(f"ML-10M int8 pair K={K}", prof)
-        pair = eng.problem.pair
+        pair = eng.problem.stores[0]
         del eng
         torch.cuda.empty_cache()
         # K6 at the path's own store and K, both modes
@@ -1250,7 +1593,7 @@ def main() -> int:
         eng, counts, _ = run_path(rd, K, 40, 1, PATHS[K][2], None,
                                   dense_fused=True, dense_int8=True)
         tally(counts)
-        st = eng.problem.fused
+        st = eng.problem.stores[0]
         for focus in (0, 1):
             r = check_fused_pair(st["V8"], st["shape"], K, focus)
             print_fused_check("ML-10M", r)
@@ -1272,8 +1615,8 @@ def main() -> int:
                     f"fused K=128: rmse_sample@{sweeps} "
                     f"{out['rmse_at_sweeps']} outside this run's int8 pair's "
                     f"{rmse_pair[128]} +- {RMSE_BAND}")
-        st = eng.problem.fused
-        i8 = eng.problem.fused_i8
+        st = eng.problem.stores[0]
+        i8 = eng.problem.fused_i8s[0]
         table = "int8" if i8 else (opts.get("gram_dtype") or "float32")
         prof = profile_split(eng, split=FUSED_SPLIT)
         print_profile(f"ML-10M fused {table} K={K}", prof)
@@ -1320,7 +1663,7 @@ def main() -> int:
     phase_done("Netflix path")
     prof = profile_split(eng, split=FUSED_SPLIT)
     print_profile("Netflix fused K=32", prof)
-    st = eng.problem.fused
+    st = eng.problem.stores[0]
     del eng
     nf_checks = []
     for focus in (0, 1):
@@ -1346,7 +1689,7 @@ def main() -> int:
     tally(counts)
     prof = profile_split(eng, split=FUSED_SPLIT)
     print_profile("Netflix fused bfloat16 K=32", prof)
-    st = eng.problem.fused
+    st = eng.problem.stores[0]
     del eng
     nf_float = []
     for focus in (0, 1):
@@ -1382,11 +1725,11 @@ def main() -> int:
                               dense_fused_tol=NETFLIX_CONT_TOL,
                               bucket_widths=BENCH_WIDTHS)
     tally(counts)
-    st = eng.problem.fused
+    st = eng.problem.stores[0]
     print(f"# netflix_cont took the s8 fused path on the grid of step "
           f"{st['scale']:.6f} (rounding error <= {st['scale'] / 2:.6f}), "
           f"shift {st['shift']}, with a residual of "
-          f"{eng.problem.residual_nnz} observations", flush=True)
+          f"{eng.problem.residual_nnzs[0]} observations", flush=True)
     require(st["scale"] / 2 <= NETFLIX_CONT_TOL,
             f"netflix_cont: grid step {st['scale']} over the tolerance")
     del eng, st, rd
@@ -1410,13 +1753,16 @@ def main() -> int:
                               gram_dtype="bfloat16",
                               bucket_widths=BENCH_WIDTHS)
     tally(counts)
-    require(eng.problem.residual_nnz > 1_400_000,
-            f"netflix_dup: residual of {eng.problem.residual_nnz}")
+    require(eng.problem.residual_nnzs[0] > 1_400_000,
+            f"netflix_dup: residual of {eng.problem.residual_nnzs[0]}")
     prof = profile_split(eng, split=FUSED_SPLIT)
     print_profile("netflix_dup fused K=32", prof)
     del eng, rd
     torch.cuda.empty_cache()
     phase_done("netflix_dup path")
+
+    # -- the graph paths and K9 at tensor_big's shape ----------------------
+    k9_checks = run_graph_paths(tally)
 
     src = "bayesiandatafusion_jl_tpu_torch/csrc/"
     jax_src = "bayesiandatafusion_jl_tpu/ops/pallas_chol.py:"
@@ -1474,9 +1820,20 @@ def main() -> int:
                      "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"],
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                      "bound_by": r["bound_by"], "library_ms": lib})
+    r = k9_checks[("tensor_big", "bfloat16")]
+    rows.append({"name": "windowed_expand", "route": "cuda",
+                 "source": src + "windowed_expand.cu",
+                 "replaces": "bayesiandatafusion_jl_tpu/ops/pallas_gather.py:90",
+                 "launches": launches["K9"], "max_abs_err": r["max_abs_err"],
+                 "ms": r["kernel_ms"], "plain_ms": r["plain_ms"],
+                 "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                 "library_ms": r["library_ms"]})
+    # K9 is on no engine path, as in JAX (the focus-order permutation it
+    # would feed was never built): every path above held its launches to
+    # 0, and its row says so
     for row in rows:
-        require(row["launches"] > 0, f"{row['name']} never launched on a "
-                                     f"main path")
+        require(row["launches"] > 0 or row["name"] == "windowed_expand",
+                f"{row['name']} never launched on a main path")
     print(f"# total: {time.perf_counter() - T_START:.1f} s", flush=True)
     print(nvidia_smi_line())
     print(json.dumps({"kernels": rows}))

@@ -117,7 +117,7 @@ def test_dense_gram_contrib_matches_jax(mode, xla_cpu_ridge):
         alpha=jnp.asarray(alpha, jnp.float64))
     Pj, bj = np.asarray(Pj), np.asarray(bj)
     Pt, bt_ = tdg.int8_pair_contrib(
-        pair, tdg.tri_index(K, "cpu"), torch.from_numpy(partner), mode,
+        pair, tdg.tri_index(K, "cpu"), [torch.from_numpy(partner)], mode,
         torch.tensor(alpha, dtype=torch.float64), torch.float64)
     n_f = (n0, n1)[mode]
     Pt, bt_ = Pt.numpy(), bt_.numpy()
@@ -147,7 +147,7 @@ def test_dense_gram_contrib_unpacked_matches_jax(mode, xla_cpu_ridge):
         ridge_deg=jnp.asarray(deg, jnp.float32),
         alpha=jnp.asarray(2.5, jnp.float64))
     Pt, bt_ = tdg.int8_pair_contrib(
-        pair, tdg.tri_index(K, "cpu"), torch.from_numpy(partner), mode,
+        pair, tdg.tri_index(K, "cpu"), [torch.from_numpy(partner)], mode,
         torch.tensor(2.5, dtype=torch.float64), torch.float64, packed=False)
     n_f = (n0, n1)[mode]
     assert tuple(Pt.shape) == (n_f, K, K) and tuple(bt_.shape) == (n_f, K)
@@ -198,9 +198,9 @@ def test_engine_store_and_split_match_jax():
     np.testing.assert_array_equal(et.problem.test["r0"]["vals"].numpy(),
                                   np.asarray(ej.problem.arrays["test"]["r0"]
                                              ["vals"]))
-    assert et.problem.pair["w_scale"] == ej.problem.dense_w_scale[0]
+    assert et.problem.stores[0]["w_scale"] == ej.problem.dense_w_scale[0]
     st = ej.problem.arrays["dense"]["r0"]
-    pair = et.problem.pair
+    pair = et.problem.stores[0]
     np.testing.assert_array_equal(pair["M8"][:n0, :n1].numpy(),
                                   np.asarray(st["M"]))
     np.testing.assert_array_equal(pair["W8"][:n0, :n1].numpy(),

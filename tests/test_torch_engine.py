@@ -262,7 +262,7 @@ def test_gather_f64_matches_jax_engine(interpret_pallas, gather_branches,
     "segment" hands Lambda to the sampler, "planned" puts it in P.  U, mu
     and Lambda agree to 1e-8 after each of 3 float64 sweeps."""
     ej, et = _f64_engines(K=8, dense_gram=False, accumulation=accumulation)
-    assert et.problem.gather and not ej.problem.dense_plans
+    assert et.problem.kinds[0] == "gather" and not ej.problem.dense_plans
     _run_both(ej, et, 3, "float64", _check_f64)
     assert set(gather_branches) == {
         ("jax", accumulation), ("jax", "full"), ("jax", "K3"),
@@ -311,7 +311,7 @@ def test_fused_f64_matches_jax_engine(interpret_pallas, xla_cpu_ridge,
     of 3 float64 sweeps."""
     ej, et = _f64_engines(K=K, dense_fused=True)
     assert ej.problem.fused_i8.get(0) and not ej.problem.fused_keep
-    assert et.problem.fused is not None and et.problem.pair is None
+    assert et.problem.kinds == ["fused"]
     calls = (ytab.ytab_quantize_plain.calls,
              fused_pair.fused_pair_plain.calls)
     _run_both(ej, et, 3, "float64", _check_f64)
@@ -342,10 +342,10 @@ def test_fused_residual_f64_matches_jax_engine(interpret_pallas,
     1e-8."""
     ej, et = _f64_engines(K=8, residual=residual, dense_fused=True)
     keep = ej.problem.fused_keep[0]
-    assert et.problem.residual_nnz == int((~keep).sum()) > 0
-    assert et.problem.fused_i8 and ej.problem.fused_i8[0]
+    assert et.problem.residual_nnzs[0] == int((~keep).sum()) > 0
+    assert et.problem.fused_i8s[0] and ej.problem.fused_i8[0]
     np.testing.assert_array_equal(
-        et.problem.fused["deg"][0].numpy()[:60],
+        et.problem.stores[0]["deg"][0].numpy()[:60],
         np.asarray(ej.problem.arrays["dense"]["r0"]["deg_m0"])[:60])
     calls = _fused_counts()
     _run_both(ej, et, 3, "float64", _check_f64)
@@ -375,7 +375,7 @@ def test_fused_float_f64_matches_jax_engine(monkeypatch, fused_branches, K,
     ej, et = _f64_engines(K=K, pallas="off", dense_fused=True,
                           dense_int8=declined)
     assert ej.problem.fused_rels and not ej.problem.fused_i8[0]
-    assert et.problem.fused is not None and not et.problem.fused_i8
+    assert et.problem.kinds[0] == "fused" and not et.problem.fused_i8s[0]
     calls = _fused_counts()
     _run_both(ej, et, 3, "float64", _check_f64)
     assert set(fused_branches) == {
@@ -398,8 +398,8 @@ def test_fused_k100_f64_matches_jax_engine(xla_cpu_ridge, fused_branches,
     sweeps to 1e-8."""
     ej, et = _f64_engines(K=100, pallas="off", residual=residual,
                           dense_fused=True, dense_int8=int8)
-    assert et.problem.fused_i8 == int8 == ej.problem.fused_i8[0]
-    assert (et.problem.residual_nnz > 0) == (residual is not None)
+    assert et.problem.fused_i8s[0] == int8 == ej.problem.fused_i8[0]
+    assert (et.problem.residual_nnzs[0] > 0) == (residual is not None)
     calls = _fused_counts()
     inv = chol_blocked.chol_inv_plain.calls
     _run_both(ej, et, 3, "float64", _check_f64)
@@ -441,9 +441,9 @@ def test_fused_f32_variants_match_s8_chain(variant):
             num_latent=8, dtype="float32", seed=5, verbose=False,
             clamp=(1.0, 5.0), dense_fused=True, **opts), device="cpu")
         prob = eng.problem
-        assert prob.fused is not None
-        assert prob.fused_i8 == (name != "float_bf16")
-        assert (prob.residual_nnz > 0) == (name == "duplicates")
+        assert prob.kinds[0] == "fused"
+        assert prob.fused_i8s[0] == (name != "float_bf16")
+        assert (prob.residual_nnzs[0] > 0) == (name == "duplicates")
         state = eng.init_state()
         rng = np.random.default_rng(999)
         for s in range(20):
@@ -471,7 +471,7 @@ def test_fused_f32_chain_matches_pair_chain():
             num_latent=8, dtype="float32", seed=5, verbose=False,
             clamp=(1.0, 5.0), dense_fused=fused, dense_int8=True),
             device="cpu")
-        assert (eng.problem.fused is not None) == fused
+        assert (eng.problem.kinds[0] == "fused") == fused
         state = eng.init_state()
         rng = np.random.default_rng(999)
         for s in range(20):
@@ -498,7 +498,7 @@ def test_gather_macau_runs_and_reports():
     eng = bt.MacauEngine(rd, bt.MacauConfig(num_latent=4, verbose=False,
                                             dense_gram=False), device="cpu")
     prob = eng.problem
-    assert prob.pair is None and prob.acc_plan == {}
+    assert prob.kinds == ["gather"] and prob.acc_plan == {}
     assert sum(prob.padded_nnz) >= 2 * (df.nnz - 300)
     assert all(ba["inst"].dtype == torch.int32
                for ba in prob.layouts["r0m0"])
@@ -578,7 +578,7 @@ def test_macau_runs_and_reports():
                                             psamples=3, clamp=(1, 5),
                                             verbose=False, dense_int8=True),
                          device="cpu")
-    assert eng.problem.pair_i8
+    assert eng.problem.pair_i8s[0]
     res = eng.run(callback=lambda s, phase, m, dt: seen.append(phase))
     assert seen == ["burnin"] * 3 + ["sample"] * 3
     assert 0.3 < res["RMSE"] < 1.5
@@ -591,20 +591,15 @@ def test_macau_runs_and_reports():
 
 
 @pytest.mark.parametrize("kwargs, item", [
-    (dict(alpha_sample=True), "M7"),
-    (dict(accumulation="planned"), "M6"),
     (dict(metrics_every=4), "M4"),
-    (dict(alpha_a0=2.0, alpha_b0=1.0), "M7"),
     (dict(trace_dir="trace"), "M4"),
     (dict(checkpoint_every=5, checkpoint_path="ck.npz"), "M10"),
     (dict(output_prefix="out"), "M10"),
     (dict(log_file="log.jsonl"), "M10"),
 ])
 def test_unported_options_raise(kwargs, item):
-    """An option outside the slice raises, naming its ROADMAP item, when
-    the config is made (options the port has no field for) or when the
-    engine sees it with the data: alpha sampling; "planned" accumulation
-    with a dense path."""
+    """An option outside the port raises, naming its ROADMAP item, when
+    the config is made (options the port has no field for)."""
     df = synthetic_ratings(30, 20, 200, seed=0)
     rd = bt.RelationData.from_indexed_df(df)
     with pytest.raises(NotImplementedError, match=item):
@@ -656,13 +651,20 @@ def test_config_fields_cover_jax_config():
 
 
 def test_unported_data_raises():
+    """Side features and class_cut (M8) raise, and so does the int8 pair
+    of a relation of arity 4 or more (M12)."""
     with pytest.raises(NotImplementedError, match="M8"):
         bt.Entity("compound", F=np.eye(3))
-    rng = np.random.default_rng(0)
-    idx = np.stack([rng.integers(0, n, 50) for n in (5, 4, 3)], 1)
-    rd = bt.RelationData.from_indexed_df(
-        bt.IndexedDF(np.unique(idx, axis=0), np.ones(len(np.unique(
-            idx, axis=0))), (5, 4, 3)))
-    with pytest.raises(NotImplementedError, match="M7"):
+    rd = bt.RelationData.from_indexed_df(synthetic_ratings(30, 20, 200),
+                                         class_cut=3.0)
+    with pytest.raises(NotImplementedError, match="M8"):
         bt.MacauEngine(rd, bt.MacauConfig(num_latent=3, verbose=False),
                        device="cpu")
+    rng = np.random.default_rng(0)
+    idx = np.unique(np.stack([rng.integers(0, n, 80) for n in (5, 4, 3, 2)],
+                             1), axis=0)
+    rd = bt.RelationData.from_indexed_df(
+        bt.IndexedDF(idx, rng.standard_normal(len(idx)), (5, 4, 3, 2)))
+    with pytest.raises(NotImplementedError, match="M12"):
+        bt.MacauEngine(rd, bt.MacauConfig(num_latent=3, verbose=False,
+                                          dense_int8=True), device="cpu")

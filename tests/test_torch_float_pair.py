@@ -73,7 +73,7 @@ def test_float_contrib_f64_matches_jax(mode, packed):
         transposed=packed, alpha=jnp.asarray(1.7, jnp.float64))
     pair = tdg.build_dense_pair(idx, cen, (n0, n1), torch.float64, "cpu")
     P, b = tdg.float_pair_contrib(
-        pair, tdg.tri_index(K, "cpu"), torch.from_numpy(partner), mode,
+        pair, tdg.tri_index(K, "cpu"), [torch.from_numpy(partner)], mode,
         torch.tensor(1.7, dtype=torch.float64), torch.float64, packed=packed)
     n_f = (n0, n1)[mode]
     assert tuple(P.shape) == ((K * (K + 1) // 2, n_f) if packed
@@ -106,7 +106,7 @@ def test_float_contrib_bf16_matches_jax(monkeypatch, mode, widen_elems):
         packed=True, transposed=True, alpha=jnp.asarray(2.0, jnp.float32))
     pair = tdg.build_dense_pair(idx, cen, (n0, n1), torch.bfloat16, "cpu")
     P, b = tdg.float_pair_contrib(
-        pair, tdg.tri_index(K, "cpu"), torch.from_numpy(partner), mode,
+        pair, tdg.tri_index(K, "cpu"), [torch.from_numpy(partner)], mode,
         torch.tensor(2.0), torch.float32)
     assert P.dtype == b.dtype == torch.float32
     for got, want in ((P, Pj), (b, bj)):
@@ -144,8 +144,8 @@ def pair_branches(monkeypatch):
 def _float_pair_run(K, pallas, branches, **opts):
     ej, et = _f64_engines(K=K, pallas=pallas, **{**FLOAT_PAIR, **opts})
     assert 0 not in ej.problem.dense_w_scale and ej.problem.dense_plans
-    assert not et.problem.pair_i8
-    assert et.problem.pair["M"].dtype == torch.float64
+    assert not et.problem.pair_i8s[0]
+    assert et.problem.stores[0]["M"].dtype == torch.float64
     calls = (pair_contract.pair_contract_plain.calls,
              chol_blocked.chol_inv_plain.calls)
     _run_both(ej, et, 3, "float64", _check_f64)
@@ -207,7 +207,7 @@ def test_float_pair_f32_chain_matches_int8_pair(gram_dtype):
             num_latent=8, dtype="float32", seed=5, verbose=False,
             clamp=(1.0, 5.0), dense_int8=int8,
             gram_dtype=None if int8 else gram_dtype), device="cpu")
-        assert eng.problem.pair_i8 == int8
+        assert eng.problem.pair_i8s[0] == int8
         state = eng.init_state()
         rng = np.random.default_rng(999)
         for s in range(20):
@@ -234,4 +234,4 @@ def test_config_defaults_match_jax():
     rd = bt.RelationData.from_indexed_df(synthetic_ratings(30, 20, 200))
     eng = bt.MacauEngine(rd, bt.MacauConfig(num_latent=4, verbose=False),
                          device="cpu")
-    assert not eng.problem.pair_i8 and eng.problem.fused is None
+    assert not eng.problem.pair_i8s[0] and eng.problem.kinds[0] != "fused"

@@ -162,7 +162,7 @@ def test_engine_cuda_matches_cpu(cuda, monkeypatch, K, kernel, per_sweep):
         cfg = bt.MacauConfig(num_latent=K, dtype="float64", verbose=False,
                              clamp=(1.0, 5.0), seed=4, dense_int8=True)
         engines[dev] = bt.MacauEngine(rd, cfg, device=dev)
-        assert engines[dev].problem.pair_i8
+        assert engines[dev].problem.pair_i8s[0]
     st = engines["cpu"].init_state()
     states = {"cpu": st, "cuda": state_from_numpy(state_to_numpy(st), cuda,
                                                   torch.float64)}
@@ -209,8 +209,8 @@ def test_float_pair_engine_cuda_matches_cpu(cuda, K, kernel, per_sweep):
         cfg = bt.MacauConfig(num_latent=K, dtype="float64", verbose=False,
                              clamp=(1.0, 5.0), seed=4)
         engines[dev] = bt.MacauEngine(rd, cfg, device=dev)
-        assert not engines[dev].problem.pair_i8
-        assert engines[dev].problem.pair["M"].dtype == torch.float64
+        assert not engines[dev].problem.pair_i8s[0]
+        assert engines[dev].problem.stores[0]["M"].dtype == torch.float64
     st = engines["cpu"].init_state()
     states = {"cpu": st, "cuda": state_from_numpy(state_to_numpy(st), cuda,
                                                   torch.float64)}
@@ -255,7 +255,7 @@ def test_float_pair_contrib_cuda_matches_cpu(cuda, monkeypatch, store, K,
                                            getattr(torch, store), dev)
         out[dev] = dense_gram.float_pair_contrib(
             pair, dense_gram.tri_index(K, dev),
-            torch.from_numpy(partner).to(dev), mode,
+            [torch.from_numpy(partner).to(dev)], mode,
             torch.tensor(2.0, device=dev), torch.float32, packed=packed)
     for got, want in zip(out["cuda"], out["cpu"]):
         assert got.dtype == want.dtype == torch.float32
@@ -282,7 +282,7 @@ def test_fused_engine_cuda_matches_cpu(cuda, monkeypatch, K):
                              clamp=(1.0, 5.0), seed=4, dense_fused=True,
                              dense_int8=True)
         engines[dev] = bt.MacauEngine(rd, cfg, device=dev)
-        assert engines[dev].problem.fused is not None
+        assert engines[dev].problem.kinds[0] == "fused"
     st = engines["cpu"].init_state()
     states = {"cpu": st, "cuda": state_from_numpy(state_to_numpy(st), cuda,
                                                   torch.float64)}
@@ -346,9 +346,9 @@ def test_fused_variants_engine_cuda_matches_cpu(cuda, monkeypatch, case):
                              **{"dense_int8": True, **opts})
         engines[dev] = bt.MacauEngine(rd, cfg, device=dev)
         prob = engines[dev].problem
-        assert prob.fused is not None
-        assert prob.fused_i8 == opts.get("dense_int8", True)
-        assert (prob.residual_nnz > 0) == dup
+        assert prob.kinds[0] == "fused"
+        assert prob.fused_i8s[0] == opts.get("dense_int8", True)
+        assert (prob.residual_nnzs[0] > 0) == dup
     st = engines["cpu"].init_state()
     states = {"cpu": st, "cuda": state_from_numpy(state_to_numpy(st), cuda,
                                                   torch.float64)}
@@ -449,3 +449,130 @@ def test_gather_benchmark_on_default_device(cuda):
     assert chol_full.chol_sample_full.launches == launches + 2 * 15
     assert all(np.isfinite(out["ms_per_sweep"]))
     assert 0.5 < out["metrics"]["r0.rmse_avg"] < 1.5
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("K", [8, 32, 64, 128, 36, 9])
+@pytest.mark.parametrize("n_table, n_obs, hot, gap", [
+    (1_000, 20_000, 5_000, 2), (130, 3_000, 0, 0), (5_000, 0, 0, 0)])
+def test_windowed_expand_kernel_matches_plain(cuda, K, dtype, n_table, n_obs,
+                                              hot, gap):
+    """K9 against its plain version, bit for bit, on ragged plans: a table
+    that is not a multiple of 128 rows, a hot window over several blocks,
+    empty windows, a plan without observations; rows of 16, 8, 4 and 2
+    bytes' multiples (K = 36 and 9 in bfloat16 take the narrower
+    vectors)."""
+    import chip_smoke
+    part = chip_smoke.ragged_parts(n_table, n_obs, K, hot=hot, gap=gap)
+    r = chip_smoke.check_windowed_expand(part, n_table, K, dtype,
+                                         timing=False)
+    assert r["ok"], r
+
+
+def test_windowed_expand_raises(cuda):
+    """The wrapper refuses what the kernel does not take, on the card,
+    with no fallback."""
+    from bayesiandatafusion_jl_tpu_torch.ops import gather_expand
+    lanes = torch.zeros(1024, dtype=torch.int32, device=cuda)
+    wmap = torch.zeros(1, dtype=torch.int32, device=cuda)
+    for U, L in ((torch.zeros((10, 129), device=cuda), lanes),
+                 (torch.zeros((10, 8), dtype=torch.float64, device=cuda),
+                  lanes),
+                 (torch.zeros((10, 8), device=cuda), lanes.long()),
+                 (torch.zeros((10, 8), device=cuda), lanes[:512])):
+        with pytest.raises(ValueError):
+            gather_expand.windowed_expand(U, L, wmap)
+
+
+def _tensor_graph():
+    from bayesiandatafusion_jl_tpu_torch.models.datasets import \
+        tensor_synthetic
+    rd = bt.RelationData.from_indexed_df(
+        tensor_synthetic((60, 40, 8), 4_000, 8, seed=5))
+    rd.assign_to_test(0, 300, seed=7)
+    return rd
+
+
+def _fusion_graph(alpha_sample=False):
+    from bayesiandatafusion_jl_tpu_torch.models.datasets import \
+        fusion_synthetic
+    rd = fusion_synthetic(400, (("ic50", "target", 50, 6_000),
+                                ("assay", "assay", 60, 4_000),
+                                ("pathway", "pathway", 30, 2_000)), rank=8)
+    rd.assign_to_test("ic50", 300, seed=7)
+    for rel in rd.relations:
+        rd.set_precision(rel, 5.0, sample=alpha_sample)
+    return rd
+
+
+def _symmetric_graph():
+    rng = np.random.default_rng(6)
+    n = 50
+    mask = rng.random((n, n)) < 0.3
+    mask[7, :] = mask[:, 7] = False
+    idx = np.stack(np.nonzero(mask), 1)
+    e = bt.Entity("drug", count=n)
+    rd = bt.RelationData()
+    rd.add_relation(bt.IndexedDF(idx, rng.standard_normal(len(idx)),
+                                 (n, n)), "interaction", [e, e])
+    rd.assign_to_test(0, 40, seed=1)
+    return rd
+
+
+GRAPH_CASES = {
+    # name: (graph, options, kernel launches a sweep on the card)
+    "tensor_int8": (_tensor_graph, dict(dense_int8=True),
+                    {"K1": 3, "K6": 3, "K7": 3}),
+    "tensor_float": (_tensor_graph, dict(), {"K1": 3}),
+    "tensor_gather": (_tensor_graph, dict(dense_gram=False), {"K3": 3}),
+    "fusion_int8": (_fusion_graph, dict(dense_int8=True),
+                    {"K1": 4, "K6": 6, "K7": 6}),
+    "fusion_alpha": (lambda: _fusion_graph(True), dict(dense_int8=True),
+                     {"K1": 4, "K6": 6, "K7": 6}),
+    "symmetric_int8": (_symmetric_graph, dict(dense_int8=True),
+                       {"K1": 1, "K6": 2, "K7": 2}),
+}
+
+
+@pytest.mark.parametrize("case", sorted(GRAPH_CASES))
+def test_graph_engine_cuda_matches_cpu(cuda, monkeypatch, case):
+    """Graphs on the card against the CPU, three float64 sweeps with
+    injected randoms: the tensor (int8 pair at arity 3: K6 for each mode's
+    first step and K7 for its table; the float pair; the gather path on
+    K3), the fusion graph (three int8 pairs on one entity, alphas fixed or
+    sampled) and a symmetric relation.  The card launches the kernels
+    listed and runs no plain version and no ``torch._int_mm``; U, mu,
+    Lambda and alpha agree to float64 rounding (the ridge's float32 mean
+    summed in one fixed order on both devices)."""
+    import chip_smoke
+    graph, opts, per_sweep = GRAPH_CASES[case]
+    monkeypatch.setattr(dense_gram, "ridge_step", xla_cpu_ridge_step)
+    engines = {}
+    for dev in ("cpu", "cuda"):
+        cfg = bt.MacauConfig(num_latent=8, dtype="float64", verbose=False,
+                             seed=4, **opts)
+        engines[dev] = bt.MacauEngine(graph(), cfg, device=dev)
+    st = engines["cpu"].init_state()
+    states = {"cpu": st, "cuda": state_from_numpy(state_to_numpy(st), cuda,
+                                                  torch.float64)}
+    rng = np.random.default_rng(1)
+    total = {}
+    for s in range(3):
+        randoms = draw_all_numpy(rng, engines["cpu"].problem.random_spec)
+        states["cpu"], _ = engines["cpu"]._sweep_with_randoms(
+            states["cpu"], {k: torch.from_numpy(v)
+                            for k, v in randoms.items()}, 1.0)
+        r = {k: torch.from_numpy(v).to(cuda) for k, v in randoms.items()}
+        (states["cuda"], _), counts = chip_smoke.counted(
+            lambda: engines["cuda"]._sweep_with_randoms(states["cuda"], r,
+                                                        1.0))
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+    assert total == {k: 3 * per_sweep.get(k, 0) for k in total}
+    a, b = state_to_numpy(states["cpu"]), state_to_numpy(states["cuda"])
+    for ei in range(len(a["ent"])):
+        for key in ("U", "mu", "Lambda"):
+            np.testing.assert_allclose(b["ent"][ei][key], a["ent"][ei][key],
+                                       rtol=1e-9, atol=1e-9)
+    for ra, rb in zip(a["rel"], b["rel"]):
+        np.testing.assert_allclose(rb["alpha"], ra["alpha"], rtol=1e-9)

@@ -42,6 +42,7 @@ def test_scan_covers_the_port():
                  "bayesiandatafusion_jl_tpu_torch/ops/chol_blocked.py",
                  "bayesiandatafusion_jl_tpu_torch/ops/chol_full.py",
                  "bayesiandatafusion_jl_tpu_torch/ops/fused_pair.py",
+                 "bayesiandatafusion_jl_tpu_torch/ops/gather_expand.py",
                  "bayesiandatafusion_jl_tpu_torch/ops/pair_contract.py",
                  "bayesiandatafusion_jl_tpu_torch/ops/ytab.py",
                  "bayesiandatafusion_jl_tpu_torch/models/datasets.py",

@@ -169,7 +169,7 @@ def test_dense_gram_contrib_f32_one_store_matches_jax(xla_cpu_ridge, K,
     assert tuple(pair["M8"].shape) == tuple(pair["W8"].shape) == (64, 48)
     calls = tpc.pair_contract_plain.calls
     P, b = tdg.int8_pair_contrib(
-        pair, tdg.tri_index(K, "cpu"), torch.from_numpy(partner), mode,
+        pair, tdg.tri_index(K, "cpu"), [torch.from_numpy(partner)], mode,
         torch.tensor(2.5), torch.float32)
     assert tpc.pair_contract_plain.calls == calls + 1
     assert P.dtype == b.dtype == torch.float32
@@ -194,7 +194,7 @@ def test_dense_gram_contrib_k100_one_store_matches_jax(xla_cpu_ridge, mode):
                      False)
     pair = tdg.build_int8_pair(idx, cen, (n0, n1), np.float64, "cpu")
     P, b = tdg.int8_pair_contrib(
-        pair, tdg.tri_index(K, "cpu"), torch.from_numpy(partner), mode,
+        pair, tdg.tri_index(K, "cpu"), [torch.from_numpy(partner)], mode,
         torch.tensor(1.5, dtype=torch.float64), torch.float64, packed=False)
     assert tuple(P.shape) == (n0, n1)[mode:mode + 1] + (K, K)
     np.testing.assert_array_equal(b.numpy(), bj)
