@@ -1,7 +1,8 @@
-// Shared by the fused masked-pair kernels (fused_pair_i8.cu, the int8
-// tensor-core variants; fused_pair_f.cu, the float-operand variants) and
-// the int8 pair contraction (pair_contract_i8.cu): the CTA tile, the
-// swizzled shared-memory layout and the "virtual column" map.
+// Shared by the float-operand fused masked-pair kernels (fused_pair_f.cu)
+// and the int8 pair contraction (pair_contract_i8.cu): the CTA tile, the
+// swizzled shared-memory layout and the "virtual column" map.  (The int8
+// fused kernels, fused_pair_i8.cu, run their own TMA ring on
+// hopper_ring.cuh.)
 //
 // All of them compute, for a CTA, 128 focus rows x 128 virtual output
 // columns from shared-memory tiles with 128-byte rows (128 int8 or 64 bf16

@@ -1,15 +1,16 @@
-// Fused masked-pair contraction on int8 tensor cores (K8): both Gramian
-// orientations of the fused sparse regime from ONE stored int8 value array.
+// Fused masked-pair contraction on int8 tensor cores (K8a, K8b): both
+// Gramian orientations of the fused sparse regime from ONE stored int8
+// value array.
 //
 // Replaces the TPU kernels of bayesiandatafusion_jl_tpu/ops/pallas_fused.py
 // `fused_pair_pallas` (:345) in its s8 variants: flip_out raw int32
 // `_kern_focus_rows_i8_t` (:127) / `_kern_focus_cols_i8_t` (:158), the
 // dequantizing `_kern_focus_rows_i8_tq` (:182) / `_kern_focus_cols_i8_tq`
-// (:218), and the natural layout `_kern_focus_rows_i8` (:83) /
-// `_kern_focus_cols_i8` (:106).  With V8 [n0, n1] the stored codes (0 = unobserved) and YZ8T
-// [C+K, n_contract] the partner table [Ypack | U] quantized per row (K7),
-// it computes for the focus mode f (f = 0: V8's rows, contracting n1;
-// f = 1: V8's columns, contracting n0)
+// (:218) (K8a), and the natural layout `_kern_focus_rows_i8` (:83) /
+// `_kern_focus_cols_i8` (:106) (K8b).  With V8 [n0, n1] the stored codes
+// (0 = unobserved) and YZ8T [C+K, n_contract] the partner table [Ypack | U]
+// quantized per row (K7), it computes for the focus mode f (f = 0: V8's
+// rows, contracting n1; f = 1: V8's columns, contracting n0)
 //
 //     PM[c, i] = sum_p (V8_f[i, p] != 0) * YZ8T[c, p]      c < C + K
 //     BV[k, i] = sum_p  V8_f[i, p]       * YZ8T[C + k, p]  k < K
@@ -20,54 +21,100 @@
 // dequant epilogue Pt = PM[:C] * syz[:C], PMm = PM[C:] * syz[C:],
 // BVf = BV * sz (one int32 -> float32 conversion and one float32 multiply
 // per element, as the plain version does); or raw int32 in the natural
-// layout PM [n_focus, C + K], BV [n_focus, K], which the full-P branch
-// (K > 96) finishes and expands to [n_focus, K, K].  There each thread's
-// two adjacent sums of an mma tile land side by side in memory.
+// layout PM [n_focus, C + K], BV [n_focus, K] (K8b: the full-P branch,
+// K > 96).
 //
-// What bounds it on an H100: 2 n0 n1 (C + 2K) int8 operations, 1.01e13 at
-// the Netflix shape (480,189 x 17,770, K = 32), 5.1 ms at the 1,979 TOP/s
-// dense int8 peak; its bytes (V8 8.5 GB once, the f32 outputs 1.1 GB) are
-// 2.9 ms at 3.35 TB/s.  So the tensor cores are the floor.
+// What bounds it on an H100: the design multiplies every cell of the
+// extent on the tensor cores, 2 n0 n1 (C + 2K) int8 operations: 1.01e13
+// at Netflix (480,189 x 17,770, K = 32), 5.1 ms at the 1,979 TOP/s dense
+// int8 peak, and 1.30e13 at ML-10M K = 128, 6.6 ms; the bytes (V8 once,
+// the outputs once) take 2.9 and 1.0 ms at 3.35 TB/s.  So the tensor
+// cores are the floor, and the design answers what held the first
+// version (a 2-stage register-staged GEMM on mma.sync) below a fifth of it:
 //
-// Design: a plain GEMM on `mma.sync.m16n8k32.s8`, the mask made on chip.
-// A CTA of 8 warps computes 128 focus rows x 128 "virtual" output columns:
-// [0, ckp) are the mask columns (YZ8T rows 0..C+K-1, padded to a multiple
-// of 32 so each warp's 32 columns are all mask or all value columns),
-// [ckp, ckp + K) the value columns (YZ8T rows C..C+K-1 again, against the
-// raw codes).  Each warp holds 64 x 32 int32 sums.  The contraction runs in
-// 128-byte steps through two shared-memory stages, loaded through
-// registers while the other stage is multiplied.  Each stage holds the V8
-// tile twice, as codes and as its 0/1 mask (__vcmpne4(w, 0) & 0x01010101
-// per 32-bit word), made once per element when the tile is stored rather
-// than by each of the 4 warps that read an A row; the mask warps read the
-// one, the value warps the other.  int8 mma takes both operands K-major
-// (contiguous along the contraction):
-//   - focus rows (mode 0): a V8 tile is K-major as stored, copied as is;
-//   - focus columns (mode 1): V8 is strided along the contraction, and
-//     Hopper's 8-bit mma has no transposed operand.  Each thread loads
-//     16 bytes (16 focus columns) of each of 4 contraction rows and
-//     transposes the four 4 x 4-byte blocks in registers with __byte_perm
-//     before the store, so no transposed copy of V8 (8.5 GB more) is ever
-//     made.
-// Shared tiles are 128-byte rows with an XOR swizzle of the 16-byte chunks,
-// chunk ^ ((row ^ row >> 2) & 7), and in mode 1 chunk ^ ((row ^ row >> 2
-// ^ row >> 4) & 7): both keep the fragment loads free of bank conflicts,
-// and the longer one also mode 1's transposed stores (mode 0 keeps the
-// shorter one, whose address arithmetic is cheaper).  V8 is read once per
-// column tile: 5 times a mode at K = 32 (608 virtual columns), mostly from
-// L2, since the column tiles of one focus tile are neighbours in the grid.
-#include "fused_pair.cuh"
+// - Loads: an asynchronous ring of STAGES = 4 stages, each one TMA box of
+//   V8 (128 focus x 128 contraction bytes) and up to four 64-row boxes of
+//   YZ8T, filled by one producer thread and completing on an mbarrier; two
+//   consumer warpgroups release a stage through a second mbarrier.  The
+//   producer warpgroup gives up registers (setmaxnreg: 40) so that the
+//   consumers can hold 232 (ptxas allots a wgmma kernel's registers by
+//   warpgroups: 168 each at launch).  TMA's zero fill makes the
+//   ragged edges: a zero code is a zero mask, and YZ8T rows past C + K
+//   (pad columns) and contraction bytes past the extent read 0.
+// - One int8 copy of the V8 tile a stage.  Each consumer loads its A
+//   fragments (the codes) from it into registers and makes the 0/1 mask
+//   there (__vcmpne4), so no mask tile is stored.
+// - Tensor cores: wgmma.mma_async m64nNk32 s32.s8.s8, A (codes or mask)
+//   from registers, B the YZ8T rows, K-major as stored, through a
+//   descriptor of the 128-byte-swizzled tile.  A consumer warpgroup holds
+//   128 focus rows x two 64-column chunks (4 x 32 int32 accumulators a
+//   thread): one N = 128 product a 64-row block for a pair, N = 64 for a
+//   lone chunk.  Each k32 step's products run while the next step's
+//   operand loads.  No product sits in a branch of its mainloop: ptxas
+//   serializes every wgmma of a kernel that has one, so each chunk count
+//   (two, one, none) has a mainloop of its own, chosen once a tile; and a
+//   pair never needs both operands at once, which would leave too few
+//   registers to pipeline the products.  8-bit wgmma takes only K-major
+//   operands, so focus columns (mode 1: the tile is [contraction x focus])
+//   transpose in registers: each thread reads 32-bit words of 4
+//   contraction rows and transposes them with __byte_perm into the A
+//   fragments of 4 adjacent focus columns, which it owns as its 4 MMA rows
+//   (rows g, g + 8 of both 64-row blocks); the epilogue writes each row
+//   back to its column.
+// - Tiles and order: a CTA tile is 128 focus rows x 4 chunks of 64
+//   virtual columns (256).  The virtual columns are [0, ckp) the mask
+//   columns (YZ8T rows 0 .. C+K-1, ckp = C + K rounded up to 64) and
+//   [ckp, ckp + K) the value columns (YZ8T rows C .. C+K-1 against the raw
+//   codes); a chunk is all of one kind, and where both fall in one tile
+//   they are made from the same codes tile.  The chunks pair up, the mask
+//   chunks two by two and then the value chunks, so no pair mixes the
+//   kinds; a tile is two pairs, one for each consumer.
+//   One CTA per SM walks the tiles persistently in a grouped order: groups
+//   of G focus tiles, column tiles outer within a group, so the 132 CTAs
+//   in flight share each V8 strip (its column tiles) and each YZ8T panel
+//   (its group's focus tiles) through L2 as they stream the contraction
+//   together.  G is 16 in mode 0 and 2 in mode 1: on the H100 each was
+//   the fastest G of 1, 2, 4, 16, or within 2% of it, at every shape
+//   timed in its mode (Netflix K = 32 and ML-10M K = 128, both modes;
+//   ML-10M K = 32 and 64, mode 1), where 16 in mode 1 ran up to 1.13x
+//   slower and 2 in mode 0 up to 1.08x (PERF.md §6).  The loads carry no
+//   L2 eviction hints: evict_last on YZ8T and evict_first on V8 ran
+//   slower at every mode-1 shape but K = 128 with G = 16, and that was
+//   slower than G = 2 without them.
+// - Epilogue: a consumer stages 32 columns x 128 focus rows of int32 sums
+//   in its own 16 KB of shared memory (outside the ring, which already
+//   holds the next tile's loads), then writes the flip_out layouts as
+//   coalesced rows along n_focus and the natural layout as 16-byte stores
+//   along C + K, all streaming stores (no later read in this kernel).
+#include <algorithm>
+
+#include "hopper_ring.cuh"
 
 namespace {
 
-using namespace fused_pair;
+using namespace hopper;
+
+constexpr int BM = 128;                  // focus rows (mode 1: columns) a tile
+constexpr int BK = 128;                  // contraction bytes a stage
+constexpr int CH = 64;                   // virtual columns a chunk (wgmma N)
+constexpr int SLOTS = 4;                 // chunks a CTA tile
+constexpr int STAGES = 4;
+constexpr int GROUP0 = 16, GROUP1 = 2;   // focus tiles a group, by mode
+constexpr int A_BYTES = BM * BK;         // the V8 box
+constexpr int B_BYTES = CH * BK;         // one chunk's YZ8T box
+constexpr int STAGE_BYTES = A_BYTES + SLOTS * B_BYTES;
+constexpr int STAGING = 32 * BM * 4;     // a consumer's epilogue tile
+constexpr int SMEM = STAGES * STAGE_BYTES + 2 * STAGING + 2 * STAGES * 8 +
+                     1024;               // + alignment slack
+constexpr int NTHREADS = 384;            // producer warpgroup + 2 consumers
 
 struct Args {
-  const int8_t* v8;      // [n0, n1], n0 and n1 multiples of 16
-  long long n0, n1;
-  const int8_t* yzt;     // [C + K, n_contract]
-  int C, K, ckp;         // ckp: first value column (C + K rounded up)
   long long nf;          // focus rows written (<= stored focus extent)
+  int C, K, ck, ckp;     // ck = C + K; ckp: first value column
+  int nmask, mp, np;     // mask chunks, mask pairs, pairs (value pairs last)
+  int n_ct, n_ft;        // column tiles (two pairs each), focus tiles
+  int nk;                // contraction stages
+  long long tiles;       // n_ft * n_ct
   int* pm;               // raw: [C + K, nf], natural layout [nf, C + K]
   int* bv;               // raw: [K, nf], natural layout [nf, K]
   const float* syz;      // dq: [C + K] scales of the mask columns
@@ -77,190 +124,319 @@ struct Args {
   float* bvf;            // dq: [K, nf]
 };
 
+// tile u in the grouped order: groups of G focus tiles (the last one
+// shorter), column tiles outer within a group
+template <int FOCUS>
+__device__ __forceinline__ void tile_of(const Args& a, long long u, int& ft,
+                                        int& ct) {
+  constexpr int G = FOCUS == 0 ? GROUP0 : GROUP1;
+  const long long per = static_cast<long long>(G) * a.n_ct;
+  const int grp = static_cast<int>(u / per);
+  const int w = static_cast<int>(u - grp * per);
+  const int gs = min(G, a.n_ft - grp * G);
+  ct = w / gs;
+  ft = grp * G + w % gs;
+}
+
+// Pair p of chunks, a consumer warpgroup's share of a tile: the mask
+// chunks two by two, then the value chunks two by two, so no pair mixes
+// the kinds.  Its first chunk, its chunk count (0 past the last pair) and
+// whether it holds value chunks.
+__device__ __forceinline__ void chunk_pair(const Args& a, int p, int& first,
+                                           int& count, bool& val) {
+  val = p >= a.mp;
+  const int q = val ? p - a.mp : p;
+  const int n = val ? (a.K + CH - 1) / CH : a.nmask;
+  first = (val ? a.nmask : 0) + 2 * q;
+  count = p < a.np ? min(2, n - 2 * q) : 0;
+}
+
+__device__ __forceinline__ uint32_t lds(const unsigned char* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// byte j of out[r'] <- byte r' of w[j]: 4 x 4 byte transpose
+__device__ __forceinline__ void transpose4(uint32_t (&w)[4]) {
+  const uint32_t t0 = __byte_perm(w[0], w[1], 0x5140);
+  const uint32_t t1 = __byte_perm(w[0], w[1], 0x7362);
+  const uint32_t t2 = __byte_perm(w[2], w[3], 0x5140);
+  const uint32_t t3 = __byte_perm(w[2], w[3], 0x7362);
+  w[0] = __byte_perm(t0, t2, 0x5410);
+  w[1] = __byte_perm(t0, t2, 0x7632);
+  w[2] = __byte_perm(t1, t3, 0x5410);
+  w[3] = __byte_perm(t1, t3, 0x7632);
+}
+
+// The tile row (0..127) that MMA row (block b, g + 8h) of warp w holds:
+// mode 0 the plain order; mode 1 the 4 adjacent focus columns 4q .. 4q+3
+// (q = 8w + g) whose transposed words the thread reads.
+template <int FOCUS>
+__device__ __forceinline__ int tile_row(int b, int w, int g, int h) {
+  return FOCUS == 0 ? 64 * b + 16 * w + g + 8 * h
+                    : 4 * (8 * w + g) + 2 * b + h;
+}
+
+// A fragments (codes) of k32 step s for both 64-row blocks from a stage's
+// V8 box, 128-byte rows in the 128-byte swizzle (16-byte chunk ch of row r
+// at ch ^ (r & 7)).  Register layout: mma.m16n8k32's A fragment of the
+// warp's 16 rows, a[b] = {(g, k 4t..), (g+8, k 4t..), (g, k 16+4t..),
+// (g+8, k 16+4t..)}.
+template <int FOCUS>
+__device__ __forceinline__ void load_a(const unsigned char* sa, int s, int w,
+                                       int g, int t, uint32_t (&a)[2][4]) {
+  if constexpr (FOCUS == 0) {
+#pragma unroll
+    for (int b = 0; b < 2; ++b) {
+      const int r = 64 * b + 16 * w + g;
+      const unsigned char* row = sa + r * BK + 4 * t;
+      const int lo = ((2 * s) ^ (r & 7)) << 4, hi = ((2 * s + 1) ^ (r & 7)) << 4;
+      a[b][0] = lds(row + lo);
+      a[b][1] = lds(row + 8 * BK + lo);
+      a[b][2] = lds(row + hi);
+      a[b][3] = lds(row + 8 * BK + hi);
+    }
+  } else {
+    // the box is [contraction p][focus column]; this thread's focus
+    // columns 4q .. 4q+3, contraction rows 32s + 4t + r (and + 16)
+    const int q = 8 * w + g, cq = q >> 2, off = 4 * (q & 3);
+    uint32_t lo[4], hi[4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int p = 32 * s + 4 * t + r;     // (p + 16) & 7 == p & 7
+      const int o = ((cq ^ (p & 7)) << 4) + off;
+      lo[r] = lds(sa + p * BK + o);
+      hi[r] = lds(sa + (p + 16) * BK + o);
+    }
+    transpose4(lo);
+    transpose4(hi);
+#pragma unroll
+    for (int b = 0; b < 2; ++b) {
+      a[b][0] = lo[2 * b];
+      a[b][1] = lo[2 * b + 1];
+      a[b][2] = hi[2 * b];
+      a[b][3] = hi[2 * b + 1];
+    }
+  }
+}
+
+// One k32 step's A operand for both 64-row blocks: the codes, or their
+// 0/1 mask against mask chunks
+struct Frag {
+  uint32_t a[2][4];
+};
+
+__device__ __forceinline__ void fence_frag(Frag& f) {
+#pragma unroll
+  for (int b = 0; b < 2; ++b)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) fence_operand(f.a[b][i]);
+}
+
+// the mask of 4 codes: 0x01 in each nonzero byte
 __device__ __forceinline__ uint32_t mask4(uint32_t w) {
   return __vcmpne4(w, 0u) & 0x01010101u;
 }
 
-__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4],
-                                       uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+__device__ __forceinline__ void release(uint64_t* bar, int lane) {
+  __syncwarp();
+  if (lane == 0) mbar_arrive(bar);
 }
 
-// DQ: the dequant epilogue; NAT (raw only): the natural output layout
-template <int FOCUS, bool DQ, bool NAT>
-__global__ void __launch_bounds__(NTHREADS)
-fused_pair_kernel(const Args a) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  unsigned char* sA = smem;              // 2 stages x [BM][BK] codes
-  unsigned char* sM = smem + 2 * TILE;   // 2 stages x [BM][BK] 0/1 mask
-  unsigned char* sB = smem + 4 * TILE;   // 2 stages x [BN][BK]
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, tig = lane & 3;
-  const long long m0 = static_cast<long long>(blockIdx.y) * BM;
-  const int v0 = blockIdx.x * BN;
-  const long long n_contract = FOCUS == 0 ? a.n1 : a.n0;
-  const int wm = (warp & 1) * 64, wn = (warp >> 1) * WARP_N;
-  const bool raw = v0 + wn >= a.ckp;     // warp-uniform: value columns
+// The chunks a consumer warpgroup holds in a tile, each count a mainloop
+// of its own so that no tensor-core product sits in a branch within it
+// (ptxas serializes every wgmma of a kernel that has one): two (one N =
+// 128 product a block and step), one, none.
+enum Kind { WIDE, NARROW, NONE };
 
-  // B rows this thread loads (virtual columns tid/8 + 32i, chunk tid%8)
-  const int lch = tid & 7;
-  const int8_t* bsrc[4];
+// k32 step S of a stage: acc[b][j] += A_b . B(chunk slot j)^T, A the codes
+// against value chunks and their mask against mask chunks (`keep`: all
+// ones for value chunks, else 0).  The step's products run while the next
+// step's operand loads: `prev` (the previous step's operand) stays
+// untouched until its products are done.  In step 0 the previous stage
+// `pend` is released once its last products are done.
+template <int FOCUS, Kind KIND, int S>
+__device__ __forceinline__ void mma_step(int (&acc)[2][2][32], Frag& cur,
+                                         Frag& prev, const unsigned char* st,
+                                         uint64_t db, uint32_t keep,
+                                         bool first_stage, int w, int g,
+                                         int t, int lane, uint64_t* pend) {
+  // the tile's first step sets the sums; the others add to them
+  const bool first = S == 0 && first_stage;
+  load_a<FOCUS>(st, S, w, g, t, cur.a);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int s = src_row(a.C + a.K, a.C, a.K, a.ckp, v0 + (tid >> 3) + 32 * i);
-    bsrc[i] = s < 0 ? nullptr : a.yzt + static_cast<long long>(s) * n_contract;
-  }
-
-  uint4 rb[4];
-  uint4 ra[FOCUS == 0 ? 4 : 1];
-  uint4 rt[FOCUS == 0 ? 1 : 4];
-
-  auto load = [&](long long k0) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const long long k = k0 + lch * 16;
-      rb[i] = make_uint4(0, 0, 0, 0);
-      if (bsrc[i] != nullptr && k < n_contract)
-        rb[i] = __ldg(reinterpret_cast<const uint4*>(bsrc[i] + k));
-    }
-    if constexpr (FOCUS == 0) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const long long row = m0 + (tid >> 3) + 32 * i;
-        const long long k = k0 + lch * 16;
-        ra[i] = make_uint4(0, 0, 0, 0);
-        if (row < a.n0 && k < a.n1)
-          ra[i] = __ldg(reinterpret_cast<const uint4*>(a.v8 + row * a.n1 + k));
-      }
-    } else {
-      // contraction rows k0 + 4 kw + r, kw = 4 warp + lane / 8; focus
-      // columns m0 + 16 (lane % 8) .. + 15
-      const int kw = 4 * warp + (lane >> 3);
-      const long long col = m0 + 16 * (lane & 7);
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const long long row = k0 + 4 * kw + r;
-        rt[r] = make_uint4(0, 0, 0, 0);
-        if (row < a.n0 && col < a.n1)
-          rt[r] = __ldg(reinterpret_cast<const uint4*>(a.v8 + row * a.n1 + col));
-      }
-    }
-  };
-
-  auto store = [&](int stage) {
-    unsigned char* tA = sA + stage * TILE;
-    unsigned char* tM = sM + stage * TILE;
-    unsigned char* tB = sB + stage * TILE;
+  for (int b = 0; b < 2; ++b)
 #pragma unroll
     for (int i = 0; i < 4; ++i)
-      *reinterpret_cast<uint4*>(tB + soff<FOCUS>((tid >> 3) + 32 * i, lch)) = rb[i];
-    if constexpr (FOCUS == 0) {
+      cur.a[b][i] = (cur.a[b][i] & keep) | (mask4(cur.a[b][i]) & ~keep);
+  fence_frag(cur);
+  wgmma_fence();
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int o = soff<FOCUS>((tid >> 3) + 32 * i, lch);
-        *reinterpret_cast<uint4*>(tA + o) = ra[i];
-        *reinterpret_cast<uint4*>(tM + o) =
-            make_uint4(mask4(ra[i].x), mask4(ra[i].y), mask4(ra[i].z),
-                       mask4(ra[i].w));
-      }
-    } else {
-      const int kw = 4 * warp + (lane >> 3);
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        // word q of each row: focus columns 4q .. 4q + 3 of the 16
-        const uint32_t w0 = word(rt[0], q), w1 = word(rt[1], q);
-        const uint32_t w2 = word(rt[2], q), w3 = word(rt[3], q);
-        // byte j of word r is (contraction row r, focus column j)
-        const uint32_t t0 = __byte_perm(w0, w1, 0x5140);
-        const uint32_t t1 = __byte_perm(w0, w1, 0x7362);
-        const uint32_t t2 = __byte_perm(w2, w3, 0x5140);
-        const uint32_t t3 = __byte_perm(w2, w3, 0x7362);
-        const uint32_t out[4] = {__byte_perm(t0, t2, 0x5410),
-                                 __byte_perm(t0, t2, 0x7632),
-                                 __byte_perm(t1, t3, 0x5410),
-                                 __byte_perm(t1, t3, 0x7632)};
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int o = soff<FOCUS>(16 * (lane & 7) + 4 * q + j, kw >> 2) + (kw & 3) * 4;
-          *reinterpret_cast<uint32_t*>(tA + o) = out[j];
-          *reinterpret_cast<uint32_t*>(tM + o) = mask4(out[j]);
-        }
-      }
-    }
-  };
+  for (int b = 0; b < 2; ++b) {
+    if constexpr (KIND == WIDE)
+      wgmma_s8_m64n128k32(acc[b][0], acc[b][1], cur.a[b], db + 2 * S, first);
+    else
+      wgmma_s8_m64n64k32(acc[b][0], cur.a[b], db + 2 * S, first);
+  }
+  wgmma_commit();
+  wgmma_wait<1>();                       // the previous step's products
+  fence_frag(prev);
+  if (S == 0 && pend != nullptr) release(pend, lane);
+}  // mma_step
 
-  int acc[4][4][4];
-#pragma unroll
-  for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0;
-
-  const int nk = static_cast<int>((n_contract + BK - 1) / BK);
-  load(0);
+// One tile's contraction stages [0, nk) for consumer warpgroup c (its
+// chunk pair in shared slots 2c and 2c + 1), 4 k32 steps a stage
+// (BK = 128) alternating two operand sets; each stage is released one
+// step after its last products issue.
+template <int FOCUS, Kind KIND>
+__device__ __forceinline__ void mainloop(int (&acc)[2][2][32], Frag& f0,
+                                         Frag& f1, unsigned char* smem,
+                                         uint64_t* full, uint64_t* empty,
+                                         int& stage, unsigned& phase, int nk,
+                                         int c, uint32_t keep, int w, int g,
+                                         int t, int lane) {
+  uint64_t* pend = nullptr;              // the stage to release
   for (int kt = 0; kt < nk; ++kt) {
-    const int stage = kt & 1;
-    store(stage);
-    __syncthreads();
-    if (kt + 1 < nk) load(static_cast<long long>(kt + 1) * BK);
-    const unsigned char* tA = (raw ? sA : sM) + stage * TILE;
-    const unsigned char* tB = sB + stage * TILE;
-#pragma unroll
-    for (int s = 0; s < BK / 32; ++s) {
-      uint32_t af[4][4];
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi) {
-        const int r = wm + mi * 16 + g;
-        af[mi][0] = *reinterpret_cast<const uint32_t*>(tA + soff<FOCUS>(r, 2 * s) + tig * 4);
-        af[mi][1] = *reinterpret_cast<const uint32_t*>(tA + soff<FOCUS>(r + 8, 2 * s) + tig * 4);
-        af[mi][2] = *reinterpret_cast<const uint32_t*>(tA + soff<FOCUS>(r, 2 * s + 1) + tig * 4);
-        af[mi][3] = *reinterpret_cast<const uint32_t*>(tA + soff<FOCUS>(r + 8, 2 * s + 1) + tig * 4);
-      }
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-        const int c = wn + ni * 8 + g;
-        const uint32_t b0 = *reinterpret_cast<const uint32_t*>(tB + soff<FOCUS>(c, 2 * s) + tig * 4);
-        const uint32_t b1 = *reinterpret_cast<const uint32_t*>(tB + soff<FOCUS>(c, 2 * s + 1) + tig * 4);
-#pragma unroll
-        for (int mi = 0; mi < 4; ++mi) mma_s8(acc[mi][ni], af[mi], b0, b1);
-      }
+    mbar_wait(&full[stage], phase);
+    const unsigned char* st = smem + stage * STAGE_BYTES;
+    if constexpr (KIND == NONE) {
+      release(&empty[stage], lane);
+    } else {
+      const uint64_t db = desc_sw128(st + A_BYTES + 2 * c * B_BYTES);
+      mma_step<FOCUS, KIND, 0>(acc, f0, f1, st, db, keep, kt == 0, w, g, t,
+                               lane, pend);
+      mma_step<FOCUS, KIND, 1>(acc, f1, f0, st, db, keep, kt == 0, w, g, t,
+                               lane, pend);
+      mma_step<FOCUS, KIND, 2>(acc, f0, f1, st, db, keep, kt == 0, w, g, t,
+                               lane, pend);
+      mma_step<FOCUS, KIND, 3>(acc, f1, f0, st, db, keep, kt == 0, w, g, t,
+                               lane, pend);
+      pend = &empty[stage];
+    }
+    if (++stage == STAGES) {
+      stage = 0;
+      phase ^= 1;
     }
   }
+  if constexpr (KIND != NONE) {
+    wgmma_wait<0>();
+    release(pend, lane);
+  }
+}
 
-  // epilogue: sum (row g + 8h, column 2 tig + e) of each 16 x 8 tile
-  const int ck = a.C + a.K;
+// flip_out staging [32 columns][128 rows] int32: row m of column v at
+// m ^ swf(v), conflict-free for both the fragment writes and the row reads
+template <int FOCUS>
+__device__ __forceinline__ int swf(int v) {
+  return FOCUS == 0 ? 8 * ((v >> 1) & 3) : (v >> 1) & 3;
+}
+
+// natural staging [128 rows][32 columns] int32: 16-byte chunk ch of row m
+// at ch ^ swn(m)
+template <int FOCUS>
+__device__ __forceinline__ int swn(int m) {
+  return FOCUS == 0 ? m & 7 : (m >> 2) & 7;
+}
+
+// EPI: 0 raw flip_out, 1 dq flip_out, 2 raw natural layout
+template <int FOCUS, int EPI>
+__device__ __forceinline__ void epilogue(const Args& a, int (&acc)[2][2][32],
+                                         int* stg, int c, int cg0, int nj,
+                                         long long m0, int w, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+  const int rows = static_cast<int>(min(static_cast<long long>(BM), a.nf - m0));
 #pragma unroll
-  for (int mi = 0; mi < 4; ++mi) {
+  for (int j = 0; j < 2; ++j) {
+    if (j >= nj) continue;
+    const int cg = cg0 + j;
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const long long m = m0 + wm + mi * 16 + g + 8 * h;
-      if (m >= a.nf) continue;
+    for (int half = 0; half < 2; ++half) {
+      named_barrier(1 + c, 128);         // the staging tile is free
 #pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
+      for (int b = 0; b < 2; ++b)
 #pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int v = v0 + wn + ni * 8 + 2 * tig + e;
-          const int val = acc[mi][ni][2 * h + e];
-          if (v < ck) {
-            if constexpr (DQ) {
-              const float f = static_cast<float>(val) * a.syz[v];
-              if (v < a.C) a.pt[v * a.nf + m] = f;
-              else a.pmm[(v - a.C) * a.nf + m] = f;
-            } else if constexpr (NAT) {
-              a.pm[m * ck + v] = val;
+        for (int nn = 0; nn < 4; ++nn)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int m = tile_row<FOCUS>(b, w, g, h);
+            const int* d = &acc[b][j][4 * (4 * half + nn) + 2 * h];
+            const int v = 8 * nn + 2 * t;
+            if constexpr (EPI == 2) {
+              const int ch = v >> 2;
+              *reinterpret_cast<int2*>(
+                  stg + m * 32 + ((ch ^ swn<FOCUS>(m)) << 2) + (v & 3)) =
+                  make_int2(d[0], d[1]);
             } else {
-              a.pm[v * a.nf + m] = val;
+              stg[v * BM + (m ^ swf<FOCUS>(v))] = d[0];
+              stg[(v + 1) * BM + (m ^ swf<FOCUS>(v + 1))] = d[1];
             }
-          } else if (v >= a.ckp && v - a.ckp < a.K) {
+          }
+      named_barrier(1 + c, 128);
+      const int vb = cg * CH + 32 * half;  // virtual column of staging column 0
+      if constexpr (EPI == 2) {
+        const bool vec = a.ck % 4 == 0 && a.K % 4 == 0;
+#pragma unroll 2
+        for (int i = 0; i < 8; ++i) {
+          const int m = 32 * w + 4 * i + (lane >> 3), ch = lane & 7;
+          if (m >= rows) continue;
+          const long long mg = m0 + m;
+          const int4 x = *reinterpret_cast<const int4*>(
+              stg + m * 32 + ((ch ^ swn<FOCUS>(m)) << 2));
+          const int v = vb + 4 * ch;
+          int* dst;
+          int lim;
+          if (v < a.ckp) {
+            dst = a.pm + mg * a.ck + v;
+            lim = a.ck - v;
+          } else {
+            dst = a.bv + mg * a.K + (v - a.ckp);
+            lim = a.K - (v - a.ckp);
+          }
+          if (lim >= 4 && vec) {
+            __stcs(reinterpret_cast<int4*>(dst), x);
+          } else {
+            if (lim > 0) __stcs(dst, x.x);
+            if (lim > 1) __stcs(dst + 1, x.y);
+            if (lim > 2) __stcs(dst + 2, x.z);
+            if (lim > 3) __stcs(dst + 3, x.w);
+          }
+        }
+      } else {
+#pragma unroll 2
+        for (int i = 0; i < 8; ++i) {
+          const int vr = 8 * w + i, v = vb + vr;
+          const int* row = stg + vr * BM;
+          const int sw = swf<FOCUS>(vr);
+          // the row's first element of this tile: Pt / PMm (scale syz) or
+          // BVf (sz) with dq, else PM or BV
+          int* dst;
+          float scale = 0.f;
+          if (v < a.ckp) {
+            if (v >= a.ck) continue;
+            if constexpr (EPI == 1) {
+              dst = reinterpret_cast<int*>(v < a.C ? a.pt + v * a.nf
+                                                   : a.pmm + (v - a.C) * a.nf);
+              scale = a.syz[v];
+            } else {
+              dst = a.pm + v * a.nf;
+            }
+          } else {
             const int k = v - a.ckp;
-            if constexpr (DQ) a.bvf[k * a.nf + m] = static_cast<float>(val) * a.sz[k];
-            else if constexpr (NAT) a.bv[m * a.K + k] = val;
-            else a.bv[k * a.nf + m] = val;
+            if (k >= a.K) continue;
+            if constexpr (EPI == 1) {
+              dst = reinterpret_cast<int*>(a.bvf + k * a.nf);
+              scale = a.sz[k];
+            } else {
+              dst = a.bv + k * a.nf;
+            }
+          }
+          dst += m0;
+          for (int mm = lane; mm < rows; mm += 32) {
+            const int val = row[mm ^ sw];
+            if constexpr (EPI == 1)
+              __stcs(reinterpret_cast<float*>(dst) + mm,
+                     static_cast<float>(val) * scale);
+            else
+              __stcs(dst + mm, val);
           }
         }
       }
@@ -268,19 +444,146 @@ fused_pair_kernel(const Args a) {
   }
 }
 
-template <int FOCUS, bool DQ, bool NAT>
-int launch(const Args& a, void* stream) {
-  const int smem = 6 * TILE;
-  auto kern = fused_pair_kernel<FOCUS, DQ, NAT>;
+template <int FOCUS, int EPI>
+__global__ void __launch_bounds__(NTHREADS, 1)
+fused_pair_kernel(__grid_constant__ const CUtensorMap v8map,
+                  __grid_constant__ const CUtensorMap yzmap, const Args a) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint64_t* full = reinterpret_cast<uint64_t*>(
+      smem + STAGES * STAGE_BYTES + 2 * STAGING);
+  uint64_t* empty = full + STAGES;
+  // the warp index, read through a shuffle so the compiler knows it is
+  // warp-uniform: the tensor-core products sit in branches on it
+  const int tid = threadIdx.x, warp = __shfl_sync(0xffffffffu, tid >> 5, 0);
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);           // one arrival per consumer warp
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (warp >= 8) {                       // producer: one thread
+    setmaxnreg_dec<40>();
+    if (tid != 256) return;
+    int stage = 0;
+    unsigned phase = 0;
+    for (long long u = blockIdx.x; u < a.tiles; u += gridDim.x) {
+      int ft, ct;
+      tile_of<FOCUS>(a, u, ft, ct);
+      const int m0 = ft * BM;
+      // the tile's YZ8T boxes, worked out once: slot 2c + j (consumer c's
+      // pair) reads YZ8T rows row[2c + j].. (a mask chunk v.., a value
+      // chunk C + (v - ckp)..), or nothing (-1).  The stage loop below is
+      // on the ring's critical path in mode 1, so it only issues loads
+      // (with the boxes worked out in it, Netflix mode 1 ran 1.24x slower;
+      // PERF.md §6).
+      int row[4], nbox = 0;
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        int first, count;
+        bool val;
+        chunk_pair(a, 2 * ct + c, first, count, val);
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int v = (first + j) * CH;
+          row[2 * c + j] = j >= count ? -1 : v < a.ckp ? v : a.C + (v - a.ckp);
+          nbox += j < count;
+        }
+      }
+      for (int kt = 0; kt < a.nk; ++kt) {
+        mbar_wait(&empty[stage], phase ^ 1);
+        unsigned char* st = smem + stage * STAGE_BYTES;
+        mbar_expect_tx(&full[stage], A_BYTES + nbox * B_BYTES);
+        const int k0 = kt * BK;
+        if (FOCUS == 0) tma_load_2d(st, &v8map, k0, m0, &full[stage]);
+        else tma_load_2d(st, &v8map, m0, k0, &full[stage]);
+#pragma unroll
+        for (int b = 0; b < 4; ++b)
+          if (row[b] >= 0)
+            tma_load_2d(st + A_BYTES + b * B_BYTES, &yzmap, k0, row[b],
+                        &full[stage]);
+        if (++stage == STAGES) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup c = warps 4c .. 4c + 3
+  setmaxnreg_inc<232>();
+  const int c = warp >> 2, w = warp & 3, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  int* stg = reinterpret_cast<int*>(smem + STAGES * STAGE_BYTES + c * STAGING);
+  int acc[2][2][32] = {};               // set by each tile's first step
+  Frag f0 = {}, f1 = {};                 // operands of alternate steps
+  int stage = 0;
+  unsigned phase = 0;
+  for (long long u = blockIdx.x; u < a.tiles; u += gridDim.x) {
+    int ft, ct;
+    tile_of<FOCUS>(a, u, ft, ct);
+    int cg0, nj;                         // chunk j: cg0 + j
+    bool val;
+    chunk_pair(a, 2 * ct + c, cg0, nj, val);
+    const uint32_t keep = val ? 0xffffffffu : 0u;
+    if (nj == 2)
+      mainloop<FOCUS, WIDE>(acc, f0, f1, smem, full, empty, stage, phase,
+                            a.nk, c, keep, w, g, t, lane);
+    else if (nj == 1)
+      mainloop<FOCUS, NARROW>(acc, f0, f1, smem, full, empty, stage, phase,
+                              a.nk, c, keep, w, g, t, lane);
+    else
+      mainloop<FOCUS, NONE>(acc, f0, f1, smem, full, empty, stage, phase,
+                            a.nk, c, keep, w, g, t, lane);
+#pragma unroll
+    for (int b = 0; b < 2; ++b)
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 32; ++e) fence_operand(acc[b][j][e]);
+    epilogue<FOCUS, EPI>(a, acc, stg, c, cg0, nj,
+                         static_cast<long long>(ft) * BM, w, lane);
+  }
+}
+
+template <int FOCUS, int EPI>
+int launch(Args a, const void* v8, long long n0, long long n1,
+           const void* yzt, void* stream) {
+  auto kern = fused_pair_kernel<FOCUS, EPI>;
   cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const long long n_focus = FOCUS == 0 ? a.n0 : a.n1;
-  const long long tiles = (a.nf + BM - 1) / BM;
-  if (tiles == 0) return 0;
-  if (tiles > 65535 || a.nf > n_focus) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((a.ckp + a.K + BN - 1) / BN, static_cast<unsigned>(tiles));
-  kern<<<grid, NTHREADS, smem, static_cast<cudaStream_t>(stream)>>>(a);
+  const long long n_focus = FOCUS == 0 ? n0 : n1;
+  const long long n_contract = FOCUS == 0 ? n1 : n0;
+  if (a.nf > n_focus) return static_cast<int>(cudaErrorInvalidValue);
+  if (a.nf == 0) return 0;
+  if (n_contract > (1ll << 31) - BK || n_focus > (1ll << 31) - BM)
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap v8map, yzmap;
+  if (!map_bytes_2d(&v8map, v8, n0, n1, 128) ||
+      !map_bytes_2d(&yzmap, yzt, a.ck, n_contract, CH))
+    return static_cast<int>(cudaErrorInvalidValue);
+  a.ckp = (a.ck + CH - 1) / CH * CH;
+  a.nmask = a.ckp / CH;
+  a.mp = (a.nmask + 1) / 2;
+  a.np = a.mp + ((a.K + CH - 1) / CH + 1) / 2;
+  a.n_ct = (a.np + 1) / 2;
+  a.n_ft = static_cast<int>((a.nf + BM - 1) / BM);
+  a.nk = static_cast<int>((n_contract + BK - 1) / BK);
+  int dev = 0, sms = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    dev)) != cudaSuccess)
+    return static_cast<int>(err);
+  a.tiles = static_cast<long long>(a.n_ft) * a.n_ct;
+  const long long grid = std::min<long long>(sms, a.tiles);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  kern<<<static_cast<unsigned>(grid), NTHREADS, SMEM, st>>>(v8map, yzmap, a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -301,15 +604,11 @@ extern "C" int bdf_fused_pair_i8(const void* v8, long long n0, long long n1,
   if (n0 % 16 || n1 % 16 || C < 1 || K < 1 || (focus != 0 && focus != 1) ||
       dq < 0 || dq > 2)
     return static_cast<int>(cudaErrorInvalidValue);
-  Args a;
-  a.v8 = static_cast<const int8_t*>(v8);
-  a.n0 = n0;
-  a.n1 = n1;
-  a.yzt = static_cast<const int8_t*>(yzt);
+  Args a = {};
+  a.nf = nf;
   a.C = C;
   a.K = K;
-  a.ckp = (C + K + WARP_N - 1) / WARP_N * WARP_N;
-  a.nf = nf;
+  a.ck = C + K;
   a.pm = static_cast<int*>(pm);
   a.bv = static_cast<int*>(bv);
   a.syz = static_cast<const float*>(syz);
@@ -318,10 +617,10 @@ extern "C" int bdf_fused_pair_i8(const void* v8, long long n0, long long n1,
   a.pmm = static_cast<float*>(pmm);
   a.bvf = static_cast<float*>(bvf);
   if (focus == 0)
-    return dq == 1   ? launch<0, true, false>(a, stream)
-           : dq == 2 ? launch<0, false, true>(a, stream)
-                     : launch<0, false, false>(a, stream);
-  return dq == 1   ? launch<1, true, false>(a, stream)
-         : dq == 2 ? launch<1, false, true>(a, stream)
-                   : launch<1, false, false>(a, stream);
+    return dq == 1   ? launch<0, 1>(a, v8, n0, n1, yzt, stream)
+           : dq == 2 ? launch<0, 2>(a, v8, n0, n1, yzt, stream)
+                     : launch<0, 0>(a, v8, n0, n1, yzt, stream);
+  return dq == 1   ? launch<1, 1>(a, v8, n0, n1, yzt, stream)
+         : dq == 2 ? launch<1, 2>(a, v8, n0, n1, yzt, stream)
+                   : launch<1, 0>(a, v8, n0, n1, yzt, stream);
 }

@@ -1,0 +1,224 @@
+// Hopper building blocks for a TMA-fed shared-memory ring (sm_90a): the
+// tensor-map encoder reached through the runtime (the kernel library links
+// no -lcuda), mbarriers, 2-D TMA loads, named barriers and the int8 wgmma
+// with a register A operand.
+#pragma once
+#include <cuda.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace hopper {
+
+// -- host: tensor maps --------------------------------------------------
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver, looked up once through the
+// runtime (nullptr if the driver has none)
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault, &q) != cudaSuccess ||
+        q != cudaDriverEntryPointSuccess)
+      return static_cast<EncodeTiled>(nullptr);
+    return reinterpret_cast<EncodeTiled>(p);
+  }();
+  return fn;
+}
+
+// A row-major [rows, cols] byte matrix (row pitch `cols`, a multiple of
+// 16) read in boxes of box_rows x 128 bytes with the 128-byte swizzle;
+// whatever a box reads outside the matrix arrives as zeros.  Returns false
+// if the driver refuses.
+inline bool map_bytes_2d(CUtensorMap* map, const void* base,
+                         unsigned long long rows, unsigned long long cols,
+                         unsigned box_rows) {
+  EncodeTiled enc = encode_tiled();
+  if (enc == nullptr || reinterpret_cast<uintptr_t>(base) % 16 || cols % 16)
+    return false;
+  const cuuint64_t dims[2] = {cols, rows};
+  const cuuint64_t strides[1] = {cols};
+  const cuuint32_t box[2] = {128, box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(base),
+             dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// -- device -------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(count));
+}
+
+__device__ __forceinline__ void fence_barrier_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(smem_u32(bar)) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+// Spin until the barrier's phase of parity `parity` has completed.  Guards
+// against a lost arrival (a bug: a stage never filled or never released),
+// which would otherwise spin forever and hang the card: a wait that lasts
+// WAIT_LIMIT_NS of wall time (%globaltimer, read only once the first poll
+// has failed) traps, so the launch fails.  Every legitimate wait here is
+// at most one tile's work, microseconds to milliseconds.
+constexpr unsigned long long WAIT_LIMIT_NS = 10000000000ull;  // 10 s
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred done;\n"
+      ".reg .u64 t0, t;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@done bra DONE;\n"
+      "mov.u64 t0, %%globaltimer;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@done bra DONE;\n"
+      "mov.u64 t, %%globaltimer;\n"
+      "sub.u64 t, t, t0;\n"
+      "setp.lt.u64 done, t, %2;\n"
+      "@done bra WAIT;\n"
+      "trap;\n"
+      "DONE:\n"
+      "}\n"
+      :: "r"(smem_u32(bar)), "r"(parity), "l"(WAIT_LIMIT_NS) : "memory");
+}
+
+// one box of a 2-D tensor map at (inner byte x, row y) into shared memory,
+// completing its bytes on `bar`
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            int x, int y, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+         "r"(smem_u32(bar)), "r"(x), "r"(y)
+      : "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(N));
+}
+
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(N));
+}
+
+__device__ __forceinline__ void named_barrier(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
+}
+
+// keeps a register's value where it is across this point (no code): the
+// compiler may neither move it nor reuse its register before here
+__device__ __forceinline__ void fence_operand(uint32_t& r) {
+  asm volatile("" : "+r"(r) :: "memory");
+}
+__device__ __forceinline__ void fence_operand(int& r) {
+  asm volatile("" : "+r"(r) :: "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+
+// shared-memory descriptor of a K-major operand tile with 128-byte rows in
+// the 128-byte swizzle (as TMA writes it; the tile 1024-byte aligned): 8-row
+// groups 1024 bytes apart, the leading offset unused (1)
+__device__ __forceinline__ uint64_t desc_sw128(const void* tile) {
+  return static_cast<uint64_t>((smem_u32(tile) & 0x3FFFF) >> 4) |
+         (1ull << 16) | (64ull << 32) | (1ull << 62);
+}
+
+// d[64 x 64] = a[64 x 32] . b[64 x 32]^T (+ d unless `first`), s8 x s8 ->
+// s32 (no saturation); a in registers (per warp 16 rows, mma.m16n8k32's A
+// fragment), b through its descriptor
+__device__ __forceinline__ void wgmma_s8_m64n64k32(int (&d)[32],
+                                                   const uint32_t (&a)[4],
+                                                   uint64_t b, bool first) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31}, {%32, %33, %34, %35}, %36, p;\n"
+      "}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
+        "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]),
+        "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]),
+        "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]),
+        "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(first ? 0 : 1));
+}
+
+// [d0 | d1][64 x 128] = a[64 x 32] . b[128 x 32]^T (+ [d0 | d1] unless
+// `first`): the same with N = 128, d0 the first 64 columns' accumulators,
+// d1 the next 64's
+__device__ __forceinline__ void wgmma_s8_m64n128k32(int (&d0)[32], int (&d1)[32],
+                                                    const uint32_t (&a)[4],
+                                                    uint64_t b, bool first) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, "
+      "%13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, "
+      "%39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, "
+      "%52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p;\n"
+      "}\n"
+      : "+r"(d0[0]), "+r"(d0[1]), "+r"(d0[2]), "+r"(d0[3]), "+r"(d0[4]),
+        "+r"(d0[5]), "+r"(d0[6]), "+r"(d0[7]), "+r"(d0[8]), "+r"(d0[9]),
+        "+r"(d0[10]), "+r"(d0[11]), "+r"(d0[12]), "+r"(d0[13]), "+r"(d0[14]),
+        "+r"(d0[15]), "+r"(d0[16]), "+r"(d0[17]), "+r"(d0[18]), "+r"(d0[19]),
+        "+r"(d0[20]), "+r"(d0[21]), "+r"(d0[22]), "+r"(d0[23]), "+r"(d0[24]),
+        "+r"(d0[25]), "+r"(d0[26]), "+r"(d0[27]), "+r"(d0[28]), "+r"(d0[29]),
+        "+r"(d0[30]), "+r"(d0[31]),
+        "+r"(d1[0]), "+r"(d1[1]), "+r"(d1[2]), "+r"(d1[3]), "+r"(d1[4]),
+        "+r"(d1[5]), "+r"(d1[6]), "+r"(d1[7]), "+r"(d1[8]), "+r"(d1[9]),
+        "+r"(d1[10]), "+r"(d1[11]), "+r"(d1[12]), "+r"(d1[13]), "+r"(d1[14]),
+        "+r"(d1[15]), "+r"(d1[16]), "+r"(d1[17]), "+r"(d1[18]), "+r"(d1[19]),
+        "+r"(d1[20]), "+r"(d1[21]), "+r"(d1[22]), "+r"(d1[23]), "+r"(d1[24]),
+        "+r"(d1[25]), "+r"(d1[26]), "+r"(d1[27]), "+r"(d1[28]), "+r"(d1[29]),
+        "+r"(d1[30]), "+r"(d1[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(first ? 0 : 1));
+}
+
+}  // namespace hopper

@@ -29,7 +29,7 @@
 // cell, 2 n0 n1 (C + K) operations, 0.43 ms at the 1,979 TOP/s dense int8
 // peak at K = 32, 1.66 ms at K = 64.
 //
-// Design: K8a's plain GEMM on `mma.sync.m16n8k32.s8` (csrc/fused_pair.cuh:
+// Design: a plain GEMM on `mma.sync.m16n8k32.s8` (csrc/fused_pair.cuh:
 // the 128 x 128 CTA tile, 8 warps of 64 x 32 int32 sums, two shared-memory
 // stages of 128-byte rows, the XOR swizzles).  Virtual columns [0, cp)
 // run M8 against table rows 0 .. C-1, [cp, cp + K) run W8 against rows

@@ -58,14 +58,17 @@ Phases, each fatal on failure (nonzero exit, no result line):
      ``torch.profiler`` split of a few sweeps and whether two runs of the
      same seed give the same U;
    - the fused path (``dense_fused=True``) at K = 32 and 64, one timed
-     window of 40 sweeps: K7 and K8a twice a sweep and the packed sampler
-     (K1, K2), K8a held bitwise against its plain version on the path's
-     own store; at K = 128 (K8b, the torch quantization, the blocked
-     sampler on K5; a 20-sweep window); and off the s8 path
+     window of 40 sweeps and a ``torch.profiler`` split: K7 and K8a twice
+     a sweep and the packed sampler (K1, K2), K8a held bitwise against its
+     plain version on the path's own store; at K = 128 (K8b, the torch
+     quantization, the blocked sampler on K5; a 20-sweep window); and off
+     the s8 path
      (``dense_int8=False``): a bfloat16 table at K = 64 (K8c, K2) and
      K = 128 (K8d, K5), a float32 table at K = 32 (K8c's FMA variant);
-     K8b and K8d held against their plain versions at the K = 128 store
-     and timed beside the library's product on a materialized mask;
+     each variant (K8b, K8c, K8d) held against its plain version at the
+     path's store and timed beside the library's products on a
+     materialized mask and codes, both modes (mode 1 on transposed
+     copies);
 6. the Netflix fused paths at full width: the JAX bench's Netflix-shaped
    ratings (480,189 x 17,770, 100,480,507 stars 1..5, seed 9), K = 32,
    one stored 8.5 GB int8 array, the JAX bench's protocol (8 sweeps a
@@ -73,10 +76,12 @@ Phases, each fatal on failure (nonzero exit, no result line):
    ``torch.profiler`` split for each:
    - the s8 path: K8a and K7 twice a sweep, K1 for both entities; K8a
      bitwise against its plain version at this shape in both modes, and
-     the library's ``torch._int_mm`` on the materialized mask;
+     the library's ``torch._int_mm`` on the materialized mask, both modes
+     (mode 1 on transposed copies);
    - the float path (``dense_int8=False``, a bfloat16 table): K8c twice a
      sweep; K8c against its plain version at this shape in both modes,
-     and the library's bfloat16 ``torch.matmul`` on the materialized mask;
+     and the library's bfloat16 ``torch.matmul`` on the materialized mask,
+     both modes;
    - ``netflix_cont``: the stars jittered by +-0.45, no exact grid: the
      planner's uniform grid within ``dense_fused_tol=0.0125``, on the s8
      path;
@@ -734,28 +739,53 @@ def print_variant_check(label, r):
     print(line, flush=True)
 
 
-def time_mask_library(V8, K, table="int8", seed=0):
-    """The library's time for K8's mode-0 function: one product of the
-    materialized 0/1 mask against the partner table and one of V8's codes
-    against the factors (two calls; making the mask and, for a float
-    table, the codes in its type is not timed) — ``torch._int_mm`` for an
-    int8 table, ``torch.matmul`` in the table's type (its output rounded
-    to that type) for a float one.  For int8, also whether its int32 sums
-    equal the kernel's."""
+def materialized(V8, focus, dt, rows=16_384):
+    """The library's operands for K8's focus mode: V8's 0/1 mask and its
+    codes in ``dt``, [n0, n1] for mode 0, transposed to [n1, n0] for mode 1
+    (made a block of rows at a time)."""
+    import torch
+    n0, n1 = V8.shape
+    shape = (n0, n1) if focus == 0 else (n1, n0)
+    mask = torch.empty(shape, dtype=dt, device=V8.device)
+    codes = V8 if focus == 0 and dt == torch.int8 else torch.empty(
+        shape, dtype=dt, device=V8.device)
+    for r in range(0, n0, rows):
+        blk = V8[r:r + rows]
+        if focus == 0:
+            mask[r:r + rows] = blk != 0
+            if codes is not V8:
+                codes[r:r + rows] = blk
+        else:
+            mask[:, r:r + rows] = (blk != 0).mT
+            codes[:, r:r + rows] = blk.mT
+    return mask, codes
+
+
+def time_mask_library(V8, K, table="int8", focus=0, seed=0):
+    """The library's time for K8's function in focus mode ``focus``: one
+    product of the materialized 0/1 mask against the partner table and one
+    of V8's codes against the factors (two calls; making the mask and the
+    codes in the table's type, and for mode 1 their transposed copies, is
+    not timed) — ``torch._int_mm`` for an int8 table, ``torch.matmul`` in
+    the table's type (its output rounded to that type) for a float one.
+    For int8, also whether its int32 sums equal the kernel's (the natural
+    layout at the stored extent)."""
     import torch
     from bayesiandatafusion_jl_tpu_torch.ops import dense_gram as dg
     from bayesiandatafusion_jl_tpu_torch.ops.fused_pair import \
         fused_pair_contract
     g = torch.Generator(device="cuda").manual_seed(seed)
-    U = torch.randn((V8.shape[1], K), generator=g, device="cuda")
+    n_contract = V8.shape[1 - focus]
+    U = torch.randn((n_contract, K), generator=g, device="cuda")
     tri = dg.tri_index(K, "cuda")
     if table == "int8":
-        YZT = dg.fused_quantize(U, pad_rows=V8.shape[1], tri=tri)[0]
-        mask, codes, mm = (V8 != 0).to(torch.int8), V8, torch._int_mm
+        YZT = dg.fused_quantize(U, pad_rows=n_contract, tri=tri)[0]
+        dt, mm = torch.int8, torch._int_mm
     else:
         dt = getattr(torch, table)
-        YZT = dg.fused_table(U, dt, V8.shape[1], tri)
-        mask, codes, mm = (V8 != 0).to(dt), V8.to(dt), torch.matmul
+        YZT = dg.fused_table(U, dt, n_contract, tri)
+        mm = torch.matmul
+    mask, codes = materialized(V8, focus, dt)
     ZT = YZT[-K:]
 
     def lib():
@@ -764,7 +794,9 @@ def time_mask_library(V8, K, table="int8", seed=0):
     if table != "int8":
         return ms, None
     pm, bv = lib()
-    PM, BV = fused_pair_contract(V8, YZT, 0, K, V8.shape[0], flip_out=False)
+    del mask, codes
+    PM, BV = fused_pair_contract(V8, YZT, focus, K, V8.shape[focus],
+                                 flip_out=False)
     return ms, bool(torch.equal(pm, PM) and torch.equal(bv, BV))
 
 
@@ -1593,6 +1625,8 @@ def main() -> int:
         eng, counts, _ = run_path(rd, K, 40, 1, PATHS[K][2], None,
                                   dense_fused=True, dense_int8=True)
         tally(counts)
+        prof = profile_split(eng, split=FUSED_SPLIT)
+        print_profile(f"ML-10M fused s8 K={K}", prof)
         st = eng.problem.stores[0]
         for focus in (0, 1):
             r = check_fused_pair(st["V8"], st["shape"], K, focus)
@@ -1632,15 +1666,18 @@ def main() -> int:
                              f"version: {r}")
             ml_checks[(table, K, focus)] = r
             torch.cuda.empty_cache()
-        if K == 128:
-            ml_lib_ms, same = time_mask_library(st["V8"], K, table)
-            print(f"# library, ML-10M K=128 mode 0, {table}: the "
-                  f"product on the materialized mask and on V8 "
-                  f"(materialization not timed) {ml_lib_ms:.3f} ms"
+        # the library on the materialized mask, both modes
+        for focus in (0, 1):
+            ml_lib_ms, same = time_mask_library(st["V8"], K, table, focus)
+            print(f"# library, ML-10M K={K} mode {focus}, {table}: the "
+                  f"product on the materialized mask and on V8"
+                  f"{' (transposed)' if focus else ''} (materialization "
+                  f"not timed) {ml_lib_ms:.3f} ms"
                   + (f"; int32 sums equal K8b's: {same}" if i8 else ""),
                   flush=True)
             require(same is not False, "torch._int_mm and K8b disagree")
-            ml_checks[(table, K, "library")] = ml_lib_ms
+            ml_checks[(table, K, "library", focus)] = ml_lib_ms
+            torch.cuda.empty_cache()
         del st
         torch.cuda.empty_cache()
     del rd, df
@@ -1672,11 +1709,16 @@ def main() -> int:
         require(r["ok"], f"K8 disagrees with its plain version: {r}")
         nf_checks.append(r)
         torch.cuda.empty_cache()
-    lib_ms, lib_same = time_mask_library(st["V8"], 32)
-    print(f"# library, Netflix mode 0: torch._int_mm of the materialized "
-          f"mask and of V8 (materialization not timed) {lib_ms:.3f} ms; "
-          f"int32 sums equal K8's: {lib_same}", flush=True)
-    require(lib_same, "torch._int_mm and K8 disagree")
+    lib_ms = []
+    for focus in (0, 1):
+        ms, lib_same = time_mask_library(st["V8"], 32, focus=focus)
+        print(f"# library, Netflix mode {focus}: torch._int_mm of the "
+              f"materialized mask and of V8{' (transposed)' if focus else ''}"
+              f" (materialization not timed) {ms:.3f} ms; int32 sums equal "
+              f"K8's: {lib_same}", flush=True)
+        require(lib_same, "torch._int_mm and K8 disagree")
+        lib_ms.append(ms)
+        torch.cuda.empty_cache()
     del st
     torch.cuda.empty_cache()
     phase_done("Netflix kernels")
@@ -1699,10 +1741,16 @@ def main() -> int:
         require(r["ok"], f"K8c disagrees with its plain version: {r}")
         nf_float.append(r)
         torch.cuda.empty_cache()
-    lib_float_ms, _ = time_mask_library(st["V8"], 32, "bfloat16")
-    print(f"# library, Netflix mode 0, bfloat16: torch.matmul of the "
-          f"materialized mask and of V8's codes, 17.1 GB each in bfloat16 "
-          f"(materialization not timed) {lib_float_ms:.3f} ms", flush=True)
+    lib_float_ms = []
+    for focus in (0, 1):
+        ms, _ = time_mask_library(st["V8"], 32, "bfloat16", focus)
+        print(f"# library, Netflix mode {focus}, bfloat16: torch.matmul of "
+              f"the materialized mask and of V8's codes"
+              f"{' (transposed)' if focus else ''}, 17.1 GB each in "
+              f"bfloat16 (materialization not timed) {ms:.3f} ms",
+              flush=True)
+        lib_float_ms.append(ms)
+        torch.cuda.empty_cache()
     del st, rd
     torch.cuda.empty_cache()
     phase_done("Netflix float fused path")
@@ -1803,23 +1851,31 @@ def main() -> int:
                  "ms": r["kernel_ms"], "plain_ms": r["plain_ms"],
                  "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
     fused_src = "bayesiandatafusion_jl_tpu/ops/pallas_fused.py:"
-    for tag, name, source, line, r, lib in (
-            ("K8a", "fused_pair_i8", "fused_pair_i8.cu", 127, nf_checks[0],
+    # one row a kernel at its main shape, mode 0, and mode 1 beside it
+    for tag, name, source, line, modes, lib in (
+            ("K8a", "fused_pair_i8", "fused_pair_i8.cu", 127, nf_checks,
              lib_ms),
             ("K8b", "fused_pair_i8_natural", "fused_pair_i8.cu", 83,
-             ml_checks[("int8", 128, 0)],
-             ml_checks[("int8", 128, "library")]),
-            ("K8c", "fused_pair_float", "fused_pair_f.cu", 252, nf_float[0],
+             [ml_checks[("int8", 128, f)] for f in (0, 1)],
+             [ml_checks[("int8", 128, "library", f)] for f in (0, 1)]),
+            ("K8c", "fused_pair_float", "fused_pair_f.cu", 252, nf_float,
              lib_float_ms),
             ("K8d", "fused_pair_float_natural", "fused_pair_f.cu", 303,
-             ml_checks[("bfloat16", 128, 0)],
-             ml_checks[("bfloat16", 128, "library")])):
+             [ml_checks[("bfloat16", 128, f)] for f in (0, 1)],
+             [ml_checks[("bfloat16", 128, "library", f)] for f in (0, 1)])):
+        r, r1 = modes
         rows.append({"name": name, "route": "cuda", "source": src + source,
                      "replaces": fused_src + str(line),
                      "launches": launches[tag],
                      "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"],
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                     "bound_by": r["bound_by"], "library_ms": lib})
+                     "bound_by": r["bound_by"], "library_ms": lib[0],
+                     "mode_1": {"max_abs_err": r1["max_abs_err"],
+                                "ms": r1["kernel_ms"],
+                                "plain_ms": r1["plain_ms"],
+                                "bound_ms": r1["bound_ms"],
+                                "bound_by": r1["bound_by"],
+                                "library_ms": lib[1]}})
     r = k9_checks[("tensor_big", "bfloat16")]
     rows.append({"name": "windowed_expand", "route": "cuda",
                  "source": src + "windowed_expand.cu",

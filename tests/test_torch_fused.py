@@ -347,6 +347,74 @@ def test_fused_pair_float_matches_pallas(interpret_pallas, dtype, focus_axis,
             atol=(1e-6 if dtype == "float64" else FLOAT_TOL[dtype]) * top)
 
 
+# (stored focus extent, contraction extent, true focus, true contraction, K):
+# the shapes at which tests/test_torch_gpu.py holds K8a/K8b's ring to this
+# plain version
+RING_EDGES = {
+    "contraction 16": (64, 16, 64, 16, 5),
+    "one step short of a stage": (48, 112, 41, 100, 5),
+    "focus below the stored extent": (272, 64, 129, 60, 8),
+    "K = 96": (32, 64, 30, 60, 96),
+    "codes at the int8 bound": (16, 126_464, 16, 126_464, 8),
+}
+
+
+@pytest.mark.parametrize("focus_axis", [0, 1])
+@pytest.mark.parametrize("case", sorted(RING_EDGES))
+def test_fused_pair_plain_exact_at_ring_edges(focus_axis, case):
+    """The int8 plain version, the GPU kernels' reference, equals int64
+    numpy sums at the ring's edge shapes, raw and natural, and its dq
+    epilogue is one float32 conversion and multiply of them; at the int8
+    bound (every cell +-127, ``fused_int8_ok`` true) BV[0, 0] reaches
+    127^2 * 126,464 = 2,039,737,856 without wrapping."""
+    nfs, nc, tf, tc, K = RING_EDGES[case]
+    C = K * (K + 1) // 2
+    rng = np.random.default_rng(len(case) + focus_axis)
+    bound = case == "codes at the int8 bound"
+    if bound:
+        vf = np.where(rng.random((tf, tc)) < 0.5, -127, 127)
+    else:
+        vf = np.where(rng.random((tf, tc)) < 0.3,
+                      rng.integers(-127, 128, (tf, tc)), 0)
+    Vf = np.zeros((nfs, nc), np.int8)          # [focus, contraction]
+    Vf[:tf, :tc] = vf
+    V8 = Vf if focus_axis == 0 else Vf.T.copy()
+    if bound:
+        s0, s1 = (V8.shape[0], V8.shape[1])
+        idx = np.stack(np.nonzero(np.ones((s0, s1), bool)), 1)
+        assert tdg.fused_int8_ok(127, (s0, s1), idx,
+                                 np.abs(V8.astype(np.int64)).ravel())
+    YZ8T = rng.integers(-127, 128, (C + K, nc)).astype(np.int8)
+    YZ8T[:, tc:] = 0
+    if bound:
+        YZ8T[C] = Vf[0]
+    syz = rng.uniform(0.5, 2.0, C + K).astype(np.float32)
+    sz = rng.uniform(0.5, 2.0, K).astype(np.float32)
+    nf = tf
+    m = (Vf[:nf] != 0).astype(np.int64)
+    PMx = m @ YZ8T.T.astype(np.int64)
+    BVx = Vf[:nf].astype(np.int64) @ YZ8T[C:].T.astype(np.int64)
+    assert np.abs(PMx).max() < 2 ** 31 and np.abs(BVx).max() < 2 ** 31
+    if bound:
+        assert BVx[0, 0] == 127 * 127 * tc
+    tv, tyz = torch.from_numpy(V8), torch.from_numpy(YZ8T)
+    PM, BV = fused_pair.fused_pair_contract(tv, tyz, focus_axis, K, nf)
+    np.testing.assert_array_equal(PM.numpy(), PMx.T)
+    np.testing.assert_array_equal(BV.numpy(), BVx.T)
+    PMn, BVn = fused_pair.fused_pair_contract(tv, tyz, focus_axis, K, nf,
+                                              flip_out=False)
+    np.testing.assert_array_equal(PMn.numpy(), PMx)
+    np.testing.assert_array_equal(BVn.numpy(), BVx)
+    Pt, PMm, BVf = fused_pair.fused_pair_contract(
+        tv, tyz, focus_axis, K, nf,
+        dq=(torch.from_numpy(syz), torch.from_numpy(sz)))
+    PMf = PMx.T.astype(np.int32).astype(np.float32) * syz[:, None]
+    np.testing.assert_array_equal(Pt.numpy(), PMf[:C])
+    np.testing.assert_array_equal(PMm.numpy(), PMf[C:])
+    np.testing.assert_array_equal(
+        BVf.numpy(), BVx.T.astype(np.int32).astype(np.float32) * sz[:, None])
+
+
 @pytest.mark.parametrize("focus_axis", [0, 1])
 def test_fused_pair_contract_i8_takes_the_stored_extent(focus_axis):
     """fused_pair_contract_i8 takes a partner table as long as V8's

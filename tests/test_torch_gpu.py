@@ -79,39 +79,94 @@ def test_ytab_kernel_matches_plain(cuda, n, K, n_valid):
     assert r["ok"], r
 
 
+# The int8 ring's edges (csrc/fused_pair_i8.cu: 128-byte stages, 4 of
+# them, 128-row focus tiles, 256-column tiles of 64-column chunks): a
+# contraction of 16 bytes (mode 0 of the first, mode 1 of the second), one
+# 16-byte step short of a stage, two full rings; the value columns start
+# inside a column tile (K = 8 at column 64, K = 32 at 576, K = 96 at
+# 4,800; K = 96 is the largest K8a); focus extents below the stored ones;
+# a long contraction over few focus tiles, fewer tiles than SMs (mode 1 of
+# the first, mode 0 of the second).
+RING_EDGES = [((300, 16), 8), ((16, 300), 8), ((1_000, 112), 32),
+              ((112, 1_000), 32), ((1_024, 1_024), 96), ((1_000, 777), 8),
+              ((4_096, 300), 32), ((300, 4_096), 32)]
+
+
 @pytest.mark.parametrize("focus", [0, 1])
 @pytest.mark.parametrize("true, K", [((1_000, 777), 32), ((300, 2_000), 8),
                                      ((129, 257), 36), ((64, 48), 64),
-                                     ((2_048, 640), 96)])
+                                     ((2_048, 640), 96)] + RING_EDGES)
 def test_fused_pair_kernel_matches_plain(cuda, true, K, focus):
     """K8 against its plain version on ragged stores, raw int32 and the
-    dq epilogue, bit for bit."""
+    dq epilogue, bit for bit, at the int8 ring's edges too."""
     import chip_smoke
     V8 = chip_smoke.random_store(true, seed=K)
     r = chip_smoke.check_fused_pair(V8, true, K, focus, timing=False)
     assert r["ok"], r
 
 
+VARIANT_TABLES = [("int8", False), ("bfloat16", True), ("bfloat16", False),
+                  ("float32", True), ("float32", False), ("float64", True),
+                  ("float64", False)]
+VARIANT_STORES = [((1_000, 777), 32), ((300, 2_000), 8), ((129, 257), 36),
+                  ((640, 2_048), 100), ((2_048, 640), 128)]
+
+
 @pytest.mark.parametrize("focus", [0, 1])
-@pytest.mark.parametrize("table, flip_out", [
-    ("int8", False), ("bfloat16", True), ("bfloat16", False),
-    ("float32", True), ("float32", False), ("float64", True),
-    ("float64", False)])
-@pytest.mark.parametrize("true, K", [((1_000, 777), 32), ((300, 2_000), 8),
-                                     ((129, 257), 36), ((640, 2_048), 100),
-                                     ((2_048, 640), 128)])
+@pytest.mark.parametrize("true, K, table, flip_out", [
+    (true, K, table, flip) for true, K in VARIANT_STORES
+    for table, flip in VARIANT_TABLES] + [
+    (true, K, "int8", False) for true, K in RING_EDGES + [
+        ((1_024, 1_024), 128), ((300, 16), 100)]])
 def test_fused_pair_variants_match_plain(cuda, true, K, table, flip_out,
                                          focus):
     """K8b (int8 table, natural layout) bit for bit against its plain
-    version; K8c (float table, flip_out) and K8d (natural) within
-    chip_smoke.FLOAT_TOL of the largest sum against the plain version on
-    the same table in float64 (the rounding of the float32 sums); on
-    ragged stores, up to K = 128."""
+    version, at the int8 ring's edges too; K8c (float table, flip_out) and
+    K8d (natural) within chip_smoke.FLOAT_TOL of the largest sum against
+    the plain version on the same table in float64 (the rounding of the
+    float32 sums); on ragged stores, up to K = 128."""
     import chip_smoke
     V8 = chip_smoke.random_store(true, seed=K)
     r = chip_smoke.check_fused_variant(V8, true, K, focus, table, flip_out,
                                        timing=False)
     assert r["ok"], r
+
+
+@pytest.mark.parametrize("focus", [0, 1])
+@pytest.mark.parametrize("epilogue", ["raw", "dq", "natural"])
+def test_fused_pair_int8_at_its_bound(cuda, focus, epilogue):
+    """K8a/K8b at fused_int8_ok's bound: a fully observed [126464, 16]
+    store of codes +-127 (every fiber of mode 1 at 127 * 126,464 = 16.06M
+    absolute code mass) against a table of +-127 codes whose first value
+    row matches the signs of focus column 0, so BV[0, 0] is 127^2 *
+    126,464 = 2,039,737,856, within 0.02% of the bound.  Bit for bit
+    against the plain version, raw, dq and natural; n_focus one past a
+    128-row tile in mode 0."""
+    K = 8
+    C = K * (K + 1) // 2
+    n0, n1 = 126_464, 16
+    rng = np.random.default_rng(11)
+    v = np.where(rng.random((n0, n1)) < 0.5, -127, 127).astype(np.int8)
+    idx = np.stack(np.nonzero(np.ones((n0, n1), bool)), 1)
+    assert dense_gram.fused_int8_ok(127, (n0, n1), idx,
+                                    np.abs(v.astype(np.int64)).ravel())
+    n_contract = (n1, n0)[focus]
+    yz = np.where(rng.random((C + K, n_contract)) < 0.5, -127,
+                  127).astype(np.int8)
+    yz[C] = v[0] if focus == 0 else v[:, 0]
+    V8 = torch.from_numpy(v).to(cuda)
+    YZT = torch.from_numpy(yz).to(cuda)
+    nf = (129, n1)[focus]
+    dq = (torch.from_numpy(rng.random(C + K, np.float32) + 0.5).to(cuda),
+          torch.from_numpy(rng.random(K, np.float32) + 0.5).to(cuda))
+    kw = {"raw": {}, "dq": {"dq": dq}, "natural": {"flip_out": False}}
+    got = fused_pair.fused_pair_contract(V8, YZT, focus, K, nf,
+                                         **kw[epilogue])
+    want = fused_pair.fused_pair_plain(V8, YZT, focus, K, nf, **kw[epilogue])
+    torch.cuda.synchronize()
+    if epilogue != "dq":
+        assert int(want[1][0, 0]) == 127 * 127 * n_contract
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
 @pytest.mark.parametrize("focus", [0, 1])
