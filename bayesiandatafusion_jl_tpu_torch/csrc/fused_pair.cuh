@@ -1,16 +1,15 @@
-// Shared by the float-operand fused masked-pair kernels (fused_pair_f.cu)
-// and the int8 pair contraction (pair_contract_i8.cu): the CTA tile, the
-// swizzled shared-memory layout and the "virtual column" map.  (The int8
-// fused kernels, fused_pair_i8.cu, run their own TMA ring on
-// hopper_ring.cuh.)
+// The int8 pair contraction's (pair_contract_i8.cu) CTA tile, swizzled
+// shared-memory layout and "virtual column" map; the float32 / float64
+// fused kernel (fused_pair_f.cu) takes the map.  (The int8 and bfloat16
+// fused kernels run TMA rings on hopper_ring.cuh.)
 //
-// All of them compute, for a CTA, 128 focus rows x 128 virtual output
-// columns from shared-memory tiles with 128-byte rows (128 int8 or 64 bf16
-// contraction elements a stage).  The virtual columns are [0, ckp) the
-// first operand's columns (partner-table rows 0 .. n_first-1, padded up to
-// ckp: the mask columns of the fused kernels, n_first = C + K; the M8
-// columns of the pair, n_first = C) and [ckp, ckp + K) the value columns
-// (table rows C .. C+K-1, against the raw codes or W8).
+// K6 computes, for a CTA, 128 focus rows x 128 virtual output columns from
+// shared-memory tiles with 128-byte rows (128 int8 contraction elements a
+// stage).  The virtual columns are [0, ckp) the first operand's columns
+// (partner-table rows 0 .. n_first-1, padded up to ckp: the mask columns
+// of the fused kernels, n_first = C + K; the M8 columns of the pair,
+// n_first = C) and [ckp, ckp + K) the value columns (table rows C ..
+// C+K-1, against the raw codes or W8).
 #pragma once
 #include <cuda_runtime.h>
 #include <stdint.h>

@@ -1,54 +1,561 @@
-// Fused masked-pair contraction with float operands (K8, float variants):
-// both Gramian orientations of the fused sparse regime from the ONE stored
+// Fused masked-pair contraction with float operands (K8c, K8d): both
+// Gramian orientations of the fused sparse regime from the ONE stored
 // int8 value array, for a relation that is off the s8 path.
 //
 // Replaces the TPU kernels of bayesiandatafusion_jl_tpu/ops/pallas_fused.py
 // `fused_pair_pallas` (:345) in its float variants: flip_out
-// `_kern_focus_rows_t` (:252) / `_kern_focus_cols_t` (:280) and the natural
-// layout `_kern_focus_rows` (:303) / `_kern_focus_cols` (:322).  With V8
-// [n0, n1] the stored codes (0 = unobserved) and YZT [C+K, n_contract] the
-// partner table [Ypack | U] in the operand type (bfloat16, float32 or
-// float64), transposed so that the contraction axis is contiguous, it
-// computes for the focus mode f (f = 0: V8's rows, contracting n1; f = 1:
-// V8's columns, contracting n0)
+// `_kern_focus_rows_t` (:252) / `_kern_focus_cols_t` (:280) (K8c) and the
+// natural layout `_kern_focus_rows` (:303) / `_kern_focus_cols` (:322)
+// (K8d).  With V8 [n0, n1] the stored codes (0 = unobserved) and YZT
+// [C+K, n_contract] the partner table [Ypack | U] in the operand type
+// (bfloat16, float32 or float64), transposed so that the contraction axis
+// is contiguous, it computes for the focus mode f (f = 0: V8's rows,
+// contracting n1; f = 1: V8's columns, contracting n0)
 //
 //     PM[c, i] = sum_p (V8_f[i, p] != 0) * YZT[c, p]      c < C + K
 //     BV[k, i] = sum_p  V8_f[i, p]       * YZT[C + k, p]  k < K
 //
-// with the 0/1 mask and the codes cast to the operand type (codes up to
-// 127 are exact in bfloat16) and the sums accumulated in float32 (float64
-// for float64 operands), written in the packed sampler's layout
-// (PM [C+K, n_focus], BV [K, n_focus]) or the natural one (PM [n_focus,
-// C+K], BV [n_focus, K]).  No transposed copy of V8 and no mask in device
-// memory.
+// with the 0/1 mask and the codes in the operand type (codes up to 127
+// are exact in bfloat16, so every product is exact in float32) and the
+// sums in float32 (float64 for float64 operands), written in the packed
+// sampler's layout (PM [C+K, n_focus], BV [K, n_focus]) or the natural one
+// (PM [n_focus, C+K], BV [n_focus, K]).  No transposed copy of V8 and no
+// mask in device memory.
 //
-// What bounds it on an H100: 2 n0 n1 (C + 2K) operations, 1.01e13 at the
-// Netflix shape (480,189 x 17,770, K = 32): 10.2 ms at the 989 TFLOP/s
-// dense bfloat16 peak, 151 ms at 67 TFLOP/s in float32; its bytes (V8 8.5
-// GB once, the f32 outputs 1.1 GB) are 2.9 ms at 3.35 TB/s.
+// What bounds it on an H100: the bfloat16 design multiplies every cell of
+// the extent on the tensor cores, 2 n0 n1 (C + 2K) operations: 10.22 ms at
+// the 989 TFLOP/s dense bfloat16 peak at Netflix (480,189 x 17,770, K =
+// 32), 13.16 ms at ML-10M K = 128 and 3.41 ms at K = 64; the bytes (V8
+// once, the float32 outputs once) take 2.89 and 1.01 ms at 3.35 TB/s.  So
+// the tensor cores are the floor.  The first version ran at 7-9% of it: a
+// 2-stage register-staged loop with one __syncthreads a step, the V8 tile
+// written to shared memory twice, widened to bfloat16 as codes and as mask
+// (4x the bytes of one int8 copy), and mma.sync fed by 32-bit shared
+// loads.  This one runs on K8a/K8b's TMA ring (hopper_ring.cuh) at
+// 39-59% of it (PERF.md §6):
 //
-// Two kernels:
-//   - bfloat16 operands: the int8 kernel's design (fused_pair_i8.cu) on
-//     `mma.sync.m16n8k16.bf16` with float32 accumulators.  A CTA of 8 warps
-//     computes 128 focus rows x 128 virtual columns in 64-element steps
-//     through two shared-memory stages; the V8 tile is widened from int8 to
-//     bfloat16 on the way to shared memory, twice (codes and 0/1 mask).  A
-//     tile row is 128 bytes as in the int8 kernel, so the swizzle and the
-//     fragment addresses are the same.  For focus columns each thread loads
-//     16 focus columns of two neighbouring contraction rows and stores the
-//     16 (k, k+1) pairs as 32-bit words of the transposed tile.
-//     The tensor cores add each step's products into the accumulator with
-//     truncation, which biases a long sum of one sign low (the diagonal of
-//     P of a heavy row); so each stage's four steps accumulate from zero
-//     and are added to the running sums by ordinary float32 adds.
-//   - float32 / float64 operands: a tiled FMA kernel (64 x 64 outputs a
-//     CTA, 4 x 4 a thread, 16 contraction elements a step), no TF32: it is
-//     the parity seam (compute dtype operands), not the fast path.
+// - Loads: an asynchronous ring of STAGES = 4 stages of 128 contraction
+//   elements, each one TMA box of V8 (128 focus x 128 contraction bytes)
+//   and up to four 64-row boxes of YZT (two chunks x two 64-element
+//   halves), filled by one producer thread that works out a tile's boxes
+//   once, and completing on an mbarrier; every consumer thread releases a
+//   stage through a second mbarrier.  setmaxnreg gives the consumers 232
+//   registers, the producer 40.  TMA's zero fill makes the ragged edges: a
+//   zero code is a zero mask, and YZT rows past C + K and contraction
+//   elements past the extent read 0.
+// - One int8 copy of the V8 tile a stage.  Each consumer reads 16-bit
+//   words of it (two codes) and widens them in registers to packed
+//   bfloat16 pairs, the codes or their 0/1 mask (code2, mask2: integer
+//   ops and one bf16x2 FMA, exact); no bfloat16 or mask tile is stored.
+//   Mode 1's tile is [contraction x focus] and a register A has no
+//   transpose: each thread's two MMA rows are two adjacent focus columns,
+//   read as one 16-bit word from each of the step's contraction rows and
+//   transposed with __byte_perm; the epilogue writes each row back to its
+//   column.  Both modes read 4 words a step, conflict-free, and run within
+//   1.2x of each other.
+// - Tensor cores: wgmma.mma_async m64nNk16 f32.bf16.bf16, A from
+//   registers, B the YZT rows, K-major as stored (a 128-byte box row is 64
+//   elements), through a descriptor of the 128-byte-swizzled tile.  Each
+//   step's products run while the next step's operand is made.  No
+//   product sits in a branch of its mainloop: each chunk kind (mask,
+//   value) and count (two: N = 128; one: N = 64) has a mainloop of its
+//   own, chosen once a tile.  `mma.sync.m16n8k16` on the same ring (B by
+//   ldmatrix) ran 1.25-1.65x slower.
+// - The float32 sums: wgmma adds each step into its accumulator with
+//   truncation, so one long chain biases a one-sign sum low (2.7e-3 of
+//   the largest sum over Netflix's 480,189-element contraction, measured
+//   on this card).  Each 1,024 contraction elements (8 stages) are summed
+//   from zero and added into float32 totals by ordinary adds: 2.8e-6 at
+//   the worst reading there, 1.0e-5 at 4,096.  The totals are a second
+//   accumulator set as large as the first, so a consumer warpgroup holds
+//   64 focus rows x 128 virtual columns (64 + 64 floats a thread) and a
+//   CTA tile is 128 x 128, not K8a's 128 x 256: a stage draws 48 KB from
+//   L2 for 4.2 MFLOP, ~11 TB/s at the bfloat16 peak.
+// - Tiles and order: the virtual columns are [0, ckp) the mask columns
+//   (YZT rows 0 .. C+K-1, ckp = C + K rounded up to 64) and [ckp, ckp + K)
+//   the value columns (YZT rows C .. C+K-1 against the raw codes), in
+//   chunks of 64 paired by kind; a tile is 128 focus rows x one pair.  One
+//   CTA per SM walks the tiles persistently in a grouped order: groups of
+//   G focus tiles, pairs outer within a group.  G is K8a's, 16 in mode 0
+//   and 2 in mode 1: 4 in mode 0 ran within 2% of 16, 8 in mode 1 1.3x
+//   slower.
+// - Epilogue: a consumer stages 64 focus rows x 64 columns of totals in
+//   its own 16 KB of shared memory (outside the ring, which already holds
+//   the next tile's loads), then writes the flip_out layouts as coalesced
+//   rows along n_focus and the natural layout as 16-byte stores along
+//   C + K, all streaming stores.
+//
+// The float32 / float64 operands run a tiled FMA kernel (64 x 64 outputs a
+// CTA, 4 x 4 a thread, 16 contraction elements a step), no TF32: it is the
+// parity seam (compute dtype operands), not the fast path.
+#include <algorithm>
+
 #include "fused_pair.cuh"
+#include "hopper_ring.cuh"
 
 namespace {
 
-using namespace fused_pair;
+// ---- bfloat16 operands: the TMA ring ----------------------------------
+
+namespace ring {
+
+using namespace hopper;
+
+constexpr int BM = 128;                  // focus rows (mode 1: columns) a tile
+constexpr int BK = 128;                  // contraction elements a stage
+constexpr int CH = 64;                   // virtual columns a chunk
+constexpr int STAGES = 4;
+constexpr int GROUP0 = 16, GROUP1 = 2;   // focus tiles a group, by mode
+constexpr int PROMOTE = 8;               // stages a partial sum spans
+constexpr int A_BYTES = BM * BK;         // the V8 box (int8)
+constexpr int B_BYTES = CH * 128;        // a chunk's YZT box: 64 elements
+constexpr int STAGE_BYTES = A_BYTES + 4 * B_BYTES;  // 2 halves x 2 chunks
+constexpr int STAGING = 64 * 64 * 4;     // a consumer's epilogue tile
+constexpr int SMEM = STAGES * STAGE_BYTES + 2 * STAGING + 2 * STAGES * 8 +
+                     1024;               // + alignment slack
+constexpr int NTHREADS = 384;            // producer warpgroup + 2 consumers
+
+struct Args {
+  long long nf;          // focus rows written (<= stored focus extent)
+  int C, K, ck, ckp;     // ck = C + K; ckp: first value column
+  int nmask, mp, np;     // mask chunks, mask pairs, pairs (value pairs last)
+  int n_ft, nk;          // focus tiles, contraction stages
+  long long tiles;       // n_ft * np
+  float* pm;             // [C + K, nf], natural layout [nf, C + K]
+  float* bv;             // [K, nf], natural layout [nf, K]
+};
+
+// tile u in the grouped order: groups of G focus tiles (the last one
+// shorter), chunk pairs outer within a group
+template <int FOCUS>
+__device__ __forceinline__ void tile_of(const Args& a, long long u, int& ft,
+                                        int& p) {
+  constexpr int G = FOCUS == 0 ? GROUP0 : GROUP1;
+  const long long per = static_cast<long long>(G) * a.np;
+  const int grp = static_cast<int>(u / per);
+  const int w = static_cast<int>(u - grp * per);
+  const int gs = min(G, a.n_ft - grp * G);
+  p = w / gs;
+  ft = grp * G + w % gs;
+}
+
+// Pair p of chunks, a tile's columns: the mask chunks two by two, then
+// the value chunks two by two, so no pair mixes the kinds.  Its first
+// chunk, its chunk count (1 or 2) and whether it holds value chunks.
+__device__ __forceinline__ void chunk_pair(const Args& a, int p, int& first,
+                                           int& count, bool& val) {
+  val = p >= a.mp;
+  const int q = val ? p - a.mp : p;
+  const int n = val ? (a.K + CH - 1) / CH : a.nmask;
+  first = (val ? a.nmask : 0) + 2 * q;
+  count = min(2, n - 2 * q);
+}
+
+__device__ __forceinline__ uint32_t lds16(const unsigned char* p) {
+  return *reinterpret_cast<const uint16_t*>(p);
+}
+
+// The int8 codes in bytes 0 and 2 of w (bytes 1 and 3 zero) as a packed
+// bfloat16 pair: 0x4300 | low 7 bits is 128 + low7, 0x4300 | sign bit is
+// 128 or 256, and their difference, the code, is exact in bfloat16
+__device__ __forceinline__ uint32_t code2(uint32_t w) {
+  const uint32_t p = (w & 0x007F007Fu) | 0x43004300u;
+  const uint32_t q = (w & 0x00800080u) | 0x43004300u;
+  uint32_t d;
+  asm("fma.rn.bf16x2 %0, %1, %2, %3;\n"
+      : "=r"(d) : "r"(q), "r"(0xBF80BF80u), "r"(p));
+  return d;
+}
+
+// their 0/1 mask as a packed bfloat16 pair (1.0 = 0x3f80): byte + 255
+// carries into bit 8 of its half iff the byte is nonzero
+__device__ __forceinline__ uint32_t mask2(uint32_t w) {
+  return (((w + 0x00FF00FFu) >> 8) & 0x00010001u) * 0x3F80u;
+}
+
+// The A fragment (mma.m16n8k16's, the warp's 16 MMA rows) of k16 step s
+// of a stage's V8 box, 128-byte rows in the 128-byte swizzle (16-byte
+// chunk ch of row r at ch ^ (r & 7)): {(g, k 2t, 2t+1), (g+8, ..), (g,
+// k 2t+8, 2t+9), (g+8, ..)}, the codes (VAL) or their mask.  Mode 0: MMA
+// rows are tile rows 64c + 16w + g (+ 8), whose chunk s holds the step.
+// Mode 1 (the box is [contraction p][focus column]): MMA rows 16w + g and
+// 16w + g + 8 are focus columns 64c + 16w + 2g and + 1, read as one 16-bit
+// word from each of the step's contraction rows and transposed with
+// __byte_perm.
+template <int FOCUS, bool VAL>
+__device__ __forceinline__ void load_a(const unsigned char* sa, int s, int c,
+                                       int w, int g, int t,
+                                       uint32_t (&a)[4]) {
+  uint32_t x[4];
+  if constexpr (FOCUS == 0) {
+    const unsigned char* row =
+        sa + (64 * c + 16 * w + g) * BK + ((s ^ g) << 4) + 2 * t;
+    x[0] = __byte_perm(lds16(row), 0, 0x4140);
+    x[1] = __byte_perm(lds16(row + 8 * BK), 0, 0x4140);
+    x[2] = __byte_perm(lds16(row + 8), 0, 0x4140);
+    x[3] = __byte_perm(lds16(row + 8 * BK + 8), 0, 0x4140);
+  } else {
+    const int p = 16 * s + 2 * t, cq = 4 * c + w;   // p & 7 == 2t
+    const unsigned char* col = sa + 2 * g;
+    const uint32_t h0 = lds16(col + p * BK + ((cq ^ (2 * t)) << 4));
+    const uint32_t h1 = lds16(col + (p + 1) * BK + ((cq ^ (2 * t + 1)) << 4));
+    const uint32_t h8 = lds16(col + (p + 8) * BK + ((cq ^ (2 * t)) << 4));
+    const uint32_t h9 = lds16(col + (p + 9) * BK + ((cq ^ (2 * t + 1)) << 4));
+    x[0] = __byte_perm(h0, h1, 0x2420);
+    x[1] = __byte_perm(h0, h1, 0x2521);
+    x[2] = __byte_perm(h8, h9, 0x2420);
+    x[3] = __byte_perm(h8, h9, 0x2521);
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) a[i] = VAL ? code2(x[i]) : mask2(x[i]);
+}
+
+// Every consumer thread releases the stage itself: an arrival by one lane
+// of a warp sits in a branch or a predicate between two products in
+// flight, and ptxas then serializes every wgmma of the kernel (C7513).
+__device__ __forceinline__ void release(uint64_t* bar) { mbar_arrive(bar); }
+
+// k16 step S of a stage: acc += A . B^T, A the codes (VAL) or their mask
+// in registers, B the pair's YZT rows (WIDE: both chunks, N = 128) through
+// the descriptor of the stage's half S / 4.  The step's products run while
+// the next step's operand is made: `prev` stays untouched until they are
+// done.  In step 0 the previous stage `pend` is released once its last
+// products are done.
+template <int FOCUS, bool VAL, bool WIDE, int S>
+__device__ __forceinline__ void mma_step(float (&acc)[2][32],
+                                         uint32_t (&cur)[4],
+                                         uint32_t (&prev)[4],
+                                         const unsigned char* st, uint64_t db,
+                                         int c, int w, int g, int t,
+                                         uint64_t* pend) {
+  load_a<FOCUS, VAL>(st, S, c, w, g, t, cur);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) fence_operand(cur[i]);
+  wgmma_fence();
+  const uint64_t d = db + (S >> 2) * (2 * B_BYTES >> 4) + 2 * (S & 3);
+  if constexpr (WIDE)
+    wgmma_bf16_m64n128k16(acc[0], acc[1], cur, d);
+  else
+    wgmma_bf16_m64n64k16(acc[0], cur, d);
+  wgmma_commit();
+  wgmma_wait<1>();                       // the previous step's products
+#pragma unroll
+  for (int i = 0; i < 4; ++i) fence_operand(prev[i]);
+  if (S == 0 && pend != nullptr) release(pend);
+}
+
+// One tile's contraction stages [0, nk) for a consumer warpgroup, 8 k16
+// steps a stage alternating two operand sets, the partial sums `acc` added
+// into the float32 totals `tot` and set to zero every PROMOTE stages, once
+// their products are done (every product accumulates).  No product sits
+// in a branch: the kind (VAL) and width (WIDE) are template arguments,
+// chosen once a tile.
+template <int FOCUS, bool VAL, bool WIDE>
+__device__ __forceinline__ void mainloop(float (&acc)[2][32],
+                                         float (&tot)[2][32],
+                                         uint32_t (&f0)[4], uint32_t (&f1)[4],
+                                         unsigned char* smem, uint64_t* full,
+                                         uint64_t* empty, int& stage,
+                                         unsigned& phase, int nk, int c,
+                                         int w, int g, int t) {
+  constexpr int NJ = WIDE ? 2 : 1;
+#pragma unroll
+  for (int j = 0; j < NJ; ++j)
+#pragma unroll
+    for (int e = 0; e < 32; ++e) tot[j][e] = acc[j][e] = 0.f;
+  for (int k0 = 0; k0 < nk; k0 += PROMOTE) {
+    const int k1 = min(nk, k0 + PROMOTE);
+    uint64_t* pend = nullptr;            // the stage to release
+    for (int kt = k0; kt < k1; ++kt) {
+      mbar_wait(&full[stage], phase);
+      const unsigned char* st = smem + stage * STAGE_BYTES;
+      const uint64_t db = desc_sw128(st + A_BYTES);
+      mma_step<FOCUS, VAL, WIDE, 0>(acc, f0, f1, st, db, c, w, g, t,
+                                    pend);
+      mma_step<FOCUS, VAL, WIDE, 1>(acc, f1, f0, st, db, c, w, g, t,
+                                    pend);
+      mma_step<FOCUS, VAL, WIDE, 2>(acc, f0, f1, st, db, c, w, g, t,
+                                    pend);
+      mma_step<FOCUS, VAL, WIDE, 3>(acc, f1, f0, st, db, c, w, g, t,
+                                    pend);
+      mma_step<FOCUS, VAL, WIDE, 4>(acc, f0, f1, st, db, c, w, g, t,
+                                    pend);
+      mma_step<FOCUS, VAL, WIDE, 5>(acc, f1, f0, st, db, c, w, g, t,
+                                    pend);
+      mma_step<FOCUS, VAL, WIDE, 6>(acc, f0, f1, st, db, c, w, g, t,
+                                    pend);
+      mma_step<FOCUS, VAL, WIDE, 7>(acc, f1, f0, st, db, c, w, g, t,
+                                    pend);
+      pend = &empty[stage];
+      if (++stage == STAGES) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+    wgmma_wait<0>();
+    release(pend);
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int e = 0; e < 32; ++e) {
+        fence_operand(acc[j][e]);
+        tot[j][e] += acc[j][e];
+        acc[j][e] = 0.f;
+      }
+  }
+}
+
+// flip_out staging [64 columns][64 rows] float32: row m of column v at
+// m ^ swf(v), conflict-free for the fragment writes and the row reads
+template <int FOCUS>
+__device__ __forceinline__ int swf(int v) {
+  const int t = (v >> 1) & 3;
+  return FOCUS == 0 ? 8 * t : (t & 1) | ((t >> 1) << 4);
+}
+
+// natural staging [64 rows][64 columns] float32: 16-byte chunk ch of row
+// m at ch ^ swn(m)
+template <int FOCUS>
+__device__ __forceinline__ int swn(int m) {
+  return FOCUS == 0 ? m & 7 : (m >> 1) & 7;
+}
+
+// A consumer's 64 focus rows x (nj chunks) of totals, one chunk at a time
+// through its staging tile: flip_out as coalesced rows along n_focus, the
+// natural layout as 16-byte stores along C + K, streaming stores.
+template <int FOCUS, bool NAT>
+__device__ __forceinline__ void epilogue(const Args& a, float (&tot)[2][32],
+                                         float* stg, int c, int cg0, int nj,
+                                         long long m0, int w, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+  const long long mc = m0 + 64 * c;      // the consumer's first focus row
+  const int rows = static_cast<int>(
+      max(0LL, min(64LL, a.nf - mc)));
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    if (j >= nj) continue;
+    named_barrier(1 + c, 128);           // the staging tile is free
+#pragma unroll
+    for (int nn = 0; nn < 8; ++nn)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        // the sums of MMA row 16w + g + 8h, columns 8nn + 2t, + 1
+        const int m = FOCUS == 0 ? 16 * w + g + 8 * h : 16 * w + 2 * g + h;
+        const float* d = &tot[j][4 * nn + 2 * h];
+        const int v = 8 * nn + 2 * t;
+        if constexpr (NAT) {
+          *reinterpret_cast<float2*>(
+              stg + m * 64 + (((v >> 2) ^ swn<FOCUS>(m)) << 2) + (v & 3)) =
+              make_float2(d[0], d[1]);
+        } else {
+          stg[v * 64 + (m ^ swf<FOCUS>(v))] = d[0];
+          stg[(v + 1) * 64 + (m ^ swf<FOCUS>(v + 1))] = d[1];
+        }
+      }
+    named_barrier(1 + c, 128);
+    const int vb = (cg0 + j) * CH;       // virtual column of staging column 0
+    if constexpr (NAT) {
+      const bool vec = a.ck % 4 == 0 && a.K % 4 == 0;
+#pragma unroll 2
+      for (int i = 0; i < 8; ++i) {
+        const int m = 16 * w + 2 * i + (lane >> 4), ch = lane & 15;
+        if (m >= rows) continue;
+        const float4 x = *reinterpret_cast<const float4*>(
+            stg + m * 64 + ((ch ^ swn<FOCUS>(m)) << 2));
+        const long long mg = mc + m;
+        const int v = vb + 4 * ch;
+        float* dst;
+        int lim;
+        if (v < a.ckp) {
+          dst = a.pm + mg * a.ck + v;
+          lim = a.ck - v;
+        } else {
+          dst = a.bv + mg * a.K + (v - a.ckp);
+          lim = a.K - (v - a.ckp);
+        }
+        if (lim >= 4 && vec) {
+          __stcs(reinterpret_cast<float4*>(dst), x);
+        } else {
+          if (lim > 0) __stcs(dst, x.x);
+          if (lim > 1) __stcs(dst + 1, x.y);
+          if (lim > 2) __stcs(dst + 2, x.z);
+          if (lim > 3) __stcs(dst + 3, x.w);
+        }
+      }
+    } else {
+#pragma unroll 2
+      for (int i = 0; i < 16; ++i) {
+        const int vr = 16 * w + i, v = vb + vr;
+        const float* row = stg + vr * 64;
+        const int sw = swf<FOCUS>(vr);
+        float* dst;
+        if (v < a.ckp) {
+          if (v >= a.ck) continue;
+          dst = a.pm + v * a.nf;
+        } else {
+          const int k = v - a.ckp;
+          if (k >= a.K) continue;
+          dst = a.bv + k * a.nf;
+        }
+        dst += mc;
+        for (int mm = lane; mm < rows; mm += 32) __stcs(dst + mm, row[mm ^ sw]);
+      }
+    }
+  }
+}
+
+template <int FOCUS, bool NAT>
+__global__ void __launch_bounds__(NTHREADS, 1)
+fused_pair_bf16_kernel(__grid_constant__ const CUtensorMap v8map,
+                       __grid_constant__ const CUtensorMap yzmap,
+                       const Args a) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint64_t* full = reinterpret_cast<uint64_t*>(
+      smem + STAGES * STAGE_BYTES + 2 * STAGING);
+  uint64_t* empty = full + STAGES;
+  // the warp index, read through a shuffle so the compiler knows it is
+  // warp-uniform: the tensor-core products sit in branches on it
+  const int tid = threadIdx.x, warp = __shfl_sync(0xffffffffu, tid >> 5, 0);
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 256);         // one arrival per consumer thread
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (warp >= 8) {                       // producer: one thread
+    setmaxnreg_dec<40>();
+    if (tid != 256) return;
+    int stage = 0;
+    unsigned phase = 0;
+    for (long long u = blockIdx.x; u < a.tiles; u += gridDim.x) {
+      int ft, p, first, count;
+      bool val;
+      tile_of<FOCUS>(a, u, ft, p);
+      chunk_pair(a, p, first, count, val);
+      // the tile's YZT boxes, worked out once: chunk j reads YZT rows
+      // row[j].. (a mask chunk v.., a value chunk C + (v - ckp)..), or
+      // nothing (-1); the stage loop only issues loads
+      int row[2];
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int v = (first + j) * CH;
+        row[j] = j >= count ? -1 : v < a.ckp ? v : a.C + (v - a.ckp);
+      }
+      const unsigned bytes = A_BYTES + 2 * count * B_BYTES;
+      const int m0 = ft * BM;
+      for (int kt = 0; kt < a.nk; ++kt) {
+        mbar_wait(&empty[stage], phase ^ 1);
+        unsigned char* st = smem + stage * STAGE_BYTES;
+        mbar_expect_tx(&full[stage], bytes);
+        const int k0 = kt * BK;
+        if (FOCUS == 0) tma_load_2d(st, &v8map, k0, m0, &full[stage]);
+        else tma_load_2d(st, &v8map, m0, k0, &full[stage]);
+        // half h of the stage (elements k0 + 64h ..) of chunk j at box
+        // 2h + j: a half's two chunks are one 128-row operand
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int j = 0; j < 2; ++j)
+            if (row[j] >= 0)
+              tma_load_2d(st + A_BYTES + (2 * h + j) * B_BYTES, &yzmap,
+                          2 * (k0 + 64 * h), row[j], &full[stage]);
+        if (++stage == STAGES) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup c = warps 4c .. 4c + 3, focus rows 64c .. 64c + 63
+  setmaxnreg_inc<232>();
+  const int c = warp >> 2, w = warp & 3, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  float* stg = reinterpret_cast<float*>(smem + STAGES * STAGE_BYTES +
+                                        c * STAGING);
+  float acc[2][32], tot[2][32];          // partial sums, totals
+  uint32_t f0[4] = {}, f1[4] = {};       // operands of alternate steps
+  int stage = 0;
+  unsigned phase = 0;
+  for (long long u = blockIdx.x; u < a.tiles; u += gridDim.x) {
+    int ft, p, cg0, nj;
+    bool val;
+    tile_of<FOCUS>(a, u, ft, p);
+    chunk_pair(a, p, cg0, nj, val);
+    if (nj == 2) {
+      if (val)
+        mainloop<FOCUS, true, true>(acc, tot, f0, f1, smem, full, empty,
+                                    stage, phase, a.nk, c, w, g, t);
+      else
+        mainloop<FOCUS, false, true>(acc, tot, f0, f1, smem, full, empty,
+                                     stage, phase, a.nk, c, w, g, t);
+    } else {
+      if (val)
+        mainloop<FOCUS, true, false>(acc, tot, f0, f1, smem, full, empty,
+                                     stage, phase, a.nk, c, w, g, t);
+      else
+        mainloop<FOCUS, false, false>(acc, tot, f0, f1, smem, full, empty,
+                                      stage, phase, a.nk, c, w, g, t);
+    }
+    epilogue<FOCUS, NAT>(a, tot, stg, c, cg0, nj,
+                         static_cast<long long>(ft) * BM, w, lane);
+  }
+}
+
+template <int FOCUS, bool NAT>
+int launch(const void* v8, long long n0, long long n1, const void* yzt,
+           int C, int K, long long nf, void* pm, void* bv, void* stream) {
+  auto kern = fused_pair_bf16_kernel<FOCUS, NAT>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long n_focus = FOCUS == 0 ? n0 : n1;
+  const long long n_contract = FOCUS == 0 ? n1 : n0;
+  if (nf < 0 || nf > n_focus) return static_cast<int>(cudaErrorInvalidValue);
+  if (nf == 0) return 0;
+  // TMA coordinates are 32-bit: YZT's in bytes
+  if (n_contract > (1ll << 30) - BK || n_focus > (1ll << 31) - BM)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Args a = {};
+  a.nf = nf;
+  a.C = C;
+  a.K = K;
+  a.ck = C + K;
+  a.pm = static_cast<float*>(pm);
+  a.bv = static_cast<float*>(bv);
+  CUtensorMap v8map, yzmap;
+  if (!map_bytes_2d(&v8map, v8, n0, n1, 128) ||
+      !map_bytes_2d(&yzmap, yzt, a.ck, 2 * n_contract, CH))
+    return static_cast<int>(cudaErrorInvalidValue);
+  a.ckp = (a.ck + CH - 1) / CH * CH;
+  a.nmask = a.ckp / CH;
+  a.mp = (a.nmask + 1) / 2;
+  a.np = a.mp + ((a.K + CH - 1) / CH + 1) / 2;
+  a.n_ft = static_cast<int>((nf + BM - 1) / BM);
+  a.nk = static_cast<int>((n_contract + BK - 1) / BK);
+  int dev = 0, sms = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    dev)) != cudaSuccess)
+    return static_cast<int>(err);
+  a.tiles = static_cast<long long>(a.n_ft) * a.np;
+  const long long grid = std::min<long long>(sms, a.tiles);
+  kern<<<static_cast<unsigned>(grid), NTHREADS, SMEM,
+         static_cast<cudaStream_t>(stream)>>>(v8map, yzmap, a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace ring
+
+// ---- float32 / float64 operands: tiled FMA --------------------------------
+
+using fused_pair::src_row;
 
 struct Args {
   const int8_t* v8;      // [n0, n1], n0 and n1 multiples of 16
@@ -59,221 +566,6 @@ struct Args {
   void* pm;              // [C + K, nf], natural layout [nf, C + K]
   void* bv;              // [K, nf], natural layout [nf, K]
 };
-
-// signed byte j of a 32-bit word
-__device__ __forceinline__ int sbyte(uint32_t w, int j) {
-  return static_cast<int>(w << (24 - 8 * j)) >> 24;
-}
-
-// two int8 codes as a packed bfloat16 pair (exact: |code| <= 127 has at
-// most 7 significant bits), lo in the low half
-__device__ __forceinline__ uint32_t code2(int lo, int hi) {
-  return (__float_as_uint(static_cast<float>(lo)) >> 16) |
-         (__float_as_uint(static_cast<float>(hi)) & 0xffff0000u);
-}
-
-// their 0/1 mask as a packed bfloat16 pair (1.0 = 0x3f80)
-__device__ __forceinline__ uint32_t mask2(int lo, int hi) {
-  return (lo != 0 ? 0x3f80u : 0u) | (hi != 0 ? 0x3f800000u : 0u);
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-constexpr int BKE = BK / 2;    // bfloat16 contraction elements per stage
-
-template <int FOCUS, bool NAT>
-__global__ void __launch_bounds__(NTHREADS)
-fused_pair_bf16_kernel(const Args a) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  unsigned char* sA = smem;              // 2 stages x [BM][BKE] codes
-  unsigned char* sM = smem + 2 * TILE;   // 2 stages x [BM][BKE] 0/1 mask
-  unsigned char* sB = smem + 4 * TILE;   // 2 stages x [BN][BKE]
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, tig = lane & 3;
-  const long long m0 = static_cast<long long>(blockIdx.y) * BM;
-  const int v0 = blockIdx.x * BN;
-  const long long n_contract = FOCUS == 0 ? a.n1 : a.n0;
-  const int wm = (warp & 1) * 64, wn = (warp >> 1) * WARP_N;
-  const bool raw = v0 + wn >= a.ckp;     // warp-uniform: value columns
-
-  // B rows this thread loads (virtual columns tid/8 + 32i, chunk tid%8)
-  const int lch = tid & 7;
-  const unsigned char* bsrc[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int s = src_row(a.C + a.K, a.C, a.K, a.ckp, v0 + (tid >> 3) + 32 * i);
-    bsrc[i] = s < 0 ? nullptr
-                    : static_cast<const unsigned char*>(a.yzt) +
-                          2 * static_cast<long long>(s) * n_contract;
-  }
-
-  uint4 rb[4];
-  uint4 ra[2];
-
-  // k0: first contraction element of the stage
-  auto load = [&](long long k0) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const long long k = k0 + lch * 8;
-      rb[i] = make_uint4(0, 0, 0, 0);
-      if (bsrc[i] != nullptr && k < n_contract)
-        rb[i] = __ldg(reinterpret_cast<const uint4*>(bsrc[i] + 2 * k));
-    }
-    if constexpr (FOCUS == 0) {
-      // focus rows tid/4 + 64i, contraction elements k0 + 16 (tid%4) ..
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const long long row = m0 + (tid >> 2) + 64 * i;
-        const long long k = k0 + (tid & 3) * 16;
-        ra[i] = make_uint4(0, 0, 0, 0);
-        if (row < a.n0 && k < a.n1)
-          ra[i] = __ldg(reinterpret_cast<const uint4*>(a.v8 + row * a.n1 + k));
-      }
-    } else {
-      // contraction rows k0 + 2 (tid/8) + r; focus columns m0 + 16 (tid%8)
-      const long long col = m0 + 16 * (tid & 7);
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const long long row = k0 + 2 * (tid >> 3) + r;
-        ra[r] = make_uint4(0, 0, 0, 0);
-        if (row < a.n0 && col < a.n1)
-          ra[r] = __ldg(reinterpret_cast<const uint4*>(a.v8 + row * a.n1 + col));
-      }
-    }
-  };
-
-  auto store = [&](int stage) {
-    unsigned char* tA = sA + stage * TILE;
-    unsigned char* tM = sM + stage * TILE;
-    unsigned char* tB = sB + stage * TILE;
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      *reinterpret_cast<uint4*>(tB + soff<FOCUS>((tid >> 3) + 32 * i, lch)) = rb[i];
-    if constexpr (FOCUS == 0) {
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int row = (tid >> 2) + 64 * i;
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          // codes 8h .. 8h + 7 of the 16: words 2h and 2h + 1
-          const uint32_t w0 = word(ra[i], 2 * h), w1 = word(ra[i], 2 * h + 1);
-          const int b[8] = {sbyte(w0, 0), sbyte(w0, 1), sbyte(w0, 2), sbyte(w0, 3),
-                            sbyte(w1, 0), sbyte(w1, 1), sbyte(w1, 2), sbyte(w1, 3)};
-          const int o = soff<FOCUS>(row, 2 * (tid & 3) + h);
-          *reinterpret_cast<uint4*>(tA + o) =
-              make_uint4(code2(b[0], b[1]), code2(b[2], b[3]),
-                         code2(b[4], b[5]), code2(b[6], b[7]));
-          *reinterpret_cast<uint4*>(tM + o) =
-              make_uint4(mask2(b[0], b[1]), mask2(b[2], b[3]),
-                         mask2(b[4], b[5]), mask2(b[6], b[7]));
-        }
-      }
-    } else {
-      const int kp = tid >> 3;           // contraction pair 2 kp, 2 kp + 1
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const uint32_t w0 = word(ra[0], q), w1 = word(ra[1], q);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int lo = sbyte(w0, j), hi = sbyte(w1, j);
-          const int o = soff<FOCUS>(16 * (tid & 7) + 4 * q + j, kp >> 2) + (kp & 3) * 4;
-          *reinterpret_cast<uint32_t*>(tA + o) = code2(lo, hi);
-          *reinterpret_cast<uint32_t*>(tM + o) = mask2(lo, hi);
-        }
-      }
-    }
-  };
-
-  float acc[4][4][4];
-#pragma unroll
-  for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.0f;
-
-  const int nk = static_cast<int>((n_contract + BKE - 1) / BKE);
-  load(0);
-  for (int kt = 0; kt < nk; ++kt) {
-    const int stage = kt & 1;
-    store(stage);
-    __syncthreads();
-    if (kt + 1 < nk) load(static_cast<long long>(kt + 1) * BKE);
-    const unsigned char* tA = (raw ? sA : sM) + stage * TILE;
-    const unsigned char* tB = sB + stage * TILE;
-    float part[4][4][4];
-#pragma unroll
-    for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) part[mi][ni][e] = 0.0f;
-#pragma unroll
-    for (int s = 0; s < BKE / 16; ++s) {
-      uint32_t af[4][4];
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi) {
-        const int r = wm + mi * 16 + g;
-        af[mi][0] = *reinterpret_cast<const uint32_t*>(tA + soff<FOCUS>(r, 2 * s) + tig * 4);
-        af[mi][1] = *reinterpret_cast<const uint32_t*>(tA + soff<FOCUS>(r + 8, 2 * s) + tig * 4);
-        af[mi][2] = *reinterpret_cast<const uint32_t*>(tA + soff<FOCUS>(r, 2 * s + 1) + tig * 4);
-        af[mi][3] = *reinterpret_cast<const uint32_t*>(tA + soff<FOCUS>(r + 8, 2 * s + 1) + tig * 4);
-      }
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-        const int c = wn + ni * 8 + g;
-        const uint32_t b0 = *reinterpret_cast<const uint32_t*>(tB + soff<FOCUS>(c, 2 * s) + tig * 4);
-        const uint32_t b1 = *reinterpret_cast<const uint32_t*>(tB + soff<FOCUS>(c, 2 * s + 1) + tig * 4);
-#pragma unroll
-        for (int mi = 0; mi < 4; ++mi) mma_bf16(part[mi][ni], af[mi], b0, b1);
-      }
-    }
-#pragma unroll
-    for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[mi][ni][e] += part[mi][ni][e];
-  }
-
-  // epilogue: sum (row g + 8h, column 2 tig + e) of each 16 x 8 tile
-  const int ck = a.C + a.K;
-  float* pm = static_cast<float*>(a.pm);
-  float* bv = static_cast<float*>(a.bv);
-#pragma unroll
-  for (int mi = 0; mi < 4; ++mi) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const long long m = m0 + wm + mi * 16 + g + 8 * h;
-      if (m >= a.nf) continue;
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int v = v0 + wn + ni * 8 + 2 * tig + e;
-          const float val = acc[mi][ni][2 * h + e];
-          if (v < ck) {
-            if constexpr (NAT) pm[m * ck + v] = val;
-            else pm[v * a.nf + m] = val;
-          } else if (v >= a.ckp && v - a.ckp < a.K) {
-            const int k = v - a.ckp;
-            if constexpr (NAT) bv[m * a.K + k] = val;
-            else bv[k * a.nf + m] = val;
-          }
-        }
-      }
-    }
-  }
-}
-
-// ---- float32 / float64 operands: tiled FMA --------------------------------
 
 constexpr int FT = 64;         // focus rows and virtual columns per CTA
 constexpr int FK = 16;         // contraction elements per step
@@ -375,18 +667,9 @@ int grid_for(const Args& a, int focus, int tile, dim3* grid) {
 }
 
 template <int FOCUS, bool NAT>
-int launch_bf16(Args a, void* stream) {
-  a.ckp = (a.C + a.K + WARP_N - 1) / WARP_N * WARP_N;
-  const int smem = 6 * TILE;
-  auto kern = fused_pair_bf16_kernel<FOCUS, NAT>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid;
-  if (int rc = grid_for(a, FOCUS, BM, &grid)) return rc;
-  if (a.nf == 0) return 0;
-  kern<<<grid, NTHREADS, smem, static_cast<cudaStream_t>(stream)>>>(a);
-  return static_cast<int>(cudaGetLastError());
+int launch_bf16(const Args& a, void* stream) {
+  return ring::launch<FOCUS, NAT>(a.v8, a.n0, a.n1, a.yzt, a.C, a.K, a.nf,
+                                  a.pm, a.bv, stream);
 }
 
 template <typename T, int FOCUS, bool NAT>

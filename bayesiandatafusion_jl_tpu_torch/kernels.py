@@ -127,6 +127,23 @@ def load() -> ctypes.CDLL:
     return _lib
 
 
+def ptxas_lines(log: str, kernel: str) -> List[str]:
+    """The lines of a build log (``-Xptxas -v``) about the entry functions
+    whose mangled name contains ``kernel``: each one's registers, shared
+    memory and spills, and any C75xx note ptxas prints for it (a wgmma it
+    serialized, which costs the kernel its overlap)."""
+    out, cur = [], ""
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            cur = line
+        if "C75" in line:
+            if kernel in line:
+                out.append(line.strip())
+        elif kernel in cur and ("registers" in line or "spill" in line):
+            out.append(line.strip())
+    return out
+
+
 def build_report() -> dict:
     """Seconds and compiler output (``-Xptxas -v``: registers, shared
     memory, spills) of the build this process ran; ``seconds`` is None when

@@ -68,7 +68,8 @@ Phases, each fatal on failure (nonzero exit, no result line):
      each variant (K8b, K8c, K8d) held against its plain version at the
      path's store and timed beside the library's products on a
      materialized mask and codes, both modes (mode 1 on transposed
-     copies);
+     copies); each timed bfloat16 line is followed by its kernel's build
+     lines (registers, spills, any C75xx note of a serialized wgmma);
 6. the Netflix fused paths at full width: the JAX bench's Netflix-shaped
    ratings (480,189 x 17,770, 100,480,507 stars 1..5, seed 9), K = 32,
    one stored 8.5 GB int8 array, the JAX bench's protocol (8 sweeps a
@@ -737,6 +738,14 @@ def print_variant_check(label, r):
                  f"{r['bound_ms']:.4f} ms ({r['bound_by']}); the dense-MMA "
                  f"design's floor {r['dense_bound_ms']:.4f} ms")
     print(line, flush=True)
+    if r["table"] == "bfloat16" and "kernel_ms" in r:
+        # the build of this mode's and layout's ring kernel: registers,
+        # spills and any C75xx line (a serialized wgmma)
+        from bayesiandatafusion_jl_tpu_torch import kernels
+        name = (f"fused_pair_bf16_kernelILi{r['focus']}ELb"
+                f"{int(not r['flip_out'])}E")
+        for b in kernels.ptxas_lines(kernels.build_report()["log"], name):
+            print(f"#   build: {b}", flush=True)
 
 
 def materialized(V8, focus, dt, rows=16_384):
@@ -1435,7 +1444,8 @@ def main() -> int:
     print(f"# build: {rep['seconds']:.1f} s (nvcc sm_90a, one process per "
           f"source)", flush=True)
     for line in rep["log"].splitlines():
-        if "registers" in line or "spill" in line or "Compiling" in line:
+        if ("registers" in line or "spill" in line or "Compiling" in line
+                or "C75" in line):
             print(f"#   {line.strip()}")
     phase_done("build")
 

@@ -681,3 +681,43 @@ def test_netflix_synthetic_equals_bench_sequence(smoke_netflix):
     idx = np.stack([i1, i2], 1)
     assert smoke_netflix.idx.tobytes() == idx.tobytes()
     assert smoke_netflix.vals.tobytes() == vals.astype(np.float64).tobytes()
+
+
+# an excerpt of the kernel library's build log (nvcc -Xptxas -v): two
+# kernels, one with a C75xx note, as ptxas prints them
+_PTXAS_LOG = """\
+ptxas info    : (C7513) Potential Performance Loss: wgmma.mma_async \
+instructions are serialized due to non wgmma instructions defining input \
+registers of a wgmma between start and end of the pipeline stage in the \
+function '_ZN4ring22fused_pair_bf16_kernelILi1ELb0EEEv'
+ptxas info    : Compiling entry function \
+'_ZN4ring22fused_pair_bf16_kernelILi1ELb0EEEv' for 'sm_90a'
+ptxas info    : Function properties for \
+_ZN4ring22fused_pair_bf16_kernelILi1ELb0EEEv
+    88 bytes stack frame, 88 bytes spill stores, 152 bytes spill loads
+ptxas info    : Used 168 registers, used 16 barriers, 88 bytes cumulative \
+stack size
+ptxas info    : Compiling entry function \
+'_ZN4ring22fused_pair_bf16_kernelILi0ELb0EEEv' for 'sm_90a'
+ptxas info    : Function properties for \
+_ZN4ring22fused_pair_bf16_kernelILi0ELb0EEEv
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 168 registers, used 16 barriers
+"""
+
+
+@pytest.mark.parametrize("focus", [0, 1])
+def test_ptxas_lines_pick_one_kernel(focus):
+    """``kernels.ptxas_lines``, which chip_smoke.py prints beside K8c/K8d:
+    one kernel's registers and spills, and its C75xx note if it has one,
+    none of the other kernel's."""
+    from bayesiandatafusion_jl_tpu_torch import kernels
+    lines = kernels.ptxas_lines(
+        _PTXAS_LOG, f"fused_pair_bf16_kernelILi{focus}ELb0E")
+    spill = ("88 bytes spill stores" if focus else "0 bytes spill stores")
+    assert [ln for ln in lines if "spill" in ln] == [
+        f"{88 if focus else 0} bytes stack frame, {spill}, "
+        f"{152 if focus else 0} bytes spill loads"]
+    assert sum("Used 168 registers" in ln for ln in lines) == 1
+    assert sum("C7513" in ln for ln in lines) == focus
+    assert len(lines) == 2 + focus

@@ -116,15 +116,19 @@ VARIANT_STORES = [((1_000, 777), 32), ((300, 2_000), 8), ((129, 257), 36),
 @pytest.mark.parametrize("true, K, table, flip_out", [
     (true, K, table, flip) for true, K in VARIANT_STORES
     for table, flip in VARIANT_TABLES] + [
-    (true, K, "int8", False) for true, K in RING_EDGES + [
-        ((1_024, 1_024), 128), ((300, 16), 100)]])
+    (true, K, table, flip) for true, K in RING_EDGES + [
+        ((1_024, 1_024), 128), ((300, 16), 100)]
+    for table, flip in (("int8", False), ("bfloat16", True),
+                        ("bfloat16", False))])
 def test_fused_pair_variants_match_plain(cuda, true, K, table, flip_out,
                                          focus):
     """K8b (int8 table, natural layout) bit for bit against its plain
-    version, at the int8 ring's edges too; K8c (float table, flip_out) and
-    K8d (natural) within chip_smoke.FLOAT_TOL of the largest sum against
-    the plain version on the same table in float64 (the rounding of the
-    float32 sums); on ragged stores, up to K = 128."""
+    version; K8c (float table, flip_out) and K8d (natural) within
+    chip_smoke.FLOAT_TOL of the largest sum against the plain version on
+    the same table in float64 (the rounding of the float32 sums); on
+    ragged stores, up to K = 128, and for K8b, K8c and K8d in bfloat16 at
+    the rings' edges too (both rings take 128-element stages, 4 of them,
+    and 128-row focus tiles)."""
     import chip_smoke
     V8 = chip_smoke.random_store(true, seed=K)
     r = chip_smoke.check_fused_variant(V8, true, K, focus, table, flip_out,
@@ -167,6 +171,34 @@ def test_fused_pair_int8_at_its_bound(cuda, focus, epilogue):
     if epilogue != "dq":
         assert int(want[1][0, 0]) == 127 * 127 * n_contract
     assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("flip_out", [True, False])
+def test_fused_pair_bf16_promotion(cuda, flip_out):
+    """K8c/K8d's float32 sums over a long one-sign contraction: a fully
+    observed [131072, 16] store of codes 1..127 in mode 1 against a
+    positive bfloat16 table, so every sum has 131,072 terms of one sign.
+    One wgmma chain over them truncates low by ~1e-3 of the largest sum;
+    the kernel's partial sums, promoted into float32 totals every 1,024
+    elements, stay within chip_smoke.FLOAT_TOL of the float64 sums."""
+    import chip_smoke
+    K = 8
+    C = K * (K + 1) // 2
+    n0, n1 = 131_072, 16
+    rng = np.random.default_rng(12)
+    V8 = torch.from_numpy(rng.integers(1, 128, (n0, n1), dtype=np.int8)).to(
+        cuda)
+    u = rng.standard_normal((C + K, n0)).astype(np.float32)
+    YZT = torch.from_numpy(u * u).to(cuda).to(torch.bfloat16)
+    got = fused_pair.fused_pair_contract(V8, YZT, 1, K, n1,
+                                         flip_out=flip_out)
+    want = fused_pair.fused_pair_plain(V8, YZT.double(), 1, K, n1,
+                                       flip_out=flip_out)
+    torch.cuda.synchronize()
+    big = max(b.abs().max().item() for b in want)
+    err = max((a.double() - b).abs().max().item() for a, b in zip(got, want))
+    assert all(bool(torch.isfinite(a).all()) for a in got)
+    assert err <= chip_smoke.FLOAT_TOL["bfloat16"] * big, (err, big)
 
 
 @pytest.mark.parametrize("focus", [0, 1])
