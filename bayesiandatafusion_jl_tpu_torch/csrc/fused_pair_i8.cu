@@ -86,6 +86,39 @@
 //   holds the next tile's loads), then writes the flip_out layouts as
 //   coalesced rows along n_focus and the natural layout as 16-byte stores
 //   along C + K, all streaming stores (no later read in this kernel).
+//
+// The int8 pair contraction (K6) runs on the same ring.  It replaces
+// bayesiandatafusion_jl_tpu/ops/pallas_pair.py `pair_contract_pallas`
+// (:137; `_kern_pair_rows_tq` :75, focus rows, and `_kern_pair_cols_tq`
+// :105, focus columns).  With M8 [n0, n1] the int8 observation counts,
+// W8 [n0, n1] the statically quantized centered values (pad cells 0) and
+// YZ8T [C+K, n_contract] the same partner table, it computes
+//
+//     PM[c, i] = sum_p M8_f[i, p] * YZ8T[c, p]        c < C
+//     BV[k, i] = sum_p W8_f[i, p] * YZ8T[C + k, p]    k < K
+//
+// exactly in int32 (the caller's `int8_pair_ok` keeps every sum below
+// 2^31), raw or through the dequant epilogue Pt = PM * syz[c], b = BV *
+// sz[k], in the packed sampler's [., n_focus] layout.  Unlike the TPU
+// kernel it computes no "count" columns (table rows C .. C+K-1 against
+// M8), which that kernel sliced away.  Its bound is K8a's: every cell of
+// the extent on the tensor cores, 2 n0 n1 (C + K) operations, 0.43 ms at
+// ML-10M K = 32 and 6.5 ms at K = 128; the bytes (M8 and W8 once, the
+// float32 outputs once) 0.51 and 1.20 ms.  What changes against K8a is
+// the A operand: the mask columns are [0, ckp), ckp = C rounded up to 64,
+// against M8's counts as stored (no __vcmpne4: M8 holds counts, not 0/1),
+// and the value columns [ckp, ckp + K) against W8.  A tile's two pairs
+// are of one kind and its stages hold one box of M8 or of W8, except in
+// the one column tile a focus tile has whose first pair is the last mask
+// pair and whose second is the first value pair (the mask pairs are odd in
+// number at every K the pair path runs: K = 32, 64, 96, 128 give 5, 17,
+// 37, 65).  So a K6 stage has two A slots, 64 KB in all, and the ring 3
+// stages: the mixed tile's stages hold W8's box beside M8's (both counted
+// in the stage's expected bytes) and its second consumer reads the second
+// slot, an address chosen once a tile.  K8a's 4 stages of 48 KB, with the
+// mixed tile run as two tiles and one consumer idle in each, ran 1.05-1.19x
+// slower at ML-10M K = 32 to 128 (PERF.md §6).  In both kernels every
+// consumer thread releases a stage (256 arrivals; see `release`).
 #include <algorithm>
 
 #include "hopper_ring.cuh"
@@ -98,29 +131,39 @@ constexpr int BM = 128;                  // focus rows (mode 1: columns) a tile
 constexpr int BK = 128;                  // contraction bytes a stage
 constexpr int CH = 64;                   // virtual columns a chunk (wgmma N)
 constexpr int SLOTS = 4;                 // chunks a CTA tile
-constexpr int STAGES = 4;
 constexpr int GROUP0 = 16, GROUP1 = 2;   // focus tiles a group, by mode
-constexpr int A_BYTES = BM * BK;         // the V8 box
+constexpr int A_BYTES = BM * BK;         // one box of V8 (M8, W8)
 constexpr int B_BYTES = CH * BK;         // one chunk's YZ8T box
-constexpr int STAGE_BYTES = A_BYTES + SLOTS * B_BYTES;
 constexpr int STAGING = 32 * BM * 4;     // a consumer's epilogue tile
-constexpr int SMEM = STAGES * STAGE_BYTES + 2 * STAGING + 2 * STAGES * 8 +
-                     1024;               // + alignment slack
 constexpr int NTHREADS = 384;            // producer warpgroup + 2 consumers
+
+// The ring's stages by operand source: K8 (PAIR false) one V8 box and
+// four YZ8T boxes a stage, 4 stages; K6 (PAIR true) two A slots (M8 or
+// W8, and W8 beside M8 in the mixed tile) and four YZ8T boxes, 3 stages.
+template <bool PAIR>
+struct Ring {
+  static constexpr int ASLOTS = PAIR ? 2 : 1;
+  static constexpr int STAGES = PAIR ? 3 : 4;
+  static constexpr int STAGE_BYTES = ASLOTS * A_BYTES + SLOTS * B_BYTES;
+  static constexpr int SMEM = STAGES * STAGE_BYTES + 2 * STAGING +
+                              2 * STAGES * 8 + 1024;  // + alignment slack
+};
 
 struct Args {
   long long nf;          // focus rows written (<= stored focus extent)
-  int C, K, ck, ckp;     // ck = C + K; ckp: first value column
+  int C, K;
+  int cm, ckp;           // mask columns (C + K for K8, C for K6); ckp: cm
+                         // rounded up to CH, the first value column
   int nmask, mp, np;     // mask chunks, mask pairs, pairs (value pairs last)
   int n_ct, n_ft;        // column tiles (two pairs each), focus tiles
   int nk;                // contraction stages
   long long tiles;       // n_ft * n_ct
-  int* pm;               // raw: [C + K, nf], natural layout [nf, C + K]
+  int* pm;               // raw: [cm, nf], natural layout [nf, cm]
   int* bv;               // raw: [K, nf], natural layout [nf, K]
-  const float* syz;      // dq: [C + K] scales of the mask columns
+  const float* syz;      // dq: [cm] scales of the mask columns
   const float* sz;       // dq: [K] scales of the value columns
   float* pt;             // dq: [C, nf]
-  float* pmm;            // dq: [K, nf]
+  float* pmm;            // dq: [K, nf] (K8 only: mask columns C .. C+K-1)
   float* bvf;            // dq: [K, nf]
 };
 
@@ -237,10 +280,10 @@ __device__ __forceinline__ uint32_t mask4(uint32_t w) {
   return __vcmpne4(w, 0u) & 0x01010101u;
 }
 
-__device__ __forceinline__ void release(uint64_t* bar, int lane) {
-  __syncwarp();
-  if (lane == 0) mbar_arrive(bar);
-}
+// Every consumer thread releases a stage (256 arrivals): an arrival by one
+// lane a warp sat in a branch between two products in flight, and ptxas
+// serialized every wgmma of K6 for it (C7513).
+__device__ __forceinline__ void release(uint64_t* bar) { mbar_arrive(bar); }
 
 // The chunks a consumer warpgroup holds in a tile, each count a mainloop
 // of its own so that no tensor-core product sits in a branch within it
@@ -248,26 +291,29 @@ __device__ __forceinline__ void release(uint64_t* bar, int lane) {
 // 128 product a block and step), one, none.
 enum Kind { WIDE, NARROW, NONE };
 
-// k32 step S of a stage: acc[b][j] += A_b . B(chunk slot j)^T, A the codes
-// against value chunks and their mask against mask chunks (`keep`: all
-// ones for value chunks, else 0).  The step's products run while the next
+// k32 step S of a stage: acc[b][j] += A_b . B(chunk slot j)^T; K8: A the
+// codes against value chunks and their mask against mask chunks (`keep`:
+// all ones for value chunks, else 0); K6 (PAIR): A the box's codes as
+// stored, M8's or W8's.  The step's products run while the next
 // step's operand loads: `prev` (the previous step's operand) stays
 // untouched until its products are done.  In step 0 the previous stage
 // `pend` is released once its last products are done.
-template <int FOCUS, Kind KIND, int S>
+template <int FOCUS, Kind KIND, bool PAIR, int S>
 __device__ __forceinline__ void mma_step(int (&acc)[2][2][32], Frag& cur,
                                          Frag& prev, const unsigned char* st,
                                          uint64_t db, uint32_t keep,
                                          bool first_stage, int w, int g,
-                                         int t, int lane, uint64_t* pend) {
+                                         int t, uint64_t* pend) {
   // the tile's first step sets the sums; the others add to them
   const bool first = S == 0 && first_stage;
   load_a<FOCUS>(st, S, w, g, t, cur.a);
+  if constexpr (!PAIR) {
 #pragma unroll
-  for (int b = 0; b < 2; ++b)
+    for (int b = 0; b < 2; ++b)
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-      cur.a[b][i] = (cur.a[b][i] & keep) | (mask4(cur.a[b][i]) & ~keep);
+      for (int i = 0; i < 4; ++i)
+        cur.a[b][i] = (cur.a[b][i] & keep) | (mask4(cur.a[b][i]) & ~keep);
+  }
   fence_frag(cur);
   wgmma_fence();
 #pragma unroll
@@ -280,46 +326,49 @@ __device__ __forceinline__ void mma_step(int (&acc)[2][2][32], Frag& cur,
   wgmma_commit();
   wgmma_wait<1>();                       // the previous step's products
   fence_frag(prev);
-  if (S == 0 && pend != nullptr) release(pend, lane);
+  if (S == 0 && pend != nullptr) release(pend);
 }  // mma_step
 
 // One tile's contraction stages [0, nk) for consumer warpgroup c (its
-// chunk pair in shared slots 2c and 2c + 1), 4 k32 steps a stage
-// (BK = 128) alternating two operand sets; each stage is released one
-// step after its last products issue.
-template <int FOCUS, Kind KIND>
+// chunk pair in shared slots 2c and 2c + 1; its A box `aoff` bytes into
+// the stage), 4 k32 steps a stage (BK = 128) alternating two operand sets;
+// each stage is released one step after its last products issue.
+template <int FOCUS, Kind KIND, bool PAIR>
 __device__ __forceinline__ void mainloop(int (&acc)[2][2][32], Frag& f0,
                                          Frag& f1, unsigned char* smem,
                                          uint64_t* full, uint64_t* empty,
                                          int& stage, unsigned& phase, int nk,
-                                         int c, uint32_t keep, int w, int g,
-                                         int t, int lane) {
+                                         int c, uint32_t keep, int aoff,
+                                         int w, int g, int t) {
+  using R = Ring<PAIR>;
   uint64_t* pend = nullptr;              // the stage to release
   for (int kt = 0; kt < nk; ++kt) {
     mbar_wait(&full[stage], phase);
-    const unsigned char* st = smem + stage * STAGE_BYTES;
+    const unsigned char* st = smem + stage * R::STAGE_BYTES;
     if constexpr (KIND == NONE) {
-      release(&empty[stage], lane);
+      release(&empty[stage]);
     } else {
-      const uint64_t db = desc_sw128(st + A_BYTES + 2 * c * B_BYTES);
-      mma_step<FOCUS, KIND, 0>(acc, f0, f1, st, db, keep, kt == 0, w, g, t,
-                               lane, pend);
-      mma_step<FOCUS, KIND, 1>(acc, f1, f0, st, db, keep, kt == 0, w, g, t,
-                               lane, pend);
-      mma_step<FOCUS, KIND, 2>(acc, f0, f1, st, db, keep, kt == 0, w, g, t,
-                               lane, pend);
-      mma_step<FOCUS, KIND, 3>(acc, f1, f0, st, db, keep, kt == 0, w, g, t,
-                               lane, pend);
+      const uint64_t db =
+          desc_sw128(st + R::ASLOTS * A_BYTES + 2 * c * B_BYTES);
+      const unsigned char* sa = PAIR ? st + aoff : st;
+      mma_step<FOCUS, KIND, PAIR, 0>(acc, f0, f1, sa, db, keep, kt == 0, w,
+                                     g, t, pend);
+      mma_step<FOCUS, KIND, PAIR, 1>(acc, f1, f0, sa, db, keep, kt == 0, w,
+                                     g, t, pend);
+      mma_step<FOCUS, KIND, PAIR, 2>(acc, f0, f1, sa, db, keep, kt == 0, w,
+                                     g, t, pend);
+      mma_step<FOCUS, KIND, PAIR, 3>(acc, f1, f0, sa, db, keep, kt == 0, w,
+                                     g, t, pend);
       pend = &empty[stage];
     }
-    if (++stage == STAGES) {
+    if (++stage == R::STAGES) {
       stage = 0;
       phase ^= 1;
     }
   }
   if constexpr (KIND != NONE) {
     wgmma_wait<0>();
-    release(pend, lane);
+    release(pend);
   }
 }
 
@@ -373,7 +422,7 @@ __device__ __forceinline__ void epilogue(const Args& a, int (&acc)[2][2][32],
       named_barrier(1 + c, 128);
       const int vb = cg * CH + 32 * half;  // virtual column of staging column 0
       if constexpr (EPI == 2) {
-        const bool vec = a.ck % 4 == 0 && a.K % 4 == 0;
+        const bool vec = a.cm % 4 == 0 && a.K % 4 == 0;
 #pragma unroll 2
         for (int i = 0; i < 8; ++i) {
           const int m = 32 * w + 4 * i + (lane >> 3), ch = lane & 7;
@@ -385,8 +434,8 @@ __device__ __forceinline__ void epilogue(const Args& a, int (&acc)[2][2][32],
           int* dst;
           int lim;
           if (v < a.ckp) {
-            dst = a.pm + mg * a.ck + v;
-            lim = a.ck - v;
+            dst = a.pm + mg * a.cm + v;
+            lim = a.cm - v;
           } else {
             dst = a.bv + mg * a.K + (v - a.ckp);
             lim = a.K - (v - a.ckp);
@@ -411,7 +460,7 @@ __device__ __forceinline__ void epilogue(const Args& a, int (&acc)[2][2][32],
           int* dst;
           float scale = 0.f;
           if (v < a.ckp) {
-            if (v >= a.ck) continue;
+            if (v >= a.cm) continue;
             if constexpr (EPI == 1) {
               dst = reinterpret_cast<int*>(v < a.C ? a.pt + v * a.nf
                                                    : a.pmm + (v - a.C) * a.nf);
@@ -444,23 +493,27 @@ __device__ __forceinline__ void epilogue(const Args& a, int (&acc)[2][2][32],
   }
 }
 
-template <int FOCUS, int EPI>
-__global__ void __launch_bounds__(NTHREADS, 1)
-fused_pair_kernel(__grid_constant__ const CUtensorMap v8map,
-                  __grid_constant__ const CUtensorMap yzmap, const Args a) {
+// The ring kernel's body: K8a/K8b (PAIR false: amap0 = amap1 = V8's map)
+// or K6 (PAIR true: amap0 M8's, amap1 W8's).
+template <int FOCUS, int EPI, bool PAIR>
+__device__ __forceinline__ void ring(const CUtensorMap* amap0,
+                                     const CUtensorMap* amap1,
+                                     const CUtensorMap* yzmap,
+                                     const Args& a) {
+  using R = Ring<PAIR>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
   uint64_t* full = reinterpret_cast<uint64_t*>(
-      smem + STAGES * STAGE_BYTES + 2 * STAGING);
-  uint64_t* empty = full + STAGES;
+      smem + R::STAGES * R::STAGE_BYTES + 2 * STAGING);
+  uint64_t* empty = full + R::STAGES;
   // the warp index, read through a shuffle so the compiler knows it is
   // warp-uniform: the tensor-core products sit in branches on it
   const int tid = threadIdx.x, warp = __shfl_sync(0xffffffffu, tid >> 5, 0);
   if (tid == 0) {
-    for (int s = 0; s < STAGES; ++s) {
+    for (int s = 0; s < R::STAGES; ++s) {
       mbar_init(&full[s], 1);
-      mbar_init(&empty[s], 8);           // one arrival per consumer warp
+      mbar_init(&empty[s], 256);  // see release
     }
     fence_barrier_init();
   }
@@ -482,31 +535,39 @@ fused_pair_kernel(__grid_constant__ const CUtensorMap v8map,
       // (with the boxes worked out in it, Netflix mode 1 ran 1.24x slower;
       // PERF.md §6).
       int row[4], nbox = 0;
+      bool val[2];
+      int count[2];
 #pragma unroll
       for (int c = 0; c < 2; ++c) {
-        int first, count;
-        bool val;
-        chunk_pair(a, 2 * ct + c, first, count, val);
+        int first;
+        chunk_pair(a, 2 * ct + c, first, count[c], val[c]);
 #pragma unroll
         for (int j = 0; j < 2; ++j) {
           const int v = (first + j) * CH;
-          row[2 * c + j] = j >= count ? -1 : v < a.ckp ? v : a.C + (v - a.ckp);
-          nbox += j < count;
+          row[2 * c + j] =
+              j >= count[c] ? -1 : v < a.ckp ? v : a.C + (v - a.ckp);
+          nbox += j < count[c];
         }
       }
+      // the A boxes: K8 V8's; K6 M8's for a mask tile, W8's for a value
+      // tile, and in the mixed tile (two A slots) W8's in the second slot
+      const CUtensorMap* am = PAIR && val[0] ? amap1 : amap0;
+      const bool mixed = PAIR && !val[0] && val[1] && count[1] > 0;
+      const unsigned tx = (mixed ? 2 : 1) * A_BYTES + nbox * B_BYTES;
       for (int kt = 0; kt < a.nk; ++kt) {
         mbar_wait(&empty[stage], phase ^ 1);
-        unsigned char* st = smem + stage * STAGE_BYTES;
-        mbar_expect_tx(&full[stage], A_BYTES + nbox * B_BYTES);
+        unsigned char* st = smem + stage * R::STAGE_BYTES;
+        mbar_expect_tx(&full[stage], tx);
         const int k0 = kt * BK;
-        if (FOCUS == 0) tma_load_2d(st, &v8map, k0, m0, &full[stage]);
-        else tma_load_2d(st, &v8map, m0, k0, &full[stage]);
+        const int x = FOCUS == 0 ? k0 : m0, y = FOCUS == 0 ? m0 : k0;
+        tma_load_2d(st, am, x, y, &full[stage]);
+        if (mixed) tma_load_2d(st + A_BYTES, amap1, x, y, &full[stage]);
 #pragma unroll
         for (int b = 0; b < 4; ++b)
           if (row[b] >= 0)
-            tma_load_2d(st + A_BYTES + b * B_BYTES, &yzmap, k0, row[b],
-                        &full[stage]);
-        if (++stage == STAGES) {
+            tma_load_2d(st + R::ASLOTS * A_BYTES + b * B_BYTES, yzmap, k0,
+                        row[b], &full[stage]);
+        if (++stage == R::STAGES) {
           stage = 0;
           phase ^= 1;
         }
@@ -519,7 +580,8 @@ fused_pair_kernel(__grid_constant__ const CUtensorMap v8map,
   setmaxnreg_inc<232>();
   const int c = warp >> 2, w = warp & 3, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
-  int* stg = reinterpret_cast<int*>(smem + STAGES * STAGE_BYTES + c * STAGING);
+  int* stg = reinterpret_cast<int*>(smem + R::STAGES * R::STAGE_BYTES +
+                                    c * STAGING);
   int acc[2][2][32] = {};               // set by each tile's first step
   Frag f0 = {}, f1 = {};                 // operands of alternate steps
   int stage = 0;
@@ -531,15 +593,18 @@ fused_pair_kernel(__grid_constant__ const CUtensorMap v8map,
     bool val;
     chunk_pair(a, 2 * ct + c, cg0, nj, val);
     const uint32_t keep = val ? 0xffffffffu : 0u;
+    // the second consumer's value pair in the mixed tile reads the second
+    // A slot (an address chosen once a tile: no branch around a product)
+    const int aoff = PAIR && c == 1 && val && 2 * ct < a.mp ? A_BYTES : 0;
     if (nj == 2)
-      mainloop<FOCUS, WIDE>(acc, f0, f1, smem, full, empty, stage, phase,
-                            a.nk, c, keep, w, g, t, lane);
+      mainloop<FOCUS, WIDE, PAIR>(acc, f0, f1, smem, full, empty, stage,
+                                  phase, a.nk, c, keep, aoff, w, g, t);
     else if (nj == 1)
-      mainloop<FOCUS, NARROW>(acc, f0, f1, smem, full, empty, stage, phase,
-                              a.nk, c, keep, w, g, t, lane);
+      mainloop<FOCUS, NARROW, PAIR>(acc, f0, f1, smem, full, empty, stage,
+                                    phase, a.nk, c, keep, aoff, w, g, t);
     else
-      mainloop<FOCUS, NONE>(acc, f0, f1, smem, full, empty, stage, phase,
-                            a.nk, c, keep, w, g, t, lane);
+      mainloop<FOCUS, NONE, PAIR>(acc, f0, f1, smem, full, empty, stage,
+                                  phase, a.nk, c, keep, aoff, w, g, t);
 #pragma unroll
     for (int b = 0; b < 2; ++b)
 #pragma unroll
@@ -552,11 +617,33 @@ fused_pair_kernel(__grid_constant__ const CUtensorMap v8map,
 }
 
 template <int FOCUS, int EPI>
-int launch(Args a, const void* v8, long long n0, long long n1,
-           const void* yzt, void* stream) {
-  auto kern = fused_pair_kernel<FOCUS, EPI>;
+__global__ void __launch_bounds__(NTHREADS, 1)
+fused_pair_kernel(__grid_constant__ const CUtensorMap v8map,
+                  __grid_constant__ const CUtensorMap yzmap, const Args a) {
+  ring<FOCUS, EPI, false>(&v8map, &v8map, &yzmap, a);
+}
+
+template <int FOCUS, bool DQ>
+__global__ void __launch_bounds__(NTHREADS, 1)
+pair_contract_kernel(__grid_constant__ const CUtensorMap m8map,
+                     __grid_constant__ const CUtensorMap w8map,
+                     __grid_constant__ const CUtensorMap yzmap,
+                     const Args a) {
+  ring<FOCUS, DQ ? 1 : 0, true>(&m8map, &w8map, &yzmap, a);
+}
+
+// Maps the operands, completes `a` (a.cm set by the caller) and launches
+// K8 (src1 null: src0 is V8) or K6 (src0 M8, src1 W8), all [n0, n1].
+template <int FOCUS, int EPI, bool PAIR>
+int launch(Args a, const void* src0, const void* src1, long long n0,
+           long long n1, const void* yzt, void* stream) {
+  using R = Ring<PAIR>;
+  const void* kern;
+  if constexpr (PAIR) kern = reinterpret_cast<const void*>(
+      pair_contract_kernel<FOCUS, EPI == 1>);
+  else kern = reinterpret_cast<const void*>(fused_pair_kernel<FOCUS, EPI>);
   cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, R::SMEM);
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long n_focus = FOCUS == 0 ? n0 : n1;
   const long long n_contract = FOCUS == 0 ? n1 : n0;
@@ -564,11 +651,12 @@ int launch(Args a, const void* v8, long long n0, long long n1,
   if (a.nf == 0) return 0;
   if (n_contract > (1ll << 31) - BK || n_focus > (1ll << 31) - BM)
     return static_cast<int>(cudaErrorInvalidValue);
-  CUtensorMap v8map, yzmap;
-  if (!map_bytes_2d(&v8map, v8, n0, n1, 128) ||
-      !map_bytes_2d(&yzmap, yzt, a.ck, n_contract, CH))
+  CUtensorMap map0, map1, yzmap;
+  if (!map_bytes_2d(&map0, src0, n0, n1, 128) ||
+      (PAIR && !map_bytes_2d(&map1, src1, n0, n1, 128)) ||
+      !map_bytes_2d(&yzmap, yzt, a.C + a.K, n_contract, CH))
     return static_cast<int>(cudaErrorInvalidValue);
-  a.ckp = (a.ck + CH - 1) / CH * CH;
+  a.ckp = (a.cm + CH - 1) / CH * CH;
   a.nmask = a.ckp / CH;
   a.mp = (a.nmask + 1) / 2;
   a.np = a.mp + ((a.K + CH - 1) / CH + 1) / 2;
@@ -583,19 +671,26 @@ int launch(Args a, const void* v8, long long n0, long long n1,
   a.tiles = static_cast<long long>(a.n_ft) * a.n_ct;
   const long long grid = std::min<long long>(sms, a.tiles);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  kern<<<static_cast<unsigned>(grid), NTHREADS, SMEM, st>>>(v8map, yzmap, a);
+  if constexpr (PAIR)
+    pair_contract_kernel<FOCUS, EPI == 1>
+        <<<static_cast<unsigned>(grid), NTHREADS, R::SMEM, st>>>(
+            map0, map1, yzmap, a);
+  else
+    fused_pair_kernel<FOCUS, EPI>
+        <<<static_cast<unsigned>(grid), NTHREADS, R::SMEM, st>>>(
+            map0, yzmap, a);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Plain C entry point (loaded with ctypes).  v8 is contiguous [n0, n1] int8
-// with n0 and n1 multiples of 16; yzt is contiguous [C + K, n_contract]
-// int8 (n_contract = n1 for focus 0, n0 for focus 1); nf <= the focus
-// extent.  dq = 0: pm [C + K, nf] and bv [K, nf] int32; dq = 1: syz [C + K]
-// and sz [K] float32 scales, pt [C, nf], pmm and bvf [K, nf] float32;
-// dq = 2: the natural layout, pm [nf, C + K] and bv [nf, K] int32.
-// Returns the launch's CUDA error (0 on success).
+// Plain C entry point of K8a/K8b (loaded with ctypes).  v8 is contiguous
+// [n0, n1] int8 with n0 and n1 multiples of 16; yzt is contiguous
+// [C + K, n_contract] int8 (n_contract = n1 for focus 0, n0 for focus 1);
+// nf <= the focus extent.  dq = 0: pm [C + K, nf] and bv [K, nf] int32;
+// dq = 1: syz [C + K] and sz [K] float32 scales, pt [C, nf], pmm and bvf
+// [K, nf] float32; dq = 2: the natural layout, pm [nf, C + K] and bv
+// [nf, K] int32.  Returns the launch's CUDA error (0 on success).
 extern "C" int bdf_fused_pair_i8(const void* v8, long long n0, long long n1,
                                  int focus, const void* yzt, int C, int K,
                                  long long nf, int dq, void* pm, void* bv,
@@ -608,7 +703,7 @@ extern "C" int bdf_fused_pair_i8(const void* v8, long long n0, long long n1,
   a.nf = nf;
   a.C = C;
   a.K = K;
-  a.ck = C + K;
+  a.cm = C + K;
   a.pm = static_cast<int*>(pm);
   a.bv = static_cast<int*>(bv);
   a.syz = static_cast<const float*>(syz);
@@ -617,10 +712,44 @@ extern "C" int bdf_fused_pair_i8(const void* v8, long long n0, long long n1,
   a.pmm = static_cast<float*>(pmm);
   a.bvf = static_cast<float*>(bvf);
   if (focus == 0)
-    return dq == 1   ? launch<0, 1>(a, v8, n0, n1, yzt, stream)
-           : dq == 2 ? launch<0, 2>(a, v8, n0, n1, yzt, stream)
-                     : launch<0, 0>(a, v8, n0, n1, yzt, stream);
-  return dq == 1   ? launch<1, 1>(a, v8, n0, n1, yzt, stream)
-         : dq == 2 ? launch<1, 2>(a, v8, n0, n1, yzt, stream)
-                   : launch<1, 0>(a, v8, n0, n1, yzt, stream);
+    return dq == 1   ? launch<0, 1, false>(a, v8, nullptr, n0, n1, yzt, stream)
+           : dq == 2 ? launch<0, 2, false>(a, v8, nullptr, n0, n1, yzt, stream)
+                     : launch<0, 0, false>(a, v8, nullptr, n0, n1, yzt, stream);
+  return dq == 1   ? launch<1, 1, false>(a, v8, nullptr, n0, n1, yzt, stream)
+         : dq == 2 ? launch<1, 2, false>(a, v8, nullptr, n0, n1, yzt, stream)
+                   : launch<1, 0, false>(a, v8, nullptr, n0, n1, yzt, stream);
+}
+
+// Plain C entry point of K6 (loaded with ctypes).  m8 and w8 are
+// contiguous [n0, n1] int8 with n0 and n1 multiples of 16 and 16-byte
+// aligned bases; yzt is contiguous [C + K, n_contract] int8 (n_contract =
+// n1 for focus 0, n0 for focus 1); nf <= the focus extent.  dq = 0: pm
+// [C, nf] and bv [K, nf] int32; dq = 1: syz [C] and sz [K] float32 scales,
+// pt [C, nf] and bq [K, nf] float32.  Returns the launch's CUDA error (0
+// on success).
+extern "C" int bdf_pair_contract_i8(const void* m8, const void* w8,
+                                    long long n0, long long n1, int focus,
+                                    const void* yzt, int C, int K,
+                                    long long nf, int dq, void* pm, void* bv,
+                                    const void* syz, const void* sz, void* pt,
+                                    void* bq, void* stream) {
+  if (n0 % 16 || n1 % 16 || C < 1 || K < 1 || (focus != 0 && focus != 1) ||
+      dq < 0 || dq > 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Args a = {};
+  a.nf = nf;
+  a.C = C;
+  a.K = K;
+  a.cm = C;
+  a.pm = static_cast<int*>(pm);
+  a.bv = static_cast<int*>(bv);
+  a.syz = static_cast<const float*>(syz);
+  a.sz = static_cast<const float*>(sz);
+  a.pt = static_cast<float*>(pt);
+  a.bvf = static_cast<float*>(bq);
+  if (focus == 0)
+    return dq ? launch<0, 1, true>(a, m8, w8, n0, n1, yzt, stream)
+              : launch<0, 0, true>(a, m8, w8, n0, n1, yzt, stream);
+  return dq ? launch<1, 1, true>(a, m8, w8, n0, n1, yzt, stream)
+            : launch<1, 0, true>(a, m8, w8, n0, n1, yzt, stream);
 }

@@ -573,17 +573,28 @@ class MacauEngine:
                 "rmse_at_sweeps": rmse_at}
 
     def _print_sweep(self, s, phase, metrics):
+        """The reference's verbose line (JAX engine :666): sweep, phase,
+        per relation its RMSEs (and AUC) and sampled alpha, per entity
+        the norms and CG iterations it has in ``metrics``, time."""
         parts = [f"sweep {s + 1:4d} [{phase:6s}]"]
         for ri, rs in enumerate(self.problem.rel_specs):
-            if f"r{ri}.rmse_avg" in metrics:
-                parts.append(f"{rs.name}: "
-                             f"RMSE={metrics[f'r{ri}.rmse_avg']:.4f} "
-                             f"(sample {metrics[f'r{ri}.rmse_sample']:.4f})")
+            k = f"r{ri}.rmse_avg"
+            if k in metrics:
+                line = (f"{rs.name}: RMSE={metrics[k]:.4f} "
+                        f"(sample {metrics[f'r{ri}.rmse_sample']:.4f})")
+                if f"r{ri}.auc" in metrics:
+                    line += f" AUC={metrics[f'r{ri}.auc']:.4f}"
+                parts.append(line)
             if f"r{ri}.alpha" in metrics:
-                parts.append(f"alpha_{rs.name}="
-                             f"{metrics[f'r{ri}.alpha']:.3g}")
+                parts.append(f"a{ri}={metrics[f'r{ri}.alpha']:.2f}")
         for ei in range(len(self.problem.entity_specs)):
-            parts.append(f"|U{ei}|={metrics[f'e{ei}.unorm']:.1f}")
+            if f"e{ei}.unorm" in metrics:
+                parts.append(f"|U{ei}|={metrics[f'e{ei}.unorm']:.1f}")
+            if f"e{ei}.betanorm" in metrics:
+                parts.append(f"|b{ei}|={metrics[f'e{ei}.betanorm']:.2f}"
+                             f" lb={metrics[f'e{ei}.lambda_beta']:.3f}")
+            if f"e{ei}.cg_iters" in metrics:
+                parts.append(f"cg{ei}={metrics[f'e{ei}.cg_iters']:.0f}")
         parts.append(f"{metrics['time']:.3f}s")
         print("  ".join(parts), flush=True)
 

@@ -698,8 +698,9 @@ def plan_fused_rels(shapes: Sequence[Tuple[int, ...]],
     ``dense_fused=True`` takes every fused-encodable 2-ary relation.  The
     JAX package's ``None`` is an auto rule on a TPU HBM budget
     (``dense_gram_budget_gb``) and TPU-measured rates; the port has no
-    H100 planner yet (ROADMAP M6), so ``None``, like ``False``, keeps the
-    int8 pair."""
+    H100 planner yet (ROADMAP Queue 1 item 4), so ``None``, like
+    ``False``, keeps the pair: the float pair, or the int8 pair under
+    ``dense_int8``."""
     if dense_fused is not True or dense_gram is False:
         return {}
     return {ri: enc for ri, (shape, enc) in enumerate(zip(shapes, fused_enc))

@@ -6,7 +6,7 @@ Port of ``bayesiandatafusion_jl_tpu/ops/layout.py``: ``Bucket``,
 layout equals the JAX package's bit for bit (same piece order, same
 observation order, same padding).  The JAX package's C++ builder
 (``native/layout.cpp``) produces the same layout faster; it is not ported
-yet (ROADMAP M6).
+yet (ROADMAP S5).
 
 For one (relation, mode), the observations are grouped by focus instance
 and packed into fixed-width blocks ("buckets").  An instance whose degree

@@ -3,7 +3,9 @@ pair path from one stored pair (M8, W8).
 
 Port of ``bayesiandatafusion_jl_tpu/ops/pallas_pair.py``
 ``pair_contract_pallas`` :137 (TPU kernels ``_kern_pair_rows_tq`` :75 and
-``_kern_pair_cols_tq`` :105), the CUDA kernel ``csrc/pair_contract_i8.cu``.
+``_kern_pair_cols_tq`` :105): the CUDA kernel ``pair_contract_kernel`` of
+``csrc/fused_pair_i8.cu``, K8a's TMA ring and ``wgmma`` with one box of
+M8 or W8 a stage.
 With M8 [n0, n1] the int8 observation counts, W8 [n0, n1] the statically
 quantized centered values (pad cells 0) and YZ8T [C + K, n_contract] the
 quantized partner table [Ypack | U] transposed (K7's layout; its last K
@@ -73,10 +75,11 @@ def pair_contract(M8: torch.Tensor, W8: torch.Tensor, YZ8T: torch.Tensor,
                   focus_axis: int, K: int, n_focus: int,
                   dq: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
     """The contraction of focus mode ``focus_axis`` for its first
-    ``n_focus`` rows: M8 and W8 [n0, n1] int8 (both extents multiples of 16
-    on the kernel path), YZ8T [C + K, n_contract] int8 with n_contract the
-    store's other extent, ``dq`` the scales (syz [C], sz [K]); outputs as
-    ``pair_contract_plain``.
+    ``n_focus`` rows: M8 and W8 [n0, n1] int8 (on the kernel path both
+    extents multiples of 16 and every base 16-byte aligned, as the
+    kernel's TMA maps need), YZ8T [C + K, n_contract] int8 with n_contract
+    the store's other extent, ``dq`` the scales (syz [C], sz [K]); outputs
+    as ``pair_contract_plain``.
 
     CPU tensors run the plain version; CUDA tensors launch the kernel on
     the current stream or raise — there is no fallback.
@@ -104,6 +107,8 @@ def pair_contract(M8: torch.Tensor, W8: torch.Tensor, YZ8T: torch.Tensor,
         raise ValueError(f"YZ8T must be contiguous int8 "
                          f"[{K * (K + 1) // 2 + K}, {n_contract}] for K={K}, "
                          f"got {YZ8T.dtype} {tuple(YZ8T.shape)}")
+    if any(t.data_ptr() % 16 for t in (M8, W8, YZ8T)):
+        raise ValueError("M8, W8 and YZ8T must start on 16-byte boundaries")
     if not 0 <= n_focus <= (n0, n1)[focus_axis]:
         raise ValueError(f"n_focus={n_focus} outside the stored extent")
     dev = M8.device

@@ -63,7 +63,7 @@ class MacauConfig:
     # is an auto planner on TPU-measured constants that can mix dense and
     # gather modes; the engine takes such a mix (an entity sums dense and
     # gather contributions), but the port has no H100 planner yet
-    # (ROADMAP F7, item 7), so None keeps the pair.
+    # (ROADMAP Queue 1 item 4), so None keeps the pair.
     dense_gram: Optional[bool] = None
     # int8 operands on the dense paths: True stores the int8 pair (K6 and
     # K7) for a relation that passes ``int8_pair_ok`` and puts a fused
@@ -76,7 +76,8 @@ class MacauConfig:
     # True = wherever ``fused_pair_plan`` encodes the relation (the pair
     # otherwise); None or False = the pair.  The JAX package's
     # None is an auto rule on a TPU HBM budget (``dense_gram_budget_gb``);
-    # the port has no H100 planner yet (ROADMAP M6), as for ``dense_gram``.
+    # the port has no H100 planner yet (ROADMAP Queue 1 item 4), as for
+    # ``dense_gram``.
     dense_fused: Optional[bool] = None
     # bounded-error grids for continuous values: admit the finest uniform
     # int8 grid whose rounding error s/2 <= dense_fused_tol (None = exact

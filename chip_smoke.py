@@ -7,7 +7,8 @@ Run from the repository root on a machine with one CUDA card (an H100):
 Phases, each fatal on failure (nonzero exit, no result line):
 
 1. device: a CUDA device is present; its name and power limit;
-2. build: ``nvcc`` compiles the port's kernels for sm_90a from ``csrc/``;
+2. build: ``nvcc`` compiles the port's kernels for sm_90a from ``csrc/``,
+   and ptxas serializes no ``wgmma`` (no C75xx line in its log);
 3. kernels vs plain: each sampler kernel against its plain torch version
    on random SPD problems at the main paths' shapes, float32 and float64,
    both held against the float64 plain version: K1 (packed, K <= 32), K2
@@ -22,8 +23,8 @@ Phases, each fatal on failure (nonzero exit, no result line):
    float32 and float64 by FMA; flip_out and natural layout) within
    FLOAT_TOL of the largest sum; K6 (the int8 pair contraction, both focus
    modes from one stored pair, raw int32 and the dequant epilogue) bit for
-   bit against its plain version on small ragged stores, K = 4, 8, 15, 32
-   and 33; the samplers and K7 also at the graph paths' shapes (K1 at
+   bit against its plain version on small ragged stores, K = 4, 8, 15, 16,
+   32, 33 and 160; the samplers and K7 also at the graph paths' shapes (K1 at
    tensor's and fusion's entity counts, K3 at tensor_big's, K7 at their
    largest partners' tables); K9 (the windowed expand) bit for bit
    against its plain version on ragged plans (a hot window over several
@@ -649,6 +650,16 @@ def print_pair_check(label, r):
             line += (f"; K6 mode 0 on a transposed copy "
                      f"{r['transposed_ms']:.4f} ms")
     print(line, flush=True)
+    if "kernel_ms" in r:
+        print_ptxas(f"pair_contract_kernelILi{r['focus']}ELb1E")
+
+
+def print_ptxas(name):
+    """The build lines of the ring kernel whose mangled name contains
+    ``name``: registers, spills and any C75xx line (a serialized wgmma)."""
+    from bayesiandatafusion_jl_tpu_torch import kernels
+    for b in kernels.ptxas_lines(kernels.build_report()["log"], name):
+        print(f"#   build: {b}", flush=True)
 
 
 BF16_FLOP_S = 989e12
@@ -739,13 +750,9 @@ def print_variant_check(label, r):
                  f"design's floor {r['dense_bound_ms']:.4f} ms")
     print(line, flush=True)
     if r["table"] == "bfloat16" and "kernel_ms" in r:
-        # the build of this mode's and layout's ring kernel: registers,
-        # spills and any C75xx line (a serialized wgmma)
-        from bayesiandatafusion_jl_tpu_torch import kernels
-        name = (f"fused_pair_bf16_kernelILi{r['focus']}ELb"
-                f"{int(not r['flip_out'])}E")
-        for b in kernels.ptxas_lines(kernels.build_report()["log"], name):
-            print(f"#   build: {b}", flush=True)
+        # the build of this mode's and layout's ring kernel
+        print_ptxas(f"fused_pair_bf16_kernelILi{r['focus']}ELb"
+                    f"{int(not r['flip_out'])}E")
 
 
 def materialized(V8, focus, dt, rows=16_384):
@@ -1447,6 +1454,11 @@ def main() -> int:
         if ("registers" in line or "spill" in line or "Compiling" in line
                 or "C75" in line):
             print(f"#   {line.strip()}")
+    # a C75xx note: ptxas serialized a ring kernel's wgmma (a product in a
+    # branch it cannot prove warp-uniform), which costs about a third of
+    # its speed
+    serialized = [line for line in rep["log"].splitlines() if "C75" in line]
+    require(not serialized, f"wgmma serialized: {serialized}")
     phase_done("build")
 
     # -- kernels vs plain ---------------------------------------------------
@@ -1513,10 +1525,13 @@ def main() -> int:
                 require(r["ok"], f"K8 variant disagrees with its plain "
                                  f"version: {r}")
         del V8
-    # K = 15: C = 120 fills the M columns of one CTA, so the W columns get
-    # a CTA of their own (the others mix both operands in one CTA)
+    # K6's column tiles: its mask pairs are odd in number at K = 4, 8, 15,
+    # 32, 33 and 160 (one tile mixes the last mask pair with the first
+    # value pair; at K = 15 and 160 that mask pair is full, at K = 160 the
+    # value pairs are two), even at K = 16
     for true, K in (((1_000, 777), 32), ((300, 2_000), 8), ((129, 257), 33),
-                    ((64, 48), 4), ((200, 300), 15)):
+                    ((64, 48), 4), ((200, 300), 15), ((300, 200), 16),
+                    ((200, 300), 160)):
         pair = random_pair(true, seed=K)
         for focus in (0, 1):
             r = check_pair_contract(pair, K, focus, timing=False)
@@ -1844,14 +1859,17 @@ def main() -> int:
                      "max_abs_err": r["kernel_err"], "ms": r["kernel_ms"],
                      "plain_ms": r["plain_ms"], "bound_ms": b_ms,
                      "bound_by": b_by, "library_ms": None})
-    r = pair_checks[(32, 0)]
+    r, r1 = pair_checks[(32, 0)], pair_checks[(32, 1)]
     rows.append({"name": "pair_contract_i8", "route": "cuda",
-                 "source": src + "pair_contract_i8.cu",
+                 "source": src + "fused_pair_i8.cu",
                  "replaces": "bayesiandatafusion_jl_tpu/ops/pallas_pair.py:137",
                  "launches": launches["K6"], "max_abs_err": r["max_abs_err"],
                  "ms": r["kernel_ms"], "plain_ms": r["plain_ms"],
                  "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-                 "library_ms": r["library_ms"]})
+                 "library_ms": r["library_ms"],
+                 "mode_1": {k: r1[k] for k in (
+                     "max_abs_err", "plain_ms", "bound_ms", "bound_by",
+                     "library_ms")} | {"ms": r1["kernel_ms"]}})
     r = checks[("K7", 32, 480_189)]
     b_ms, b_by = bound_ms(*ytab_bound(480_189, 32))
     rows.append({"name": "ytab_quantize", "route": "cuda",
@@ -1926,6 +1944,8 @@ def print_fused_check(label, r):
                  f"design's floor {r['dense_bound_ms']:.4f} ms (every cell "
                  f"at the int8 peak)")
     print(line, flush=True)
+    if "kernel_ms" in r:
+        print_ptxas(f"fused_pair_kernelILi{r['focus']}ELi1E")
 
 
 T_START = time.perf_counter()

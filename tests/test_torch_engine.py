@@ -5,6 +5,7 @@ across the K ladder."""
 import dataclasses
 import functools
 import inspect
+import types
 
 import jax
 import jax.numpy as jnp
@@ -668,3 +669,29 @@ def test_unported_data_raises():
     with pytest.raises(NotImplementedError, match="M12"):
         bt.MacauEngine(rd, bt.MacauConfig(num_latent=3, verbose=False,
                                           dense_int8=True), device="cpu")
+
+
+@pytest.mark.parametrize("metrics", [
+    # two relations, the second without a test split and with a sampled
+    # alpha; |U| fetched for one entity of three
+    {"r0.rmse_avg": 0.81234, "r0.rmse_sample": 0.9, "r1.alpha": 4.987,
+     "e0.unorm": 12.34, "time": 0.0123},
+    # every field the reference's line knows: AUC, both alphas, every
+    # norm, the side-information and CG fields
+    {"r0.rmse_avg": 0.5, "r0.rmse_sample": 0.55, "r0.auc": 0.734,
+     "r0.alpha": 2.0, "r1.rmse_avg": 1.25, "r1.rmse_sample": 1.5,
+     "r1.alpha": 0.125, "e0.unorm": 1.0, "e1.unorm": 2.5, "e2.unorm": 3.0,
+     "e1.betanorm": 0.25, "e1.lambda_beta": 4.5, "e2.cg_iters": 7.0,
+     "time": 1.5}])
+def test_verbose_line_matches_jax(capsys, metrics):
+    """The port's verbose line is the reference's, character for
+    character, on one metrics dict (ROADMAP F10)."""
+    specs = [types.SimpleNamespace(name=n) for n in ("ratings", "assay")]
+    stub = types.SimpleNamespace(problem=types.SimpleNamespace(
+        rel_specs=specs, entity_specs=[None] * 3))
+    MacauEngine._print_sweep(stub, 4, "burnin", metrics)
+    want = capsys.readouterr().out
+    bt.MacauEngine._print_sweep(stub, 4, "burnin", metrics)
+    got = capsys.readouterr().out
+    assert "a1=4.99" in want or "a1=0.12" in want
+    assert got == want

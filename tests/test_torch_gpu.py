@@ -201,18 +201,86 @@ def test_fused_pair_bf16_promotion(cuda, flip_out):
     assert err <= chip_smoke.FLOAT_TOL["bfloat16"] * big, (err, big)
 
 
+# K6's column tiles (csrc/fused_pair_i8.cu: pairs of 64-column chunks, the
+# mask chunks [0, C rounded up to 64) against M8, then the value chunks
+# against W8): the mask pairs odd in number (one tile holds the last mask
+# pair and the first value pair) with the last mask pair lone (K = 4, 8,
+# 32, 33, 64, 96, 128) or full (K = 15, 160), or even (K = 16, 48, 100, no
+# tile mixes the kinds); the value pairs one lone chunk (K <= 64), one full
+# pair (K = 96, 100, 128), or a full pair and a lone chunk (K = 160)
+PAIR_TILES = [((300, 200), 16), ((1_000, 480), 48), ((257, 1_000), 100),
+              ((200, 300), 160), ((129, 4_096), 64)]
+
+
 @pytest.mark.parametrize("focus", [0, 1])
 @pytest.mark.parametrize("true, K", [((1_000, 777), 32), ((300, 2_000), 8),
                                      ((129, 257), 33), ((64, 48), 4),
                                      ((200, 300), 15), ((2_048, 640), 96),
-                                     ((640, 2_048), 128)])
+                                     ((640, 2_048), 128)]
+                         + PAIR_TILES + RING_EDGES)
 def test_pair_contract_kernel_matches_plain(cuda, true, K, focus):
     """K6 against its plain version on ragged stores, raw int32 and the
-    dq epilogue, bit for bit, up to K = 128."""
+    dq epilogue, bit for bit, up to K = 160: every kind of column tile
+    and the ring's edges (K6 runs on K8a's ring)."""
     import chip_smoke
     pair = chip_smoke.random_pair(true, seed=K)
     r = chip_smoke.check_pair_contract(pair, K, focus, timing=False)
     assert r["ok"], r
+
+
+@pytest.mark.parametrize("focus", [0, 1])
+@pytest.mark.parametrize("epilogue", ["raw", "dq"])
+def test_pair_contract_int8_at_its_bound(cuda, focus, epilogue):
+    """K6 at int8_pair_ok's bound: a fully observed [133136, 16] pair (one
+    count a cell, W8 codes +-127), so every fiber of mode 1 is 133,136
+    long, just under 2^31 / 127^2 = 133,144.6, and int8_pair_ok still
+    accepts it; the first value row of the table matches the signs of
+    focus column 0, so BV[0, 0] is 127^2 * 133,136 = 2,147,350,544, within
+    0.007% of 2^31.  Bit for bit against the plain version, raw and dq;
+    n_focus one past a 128-row tile in mode 0."""
+    K = 8
+    C = K * (K + 1) // 2
+    n0, n1 = 133_136, 16
+    rng = np.random.default_rng(13)
+    idx = np.stack(np.nonzero(np.ones((n0, n1), bool)), 1)
+    assert dense_gram.int8_pair_ok(idx, (n0, n1))
+    w = np.where(rng.random((n0, n1)) < 0.5, -127, 127).astype(np.int8)
+    n_contract = (n1, n0)[focus]
+    yz = rng.integers(-127, 128, (C + K, n_contract)).astype(np.int8)
+    yz[C] = w[0] if focus == 0 else w[:, 0]
+    M8 = torch.ones((n0, n1), dtype=torch.int8, device=cuda)
+    W8 = torch.from_numpy(w).to(cuda)
+    YZ8T = torch.from_numpy(yz).to(cuda)
+    nf = (129, n1)[focus]
+    dq = None if epilogue == "raw" else (
+        torch.from_numpy(rng.random(C, np.float32) + 0.5).to(cuda),
+        torch.from_numpy(rng.random(K, np.float32) + 0.5).to(cuda))
+    got = pair_contract.pair_contract(M8, W8, YZ8T, focus, K, nf, dq=dq)
+    want = pair_contract.pair_contract_plain(M8, W8, YZ8T, focus, K, nf,
+                                             dq=dq)
+    torch.cuda.synchronize()
+    if epilogue == "raw":
+        assert int(want[1][0, 0]) == 127 * 127 * n_contract
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def test_pair_contract_tensor_views(cuda):
+    """K6 on the two 2-D views of an arity-3 int8 store (the tensor path's
+    first step, ``chip_smoke.tensor_pair_views``): [(a, c), b] in mode 0
+    with n_focus = 300 * 7 rows of the 304 * 7 stored, and [a, (c, b)] in
+    mode 1, bit for bit against the plain version, raw and dq."""
+    import chip_smoke
+    rng = np.random.default_rng(14)
+    shape = (300, 7, 200)
+    cells = rng.choice(np.prod(shape), 30_000, replace=False)
+    idx = np.stack(np.unravel_index(cells, shape), 1)
+    vals = rng.standard_normal(len(idx)).astype(np.float32)
+    pair = dense_gram.build_int8_pair(idx, vals, shape, np.float32, cuda)
+    assert pair["M8"].shape == (304, 7, 208)
+    for view, focus in chip_smoke.tensor_pair_views(pair):
+        r = chip_smoke.check_pair_contract(view, 32, focus, timing=False)
+        assert r["ok"], r
+    assert r["shape"] == (300, 7 * 208)
 
 
 def test_int8_contraction_exact(cuda):
