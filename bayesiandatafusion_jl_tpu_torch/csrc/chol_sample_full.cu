@@ -1,4 +1,4 @@
-// Full-P Cholesky factorize-solve-sample, one warp per row (K <= 32): the
+// Full-P Cholesky factorize-solve-sample, two rows a warp (K <= 32): the
 // sampler of the gather path.
 //
 // Replaces the TPU kernels bayesiandatafusion_jl_tpu/ops/pallas_chol.py
@@ -9,83 +9,122 @@
 //     P' = (P[r] + jitter I) (+ Lambda when given),   L = chol(P'),
 //     u[r] = L^-T (L^-1 b[r] + xi[r])
 //
-// reading the lower triangle of P[r], with the TPU kernel's operation order
-// (warp_chol.cuh `lane_chol_sample`, shared with K1).
+// reading the lower triangle of P[r] (warp_chol.cuh `half_chol_sample`,
+// shared with K1).
 //
 // What bounds it on an H100: per row it must read the lower triangle,
 // K(K+1)/2 floats (2.1 KB at K = 32 in float32), plus 2K floats of b and xi,
 // and write K; it does ~K^3/3 + 2K^2 floating-point operations (13k at
 // K = 32).  At B = 71,567 that is ~170 MB (0.05 ms at 3.35 TB/s) and
 // ~0.9 GFLOP (0.014 ms at 67 TFLOP/s): the read stream is the floor.  The
-// shuffle-and-FMA chain of the register factorization is the limit in
-// practice, as in K1.
+// instruction stream of the register factorization is the limit in
+// practice, as in K1.  On an NVIDIA H100 80GB HBM3 at 700 W (PERF.md):
+// 0.2855 ms at B = 71,567 with Lambda, 0.2381 without, 0.7751 at
+// 200,000; the shuffle design this replaced ran 1.1588, 1.0819 and 3.2046
+// ms in the same call.
 //
-// Design: K1's register factorization with a different loader.  The TPU
-// kernel put the batch on the 128 lanes and padded it to the tile with
-// identity rows.  Here each warp owns one row: it copies the lower triangle
-// of P[r], which lies in K*K contiguous floats, into shared memory with
-// neighbouring lanes on neighbouring addresses (coalesced; lanes with an
-// upper-triangle element stay idle, so those sectors are not fetched), at a
-// pitch of K + 1 so that lane i's reads of its row i hit distinct banks.
-// Lane i then holds row i in registers (a[0..i]), adding jitter on the
-// diagonal and Lambda on load.  Rows past B are masked, not padded.
+// Design: K1's core with a different loader.  The TPU kernel put the batch
+// on the 128 lanes and padded it to the tile with identity rows.  Here each
+// warp owns two consecutive rows: it copies the lower triangle of each
+// P[r], whose rows lie in K*K contiguous floats, into shared memory with
+// cp.async, neighbouring lanes on neighbouring addresses (coalesced; the
+// upper triangle is not fetched), packed row by row (row i at i(i+1)/2), so
+// that the lanes' reads of their rows fall in distinct banks.  Lane l of
+// each half-warp then holds the rows l and 31 - l in registers, adding
+// jitter on the diagonal and Lambda on load, and the same shared words then
+// hold the matrix's L for the backward solve.  Rows past B are masked, not
+// padded.  K1's persistent double buffering, a warp's next two rows in
+// flight, measured slower here (0.3302 against 0.2855 ms), so each block
+// takes one group.  110 registers, no spills, 16 resident warps a SM.
 #include <cuda_runtime.h>
 
 #include "warp_chol.cuh"
 
 namespace {
 
-constexpr int kMaxK = 32;
-constexpr int kRows = 4;                       // rows (= warps) per block
-constexpr int kTile = kMaxK * (kMaxK + 1);     // one row's staged triangle
+constexpr int kWarps = 4;
+constexpr int kRows = 2 * kWarps;     // rows (matrices) a block, two a warp
 
 template <typename T>
-__global__ void __launch_bounds__(kRows * 32)
+__global__ void __launch_bounds__(kWarps * 32)
 chol_sample_full_kernel(const T* __restrict__ P, const T* __restrict__ lam,
                         T jitter, const T* __restrict__ b,
                         const T* __restrict__ xi, T* __restrict__ u, int B,
                         int K) {
-  __shared__ T tile[kRows * kTile];
+  // each matrix's lower triangle, packed; after the register fill, its L
+  __shared__ T tile[kRows * kTri];
+  __shared__ alignas(16) T col[kWarps][2][2][kRegK];
   const int w = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  const long long row = static_cast<long long>(blockIdx.x) * kRows + w;
-  if (row >= B) return;  // whole warp leaves together; no block-wide sync
-  T* t = tile + w * kTile;
-  const T* Pr = P + row * K * K;
+  const long long row0 = static_cast<long long>(blockIdx.x) * kRows + 2 * w;
+  if (row0 >= B) return;  // whole warp leaves together; no block-wide sync
+  T* t = tile + 2 * w * kTri;
 
-  // stage the lower triangle: t[i * (K + 1) + k] = P[r][i][k], k <= i
-  for (int e = lane; e < K * K; e += 32) {
-    const int i = e / K, k = e % K;
-    if (k <= i) t[i * (K + 1) + k] = Pr[e];
+  for (int q = 0; q < 2; ++q) {
+    if (row0 + q < B) {
+      const T* Pr = P + (row0 + q) * K * K;
+      for (int i = 0; i < K; ++i) {
+        if (lane <= i) {
+          cp_async<sizeof(T)>(t + q * kTri + i * (i + 1) / 2 + lane,
+                              Pr + i * K + lane);
+        }
+      }
+    }
   }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
   __syncwarp();
 
-  // lane i holds row i of the lower triangle: a[k] = P'[i][k], k <= i
-  T a[kMaxK];
+  const int h = lane / kHalf;
+  const int l = lane % kHalf;
+  const int rb = kRegK - 1 - l;
+  const long long row = row0 + h;
+  const bool in = row < B;
+  T* th = t + h * kTri;
+
+  // rows l and rb of P', identity rows past K and for a row past B
+  T a[kHalf], c[kRegK];
 #pragma unroll
-  for (int k = 0; k < kMaxK; ++k) {
-    a[k] = T(0);
-    if (k <= lane && lane < K) {
-      T v = t[lane * (K + 1) + k];
-      if (k == lane) v = v + jitter;
-      if (lam != nullptr) v = v + lam[lane * K + k];
+  for (int k = 0; k < kHalf; ++k) {
+    a[k] = T(k == l);
+    if (in && k <= l && l < K) {
+      T v = th[l * (l + 1) / 2 + k];
+      if (k == l) v = v + jitter;
+      if (lam != nullptr) v = v + lam[l * K + k];
       a[k] = v;
     }
   }
+#pragma unroll
+  for (int k = 0; k < kRegK; ++k) {
+    c[k] = T(k == rb);
+    if (in && k <= rb && rb < K) {
+      T v = th[rb * (rb + 1) / 2 + k];
+      if (k == rb) v = v + jitter;
+      if (lam != nullptr) v = v + lam[rb * K + k];
+      c[k] = v;
+    }
+  }
+  const T b_a = in && l < K ? b[row * K + l] : T(0);
+  const T b_c = in && rb < K ? b[row * K + rb] : T(0);
+  const T xi_a = in && l < K ? xi[row * K + l] : T(0);
+  const T xi_c = in && rb < K ? xi[row * K + rb] : T(0);
+  __syncwarp();                            // the staged words are free for L
 
-  const T b_lane = lane < K ? b[row * K + lane] : T(0);
-  const T xi_lane = lane < K ? xi[row * K + lane] : T(0);
-  const T uval = lane_chol_sample<T, kMaxK>(a, b_lane, xi_lane, K, lane);
-  if (lane < K) u[row * K + lane] = uval;
+  T u_a, u_c;
+  half_chol_sample<T>(a, c, b_a, b_c, xi_a, xi_c, K, l, &col[w][0][h][0],
+                      th, u_a, u_c);
+  if (in) {
+    if (l < K) u[row * K + l] = u_a;
+    if (rb < K) u[row * K + rb] = u_c;
+  }
 }
 
 template <typename T>
 int launch(const T* P, const T* lam, double jitter, const T* b, const T* xi,
            T* u, int B, int K, void* stream) {
-  if (K < 1 || K > kMaxK || B < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (K < 1 || K > kRegK || B < 0) return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0) return 0;
   const unsigned blocks = static_cast<unsigned>((B + kRows - 1) / kRows);
-  chol_sample_full_kernel<T><<<blocks, kRows * 32, 0,
+  chol_sample_full_kernel<T><<<blocks, kWarps * 32, 0,
                                static_cast<cudaStream_t>(stream)>>>(
       P, lam, static_cast<T>(jitter), b, xi, u, B, K);
   return static_cast<int>(cudaGetLastError());

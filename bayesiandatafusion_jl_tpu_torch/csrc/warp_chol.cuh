@@ -1,16 +1,36 @@
-// One warp factors, solves and samples one row's K x K precision: the
-// Cholesky recurrences of the TPU kernels in pallas_chol.py, shared by the
-// sampler kernels and by chol_inv.cu (K5).
+// One warp factors, solves and samples K x K precisions: the Cholesky
+// recurrences of the TPU kernels in pallas_chol.py, shared by the sampler
+// kernels and by chol_inv.cu (K5).
 //
 // Two storage schemes:
 //
-// - Registers, K <= 32 (`lane_chol_sample`; K1 chol_sample_packed.cu and
-//   K3 chol_sample_full.cu): lane i holds row i of the lower triangle,
-//   a[k] = P'[i][k] for k <= i, and the pivot column is broadcast with
-//   __shfl_sync.  This is `_chol_solve_sample` (pallas_chol.py:44) with its
-//   operation order: right-looking factorization (d = sqrt, inv = 1/d,
-//   column scaled by inv, trailing update), then forward and backward
-//   substitution with a true division by the diagonal.
+// - Registers, K <= 32 (`half_chol_sample`; K1 chol_sample_packed.cu and
+//   K3 chol_sample_full.cu): a warp holds two matrices, one a half-warp,
+//   each padded to 32 x 32 with identity rows.  Lane l of a half holds the
+//   rows l and 31 - l of the lower triangle in registers (a[16] and c[32]),
+//   so its two rows together are 33 entries long.  Right-looking
+//   factorization: at step j every lane stores its rows' entries of column
+//   j, unscaled, into a per-warp column buffer in shared memory, and reads
+//   the column back as broadcast 16-byte loads; one load serves both
+//   matrices, and one sqrt and one IEEE reciprocal a step serve both
+//   pivots.  With d = sqrt(A[j][j]) and inv = 1 / d, L[i][j] = A[i][j] inv
+//   and the trailing update A[i][k] -= (L[i][j] inv) A[k][j] needs no
+//   scaled copy of the column.  inv stays in a register of the lane that
+//   owns row j, and both solves multiply by it: no division in a solve.
+//   The forward solve broadcasts y[k] with one 16-wide shuffle a step
+//   (both matrices at once).  The backward solve reads L's column through
+//   shared memory: each lane stores its rows of L packed row by row
+//   (row i at i(i + 1)/2), so step i's L[i][k] for all k are consecutive
+//   words, and u[i] comes by one shuffle.  Same arithmetic as
+//   `_chol_solve_sample` (pallas_chol.py:44), in another rounding order:
+//   L[i][j] L[k][j] as (L[i][j] inv) A[k][j], y[k] and u[k] as products
+//   with inv instead of quotients.  At K = 32 K1's kernel is 3,752 SASS
+//   instructions a warp for its two rows (64 shuffles, 69 MUFU; K3's
+//   4,232), where with the shuffle-per-pivot-pair core it replaced (lane
+//   i held row i and took every L[k][j] by __shfl_sync) it was 7,944 for
+//   one (1,056 shuffles, ~96 IEEE divisions).  On an NVIDIA H100 80GB HBM3 at 700 W, K1 at
+//   B = 71,567 runs 0.2904 ms on it (0.9115 on the old core) and K3 0.2855
+//   (1.1588); PERF.md has the rest.
 //
 // - Shared memory, K <= 96 (`warp_chol_packed`, `warp_packed_solve_sample`;
 //   K2 chol_sample_packed_slab.cu, K4 chol_sample_full_slab.cu, K5): A holds
@@ -30,64 +50,137 @@ namespace {
 
 constexpr unsigned kFullMask = 0xffffffffu;
 
-// Factor, solve and sample with row `lane` of the lower triangle in a[]
-// (a[k] = P'[lane][k], k <= lane; lanes >= K hold zeros): returns
-// u[lane] = (L^-T (L^-1 b + xi))[lane], with b_lane = b[lane] and
-// xi_lane = xi[lane] (0 on lanes >= K).  Every lane of the warp must call.
-template <typename T, int kMaxK>
-__device__ __forceinline__ T lane_chol_sample(T (&a)[kMaxK], T b_lane,
-                                              T xi_lane, int K, int lane) {
-  // right-looking factorization: after step j, lane i > j holds L[i][j]
+// the register core's shapes: matrices padded to kRegK, kHalf lanes each,
+// kTri words of packed L each
+constexpr int kRegK = 32;
+constexpr int kHalf = 16;
+constexpr int kTri = kRegK * (kRegK + 1) / 2;
+
+// K1's and K3's loaders: copy N bytes from device to shared memory
+// without a register, in flight until cp.async.wait_all
+template <int N>
+__device__ __forceinline__ void cp_async(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(s),
+               "l"(src), "n"(N));
+}
+
+// four consecutive values from 16-byte aligned shared memory
+__device__ __forceinline__ void load4(const float* p, float* v) {
+  const float4 x = *reinterpret_cast<const float4*>(p);
+  v[0] = x.x;
+  v[1] = x.y;
+  v[2] = x.z;
+  v[3] = x.w;
+}
+
+__device__ __forceinline__ void load4(const double* p, double* v) {
+  const double2 x = *reinterpret_cast<const double2*>(p);
+  const double2 y = *reinterpret_cast<const double2*>(p + 2);
+  v[0] = x.x;
+  v[1] = x.y;
+  v[2] = y.x;
+  v[3] = y.y;
+}
+
+// Factor, solve and sample the matrix of this half-warp.  In: a[k] =
+// P'[l][k] (k <= l) and c[k] = P'[rb][k] (k <= rb), rb = 31 - l, with
+// identity rows for l, rb >= K, zeros above the diagonal; b and xi of both
+// rows (0 past K).  col: the warp's column buffers, 2 x 2 x kRegK values,
+// 16-byte aligned, offset by kRegK for the upper half; lr: kTri values of
+// shared memory for this matrix's L, whose words sit 16 banks apart from
+// the other half's.  Out: u of both rows.  Every lane of the warp calls,
+// with the same K.  a and c are overwritten (with L, and garbage above
+// the diagonal: finite, never read).
+template <typename T>
+__device__ __forceinline__ void half_chol_sample(
+    T (&a)[kHalf], T (&c)[kRegK], T b_a, T b_c, T xi_a, T xi_c, int K,
+    int l, T* col, T* lr, T& u_a, T& u_c) {
+  const int rb = kRegK - 1 - l;
+  T inv_a = T(1), inv_c = T(1);
 #pragma unroll
-  for (int j = 0; j < kMaxK; ++j) {
+  for (int j = 0; j < kRegK; ++j) {
     if (j < K) {
-      const T d = sqrt(__shfl_sync(kFullMask, a[j], j));
+      T* cb = col + (j & 1) * 2 * kRegK;   // two buffers: one sync a step
+      if (j < kHalf) cb[l] = a[j];
+      cb[rb] = c[j];
+      __syncwarp();
+      T v[kRegK];
+#pragma unroll
+      for (int g = j / 4; g < kRegK / 4; ++g) load4(cb + 4 * g, v + 4 * g);
+      const T d = sqrt(v[j]);
       const T inv = T(1) / d;
-      if (lane == j) {
-        a[j] = d;
-      } else if (lane > j) {
-        a[j] = a[j] * inv;
-      }
-      const T lij = a[j];
+      if (j < kHalf) {
+        const T lij = a[j] * inv;
+        const T t = lij * inv;
+        a[j] = lij;
 #pragma unroll
-      for (int k = j + 1; k < kMaxK; ++k) {
-        if (k < K) {
-          const T lkj = __shfl_sync(kFullMask, a[j], k);
-          if (lane >= k) a[k] = a[k] - lij * lkj;
-        }
+        for (int k = j + 1; k < kHalf; ++k) a[k] -= t * v[k];
+        if (l == j) inv_a = inv;
       }
+      const T lij = c[j] * inv;
+      const T t = lij * inv;
+      c[j] = lij;
+#pragma unroll
+      for (int k = j + 1; k < kRegK; ++k) c[k] -= t * v[k];
+      if (rb == j) inv_c = inv;
     }
   }
 
-  // forward solve L y = b: lane i subtracts L[i][k] y[k] in ascending k
-  T s = b_lane;
-  T y = T(0);
+  // forward solve L y = b: y[k] = s[k] inv[k] from the lane that owns
+  // row k, then every row subtracts L[i][k] y[k] (rows at or above k
+  // update a value they no longer need)
+  T s_a = b_a, s_c = b_c, y_a = T(0), y_c = T(0);
 #pragma unroll
-  for (int k = 0; k < kMaxK; ++k) {
+  for (int k = 0; k < kRegK; ++k) {
     if (k < K) {
-      const T yk = __shfl_sync(kFullMask, s / a[k], k);
-      if (lane == k) y = yk;
-      if (lane > k) s = s - a[k] * yk;
+      const bool lo = k < kHalf;
+      const T yk = __shfl_sync(kFullMask, lo ? s_a * inv_a : s_c * inv_c,
+                               lo ? k : kRegK - 1 - k, kHalf);
+      if (lo) {
+        if (l == k) y_a = yk;
+        s_a -= a[lo ? k : 0] * yk;
+      } else if (rb == k) {
+        y_c = yk;
+      }
+      s_c -= c[k] * yk;
     }
   }
 
-  // backward solve L^T u = y + xi: L[k][i] lives on lane k, so lane k sends
-  // its product L[k][i] u[k] and lane i subtracts them in ascending k
-  const T v = y + xi_lane;
-  T uval = T(0);
+  // L to shared memory, row i at i (i + 1) / 2
+  const int oa = l * (l + 1) / 2, oc = rb * (rb + 1) / 2;
 #pragma unroll
-  for (int i = kMaxK - 1; i >= 0; --i) {
+  for (int k = 0; k < kHalf; ++k) {
+    if (k <= l) lr[oa + k] = a[k];
+  }
+#pragma unroll
+  for (int k = 0; k < kRegK; ++k) {
+    if (k <= rb) lr[oc + k] = c[k];
+  }
+  __syncwarp();
+
+  // backward solve L^T u = y + xi: u[i] = v[i] inv[i] from the lane that
+  // owns row i, then every row k < i subtracts L[i][k] u[i]; the reads
+  // stay inside the matrix's kTri words
+  T v_a = y_a + xi_a, v_c = y_c + xi_c;
+  u_a = T(0);
+  u_c = T(0);
+#pragma unroll
+  for (int i = kRegK - 1; i >= 0; --i) {
     if (i < K) {
-      const T prod = a[i] * uval;
-      T t = v;
-#pragma unroll
-      for (int k = i + 1; k < kMaxK; ++k) {
-        if (k < K) t = t - __shfl_sync(kFullMask, prod, k);
+      const bool lo = i < kHalf;
+      const T ui = __shfl_sync(kFullMask, lo ? v_a * inv_a : v_c * inv_c,
+                               lo ? i : kRegK - 1 - i, kHalf);
+      if (lo) {
+        if (l == i) u_a = ui;
+      } else if (rb == i) {
+        u_c = ui;
       }
-      if (lane == i) uval = t / a[i];
+      const T* row = lr + i * (i + 1) / 2;
+      v_a -= row[l] * ui;
+      v_c -= row[rb] * ui;
     }
   }
-  return uval;
 }
 
 __device__ __forceinline__ int tri_off(int j, int K) {

@@ -45,14 +45,20 @@ def _t(*arrays):
     return [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays]
 
 
+_LAM_JITTER = [(False, 0.0), (True, 0.0), (True, 0.25), (False, 0.5)]
+
+
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
-@pytest.mark.parametrize("lam, jitter", [(False, 0.0), (True, 0.0),
-                                         (True, 0.25), (False, 0.5)])
-def test_chol_sample_full_plain_matches_jax_kernel(interpret_pallas, dtype,
-                                                   lam, jitter):
-    """K3: K=8, B=37 (no multiple of the TPU kernel's tile), Lambda added
-    in registers or absent, with and without jitter."""
-    K, B = 8, 37
+@pytest.mark.parametrize(
+    "K, lam, jitter", [(K, *lj) for K in (8, 1, 17) for lj in _LAM_JITTER],
+    ids=[("" if K == 8 else f"K{K}-") + f"{lam}-{jitter}"
+         for K in (8, 1, 17) for lam, jitter in _LAM_JITTER])
+def test_chol_sample_full_plain_matches_jax_kernel(interpret_pallas, K,
+                                                   dtype, lam, jitter):
+    """K3: K=8 and the card kernel's edges K=1 and 17, B=37 (no multiple
+    of the TPU kernel's tile), Lambda added in registers or absent, with
+    and without jitter."""
+    B = 37
     P, Lam, b, xi = _problem(K, B, dtype)
     want = np.asarray(jax_pallas_chol.chol_sample_pallas(
         jnp.asarray(P), jnp.asarray(b), jnp.asarray(xi), jitter=jitter,

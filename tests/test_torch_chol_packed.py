@@ -55,18 +55,19 @@ def _jax_samples(K, dtype, transposed):
 
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
 @pytest.mark.parametrize("transposed", [True, False])
-@pytest.mark.parametrize("K", [8, 32])
+@pytest.mark.parametrize("K", [8, 32, 1, 17])
 def test_chol_packed_plain_matches_jax_kernel(K, transposed, dtype):
     """B=37 is not a multiple of the TPU kernel's tile.  The port runs in
-    both layouts.  At K=8 the JAX kernel runs in the same layout; at K=32
-    it runs once per dtype in the engine's [C, B] layout, since its
-    batch-leading path is the same kernel behind two transposes
-    (tests/test_pallas.py:244)."""
+    both layouts.  At K=1 and 8 the JAX kernel runs in the same layout; at
+    K=17 and 32 it runs once per dtype in the engine's [C, B] layout, since
+    its batch-leading path is the same kernel behind two transposes
+    (tests/test_pallas.py:244).  K=1 and 17 are edges of the card kernel
+    (one row; the first row past a half-warp's first rows)."""
     B = 37
     Pp, Lam, b, xi, _ = _problem(K, B, dtype)
     if transposed:
         Pp, b = Pp.T.copy(), b.T.copy()
-    want = _jax_samples(K, dtype, transposed or K == 32)
+    want = _jax_samples(K, dtype, transposed or K >= 17)
     got = chol_packed.chol_sample_packed(
         torch.from_numpy(Pp), torch.from_numpy(b), torch.from_numpy(xi),
         torch.from_numpy(Lam), jitter=0.25, transposed=transposed).numpy()
@@ -100,3 +101,38 @@ def test_chol_packed_rejects_mismatched_shapes():
         chol_packed.chol_sample_packed(
             torch.from_numpy(Pp), torch.from_numpy(b), torch.from_numpy(xi),
             torch.from_numpy(Lam), transposed=True)     # Pp is [B, C]
+
+
+# K1's float32 build lines as ptxas printed them for the shuffle design
+# (nvcc -Xptxas -v, sm_90a): 4 bytes spilled each way
+_K1_PTXAS = """\
+ptxas info    : Compiling entry function \
+'_ZN54_GLOBAL__N__d8822b02_21_chol_sample_packed_cu_1a44708825\
+chol_sample_packed_kernelIfEEvPKT_xxS3_S1_S3_xxS3_PS1_ii' for 'sm_90a'
+ptxas info    : Function properties for \
+_ZN54_GLOBAL__N__d8822b02_21_chol_sample_packed_cu_1a44708825\
+chol_sample_packed_kernelIfEEvPKT_xxS3_S1_S3_xxS3_PS1_ii
+    16 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads
+ptxas info    : Used 48 registers, used 1 barriers, 16 bytes cumulative \
+stack size, 20160 bytes smem
+ptxas info    : Compiling entry function \
+'_ZN52_GLOBAL__N__9fb9a7b4_19_chol_sample_full_cu_f6ec740223\
+chol_sample_full_kernelIfEEvPKT_S3_S1_S3_S3_PS1_ii' for 'sm_90a'
+ptxas info    : Function properties for \
+_ZN52_GLOBAL__N__9fb9a7b4_19_chol_sample_full_cu_f6ec740223\
+chol_sample_full_kernelIfEEvPKT_S3_S1_S3_S3_PS1_ii
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 110 registers, used 0 barriers, 18944 bytes smem
+"""
+
+
+@pytest.mark.parametrize("name, spilled", [
+    ("chol_sample_packed_kernel", 8), ("chol_sample_full_kernel", 0)])
+def test_sampler_spill_check_reads_build_lines(name, spilled):
+    """chip_smoke.py fails when K1 or K3 spills: the spill bytes it reads
+    from one kernel's build lines, and none of the other kernel's."""
+    import chip_smoke
+    from bayesiandatafusion_jl_tpu_torch import kernels
+    lines = kernels.ptxas_lines(_K1_PTXAS, name)
+    assert len(lines) == 2
+    assert chip_smoke.spills(lines) == spilled

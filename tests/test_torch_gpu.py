@@ -30,20 +30,28 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("K, B", [(32, 71_567), (32, 10_681), (8, 1_000),
-                                  (40, 1_000), (64, 10_681), (96, 4_000)])
+# K1's and K3's edges: K = 1, 2 (one or two rows of the half-warp's 16
+# lanes), 17 (the first row past the lanes' first rows), 31, 32; B = 1, one
+# more than a block's 8 rows, a partial last block, the ML-10M user count
+_REG_EDGES = [(K, B) for K in (1, 2, 17, 31, 32)
+              for B in (1, 9, 1_003, 71_567)]
+
+
+@pytest.mark.parametrize("K, B", [(32, 10_681), (8, 1_000), (40, 1_000),
+                                  (64, 10_681), (96, 4_000)] + _REG_EDGES)
 def test_chol_kernel_matches_plain(cuda, K, B):
     """The packed sampler's kernel for K (K1 up to 32, K2 above) against
-    its plain version (the check chip_smoke.py runs)."""
+    its plain version (the check chip_smoke.py runs), on a strided [C, B]
+    view, float32 and float64."""
     import chip_smoke
     r = chip_smoke.check_chol_kernel(K, B, timing=False)
     assert r["ok"], r
 
 
 @pytest.mark.parametrize("lam", [True, False])
-@pytest.mark.parametrize("K, B", [(32, 71_567), (32, 10_681), (8, 1_000),
-                                  (64, 10_681), (96, 4_000), (40, 1_000),
-                                  (33, 77)])
+@pytest.mark.parametrize("K, B", [(32, 10_681), (8, 1_000), (64, 10_681),
+                                  (96, 4_000), (40, 1_000), (33, 77)]
+                         + _REG_EDGES)
 def test_full_kernel_matches_plain(cuda, K, B, lam):
     """The gather path's full-P sampler kernel for K (K3 up to 32, K4
     above), with and without Lambda, against its plain version."""
