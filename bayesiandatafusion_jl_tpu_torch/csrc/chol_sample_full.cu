@@ -81,28 +81,14 @@ chol_sample_full_kernel(const T* __restrict__ P, const T* __restrict__ lam,
   const bool in = row < B;
   T* th = t + h * kTri;
 
-  // rows l and rb of P', identity rows past K and for a row past B
+  // rows l and rb of P', identity rows for a row past B
   T a[kHalf], c[kRegK];
-#pragma unroll
-  for (int k = 0; k < kHalf; ++k) {
-    a[k] = T(k == l);
-    if (in && k <= l && l < K) {
-      T v = th[l * (l + 1) / 2 + k];
-      if (k == l) v = v + jitter;
-      if (lam != nullptr) v = v + lam[l * K + k];
-      a[k] = v;
-    }
-  }
-#pragma unroll
-  for (int k = 0; k < kRegK; ++k) {
-    c[k] = T(k == rb);
-    if (in && k <= rb && rb < K) {
-      T v = th[rb * (rb + 1) / 2 + k];
-      if (k == rb) v = v + jitter;
-      if (lam != nullptr) v = v + lam[rb * K + k];
-      c[k] = v;
-    }
-  }
+  fill_rows<T>(a, c, l, K, in, [&](int i, int k) {
+    T v = th[i * (i + 1) / 2 + k];
+    if (k == i) v = v + jitter;
+    if (lam != nullptr) v = v + lam[i * K + k];
+    return v;
+  });
   const T b_a = in && l < K ? b[row * K + l] : T(0);
   const T b_c = in && rb < K ? b[row * K + rb] : T(0);
   const T xi_a = in && l < K ? xi[row * K + l] : T(0);

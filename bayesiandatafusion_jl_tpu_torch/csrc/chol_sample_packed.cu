@@ -119,27 +119,14 @@ chol_sample_packed_kernel(const T* __restrict__ Pp, long long p_sc,
                  b_sk, b_sr, B, K);
     }
 
-    // rows l and rb of P': entry (k, i), k <= i, is triu index
-    // k K - k (k - 1) / 2 + i - k; identity rows past K
+    // rows l and rb of P': entry (i, k), k <= i, is triu index
+    // k K - k (k - 1) / 2 + i - k
     T a[kHalf], c[kRegK];
-#pragma unroll
-    for (int k = 0; k < kHalf; ++k) {
-      a[k] = T(k == l);
-      if (k <= l && l < K) {
-        T v = lam[l * K + k];
-        if (k == l) v = v + jitter;
-        a[k] = tp[(k * K - k * (k - 1) / 2 + l - k) * kPitch + m] + v;
-      }
-    }
-#pragma unroll
-    for (int k = 0; k < kRegK; ++k) {
-      c[k] = T(k == rb);
-      if (k <= rb && rb < K) {
-        T v = lam[rb * K + k];
-        if (k == rb) v = v + jitter;
-        c[k] = tp[(k * K - k * (k - 1) / 2 + rb - k) * kPitch + m] + v;
-      }
-    }
+    fill_rows<T>(a, c, l, K, true, [&](int i, int k) {
+      T v = lam[i * K + k];
+      if (k == i) v = v + jitter;
+      return tp[(k * K - k * (k - 1) / 2 + i - k) * kPitch + m] + v;
+    });
     const long long row = g * kRows + m;
     const bool in = row < B;
     const T b_a = l < K ? tb[l * kPitch + m] : T(0);

@@ -83,6 +83,25 @@ __device__ __forceinline__ void load4(const double* p, double* v) {
   v[3] = y.y;
 }
 
+// Rows l and 31 - l of P' in the layout half_chol_sample takes: entry
+// (i, k), k <= i, is at(i, k); identity rows for the rows >= K, and for
+// every row when !live.
+template <typename T, typename At>
+__device__ __forceinline__ void fill_rows(T (&a)[kHalf], T (&c)[kRegK],
+                                          int l, int K, bool live, At at) {
+  const int rb = kRegK - 1 - l;
+#pragma unroll
+  for (int k = 0; k < kHalf; ++k) {
+    a[k] = T(k == l);
+    if (live && k <= l && l < K) a[k] = at(l, k);
+  }
+#pragma unroll
+  for (int k = 0; k < kRegK; ++k) {
+    c[k] = T(k == rb);
+    if (live && k <= rb && rb < K) c[k] = at(rb, k);
+  }
+}
+
 // Factor, solve and sample the matrix of this half-warp.  In: a[k] =
 // P'[l][k] (k <= l) and c[k] = P'[rb][k] (k <= rb), rb = 31 - l, with
 // identity rows for l, rb >= K, zeros above the diagonal; b and xi of both

@@ -9,8 +9,7 @@ Phases, each fatal on failure (nonzero exit, no result line):
 1. device: a CUDA device is present; its name and power limit;
 2. build: ``nvcc`` compiles the port's kernels for sm_90a from ``csrc/``,
    and ptxas serializes no ``wgmma`` (no C75xx line in its log); K1's and
-   K3's build lines (registers, spills) and SASS opcode classes, failing
-   on any spill in either;
+   K3's build lines (registers, spills), failing on any spill in either;
 3. kernels vs plain: each sampler kernel against its plain torch version
    on random SPD problems at the main paths' shapes, float32 and float64,
    both held against the float64 plain version: K1 (packed, K <= 32), K2
@@ -122,13 +121,6 @@ Phases, each fatal on failure (nonzero exit, no result line):
 The last lines are the card's ``nvidia-smi`` name and power limit, a JSON
 object describing the kernels (with each one's bound on this card) and
 the ``{"ok": true, "device": ...}`` line.
-
-``python3 chip_smoke.py --against NAME=DIR[:FLAGS],...`` runs only an A/B
-of K1 and K3: each DIR's ``chol_sample_packed.cu`` and
-``chol_sample_full.cu`` (for example a parent commit's ``csrc/`` unpacked
-with ``git archive``) built as its own library beside this tree's, every
-build's ptxas lines, SASS classes and resident warps, its results against
-the float64 plain version and its times in turns (``against_main``).
 """
 import functools
 import json
@@ -159,21 +151,9 @@ BENCH_WIDTHS = (8, 12, 16, 20, 24, 28, 32, 40, 48, 56, 64, 80, 96, 112, 128,
                 160, 192, 224, 256, 320, 384, 512, 768, 1024, 2048)
 KERNEL_ERR_FACTOR = 10.0     # kernel error <= 10x the f32 plain version's
 F64_KERNEL_TOL = 1e-9        # float64 kernel vs float64 plain version
-# K1's (K, B) shapes: ML-10M, Netflix, then the graph paths' entities
-# (tensor's and fusion's); K3's: ML-10M, tensor_big's, edges
-K1_SHAPES = ((32, 71_567), (32, 10_681), (32, 480_189), (32, 17_770),
-             (8, 1_000), (32, 30_000), (32, 2_000), (32, 16), (32, 50_000),
-             (32, 500), (32, 3_000), (32, 800))
-K3_SHAPES = ((32, 71_567), (32, 10_681), (8, 1_000), (32, 200_000),
-             (32, 20_000), (32, 8))
-K3_NO_LAMBDA_SHAPES = ((32, 71_567), (32, 10_681), (8, 1_000))
-# K1's and K3's kernels (a piece of their mangled names) and the SASS
-# opcode classes their instruction streams are read by (PERF.md)
+# K1's and K3's kernels (a piece of their mangled names)
 SAMPLER_KERNELS = (("K1", "chol_sample_packed_kernel"),
                    ("K3", "chol_sample_full_kernel"))
-SASS_CLASSES = ("FFMA", "FMUL", "FADD", "DFMA", "DMUL", "DADD", "SHFL",
-                "MUFU", "CALL", "BRA", "ISETP", "FSEL", "LDS", "STS", "LDG",
-                "LDGSTS")
 # H100 SXM peaks (NVIDIA's data sheet, at 700 W): HBM bytes/s, float32
 # FLOP/s outside the tensor cores and dense int8 tensor-core OP/s, for the
 # kernels' bounds
@@ -678,14 +658,12 @@ def print_pair_check(label, r):
         print_ptxas(f"pair_contract_kernelILi{r['focus']}ELb1E")
 
 
-def print_ptxas(name, log=None):
-    """The build lines of the kernels whose mangled name contains ``name``
-    (this process's build unless ``log`` is given): registers, spills and
-    any C75xx line (a serialized wgmma).  Returns them."""
+def print_ptxas(name):
+    """The build lines of the kernels whose mangled name contains ``name``:
+    registers, spills and any C75xx line (a serialized wgmma).  Returns
+    them."""
     from bayesiandatafusion_jl_tpu_torch import kernels
-    if log is None:
-        log = kernels.build_report()["log"]
-    lines = kernels.ptxas_lines(log, name)
+    lines = kernels.ptxas_lines(kernels.build_report()["log"], name)
     for b in lines:
         print(f"#   build: {b}", flush=True)
     return lines
@@ -698,218 +676,13 @@ def spills(lines):
                for n in re.findall(r"(\d+) bytes spill (?:stores|loads)", line))
 
 
-def sass_classes(path, name):
-    """{mangled name: {opcode class: count, "total": n}} for the kernels in
-    ``path`` (a library or cubin) whose mangled name contains ``name``,
-    from ``cuobjdump -sass``.  K1's and K3's register core is unrolled, so
-    at K = 32 these static counts are what a warp issues for its rows,
-    apart from the loaders' loops."""
-    import collections
-    import re
-    from bayesiandatafusion_jl_tpu_torch import kernels
-    tool = os.path.join(os.path.dirname(kernels._nvcc()), "cuobjdump")
-    txt = subprocess.run([tool, "-sass", path], capture_output=True,
-                         text=True, check=True).stdout
-    op = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?"
-                    r"([A-Z][A-Z0-9_]*)")
-    out, cur = {}, None
-    for line in txt.splitlines():
-        m = re.search(r"Function : (\S+)", line)
-        if m:
-            cur = m.group(1) if name in m.group(1) else None
-            if cur:
-                out[cur] = collections.Counter()
-        elif cur and (m := op.search(line)):
-            out[cur][m.group(1)] += 1
-    return {f: {**{k: c[k] for k in SASS_CLASSES}, "total": sum(c.values())}
-            for f, c in out.items()}
-
-
-def print_sass(path, name):
-    for f, c in sass_classes(path, name).items():
-        dtype = "f64" if "IdE" in f else "f32"
-        print(f"#   sass {name} {dtype}: total {c['total']}, "
-              + ", ".join(f"{k} {v}" for k, v in c.items()
-                          if v and k != "total"), flush=True)
-
-
-def check_sampler_builds(log, lib_path):
-    """K1's and K3's ptxas lines and SASS classes; fails on any spill."""
+def check_sampler_builds():
+    """K1's and K3's ptxas lines; fails on any spill."""
     for tag, name in SAMPLER_KERNELS:
         print(f"# {tag} build ({name}):", flush=True)
-        lines = print_ptxas(name, log)
+        lines = print_ptxas(name)
         require(lines and spills(lines) == 0,
                 f"{tag} spills or has no build lines: {lines}")
-        print_sass(lib_path, name)
-
-
-def resident_warps(cubin, name):
-    """Resident warps a SM of each kernel in ``cubin`` whose mangled name
-    contains ``name`` at its launch bound's block size, by
-    cuOccupancyMaxActiveBlocksPerMultiprocessor (static shared memory
-    only: K1's dynamic buffers fit beside its register-bound blocks), with
-    its registers."""
-    import ctypes
-    import torch
-    torch.zeros(1, device="cuda")               # the primary context
-    cu = ctypes.CDLL("libcuda.so.1")
-    mod = ctypes.c_void_p()
-    require(cu.cuModuleLoad(ctypes.byref(mod), cubin.encode()) == 0,
-            f"cuModuleLoad {cubin}")
-    out = {}
-    for f in sass_classes(cubin, name):
-        fn = ctypes.c_void_p()
-        require(cu.cuModuleGetFunction(ctypes.byref(fn), mod,
-                                       f.encode()) == 0, f)
-        attr = {}
-        for key, a in (("threads", 0), ("regs", 4)):
-            v = ctypes.c_int()
-            cu.cuFuncGetAttribute(ctypes.byref(v), a, fn)
-            attr[key] = v.value
-        n = ctypes.c_int()
-        cu.cuOccupancyMaxActiveBlocksPerMultiprocessor(
-            ctypes.byref(n), fn, attr["threads"], 0)
-        out[f] = {"warps": n.value * attr["threads"] // 32, **attr}
-    return out
-
-
-def against_main(spec):
-    """``python3 chip_smoke.py --against NAME=DIR[:FLAGS],...``: K1 and K3
-    built from other source directories (``DIR/chol_sample_packed.cu`` and
-    ``DIR/chol_sample_full.cu`` with their headers, e.g. a parent commit's
-    ``csrc/`` from ``git archive``; FLAGS: extra nvcc flags,
-    space-separated), each as its own library with the port's nvcc flags,
-    beside this tree's ("tree"): every build's ptxas lines, SASS classes
-    and resident warps a SM; its float32 and float64 results against the
-    float64 plain version (the kernels phase's check); its float32 time in
-    turns (tree, A, ..., A, tree, twice; median of 4) at K1's and K3's
-    shapes."""
-    import ctypes
-    import statistics
-    import torch
-    from bayesiandatafusion_jl_tpu_torch import kernels
-    from bayesiandatafusion_jl_tpu_torch.ops.chol_full import \
-        chol_sample_full_plain
-    from bayesiandatafusion_jl_tpu_torch.ops.chol_packed import \
-        chol_sample_packed_plain
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device", file=sys.stderr)
-        return 1
-    print(f"# device: {torch.cuda.get_device_name(0)} | {nvidia_smi_line()}",
-          flush=True)
-    builds = [("tree", kernels.CSRC, [])]
-    for item in spec.split(","):
-        name, rest = item.split("=", 1)
-        src, _, flags = rest.partition(":")
-        builds.append((name, os.path.abspath(src), flags.split()))
-    out_dir = os.path.join(kernels.BUILD_DIR, "against")
-    os.makedirs(out_dir, exist_ok=True)
-    cmds, files = [], {}
-    for name, src, flags in builds:
-        for f in ("chol_sample_packed.cu", "chol_sample_full.cu"):
-            base = os.path.join(out_dir, f"{name}_{f[:-3]}")
-            files[(name, f)] = (base + ".cubin", base + ".so")
-            cmds.append([kernels._nvcc(), *kernels.NVCC_FLAGS, *flags,
-                         "-Xptxas", "-v", "-cubin", "-o", base + ".cubin",
-                         os.path.join(src, f)])
-            cmds.append([kernels._nvcc(), *kernels.NVCC_FLAGS, *flags,
-                         "-shared", "-o", base + ".so", os.path.join(src, f)])
-    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
-                              stderr=subprocess.STDOUT, text=True)
-             for c in cmds]
-    logs = {c[-2]: pr.communicate()[0]
-            for c, pr in zip(cmds, procs)}
-    for c, pr in zip(cmds, procs):
-        require(pr.returncode == 0, f"nvcc failed: {c}\n{logs[c[-2]]}")
-    p, ll, d, i = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_double,
-                   ctypes.c_int)
-    fns = {}
-    for name, _, _ in builds:
-        print(f"# build {name}:", flush=True)
-        for tag, kname in SAMPLER_KERNELS:
-            f = "chol_sample_packed.cu" if tag == "K1" else "chol_sample_full.cu"
-            cubin, so = files[(name, f)]
-            print_ptxas(kname, logs[cubin])
-            print_sass(cubin, kname)
-            for fn_name, r in resident_warps(cubin, kname).items():
-                print(f"#   {tag} {'f64' if 'IdE' in fn_name else 'f32'}: "
-                      f"{r['warps']} warps a SM ({r['threads']} threads a "
-                      f"block, {r['regs']} registers)", flush=True)
-            lib = ctypes.CDLL(so)
-            for sfx in ("f32", "f64"):
-                fn = getattr(lib, f"bdf_{kname[:-7]}_{sfx}")
-                fn.restype = i
-                fn.argtypes = ([p, ll, ll, p, d, p, ll, ll, p, p, i, i, p]
-                               if tag == "K1" else [p, p, d, p, p, p, i, i, p])
-                fns[(name, tag, sfx)] = fn
-    names = [b[0] for b in builds]
-    stream = torch.cuda.current_stream().cuda_stream
-
-    def packed(fn, Pp, b, xi, Lam):
-        u = torch.empty((Pp.shape[1], Lam.shape[0]), dtype=Pp.dtype,
-                        device="cuda")
-        require(fn(Pp.data_ptr(), Pp.stride(0), Pp.stride(1),
-                   Lam.data_ptr(), 0.25, b.data_ptr(), b.stride(0),
-                   b.stride(1), xi.data_ptr(), u.data_ptr(), Pp.shape[1],
-                   Lam.shape[0], stream) == 0, "launch")
-        return u
-
-    def full(fn, P, b, xi, Lam):
-        u = torch.empty(b.shape, dtype=P.dtype, device="cuda")
-        require(fn(P.data_ptr(), None if Lam is None else Lam.data_ptr(),
-                   0.25, b.data_ptr(), xi.data_ptr(), u.data_ptr(),
-                   b.shape[0], b.shape[1], stream) == 0, "launch")
-        return u
-
-    cases = ([("K1", K, B, True) for K, B in K1_SHAPES]
-             + [("K3", K, B, True) for K, B in K3_SHAPES]
-             + [("K3", K, B, False) for K, B in K3_NO_LAMBDA_SHAPES])
-    for tag, K, B, lam in cases:
-        if tag == "K1":
-            Pp, b, xi, Lam = spd_problem(K, B, 0)
-            a64 = (Pp, b, xi, Lam)
-            P32 = torch.zeros((Pp.shape[0], Pp.stride(0)),
-                              dtype=torch.float32, device="cuda")[:, :B]
-            P32.copy_(Pp)
-            a32 = (P32, b.float(), xi.float(), Lam.float())
-            call, ref = packed, chol_sample_packed_plain(*a64, 0.25)
-            plain = chol_sample_packed_plain(*a32, 0.25)
-        else:
-            P, g = spd_full(K, B, 0)
-            Lam = None
-            if lam:
-                A = torch.randn((K, K), generator=g, dtype=P.dtype,
-                                device="cuda")
-                Lam = 0.04 * A @ A.T + torch.eye(K, dtype=P.dtype,
-                                                 device="cuda")
-            b = torch.randn((B, K), generator=g, dtype=P.dtype, device="cuda")
-            xi = torch.randn((B, K), generator=g, dtype=P.dtype,
-                             device="cuda")
-            a64 = (P, b, xi, Lam)
-            a32 = tuple(None if t is None else t.float() for t in a64)
-            call, ref = full, chol_sample_full_plain(*a64, 0.25)
-            plain = chol_sample_full_plain(*a32, 0.25)
-        err_p = (plain.double() - ref).abs().max().item()
-        line = []
-        times = {n: [] for n in names}
-        for turn in range(4):
-            for n in (names if turn % 2 == 0 else names[::-1]):
-                f32 = fns[(n, tag, "f32")]
-                times[n].append(cuda_ms(lambda: call(f32, *a32), 20))
-        for n in names:
-            e32 = (call(fns[(n, tag, "f32")], *a32).double() - ref).abs().max().item()
-            e64 = (call(fns[(n, tag, "f64")], *a64) - ref).abs().max().item()
-            ok = (e32 <= KERNEL_ERR_FACTOR * err_p and e64 <= F64_KERNEL_TOL)
-            line.append(f"{n} {statistics.median(times[n]):.4f} ms "
-                        f"({' '.join(f'{t:.4f}' for t in times[n])}; err "
-                        f"{e32:.2e} / {e64:.2e}{'' if ok else ' FAILS'})")
-        print(f"# against {tag} K={K} B={B}{'' if lam else ' no Lambda'} "
-              f"(f32 plain err {err_p:.2e}): " + "; ".join(line), flush=True)
-        del a64, a32, ref, plain
-        torch.cuda.empty_cache()
-    print(nvidia_smi_line())
-    return 0
-
 
 
 BF16_FLOP_S = 989e12
@@ -1709,18 +1482,26 @@ def main() -> int:
     # its speed
     serialized = [line for line in rep["log"].splitlines() if "C75" in line]
     require(not serialized, f"wgmma serialized: {serialized}")
-    check_sampler_builds(rep["log"], kernels.LIB_PATH)
+    check_sampler_builds()
     phase_done("build")
 
     # -- kernels vs plain ---------------------------------------------------
     checks = {}
     for tag, fn, shapes in (
-            ("K1", check_chol_kernel, K1_SHAPES),
+            # ML-10M, Netflix, then the graph paths' entities: tensor's
+            # and fusion's
+            ("K1", check_chol_kernel, ((32, 71_567), (32, 10_681),
+                                       (32, 480_189), (32, 17_770),
+                                       (8, 1_000), (32, 30_000),
+                                       (32, 2_000), (32, 16), (32, 50_000),
+                                       (32, 500), (32, 3_000), (32, 800))),
             ("K2", check_chol_kernel, ((64, 71_567), (64, 10_681),
                                        (96, 71_567), (40, 1_000))),
-            ("K3", check_full_kernel, K3_SHAPES),
+            ("K3", check_full_kernel, ((32, 71_567), (32, 10_681),
+                                       (8, 1_000), (32, 200_000),
+                                       (32, 20_000), (32, 8))),
             ("K3 no Lambda", functools.partial(check_full_kernel, lam=False),
-             K3_NO_LAMBDA_SHAPES),
+             ((32, 71_567), (32, 10_681), (8, 1_000))),
             ("K4", check_full_kernel, ((64, 71_567), (64, 10_681),
                                        (96, 71_567), (40, 1_000))),
             ("K5", check_chol_inv, ((64, 71_567), (64, 1_000))),
@@ -2194,6 +1975,4 @@ def print_fused_check(label, r):
 T_START = time.perf_counter()
 
 if __name__ == "__main__":
-    if len(sys.argv) == 3 and sys.argv[1] == "--against":
-        sys.exit(against_main(sys.argv[2]))
     sys.exit(main())

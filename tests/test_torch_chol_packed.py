@@ -103,36 +103,25 @@ def test_chol_packed_rejects_mismatched_shapes():
             torch.from_numpy(Lam), transposed=True)     # Pp is [B, C]
 
 
-# K1's float32 build lines as ptxas printed them for the shuffle design
-# (nvcc -Xptxas -v, sm_90a): 4 bytes spilled each way
-_K1_PTXAS = """\
-ptxas info    : Compiling entry function \
-'_ZN54_GLOBAL__N__d8822b02_21_chol_sample_packed_cu_1a44708825\
-chol_sample_packed_kernelIfEEvPKT_xxS3_S1_S3_xxS3_PS1_ii' for 'sm_90a'
-ptxas info    : Function properties for \
-_ZN54_GLOBAL__N__d8822b02_21_chol_sample_packed_cu_1a44708825\
-chol_sample_packed_kernelIfEEvPKT_xxS3_S1_S3_xxS3_PS1_ii
+# a build log in ptxas's format (-Xptxas -v) for two entry functions
+_PTXAS_LOG = """\
+ptxas info    : Compiling entry function 'k_packed' for 'sm_90a'
+ptxas info    : Function properties for k_packed
     16 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads
-ptxas info    : Used 48 registers, used 1 barriers, 16 bytes cumulative \
-stack size, 20160 bytes smem
-ptxas info    : Compiling entry function \
-'_ZN52_GLOBAL__N__9fb9a7b4_19_chol_sample_full_cu_f6ec740223\
-chol_sample_full_kernelIfEEvPKT_S3_S1_S3_S3_PS1_ii' for 'sm_90a'
-ptxas info    : Function properties for \
-_ZN52_GLOBAL__N__9fb9a7b4_19_chol_sample_full_cu_f6ec740223\
-chol_sample_full_kernelIfEEvPKT_S3_S1_S3_S3_PS1_ii
+ptxas info    : Used 48 registers, used 1 barriers
+ptxas info    : Compiling entry function 'k_full' for 'sm_90a'
+ptxas info    : Function properties for k_full
     0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
-ptxas info    : Used 110 registers, used 0 barriers, 18944 bytes smem
+ptxas info    : Used 110 registers, used 0 barriers
 """
 
 
-@pytest.mark.parametrize("name, spilled", [
-    ("chol_sample_packed_kernel", 8), ("chol_sample_full_kernel", 0)])
+@pytest.mark.parametrize("name, spilled", [("k_packed", 8), ("k_full", 0)])
 def test_sampler_spill_check_reads_build_lines(name, spilled):
     """chip_smoke.py fails when K1 or K3 spills: the spill bytes it reads
     from one kernel's build lines, and none of the other kernel's."""
     import chip_smoke
     from bayesiandatafusion_jl_tpu_torch import kernels
-    lines = kernels.ptxas_lines(_K1_PTXAS, name)
+    lines = kernels.ptxas_lines(_PTXAS_LOG, name)
     assert len(lines) == 2
     assert chip_smoke.spills(lines) == spilled
