@@ -32,18 +32,34 @@
 //   B = 71,567 runs 0.2904 ms on it (0.9115 on the old core) and K3 0.2855
 //   (1.1588); PERF.md has the rest.
 //
-// - Shared memory, K <= 96 (`warp_chol_packed`, `warp_packed_solve_sample`;
-//   K2 chol_sample_packed_slab.cu, K4 chol_sample_full_slab.cu, K5): A holds
-//   the lower triangle column by column (the np.triu_indices packing read
-//   under symmetry): entry (m, k), m >= k, at tri_off(k, K) + m - k.  This
-//   is the column-slab recurrence of `_chol_sample_slab_kernel` (:77) and
-//   `_chol_sample_packed_slab_kernel` (:281-292): for each pivot column j,
-//   d = sqrt(A[j][j]), inv = 1 / d, the column below the pivot scaled by
-//   inv, then the trailing columns k > j updated as
-//   A[m][k] -= L[m][j] L[k][j].  Lane l owns the rows m = l + 32 t: it keeps
-//   their L[m][j] in registers, so each update is one shared load and one
-//   shared store, at consecutive addresses across the warp (no bank
-//   conflicts); L[k][j] is one broadcast read per column.
+// - Shared memory in 32 x 32 blocks, 32 < K <= 96 (`panel_chol_sample`;
+//   K2 chol_sample_packed_slab.cu and K4 chol_sample_full_slab.cu, each
+//   with its own loader): one warp a matrix, K padded to 32 NB (64 or 96)
+//   with identity rows, so every panel loop runs whole.  A blocked
+//   right-looking Cholesky over 32-wide panels: the diagonal block factored
+//   in registers with half_chol_sample's mechanisms (the column broadcast
+//   from a buffer, one IEEE reciprocal a pivot kept for both solves), the
+//   blocks below solved against it one row a lane (TRSM), the trailing
+//   blocks updated with the lane's row of the block in registers and
+//   4-value broadcast chunks of L (SYRK), so a trailing entry is read and
+//   written once a panel instead of once a pivot; the forward solve rides
+//   in the factorization, the backward solve runs by panels.
+//   Same arithmetic as the column-slab recurrence of
+//   `_chol_sample_slab_kernel` (:77) and `_chol_sample_packed_slab_kernel`
+//   (:281-292), in another rounding order.  On an NVIDIA H100 80GB HBM3 at
+//   700 W, K2 at B = 71,567 runs 1.13 / 3.41 ms at K = 64 / 96 on it and
+//   5.45 / 21.94 on the column-slab core below, timed in turns (PERF.md).
+//
+// - Shared memory, column-slab, K <= 64 (`warp_chol_packed`; K5
+//   chol_inv.cu alone): A holds the lower triangle column by column (the
+//   np.triu_indices packing read under symmetry): entry (m, k), m >= k, at
+//   tri_off(k, K) + m - k.  For each pivot column j, d = sqrt(A[j][j]),
+//   inv = 1 / d, the column below the pivot scaled by inv, then the
+//   trailing columns k > j updated as A[m][k] -= L[m][j] L[k][j].  Lane l
+//   owns the rows m = l + 32 t: it keeps their L[m][j] in registers, so
+//   each update is one shared load and one shared store, at consecutive
+//   addresses across the warp (no bank conflicts); L[k][j] is one
+//   broadcast read per column.
 #pragma once
 
 namespace {
@@ -241,63 +257,337 @@ __device__ __forceinline__ void warp_chol_packed(T* A, int K, int lane) {
   }
 }
 
-// The whole draw on one row staged in shared memory: A the packed
-// triangle of P' (L overwrites it), R = b (K values), U scratch (K values);
-// xi_row and u_row are the row's [K] slices in device memory.  Factor
-// (warp_chol_packed), forward solve with a true division by the diagonal,
-// then the column-oriented backward solve
-// u_i = (v_i - sum_{k > i} L[k][i] u_k) / L[i][i], whose column sum is a
-// warp reduction.  K4 calls it; K2 keeps the same code inline, because the
-// two kernels' times move in opposite directions with it (PERF.md):
-// on an H100, K4 ran 5.26 / 20.44 ms at K = 64 / 96 through this function
-// and 5.87 / 22.57 ms inline, K2 5.45 / 21.93 ms inline and 5.78 / 26.75
-// through it.
-template <typename T, int kMaxT>
-__device__ __forceinline__ void warp_packed_solve_sample(
-    T* A, T* R, T* U, const T* __restrict__ xi_row, T* __restrict__ u_row,
-    int K, int lane) {
-  warp_chol_packed<T, kMaxT>(A, K, lane);
+// ---- The panel core, 32 < K <= 96 (K2 and K4) ----------------------------
 
-  // forward solve L y = b (y overwrites R); L[m][k] = A[off(k) + m - k]
-  for (int k = 0; k < K; ++k) {
-    const int ok = tri_off(k, K);
-    const T yk = R[k] / A[ok];
-    __syncwarp();
-    if (lane == 0) R[k] = yk;
-#pragma unroll
-    for (int t = 0; t < kMaxT; ++t) {
-      const int m = lane + 32 * t;
-      if (m > k && m < K) R[m] = R[m] - A[ok + m - k] * yk;
+constexpr int kPanel = 32;                  // rows and columns of a panel
+constexpr int kBlk = kPanel * kPanel;       // words of a stored 32 x 32 block
+
+// A 32 x 32 block is stored column by column, each column in 16-byte
+// chunks of G = 16 / sizeof(T) consecutive rows, chunk g of column c at
+// position g ^ (c & 7): lane i reading row i of one column, a broadcast
+// read of one chunk of a column, and lane c reading a chunk of its own
+// column c (8 lanes a 16-byte phase) all fall in distinct banks.
+template <typename T>
+__device__ __forceinline__ int blk_off(int i, int c) {
+  constexpr int G = 16 / sizeof(T);
+  return c * kPanel + (((i / G) ^ (c & 7)) * G) + i % G;
+}
+
+template <typename T>
+__device__ __forceinline__ int chunk_off(int g, int c) {
+  constexpr int G = 16 / sizeof(T);
+  return c * kPanel + ((g ^ (c & 7)) * G);
+}
+
+// block (q, r), q >= r, of the lower triangle, stored block row by block row
+__device__ __forceinline__ int blk_base(int q, int r) {
+  return (q * (q + 1) / 2 + r) * kBlk;
+}
+
+// entry (m, k), m >= k, of the lower triangle
+template <typename T>
+__device__ __forceinline__ int tri_at(int m, int k) {
+  return blk_base(m / kPanel, k / kPanel) + blk_off<T>(m % kPanel, k % kPanel);
+}
+
+// one 16-byte chunk from shared memory
+__device__ __forceinline__ void load_chunk(const float* p, float* v) {
+  const float4 x = *reinterpret_cast<const float4*>(p);
+  v[0] = x.x;
+  v[1] = x.y;
+  v[2] = x.z;
+  v[3] = x.w;
+}
+
+__device__ __forceinline__ void load_chunk(const double* p, double* v) {
+  const double2 x = *reinterpret_cast<const double2*>(p);
+  v[0] = x.x;
+  v[1] = x.y;
+}
+
+// A warp's shared memory for one matrix of NB panels (K <= 32 NB): the
+// lower triangle's NB (NB + 1) / 2 blocks, then vec (32 NB values: b, then
+// y, then u), inv (32 NB reciprocals of L's diagonal) and two column
+// buffers of 32 + G values.  All four parts start 16-byte aligned.
+template <typename T, int NB>
+__host__ __device__ constexpr int panel_words() {
+  return NB * (NB + 1) / 2 * kBlk + 2 * kPanel * NB + 2 * (kPanel + 16 / sizeof(T));
+}
+
+// Rows a block of K2 and K4: one 32-byte sector of K2's [C, B] reads a row
+// group, 8 float or 4 double rows, one warp each
+template <typename T>
+__host__ __device__ constexpr int panel_rows() {
+  return 32 / static_cast<int>(sizeof(T));
+}
+
+// A float block also holds Lambda padded to 32 NB, its lower triangle
+// packed column by column, which every row reads: from device memory its
+// latency cost a third of the kernel's time at K = 96 (PERF.md).  A double
+// block of four rows at K = 96 has no room for it and reads Lambda from
+// device memory.
+template <typename T, int NB>
+__host__ __device__ constexpr int panel_lam_words() {
+  return sizeof(T) == 4 ? (kPanel * NB * (kPanel * NB + 1) / 2 + 3) / 4 * 4
+                        : 0;
+}
+
+// Dynamic shared memory of a block of `warps` rows, in bytes
+template <typename T, int NB>
+__host__ __device__ constexpr int panel_smem(int warps) {
+  return (warps * panel_words<T, NB>() + panel_lam_words<T, NB>()) *
+         static_cast<int>(sizeof(T));
+}
+
+// Blocks a SM that shared memory allows: the kernels' __launch_bounds__
+// minimum, so that registers never cut the occupancy below it (227 KB a
+// SM, 1 KB of it reserved a block)
+template <typename T, int NB>
+__host__ __device__ constexpr int panel_blocks(int warps) {
+  return 232448 / (panel_smem<T, NB>(warps) + 1024);
+}
+
+// Start copying Lambda into the float block's padded copy, entry (m, k),
+// m >= k, at k Kp - k (k + 1) / 2 + m with Kp = 32 NB, zeros past K and
+// for no Lambda; warp w of `warps` takes the columns w, w + warps, ...
+template <typename T, int NB>
+__device__ __forceinline__ void panel_stage_lam(T* lam_s,
+                                                const T* __restrict__ lam,
+                                                int K, int w, int warps,
+                                                int lane) {
+  if (panel_lam_words<T, NB>() == 0) return;
+  constexpr int Kp = kPanel * NB;
+  for (int k = w; k < Kp; k += warps) {
+    T* const col = lam_s + k * Kp - k * (k + 1) / 2;
+    for (int m = k + lane; m < Kp; m += 32) {
+      if (lam != nullptr && m < K) {
+        cp_async<sizeof(T)>(col + m, lam + k * K + m);
+      } else {
+        col[m] = T(0);
+      }
     }
+  }
+}
+
+template <int NB>
+__device__ __forceinline__ int panel_vec() {
+  return NB * (NB + 1) / 2 * kBlk;
+}
+
+// Fill the warp's triangle for the rows K <= m < 32 NB with identity rows
+// and vec's tail with zeros.  The real entries are the loader's.
+template <typename T, int NB>
+__device__ __forceinline__ void panel_pad(T* W, int K, int lane) {
+  for (int m = K; m < kPanel * NB; ++m) {
+    for (int k = lane; k <= m; k += 32) W[tri_at<T>(m, k)] = T(m == k);
+    if (lane == 0) W[panel_vec<NB>() + m] = T(0);
+  }
+}
+
+// (Lambda + jitter I)(m, k) for m >= k.  float: lam is the block's padded
+// copy (panel_stage_lam); the jitter also lands on the padded diagonal,
+// which scales identity rows only and leaves u alone.  double: lam is
+// [K, K] in device memory (or null), read at its upper triangle, and the
+// sum is 0 past K.
+template <typename T, int NB>
+struct LamJitter {
+  const T* lam;
+  T jitter;
+  int K;
+  __device__ __forceinline__ T operator()(int m, int k) const {
+    if (panel_lam_words<T, NB>() > 0) {
+      constexpr int Kp = kPanel * NB;
+      const T v = lam[k * Kp - k * (k + 1) / 2 + m];
+      return m == k ? v + jitter : v;
+    }
+    T v = T(0);
+    if (m < K && k < K) {
+      if (lam != nullptr) v = lam[k * K + m];
+      if (m == k) v = v + jitter;
+    }
+    return v;
+  }
+};
+
+// Factor, solve and sample one matrix of NB panels with one warp.  In: W
+// (panel_words) holds P's lower triangle (tri_at; identity rows past K)
+// and b in vec (zeros past K); lam is added to each entry where it is
+// first read.  Out: u_row[m] for m < K.  Every lane calls, with the same
+// K.
+//
+// Blocked right-looking Cholesky over 32-wide panels; lane i owns row i of
+// every 32-row block it works on and keeps it in registers.  For panel p:
+// the diagonal block is factored as in half_chol_sample (the column
+// broadcast from a buffer, one sqrt and one IEEE reciprocal a pivot, kept
+// in inv: the solves multiply by it), with the forward solve's panel
+// folded in (b[j]
+// rides in the column buffer: y[j] = b[j] inv[j], b[i] -= L[i][j] y[j]);
+// each block below is solved against it (TRSM, one row a lane, L's column
+// read as broadcast chunks) and takes the forward solve's update
+// b[q] -= L[q][p] y[p]; each trailing block then takes
+// A[q][r] -= L[q][p] L[r][p]^T (SYRK): the lane accumulates its row of
+// the block in registers, reads its own L[q][p][i][j] back one a step,
+// and every broadcast chunk of L[r][p] feeds G multiply-adds, so the
+// block's row is read and written once a panel (once a pivot in the core
+// this replaced).  The backward solve runs by panels from the last:
+// each lane subtracts L[q][p]^T u[q] for its column from chunks of its own
+// column, then the diagonal block's chain multiplies by the kept
+// reciprocals, u[j] broadcast by one shuffle a step.  Entries above the
+// diagonal of a diagonal block hold garbage and are never read into a
+// result.
+template <typename T, int NB>
+__device__ __forceinline__ void panel_chol_sample(
+    T* W, LamJitter<T, NB> lam, const T* __restrict__ xi_row,
+    T* __restrict__ u_row, int K, int lane) {
+  constexpr int G = 16 / sizeof(T);
+  constexpr int kCol = kPanel + G;
+  T* const A = W;
+  T* const vec = W + panel_vec<NB>();
+  T* const inv = vec + kPanel * NB;
+  T* const col = inv + kPanel * NB;
+  const int i = lane;
+
+#pragma unroll 1
+  for (int p = 0; p < NB; ++p) {
+    // the diagonal block and the forward solve's panel
+    T* const D = A + blk_base(p, p);
+    T a[kPanel];
+#pragma unroll
+    for (int k = 0; k < kPanel; ++k) a[k] = D[blk_off<T>(i, k)];
+    if (p == 0) {
+#pragma unroll
+      for (int k = 0; k < kPanel; ++k) a[k] = a[k] + lam(i, k);
+    }
+    T s = vec[kPanel * p + i];
+    T y = T(0);
+#pragma unroll
+    for (int j = 0; j < kPanel; ++j) {
+      T* const cb = col + (j & 1) * kCol;   // two buffers: one sync a step
+      cb[i] = a[j];
+      if (i == j) cb[kPanel] = s;
+      __syncwarp();
+      T v[kCol];
+#pragma unroll
+      for (int g = j / G; g < kCol / G; ++g) load_chunk(cb + g * G, v + g * G);
+      const T r = T(1) / sqrt(v[j]);
+      const T lij = a[j] * r;
+      const T t = lij * r;
+      a[j] = lij;
+#pragma unroll
+      for (int k = j + 1; k < kPanel; ++k) a[k] -= t * v[k];
+      if (i == j) {
+        y = v[kPanel] * r;
+        inv[kPanel * p + j] = r;
+      }
+      s -= t * v[kPanel];
+    }
+    vec[kPanel * p + i] = y;
+#pragma unroll
+    for (int k = 0; k < kPanel; ++k) D[blk_off<T>(i, k)] = a[k];
     __syncwarp();
+
+#pragma unroll 1
+    for (int q = p + 1; q < NB; ++q) {
+      // TRSM: row i of L[q][p] = A[q][p] L[p][p]^-T
+      T* const E = A + blk_base(q, p);
+#pragma unroll
+      for (int k = 0; k < kPanel; ++k) a[k] = E[blk_off<T>(i, k)];
+      if (p == 0) {
+#pragma unroll
+        for (int k = 0; k < kPanel; ++k) {
+          a[k] = a[k] + lam(kPanel * q + i, k);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < kPanel; ++j) {
+        T w[kPanel];
+#pragma unroll
+        for (int g = (j + 1) / G; g < kPanel / G; ++g) {
+          load_chunk(D + chunk_off<T>(g, j), w + g * G);
+        }
+        a[j] = a[j] * inv[kPanel * p + j];
+#pragma unroll
+        for (int k = j + 1; k < kPanel; ++k) a[k] -= a[j] * w[k];
+      }
+      // the forward solve: b[q] -= L[q][p] y[p]
+      T sq = vec[kPanel * q + i];
+#pragma unroll
+      for (int g = 0; g < kPanel / G; ++g) {
+        T yv[G];
+        load_chunk(vec + kPanel * p + g * G, yv);
+#pragma unroll
+        for (int h = 0; h < G; ++h) sq -= a[g * G + h] * yv[h];
+      }
+      vec[kPanel * q + i] = sq;
+#pragma unroll
+      for (int k = 0; k < kPanel; ++k) E[blk_off<T>(i, k)] = a[k];
+      __syncwarp();
+
+      // SYRK: A[q][r] -= L[q][p] L[r][p]^T for p < r <= q, L[q][p][i][j]
+      // read back from the lane's own row (a rolled loop: less code and
+      // fewer live registers)
+#pragma unroll 1
+      for (int rr = p + 1; rr <= q; ++rr) {
+        T* const F = A + blk_base(q, rr);
+        const T* const Lr = A + blk_base(rr, p);
+        T acc[kPanel];
+#pragma unroll
+        for (int k = 0; k < kPanel; ++k) acc[k] = F[blk_off<T>(i, k)];
+        if (p == 0) {
+#pragma unroll
+          for (int k = 0; k < kPanel; ++k) {
+            acc[k] = acc[k] + lam(kPanel * q + i, kPanel * rr + k);
+          }
+        }
+#pragma unroll 2
+        for (int j = 0; j < kPanel; ++j) {
+          const T lij = E[blk_off<T>(i, j)];
+#pragma unroll
+          for (int g = 0; g < kPanel / G; ++g) {
+            T w[G];
+            load_chunk(Lr + chunk_off<T>(g, j), w);
+#pragma unroll
+            for (int h = 0; h < G; ++h) acc[g * G + h] -= lij * w[h];
+          }
+        }
+#pragma unroll
+        for (int k = 0; k < kPanel; ++k) F[blk_off<T>(i, k)] = acc[k];
+      }
+    }
   }
 
-  // backward solve L^T u = y + xi
+  // backward solve L^T u = y + xi by panels from the last; u overwrites y
+#pragma unroll 1
+  for (int p = NB - 1; p >= 0; --p) {
+    const int m = kPanel * p + i;
+    T v = vec[m] + (m < K ? xi_row[m] : T(0));
+#pragma unroll 1
+    for (int q = NB - 1; q > p; --q) {
+      // column i of L[q][p] from the lane's own chunks, u[q] broadcast
+      const T* const E = A + blk_base(q, p);
 #pragma unroll
-  for (int t = 0; t < kMaxT; ++t) {
-    const int m = lane + 32 * t;
-    if (m < K) R[m] = R[m] + xi_row[m];
-  }
-  __syncwarp();
-  for (int i = K - 1; i >= 0; --i) {
-    const int oi = tri_off(i, K);
-    T part = T(0);
+      for (int g = 0; g < kPanel / G; ++g) {
+        T w[G], uq[G];
+        load_chunk(E + chunk_off<T>(g, i), w);
+        load_chunk(vec + kPanel * q + g * G, uq);
 #pragma unroll
-    for (int t = 0; t < kMaxT; ++t) {
-      const int k = lane + 32 * t;
-      if (k > i && k < K) part = part + A[oi + k - i] * U[k];
+        for (int h = 0; h < G; ++h) v -= w[h] * uq[h];
+      }
     }
+    const T* const D = A + blk_base(p, p);
+    const T ri = inv[m];
+    T u = T(0);
+    T w[G];
 #pragma unroll
-    for (int s = 16; s > 0; s >>= 1) {
-      part += __shfl_xor_sync(kFullMask, part, s);
+    for (int j = kPanel - 1; j >= 0; --j) {
+      if (j % G == G - 1) load_chunk(D + chunk_off<T>(j / G, i), w);
+      const T uj = __shfl_sync(kFullMask, v * ri, j);
+      if (i == j) u = uj;
+      v -= w[j % G] * uj;
     }
-    if (lane == 0) U[i] = (R[i] - part) / A[oi];
+    vec[m] = u;
+    if (m < K) u_row[m] = u;
     __syncwarp();
-  }
-#pragma unroll
-  for (int t = 0; t < kMaxT; ++t) {
-    const int m = lane + 32 * t;
-    if (m < K) u_row[m] = U[m];
   }
 }
 

@@ -8,13 +8,15 @@ Phases, each fatal on failure (nonzero exit, no result line):
 
 1. device: a CUDA device is present; its name and power limit;
 2. build: ``nvcc`` compiles the port's kernels for sm_90a from ``csrc/``,
-   and ptxas serializes no ``wgmma`` (no C75xx line in its log); K1's and
-   K3's build lines (registers, spills), failing on any spill in either;
+   and ptxas serializes no ``wgmma`` (no C75xx line in its log); the
+   sampler kernels' build lines (K1-K4: registers, spills), failing on any
+   spill in float32 or float64;
 3. kernels vs plain: each sampler kernel against its plain torch version
    on random SPD problems at the main paths' shapes, float32 and float64,
    both held against the float64 plain version: K1 (packed, K <= 32), K2
-   (packed column-slab, 32 < K <= 96), K3 (full P, K <= 32, with and
-   without Lambda), K4 (full-P column-slab, 32 < K <= 96), K5 (panel
+   (packed column-slab, 32 < K <= 96, also at K = 33, two padded panels),
+   K3 (full P, K <= 32, with and without Lambda), K4 (full-P column-slab,
+   32 < K <= 96, also at K = 33), K5 (panel
    factor-inverse, K <= 64) and the blocked K = 128 sampler built on K5
    against ``torch.linalg``; K7 (the quantized partner table) and K8 (the
    masked-pair contraction, both focus modes: K8a raw int32 and the
@@ -151,9 +153,11 @@ BENCH_WIDTHS = (8, 12, 16, 20, 24, 28, 32, 40, 48, 56, 64, 80, 96, 112, 128,
                 160, 192, 224, 256, 320, 384, 512, 768, 1024, 2048)
 KERNEL_ERR_FACTOR = 10.0     # kernel error <= 10x the f32 plain version's
 F64_KERNEL_TOL = 1e-9        # float64 kernel vs float64 plain version
-# K1's and K3's kernels (a piece of their mangled names)
+# the sampler kernels K1-K4 (a piece of their mangled names)
 SAMPLER_KERNELS = (("K1", "chol_sample_packed_kernel"),
-                   ("K3", "chol_sample_full_kernel"))
+                   ("K2", "chol_sample_packed_slab_kernel"),
+                   ("K3", "chol_sample_full_kernel"),
+                   ("K4", "chol_sample_full_slab_kernel"))
 # H100 SXM peaks (NVIDIA's data sheet, at 700 W): HBM bytes/s, float32
 # FLOP/s outside the tensor cores and dense int8 tensor-core OP/s, for the
 # kernels' bounds
@@ -677,7 +681,7 @@ def spills(lines):
 
 
 def check_sampler_builds():
-    """K1's and K3's ptxas lines; fails on any spill."""
+    """The sampler kernels' ptxas lines; fails on any spill."""
     for tag, name in SAMPLER_KERNELS:
         print(f"# {tag} build ({name}):", flush=True)
         lines = print_ptxas(name)
@@ -1496,14 +1500,16 @@ def main() -> int:
                                        (32, 2_000), (32, 16), (32, 50_000),
                                        (32, 500), (32, 3_000), (32, 800))),
             ("K2", check_chol_kernel, ((64, 71_567), (64, 10_681),
-                                       (96, 71_567), (40, 1_000))),
+                                       (96, 71_567), (96, 10_681),
+                                       (40, 1_000), (33, 71_567))),
             ("K3", check_full_kernel, ((32, 71_567), (32, 10_681),
                                        (8, 1_000), (32, 200_000),
                                        (32, 20_000), (32, 8))),
             ("K3 no Lambda", functools.partial(check_full_kernel, lam=False),
              ((32, 71_567), (32, 10_681), (8, 1_000))),
             ("K4", check_full_kernel, ((64, 71_567), (64, 10_681),
-                                       (96, 71_567), (40, 1_000))),
+                                       (96, 71_567), (96, 10_681),
+                                       (40, 1_000), (33, 71_567))),
             ("K5", check_chol_inv, ((64, 71_567), (64, 1_000))),
             ("blocked", check_blocked, ((128, 71_567),))):
         for K, B in shapes:

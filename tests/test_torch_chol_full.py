@@ -91,10 +91,12 @@ def _jax_tiled(K, B, dtype, jitter):
 
 @pytest.mark.parametrize("K, B, dtype", [(12, 20, np.float32),
                                          (12, 20, np.float64),
-                                         (33, 11, np.float64)])
+                                         (33, 11, np.float64),
+                                         (33, 11, np.float32)])
 def test_chol_sample_full_tiled_plain_matches_jax_kernel(K, B, dtype):
     """K4: K=12 (the JAX test's size) in both dtypes and K=33 (the first
-    K of its range) in float64; B is no multiple of the tile."""
+    K of its range, which the CUDA kernel pads to two 32-wide panels) in
+    both; B is no multiple of the tile."""
     want = _jax_tiled(K, B, dtype, 0.25)
     P, Lam, b, xi = _problem(K, B, dtype, seed=K)
     before = chol_full.chol_sample_full_plain.calls

@@ -37,12 +37,12 @@ def _problem(K, B, dtype, seed=7):
 
 
 @functools.lru_cache(maxsize=None)
-def _jax_samples(dtype):
-    """The JAX kernel's samples for ``_problem(_K, _B, dtype)`` in the
+def _jax_samples(K, dtype):
+    """The JAX kernel's samples for ``_problem(K, _B, dtype)`` in the
     engine's [C, B] layout (interpret mode), made once per process: each
     call compiles the unrolled slab kernel, ~20 s on a CPU.  Its
     batch-leading layout is the same kernel behind two transposes."""
-    Pp, Lam, b, xi = _problem(_K, _B, dtype)
+    Pp, Lam, b, xi = _problem(K, _B, dtype)
     orig = pl.pallas_call
     pl.pallas_call = functools.partial(orig, interpret=True)
     try:
@@ -54,12 +54,22 @@ def _jax_samples(dtype):
         pl.pallas_call = orig
 
 
-@pytest.mark.parametrize("dtype", [np.float32, np.float64])
-@pytest.mark.parametrize("transposed", [True, False])
-def test_chol_packed_tiled_plain_matches_jax_kernel(transposed, dtype):
-    """K=40, B=37 (not a multiple of the TPU kernel's tile), both layouts;
-    the [C, B] layout as a strided view, as the engine passes it."""
-    Pp, Lam, b, xi = _problem(_K, _B, dtype)
+# K = 40 (ids without K) and K = 33, the first K past K1's register core,
+# which the CUDA kernel pads to two 32-wide panels
+_TILED_CASES = [
+    pytest.param(K, transposed, dtype,
+                 id=(f"{transposed}-{dtype.__name__}" if K == _K
+                     else f"{K}-{transposed}-{dtype.__name__}"))
+    for K in (_K, 33) for transposed in (True, False)
+    for dtype in (np.float32, np.float64)]
+
+
+@pytest.mark.parametrize("K, transposed, dtype", _TILED_CASES)
+def test_chol_packed_tiled_plain_matches_jax_kernel(K, transposed, dtype):
+    """K=40 and 33, B=37 (not a multiple of the TPU kernel's tile), both
+    layouts; the [C, B] layout as a strided view, as the engine passes
+    it."""
+    Pp, Lam, b, xi = _problem(K, _B, dtype)
     if transposed:
         buf = np.zeros((Pp.shape[1], _B + 5), dtype)
         buf[:, :_B] = Pp.T
@@ -72,9 +82,9 @@ def test_chol_packed_tiled_plain_matches_jax_kernel(transposed, dtype):
         Pp_t, b_t, torch.from_numpy(xi), torch.from_numpy(Lam), jitter=0.25,
         transposed=transposed).numpy()
     assert chol_packed.chol_sample_packed_plain.calls == before + 1
-    assert got.dtype == dtype and got.shape == (_B, _K)
-    np.testing.assert_allclose(got, _jax_samples(dtype), rtol=_TOL[dtype],
-                               atol=_TOL[dtype])
+    assert got.dtype == dtype and got.shape == (_B, K)
+    np.testing.assert_allclose(got, _jax_samples(K, dtype),
+                               rtol=_TOL[dtype], atol=_TOL[dtype])
 
 
 @pytest.mark.parametrize("K", [1, 33, 40, 96])

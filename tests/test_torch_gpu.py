@@ -35,10 +35,16 @@ def cuda():
 # more than a block's 8 rows, a partial last block, the ML-10M user count
 _REG_EDGES = [(K, B) for K in (1, 2, 17, 31, 32)
               for B in (1, 9, 1_003, 71_567)]
+# K2's and K4's panel edges: K = 33 and 40 (padded to two panels), 63, 64,
+# 65 (the first K of three panels), 95, 96; B as above (one K2 group is 8
+# rows in float32, 4 in float64)
+_SLAB_EDGES = [(K, B) for K in (33, 40, 63, 64, 65, 95, 96)
+               for B in (1, 9, 1_003, 71_567)]
 
 
 @pytest.mark.parametrize("K, B", [(32, 10_681), (8, 1_000), (40, 1_000),
-                                  (64, 10_681), (96, 4_000)] + _REG_EDGES)
+                                  (64, 10_681), (96, 4_000)] + _REG_EDGES
+                         + _SLAB_EDGES)
 def test_chol_kernel_matches_plain(cuda, K, B):
     """The packed sampler's kernel for K (K1 up to 32, K2 above) against
     its plain version (the check chip_smoke.py runs), on a strided [C, B]
@@ -51,7 +57,7 @@ def test_chol_kernel_matches_plain(cuda, K, B):
 @pytest.mark.parametrize("lam", [True, False])
 @pytest.mark.parametrize("K, B", [(32, 10_681), (8, 1_000), (64, 10_681),
                                   (96, 4_000), (40, 1_000), (33, 77)]
-                         + _REG_EDGES)
+                         + _REG_EDGES + _SLAB_EDGES)
 def test_full_kernel_matches_plain(cuda, K, B, lam):
     """The gather path's full-P sampler kernel for K (K3 up to 32, K4
     above), with and without Lambda, against its plain version."""
