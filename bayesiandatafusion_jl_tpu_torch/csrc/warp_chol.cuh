@@ -48,18 +48,10 @@
 //   `_chol_sample_slab_kernel` (:77) and `_chol_sample_packed_slab_kernel`
 //   (:281-292), in another rounding order.  On an NVIDIA H100 80GB HBM3 at
 //   700 W, K2 at B = 71,567 runs 1.13 / 3.41 ms at K = 64 / 96 on it and
-//   5.45 / 21.94 on the column-slab core below, timed in turns (PERF.md).
-//
-// - Shared memory, column-slab, K <= 64 (`warp_chol_packed`; K5
-//   chol_inv.cu alone): A holds the lower triangle column by column (the
-//   np.triu_indices packing read under symmetry): entry (m, k), m >= k, at
-//   tri_off(k, K) + m - k.  For each pivot column j, d = sqrt(A[j][j]),
-//   inv = 1 / d, the column below the pivot scaled by inv, then the
-//   trailing columns k > j updated as A[m][k] -= L[m][j] L[k][j].  Lane l
-//   owns the rows m = l + 32 t: it keeps their L[m][j] in registers, so
-//   each update is one shared load and one shared store, at consecutive
-//   addresses across the warp (no bank conflicts); L[k][j] is one
-//   broadcast read per column.
+//   5.45 / 21.94 on the column-slab core it replaced, timed in turns
+//   (PERF.md).  K5 (chol_inv.cu) runs the same factorization without the
+//   solves (`panel_factor`), then inverts L by panels with the core's
+//   TRSM step (`panel_trsm`).
 #pragma once
 
 namespace {
@@ -218,46 +210,13 @@ __device__ __forceinline__ void half_chol_sample(
   }
 }
 
+// K2's packed column order: column j of the lower triangle (the
+// np.triu_indices packing read under symmetry) starts at tri_off(j, K)
 __device__ __forceinline__ int tri_off(int j, int K) {
   return j * K - j * (j - 1) / 2;
 }
 
-template <typename T, int kMaxT>
-__device__ __forceinline__ void warp_chol_packed(T* A, int K, int lane) {
-  for (int j = 0; j < K; ++j) {
-    const int oj = tri_off(j, K);
-    const T d = sqrt(A[oj]);
-    const T inv = T(1) / d;
-    __syncwarp();
-    if (lane == 0) A[oj] = d;
-    T lm[kMaxT];   // L[m][j] for the lane's rows m
-#pragma unroll
-    for (int t = 0; t < kMaxT; ++t) {
-      const int m = lane + 32 * t;
-      lm[t] = T(0);
-      if (m > j && m < K) {
-        lm[t] = A[oj + m - j] * inv;
-        A[oj + m - j] = lm[t];
-      }
-    }
-    __syncwarp();
-    for (int k = j + 1; k < K; ++k) {
-      const int ok = tri_off(k, K);
-      const T lkj = A[oj + k - j];
-      const int t0 = k / 32;   // rows below 32 t0 lie above the diagonal
-#pragma unroll
-      for (int t = 0; t < kMaxT; ++t) {
-        const int m = lane + 32 * t;
-        if (t >= t0 && m >= k && m < K) {
-          A[ok + m - k] = A[ok + m - k] - lm[t] * lkj;
-        }
-      }
-    }
-    __syncwarp();
-  }
-}
-
-// ---- The panel core, 32 < K <= 96 (K2 and K4) ----------------------------
+// ---- The panel core: K2, K4 (32 < K <= 96) and K5 (K <= 64) ----------
 
 constexpr int kPanel = 32;                  // rows and columns of a panel
 constexpr int kBlk = kPanel * kPanel;       // words of a stored 32 x 32 block
@@ -391,6 +350,7 @@ __device__ __forceinline__ void panel_pad(T* W, int K, int lane) {
 // sum is 0 past K.
 template <typename T, int NB>
 struct LamJitter {
+  static constexpr bool kAdds = true;
   const T* lam;
   T jitter;
   int K;
@@ -409,38 +369,61 @@ struct LamJitter {
   }
 };
 
-// Factor, solve and sample one matrix of NB panels with one warp.  In: W
+// Nothing to add: K5 factors P as it is
+struct NoLam {
+  static constexpr bool kAdds = false;
+};
+
+// TRSM for one lane: a := L^-1 a, L the factored diagonal block D (its
+// columns below the diagonal read as broadcast chunks) with the kept
+// reciprocals of its diagonal in rinv; forward substitution, a[j] times
+// rinv[j], then a[k] -= a[j] L[k][j] for k > j.  With a = row i of a block
+// below, this is row i of that block times L^-T; with a = e_i, column i of
+// L^-1.
+template <typename T>
+__device__ __forceinline__ void panel_trsm(const T* D, const T* rinv,
+                                           T (&a)[kPanel]) {
+  constexpr int G = 16 / sizeof(T);
+#pragma unroll
+  for (int j = 0; j < kPanel; ++j) {
+    T w[kPanel];
+#pragma unroll
+    for (int g = (j + 1) / G; g < kPanel / G; ++g) {
+      load_chunk(D + chunk_off<T>(g, j), w + g * G);
+    }
+    a[j] = a[j] * rinv[j];
+#pragma unroll
+    for (int k = j + 1; k < kPanel; ++k) a[k] -= a[j] * w[k];
+  }
+}
+
+// Factor one matrix of NB panels in place with one warp.  In: W
 // (panel_words) holds P's lower triangle (tri_at; identity rows past K)
-// and b in vec (zeros past K); lam is added to each entry where it is
-// first read.  Out: u_row[m] for m < K.  Every lane calls, with the same
-// K.
+// and, with kSolve, b in vec (zeros past K); lam is added to each entry
+// where it is first read (when Lam::kAdds).  Out: L in the blocks, the
+// reciprocals of its diagonal in inv and, with kSolve, y = L^-1 b in vec.
+// Every lane calls.
 //
 // Blocked right-looking Cholesky over 32-wide panels; lane i owns row i of
 // every 32-row block it works on and keeps it in registers.  For panel p:
 // the diagonal block is factored as in half_chol_sample (the column
 // broadcast from a buffer, one sqrt and one IEEE reciprocal a pivot, kept
 // in inv: the solves multiply by it), with the forward solve's panel
-// folded in (b[j]
-// rides in the column buffer: y[j] = b[j] inv[j], b[i] -= L[i][j] y[j]);
-// each block below is solved against it (TRSM, one row a lane, L's column
-// read as broadcast chunks) and takes the forward solve's update
+// folded in when kSolve (b[j] rides in the column buffer: y[j] = b[j]
+// inv[j], b[i] -= L[i][j] y[j]); each block below is solved against it
+// (panel_trsm, one row a lane) and takes the forward solve's update
 // b[q] -= L[q][p] y[p]; each trailing block then takes
 // A[q][r] -= L[q][p] L[r][p]^T (SYRK): the lane accumulates its row of
 // the block in registers, reads its own L[q][p][i][j] back one a step,
 // and every broadcast chunk of L[r][p] feeds G multiply-adds, so the
-// block's row is read and written once a panel (once a pivot in the core
-// this replaced).  The backward solve runs by panels from the last:
-// each lane subtracts L[q][p]^T u[q] for its column from chunks of its own
-// column, then the diagonal block's chain multiplies by the kept
-// reciprocals, u[j] broadcast by one shuffle a step.  Entries above the
-// diagonal of a diagonal block hold garbage and are never read into a
-// result.
-template <typename T, int NB>
-__device__ __forceinline__ void panel_chol_sample(
-    T* W, LamJitter<T, NB> lam, const T* __restrict__ xi_row,
-    T* __restrict__ u_row, int K, int lane) {
+// block's row is read and written once a panel (once a pivot in the
+// column-slab core this replaced).  Entries above the diagonal of a
+// diagonal block hold garbage and are never read into a result.
+template <typename T, int NB, bool kSolve, typename Lam>
+__device__ __forceinline__ void panel_factor(T* W, Lam lam, int lane) {
   constexpr int G = 16 / sizeof(T);
   constexpr int kCol = kPanel + G;
+  constexpr int kRead = kSolve ? kCol : kPanel;   // column buffer words read
   T* const A = W;
   T* const vec = W + panel_vec<NB>();
   T* const inv = vec + kPanel * NB;
@@ -454,21 +437,25 @@ __device__ __forceinline__ void panel_chol_sample(
     T a[kPanel];
 #pragma unroll
     for (int k = 0; k < kPanel; ++k) a[k] = D[blk_off<T>(i, k)];
-    if (p == 0) {
+    if constexpr (Lam::kAdds) {
+      if (p == 0) {
 #pragma unroll
-      for (int k = 0; k < kPanel; ++k) a[k] = a[k] + lam(i, k);
+        for (int k = 0; k < kPanel; ++k) a[k] = a[k] + lam(i, k);
+      }
     }
-    T s = vec[kPanel * p + i];
-    T y = T(0);
+    T s = T(0), y = T(0);
+    if constexpr (kSolve) s = vec[kPanel * p + i];
 #pragma unroll
     for (int j = 0; j < kPanel; ++j) {
       T* const cb = col + (j & 1) * kCol;   // two buffers: one sync a step
       cb[i] = a[j];
-      if (i == j) cb[kPanel] = s;
+      if (kSolve && i == j) cb[kPanel] = s;
       __syncwarp();
       T v[kCol];
 #pragma unroll
-      for (int g = j / G; g < kCol / G; ++g) load_chunk(cb + g * G, v + g * G);
+      for (int g = j / G; g < kRead / G; ++g) {
+        load_chunk(cb + g * G, v + g * G);
+      }
       const T r = T(1) / sqrt(v[j]);
       const T lij = a[j] * r;
       const T t = lij * r;
@@ -476,12 +463,12 @@ __device__ __forceinline__ void panel_chol_sample(
 #pragma unroll
       for (int k = j + 1; k < kPanel; ++k) a[k] -= t * v[k];
       if (i == j) {
-        y = v[kPanel] * r;
+        if constexpr (kSolve) y = v[kPanel] * r;
         inv[kPanel * p + j] = r;
       }
-      s -= t * v[kPanel];
+      if constexpr (kSolve) s -= t * v[kPanel];
     }
-    vec[kPanel * p + i] = y;
+    if constexpr (kSolve) vec[kPanel * p + i] = y;
 #pragma unroll
     for (int k = 0; k < kPanel; ++k) D[blk_off<T>(i, k)] = a[k];
     __syncwarp();
@@ -492,33 +479,27 @@ __device__ __forceinline__ void panel_chol_sample(
       T* const E = A + blk_base(q, p);
 #pragma unroll
       for (int k = 0; k < kPanel; ++k) a[k] = E[blk_off<T>(i, k)];
-      if (p == 0) {
+      if constexpr (Lam::kAdds) {
+        if (p == 0) {
 #pragma unroll
-        for (int k = 0; k < kPanel; ++k) {
-          a[k] = a[k] + lam(kPanel * q + i, k);
+          for (int k = 0; k < kPanel; ++k) {
+            a[k] = a[k] + lam(kPanel * q + i, k);
+          }
         }
       }
+      panel_trsm<T>(D, inv + kPanel * p, a);
+      if constexpr (kSolve) {
+        // the forward solve: b[q] -= L[q][p] y[p]
+        T sq = vec[kPanel * q + i];
 #pragma unroll
-      for (int j = 0; j < kPanel; ++j) {
-        T w[kPanel];
+        for (int g = 0; g < kPanel / G; ++g) {
+          T yv[G];
+          load_chunk(vec + kPanel * p + g * G, yv);
 #pragma unroll
-        for (int g = (j + 1) / G; g < kPanel / G; ++g) {
-          load_chunk(D + chunk_off<T>(g, j), w + g * G);
+          for (int h = 0; h < G; ++h) sq -= a[g * G + h] * yv[h];
         }
-        a[j] = a[j] * inv[kPanel * p + j];
-#pragma unroll
-        for (int k = j + 1; k < kPanel; ++k) a[k] -= a[j] * w[k];
+        vec[kPanel * q + i] = sq;
       }
-      // the forward solve: b[q] -= L[q][p] y[p]
-      T sq = vec[kPanel * q + i];
-#pragma unroll
-      for (int g = 0; g < kPanel / G; ++g) {
-        T yv[G];
-        load_chunk(vec + kPanel * p + g * G, yv);
-#pragma unroll
-        for (int h = 0; h < G; ++h) sq -= a[g * G + h] * yv[h];
-      }
-      vec[kPanel * q + i] = sq;
 #pragma unroll
       for (int k = 0; k < kPanel; ++k) E[blk_off<T>(i, k)] = a[k];
       __syncwarp();
@@ -533,10 +514,12 @@ __device__ __forceinline__ void panel_chol_sample(
         T acc[kPanel];
 #pragma unroll
         for (int k = 0; k < kPanel; ++k) acc[k] = F[blk_off<T>(i, k)];
-        if (p == 0) {
+        if constexpr (Lam::kAdds) {
+          if (p == 0) {
 #pragma unroll
-          for (int k = 0; k < kPanel; ++k) {
-            acc[k] = acc[k] + lam(kPanel * q + i, kPanel * rr + k);
+            for (int k = 0; k < kPanel; ++k) {
+              acc[k] = acc[k] + lam(kPanel * q + i, kPanel * rr + k);
+            }
           }
         }
 #pragma unroll 2
@@ -555,6 +538,30 @@ __device__ __forceinline__ void panel_chol_sample(
       }
     }
   }
+}
+
+// Factor, solve and sample one matrix of NB panels with one warp.  In: W
+// (panel_words) holds P's lower triangle (tri_at; identity rows past K)
+// and b in vec (zeros past K); lam is added to each entry where it is
+// first read.  Out: u_row[m] for m < K.  Every lane calls, with the same
+// K.
+//
+// panel_factor with the forward solve folded in, then the backward solve
+// by panels from the last: each lane subtracts L[q][p]^T u[q] for its
+// column from chunks of its own column, then the diagonal block's chain
+// multiplies by the kept reciprocals, u[j] broadcast by one shuffle a
+// step.
+template <typename T, int NB>
+__device__ __forceinline__ void panel_chol_sample(
+    T* W, LamJitter<T, NB> lam, const T* __restrict__ xi_row,
+    T* __restrict__ u_row, int K, int lane) {
+  constexpr int G = 16 / sizeof(T);
+  T* const A = W;
+  T* const vec = W + panel_vec<NB>();
+  T* const inv = vec + kPanel * NB;
+  const int i = lane;
+
+  panel_factor<T, NB, true>(W, lam, lane);
 
   // backward solve L^T u = y + xi by panels from the last; u overwrites y
 #pragma unroll 1

@@ -102,7 +102,7 @@ def load() -> ctypes.CDLL:
             fn.argtypes = [p, ll, ll, p, d, p, ll, ll, p, p, i, i, p]
         for fn in (lib.bdf_chol_inv_f32, lib.bdf_chol_inv_f64):
             fn.restype = i
-            fn.argtypes = [p, p, i, i, p]
+            fn.argtypes = [p, ll, ll, p, i, i, p]
         for fn in (lib.bdf_chol_sample_full_f32,
                    lib.bdf_chol_sample_full_f64,
                    lib.bdf_chol_sample_full_slab_f32,

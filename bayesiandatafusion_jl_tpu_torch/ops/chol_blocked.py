@@ -37,11 +37,14 @@ chol_inv_plain.calls = 0
 
 def chol_inv(P: torch.Tensor) -> torch.Tensor:
     """W = cholesky(P)^-1, lower triangular with exact zeros above the
-    diagonal, batched: P [B, K, K] symmetric positive definite -> W.
+    diagonal, batched: P [B, K, K] symmetric positive definite -> W
+    (contiguous).
 
     CPU tensors run the plain version; CUDA tensors launch the kernel (K5,
-    K <= 64, P contiguous, float32/float64) on the current stream
-    (``chol_inv.launches`` counts launches) or raise — no fallback."""
+    K <= 64, float32/float64) on the current stream (``chol_inv.launches``
+    counts launches) or raise — no fallback.  The kernel reads P through
+    its strides: a view with unit inner stride, such as a diagonal panel
+    ``P[:, :64, :64]`` of a contiguous [B, 128, 128], is read in place."""
     if P.dim() != 3 or P.shape[1] != P.shape[2]:
         raise ValueError(f"P must be [B, K, K], got {tuple(P.shape)}")
     if P.device.type == "cpu":
@@ -54,15 +57,19 @@ def chol_inv(P: torch.Tensor) -> torch.Tensor:
                         f"{P.dtype}")
     if not 1 <= K <= K5_MAX_K:
         raise ValueError(f"chol_inv kernel takes K <= {K5_MAX_K}, got {K}")
-    if not P.is_contiguous():
-        raise ValueError("chol_inv kernel takes a contiguous P")
-    W = torch.empty_like(P)
+    bs, ld, inner = P.stride()
+    if K > 1 and (inner != 1 or ld < K):
+        raise ValueError(f"chol_inv kernel reads rows of unit stride that "
+                         f"do not overlap, got strides {P.stride()}")
+    if P.data_ptr() % P.element_size():
+        raise ValueError("chol_inv kernel takes an element-aligned P")
+    W = torch.empty((B, K, K), dtype=P.dtype, device=P.device)
     lib = kernels.load()
     fn = (lib.bdf_chol_inv_f32 if P.dtype == torch.float32
           else lib.bdf_chol_inv_f64)
     stream = torch.cuda.current_stream(P.device).cuda_stream
     with torch.cuda.device(P.device):
-        rc = fn(P.data_ptr(), W.data_ptr(), B, K, stream)
+        rc = fn(P.data_ptr(), max(ld, K), bs, W.data_ptr(), B, K, stream)
     if rc != 0:
         raise RuntimeError(f"chol_inv kernel launch failed: CUDA error {rc}")
     chol_inv.launches += 1
@@ -114,7 +121,7 @@ def chol_sample_blocked(P: torch.Tensor, b: torch.Tensor, xi: torch.Tensor,
         S = blk(j, j)
         for k in range(j):
             S = S - L[j, k] @ L[j, k].mT
-        W[j] = chol_inv(S.contiguous())     # copies only the first panel
+        W[j] = chol_inv(S)   # the first panel is read in place
         for i in range(j + 1, nb):
             Sij = blk(i, j)
             for k in range(j):

@@ -46,6 +46,55 @@ def test_chol_inv_plain_matches_jax_kernel(interpret_pallas):
     assert not np.triu(got, 1).any()
 
 
+def test_chol_inv_plain_matches_jax_kernel_at_panel_edge(interpret_pallas):
+    """K=33, the first K of the kernel's second panel (tile 8, B=11 pads to
+    16): float64 to 1e-10, exact zeros above the diagonal.  K <= 40 keeps
+    the interpret-mode cost of the JAX kernel (~30 s at K = 33) in bounds;
+    the 64-wide panel is held against the plain version on the card."""
+    P, _ = _spd(11, 33, seed=5)
+    want = np.asarray(chol_inv_pallas(jnp.asarray(P), tile=8))
+    got = chol_blocked.chol_inv(torch.from_numpy(P)).numpy()
+    assert got.shape == P.shape
+    np.testing.assert_allclose(got, want, rtol=1e-10, atol=1e-10)
+    assert not np.triu(got, 1).any()
+
+
+@pytest.mark.parametrize("K", [1, 20, 33, 64])
+def test_chol_inv_of_a_strided_panel(K):
+    """chol_inv of the panel view P[:, :K, :K] of a [B, 2K, 2K] P equals
+    the call on a contiguous copy (float64 to 1e-12: LAPACK may take
+    another path on a strided input)."""
+    big, _ = _spd(6, 2 * K, seed=K)
+    view = torch.from_numpy(big)[:, :K, :K]
+    assert not view.is_contiguous() and view.stride(1) == 2 * K
+    got = chol_blocked.chol_inv(view)
+    want = chol_blocked.chol_inv(view.contiguous())
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-12,
+                               atol=1e-12)
+
+
+def test_chol_sample_blocked_reads_first_panel_in_place(monkeypatch):
+    """The first diagonal panel goes to chol_inv as a view of P (no copy);
+    the later ones are the fresh Schur complements.  K=128, block 64."""
+    B, K = 3, 128
+    P, rng = _spd(B, K, seed=6)
+    Pt = torch.from_numpy(P)
+    seen = []
+    orig = chol_blocked.chol_inv
+
+    def spy(S):
+        seen.append((S.data_ptr(), S.stride()))
+        return orig(S)
+
+    monkeypatch.setattr(chol_blocked, "chol_inv", spy)
+    got = chol_blocked.chol_sample_blocked(
+        Pt, torch.from_numpy(rng.standard_normal((B, K))),
+        torch.from_numpy(rng.standard_normal((B, K))))
+    assert got.shape == (B, K) and torch.isfinite(got).all()
+    assert seen[0] == (Pt.data_ptr(), (K * K, K, 1))
+    assert len(seen) == 2 and seen[1][1] == (64 * 64, 64, 1)
+
+
 def test_chol_sample_blocked_matches_jax(interpret_pallas):
     """K=20 with block=8: 3 panels and the identity K-padding, jitter
     0.25, float64 to 1e-10."""

@@ -66,15 +66,50 @@ def test_full_kernel_matches_plain(cuda, K, B, lam):
     assert r["ok"], r
 
 
-@pytest.mark.parametrize("K, B", [(64, 10_681), (64, 1_000), (20, 333)])
+# K5's edges: K = 1, 17, 31, 32 (one panel), 33, 40, 63, 64 (two); B as
+# above (a block is 8 float32 or 4 float64 panels)
+_INV_EDGES = [(K, B) for K in (1, 17, 31, 32, 33, 40, 63, 64)
+              for B in (1, 9, 1_003, 71_567)]
+
+
+@pytest.mark.parametrize("K, B", [(64, 10_681), (64, 1_000), (20, 333)]
+                         + _INV_EDGES)
 def test_chol_inv_kernel_matches_plain(cuda, K, B):
-    """K5 against its plain version, W exactly zero above the diagonal."""
+    """K5 against its plain version, float32 and float64, W exactly zero
+    above the diagonal."""
     import chip_smoke
     r = chip_smoke.check_chol_inv(K, B, timing=False)
     assert r["ok"], r
 
 
-@pytest.mark.parametrize("K, B", [(128, 4_000), (100, 1_000)])
+@pytest.mark.parametrize("K, B, ld", [(64, 1_003, 128), (64, 71_567, 128),
+                                      (33, 1_003, 128), (17, 9, 40)])
+def test_chol_inv_kernel_reads_a_panel_in_place(cuda, K, B, ld):
+    """K5 on the panel view P[:, :K, :K] of a contiguous [B, ld, ld]."""
+    import chip_smoke
+    r = chip_smoke.check_chol_inv(K, B, timing=False, ld=ld)
+    assert r["ok"], r
+
+
+def test_chol_inv_kernel_raises_on_layouts_it_cannot_read(cuda):
+    """No fallback: a P whose rows are not of unit stride, or overlap,
+    raises; no plain call runs."""
+    P = torch.eye(8, dtype=torch.float32, device="cuda").expand(3, 8, 8)
+    before = (chol_blocked.chol_inv.launches,
+              chol_blocked.chol_inv_plain.calls)
+    with pytest.raises(ValueError):
+        chol_blocked.chol_inv(P.mT.contiguous().mT)      # column-major
+    with pytest.raises(ValueError):
+        chol_blocked.chol_inv(torch.eye(16, device="cuda").as_strided(
+            (3, 8, 8), (64, 4, 1)))                      # rows overlap
+    assert (chol_blocked.chol_inv.launches,
+            chol_blocked.chol_inv_plain.calls) == before
+    W = chol_blocked.chol_inv(P)                         # batch stride 0
+    assert torch.equal(W, P)
+
+
+@pytest.mark.parametrize("K, B", [(128, 4_000), (100, 1_000), (97, 1_003),
+                                  (128, 9)])
 def test_blocked_sampler_matches_plain(cuda, K, B):
     """The blocked sampler on K5 against chol_sample on torch.linalg."""
     import chip_smoke
