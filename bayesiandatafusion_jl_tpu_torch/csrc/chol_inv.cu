@@ -14,9 +14,11 @@
 // What bounds it on an H100: per panel it reads the triangle, K(K+1)/2
 // values, and writes K^2 (8.3 KB and 16 KB at K = 64 in float32: 1.77 GB
 // at B = 71,567, 0.53 ms at 3.35 TB/s), and does ~K^3/3 multiply-adds
-// for the factor and ~K^3/3 for the inverse.  In practice the dependent
-// steps of the factorization and of the triangular solves are the limit,
-// as in K2 and K4 (PERF.md).
+// for the factor and ~K^3/3 for the inverse.  On an NVIDIA H100 80GB HBM3
+// at 700 W it takes 1.31 ms there, 40% of that bound: each warp's chain
+// of dependent steps (the factorization 43% of its cycles, the load 26%,
+// the inverse 20%, the writer 8%) at 16 warps a SM is the limit
+// (PERF.md).
 //
 // Design: K4's loader and the panel core without Lambda and without the
 // solves.  A block of panel_rows (8 float, 4 double) warps; each warp owns
@@ -34,10 +36,9 @@
 // with W00 e_i kept in registers for the product (read back from shared
 // memory it cost 7%, PERF.md), and stores it over L as a lane stores its
 // row, so that each row of W lies in one stored column, where the writer
-// reads it as chunks: W's rows
-// go to device memory whole, zeros included, in 16-byte stores when K
-// allows (K a multiple of 16 / sizeof(T)), else one value a lane.  Rows
-// past B are masked.  Dynamic shared memory: panel_words a warp, 105 KB a
+// reads it as chunks: W's rows go to device memory whole, zeros included,
+// in 16-byte stores when K allows (K a multiple of 16 / sizeof(T)), else
+// one value a lane.  Rows past B are masked.  Dynamic shared memory: panel_words a warp, 105 KB a
 // block of 8 float rows at K = 64 (two blocks, 16 warps a SM).
 #include <cuda_runtime.h>
 
@@ -224,8 +225,8 @@ int launch(const T* P, long long ld, long long bs, T* W, int B, int K,
 }  // namespace
 
 // Plain C entry points (loaded with ctypes).  P[b][j][m] is at
-// P + b bs + j ld + m (unit inner stride; a panel of a larger P is read in
-// place); W is contiguous [B, K, K] and 16-byte aligned.  P must be
+// P + b bs + j ld + m (unit inner stride, ld >= K; a panel of a larger P
+// is read in place); W is contiguous [B, K, K] and 16-byte aligned.  P must be
 // symmetric positive definite (its upper triangle is read).  Returns the
 // launch's CUDA error code (0 on success).
 extern "C" int bdf_chol_inv_f32(const float* P, long long ld, long long bs,

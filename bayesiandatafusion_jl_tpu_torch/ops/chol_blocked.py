@@ -37,8 +37,7 @@ chol_inv_plain.calls = 0
 
 def chol_inv(P: torch.Tensor) -> torch.Tensor:
     """W = cholesky(P)^-1, lower triangular with exact zeros above the
-    diagonal, batched: P [B, K, K] symmetric positive definite -> W
-    (contiguous).
+    diagonal, batched: P [B, K, K] symmetric positive definite -> W.
 
     CPU tensors run the plain version; CUDA tensors launch the kernel (K5,
     K <= 64, float32/float64) on the current stream (``chol_inv.launches``
@@ -61,8 +60,6 @@ def chol_inv(P: torch.Tensor) -> torch.Tensor:
     if K > 1 and (inner != 1 or ld < K):
         raise ValueError(f"chol_inv kernel reads rows of unit stride that "
                          f"do not overlap, got strides {P.stride()}")
-    if P.data_ptr() % P.element_size():
-        raise ValueError("chol_inv kernel takes an element-aligned P")
     W = torch.empty((B, K, K), dtype=P.dtype, device=P.device)
     lib = kernels.load()
     fn = (lib.bdf_chol_inv_f32 if P.dtype == torch.float32

@@ -19,8 +19,8 @@ Phases, each fatal on failure (nonzero exit, no result line):
    32 < K <= 96, also at K = 33), K5 (panel factor-inverse, K <= 64, at
    the K = 128 paths' shapes, at K = 33, and on the panel view of a
    [B, 128, 128] P read in place; float64 to K5_F64_TOL) and the blocked
-   K = 128 sampler built on K5 against ``torch.linalg``; K7 (the quantized partner table) and K8 (the
-   masked-pair contraction, both focus modes: K8a raw int32 and the
+   K = 128 sampler built on K5 against ``torch.linalg``; K7 (the
+   quantized partner table) and K8 (the masked-pair contraction, both focus modes: K8a raw int32 and the
    dequant epilogue, K8b the natural layout) bit for bit against their
    plain versions, K7 at the Netflix and ML-10M shapes, K8 on small ragged
    stores; K8c and K8d (float operands: bfloat16 on the tensor cores,
