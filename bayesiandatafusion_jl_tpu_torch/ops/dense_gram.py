@@ -16,7 +16,7 @@ unpacked to [N, K, K].
 The int8 pair (the s8 branch, :1319-1430): M8 the counts, W8 the values
 quantized on one static scale w_scale = max|W| / 127.  Per sweep and per
 focus mode f of a 2-ary relation, against the partner factors' table
-quantized per row (``fused_quantize``: K7 up to K = 96, torch ops above),
+quantized per row (``fused_quantize``: K7 up to K = 128, torch ops above),
 
     P[c, n] = sum_p M8_f[n, p] Y8[c, p] * sY[c] * alpha  (+ PD ridge on c = (i, i))
     b[k, n] = sum_p W8_f[n, p] U8[k, p] * sU[k] * w_scale * alpha
@@ -769,13 +769,13 @@ def fused_quantize(partner: torch.Tensor, pad_rows: Optional[int] = None,
     packed-triangle table and of the factors, transposed, with rows past
     the partner count zero.
 
-    K7 up to its K = 96 (``ops/ytab.ytab_quantize``; the JAX gates,
+    K7 up to its K = 128 (``ops/ytab.ytab_quantize``; the JAX gates,
     K <= 64 and 2e8 table cells, are a TPU compile cap and fusion
-    trade-off, and the kernel equals the plain quantization bit for bit).
-    Above it, on either device, torch ops make and quantize the table
-    (``quantize_table_t``; ``tri`` = ``tri_index(K)`` saves rebuilding the
-    index), as the JAX package leaves K > 64 to XLA: the same codes and
-    scales."""
+    trade-off, and the kernel equals the plain quantization, the JAX
+    package's XLA ``_quantize_cols``, bit for bit).  Above it, on either
+    device, torch ops make and quantize the table (``quantize_table_t``;
+    ``tri`` = ``tri_index(K)`` saves rebuilding the index): the same codes
+    and scales."""
     from . import ytab      # imported here: ytab uses this module's helpers
     K = partner.shape[-1]
     C = K * (K + 1) // 2

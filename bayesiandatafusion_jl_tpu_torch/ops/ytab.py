@@ -22,8 +22,12 @@ import torch
 from .. import kernels
 from . import dense_gram as dg
 
-# the kernel's K range (its shared-memory table of triangle pairs is 8-bit)
-K7_MAX_K = 96
+# the kernel's K range: the largest rank the engine runs (its quant block
+# stages K + 1 factor columns of a 128-row tile in shared memory)
+K7_MAX_K = 128
+# copies of the column maxima the kernel merges its blocks into
+# (``COPIES`` in csrc/ytab_quantize.cu)
+COLMAX_COPIES = 8
 
 
 def _out_rows(n: int, out_rows: Optional[int]) -> int:
@@ -60,7 +64,7 @@ def ytab_quantize(U: torch.Tensor, n_valid: Optional[int] = None,
                   out_rows: Optional[int] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(YZ8T [C + K, out_rows] int8, s [C + K] float32) of the partner
-    factors U [n, K] (cast to float32 first), K <= 96.
+    factors U [n, K] (cast to float32 first), K <= 128.
 
     CPU tensors run the plain version; CUDA tensors launch the two passes
     of the kernel on the current stream (``ytab_quantize.launches`` counts
@@ -85,7 +89,9 @@ def ytab_quantize(U: torch.Tensor, n_valid: Optional[int] = None,
     Uf = U.to(torch.float32).contiguous()
     out = torch.empty((CK, ld), dtype=torch.int8, device=U.device)
     s = torch.empty(CK, dtype=torch.float32, device=U.device)
-    colmax = torch.empty(CK, dtype=torch.int32, device=U.device)
+    # the kernel's scratch: COLMAX_COPIES copies of the column maxima
+    colmax = torch.empty(COLMAX_COPIES * CK, dtype=torch.int32,
+                         device=U.device)
     lib = kernels.load()
     stream = torch.cuda.current_stream(U.device).cuda_stream
     with torch.cuda.device(U.device):

@@ -10,7 +10,8 @@ Phases, each fatal on failure (nonzero exit, no result line):
 2. build: ``nvcc`` compiles the port's kernels for sm_90a from ``csrc/``,
    and ptxas serializes no ``wgmma`` (no C75xx line in its log); the
    sampler kernels' build lines (K1-K5: registers, spills), failing on any
-   spill in float32 or float64;
+   spill in float32 or float64, and K7's (both passes), failing on any
+   spill;
 3. kernels vs plain: each sampler kernel against its plain torch version
    on random SPD problems at the main paths' shapes, float32 and float64,
    both held against the float64 plain version: K1 (packed, K <= 32), K2
@@ -22,8 +23,10 @@ Phases, each fatal on failure (nonzero exit, no result line):
    K = 128 sampler built on K5 against ``torch.linalg``; K7 (the
    quantized partner table) and K8 (the masked-pair contraction, both focus modes: K8a raw int32 and the
    dequant epilogue, K8b the natural layout) bit for bit against their
-   plain versions, K7 at the Netflix and ML-10M shapes, K8 on small ragged
-   stores; K8c and K8d (float operands: bfloat16 on the tensor cores,
+   plain versions, K7 at the Netflix and ML-10M shapes (K = 32, 64, 97,
+   128), ragged, and on adversarial factors (quotients on half-integers,
+   an ulp or two either side, at the +-127 clip edge, scales from FLT_MIN
+   up), K8 on small ragged stores; K8c and K8d (float operands: bfloat16 on the tensor cores,
    float32 and float64 by FMA; flip_out and natural layout) within
    FLOAT_TOL of the largest sum; K6 (the int8 pair contraction, both focus
    modes from one stored pair, raw int32 and the dequant epilogue) bit for
@@ -41,7 +44,7 @@ Phases, each fatal on failure (nonzero exit, no result line):
    ratings, float32), made once, through ``MacauEngine.benchmark``:
    - the int8 pair path at K = 32, 64, 96 and 128, the pair stored in one
      orientation.  Every sweep must contract both modes through K6, with
-     the table quantized by K7 up to K = 96, and sample both entities
+     the table quantized by K7, and sample both entities
      through the path's kernel (K1, K2, K2, K5 twice per entity); peak
      memory must stay below the two-orientation store's (PR 2).  K6 is
      held bit for bit against its plain version at each path's store and
@@ -66,8 +69,8 @@ Phases, each fatal on failure (nonzero exit, no result line):
    - the fused path (``dense_fused=True``) at K = 32 and 64, one timed
      window of 40 sweeps and a ``torch.profiler`` split: K7 and K8a twice
      a sweep and the packed sampler (K1, K2), K8a held bitwise against its
-     plain version on the path's own store; at K = 128 (K8b, the torch
-     quantization, the blocked sampler on K5; a 20-sweep window); and off
+     plain version on the path's own store; at K = 128 (K8b, K7, the
+     blocked sampler on K5; a 20-sweep window); and off
      the s8 path
      (``dense_int8=False``): a bfloat16 table at K = 64 (K8c, K2) and
      K = 128 (K8d, K5), a float32 table at K = 32 (K8c's FMA variant);
@@ -117,9 +120,10 @@ Phases, each fatal on failure (nonzero exit, no result line):
      ``index_select`` in bfloat16 and float32.  No engine path runs K9
      (as in JAX): every path holds its launches to 0, and its row in the
      kernels line says 0.
-   On every path the plain versions, the other paths' kernels and
-   ``torch._int_mm`` (counted through a wrapper the script installs around
-   each run) must not run, and the RMSEs must lie in the JAX chain's bands
+   On every path the plain versions, the other paths' kernels,
+   ``torch._int_mm`` and the torch quantization of the table
+   (``quantize_table_t``; each counted through a wrapper the script
+   installs around each run) must not run, and the RMSEs must lie in the JAX chain's bands
    where the JAX package has one (at K = 128, the port's own chain's).
    Each phase prints its seconds.
 
@@ -159,12 +163,15 @@ BENCH_WIDTHS = (8, 12, 16, 20, 24, 28, 32, 40, 48, 56, 64, 80, 96, 112, 128,
                 160, 192, 224, 256, 320, 384, 512, 768, 1024, 2048)
 KERNEL_ERR_FACTOR = 10.0     # kernel error <= 10x the f32 plain version's
 F64_KERNEL_TOL = 1e-9        # float64 kernel vs float64 plain version
-# the sampler kernels K1-K5 (a piece of their mangled names)
+# the sampler kernels K1-K5 and K7's two passes (a piece of their mangled
+# names): their builds must not spill
 SAMPLER_KERNELS = (("K1", "chol_sample_packed_kernel"),
                    ("K2", "chol_sample_packed_slab_kernel"),
                    ("K3", "chol_sample_full_kernel"),
                    ("K4", "chol_sample_full_slab_kernel"),
-                   ("K5", "chol_inv_kernel"))
+                   ("K5", "chol_inv_kernel"),
+                   ("K7 colmax", "ytab_colmax_kernel"),
+                   ("K7 quant", "ytab_quant_kernel"))
 # K5's float64 W against the float64 plain version: both are exact to a
 # few ulps of W (|W| ~ 1 on these problems)
 K5_F64_TOL = 1e-12
@@ -475,22 +482,69 @@ def check_blocked(K, B, timing=True, seed=0, jitter=0.25):
     return r
 
 
-def check_ytab(n, K, n_valid=None, timing=True, seed=0):
+def adversarial_factors(n, K, n_valid=None, seed=0, device="cuda"):
+    """Factors U [n, K] float32 whose table cells fall where K7's codes are
+    hardest to get right: in the factor columns (and, through a first
+    column of ones, in the products (0, j)), quotients T / s on the
+    half-integers -126.5 .. 126.5 and up to two ulps either side of them,
+    and at +-127; each column's maximum in row 0, its magnitude 2^-125 ..
+    2^60 (the smallest columns' scales floored at FLT_MIN) or all zeros;
+    the rows from ``n_valid`` on outside the scales, at +-127.5 s and up
+    to three times the maximum (clipped to +-127)."""
+    import torch
+    from bayesiandatafusion_jl_tpu_torch.ops import dense_gram as dg
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    nv = n if n_valid is None else n_valid
+    e = torch.randint(-60, 61, (K,), generator=g)
+    e[K // 3::5] = -125
+    top = (1.0 + torch.rand(K, generator=g)) * torch.pow(2.0, e.double())
+    top = top.float().to(device)
+    top[K // 2::7] = 0.0
+    s = torch.clamp_min(top * dg.INV127, dg.TINY)
+    half = (torch.randint(-127, 127, (n, K), generator=g) + 0.5).to(device)
+    U = half * s
+    step = torch.randint(-2, 3, (n, K), generator=g).to(device)
+    for k in range(2):
+        U = torch.where(step > k, torch.nextafter(U, U.new_tensor(math.inf)),
+                        U)
+        U = torch.where(step < -k, torch.nextafter(U, U.new_tensor(-math.inf)),
+                        U)
+    edge = torch.rand((n, K), generator=g).to(device) < 0.05
+    U = torch.where(edge, torch.sign(half) * 127.0 * s, U)
+    U = torch.clamp(U, -top, top)
+    if nv < n:
+        out = (torch.randint(-3, 4, (n - nv, K), generator=g)
+               .to(device) * top)
+        near = 127.5 * s
+        out[::3] = torch.nextafter(near, near.new_tensor(math.inf)
+                                   ).expand(out[::3].shape)
+        out[1::3] = torch.nextafter(near, near.new_tensor(-math.inf)
+                                    ).expand(out[1::3].shape)
+        U[nv:] = out
+    U[0] = top
+    if K > 1:
+        U[:, 0] = 1.0
+    return U.contiguous()
+
+
+def check_ytab(n, K, n_valid=None, timing=True, seed=0, adversarial=False):
     """K7 against its plain version on random factors U [n, K] (float32),
-    bit for bit: codes (rows padded to a multiple of 16, as the engine asks)
-    and scales."""
+    or on ``adversarial_factors``, bit for bit: codes (rows padded to a
+    multiple of 16, as the engine asks) and scales."""
     import torch
     from bayesiandatafusion_jl_tpu_torch.ops.ytab import (
         ytab_quantize, ytab_quantize_plain)
     g = torch.Generator(device="cuda").manual_seed(seed)
-    U = torch.randn((n, K), generator=g, device="cuda")
+    U = (adversarial_factors(n, K, n_valid, seed) if adversarial else
+         torch.randn((n, K), generator=g, device="cuda"))
     rows = -(-n // 16) * 16
     kern, s_k = ytab_quantize(U, n_valid, rows)
     plain, s_p = ytab_quantize_plain(U, n_valid, rows)
     torch.cuda.synchronize()
     diff = max((kern.int() - plain.int()).abs().max().item(),
                (s_k - s_p).abs().max().item())
-    r = {"n": n, "K": K, "n_valid": n_valid, "max_abs_err": diff,
+    r = {"n": n, "K": K, "n_valid": n_valid, "adversarial": adversarial,
+         "max_abs_err": diff,
          "ok": bool(torch.equal(kern, plain) and torch.equal(s_k, s_p))}
     if timing:
         r["kernel_ms"] = cuda_ms(lambda: ytab_quantize(U, n_valid, rows), 20)
@@ -597,7 +651,7 @@ def check_pair_contract(pair, K, focus, timing=True, seed=0):
     """K6 against its plain version on the stored pair (``build_int8_pair``
     's layout, true extents ``pair["shape"]``) for one focus mode, the
     partner table ``fused_quantize``'s codes of random factors (K7 up to
-    K = 96) and random dequant scales, bit for bit in both epilogues (the
+    K = 128) and random dequant scales, bit for bit in both epilogues (the
     int32 sums are exact and both sides convert and multiply them the same
     way).  Timing adds the library's time for the same function: two
     ``torch._int_mm`` products and the torch dequant, on the pair as it
@@ -701,7 +755,7 @@ def spills(lines):
 
 
 def check_sampler_builds():
-    """The sampler kernels' ptxas lines; fails on any spill."""
+    """The sampler kernels' and K7's ptxas lines; fails on any spill."""
     for tag, name in SAMPLER_KERNELS:
         print(f"# {tag} build ({name}):", flush=True)
         lines = print_ptxas(name)
@@ -720,7 +774,7 @@ def check_fused_variant(V8, shape, K, focus, table, flip_out, timing=True,
                         seed=0):
     """K8's other variants on the stored V8 (true extents ``shape``) for one
     focus mode: ``table`` "int8" (K7's codes of random factors up to
-    K = 96, the torch quantization above; the natural layout, K8b, bit for
+    K = 128, the torch quantization above; the natural layout, K8b, bit for
     bit against its plain version) or "bfloat16", "float32", "float64" (the
     float table of random factors; ``flip_out`` K8c, else K8d).  A float
     variant is held to FLOAT_TOL of the largest sum against the plain
@@ -1009,11 +1063,12 @@ def graph_kernels(prob, K):
     """{counter: launches per sweep} of the kernels a sweep must run, from
     its compiled problem: per (relation, mode) of an int8 pair K6 once, of
     a fused store its K8 variant once (by operand type and layout), and on
-    either s8 kind, up to K = 96, K7 once (the largest partner's table);
+    either s8 kind, up to K = 128, K7 once (the largest partner's table);
     per entity, up to K = 96, the packed sampler (K1, K2) where it has a
     dense contribution, else the full-P one (K3, K4), and above K = 96 K5
     twice (the blocked sampler).  The float pair and the gather path
     launch no kernel of their own."""
+    from bayesiandatafusion_jl_tpu_torch.ops import ytab
     want = {}
 
     def add(tag, n=1):
@@ -1034,7 +1089,7 @@ def graph_kernels(prob, K):
                         ("K8c" if packed else "K8d"))
                 elif i8:
                     add("K6")
-                if i8 and packed:
+                if i8 and K <= ytab.K7_MAX_K:
                     add("K7")
         if not packed:
             add("K5", 2)
@@ -1047,23 +1102,29 @@ def graph_kernels(prob, K):
 def counted(fn):
     """``fn()``'s result and the counts of its run: every kernel's launches
     and plain version's calls (set to 0 just before, read just after) and,
-    under "torch._int_mm", the calls of the library's int8 GEMM, which must
-    not run on any path (counted through a wrapper installed for the
-    run)."""
+    under "torch._int_mm", the calls of the library's int8 GEMM, and under
+    "quantize_table_t" those of the torch quantization of the table (above
+    K7's K = 128), which must not run on any path (each counted through a
+    wrapper installed for the run)."""
     import torch
-    int_mm, int_mm_calls = torch._int_mm, [0]
+    from bayesiandatafusion_jl_tpu_torch.ops import dense_gram as dg
+    int_mm, table_t = torch._int_mm, dg.quantize_table_t
+    calls = {"torch._int_mm": 0, "quantize_table_t": 0}
 
-    def counting_int_mm(*a, **kw):
-        int_mm_calls[0] += 1
-        return int_mm(*a, **kw)
-    torch._int_mm = counting_int_mm
+    def counting(name, f):
+        def wrapped(*a, **kw):
+            calls[name] += 1
+            return f(*a, **kw)
+        return wrapped
+    torch._int_mm = counting("torch._int_mm", int_mm)
+    dg.quantize_table_t = counting("quantize_table_t", table_t)
     zero_counts()
     try:
         out = fn()
         counts = read_counts()
     finally:
-        torch._int_mm = int_mm
-    counts["torch._int_mm"] = int_mm_calls[0]
+        torch._int_mm, dg.quantize_table_t = int_mm, table_t
+    counts.update(calls)
     return out, counts
 
 
@@ -1552,18 +1613,25 @@ def main() -> int:
                   f"ms, plain {r['plain_ms']:.4f} ms", flush=True)
             require(r["ok"], f"{tag} disagrees with its plain version: {r}")
             torch.cuda.empty_cache()
-    # Netflix, ML-10M, a ragged case, then the graph paths' tables:
-    # tensor's and fusion's largest partners
-    for n, K, n_valid in ((480_189, 32, None), (17_770, 32, None),
-                          (71_567, 32, None), (10_681, 32, None),
-                          (71_567, 64, None), (10_681, 64, None),
-                          (1_001, 36, 900), (30_000, 32, None),
-                          (2_000, 32, None), (50_000, 32, None),
-                          (500, 32, None), (3_000, 32, None),
-                          (800, 32, None)):
-        r = check_ytab(n, K, n_valid)
-        checks[("K7", K, n)] = r
-        print(f"# K7 n={n} K={K} n_valid={n_valid}: bitwise {r['ok']} "
+    # Netflix, ML-10M (K = 32, 64, 97, 128), a ragged case, then the graph
+    # paths' tables: tensor's and fusion's largest partners; then
+    # adversarial factors (adversarial_factors), ragged at K = 128
+    for n, K, n_valid, adv in (
+            (480_189, 32, None, False), (17_770, 32, None, False),
+            (71_567, 32, None, False), (10_681, 32, None, False),
+            (71_567, 64, None, False), (10_681, 64, None, False),
+            (71_567, 97, None, False), (71_567, 128, None, False),
+            (10_681, 128, None, False), (1_001, 36, 900, False),
+            (30_000, 32, None, False), (2_000, 32, None, False),
+            (50_000, 32, None, False), (500, 32, None, False),
+            (3_000, 32, None, False), (800, 32, None, False),
+            (71_567, 128, 70_001, True), (10_681, 64, None, True),
+            (17_770, 32, 17_000, True), (4_001, 97, None, True),
+            (500, 1, None, True)):
+        r = check_ytab(n, K, n_valid, adversarial=adv)
+        checks[("K7", K, n) if not adv else ("K7 adversarial", K, n)] = r
+        print(f"# K7 n={n} K={K} n_valid={n_valid}"
+              f"{' adversarial' if adv else ''}: bitwise {r['ok']} "
               f"(max diff {r['max_abs_err']}); kernel {r['kernel_ms']:.4f} "
               f"ms, plain {r['plain_ms']:.4f} ms, bound "
               f"{bound_ms(*ytab_bound(n, K))[0]:.4f} ms", flush=True)

@@ -411,8 +411,9 @@ def test_fused_k100_f64_matches_jax_engine(xla_cpu_ridge, fused_branches,
         want.add(("port", "segment"))
     assert set(fused_branches) == want
     assert fused_branches.count(("port", "segment")) == (6 if residual else 0)
-    # K=100 is above K7: the table is quantized by torch ops on any device
-    assert _fused_counts() == (calls[0], calls[1] + 6)
+    # the s8 table at K=100 is K7's: its plain version on the CPU, once a
+    # mode a sweep
+    assert _fused_counts() == (calls[0] + (6 if int8 else 0), calls[1] + 6)
     assert chol_blocked.chol_inv_plain.calls == inv + 12
 
 

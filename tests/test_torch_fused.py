@@ -201,6 +201,46 @@ def test_ytab_plain_matches_pallas(interpret_pallas, K, n, n_valid):
     np.testing.assert_array_equal(got_s.numpy(), np.asarray(s_yz))
 
 
+@pytest.mark.parametrize("K, n, n_valid", [(65, 37, None), (97, 40, 29),
+                                           (128, 33, 30)])
+def test_ytab_plain_matches_jax_xla_above_64(K, n, n_valid):
+    """Above the JAX kernel's K = 64, K7's plain version equals the JAX
+    package's XLA quantization (``fused_quantize``: ``_quantize_cols`` of
+    the packed triangle and of the factors) bit for bit, transposed, with
+    n_valid and an out_rows pad: the function K7 computes up to K = 128."""
+    rng = np.random.default_rng(7 + K)
+    U = rng.standard_normal((n, K)).astype(np.float32)
+    got8, got_s = ytab.ytab_quantize(torch.from_numpy(U), n_valid,
+                                     out_rows=n + 19)
+    yz, _, s_yz, _ = jdg.fused_quantize(jnp.asarray(U), n_valid)
+    assert got8.dtype == torch.int8 and tuple(got8.shape) == (
+        K * (K + 1) // 2 + K, n + 19)
+    np.testing.assert_array_equal(got8.numpy()[:, :n].T, np.asarray(yz))
+    assert not got8[:, n:].any()
+    np.testing.assert_array_equal(got_s.numpy(), np.asarray(s_yz))
+
+
+@pytest.mark.parametrize("K, k7", [(128, True), (129, False)])
+def test_fused_quantize_routes_by_k(monkeypatch, K, k7):
+    """``fused_quantize`` quantizes the table on K7 (here its plain
+    version, on the CPU) up to K = 128 and by torch ops
+    (``quantize_table_t``) above, by K alone: the same codes either way."""
+    table_t, orig = [], tdg.quantize_table_t
+
+    def counting(*a):
+        table_t.append(a)
+        return orig(*a)
+    monkeypatch.setattr(tdg, "quantize_table_t", counting)
+    calls = ytab.ytab_quantize_plain.calls
+    U = torch.from_numpy(np.random.default_rng(K).standard_normal(
+        (5, K)).astype(np.float32))
+    YZ8T, _, s_yz, _ = tdg.fused_quantize(U, pad_rows=16)
+    assert ytab.ytab_quantize_plain.calls - calls == (1 if k7 else 0)
+    assert len(table_t) == (0 if k7 else 1)
+    want8, want_s = ytab.ytab_quantize_plain(U, out_rows=16)
+    assert torch.equal(YZ8T, want8) and torch.equal(s_yz, want_s)
+
+
 def test_fused_quantize_views():
     """fused_quantize: Z8T and s_z are YZ8T's and s_yz's last K rows."""
     U = torch.from_numpy(np.random.default_rng(2).standard_normal((21, 6)))
@@ -604,7 +644,7 @@ def test_fused_gram_contrib_float_matches_jax(focus_axis, dtype, layout):
 
 @pytest.mark.parametrize("K, n, pad", [(6, 21, 32), (100, 40, 48)])
 def test_quantize_table_t_matches_k7_plain(K, n, pad):
-    """Above K7's K = 96 the table is quantized by torch ops in the
+    """Above K7's K = 128 the table is quantized by torch ops in the
     transposed layout (``quantize_table_t``): the same codes and scales as
     K7's plain version gives at any K."""
     U = torch.from_numpy(np.random.default_rng(4 + K).standard_normal(

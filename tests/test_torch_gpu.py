@@ -117,14 +117,40 @@ def test_blocked_sampler_matches_plain(cuda, K, B):
     assert r["ok"], r
 
 
+# K7's edges: K = 1, either side of a 32-column warp row and of a 4-column
+# quad (31, 32, 33, 63, 64, 65, 127), the packed samplers' limit (96, 97)
+# and the largest (128); n = 1, a few rows, ML-10M's entity counts
+_YTAB_EDGES = [(n, K, None) for K in (1, 31, 32, 33, 63, 64, 65, 96, 97,
+                                       127, 128)
+               for n in (1, 500, 10_681, 71_567)]
+
+
 @pytest.mark.parametrize("n, K, n_valid", [(17_770, 32, None),
                                             (1_001, 36, 900), (333, 8, None),
                                             (4_000, 96, 3_999),
-                                            (71_567, 64, None)])
+                                            (71_567, 64, None),
+                                            (71_567, 128, 70_001),
+                                            (500, 128, 1)] + _YTAB_EDGES)
 def test_ytab_kernel_matches_plain(cuda, n, K, n_valid):
     """K7 against its plain version, codes and scales bit for bit."""
     import chip_smoke
     r = chip_smoke.check_ytab(n, K, n_valid, timing=False)
+    assert r["ok"], r
+
+
+@pytest.mark.parametrize("n, K, n_valid, seed", [
+    (500, 1, None, 0), (2_000, 8, 1_900, 1), (10_681, 32, None, 2),
+    (17_770, 33, 17_000, 3), (10_681, 64, None, 4), (4_001, 97, 4_000, 5),
+    (71_567, 128, 70_001, 6), (1_000, 128, None, 7)])
+def test_ytab_kernel_matches_plain_adversarial(cuda, n, K, n_valid, seed):
+    """K7 against its plain version on ``chip_smoke.adversarial_factors``:
+    quotients T / s on the half-integers and up to two ulps either side,
+    at the +-127 clip edge and (rows past n_valid) beyond it, column
+    scales from the FLT_MIN floor to 2^60, all-zero columns; codes and
+    scales bit for bit."""
+    import chip_smoke
+    r = chip_smoke.check_ytab(n, K, n_valid, timing=False, seed=seed,
+                              adversarial=True)
     assert r["ok"], r
 
 
@@ -345,8 +371,8 @@ def test_engine_cuda_matches_cpu(cuda, monkeypatch, K, kernel, per_sweep):
     """The int8 pair, three float64 sweeps with injected randoms on the
     card and on the CPU, through K1 (K=8), K2 (K=36) and K5 (K=100, two
     panels per entity).  On the card K6 contracts each mode (twice a
-    sweep), K7 quantizes the table up to K = 96, and neither K6's plain
-    version nor ``torch._int_mm`` runs.  The int8 products are exact and
+    sweep), K7 quantizes the table (at every K, up to 128), and neither
+    K6's plain version nor ``torch._int_mm`` runs.  The int8 products are exact and
     the rest is float64 rounding, once the PD ridge's float32 mean is
     summed in one fixed order on both devices (torch's own sum rounds
     differently on each, which moves the chain by ~1e-9)."""
@@ -385,7 +411,7 @@ def test_engine_cuda_matches_cpu(cuda, monkeypatch, K, kernel, per_sweep):
     assert (kernel.launches, pair_contract.pair_contract.launches,
             ytab.ytab_quantize.launches) == (
         launches[0] + 3 * per_sweep, launches[1] + 6,
-        launches[2] + (6 if K <= 96 else 0))
+        launches[2] + 6)
     assert plain == {"cpu": 2, "cuda": 0}
     assert "cuda" not in int_mm_calls
     a, b = state_to_numpy(states["cpu"]), state_to_numpy(states["cuda"])
@@ -519,9 +545,9 @@ FUSED_CASES = {
     "residual": (8, dict(), True, "launches_i8_flip", 2),
     "float": (8, dict(dense_int8=False), False, "launches_f_flip", 0),
     "float_slab": (36, dict(dense_int8=False), False, "launches_f_flip", 0),
-    "k100": (100, dict(), False, "launches_i8_nat", 0),
+    "k100": (100, dict(), False, "launches_i8_nat", 2),
     "k100_float": (100, dict(dense_int8=False), False, "launches_f_nat", 0),
-    "k100_residual": (100, dict(), True, "launches_i8_nat", 0),
+    "k100_residual": (100, dict(), True, "launches_i8_nat", 2),
 }
 
 
@@ -532,7 +558,7 @@ def test_fused_variants_engine_cuda_matches_cpu(cuda, monkeypatch, case):
     at K=8, through assemble_precision at K=100), the float kernels
     (``dense_int8=False``, a float64 table) and K=100 (the natural-layout
     kernels and the blocked sampler).  The card launches its K8 variant
-    twice a sweep (and K7 on the packed s8 path) and runs no plain version;
+    twice a sweep (and K7 on the s8 path) and runs no plain version;
     the chains agree to float64 rounding."""
     K, opts, dup, variant, k7 = FUSED_CASES[case]
     monkeypatch.setattr(dense_gram, "ridge_step", xla_cpu_ridge_step)

@@ -184,9 +184,10 @@ def test_dense_gram_contrib_f32_one_store_matches_jax(xla_cpu_ridge, K,
 
 @pytest.mark.parametrize("mode", [0, 1])
 def test_dense_gram_contrib_k100_one_store_matches_jax(xla_cpu_ridge, mode):
-    """K = 100, above K7: the table quantized by torch ops, K6's raw sums
-    dequantized in float64, the ridge, the expand to [n, K, K]; bit for
-    bit against the JAX package's s8 branch (packed=False)."""
+    """K = 100, the full-P layout: the table quantized by K7's plain
+    version, K6's raw sums dequantized in float64, the ridge, the expand
+    to [n, K, K]; bit for bit against the JAX package's s8 branch
+    (packed=False)."""
     n0, n1, K = 29, 21, 100
     idx, cen = _relation(n0, n1, 0.5, 9)
     partner = np.random.default_rng(4).standard_normal(((n1, n0)[mode], K))
