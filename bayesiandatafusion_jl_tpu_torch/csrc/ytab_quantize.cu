@@ -21,7 +21,7 @@
 //
 // What bounds it on an H100: its bytes, U read twice and the int8 table
 // written once, (8 K + C + K) n bytes (0.20 ms at n = 71,567, K = 128), and
-// the issue of ~11 instructions a table cell in the quant pass, of the same
+// the ~11 instructions a table cell the quant pass executes, of the same
 // order; measured (PERF.md) ~2.7x the bytes bound at K = 128.
 //
 // Design: two launches, as on the TPU (every code needs the grid-wide max).

@@ -746,8 +746,8 @@ def quantize_table_t(partner: torch.Tensor, n_rows: int, tri
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The quantized partner table by torch ops, in K7's layout: (YZ8T
     [C + K, n_rows] int8, s [C + K] float32) of the float32 table
-    [Ypack | U], per table column as ``quantize_rows`` does it (the int8
-    pair path's quantization at every K).  ``tri`` = ``tri_index(K)``."""
+    [Ypack | U], per table column as ``quantize_rows`` does it (above
+    K7's K = 128).  ``tri`` = ``tri_index(K)``."""
     iu, ju = tri[:2]
     n, K = partner.shape
     C = len(iu)

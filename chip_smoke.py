@@ -26,8 +26,8 @@ Phases, each fatal on failure (nonzero exit, no result line):
    plain versions, K7 at the Netflix and ML-10M shapes (K = 32, 64, 97,
    128), ragged, and on adversarial factors (quotients on half-integers,
    an ulp or two either side, at the +-127 clip edge, scales from FLT_MIN
-   up), K8 on small ragged stores; K8c and K8d (float operands: bfloat16 on the tensor cores,
-   float32 and float64 by FMA; flip_out and natural layout) within
+   up), K8 on small ragged stores; K8c and K8d (float operands: bfloat16
+   on the tensor cores, float32 and float64 by FMA; flip_out and natural layout) within
    FLOAT_TOL of the largest sum; K6 (the int8 pair contraction, both focus
    modes from one stored pair, raw int32 and the dequant epilogue) bit for
    bit against its plain version on small ragged stores, K = 4, 8, 15, 16,
@@ -123,8 +123,8 @@ Phases, each fatal on failure (nonzero exit, no result line):
    On every path the plain versions, the other paths' kernels,
    ``torch._int_mm`` and the torch quantization of the table
    (``quantize_table_t``; each counted through a wrapper the script
-   installs around each run) must not run, and the RMSEs must lie in the JAX chain's bands
-   where the JAX package has one (at K = 128, the port's own chain's).
+   installs around each run) must not run, and the RMSEs must lie in the
+   JAX chain's bands where the JAX package has one (at K = 128, the port's own chain's).
    Each phase prints its seconds.
 
 The last lines are the card's ``nvidia-smi`` name and power limit, a JSON
@@ -1629,7 +1629,7 @@ def main() -> int:
             (17_770, 32, 17_000, True), (4_001, 97, None, True),
             (500, 1, None, True)):
         r = check_ytab(n, K, n_valid, adversarial=adv)
-        checks[("K7", K, n) if not adv else ("K7 adversarial", K, n)] = r
+        checks[("K7 adversarial" if adv else "K7", K, n)] = r
         print(f"# K7 n={n} K={K} n_valid={n_valid}"
               f"{' adversarial' if adv else ''}: bitwise {r['ok']} "
               f"(max diff {r['max_abs_err']}); kernel {r['kernel_ms']:.4f} "
