@@ -1,17 +1,19 @@
 """Entity/Relation data model (numpy only).
 
 Port of ``bayesiandatafusion_jl_tpu/models/data.py``: the same classes, the
-same graph building (``add_relation``, ``from_matrix``) and the same test
-split for the same seed.  The JAX package's copy cannot be imported here,
-since importing any of its modules imports jax.  Side features
-(``Entity(F=...)``, ``from_matrix``'s ``feat1`` / ``feat2``) are ROADMAP M8
-and raise.
+same graph building (``add_relation``, ``from_matrix`` with its side
+features ``feat1`` / ``feat2``) and the same test split for the same seed.
+The JAX package's copy cannot be imported here, since importing any of its
+modules imports jax.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import List, Optional, Sequence, Tuple, Union
 
 import numpy as np
+
+from ..ops.sparse import SparseBinMatrix
 
 
 class IndexedDF:
@@ -71,18 +73,57 @@ class IndexedDF:
         return cls(np.stack([coo.row, coo.col], axis=1), coo.data, coo.shape)
 
 
-class Entity:
-    """One entity type (e.g. user, movie)."""
+FeatureMatrix = Union[SparseBinMatrix, np.ndarray, None]
 
-    def __init__(self, name: str, count: Optional[int] = None, F=None):
-        if F is not None:
-            raise NotImplementedError(
-                "side features are not ported yet (ROADMAP M8)")
+
+@dataclasses.dataclass
+class EntityModel:
+    """Per-entity sampler values (JAX ``models/data.EntityModel`` :95).
+    ``lambda_beta=None`` means "use MacauConfig.lambda_beta"
+    (``resolved_lambda_beta``)."""
+
+    U: Optional[np.ndarray] = None          # [N, K] latent sample
+    mu: Optional[np.ndarray] = None         # [K]
+    Lambda: Optional[np.ndarray] = None     # [K, K]
+    beta: Optional[np.ndarray] = None       # [F, K] link matrix
+    uhat: Optional[np.ndarray] = None       # [N, K] = X beta
+    lambda_beta: Optional[float] = None
+
+
+class Entity:
+    """One entity type (e.g. compound, target) with optional side features
+    F [N, F]: a ``SparseBinMatrix``, a scipy sparse matrix or a dense
+    array (its nonzero cells), binary or real-valued."""
+
+    def __init__(self, name: str, count: Optional[int] = None,
+                 F: FeatureMatrix = None):
         self.name = name
         self.count = count
+        if F is not None and not isinstance(F, SparseBinMatrix):
+            if hasattr(F, "tocoo"):
+                F = SparseBinMatrix.from_scipy(F)
+            else:
+                F = SparseBinMatrix.from_dense(np.asarray(F))
+        self.F: Optional[SparseBinMatrix] = F
+        if F is not None:
+            if count is not None and count != F.shape[0]:
+                raise ValueError("feature rows != entity count")
+            self.count = F.shape[0]
+        self.model = EntityModel()
+        # None: the config's use_ff (auto: the X'X path iff F is small)
+        self.use_ff: Optional[bool] = None
+
+    @property
+    def has_features(self) -> bool:
+        return self.F is not None
+
+    @property
+    def num_features(self) -> int:
+        return 0 if self.F is None else self.F.shape[1]
 
     def __repr__(self):
-        return f"Entity({self.name!r}, count={self.count})"
+        f = f", F={self.F.shape}" if self.F is not None else ""
+        return f"Entity({self.name!r}, count={self.count}{f})"
 
 
 class RelationModel:
@@ -101,6 +142,13 @@ def resolved_alpha(rel: "Relation", cfg) -> float:
 def resolved_alpha_sample(rel: "Relation", cfg) -> bool:
     s = rel.model.alpha_sample
     return bool(cfg.alpha_sample if s is None else s)
+
+
+def resolved_lambda_beta(ent: Entity, cfg) -> float:
+    """The initial link-matrix precision: the entity's override, else the
+    config's."""
+    lb = ent.model.lambda_beta
+    return float(cfg.lambda_beta if lb is None else lb)
 
 
 class Relation:
@@ -148,12 +196,14 @@ class RelationData:
         self.relations: List[Relation] = list(relations or [])
 
     @classmethod
-    def from_matrix(cls, m, feat1=None, feat2=None,
+    def from_matrix(cls, m, feat1: FeatureMatrix = None,
+                    feat2: FeatureMatrix = None,
                     names: Tuple[str, str] = ("ent1", "ent2"),
                     relation_name: str = "rel",
                     class_cut: Optional[float] = None) -> "RelationData":
         """One relation from a matrix: an IndexedDF, a scipy sparse matrix
-        (its stored cells) or a dense array (its nonzero cells)."""
+        (its stored cells) or a dense array (its nonzero cells); ``feat1``
+        / ``feat2`` are the two entities' side features."""
         if hasattr(m, "tocoo"):
             df = IndexedDF.from_scipy(m)
         elif isinstance(m, IndexedDF):

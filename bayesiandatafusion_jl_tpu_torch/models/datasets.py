@@ -2,7 +2,8 @@
 
 Port of the synthetic branch of ``bayesiandatafusion_jl_tpu/models/
 datasets.py`` (MovieLens-shaped ratings; ML-10M shape: 71,567 users x
-10,681 movies, 10,000,054 ratings) and of the JAX bench's generators
+10,681 movies, 10,000,054 ratings; the ChEMBL-shaped Macau problem with
+side features) and of the JAX bench's generators
 (``bench.py``: the Netflix-shaped ratings, the 3-way tensors and the fusion
 graph): the same generators, so the same seed gives the same data.
 """
@@ -211,3 +212,57 @@ def fusion_synthetic(n_compounds: int = 50_000,
         rd.add_relation(IndexedDF(np.stack([i1, i2], 1), vals, (nc, n2)),
                         name, [compound, Entity(ename, count=n2)])
     return rd
+
+
+# the activity cut of the ChEMBL IC50 data (active <=> log10(IC50 nM) <
+# log10(200)), the reference README's convention
+CLASS_CUT_IC50 = float(np.log10(200))
+
+
+def synthetic_chembl(n_compounds: int = 15_000, n_targets: int = 346,
+                     n_features: int = 32_000, nnz: int = 300_000,
+                     feat_per_compound: int = 40, rank: int = 16,
+                     feat_frac: float = 0.85, obs_noise: float = 0.25,
+                     seed: int = 0):
+    """ChEMBL-IC50-shaped Macau problem: compound x target activities on
+    the log10(IC50 nM) scale (``class_cut=CLASS_CUT_IC50``) with sparse
+    binary fingerprint-like compound features that drive the latents
+    (``feat_frac`` of each latent dimension's variance), and power-law
+    compound degrees.  Returns the RelationData (no test split).
+
+    The JAX package's ``models/datasets.synthetic_chembl`` (:167-230): the
+    same calls in the same order, so the same seed gives the same data."""
+    from ..ops.sparse import SparseBinMatrix
+    from .data import RelationData
+    rng = np.random.default_rng(seed)
+    fr = np.repeat(np.arange(n_compounds),
+                   rng.poisson(feat_per_compound, n_compounds))
+    fc = rng.integers(0, n_features, len(fr))
+    feat_key = np.unique(fr.astype(np.int64) * n_features + fc)
+    fr, fc = feat_key // n_features, feat_key % n_features
+    F = SparseBinMatrix(fr.astype(np.int32), fc.astype(np.int32),
+                        (n_compounds, n_features))
+    beta = rng.standard_normal((n_features, rank))
+    Uf = F.matmul(beta)
+    Uf /= Uf.std(axis=0, keepdims=True) + 1e-12
+    Uc = (np.sqrt(feat_frac) * Uf
+          + np.sqrt(1.0 - feat_frac) * rng.standard_normal(
+              (n_compounds, rank)))
+    Ut = rng.standard_normal((n_targets, rank))
+    comp_p = 1.0 / np.arange(1, n_compounds + 1) ** 0.7
+    comp_p /= comp_p.sum()
+    comp_cdf = np.cumsum(comp_p)
+    c = np.searchsorted(comp_cdf, rng.random(int(nnz * 1.6)))
+    c = rng.permutation(c)
+    t = rng.integers(0, n_targets, len(c))
+    key = np.unique(c.astype(np.int64) * n_targets + t)
+    key = rng.permutation(key)[:nnz]
+    c, t = key // n_targets, key % n_targets
+    lic50 = 2.2 + 0.8 * np.sum(Uc[c] * Ut[t], axis=1) / np.sqrt(rank) \
+        + obs_noise * rng.standard_normal(len(c))
+    df = IndexedDF(np.stack([c, t], axis=1), lic50,
+                   (n_compounds, n_targets))
+    return RelationData.from_matrix(df, feat1=F,
+                                    names=("compound", "target"),
+                                    relation_name="ic50",
+                                    class_cut=CLASS_CUT_IC50)

@@ -1,10 +1,11 @@
 """The Gibbs sweep engine, ``macau()`` — port of the JAX package's
 ``models/engine.py``.
 
-The graphs this port covers: any set of relations without side features,
-of any arity, over shared entities (an entity may fill several modes of one
-relation, or none), with fixed or sampled noise precision alpha, at any
-K.  Each relation takes one Gramian path:
+The graphs this port covers: any set of relations of any arity over
+shared entities (an entity may fill several modes of one relation, or
+none), with fixed or sampled noise precision alpha, at any K; an entity
+may carry side features X [N, F] (Macau), and a relation a ``class_cut``
+(its test AUC).  Each relation takes one Gramian path:
 
 - the dense pair (``dense_gram`` None or True; ops/dense_gram.py): the
   int8 pair, contracted by K6 (ops/pair_contract.py) against the partner
@@ -23,17 +24,26 @@ K.  Each relation takes one Gramian path:
   observations; ops/layout.py and ops/gramian.py), with ``accumulation``
   "segment" or "planned".
 
-Each sweep, for each entity in turn:
+Each sweep, for each entity in turn (JAX engine :760-951):
 
-  (mu, Lambda) <- Normal-Wishart draw from U                 (ops/hyper.py)
+  with side features: beta <- its Gibbs draw with the current Lambda, by
+                  the FF, dual or CG solver (``_sample_beta``); then
+                  lambda_beta (``sample_lambda_beta``); uhat = X beta
+  (mu, Lambda) <- Normal-Wishart draw from U - uhat          (ops/hyper.py)
   P, b         <- alpha-scaled Gramians of the partner factors over the
                   entity's observations in every (relation, mode) it fills,
-                  plus the prior term Lambda mu
+                  plus the prior term Lambda (mu + uhat_i) of each row
   U            <- u ~ N(P'^-1 b, P'^-1) per row, P' = P + Lambda
 
 then each sampled alpha is drawn from its relation's training residuals,
 and the test tuples of every relation are predicted (clamped per sample)
-and its posterior mean and RMSEs updated.
+and its posterior mean and RMSEs updated (and, under a ``class_cut``, the
+AUC of the posterior mean).
+
+The beta draw's products (X V, X' U, the dual eigenbasis and G) run on
+``torch.matmul`` against a dense [N, F] operand (``use_dense_feat``), or
+on the bucketed matvec (ops/spmv.py), as the JAX package leaves them to
+XLA outside any Pallas kernel.
 
 The sampler branches as the JAX engine does (engine.py:821, :924-951): an
 entity with a dense contribution keeps P packed up to K = 96 under
@@ -58,24 +68,41 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch.linalg import solve_triangular
+from torch.profiler import record_function
 
 from ..ops import dense_gram as dg
+from ..ops.cg import block_cg
 from ..ops.chol_packed import K2_MAX_K, chol_sample_packed_dispatch
+from ..ops.dual import dual_eig_cached, dual_solve_g, use_dual
 from ..ops.gramian import (assemble_precision, assemble_precision_planned,
                            packed_bucket_accum, plan_accumulation,
                            predict_tuples)
 from ..ops.layout import build_mode_layout
-from ..ops.hyper import normal_wishart_update, sample_alpha
-from ..ops.mvn import chol_sample_dispatch
+from ..ops.hyper import (normal_wishart_update, sample_alpha,
+                         sample_lambda_beta)
+from ..ops.mvn import chol_sample_dispatch, chol_solve
+from ..ops.precond import build_nystrom, nystrom_apply, resolve_nystrom_rank
+from ..ops.spmv import bucketed_spmm, build_bucketed_matvec
 from ..utils.config import MacauConfig
 from ..utils.rng import build_random_spec, draw_all
-from .data import RelationData, resolved_alpha, resolved_alpha_sample
+from .data import (RelationData, resolved_alpha, resolved_alpha_sample,
+                   resolved_lambda_beta)
 
 
 @dataclasses.dataclass(frozen=True)
 class EntitySpec:
     name: str
     n: int
+    num_features: int = 0
+    use_ff: bool = False
+    feat_nnz: int = 0
+    # the beta solver of an entity with features: "ff", "dual" or "cg"
+    solver: str = "cg"
+
+    @property
+    def has_features(self) -> bool:
+        return self.num_features > 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -87,13 +114,7 @@ class RelationSpec:
     n_test: int
     alpha_sample: bool
     mean_value: float
-
-
-def _check_slice(rd: RelationData) -> None:
-    """Raise NotImplementedError for what the port does not cover yet."""
-    if any(rel.class_cut is not None for rel in rd.relations):
-        raise NotImplementedError(
-            "not ported yet: class_cut / AUC (ROADMAP M8)")
+    class_cut: Optional[float] = None
 
 
 def _plan_fused(rel, cfg: MacauConfig):
@@ -129,15 +150,20 @@ class CompiledProblem:
     where ``fused_i8s[ri]``, with a gather-path residual where
     ``residual_nnzs[ri]``) or "gather"; ``stores[ri]`` holds the pair or
     the fused store.  ``layouts["r{ri}m{mode}"]`` are the gather buckets of
-    every gather mode and fused residual."""
+    every gather mode and fused residual.  Per entity ``ei`` with side
+    features, ``feat["e{ei}"]`` holds its beta draw's arrays (the dense X
+    or the bucketed matvec, the column sums, and the solver's: the
+    eigenbasis of XX' and G, the Nystrom factors, or X'X), and
+    ``feat_seconds["e{ei}"]`` the seconds each took to build."""
 
     def __init__(self, rd: RelationData, config: MacauConfig,
                  device: torch.device):
-        _check_slice(rd)
         dtype = getattr(torch, config.dtype)
         ent_index = {id(e): i for i, e in enumerate(rd.entities)}
         self.entity_specs = [EntitySpec(e.name, int(e.count))
                              for e in rd.entities]
+        self.feat: Dict[str, Dict[str, Any]] = {}
+        self.feat_seconds: Dict[str, Dict[str, float]] = {}
         self.rel_specs: List[RelationSpec] = []
         self.kinds: List[str] = []
         self.stores: List[Optional[dict]] = []
@@ -156,7 +182,7 @@ class CompiledProblem:
                 entity_ids=tuple(ent_index[id(e)] for e in rel.entities),
                 nnz=rel.data.nnz, n_test=len(rel.test_vals),
                 alpha_sample=resolved_alpha_sample(rel, config),
-                mean_value=mean_value)
+                mean_value=mean_value, class_cut=rel.class_cut)
             self.rel_specs.append(rs)
             self._build_relation(ri, rel, mean_value, config, device)
             if rel.test_idx.shape[0]:
@@ -178,14 +204,86 @@ class CompiledProblem:
         if config.accumulation == "planned":
             self._build_acc_plans(config, device)
         del self._host_inst
+        for ei, ent in enumerate(rd.entities):
+            if ent.has_features:
+                self._build_features(ei, ent, config, device)
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         self.build_seconds = time.perf_counter() - t0
         self.init_alpha = [resolved_alpha(rel, config)
                            for rel in rd.relations]
+        self.init_lambda_beta = [resolved_lambda_beta(e, config)
+                                 for e in rd.entities]
         self.random_spec = build_random_spec(
             [es.n for es in self.entity_specs], config.num_latent,
-            config.resolved_nu0(), self.rel_specs, config.alpha_a0)
+            config.resolved_nu0(), self.rel_specs, config.alpha_a0,
+            [es.num_features for es in self.entity_specs],
+            config.sample_lambda_beta, config.nu_beta)
+
+    def _build_features(self, ei, ent, config, device):
+        """Entity ``ei``'s beta-draw arrays and solver (JAX engine
+        :310-385): the dense [N, F] X in the compute dtype where
+        ``use_dense_feat`` picks it (at the JAX package's operand size,
+        ``feat_itemsize``), else the bucketed matvec; the squared column
+        sums (Jacobi); then by solver: "ff" (F <= ff_threshold unless the
+        entity or the config says otherwise) X'X; "dual" (``use_dual``)
+        the eigenbasis of XX', decomposed on ``device``, and G; "cg" the
+        Nystrom factors where the rank resolves nonzero and F >= 4 x
+        rank."""
+        F, n, nf = ent.F, int(ent.count), ent.num_features
+        np_dt = config.np_dtype()
+        secs: Dict[str, float] = {}
+        t0 = time.perf_counter()
+        feat: Dict[str, Any] = {"colcount": torch.from_numpy(
+            F.col_sq_sums().astype(np_dt)).to(device)}
+        itemsize = dg.feat_itemsize(F.is_binary, config.gram_dtype, np_dt)
+        if dg.use_dense_feat(n, nf, F.nnz, itemsize, config.dense_gram):
+            X = torch.zeros((n, nf), dtype=getattr(torch, config.dtype),
+                            device=device)
+            cells = tuple(torch.from_numpy(a.astype(np.int64)).to(device)
+                          for a in (F.rows, F.cols))
+            X.index_put_(cells, torch.from_numpy(
+                F.values().astype(np_dt)).to(device), accumulate=True)
+            feat["dense_X"] = X
+        else:
+            feat["mv"] = build_bucketed_matvec(
+                F.rows, F.cols, F.shape, vals=F.vals,
+                widths=config.bucket_widths, row_pad=config.row_pad,
+                dtype=np_dt, device=device)
+        secs["operand"] = time.perf_counter() - t0
+        pref = ent.use_ff if ent.use_ff is not None else config.use_ff
+        use_ff = (nf <= config.ff_threshold) if pref is None else bool(pref)
+        solver = "ff" if use_ff else "cg"
+        if not use_ff and use_dual(config.beta_solver, n, nf,
+                                   np_dt.itemsize, config.dual_budget_gb):
+            solver = "dual"
+            Q, d, G = dual_eig_cached(F.rows, F.cols, F.values(), F.shape,
+                                      np_dt, config.dual_cache_dir, device,
+                                      timings=secs)
+            feat["dual_Q"], feat["dual_d"] = Q, d
+            feat["dual_G"] = torch.from_numpy(G.astype(np_dt)).to(device)
+            del G
+        rank = resolve_nystrom_rank(config.cg_nystrom_rank, nf)
+        if solver == "cg" and rank and nf >= 4 * rank:
+            t0 = time.perf_counter()
+            Un, dn = build_nystrom(F.rows, F.cols, F.values(), F.shape,
+                                   rank, seed=config.seed)
+            feat["nys_U"] = torch.from_numpy(Un.astype(np_dt)).to(device)
+            feat["nys_d"] = torch.from_numpy(dn.astype(np_dt)).to(device)
+            secs["nystrom"] = time.perf_counter() - t0
+        if use_ff:
+            import scipy.sparse as sp
+            t0 = time.perf_counter()
+            X = sp.coo_matrix((F.values().astype(np_dt), (F.rows, F.cols)),
+                              shape=F.shape).tocsr()
+            feat["ftf"] = torch.from_numpy(
+                np.asarray((X.T @ X).todense(), np_dt)).to(device)
+            secs["ftf"] = time.perf_counter() - t0
+        self.feat[f"e{ei}"] = feat
+        self.feat_seconds[f"e{ei}"] = secs
+        self.entity_specs[ei] = dataclasses.replace(
+            self.entity_specs[ei], num_features=nf, use_ff=use_ff,
+            feat_nnz=F.nnz, solver=solver)
 
     def _build_relation(self, ri, rel, mean_value, config, device):
         """Relation ``ri``'s store or bucket layouts.  The gather path for
@@ -314,17 +412,27 @@ class MacauEngine:
     # -- state ---------------------------------------------------------------
     def init_state(self, generator: Optional[torch.Generator] = None
                    ) -> Dict[str, Any]:
-        """U ~ init_std * N(0, I), mu = 0, Lambda = I, alpha from config."""
+        """U ~ init_std * N(0, I), mu = 0, Lambda = I, alpha from config;
+        with side features beta = 0, uhat = 0 and lambda_beta from the
+        entity or the config (JAX engine :710-740)."""
         cfg = self.config
         K, dt, dev = cfg.num_latent, self.dtype, self.device
         if generator is None:
             generator = torch.Generator(device=dev).manual_seed(cfg.seed)
-        ents = [{"U": cfg.init_std * torch.randn((es.n, K),
-                                                 generator=generator,
-                                                 dtype=dt, device=dev),
-                 "mu": torch.zeros(K, dtype=dt, device=dev),
-                 "Lambda": torch.eye(K, dtype=dt, device=dev)}
-                for es in self.problem.entity_specs]
+        ents = []
+        for ei, es in enumerate(self.problem.entity_specs):
+            ent = {"U": cfg.init_std * torch.randn((es.n, K),
+                                                   generator=generator,
+                                                   dtype=dt, device=dev),
+                   "mu": torch.zeros(K, dtype=dt, device=dev),
+                   "Lambda": torch.eye(K, dtype=dt, device=dev)}
+            if es.has_features:
+                ent["beta"] = torch.zeros((es.num_features, K), dtype=dt,
+                                          device=dev)
+                ent["uhat"] = torch.zeros((es.n, K), dtype=dt, device=dev)
+                ent["lambda_beta"] = torch.tensor(
+                    self.problem.init_lambda_beta[ei], dtype=dt, device=dev)
+            ents.append(ent)
         rels = [{"alpha": torch.tensor(a, dtype=dt, device=dev)}
                 for a in self.problem.init_alpha]
         preds = {}
@@ -346,7 +454,7 @@ class MacauEngine:
         return self._sweep_with_randoms(state, self.draw(s + 1), accumulate)
 
     def _sweep_with_randoms(self, state, randoms, accumulate: float):
-        """One Gibbs sweep (JAX engine :748-998): each entity in turn, then
+        """One Gibbs sweep (JAX engine :747-998): each entity in turn, then
         the alpha draws, then the predictions."""
         cfg = self.config
         nu0 = cfg.resolved_nu0()
@@ -355,10 +463,26 @@ class MacauEngine:
         ents = [dict(e) for e in state["ent"]]
         rels = list(state["rel"])
 
-        for ei in range(len(prob.entity_specs)):
+        for ei, es in enumerate(prob.entity_specs):
             ent = ents[ei]
+            uhat = None
+            if es.has_features:
+                # beta first, with the current Lambda (JAX :765-778)
+                with record_function(f"beta_e{ei}"):
+                    ent["beta"], ent["uhat"], cg_diag = self._sample_beta(
+                        ei, ent, randoms)
+                    if cg_diag is not None:
+                        metrics[f"e{ei}.cg_iters"] = cg_diag[0]
+                        metrics[f"e{ei}.cg_resid"] = cg_diag[1]
+                    if cfg.sample_lambda_beta:
+                        ent["lambda_beta"] = sample_lambda_beta(
+                            ent["beta"], ent["Lambda"],
+                            randoms[f"e{ei}.lb_g"], cfg.nu_beta,
+                            cfg.lambda_beta_mean)
+                uhat = ent["uhat"]
             mu, Lambda = normal_wishart_update(
-                ent["U"], cfg.nw_b0, nu0, 2.0 * randoms[f"e{ei}.nw_g"],
+                ent["U"] if uhat is None else ent["U"] - uhat, cfg.nw_b0,
+                nu0, 2.0 * randoms[f"e{ei}.nw_g"],
                 randoms[f"e{ei}.nw_tri"], randoms[f"e{ei}.nw_mu"])
             ent["mu"], ent["Lambda"] = mu, Lambda
             # every (relation, mode) this entity fills, the partners read
@@ -377,8 +501,11 @@ class MacauEngine:
                     for ba in prob.layouts.get(f"r{ri}m{mode}", ()):
                         contribs.append((alpha, partners, ba))
             ent["U"] = self._sample(ei, ent, dense, contribs,
-                                    randoms[f"e{ei}.xi"])
+                                    randoms[f"e{ei}.xi"], uhat)
             metrics[f"e{ei}.unorm"] = torch.linalg.norm(ent["U"])
+            if es.has_features:
+                metrics[f"e{ei}.betanorm"] = torch.linalg.norm(ent["beta"])
+                metrics[f"e{ei}.lambda_beta"] = ent["lambda_beta"]
 
         # noise precisions (JAX engine :953-965)
         for ri, rs in enumerate(prob.rel_specs):
@@ -415,9 +542,79 @@ class MacauEngine:
             pmean = pr["sum"] / torch.clamp_min(pr["n"], 1.0)
             metrics[f"{key}.rmse_avg"] = torch.sqrt(
                 torch.mean((pmean - te["vals"]) ** 2))
+            if rs.class_cut is not None:
+                # the AUC of the running posterior mean (JAX :991-996)
+                labels = (te["vals"] < rs.class_cut).to(self.dtype)
+                metrics[f"{key}.auc"] = auc_device(labels, -pmean)
         return {"ent": ents, "rel": rels, "pred": preds}, metrics
 
-    def _sample(self, ei, ent, dense, contribs, xi):
+    def _feat_ops(self, ei):
+        """Entity ``ei``'s (X @ V, X' @ U): on the dense X by
+        ``torch.matmul``, else on the bucketed matvec (JAX :1062-1090)."""
+        feat = self.problem.feat[f"e{ei}"]
+        X = feat.get("dense_X")
+        if X is not None:
+            return (lambda V: X @ V), (lambda V: X.mT @ V)
+        es = self.problem.entity_specs[ei]
+        mv = feat["mv"]
+        return (lambda V: bucketed_spmm(mv["fwd"], es.n, V),
+                lambda V: bucketed_spmm(mv["t"], es.num_features, V))
+
+    def _beta_rhs(self, ei, ent, randoms):
+        """The right-hand side X'(U - mu + E1) + sqrt(lambda_beta) E2 of
+        entity ``ei``'s beta draw, E1 [N, K] and E2 [F, K] rows ~ N(0,
+        Lambda^-1) from the sweep's normals (JAX :1054-1094)."""
+        L, _ = torch.linalg.cholesky_ex(ent["Lambda"])
+
+        def colored(z):                      # L^-T z' per row
+            return solve_triangular(L.mT, z.mT, upper=True).mT
+        resid = ent["U"] - ent["mu"][None, :] + colored(
+            randoms[f"e{ei}.beta_e1"])
+        return (self._feat_ops(ei)[1](resid) + torch.sqrt(
+            ent["lambda_beta"]) * colored(randoms[f"e{ei}.beta_e2"]))
+
+    def _solve_beta(self, ei, rhs, lam, beta0):
+        """(beta, uhat, cg_diag) from (X'X + lam I) beta = rhs by entity
+        ``ei``'s solver (JAX :1096-1137): "ff" a Cholesky solve on X'X;
+        "dual" ``dual_solve_g`` (uhat = its z); "cg" ``block_cg`` warm
+        from ``beta0``, Nystrom- or Jacobi-preconditioned, to
+        max(cg_tol, 1e-5) in float32, with cg_diag (iterations, the
+        exit-time true relative residual)."""
+        cfg = self.config
+        es = self.problem.entity_specs[ei]
+        feat = self.problem.feat[f"e{ei}"]
+        fwd, t = self._feat_ops(ei)
+        if es.solver == "dual":
+            beta, uhat = dual_solve_g(feat["dual_Q"], feat["dual_d"],
+                                      feat["dual_G"], lam, rhs, fwd, t,
+                                      cfg.dual_refine)
+            return beta, uhat, None
+        cg_diag = None
+        if es.solver == "ff":
+            A = feat["ftf"] + lam * torch.eye(
+                es.num_features, dtype=self.dtype, device=self.device)
+            beta = chol_solve(A, rhs)
+        else:
+            tol = (cfg.cg_tol if self.dtype == torch.float64
+                   else max(cfg.cg_tol, 1e-5))
+            precond = None
+            if "nys_U" in feat:
+                Un, dn = feat["nys_U"], feat["nys_d"]
+                precond = lambda r: nystrom_apply(Un, dn, lam, r)  # noqa: E731
+            beta, it, resid = block_cg(
+                lambda V: t(fwd(V)) + lam * V, rhs, beta0, tol=tol,
+                maxiter=cfg.cg_maxiter,
+                precond_diag=feat["colcount"] + lam, precond=precond)
+            cg_diag = (it, resid)
+        return beta, fwd(beta), cg_diag
+
+    def _sample_beta(self, ei, ent, randoms):
+        """Entity ``ei``'s noise-injected exact Gibbs draw of beta
+        (``_beta_rhs``, then ``_solve_beta``)."""
+        return self._solve_beta(ei, self._beta_rhs(ei, ent, randoms),
+                                ent["lambda_beta"], ent["beta"])
+
+    def _sample(self, ei, ent, dense, contribs, xi, uhat=None):
         """The draw of entity ``ei``'s rows from its ``dense``
         contributions ((relation, mode, partners, alpha)) and its gather
         buckets ``contribs`` ((alpha, partners, bucket)).
@@ -431,11 +628,14 @@ class MacauEngine:
         ``assemble_precision_planned`` (Lambda in P), the dense
         contributions unpacked and added, then the full-P sampler (K3, K4,
         the blocked one above K = 96); an entity with no contribution
-        draws from its prior."""
+        draws from its prior.  The prior term is Lambda (mu + uhat_i) for
+        each row i of an entity with side features (``uhat`` [n, K]), else
+        Lambda mu."""
         cfg = self.config
         K = cfg.num_latent
         n = self.problem.entity_specs[ei].n
         mu, Lambda = ent["mu"], ent["Lambda"]
+        prior_mean = mu if uhat is None else mu + uhat
         gd = getattr(torch, cfg.gram_dtype) if cfg.gram_dtype else None
         if K <= K2_MAX_K and dense and cfg.accumulation != "planned":
             P = b = None
@@ -449,25 +649,26 @@ class MacauEngine:
                 packed_bucket_accum(contribs, n, K, gram_dtype=gd,
                                     transposed=True, out=(P, b),
                                     tri=self.problem.tri)
-            b = (mu @ Lambda)[:, None] + b
+            b = (mu @ Lambda)[:, None] + b if uhat is None else \
+                (prior_mean @ Lambda).mT + b
             return chol_sample_packed_dispatch(P, b, xi, Lambda,
                                                cfg.chol_jitter,
                                                transposed=True)
         lam = Lambda
         if cfg.accumulation == "planned":
             P, b = assemble_precision_planned(
-                Lambda, mu, contribs, n, self.problem.acc_plan[f"e{ei}"],
-                gram_dtype=gd)
+                Lambda, prior_mean, contribs, n,
+                self.problem.acc_plan[f"e{ei}"], gram_dtype=gd)
             lam = None
         elif contribs or not dense:
-            P, b = assemble_precision(Lambda, mu, contribs, n,
+            P, b = assemble_precision(Lambda, prior_mean, contribs, n,
                                       gram_dtype=gd, fuse_lambda=True)
         else:
             # dense contributions alone: the first one's fresh [n, K, K]
             # output is the accumulator, which saves an [n, K, K] buffer
             # (4.7 GB at K = 128 on ML-10M)
             P = None
-            b = mu @ Lambda
+            b = prior_mean @ Lambda
         for ri, mode, partners, alpha in dense:
             P_d, b_d = self._dense_contrib(ri, mode, partners, alpha,
                                            packed=False)
@@ -601,8 +802,9 @@ class MacauEngine:
     def _results(self, state, history) -> Dict[str, Any]:
         """Reference-style result dict (JAX engine :1179): per relation with
         a test split, under its name, the RMSE of the posterior mean and
-        the test predictions with their posterior stdev; relation 0's also
-        at the top level."""
+        the test predictions with their posterior stdev (and, under a
+        ``class_cut``, the AUC and the accuracy of the posterior mean);
+        relation 0's also at the top level."""
         out: Dict[str, Any] = {"state": state, "history": history}
         for ri, rs in enumerate(self.problem.rel_specs):
             key = f"r{ri}"
@@ -620,10 +822,63 @@ class MacauEngine:
                        "predictions": {"idx": te_idx, "obs": te_val,
                                        "pred": pmean,
                                        "stdev": np.sqrt(pvar)}}
+            if rs.class_cut is not None:
+                obs_cls = te_val < rs.class_cut
+                rel_out["AUC"] = _auc(obs_cls, -pmean)
+                rel_out["accuracy"] = float(
+                    np.mean((pmean < rs.class_cut) == obs_cls))
             out[rs.name] = rel_out
             if ri == 0:
                 out.update(rel_out)
         return out
+
+
+def auc_device(labels: torch.Tensor, scores: torch.Tensor) -> torch.Tensor:
+    """Binary AUC by the midrank statistic, on the device (JAX
+    ``engine.auc_device`` :1242): the labels sorted along with the scores,
+    each tie group's first and last 1-based index found by running max /
+    min scans over the group boundaries, ranks their mean, so tied scores
+    agree with the host ``_auc``."""
+    dtype = scores.dtype
+    n = scores.shape[0]
+    s, order = torch.sort(scores, stable=True)
+    lab = labels.to(dtype)[order]
+    idx = torch.arange(1, n + 1, device=scores.device)
+    one = torch.ones(1, dtype=torch.bool, device=scores.device)
+    brk = s[1:] != s[:-1]                       # tie-group boundaries
+    start = torch.cummax(torch.where(torch.cat([one, brk]), idx, 0), 0)[0]
+    end = torch.flip(torch.cummin(torch.flip(
+        torch.where(torch.cat([brk, one]), idx, n + 1), (0,)), 0)[0], (0,))
+    ranks = 0.5 * (start + end).to(dtype)
+    n_pos = torch.sum(labels.to(dtype))
+    n_neg = n - n_pos
+    r_pos = torch.sum(ranks * lab)
+    return ((r_pos - n_pos * (n_pos + 1) / 2.0)
+            / torch.clamp_min(n_pos * n_neg, 1.0))
+
+
+def _auc(labels: np.ndarray, scores: np.ndarray) -> float:
+    """Binary AUC by the rank statistic, midranks for ties, on the host
+    (JAX ``engine._auc`` :1287); NaN without both classes."""
+    pos = scores[labels]
+    neg = scores[~labels]
+    if len(pos) == 0 or len(neg) == 0:
+        return float("nan")
+    allv = np.concatenate([pos, neg])
+    order = np.argsort(allv, kind="stable")
+    ranks = np.empty_like(order, dtype=np.float64)
+    ranks[order] = np.arange(1, len(order) + 1)
+    sv = allv[order]
+    i = 0
+    while i < len(sv):
+        j = i
+        while j + 1 < len(sv) and sv[j + 1] == sv[i]:
+            j += 1
+        if j > i:
+            ranks[order[i:j + 1]] = (i + 1 + j + 1) / 2.0
+        i = j + 1
+    n_p, n_n = len(pos), len(neg)
+    return float((ranks[:n_p].sum() - n_p * (n_p + 1) / 2.0) / (n_p * n_n))
 
 
 def macau(data: RelationData,

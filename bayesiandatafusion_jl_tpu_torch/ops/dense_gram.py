@@ -89,6 +89,42 @@ def tri_maps(K: int) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
 # host side (numpy)
 # ---------------------------------------------------------------------------
 
+# The JAX package's constants of the dense-versus-bucketed choice of the
+# side features' operand (its ``use_dense_feat``), copied so that both
+# packages choose alike.  They are the JAX package's decision constants,
+# not measurements of this port's card.
+_HBM_BPS = 7.0e11
+_AUTO_MIN_NNZ = 50_000
+_SPMM_S_PER_NNZ = 6.2e-9
+
+
+def feat_itemsize(is_binary: bool, gram_dtype: Optional[str],
+                  dtype) -> int:
+    """The bytes per cell of the JAX package's dense feature operand, which
+    its ``use_dense_feat`` decides on: int8 for binary features under
+    ``gram_dtype="bfloat16"``, else the compute dtype's."""
+    if is_binary and gram_dtype == "bfloat16":
+        return 1
+    return np.dtype(dtype).itemsize
+
+
+def use_dense_feat(n: int, f: int, nnz: int, itemsize: int,
+                   dense_gram: Optional[bool]) -> bool:
+    """A dense [N, F] feature operand for the beta products, instead of
+    the bucketed sparse matvec (JAX ``dense_gram.use_dense_feat`` :242)?
+    Never under ``dense_gram=False`` or above 2 GB at ``itemsize``; always
+    under True; under None when two streams of the dense operand are
+    predicted faster than 0.7 x two bucketed passes (from 50,000 nnz)."""
+    bytes_x = float(n) * f * itemsize
+    if dense_gram is False or bytes_x > 2e9:
+        return False
+    if dense_gram is None:
+        if nnz < _AUTO_MIN_NNZ:
+            return False
+        return 2.0 * bytes_x / _HBM_BPS < 0.7 * 2.0 * nnz * _SPMM_S_PER_NNZ
+    return True
+
+
 def int8_pair_ok(idx: np.ndarray, shape: Sequence[int]) -> bool:
     """int8 eligibility from the observation index alone: every cell's
     multiplicity fits int8, and no int32 dot along the contracted (largest

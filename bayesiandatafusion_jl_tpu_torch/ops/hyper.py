@@ -1,5 +1,6 @@
 """Hyperparameter draws (port of ``ops/hyper.py``): the Normal-Wishart
-prior of each entity and the noise precision alpha of a relation.
+prior of each entity, the link-matrix precision lambda_beta of an entity
+with side features and the noise precision alpha of a relation.
 
 Wishart sampling by the Bartlett decomposition on K x K matrices; every
 random number comes from the sweep's randoms dict (utils/rng.py).  Float32
@@ -63,6 +64,16 @@ def normal_wishart_from_moments(N: int, Sbar: torch.Tensor,
     b_sqrt = torch.sqrt(torch.tensor(b_star, dtype=Sbar.dtype))
     mu = mu_star + (M @ w)[:, 0] / b_sqrt
     return mu, Lambda
+
+
+def sample_lambda_beta(beta: torch.Tensor, Lambda: torch.Tensor,
+                       g: torch.Tensor, nu_beta: float,
+                       lambda_beta_mean: float) -> torch.Tensor:
+    """lambda_beta | beta, Lambda ~ Gamma((nu + F K)/2, rate = (nu / mean +
+    tr(beta' beta Lambda)) / 2), from the pre-drawn standard Gamma((nu +
+    F K)/2) variate ``g`` (JAX ``ops/hyper.sample_lambda_beta`` :94)."""
+    tr = torch.einsum("fk,fl,kl->", beta, beta, Lambda)
+    return g / ((nu_beta / lambda_beta_mean + tr) / 2.0)
 
 
 def sample_alpha(sse: torch.Tensor, n_obs: int, g: torch.Tensor, a0: float,

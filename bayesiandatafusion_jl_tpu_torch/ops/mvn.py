@@ -1,7 +1,7 @@
 """Batched Cholesky factorize-and-sample on a full P (port of ``ops/mvn.py``
-``chol_sample`` and ``chol_sample_dispatch``).  ``chol_sample`` is plain
-torch: the reference the blocked sampler (ops/chol_blocked.py) is checked
-against, and the sampler above K = 128."""
+``chol_sample``, ``chol_sample_dispatch`` and ``chol_solve``).
+``chol_sample`` is plain torch: the reference the blocked sampler
+(ops/chol_blocked.py) is checked against, and the sampler above K = 128."""
 from __future__ import annotations
 
 from typing import Optional
@@ -30,6 +30,18 @@ def chol_sample(P: torch.Tensor, b: torch.Tensor, xi: torch.Tensor,
     mu = solve_triangular(L.mT, y, upper=True)
     u = solve_triangular(L.mT, xi[..., None], upper=True)
     return (mu + u)[..., 0]
+
+
+def chol_solve(P: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """P^-1 b by Cholesky, batched; b [..., K] or [..., K, M] (JAX
+    ``mvn.chol_solve`` :93).  No host read of the factorization's flag: a
+    P that is not positive definite gives NaN, as in the JAX package."""
+    L, _ = torch.linalg.cholesky_ex(P)
+    vec = b.ndim == P.ndim - 1
+    bb = b[..., None] if vec else b
+    y = solve_triangular(L, bb, upper=False)
+    x = solve_triangular(L.mT, y, upper=True)
+    return x[..., 0] if vec else x
 
 
 def chol_sample_dispatch(P: torch.Tensor, b: torch.Tensor, xi: torch.Tensor,

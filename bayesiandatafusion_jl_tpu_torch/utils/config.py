@@ -19,11 +19,6 @@ import numpy as np
 # for yet, with their ROADMAP items.  The TPU-only knobs are not listed:
 # the port has no use for them.
 UNPORTED_FIELDS = {
-    **dict.fromkeys(("lambda_beta", "sample_lambda_beta", "nu_beta",
-                     "lambda_beta_mean", "use_ff", "ff_threshold",
-                     "beta_solver", "dual_budget_gb", "dual_cache_dir",
-                     "dual_refine", "cg_tol", "cg_maxiter",
-                     "cg_nystrom_rank"), "M8"),
     **dict.fromkeys(("metrics_every", "sweeps_per_dispatch", "trace_dir"),
                     "M4"),
     **dict.fromkeys(("log_file", "output_prefix", "checkpoint_every",
@@ -45,6 +40,14 @@ class MacauConfig:
     # Normal-Wishart hyperprior: mu0 = 0, b0, W0 = I, nu0 (None = K)
     nw_b0: float = 2.0
     nw_nu0: Optional[float] = None
+    # link-matrix precision lambda_beta of an entity with side features:
+    # its initial value, and (``sample_lambda_beta``) its Gamma hyperprior,
+    # drawn each sweep from Gamma((nu_beta + F K)/2, rate = (nu_beta /
+    # lambda_beta_mean + tr(beta' beta Lambda)) / 2)
+    lambda_beta: float = 1.0
+    sample_lambda_beta: bool = True
+    nu_beta: float = 1e-3
+    lambda_beta_mean: float = 1.0
     # noise precision of every relation: fixed, or (``alpha_sample``, or
     # ``RelationData.set_precision(..., sample=True)``) drawn each sweep
     # from Gamma(alpha_a0 + nnz/2, rate = alpha_b0 + SSE/2)
@@ -94,6 +97,29 @@ class MacauConfig:
     # buckets' rows; "planned" = static first-row gather + overflow sum
     accumulation: str = "segment"
     row_pad: int = 8  # pad bucket rows to a multiple of this
+
+    # --- the beta draw of an entity with side features (ops/dual.py,
+    # ops/cg.py, ops/precond.py) ---
+    # the direct X'X path ("ff"): None = where F <= ff_threshold (an
+    # entity's own ``use_ff`` overrides)
+    use_ff: Optional[bool] = None
+    ff_threshold: int = 4096
+    # off the FF path: None = the Woodbury "dual" solve on an
+    # eigendecomposition of XX' where N < F, F >= 4096 and Q and G fit
+    # dual_budget_gb (``use_dual``), else blocked CG; or "cg" / "dual"
+    beta_solver: Optional[str] = None
+    dual_budget_gb: float = 4.0
+    # a directory to keep the XX' eigendecomposition in, keyed by a hash
+    # of the features; None = decompose at every engine build
+    dual_cache_dir: Optional[str] = None
+    # refinement steps of the dual solve against the exact G
+    dual_refine: int = 1
+    # CG's relative residual (floored at 1e-5 in float32) and its limit
+    cg_tol: float = 1e-6
+    cg_maxiter: int = 200
+    # the Nystrom preconditioner's rank: None = auto (1024 for F >= 16384,
+    # 512 for F >= 8192), 0 = Jacobi; skipped when F < 4 x the rank
+    cg_nystrom_rank: Optional[int] = None
 
     def __new__(cls, *args, **kwargs):
         absent = [f"{k} (ROADMAP {UNPORTED_FIELDS[k]})" for k in kwargs

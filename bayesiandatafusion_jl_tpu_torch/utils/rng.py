@@ -33,15 +33,19 @@ RandomSpec = Dict[str, DrawSpec]
 
 
 def build_random_spec(entity_sizes: Sequence[int], K: int, nu0: float,
-                      rel_specs: Sequence = (), alpha_a0: float = 0.0
-                      ) -> RandomSpec:
-    """Shapes of one sweep's draws for featureless entities — the keys,
-    shapes and Gamma parameters of the JAX ``engine.build_random_spec``
-    (:459-488) for the same graph: per entity its Normal-Wishart draws and
-    the latent rows' normals; per relation of ``rel_specs`` (objects with
+                      rel_specs: Sequence = (), alpha_a0: float = 0.0,
+                      num_features: Sequence[int] = (),
+                      sample_lambda_beta: bool = False,
+                      nu_beta: float = 0.0) -> RandomSpec:
+    """Shapes of one sweep's draws — the keys, order, shapes and Gamma
+    parameters of the JAX ``engine.build_random_spec`` (:452-483) for the
+    same graph: per entity its Normal-Wishart draws and the latent rows'
+    normals, and for an entity with F = ``num_features[ei]`` > 0 side
+    features the beta draw's normals ``beta_e1`` [N, K] and ``beta_e2``
+    [F, K] and, with ``sample_lambda_beta``, the standard Gamma((nu_beta +
+    F K)/2) variate ``lb_g``; per relation of ``rel_specs`` (objects with
     ``alpha_sample`` and ``nnz``) whose alpha is sampled, the standard
-    Gamma(alpha_a0 + nnz/2) variate ``r{ri}.alpha_g``.  (Side features add
-    draws there; they are ROADMAP M8.)"""
+    Gamma(alpha_a0 + nnz/2) variate ``r{ri}.alpha_g``."""
     spec: RandomSpec = {}
     for ei, N in enumerate(entity_sizes):
         nu_star = nu0 + N
@@ -50,6 +54,13 @@ def build_random_spec(entity_sizes: Sequence[int], K: int, nu0: float,
         spec[f"e{ei}.nw_tri"] = DrawSpec("normal", (K, K))
         spec[f"e{ei}.nw_mu"] = DrawSpec("normal", (K,))
         spec[f"e{ei}.xi"] = DrawSpec("normal", (N, K))
+        F = num_features[ei] if ei < len(num_features) else 0
+        if F:
+            spec[f"e{ei}.beta_e1"] = DrawSpec("normal", (N, K))
+            spec[f"e{ei}.beta_e2"] = DrawSpec("normal", (F, K))
+            if sample_lambda_beta:
+                spec[f"e{ei}.lb_g"] = DrawSpec(
+                    "gamma", (), ((nu_beta + F * K) / 2.0,))
     for ri, rs in enumerate(rel_specs):
         if rs.alpha_sample:
             spec[f"r{ri}.alpha_g"] = DrawSpec(

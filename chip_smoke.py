@@ -120,6 +120,25 @@ Phases, each fatal on failure (nonzero exit, no result line):
      ``index_select`` in bfloat16 and float32.  No engine path runs K9
      (as in JAX): every path holds its launches to 0, and its row in the
      kernels line says 0.
+8. the ChEMBL Macau paths (``bench.py:165-189`` on the port: 15,000
+   compounds x 346 targets, 300,000 activities, ``class_cut``
+   log10(200), 15,000 x 32,000 binary fingerprint features; K = 32,
+   float32, the int8 pair: K6 and K7 for both modes, K1 for both
+   entities), each with its build seconds (G, eigh, Nystrom, X'X), the
+   kernels' launches a sweep, peak memory and the beta draw's share of
+   the sweep (``record_function`` ranges under ``torch.profiler``, and
+   CUDA events around the draw):
+   - ``chembl``: the dual solve (XX' decomposed in float32 on the card),
+     the bench's protocol (20-sweep windows); rmse_avg 0.4998 +- 0.02 and
+     AUC 0.8904 +- 0.01 (the JAX chain's), the dual solve's true residual
+     below 1e-5 (float64 on the card), K6 held against its plain version
+     on the path's store;
+   - ``chembl_cg``: Nystrom-preconditioned CG (rank 1024), the same
+     protocol and bands, its exit residual below 1e-4, the iterations and
+     what their host reads cost;
+   - ``chembl_cg_sparse``: Jacobi CG on the bucketed matvec
+     (``dense_gram=False``: the relation on the gather path, K3);
+   - ``chembl_ff``: 4,096 features, the X'X path.
    On every path the plain versions, the other paths' kernels,
    ``torch._int_mm`` and the torch quantization of the table
    (``quantize_table_t``; each counted through a wrapper the script
@@ -131,6 +150,7 @@ The last lines are the card's ``nvidia-smi`` name and power limit, a JSON
 object describing the kernels (with each one's bound on this card) and
 the ``{"ok": true, "device": ...}`` line.
 """
+import contextlib
 import functools
 import json
 import math
@@ -228,6 +248,30 @@ TENSOR_RUN, TENSOR_ANCHOR = (15, 3), 0.4375
 FUSION_RUN, FUSION_ANCHOR = (15, 3), 0.4406
 TENSOR_BIG_RUN, TENSOR_BIG_ANCHOR = (8, 1), 0.4420
 GRAPH_OPTS = dict(gram_dtype="bfloat16", bucket_widths=BENCH_WIDTHS)
+# The ChEMBL Macau paths (bench.py:165-189): the data, its test split and
+# the config (float32, K = 32, gram_dtype="bfloat16", use_ff=False,
+# cg_maxiter=100, seed 42, dense_int8=True; no cache dir, so the
+# eigendecomposition is built and timed every run; the bench's
+# sweeps_per_dispatch=20 is the port's ROADMAP M4 and does not change the
+# chain), the bench's protocol (20-sweep windows, 3 timed), and the JAX
+# chain's quality on the same data and protocol (docs/BENCH_R5_RUNS.md:19:
+# rmse_avg 0.4998, AUC 0.8904), held to +-0.02 and +-0.01
+CHEMBL_DATA = dict(n_compounds=15_000, n_targets=346, n_features=32_000,
+                   nnz=300_000, seed=3)
+CHEMBL_TEST = 30_000
+CHEMBL_OPTS = dict(gram_dtype="bfloat16", use_ff=False, cg_maxiter=100,
+                   dense_int8=True)
+CHEMBL_RUN = (20, 3)
+CHEMBL_RMSE_ANCHOR, CHEMBL_AUC_ANCHOR = 0.4998, 0.8904
+CHEMBL_AUC_BAND = 0.01
+# the dual solve's true relative residual (float32, one refinement) must
+# stay below CG's float32 floor; CG's exit-time residual below 1e-4
+DUAL_RESID_MAX, CG_RESID_MAX = 1e-5, 1e-4
+# the sparse-operand CG path (Jacobi, the bucketed matvec, the relation on
+# the gather path) and the FF path (4,096 features: F <= ff_threshold)
+# run one shorter window each
+CHEMBL_SHORT_RUN = (10, 1)
+CHEMBL_FF_FEATURES = 4_096
 FUSED_ML_MORE = ((128, 20, dict(dense_int8=True)),
                  (64, 40, dict(dense_int8=False, gram_dtype="bfloat16")),
                  (128, 20, dict(dense_int8=False, gram_dtype="bfloat16")),
@@ -1276,7 +1320,10 @@ def profile_split(eng, warm=2, sweeps=3, split=SPLIT):
     rest under "rest"), the device idle share, the largest kernels and the
     largest of "rest" (ms per sweep, and launches in the trace, to show a
     lost event), from a ``torch.profiler`` trace of ``sweeps`` sweeps
-    after ``warm``."""
+    after ``warm``.  The engine's ``record_function`` ranges of the beta
+    draw ("beta_e{i}"), where the trace carries them on the device's
+    timeline, give ``beta_span_ms`` (their device span a sweep) and
+    ``beta_busy_ms`` (the kernel time inside them); None without them."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     state = eng.init_state()
@@ -1291,11 +1338,26 @@ def profile_split(eng, warm=2, sweeps=3, split=SPLIT):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     by_name, launches = {}, {}
+    spans, kernels = [], []
     for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            by_name[e.name] = (by_name.get(e.name, 0.0)
-                               + e.time_range.elapsed_us() / 1e3)
-            launches[e.name] = launches.get(e.name, 0) + 1
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        interval = (e.time_range.start, e.time_range.end)
+        if (getattr(e, "is_user_annotation", False)
+                or e.name.startswith("beta_e")):
+            if e.name.startswith("beta_e"):
+                spans.append(interval)
+            continue
+        kernels.append(interval)
+        by_name[e.name] = (by_name.get(e.name, 0.0)
+                           + e.time_range.elapsed_us() / 1e3)
+        launches[e.name] = launches.get(e.name, 0) + 1
+    beta_span = beta_busy = None
+    if spans:
+        beta_span = sum(b - a for a, b in spans) / 1e3 / sweeps
+        beta_busy = sum(b - a for a, b in kernels
+                        if any(s0 <= a < s1 for s0, s1 in spans)
+                        ) / 1e3 / sweeps
     parts = {part: 0.0 for part, _ in split}
     parts["rest"] = 0.0
     rest = []
@@ -1312,6 +1374,7 @@ def profile_split(eng, warm=2, sweeps=3, split=SPLIT):
     return {"split_ms": split, "device_ms": device_ms,
             "wall_ms": wall_ms / sweeps,
             "idle": 1.0 - device_ms * sweeps / wall_ms,
+            "beta_span_ms": beta_span, "beta_busy_ms": beta_busy,
             "top": [(n[:60], ms / sweeps, launches[n]) for n, ms in top[:8]],
             "rest_top": [(n[:200], ms / sweeps, launches[n])
                          for n, ms in rest[:10]]}
@@ -1533,6 +1596,285 @@ def run_graph_paths(tally):
     return checks
 
 
+@contextlib.contextmanager
+def beta_draws(eng, timed=False):
+    """Within the block, each call of ``eng._sample_beta`` appends to the
+    list yielded its CG diagnostics (iterations, exit residual; None off
+    the CG path) and, with ``timed``, CUDA events around it."""
+    import torch
+    draws = []
+    orig = eng._sample_beta
+
+    def wrapped(*a, **kw):
+        ev = None
+        if timed:
+            ev = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+        out = orig(*a, **kw)
+        if timed:
+            ev[1].record()
+        draws.append((out[2], ev))
+        return out
+    eng._sample_beta = wrapped
+    try:
+        yield draws
+    finally:
+        del eng._sample_beta
+
+
+def beta_stream_split(eng, warm=2, sweeps=5):
+    """The beta draw's share of a sweep on the stream: CUDA events around
+    ``MacauEngine._sample_beta`` and around each sweep (``sweeps`` sweeps
+    after ``warm``), in ms a sweep, with the wall time a sweep and, on the
+    CG path, each draw's iterations and exit-time residual.  The stream
+    time of the draw includes the device's waits for the host (CG's one
+    read an iteration)."""
+    import torch
+    state = eng.init_state()
+    for s in range(warm):
+        state, _ = eng._sweep(state, s, 0.0)
+    with beta_draws(eng, timed=True) as draws:
+        torch.cuda.synchronize()
+        s0 = torch.cuda.Event(enable_timing=True)
+        s1 = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        s0.record()
+        for s in range(warm, warm + sweeps):
+            state, _ = eng._sweep(state, s, 0.0)
+        s1.record()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / sweeps
+    diags = [d for d, _ in draws if d is not None]
+    return {"beta_ms": sum(a.elapsed_time(b) for _, (a, b) in draws)
+            / sweeps,
+            "sweep_ms": s0.elapsed_time(s1) / sweeps, "wall_ms": wall,
+            "cg_iters": [int(d[0]) for d in diags],
+            "cg_resid": [float(d[1]) for d in diags]}
+
+
+def dual_residual(eng, sweeps=3):
+    """The dual solve on the card after ``sweeps`` sweeps of the chain: the
+    next sweep's right-hand side (``_beta_rhs``) solved by
+    ``dual_solve_g`` with the engine's refinement and without, each
+    solution's true relative residual ||rhs - (X'X + lam I) beta|| /
+    ||rhs|| (largest over the K columns) and ||uhat - X beta|| / ||X
+    beta||, both computed in float64 on the card from the float32 X."""
+    import torch
+    from bayesiandatafusion_jl_tpu_torch.ops.dual import dual_solve_g
+    state = eng.init_state()
+    for s in range(sweeps):
+        state, _ = eng._sweep(state, s, 0.0)
+    ent = state["ent"][0]
+    feat = eng.problem.feat["e0"]
+    rhs = eng._beta_rhs(0, ent, eng.draw(sweeps + 1))
+    lam = ent["lambda_beta"]
+    X = feat["dense_X"]
+    X64, rhs64, lam64 = X.double(), rhs.double(), lam.double()
+    out = {"lambda_beta": float(lam)}
+    for refine in sorted({eng.config.dual_refine, 0}):
+        beta, z = dual_solve_g(feat["dual_Q"], feat["dual_d"],
+                               feat["dual_G"], lam, rhs,
+                               lambda v: X @ v, lambda v: X.mT @ v, refine)
+        b = beta.double()
+        xb = X64 @ b
+        r = rhs64 - (X64.mT @ xb + lam64 * b)
+        out[refine] = {
+            "resid": float((r.norm(dim=0) / rhs64.norm(dim=0)).max()),
+            "uhat_err": float((z.double() - xb).norm() / xb.norm())}
+    del X64, xb, r
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_chembl_paths(tally):
+    """The ChEMBL Macau paths (bench.py:165-189 on the port): the 15,000 x
+    346 IC50 relation (300,000 activities, class_cut log10(200)) with
+    15,000 x 32,000 binary fingerprint features on the compounds, K = 32,
+    the int8 pair (K6 and K7 for both modes, K1 for both entities):
+
+    - ``chembl``: the dual solve (float32 eigendecomposition of XX' on the
+      card, one refinement), the bench's protocol; rmse_avg and AUC in the
+      JAX chain's bands; the dual residual below DUAL_RESID_MAX; K6 held
+      against its plain version on the path's store;
+    - ``chembl_cg``: blocked CG with the Nystrom preconditioner (rank 1024),
+      the bench's protocol; the exit residual below CG_RESID_MAX and the
+      bands;
+    - ``chembl_cg_sparse``: Jacobi CG on the bucketed matvec
+      (``dense_gram=False``, which also puts the relation on the gather
+      path: K3 for both entities, no K6 or K7), a shorter window;
+    - ``chembl_ff``: 4,096 features, so the FF path resolves itself, a
+      shorter window.
+
+    Each prints its build (G, eigh, Nystrom, X'X seconds), ms a sweep,
+    peak memory and the kernels' launches a sweep, and the beta draw's
+    share of the sweep on the device."""
+    import torch
+    from bayesiandatafusion_jl_tpu_torch.models.datasets import \
+        synthetic_chembl
+    clock = [time.perf_counter()]
+
+    def phase_done(name):
+        now = time.perf_counter()
+        print(f"# phase {name}: {now - clock[0]:.1f} s", flush=True)
+        clock[0] = now
+
+    def report(eng, counts, out, name, run):
+        prob = eng.problem
+        es = prob.entity_specs[0]
+        n_sweeps = run[0] * (run[1] + 1)
+        per = {k: v / n_sweeps for k, v in counts.items() if v}
+        m = out["metrics"]
+        X = prob.feat["e0"].get("dense_X")
+        operand = ("bucketed matvec" if X is None else
+                   f"dense X {tuple(X.shape)} {X.dtype}")
+        print(f"# {name}: solver {es.solver}, F = {es.num_features} "
+              f"({es.feat_nnz} stored), operand {operand}; "
+              f"build seconds {prob.feat_seconds['e0']} (engine "
+              f"{prob.build_seconds:.1f} s); kernel launches a sweep "
+              f"{per}; rmse_avg {m['r0.rmse_avg']:.4f}, AUC "
+              f"{m['r0.auc']:.4f}, |beta| {m['e0.betanorm']:.3f}, "
+              f"lambda_beta {m['e0.lambda_beta']:.4f}"
+              + (f", cg_iters {m['e0.cg_iters']:.0f}, cg_resid "
+                 f"{m['e0.cg_resid']:.3e}" if "e0.cg_iters" in m else ""),
+              flush=True)
+        require(all(math.isfinite(v) for v in m.values()),
+                f"{name}: non-finite metrics {m}")
+        return m
+
+    def split(eng, name, prof_split, sweeps=3):
+        with beta_draws(eng) as draws:
+            prof = profile_split(eng, sweeps=sweeps, split=prof_split)
+        print_profile(name, prof)
+        if prof["beta_span_ms"] is None:
+            print(f"# profile {name}: the beta draw's ranges are not on the "
+                  f"device timeline of this trace: split not measured by "
+                  f"the profiler", flush=True)
+        it = [int(d[0]) for d, _ in draws[-sweeps:] if d is not None]
+        if it and prof["beta_span_ms"] is not None:
+            # the device's time inside the draw's ranges that no kernel
+            # covers: it waits for the host, which reads CG's test once
+            # an iteration (under the profiler, which slows the host)
+            wait = prof["beta_span_ms"] - prof["beta_busy_ms"]
+            print(f"# profile {name}: CG iterations {it} in the profiled "
+                  f"sweeps; the device idle inside the draw {wait:.3f} ms "
+                  f"a sweep, {wait * len(it) / max(sum(it), 1):.4f} ms an "
+                  f"iteration (its host reads)", flush=True)
+        st = beta_stream_split(eng)
+        line = (f"# {name}: beta draw {st['beta_ms']:.3f} ms of "
+                f"{st['sweep_ms']:.3f} ms a sweep on the stream (CUDA "
+                f"events), the rest {st['sweep_ms'] - st['beta_ms']:.3f} "
+                f"ms; wall {st['wall_ms']:.3f} ms a sweep")
+        it = st["cg_iters"]
+        if it:
+            line += (f"; CG iterations {it} (residuals "
+                     f"{[f'{r:.2e}' for r in st['cg_resid']]}), "
+                     f"{st['beta_ms'] * len(it) / max(sum(it), 1):.4f} ms "
+                     f"of the draw an iteration")
+        print(line, flush=True)
+
+    t0 = time.perf_counter()
+    rd = synthetic_chembl(**CHEMBL_DATA)
+    rd.assign_to_test(0, CHEMBL_TEST, seed=7)
+    F = rd.entities[0].F
+    print(f"# chembl data: {time.perf_counter() - t0:.1f} s with the test "
+          f"split ({rd.relations[0].data.nnz} training activities, features "
+          f"{F.shape} with {F.nnz} stored)", flush=True)
+
+    # -- chembl: the dual solve ------------------------------------------
+    eng, counts, out = run_path(rd, 32, *CHEMBL_RUN, None, CHEMBL_RMSE_ANCHOR,
+                                name="chembl", clamp=None, graph=True,
+                                **CHEMBL_OPTS)
+    tally(counts)
+    m = report(eng, counts, out, "chembl", CHEMBL_RUN)
+    require(eng.problem.entity_specs[0].solver == "dual"
+            and "dense_X" in eng.problem.feat["e0"],
+            "chembl: the dual solve on the dense X was not chosen")
+    require(abs(m["r0.auc"] - CHEMBL_AUC_ANCHOR) <= CHEMBL_AUC_BAND,
+            f"chembl: AUC {m['r0.auc']} outside {CHEMBL_AUC_ANCHOR} +- "
+            f"{CHEMBL_AUC_BAND}")
+    res = dual_residual(eng)
+    print(f"# chembl dual solve (lambda_beta {res['lambda_beta']:.4f}): "
+          f"true relative residual {res[eng.config.dual_refine]['resid']:.3e}"
+          f" with {eng.config.dual_refine} refinement, {res[0]['resid']:.3e}"
+          f" without; ||uhat - X beta|| / ||X beta|| "
+          f"{res[eng.config.dual_refine]['uhat_err']:.3e}", flush=True)
+    require(res[eng.config.dual_refine]["resid"] < DUAL_RESID_MAX,
+            f"chembl: dual residual {res} over {DUAL_RESID_MAX}")
+    split(eng, "chembl dual K=32", PAIR_SPLIT)
+    a = eng.run(num_sweeps=3)["state"]["ent"][0]
+    b = eng.run(num_sweeps=3)["state"]["ent"][0]
+    print(f"# same seed twice, chembl: U bitwise equal "
+          f"{torch.equal(a['U'], b['U'])}, beta bitwise equal "
+          f"{torch.equal(a['beta'], b['beta'])}", flush=True)
+    pair = eng.problem.stores[0]
+    del eng, a, b
+    torch.cuda.empty_cache()
+    for focus in (0, 1):
+        r = check_pair_contract(pair, 32, focus, timing=False)
+        print_pair_check("chembl", r)
+        require(r["ok"], f"K6 disagrees with its plain version: {r}")
+    del pair
+    torch.cuda.empty_cache()
+    phase_done("chembl dual path")
+
+    # -- chembl_cg: Nystrom-preconditioned CG ----------------------------
+    eng, counts, out = run_path(rd, 32, *CHEMBL_RUN, None, CHEMBL_RMSE_ANCHOR,
+                                name="chembl_cg", clamp=None, graph=True,
+                                **CHEMBL_OPTS, beta_solver="cg")
+    tally(counts)
+    m = report(eng, counts, out, "chembl_cg", CHEMBL_RUN)
+    feat = eng.problem.feat["e0"]
+    require(eng.problem.entity_specs[0].solver == "cg"
+            and tuple(feat["nys_U"].shape) == (32_000, 1_024),
+            "chembl_cg: not CG with the rank-1024 Nystrom preconditioner")
+    require(m["e0.cg_resid"] < CG_RESID_MAX,
+            f"chembl_cg: CG residual {m['e0.cg_resid']}")
+    require(abs(m["r0.auc"] - CHEMBL_AUC_ANCHOR) <= CHEMBL_AUC_BAND,
+            f"chembl_cg: AUC {m['r0.auc']} outside {CHEMBL_AUC_ANCHOR} +- "
+            f"{CHEMBL_AUC_BAND}")
+    split(eng, "chembl_cg K=32", PAIR_SPLIT)
+    del eng, feat
+    torch.cuda.empty_cache()
+    phase_done("chembl_cg path")
+
+    # -- chembl_cg_sparse: Jacobi CG on the bucketed matvec ---------------
+    eng, counts, out = run_path(
+        rd, 32, *CHEMBL_SHORT_RUN, None, None, name="chembl_cg_sparse",
+        clamp=None, graph=True,
+        **{**CHEMBL_OPTS, "beta_solver": "cg", "cg_nystrom_rank": 0,
+           "dense_gram": False})
+    tally(counts)
+    m = report(eng, counts, out, "chembl_cg_sparse", CHEMBL_SHORT_RUN)
+    require("mv" in eng.problem.feat["e0"]
+            and "nys_U" not in eng.problem.feat["e0"],
+            "chembl_cg_sparse: not Jacobi CG on the bucketed matvec")
+    split(eng, "chembl_cg_sparse K=32", SPLIT)
+    del eng
+    torch.cuda.empty_cache()
+    phase_done("chembl_cg_sparse path")
+
+    # -- chembl_ff: 4,096 features, the X'X path ---------------------------
+    t0 = time.perf_counter()
+    rd = synthetic_chembl(**{**CHEMBL_DATA,
+                             "n_features": CHEMBL_FF_FEATURES})
+    rd.assign_to_test(0, CHEMBL_TEST, seed=7)
+    print(f"# chembl_ff data: {time.perf_counter() - t0:.1f} s with the "
+          f"test split", flush=True)
+    opts = {k: v for k, v in CHEMBL_OPTS.items() if k != "use_ff"}
+    eng, counts, out = run_path(rd, 32, *CHEMBL_SHORT_RUN, None, None,
+                                name="chembl_ff", clamp=None, graph=True,
+                                **opts)
+    tally(counts)
+    report(eng, counts, out, "chembl_ff", CHEMBL_SHORT_RUN)
+    require(eng.problem.entity_specs[0].solver == "ff",
+            "chembl_ff: the FF path did not resolve itself")
+    split(eng, "chembl_ff K=32", PAIR_SPLIT)
+    del eng, rd
+    torch.cuda.empty_cache()
+    phase_done("chembl_ff path")
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1581,18 +1923,20 @@ def main() -> int:
     checks = {}
     for tag, fn, shapes in (
             # ML-10M, Netflix, then the graph paths' entities: tensor's
-            # and fusion's
+            # and fusion's; then ChEMBL's compounds and targets
             ("K1", check_chol_kernel, ((32, 71_567), (32, 10_681),
                                        (32, 480_189), (32, 17_770),
                                        (8, 1_000), (32, 30_000),
                                        (32, 2_000), (32, 16), (32, 50_000),
-                                       (32, 500), (32, 3_000), (32, 800))),
+                                       (32, 500), (32, 3_000), (32, 800),
+                                       (32, 15_000), (32, 346))),
             ("K2", check_chol_kernel, ((64, 71_567), (64, 10_681),
                                        (96, 71_567), (96, 10_681),
                                        (40, 1_000), (33, 71_567))),
             ("K3", check_full_kernel, ((32, 71_567), (32, 10_681),
                                        (8, 1_000), (32, 200_000),
-                                       (32, 20_000), (32, 8))),
+                                       (32, 20_000), (32, 8), (32, 15_000),
+                                       (32, 346))),
             ("K3 no Lambda", functools.partial(check_full_kernel, lam=False),
              ((32, 71_567), (32, 10_681), (8, 1_000))),
             ("K4", check_full_kernel, ((64, 71_567), (64, 10_681),
@@ -1614,7 +1958,8 @@ def main() -> int:
             require(r["ok"], f"{tag} disagrees with its plain version: {r}")
             torch.cuda.empty_cache()
     # Netflix, ML-10M (K = 32, 64, 97, 128), a ragged case, then the graph
-    # paths' tables: tensor's and fusion's largest partners; then
+    # paths' tables: tensor's and fusion's largest partners, and ChEMBL's
+    # two tables (both its modes); then
     # adversarial factors (adversarial_factors), ragged at K = 128
     for n, K, n_valid, adv in (
             (480_189, 32, None, False), (17_770, 32, None, False),
@@ -1625,6 +1970,7 @@ def main() -> int:
             (30_000, 32, None, False), (2_000, 32, None, False),
             (50_000, 32, None, False), (500, 32, None, False),
             (3_000, 32, None, False), (800, 32, None, False),
+            (15_000, 32, None, False), (346, 32, None, False),
             (71_567, 128, 70_001, True), (10_681, 64, None, True),
             (17_770, 32, 17_000, True), (4_001, 97, None, True),
             (500, 1, None, True)):
@@ -1966,6 +2312,9 @@ def main() -> int:
     # -- the graph paths and K9 at tensor_big's shape ----------------------
     k9_checks = run_graph_paths(tally)
 
+    # -- the ChEMBL Macau paths ---------------------------------------------
+    run_chembl_paths(tally)
+
     src = "bayesiandatafusion_jl_tpu_torch/csrc/"
     jax_src = "bayesiandatafusion_jl_tpu/ops/pallas_chol.py:"
     rows = []
@@ -2063,6 +2412,13 @@ def print_profile(label, prof):
           f"top kernels {prof['top']}", flush=True)
     print(f"# profile {label}: the largest kernels of no named part (ms a "
           f"sweep, launches in the trace) {prof['rest_top']}", flush=True)
+    if prof["beta_span_ms"] is not None:
+        print(f"# profile {label}: the beta draw's record_function ranges "
+              f"on the device: span {prof['beta_span_ms']:.3f} ms a sweep, "
+              f"kernels inside {prof['beta_busy_ms']:.3f} ms; the rest of "
+              f"the sweep's kernels "
+              f"{prof['device_ms'] - prof['beta_busy_ms']:.3f} ms",
+              flush=True)
 
 
 def print_fused_check(label, r):

@@ -611,7 +611,7 @@ def test_unported_options_raise(kwargs, item):
 
 @pytest.mark.parametrize("kwargs, item", [
     (dict(exchange_blocks=4), "M11"),
-    (dict(use_ff=True), "M8"),
+    (dict(head_split_degree=2), "M11"),
     (dict(sweeps_per_dispatch=8), "M4"),
 ])
 def test_unported_macau_kwargs_raise(kwargs, item):
@@ -653,15 +653,7 @@ def test_config_fields_cover_jax_config():
 
 
 def test_unported_data_raises():
-    """Side features and class_cut (M8) raise, and so does the int8 pair
-    of a relation of arity 4 or more (M12)."""
-    with pytest.raises(NotImplementedError, match="M8"):
-        bt.Entity("compound", F=np.eye(3))
-    rd = bt.RelationData.from_indexed_df(synthetic_ratings(30, 20, 200),
-                                         class_cut=3.0)
-    with pytest.raises(NotImplementedError, match="M8"):
-        bt.MacauEngine(rd, bt.MacauConfig(num_latent=3, verbose=False),
-                       device="cpu")
+    """The int8 pair of a relation of arity 4 or more (M12) raises."""
     rng = np.random.default_rng(0)
     idx = np.unique(np.stack([rng.integers(0, n, 80) for n in (5, 4, 3, 2)],
                              1), axis=0)

@@ -806,3 +806,157 @@ def test_graph_engine_cuda_matches_cpu(cuda, monkeypatch, case):
                                        rtol=1e-9, atol=1e-9)
     for ra, rb in zip(a["rel"], b["rel"]):
         np.testing.assert_allclose(rb["alpha"], ra["alpha"], rtol=1e-9)
+
+
+def _side_problem(n=600, f=1_500, seed=0):
+    """A binary [n, f] feature matrix (about 12 features a row), float64
+    on the host, and its ``SparseBinMatrix``."""
+    rng = np.random.default_rng(seed)
+    X = (rng.random((n, f)) < 12.0 / f).astype(np.float64)
+    return X, bt.SparseBinMatrix.from_dense(X)
+
+
+@pytest.mark.parametrize("widths", [(8, 16, 32, 64), (2, 4)])
+def test_bucketed_spmm_on_cuda(cuda, widths):
+    """The bucketed feature matvec on the card, float32, against float64
+    products on the host, both directions; two calls give the same bits
+    (no scatter add on the card)."""
+    from bayesiandatafusion_jl_tpu_torch.ops.spmv import (
+        bucketed_spmm, build_bucketed_matvec)
+    X, F = _side_problem()
+    mv = build_bucketed_matvec(F.rows, F.cols, F.shape, widths=widths,
+                               device=cuda)
+    rng = np.random.default_rng(1)
+    V, U = rng.standard_normal((1_500, 32)), rng.standard_normal((600, 32))
+    for d, n_out, v, want in (("fwd", 600, V, X @ V),
+                              ("t", 1_500, U, X.T @ U)):
+        vt = torch.from_numpy(v).to(cuda, torch.float32)
+        y = bucketed_spmm(mv[d], n_out, vt)
+        np.testing.assert_allclose(y.cpu().numpy(), want, rtol=1e-5,
+                                   atol=1e-4)
+        assert torch.equal(y, bucketed_spmm(mv[d], n_out, vt))
+
+
+@pytest.mark.parametrize("nystrom", [False, True])
+def test_block_cg_on_cuda(cuda, nystrom):
+    """``block_cg`` on the card in float32 (Jacobi or Nystrom) against a
+    float64 ``numpy.linalg.solve``: the true residual below 1e-4 and the
+    solution to 1e-3 of its norm."""
+    from bayesiandatafusion_jl_tpu_torch.ops.cg import block_cg
+    from bayesiandatafusion_jl_tpu_torch.ops.precond import (build_nystrom,
+                                                             nystrom_apply)
+    X, F = _side_problem()
+    lam = 1.5
+    rhs = np.random.default_rng(2).standard_normal((1_500, 32))
+    Xt = torch.from_numpy(X).to(cuda, torch.float32)
+    kw = {"precond_diag": torch.from_numpy(
+        F.col_sq_sums() + lam).to(cuda, torch.float32)}
+    if nystrom:
+        Un, dn = build_nystrom(F.rows, F.cols, F.values(), F.shape, 64)
+        Ut, dt = (torch.from_numpy(a).to(cuda, torch.float32)
+                  for a in (Un, dn))
+        kw = {"precond": lambda r: nystrom_apply(Ut, dt, lam, r)}
+    beta, it, resid = block_cg(lambda v: Xt.mT @ (Xt @ v) + lam * v,
+                               torch.from_numpy(rhs).to(cuda, torch.float32),
+                               torch.zeros(1_500, 32, device=cuda), tol=1e-5,
+                               maxiter=200, **kw)
+    want = np.linalg.solve(X.T @ X + lam * np.eye(1_500), rhs)
+    assert 0 < it < 200 and float(resid) < 1e-4
+    err = np.abs(beta.cpu().numpy() - want).max() / np.abs(want).max()
+    assert err < 1e-3, err
+
+
+def test_dual_solve_on_cuda(cuda):
+    """The dual solve on the card at N = 3,000 < F = 6,000 (the
+    eigendecomposition in float32, N > 2048) with one refinement: the
+    true relative residual below 1e-5 against float64 products, uhat =
+    X beta, and the solution to 1e-4 of a float64 solve."""
+    from bayesiandatafusion_jl_tpu_torch.ops.dual import (dual_eig_cached,
+                                                          dual_solve_g)
+    X, F = _side_problem(3_000, 6_000, seed=3)
+    lam = 1.0
+    rhs = np.random.default_rng(4).standard_normal((6_000, 16))
+    Q, d, G = dual_eig_cached(F.rows, F.cols, F.values(), F.shape,
+                              np.float32, None, cuda)
+    assert Q.dtype == torch.float32 and Q.device.type == "cuda"
+    Xt = torch.from_numpy(X).to(cuda, torch.float32)
+    beta, uhat = dual_solve_g(Q, d, torch.from_numpy(G).to(cuda,
+                                                           torch.float32),
+                              lam, torch.from_numpy(rhs).to(cuda,
+                                                           torch.float32),
+                              lambda v: Xt @ v, lambda v: Xt.mT @ v, 1)
+    b = beta.cpu().numpy().astype(np.float64)
+    r = rhs - (X.T @ (X @ b) + lam * b)
+    rel = np.linalg.norm(r, axis=0) / np.linalg.norm(rhs, axis=0)
+    assert rel.max() < 1e-5, rel.max()
+    np.testing.assert_allclose(uhat.cpu().numpy(), X @ b, rtol=1e-4,
+                               atol=1e-4)
+    want = np.linalg.solve(X.T @ X + lam * np.eye(6_000), rhs)
+    assert np.abs(b - want).max() < 1e-4 * np.abs(want).max()
+
+
+# solver -> (options, per-sweep kernel launches on the card, tolerance)
+SIDE_CASES = {
+    "dual": (dict(beta_solver="dual", use_ff=False, dense_int8=True,
+                  dense_gram=True), {"K1": 2, "K6": 2, "K7": 2}, 1e-8),
+    "cg": (dict(beta_solver="cg", use_ff=False, cg_tol=1e-10,
+                dense_int8=True, dense_gram=True),
+           {"K1": 2, "K6": 2, "K7": 2}, 1e-6),
+    "ff": (dict(use_ff=True, dense_int8=True, dense_gram=True),
+           {"K1": 2, "K6": 2, "K7": 2}, 1e-8),
+    "cg_sparse": (dict(beta_solver="cg", use_ff=False, cg_tol=1e-10,
+                       cg_nystrom_rank=0, dense_gram=False),
+                  {"K3": 2}, 1e-6)}
+
+
+@pytest.mark.parametrize("case", sorted(SIDE_CASES))
+def test_side_engine_cuda_matches_cpu(cuda, monkeypatch, case):
+    """The ChEMBL-shaped Macau problem at a small size (300 compounds with
+    500 binary features, 20 targets), K = 8, float64: three sweeps with
+    injected randoms on the card and on the CPU.  The beta draw by each
+    solver (the dense X, or the bucketed matvec under dense_gram=False),
+    lambda_beta sampled; the card launches the path's kernels (K1, K6 and
+    K7 on the int8 pair, K3 on the gather path) and no plain version.
+    U, mu, Lambda, beta, uhat and lambda_beta agree to 1e-8 (1e-6 with
+    CG), and so does the AUC."""
+    import chip_smoke
+    from bayesiandatafusion_jl_tpu_torch.models.datasets import \
+        synthetic_chembl
+    opts, per_sweep, tol = SIDE_CASES[case]
+    monkeypatch.setattr(dense_gram, "ridge_step", xla_cpu_ridge_step)
+    engines = {}
+    for dev in ("cpu", "cuda"):
+        rd = synthetic_chembl(n_compounds=300, n_targets=20, n_features=500,
+                              nnz=3_000, feat_per_compound=12, seed=3)
+        rd.assign_to_test(0, 300, seed=7)
+        cfg = bt.MacauConfig(num_latent=8, dtype="float64", verbose=False,
+                             seed=4, **opts)
+        engines[dev] = bt.MacauEngine(rd, cfg, device=dev)
+    spec = engines["cpu"].problem.entity_specs[0]
+    assert spec.solver == case.split("_")[0]
+    assert ("dense_X" in engines["cuda"].problem.feat["e0"]) == (
+        case != "cg_sparse")
+    st = engines["cpu"].init_state()
+    states = {"cpu": st, "cuda": state_from_numpy(state_to_numpy(st), cuda,
+                                                  torch.float64)}
+    rng = np.random.default_rng(1)
+    total = {}
+    for s in range(3):
+        randoms = draw_all_numpy(rng, engines["cpu"].problem.random_spec)
+        states["cpu"], mc = engines["cpu"]._sweep_with_randoms(
+            states["cpu"], {k: torch.from_numpy(v)
+                            for k, v in randoms.items()}, 1.0)
+        r = {k: torch.from_numpy(v).to(cuda) for k, v in randoms.items()}
+        (states["cuda"], mg), counts = chip_smoke.counted(
+            lambda: engines["cuda"]._sweep_with_randoms(states["cuda"], r,
+                                                        1.0))
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        np.testing.assert_allclose(float(mg["r0.auc"]), float(mc["r0.auc"]),
+                                   rtol=tol)
+    assert total == {k: 3 * per_sweep.get(k, 0) for k in total}
+    a, b = state_to_numpy(states["cpu"]), state_to_numpy(states["cuda"])
+    for ei in range(2):
+        for key in a["ent"][ei]:
+            np.testing.assert_allclose(b["ent"][ei][key], a["ent"][ei][key],
+                                       rtol=tol, atol=tol, err_msg=key)

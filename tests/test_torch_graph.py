@@ -474,9 +474,9 @@ def test_random_spec_matches_jax():
 
 
 def test_graph_building_matches_jax():
-    """add_relation, from_matrix (IndexedDF, dense array, scipy matrix)
-    and IndexedDF's degrees, index, from_dense and from_scipy give what the
-    JAX package's give."""
+    """add_relation, from_matrix (IndexedDF, dense array, scipy matrix,
+    side features) and IndexedDF's degrees, index, from_dense and
+    from_scipy give what the JAX package's give."""
     import scipy.sparse as sp
     rj, rt = two_relation_graph(bdf), two_relation_graph(bt)
     assert ([(e.name, e.count) for e in rt.entities]
@@ -506,8 +506,14 @@ def test_graph_building_matches_jax():
         np.testing.assert_array_equal(df_t.degrees(mode), df_j.degrees(mode))
         for x, y in zip(df_t.index(mode), df_j.index(mode)):
             np.testing.assert_array_equal(x, y)
-    with pytest.raises(NotImplementedError, match="M8"):
-        bt.RelationData.from_matrix(m, feat1=np.eye(6))
+    # side features through from_matrix: the same feature matrices
+    feats = (np.eye(6), rng.standard_normal((9, 4)))
+    a = bt.RelationData.from_matrix(m, *feats)
+    b = bdf.RelationData.from_matrix(m, *feats)
+    for ea, eb in zip(a.entities, b.entities):
+        assert ea.num_features == eb.num_features and ea.count == eb.count
+        np.testing.assert_array_equal(ea.F.to_dense(), eb.F.to_dense())
+        assert ea.F.is_binary == eb.F.is_binary
 
 
 # -- the bench's graph generators, replayed as bench.py writes them (one
