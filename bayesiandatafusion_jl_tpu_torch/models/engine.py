@@ -53,16 +53,31 @@ Otherwise P is a full [N, K, K] (dense contributions expanded, buckets
 through ``assemble_precision``) for ops/mvn.chol_sample_dispatch: the K3
 kernel up to K = 32, K4 up to 96, the blocked sampler on K5 up to 128.
 With "segment" accumulation Lambda is left out of P and added by the
-sampler; with "planned" it is in the accumulator.  Options outside the
-port raise ``NotImplementedError`` naming their ROADMAP item.
+sampler; with "planned" it is in the accumulator.  Every sum of a sweep
+adds in a fixed order (no scatter add with atomics), so a chain's bits
+depend on its seed alone.  Options outside the port raise
+``NotImplementedError`` naming their ROADMAP item.
+
+The driver (``MacauEngine.run``, JAX ``GibbsDriverMixin`` :492-689) runs
+the sweeps in windows issued back to back with no host read inside
+(``sweeps_per_dispatch``), reads the metrics the host needs at a window's
+end (``metrics_every``), and writes the jsonl log, the posterior-sample
+dumps, the checkpoints and a ``torch.profiler`` trace where configured.
+A checkpoint is the JAX package's npz (``save_state`` / ``load_state``),
+and ``run(sweep_offset=...)`` resumes the chain bit for bit.
 
 State is a plain dict of tensors with the JAX engine's keys
 (``utils/convert.py`` carries one across).  Randoms come from
-``utils/rng.draw_all``, or are injected through ``_sweep_with_randoms``.
+``utils/rng.draw_all``, keyed by (seed, sweep, name), or are injected
+through ``_sweep_with_randoms``.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import glob
+import json
+import os
 import time
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -85,6 +100,7 @@ from ..ops.mvn import chol_sample_dispatch, chol_solve
 from ..ops.precond import build_nystrom, nystrom_apply, resolve_nystrom_rank
 from ..ops.spmv import bucketed_spmm, build_bucketed_matvec
 from ..utils.config import MacauConfig
+from ..utils.convert import state_from_numpy, state_to_numpy
 from ..utils.rng import build_random_spec, draw_all
 from .data import (RelationData, resolved_alpha, resolved_alpha_sample,
                    resolved_lambda_beta)
@@ -159,6 +175,7 @@ class CompiledProblem:
     def __init__(self, rd: RelationData, config: MacauConfig,
                  device: torch.device):
         dtype = getattr(torch, config.dtype)
+        self.config = config
         ent_index = {id(e): i for i, e in enumerate(rd.entities)}
         self.entity_specs = [EntitySpec(e.name, int(e.count))
                              for e in rd.entities]
@@ -219,6 +236,41 @@ class CompiledProblem:
             config.resolved_nu0(), self.rel_specs, config.alpha_a0,
             [es.num_features for es in self.entity_specs],
             config.sample_lambda_beta, config.nu_beta)
+
+    def flops_per_sweep(self) -> float:
+        """The matmul work of one sweep (JAX ``flops_per_sweep``
+        :410-449), for an effective rate over a measured ms/sweep; no
+        engine decision reads it.  A dense (pair or fused) relation counts
+        its full contraction, 2 * prod(dims) * (C + K) a mode, padded
+        cells included; a gather relation 2 * nnz * (K^2 + K) a mode (a
+        fused relation's residual is not counted, as in JAX); an entity
+        with features its beta solver's products (CG: the right-hand side
+        and uhat only, its iterations depend on the data)."""
+        K = self.config.num_latent
+        C = K * (K + 1) // 2
+        counts = [es.n for es in self.entity_specs]
+        f = 0.0
+        for ri, rs in enumerate(self.rel_specs):
+            total = float(np.prod([counts[e] for e in rs.entity_ids]))
+            for mode in range(rs.arity):
+                if self.kinds[ri] != "gather":
+                    f += 2.0 * total * (C + K)
+                else:
+                    f += 2.0 * rs.nnz * (K * K + K)
+        for es in self.entity_specs:
+            if not es.has_features:
+                continue
+            N, F = float(es.n), float(es.num_features)
+            xpass = 2.0 * N * F * K          # one X @ / X' @ [., K] pass
+            f += xpass                       # the right-hand side, X' resid
+            if es.use_ff:
+                f += F ** 3 / 3.0 + 2.0 * F * F * K + xpass
+            elif es.solver == "dual":
+                r = float(self.config.dual_refine)
+                f += 2.0 * xpass + (4.0 * (1.0 + r) + 2.0 * r) * N * N * K
+            else:
+                f += xpass                   # uhat
+        return f
 
     def _build_features(self, ei, ent, config, device):
         """Entity ``ei``'s beta-draw arrays and solver (JAX engine
@@ -445,13 +497,17 @@ class MacauEngine:
         return {"ent": ents, "rel": rels, "pred": preds}
 
     # -- one sweep -----------------------------------------------------------
-    def draw(self, sweep: int) -> Dict[str, torch.Tensor]:
-        """The randoms of sweep ``sweep`` (1-based), on the device."""
-        return draw_all(self.config.seed, sweep, self.problem.random_spec,
-                        self.dtype, self.device)
+    def draw(self, sweep: int, seed: Optional[int] = None
+             ) -> Dict[str, torch.Tensor]:
+        """The randoms of sweep ``sweep`` (1-based) of the chain ``seed``
+        (the config's by default), on the device."""
+        return draw_all(self.config.seed if seed is None else seed, sweep,
+                        self.problem.random_spec, self.dtype, self.device)
 
-    def _sweep(self, state, s: int, accumulate: float):
-        return self._sweep_with_randoms(state, self.draw(s + 1), accumulate)
+    def _sweep(self, state, s: int, accumulate: float,
+               seed: Optional[int] = None):
+        return self._sweep_with_randoms(state, self.draw(s + 1, seed),
+                                        accumulate)
 
     def _sweep_with_randoms(self, state, randoms, accumulate: float):
         """One Gibbs sweep (JAX engine :747-998): each entity in turn, then
@@ -709,39 +765,162 @@ class MacauEngine:
         b *= alpha
         return P, b
 
-    # -- run loops -----------------------------------------------------------
-    def run(self, state=None, num_sweeps: Optional[int] = None,
+    # -- run loops (JAX ``GibbsDriverMixin`` :492-689) ----------------------
+    def run(self, state=None, seed: Optional[int] = None,
+            num_sweeps: Optional[int] = None, sweep_offset: int = 0,
             callback: Optional[Callable] = None) -> Dict[str, Any]:
-        """Run burnin + psamples sweeps (or ``num_sweeps``); returns the
-        reference-style results.  ``callback(sweep, phase, metrics, dt)``
-        runs after every sweep; each sweep's metrics are read back to the
-        host, which waits for the device."""
+        """Run burnin + psamples sweeps (or ``num_sweeps``) of the chain
+        ``seed`` (the config's by default: sweep s draws the randoms of
+        (seed, s + 1), the state starts from ``init_state`` seeded by it);
+        returns the reference-style results.
+
+        ``sweep_offset`` resumes the chain at that sweep, from ``state``
+        (``load_state``): the sweeps from there on draw and accumulate as
+        the run without interruption does, so its results are the same
+        bits.  The sweeps run in windows of up to ``sweeps_per_dispatch``,
+        issued back to back with no host read inside; a window ends where
+        ``_chunk_limit`` says.  At its end the metrics of the sweeps the
+        host needs (every ``metrics_every``-th, the last, and all under
+        verbose, a callback, a log file or the trace) are stacked and read
+        back at once; the other sweeps' history holds only "time", the
+        window's wall time over its sweeps.  ``callback(sweep, phase,
+        metrics, dt)`` runs after every sweep; then the jsonl line, the
+        posterior-sample dump and the checkpoint, where configured."""
         cfg = self.config
+        if seed is None:
+            seed = cfg.seed
         if state is None:
-            state = self.init_state()
+            state = self.init_state(
+                torch.Generator(device=self.device).manual_seed(seed))
         total = (cfg.burnin + cfg.psamples if num_sweeps is None
                  else num_sweeps)
         history: List[Dict[str, float]] = []
-        for s in range(total):
-            t0 = time.perf_counter()
-            state, m = self._sweep(state, s, 1.0 if s >= cfg.burnin else 0.0)
-            metrics = {k: float(v) for k, v in m.items()}
-            dt = time.perf_counter() - t0
-            metrics["time"] = dt
-            phase = "burnin" if s < cfg.burnin else "sample"
-            history.append(metrics)
-            if callback is not None:
-                callback(s, phase, metrics, dt)
-            if cfg.verbose:
-                self._print_sweep(s, phase, metrics)
+        spd = max(cfg.sweeps_per_dispatch, 1)
+        every = max(cfg.metrics_every, 1)
+        log_f = open(cfg.log_file, "a") if cfg.log_file else None
+        try:
+            s = sweep_offset
+            while s < total:
+                trace_this = (cfg.trace_dir is not None
+                              and s == min(2, total - 1))
+                n = 1 if trace_this else min(
+                    spd, self._chunk_limit(s, total) - s)
+                fetch_js = [
+                    j for j in range(n)
+                    if ((s + j + 1) % every == 0 or s + j == total - 1
+                        or cfg.verbose or callback is not None
+                        or log_f is not None or trace_this)]
+                t0 = time.perf_counter()
+                with (self._trace(s) if trace_this
+                      else contextlib.nullcontext()):
+                    state, mstack = self._window(state, seed, s, n)
+                    m_host = self._fetch([mstack[j] for j in fetch_js])
+                dt = (time.perf_counter() - t0) / n
+                fetched = dict(zip(fetch_js, m_host))
+                for j in range(n):
+                    i = s + j
+                    metrics = fetched.get(j, {})
+                    phase = "burnin" if i < cfg.burnin else "sample"
+                    metrics["time"] = dt
+                    history.append(metrics)
+                    if log_f is not None:
+                        log_f.write(json.dumps(
+                            {"sweep": i + 1, "phase": phase,
+                             **metrics}) + "\n")
+                        log_f.flush()
+                    if cfg.output_prefix is not None and i >= cfg.burnin:
+                        # windows are one sweep long in the psamples phase
+                        # under output_prefix (_chunk_limit), so ``state``
+                        # is sweep i's
+                        self._save_sample(cfg.output_prefix,
+                                          i - cfg.burnin, state)
+                    if (cfg.checkpoint_every and cfg.checkpoint_path
+                            and (i + 1) % cfg.checkpoint_every == 0):
+                        self.save_state(cfg.checkpoint_path, state, i + 1)
+                    if callback is not None:
+                        callback(i, phase, metrics, dt)
+                    if cfg.verbose:
+                        self._print_sweep(i, phase, metrics)
+                s += n
+        finally:
+            if log_f is not None:
+                log_f.close()
         return self._results(state, history)
+
+    def _window(self, state, seed: int, start: int, n: int):
+        """Sweeps [start, start + n), issued back to back: (state, each
+        sweep's metrics, still on the device)."""
+        burnin = self.config.burnin
+        mstack = []
+        for s in range(start, start + n):
+            state, m = self._sweep(state, s, 1.0 if s >= burnin else 0.0,
+                                   seed)
+            mstack.append(m)
+        return state, mstack
+
+    @staticmethod
+    def _fetch(metric_dicts) -> List[Dict[str, float]]:
+        """The metric dicts as host floats, their device values stacked and
+        read back by one copy (which waits for the device)."""
+        vals = [v for m in metric_dicts for v in m.values()
+                if torch.is_tensor(v)]
+        host = iter(torch.stack([v.reshape(()).to(torch.float64)
+                                 for v in vals]).tolist() if vals else ())
+        return [{k: next(host) if torch.is_tensor(v) else float(v)
+                 for k, v in m.items()} for m in metric_dicts]
+
+    @contextlib.contextmanager
+    def _trace(self, s: int):
+        """A ``torch.profiler`` trace of the sweep run inside, CPU and (on
+        the card) CUDA activity, written into ``trace_dir`` as a Chrome
+        trace.  On the card a trace without device activity (the profiler
+        could not reach CUPTI) raises rather than pass for a trace."""
+        from torch.profiler import ProfilerActivity, profile
+        acts = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            acts.append(ProfilerActivity.CUDA)
+        os.makedirs(self.config.trace_dir, exist_ok=True)
+        with profile(activities=acts) as prof:
+            yield
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+        if self.device.type == "cuda" and not any(
+                e.device_type == torch.autograd.DeviceType.CUDA
+                for e in prof.events()):
+            raise RuntimeError(
+                f"torch.profiler recorded no CUDA activity in sweep {s + 1}:"
+                f" it cannot trace the card here")
+        prof.export_chrome_trace(os.path.join(
+            self.config.trace_dir, f"sweep{s + 1:04d}.pt.trace.json"))
+
+    def _chunk_limit(self, s: int, total: int) -> int:
+        """The exclusive end of a window starting at sweep ``s`` (JAX
+        :646-664): a window must end at every sweep whose host work needs
+        that sweep's state (a checkpoint, a posterior-sample dump) and
+        before the traced sweep."""
+        cfg = self.config
+        end = total
+        if cfg.trace_dir is not None:
+            t = min(2, total - 1)
+            if t > s:
+                end = min(end, t)  # stop before the traced sweep
+        ce = cfg.checkpoint_every
+        if ce and cfg.checkpoint_path:
+            nxt = s + ((ce - ((s + 1) % ce)) % ce)  # first i>=s, (i+1)%ce==0
+            end = min(end, nxt + 1)
+        if cfg.output_prefix is not None:
+            # every sweep >= burnin dumps a posterior sample
+            end = min(end, cfg.burnin if s < cfg.burnin else s + 1)
+        return max(end, s + 1)
 
     def benchmark(self, num_sweeps: int, repeats: int = 1
                   ) -> Dict[str, Any]:
-        """Timing entry point, the JAX engine's protocol: one untimed warm
-        window of ``num_sweeps`` sweeps, then ``repeats`` timed windows of
-        ``num_sweeps`` each, continuing one chain.  Each window ends with a
-        device-to-host read of its last metrics.
+        """Timing entry point, the JAX engine's protocol (:586-644): one
+        untimed warm window of ``num_sweeps`` sweeps, then ``repeats``
+        timed windows of ``num_sweeps`` each, continuing one chain; each
+        runs in sub-windows of ``sweeps_per_dispatch`` sweeps, as JAX's
+        ``run_window`` does, and ends with one device-to-host read of its
+        last metrics.
 
         Returns ``{"ms_per_sweep": [per window], "metrics": {last sweep},
         "rmse_at_sweeps": rmse_sample at sweep num_sweeps}`` (of the first
@@ -754,15 +933,17 @@ class MacauEngine:
                              "(RelationData.assign_to_test)")
         cfg = self.config
         state = self.init_state()
+        spd = max(cfg.sweeps_per_dispatch, 1)
 
         def run_window(state, start):
             t0 = time.perf_counter()
-            for s in range(start, start + num_sweeps):
-                state, last = self._sweep(state, s,
-                                          1.0 if s >= cfg.burnin else 0.0)
-            _ = float(last[f"r{first}.rmse_avg"])   # waits for the window
-            dt = time.perf_counter() - t0
-            return state, {k: float(v) for k, v in last.items()}, dt
+            s = start
+            while s < start + num_sweeps:
+                c = min(spd, start + num_sweeps - s)
+                state, mstack = self._window(state, cfg.seed, s, c)
+                s += c
+            last = self._fetch(mstack[-1:])[0]   # waits for the window
+            return state, last, time.perf_counter() - t0
 
         state, metrics, _ = run_window(state, 0)
         rmse_at = metrics[f"r{first}.rmse_sample"]
@@ -832,6 +1013,45 @@ class MacauEngine:
                 out.update(rel_out)
         return out
 
+    # -- posterior samples and checkpoints (JAX :1166-1177, :1213-1224) ----
+    def _save_sample(self, prefix: str, psample_idx: int, state) -> None:
+        """One posterior sample, ``{prefix}-sample{idx:04d}.npz``, with the
+        JAX package's keys: ``e{i}.U``, ``e{i}.mu``, ``e{i}.Lambda`` (and,
+        with side features, ``e{i}.beta``, ``e{i}.lambda_beta``,
+        ``e{i}.uhat``) and ``r{i}.alpha``; ``predict_out_of_matrix`` reads
+        them."""
+        st = state_to_numpy(state)
+        out = {}
+        for ei, ent in enumerate(st["ent"]):
+            for k, v in ent.items():
+                out[f"e{ei}.{k}"] = v
+        for ri, rel in enumerate(st["rel"]):
+            out[f"r{ri}.alpha"] = rel["alpha"]
+        np.savez(f"{prefix}-sample{psample_idx:04d}.npz", **out)
+
+    def save_state(self, path: str, state, sweep: int) -> None:
+        """The state after ``sweep`` sweeps as an npz of ``sweep``,
+        ``n_leaves`` and ``leaf{i}``, the leaves in the order of
+        ``jax.tree_util.tree_flatten`` (``_leaves``), so either package
+        loads the other's file."""
+        flat = _leaves(state_to_numpy(state))
+        np.savez(path, sweep=sweep, n_leaves=len(flat),
+                 **{f"leaf{i}": a for i, a in enumerate(flat)})
+
+    def load_state(self, path: str):
+        """(state, sweep) from a ``save_state`` file of either package, the
+        leaves on the engine's device in its dtype; resume with
+        ``run(state=state, sweep_offset=sweep)``."""
+        z = np.load(path)
+        template = self.init_state()
+        n = len(_leaves(template))
+        if int(z["n_leaves"]) != n:
+            raise ValueError(f"{path}: {int(z['n_leaves'])} leaves, this "
+                             f"engine's state has {n}")
+        leaves = iter(state_from_numpy([z[f"leaf{i}"] for i in range(n)],
+                                       self.device, self.dtype))
+        return _unflatten(template, leaves), int(z["sweep"])
+
 
 def auc_device(labels: torch.Tensor, scores: torch.Tensor) -> torch.Tensor:
     """Binary AUC by the midrank statistic, on the device (JAX
@@ -881,6 +1101,69 @@ def _auc(labels: np.ndarray, scores: np.ndarray) -> float:
     return float((ranks[:n_p].sum() - n_p * (n_p + 1) / 2.0) / (n_p * n_n))
 
 
+def _leaves(tree) -> list:
+    """The leaves of nested dicts and lists in ``jax.tree_util``'s order:
+    a dict's values by sorted key, a list's in order."""
+    if isinstance(tree, dict):
+        return [a for k in sorted(tree) for a in _leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [a for v in tree for a in _leaves(v)]
+    return [tree]
+
+
+def _unflatten(template, leaves):
+    """``template``'s structure with the next of ``leaves`` at each leaf,
+    in ``_leaves``'s order."""
+    if isinstance(template, dict):
+        filled = {k: _unflatten(template[k], leaves)
+                  for k in sorted(template)}
+        return {k: filled[k] for k in template}
+    if isinstance(template, (list, tuple)):
+        return [_unflatten(v, leaves) for v in template]
+    return next(leaves)
+
+
+def predictions_frame(result: Dict[str, Any], relation=None):
+    """The reference's predictions table (JAX :1227-1239): a pandas
+    DataFrame of the index columns, obs, pred and stdev of ``result``
+    (``macau()``'s return) or of its relation ``relation``.  pandas is
+    imported here, and only here."""
+    import pandas as pd
+    src = result[relation] if relation is not None else result
+    p = src["predictions"]
+    d = {f"idx{d_}": p["idx"][:, d_] for d_ in range(p["idx"].shape[1])}
+    d.update(obs=p["obs"], pred=p["pred"], stdev=p["stdev"])
+    return pd.DataFrame(d)
+
+
+def predict_out_of_matrix(prefix: str, x_new, feat_entity: int = 0,
+                          partner_entity: int = 1,
+                          relation_mean: float = 0.0,
+                          partner_rows: Optional[np.ndarray] = None
+                          ) -> np.ndarray:
+    """Predictions for new instances of ``feat_entity`` from the posterior
+    samples saved under ``output_prefix`` (JAX :1312-1343; numpy only):
+    u_new = mu + x_new beta, pred = relation_mean + u_new V' against the
+    partner's U (its ``partner_rows``), averaged over the samples.
+    ``x_new`` is [n_new, F]."""
+    files = sorted(glob.glob(f"{prefix}-sample*.npz"))
+    if not files:
+        raise FileNotFoundError(f"no saved samples at {prefix}-sample*.npz")
+    x_new = np.asarray(x_new, np.float64)
+    acc = None
+    for fn in files:
+        z = np.load(fn)
+        beta = z[f"e{feat_entity}.beta"]
+        mu = z[f"e{feat_entity}.mu"]
+        V = z[f"e{partner_entity}.U"]
+        if partner_rows is not None:
+            V = V[np.asarray(partner_rows)]
+        u_new = mu[None, :] + x_new @ beta
+        p = relation_mean + u_new @ V.T
+        acc = p if acc is None else acc + p
+    return acc / len(files)
+
+
 def macau(data: RelationData,
           num_latent: int = 10,
           burnin: int = 500,
@@ -893,7 +1176,10 @@ def macau(data: RelationData,
           **kwargs) -> Dict[str, Any]:
     """Bayesian factorization of a RelationData graph by Gibbs sampling on
     ``device`` (the CUDA card unless the caller asks for "cpu"); extra
-    kwargs go into MacauConfig."""
+    kwargs go into MacauConfig (the driver's options among them:
+    ``metrics_every``, ``sweeps_per_dispatch``, ``log_file``,
+    ``output_prefix``, ``trace_dir``, ``checkpoint_every`` and
+    ``checkpoint_path``)."""
     if config is None:
         config = MacauConfig(
             num_latent=num_latent, burnin=burnin, psamples=psamples,

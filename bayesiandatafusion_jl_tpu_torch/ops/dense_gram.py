@@ -734,7 +734,7 @@ def plan_fused_rels(shapes: Sequence[Tuple[int, ...]],
     ``dense_fused=True`` takes every fused-encodable 2-ary relation.  The
     JAX package's ``None`` is an auto rule on a TPU HBM budget
     (``dense_gram_budget_gb``) and TPU-measured rates; the port has no
-    H100 planner yet (ROADMAP Queue 1 item 4), so ``None``, like
+    H100 planner yet (ROADMAP M6-rest), so ``None``, like
     ``False``, keeps the pair: the float pair, or the int8 pair under
     ``dense_int8``."""
     if dense_fused is not True or dense_gram is False:
@@ -856,8 +856,11 @@ def _add_ridge(Pt: torch.Tensor, s_tri: torch.Tensor, K: int,
 
 
 def _b_consts(scale, shift, mean, dtype, device):
-    return (torch.tensor(scale, dtype=dtype, device=device),
-            torch.tensor(scale * shift - mean, dtype=dtype, device=device))
+    """(s, s m - mean) on ``device``: a host tensor copied without a stream
+    sync (a blocking upload would make every sweep wait for the device)."""
+    c = torch.tensor([scale, scale * shift - mean], dtype=dtype)
+    c = c.to(device, non_blocking=True)
+    return c[0], c[1]
 
 
 def fused_finish_i8(PM: torch.Tensor, BV: torch.Tensor, s_yz: torch.Tensor,

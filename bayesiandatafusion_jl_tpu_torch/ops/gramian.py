@@ -14,9 +14,18 @@ where z_o is the product of the other modes' latent rows.  Per bucket of
 the layout (ops/layout.py) the partner rows are gathered into a
 [rows, W, K] block and contracted into per-row Gramians by batched matrix
 products (the JAX package's XLA einsums); the rows then reduce into the
-instances by one segment sum (``index_add_``) or by the compile-time plan.
+instances by one segment sum (``_segment_sum``) or by the compile-time plan.
 The layout's index arrays stay int32 on the device: ``index_select`` and
-``index_add_`` take them as they are.
+the segment sum's sort take them as they are.
+
+Every segment sum here adds in one fixed order, the same on every run: the
+rows sorted stably by instance, then each instance's rows summed in that
+order (``torch.segment_reduce``), into a fresh [n, ...] output
+(``_segment_sum``) or, for an existing accumulator, as one nonzero row an
+instance that ``index_add_`` adds in (``_run_sums``).  A scatter add of the
+rows themselves would add with atomics on CUDA, whose order changes from
+run to run, so two runs of one seed would not give the same bits, and a
+resumed chain would not equal the one without interruption.
 """
 from __future__ import annotations
 
@@ -117,11 +126,36 @@ def _gramian_rows(contribs, K: int, gram_dtype):
 def _segment_sum(rows: torch.Tensor, seg: torch.Tensor, n: int
                  ) -> torch.Tensor:
     """out[s] = sum of rows[r] with seg[r] == s, for s < n (JAX
-    ``segment_sum``).  On CUDA ``index_add_`` adds with atomics, so the
-    order of a float sum changes from run to run."""
-    out = torch.zeros((n, rows.shape[1]), dtype=rows.dtype,
-                      device=rows.device)
-    return out.index_add_(0, seg, rows)
+    ``segment_sum``; rows of a segment >= n are dropped), each segment's
+    rows added in their order: the rows sorted stably by segment, then
+    each segment summed by ``segment_reduce`` between the offsets that
+    ``searchsorted`` finds.  Everything stays on the device (``unsafe``
+    skips ``segment_reduce``'s checks, which would read the offsets
+    back)."""
+    s, order = torch.sort(seg, stable=True)
+    offsets = torch.searchsorted(
+        s, torch.arange(n + 1, dtype=s.dtype, device=s.device))
+    return torch.segment_reduce(rows.index_select(0, order), "sum",
+                                offsets=offsets, unsafe=True)
+
+
+def _run_sums(seg: torch.Tensor, *rows: torch.Tensor):
+    """(segment ids sorted stably, each of ``rows``' run sums): the rows
+    sorted by segment, and at the first row of each run of one segment the
+    sum of the run's rows in that order (+0 at the run's other rows).  An
+    ``index_add_`` of the run sums at the sorted ids adds one nonzero row
+    and +0s into each segment, which its atomics add to the same bits in
+    any order: a fixed-order sum into an existing accumulator, in any
+    layout."""
+    s, order = torch.sort(seg, stable=True)
+    R = s.numel()
+    start = torch.ones(R, dtype=torch.bool, device=s.device)
+    start[1:] = s[1:] != s[:-1]
+    lengths = torch.where(start, torch.searchsorted(s, s, right=True)
+                          - torch.arange(R, device=s.device), 0)
+    return s, [torch.segment_reduce(r.index_select(0, order), "sum",
+                                    lengths=lengths, unsafe=True)
+               for r in rows]
 
 
 def _prior_term(prior_mean, Lambda, n):
@@ -184,9 +218,10 @@ def packed_bucket_accum(contribs, n: int, K: int, gram_dtype=None,
     relations' exact-valued residual buckets.  ``bucket_gramian``'s P is
     symmetric bit for bit (commuting products, the same W-reduction), so
     its upper triangle is exact.  A bucket over ``_PACKED_CHUNK_BYTES``
-    runs in row chunks; that changes the order of the segment sums, not a
-    row's own Gramian.  Returns (None, None) for no contribs and no
-    ``out``."""
+    runs in row chunks; that changes the order of the instance sums, not a
+    row's own Gramian.  Each chunk's rows are summed by instance in a
+    fixed order (``_run_sums``) before they are added.  Returns (None,
+    None) for no contribs and no ``out``."""
     if not contribs:
         return (None, None) if out is None else out
     val0 = contribs[0][2]["val"]
@@ -224,8 +259,8 @@ def packed_bucket_accum(contribs, n: int, K: int, gram_dtype=None,
             Pp_rows = P.view(P.shape[0], K * K).index_select(1, sel)
             del P
             Pp_rows *= alpha
-            b = b * alpha
-            inst = ba["inst"][sl]
+            inst, (Pp_rows, b) = _run_sums(ba["inst"][sl], Pp_rows,
+                                           b * alpha)
             if transposed:
                 Pp.index_add_(1, inst, Pp_rows.mT)
                 b_acc.index_add_(1, inst, b.mT)
@@ -293,9 +328,9 @@ def assemble_precision_planned(
     P_acc = P_acc + P_cat.index_select(0, first) * has
     b_acc = b_acc + b_cat.index_select(0, first) * has
 
-    def overflow(rows_cat):
+    def overflow(rows_cat):     # the sentinel segment n is dropped
         return _segment_sum(rows_cat.index_select(0, plan["ov_rows"]),
-                            plan["ov_inst"], n + 1)[:n]
+                            plan["ov_inst"], n)
 
     return ((P_acc + overflow(P_cat)).reshape(n, K, K),
             b_acc + overflow(b_cat))

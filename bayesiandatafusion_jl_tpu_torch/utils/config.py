@@ -16,15 +16,10 @@ import numpy as np
 
 
 # Fields of the JAX package's MacauConfig that the port has no counterpart
-# for yet, with their ROADMAP items.  The TPU-only knobs are not listed:
-# the port has no use for them.
-UNPORTED_FIELDS = {
-    **dict.fromkeys(("metrics_every", "sweeps_per_dispatch", "trace_dir"),
-                    "M4"),
-    **dict.fromkeys(("log_file", "output_prefix", "checkpoint_every",
-                     "checkpoint_path"), "M10"),
-    **dict.fromkeys(("exchange_blocks", "head_split_degree"), "M11"),
-}
+# for yet, with their ROADMAP items: the sharded engine's.  The TPU-only
+# knobs are not listed: the port has no use for them.
+UNPORTED_FIELDS = dict.fromkeys(("exchange_blocks", "head_split_degree"),
+                                "M11")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -66,7 +61,7 @@ class MacauConfig:
     # is an auto planner on TPU-measured constants that can mix dense and
     # gather modes; the engine takes such a mix (an entity sums dense and
     # gather contributions), but the port has no H100 planner yet
-    # (ROADMAP Queue 1 item 4), so None keeps the pair.
+    # (ROADMAP M6-rest), so None keeps the pair.
     dense_gram: Optional[bool] = None
     # int8 operands on the dense paths: True stores the int8 pair (K6 and
     # K7) for a relation that passes ``int8_pair_ok`` and puts a fused
@@ -79,7 +74,7 @@ class MacauConfig:
     # True = wherever ``fused_pair_plan`` encodes the relation (the pair
     # otherwise); None or False = the pair.  The JAX package's
     # None is an auto rule on a TPU HBM budget (``dense_gram_budget_gb``);
-    # the port has no H100 planner yet (ROADMAP Queue 1 item 4), as for
+    # the port has no H100 planner yet (ROADMAP M6-rest), as for
     # ``dense_gram``.
     dense_fused: Optional[bool] = None
     # bounded-error grids for continuous values: admit the finest uniform
@@ -120,6 +115,33 @@ class MacauConfig:
     # the Nystrom preconditioner's rank: None = auto (1024 for F >= 16384,
     # 512 for F >= 8192), 0 = Jacobi; skipped when F < 4 x the rank
     cg_nystrom_rank: Optional[int] = None
+
+    # --- the driver loop (``MacauEngine.run``) ---
+    # read the sweeps' metrics back to the host every N sweeps (1 = every
+    # sweep, the reference's behaviour; the last sweep always, and every
+    # sweep under verbose, a callback or a log_file).  Each read waits for
+    # the device; the sweeps between stay queued on it
+    metrics_every: int = 1
+    # issue up to N sweeps back to back as one window, with no host read
+    # inside it and their metrics kept on the device until its end
+    # (1 = one sweep a window).  Windows end at every sweep whose host
+    # work needs that sweep's state: a checkpoint, a posterior-sample
+    # dump, the traced sweep.  The results are bit-identical to N = 1
+    sweeps_per_dispatch: int = 1
+    # jsonl record of every sweep ({"sweep", "phase", metrics...}),
+    # appended; None = off
+    log_file: Optional[str] = None
+    # posterior-sample dumps in the psamples phase, for out-of-matrix
+    # prediction (``predict_out_of_matrix``): {prefix}-sampleNNNN.npz
+    output_prefix: Optional[str] = None
+    # a torch.profiler trace (Chrome format) of one sweep, min(2, total - 1),
+    # written into this directory; None = off
+    trace_dir: Optional[str] = None
+    # every N sweeps save the state to checkpoint_path (the JAX package's
+    # npz layout); 0 = off.  Resume with MacauEngine.load_state and
+    # run(state=..., sweep_offset=...)
+    checkpoint_every: int = 0
+    checkpoint_path: Optional[str] = None
 
     def __new__(cls, *args, **kwargs):
         absent = [f"{k} (ROADMAP {UNPORTED_FIELDS[k]})" for k in kwargs

@@ -593,11 +593,8 @@ def test_macau_runs_and_reports():
 
 
 @pytest.mark.parametrize("kwargs, item", [
-    (dict(metrics_every=4), "M4"),
-    (dict(trace_dir="trace"), "M4"),
-    (dict(checkpoint_every=5, checkpoint_path="ck.npz"), "M10"),
-    (dict(output_prefix="out"), "M10"),
-    (dict(log_file="log.jsonl"), "M10"),
+    (dict(exchange_blocks=4), "M11"),
+    (dict(head_split_degree="auto"), "M11"),
 ])
 def test_unported_options_raise(kwargs, item):
     """An option outside the port raises, naming its ROADMAP item, when
@@ -612,7 +609,6 @@ def test_unported_options_raise(kwargs, item):
 @pytest.mark.parametrize("kwargs, item", [
     (dict(exchange_blocks=4), "M11"),
     (dict(head_split_degree=2), "M11"),
-    (dict(sweeps_per_dispatch=8), "M4"),
 ])
 def test_unported_macau_kwargs_raise(kwargs, item):
     """The JAX config's fields the port lacks raise, naming their item,

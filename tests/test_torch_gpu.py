@@ -619,7 +619,8 @@ def test_gather_engine_cuda_matches_cpu(cuda, K, accumulation, kernel):
     heavy users are chunked), three float64 sweeps with injected randoms
     on the card and on the CPU, through K3 (K=8) and K4 (K=36): two
     launches a sweep, and the chains agree to float64 rounding (the
-    card's segment sum adds with atomics, in another order)."""
+    segment sums add in the same order on both, the products and the
+    samplers round differently)."""
     df = synthetic_ratings(300, 200, 12_000, seed=3)
     engines = {}
     for dev in ("cpu", "cuda"):
@@ -960,3 +961,125 @@ def test_side_engine_cuda_matches_cpu(cuda, monkeypatch, case):
         for key in a["ent"][ei]:
             np.testing.assert_allclose(b["ent"][ei][key], a["ent"][ei][key],
                                        rtol=tol, atol=tol, err_msg=key)
+
+
+# the driver's paths on the card: (data, options); heavy users are chunked
+# by the narrow ladder and rated cells are duplicated for the residual, so
+# that a scatter add's order would show
+def _driver_data(dup=False):
+    df = synthetic_ratings(2_000, 1_500, 60_000, seed=3)
+    if dup:
+        df = bt.IndexedDF(np.concatenate([df.idx, df.idx[::7]]),
+                          np.concatenate([df.vals, df.vals[::7][::-1]]),
+                          df.shape)
+    return df
+
+
+DRIVER_CASES = {
+    "pair": dict(dense_int8=True),
+    "gather_segment": dict(dense_gram=False, bucket_widths=(8, 16, 32, 64)),
+    "gather_planned": dict(dense_gram=False, accumulation="planned",
+                           bucket_widths=(8, 16, 32, 64)),
+    "fused_residual": dict(dense_fused=True, dense_int8=True,
+                           bucket_widths=(8, 16, 32, 64)),
+    "features": dict(dense_int8=True, beta_solver="dual", use_ff=False),
+}
+
+
+def _driver_engine(case, **driver):
+    if case == "features":
+        from bayesiandatafusion_jl_tpu_torch.models.datasets import \
+            synthetic_chembl
+        rd = synthetic_chembl(n_compounds=300, n_targets=20, n_features=500,
+                              nnz=3_000, feat_per_compound=12, seed=3)
+        rd.assign_to_test(0, 300, seed=7)
+        clamp = None
+    else:
+        rd = bt.RelationData.from_indexed_df(
+            _driver_data(dup=case == "fused_residual"))
+        rd.assign_to_test(0, 5_000, seed=7)
+        clamp = (1.0, 5.0)
+    cfg = bt.MacauConfig(num_latent=16, burnin=3, psamples=4, clamp=clamp,
+                         verbose=False, seed=11,
+                         **DRIVER_CASES[case], **driver)
+    eng = bt.MacauEngine(rd, cfg, device="cuda")
+    if case == "fused_residual":
+        assert eng.problem.residual_nnzs[0] > 0
+    return eng
+
+
+@pytest.mark.parametrize("case", sorted(DRIVER_CASES))
+def test_driver_resume_and_windows_on_cuda(cuda, tmp_path, case):
+    """On the card, float32: a run from its sweep-4 checkpoint
+    (``load_state``, ``run(sweep_offset=4)``) and a run in windows of 4
+    sweeps each equal the run without interruption in one-sweep windows,
+    every state leaf bit for bit."""
+    import chip_smoke
+    full = _driver_engine(case).run()
+    ck = str(tmp_path / "ck.npz")
+    eng = _driver_engine(case, checkpoint_every=4, checkpoint_path=ck,
+                         sweeps_per_dispatch=4, metrics_every=5)
+    windowed = eng.run()
+    assert chip_smoke.equal_states(windowed["state"], full["state"])
+    st, sweep = eng.load_state(ck)
+    assert sweep == 4 and st["ent"][0]["U"].device.type == "cuda"
+    resumed = eng.run(state=st, sweep_offset=sweep)
+    assert chip_smoke.equal_states(resumed["state"], full["state"])
+    assert resumed["RMSE"] == full["RMSE"]
+
+
+@pytest.mark.parametrize("case", ["gather_segment", "gather_planned",
+                                  "fused_residual"])
+def test_same_seed_runs_bitwise_on_cuda(cuda, case):
+    """Two runs of one seed give the same U, bit for bit, on the paths
+    that sum gather rows into instances (the segment sum, the planned
+    overflow, the fused path's residual)."""
+    eng = _driver_engine(case)
+    a = eng.run()["state"]
+    b = eng.run()["state"]
+    assert all(torch.equal(x["U"], y["U"])
+               for x, y in zip(a["ent"], b["ent"]))
+
+
+@pytest.mark.parametrize("n, rows, width", [(1_000, 20_000, 1_024),
+                                            (71_567, 90_000, 528),
+                                            (7, 5_000, 32)])
+def test_segment_sum_on_cuda(cuda, n, rows, width):
+    """The gather path's segment sum on the card, float32: within the
+    recursive-summation bound of a float64 sum, (m - 1) eps32 sum |x| for
+    a segment of m rows, elementwise; the same bits on a second call, and
+    the same as the CPU's (the same adds in the same order)."""
+    from bayesiandatafusion_jl_tpu_torch.ops.gramian import _segment_sum
+    g = torch.Generator().manual_seed(n)
+    seg = torch.randint(0, n, (rows,), generator=g, dtype=torch.int32)
+    x = torch.randn((rows, width), generator=g, dtype=torch.float64)
+    got = _segment_sum(x.float().to(cuda), seg.to(cuda), n)
+    again = _segment_sum(x.float().to(cuda), seg.to(cuda), n)
+    assert torch.equal(got, again)
+    assert torch.equal(got.cpu(), _segment_sum(x.float(), seg, n))
+    x32 = x.float().double()
+    want = torch.zeros((n, width), dtype=torch.float64).index_add_(
+        0, seg.long(), x32)
+    absum = torch.zeros((n, width), dtype=torch.float64).index_add_(
+        0, seg.long(), x32.abs())
+    m = torch.bincount(seg.long(), minlength=n).double()[:, None]
+    bound = (m - 1).clamp_min(0) * 2.0 ** -24 * absum * 1.01
+    assert got.shape == (n, width)
+    assert bool(((got.cpu().double() - want).abs() <= bound).all())
+
+
+@pytest.mark.parametrize("case", sorted(DRIVER_CASES))
+def test_window_waits_for_nothing_on_cuda(cuda, case):
+    """A window of 4 sweeps issued with CUDA sync debugging set to raise:
+    no sweep of the pair, gather, fused-residual or dual-solve path waits
+    for the device (the metrics stay on it until the window's end)."""
+    eng = _driver_engine(case)
+    state = eng.init_state()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state, mstack = eng._window(state, eng.config.seed, 0, 4)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert len(mstack) == 4
+    assert all(np.isfinite(v) for m in eng._fetch(mstack) for v in m.values())

@@ -1,5 +1,5 @@
-"""The port and its GPU smoke script import neither jax nor the JAX
-package (nor its oracle, which imports jax)."""
+"""The port, its GPU smoke script and its examples import neither jax nor
+the JAX package (nor its oracle, which imports jax)."""
 import ast
 import os
 
@@ -7,12 +7,13 @@ import pytest
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(ROOT, "bayesiandatafusion_jl_tpu_torch")
+EXAMPLES = os.path.join(ROOT, "examples_torch")
 FORBIDDEN = ("jax", "jaxlib", "bayesiandatafusion_jl_tpu", "oracle")
 
 
 def _sources():
     out = [os.path.join(ROOT, "chip_smoke.py")]
-    for d, _, files in os.walk(PORT):
+    for d, _, files in (*os.walk(PORT), *os.walk(EXAMPLES)):
         out += [os.path.join(d, f) for f in files if f.endswith(".py")]
     return sorted(out)
 
@@ -49,5 +50,9 @@ def test_scan_covers_the_port():
                  "bayesiandatafusion_jl_tpu_torch/ops/gramian.py",
                  "bayesiandatafusion_jl_tpu_torch/ops/layout.py",
                  "bayesiandatafusion_jl_tpu_torch/ops/mvn.py",
-                 "bayesiandatafusion_jl_tpu_torch/kernels.py"):
+                 "bayesiandatafusion_jl_tpu_torch/kernels.py",
+                 "bayesiandatafusion_jl_tpu_torch/ops/sparse.py",
+                 "examples_torch/movielens.py",
+                 "examples_torch/chembl_macau.py",
+                 "examples_torch/fusion_graph.py"):
         assert must in rel
