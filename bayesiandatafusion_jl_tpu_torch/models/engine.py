@@ -59,7 +59,7 @@ depend on its seed alone.  Options outside the port raise
 ``NotImplementedError`` naming their ROADMAP item.
 
 The driver (``MacauEngine.run``, JAX ``GibbsDriverMixin`` :492-689) runs
-the sweeps in windows issued back to back with no host read inside
+the sweeps in windows dispatched back to back with no host read inside
 (``sweeps_per_dispatch``), reads the metrics the host needs at a window's
 end (``metrics_every``), and writes the jsonl log, the posterior-sample
 dumps, the checkpoints and a ``torch.profiler`` trace where configured.
@@ -778,7 +778,7 @@ class MacauEngine:
         (``load_state``): the sweeps from there on draw and accumulate as
         the run without interruption does, so its results are the same
         bits.  The sweeps run in windows of up to ``sweeps_per_dispatch``,
-        issued back to back with no host read inside; a window ends where
+        dispatched back to back with no host read inside; a window ends where
         ``_chunk_limit`` says.  At its end the metrics of the sweeps the
         host needs (every ``metrics_every``-th, the last, and all under
         verbose, a callback, a log file or the trace) are stacked and read
@@ -848,7 +848,7 @@ class MacauEngine:
         return self._results(state, history)
 
     def _window(self, state, seed: int, start: int, n: int):
-        """Sweeps [start, start + n), issued back to back: (state, each
+        """Sweeps [start, start + n), dispatched back to back: (state, each
         sweep's metrics, still on the device)."""
         burnin = self.config.burnin
         mstack = []

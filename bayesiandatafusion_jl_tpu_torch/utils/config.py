@@ -122,7 +122,7 @@ class MacauConfig:
     # sweep under verbose, a callback or a log_file).  Each read waits for
     # the device; the sweeps between stay queued on it
     metrics_every: int = 1
-    # issue up to N sweeps back to back as one window, with no host read
+    # dispatch up to N sweeps back to back as one window, with no host read
     # inside it and their metrics kept on the device until its end
     # (1 = one sweep a window).  Windows end at every sweep whose host
     # work needs that sweep's state: a checkpoint, a posterior-sample

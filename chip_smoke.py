@@ -60,7 +60,7 @@ Phases, each fatal on failure (nonzero exit, no result line):
      counted with no plain call; the files checked (10 samples, 20 log
      lines, a trace with kernel events, the last checkpoint equal to the
      state); a run resumed from the sweep-10 checkpoint and a run in
-     one-sweep windows, each equal to it bit for bit; a window issued
+     one-sweep windows, each equal to it bit for bit; a window dispatched
      with CUDA sync debugging set to raise; the seconds of a checkpoint,
      a sample dump and a load; run()'s ms/sweep at metrics_every 1 and 20
      and the effective TOP/s of ``flops_per_sweep``;
@@ -1512,7 +1512,7 @@ def run_driver_checks(eng, label, tally, timing=False):
       ``run(sweep_offset=10)``: the run's state bit for bit (U, mu,
       Lambda, the prediction sums, alpha);
     - the same run in one-sweep windows: the same state bit for bit;
-    - a window of 5 sweeps issued under ``torch.cuda`` sync debugging set
+    - a window of 5 sweeps dispatched under ``torch.cuda`` sync debugging set
       to raise: nothing inside it waits for the device;
     - the seconds of ``save_state``, ``_save_sample`` and ``load_state``
       at this size; with ``timing``, run()'s ms/sweep at metrics_every 1

@@ -404,7 +404,7 @@ def _side(pkg, **ent):
     return rd
 
 
-# case -> (graph builder, options of both configs)
+# case -> (the graph in a package, options of both configs)
 FLOPS_CASES = {
     "pair": (lambda p: _graph(p, "pair"), dict(dense_gram=True)),
     "gather": (lambda p: _graph(p, "pair"), dict(dense_gram=False)),

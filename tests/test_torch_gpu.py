@@ -1070,7 +1070,7 @@ def test_segment_sum_on_cuda(cuda, n, rows, width):
 
 @pytest.mark.parametrize("case", sorted(DRIVER_CASES))
 def test_window_waits_for_nothing_on_cuda(cuda, case):
-    """A window of 4 sweeps issued with CUDA sync debugging set to raise:
+    """A window of 4 sweeps dispatched with CUDA sync debugging set to raise:
     no sweep of the pair, gather, fused-residual or dual-solve path waits
     for the device (the metrics stay on it until the window's end)."""
     eng = _driver_engine(case)
