@@ -5,24 +5,30 @@ The graphs this port covers: any set of relations of any arity over
 shared entities (an entity may fill several modes of one relation, or
 none), with fixed or sampled noise precision alpha, at any K; an entity
 may carry side features X [N, F] (Macau), and a relation a ``class_cut``
-(its test AUC).  Each relation takes one Gramian path:
+(its test AUC).  ``plan_gramians`` gives each (relation, mode) one of
+three Gramian paths, from relation statistics, the flags ``dense_gram``
+and ``dense_fused`` and the byte budget ``dense_gram_budget_gb`` (the
+planner of ops/dense_gram.py on the card's measured rates; JAX engine
+:106-151):
 
-- the dense pair (``dense_gram`` None or True; ops/dense_gram.py): the
-  int8 pair, contracted by K6 (ops/pair_contract.py) against the partner
-  table K7 quantizes each sweep (``dense_int8`` and the int32 bound
-  ``int8_pair_ok``; at arity 3 K6 takes the largest partner and a float
-  step the others), or the float pair on ``torch.matmul`` otherwise;
-- the fused sparse regime (``dense_fused=True``, 2-ary relations the
-  planner encodes): one stored int8 value array, contracted per mode by
-  K8 (ops/fused_pair.py) against the partner table, which K7 (ops/ytab.py)
+- the dense pair (ops/dense_gram.py), stored once for all the relation's
+  dense modes: the int8 pair, contracted by K6 (ops/pair_contract.py)
+  against the partner table K7 quantizes each sweep (``dense_int8`` and
+  the int32 bound ``int8_pair_ok``; at arity 3 and up K6 takes the
+  largest partner and a float step the others), or the float pair on
+  ``torch.matmul`` otherwise;
+- the fused sparse regime (2-ary relations the fused planner encodes):
+  one stored int8 value array, contracted per mode by K8
+  (ops/fused_pair.py) against the partner table, which K7 (ops/ytab.py)
   quantizes each sweep on the s8 path (``dense_int8`` and the int32 bound
   ``fused_int8_ok``) and which is a float table in ``gram_dtype``
   otherwise.  Observations the one array cannot hold (a second rating of a
   cell, the zero-code level) ride the gather path as an exact-valued
   residual beside it;
-- the bucketed gather path (``dense_gram=False``, or a relation without
-  observations; ops/layout.py and ops/gramian.py), with ``accumulation``
-  "segment" or "planned".
+- the bucketed gather path (ops/layout.py and ops/gramian.py), with
+  ``accumulation`` "segment" or "planned": every mode the plan leaves
+  undense, among them every mode under ``dense_gram=False`` and, by
+  default, every mode of a relation under 50,000 observations.
 
 Each sweep, for each entity in turn (JAX engine :760-951):
 
@@ -133,17 +139,91 @@ class RelationSpec:
     class_cut: Optional[float] = None
 
 
-def _plan_fused(rel, cfg: MacauConfig):
-    """``fused_pair_plan``'s (s, m, keep) when the relation takes the fused
-    path (JAX engine :128-179), else None."""
-    if cfg.dense_fused is not True or cfg.dense_gram is False:
-        return None
-    plan = dg.fused_pair_plan(rel.data.idx, rel.data.vals, rel.data.shape,
-                              tol=cfg.dense_fused_tol)
-    if not dg.plan_fused_rels([rel.data.shape], cfg.dense_gram,
-                              cfg.dense_fused, [plan and plan[:2]]):
-        return None
-    return plan
+class _OnDemand:
+    """A sequence of ``n`` items, each computed by ``fn(i)`` the first time
+    it is read and kept: the planner reads a relation's fused encoding and
+    int8 eligibility only where its rules need them, and each costs a sort
+    of the relation's observations."""
+
+    def __init__(self, n: int, fn: Callable[[int], Any]):
+        self._n, self._fn, self._vals = n, fn, {}
+
+    def __len__(self):
+        return self._n
+
+    def __getitem__(self, i):
+        if i not in self._vals:
+            self._vals[i] = self._fn(i)
+        return self._vals[i]
+
+
+@dataclasses.dataclass
+class GramianPlan:
+    """``plan_gramians``' decisions for one graph: ``fused`` {ri: (s, m,
+    keep)} the relations on the fused store (``fused_pair_plan``'s
+    encoding and keep mask); ``dense_plans`` {(ri, mode): DenseModePlan}
+    every mode that contracts against a dense store ("canonical": the
+    relation's pair; "fused"), the others ride the gather path;
+    ``pair_i8`` {ri: bool} whether a relation that stores a pair stores
+    the int8 one; ``store_bytes`` {ri: bytes} each dense store's size as
+    the budget counts it (true extents); ``seconds`` the planner's."""
+    fused: Dict[int, Tuple[float, int, np.ndarray]]
+    dense_plans: Dict[Tuple[int, int], dg.DenseModePlan]
+    pair_i8: Dict[int, bool]
+    store_bytes: Dict[int, float]
+    seconds: float
+
+
+def plan_gramians(rd: RelationData, config: MacauConfig) -> GramianPlan:
+    """The Gramian path of every (relation, mode) of ``rd`` (JAX engine
+    :106-151), from relation statistics alone: the fused encodings of the
+    2-ary relations (where ``dense_fused`` is True or a relation has
+    ``_AUTO_MIN_NNZ`` observations), ``plan_fused_rels`` on the whole
+    budget, then ``plan_dense_modes`` on what is left, with the pair's
+    itemsize per relation: 1 where ``dense_int8`` and ``int8_pair_ok`` both
+    hold, else the float store's (bfloat16 under ``gram_dtype``, else the
+    compute dtype)."""
+    t0 = time.perf_counter()
+    rels = rd.relations
+    shapes = [tuple(int(e.count) for e in rel.entities) for rel in rels]
+    nnzs = [rel.data.nnz for rel in rels]
+    base_item = (2 if config.gram_dtype == "bfloat16"
+                 else config.np_dtype().itemsize)
+    i8 = _OnDemand(len(rels), lambda ri: bool(
+        config.dense_int8 and dg.int8_pair_ok(rels[ri].data.idx,
+                                              shapes[ri])))
+    pair_item = _OnDemand(len(rels), lambda ri: 1 if i8[ri] else base_item)
+
+    def encode(ri):
+        rel = rels[ri]
+        if (rel.arity != 2 or not rel.data.nnz
+                or not (config.dense_fused
+                        or rel.data.nnz >= dg._AUTO_MIN_NNZ)):
+            return None
+        return dg.fused_pair_plan(rel.data.idx, rel.data.vals, shapes[ri],
+                                  tol=config.dense_fused_tol)
+    fused_plan = _OnDemand(len(rels), encode)
+    enc = _OnDemand(len(rels), lambda ri: None if fused_plan[ri] is None
+                    else fused_plan[ri][:2])
+    budget = config.dense_gram_budget_gb * 1e9
+    fused, spent = dg.plan_fused_rels(
+        shapes, nnzs, config.num_latent, config.dense_gram,
+        config.dense_fused, enc, pair_item, budget)
+    dense_plans, canonical, _ = dg.plan_dense_modes(
+        shapes, [0 if ri in fused else n for ri, n in enumerate(nnzs)],
+        config.num_latent, config.dense_gram, budget - spent, pair_item)
+    store_bytes = {}
+    for ri in fused:
+        store_bytes[ri] = float(shapes[ri][0]) * shapes[ri][1]
+        for mode in range(2):
+            dense_plans[(ri, mode)] = dg.DenseModePlan(
+                "fused", shapes[ri][mode], (shapes[ri][1 - mode],))
+    for ri in canonical:
+        store_bytes[ri] = 2.0 * float(np.prod(shapes[ri])) * pair_item[ri]
+    return GramianPlan(
+        fused={ri: fused_plan[ri] for ri in fused}, dense_plans=dense_plans,
+        pair_i8={ri: i8[ri] for ri in canonical}, store_bytes=store_bytes,
+        seconds=time.perf_counter() - t0)
 
 
 def _resolve_device(device) -> torch.device:
@@ -161,16 +241,20 @@ def _resolve_device(device) -> torch.device:
 class CompiledProblem:
     """The device arrays and static description of one RelationData graph.
 
-    Per relation ``ri``, ``kinds[ri]`` names its Gramian path: "pair" (the
-    dense pair, int8 where ``pair_i8s[ri]``), "fused" (the fused store, s8
-    where ``fused_i8s[ri]``, with a gather-path residual where
-    ``residual_nnzs[ri]``) or "gather"; ``stores[ri]`` holds the pair or
-    the fused store.  ``layouts["r{ri}m{mode}"]`` are the gather buckets of
-    every gather mode and fused residual.  Per entity ``ei`` with side
-    features, ``feat["e{ei}"]`` holds its beta draw's arrays (the dense X
-    or the bucketed matvec, the column sums, and the solver's: the
-    eigenbasis of XX' and G, the Nystrom factors, or X'X), and
-    ``feat_seconds["e{ei}"]`` the seconds each took to build."""
+    ``plan`` is ``plan_gramians``' decision of the Gramian path of each
+    (relation, mode), ``dense_plans`` its ``dense_plans``: an entry for a
+    mode that contracts against a dense store, none for a mode on the
+    gather path.  Per relation ``ri``, ``kinds[ri]`` names its store:
+    "pair" (the dense pair of a relation with a dense mode, int8 where
+    ``pair_i8s[ri]``), "fused" (the fused store, s8 where
+    ``fused_i8s[ri]``, with a gather-path residual where
+    ``residual_nnzs[ri]``) or "gather" (none); ``stores[ri]`` holds the
+    pair or the fused store.  ``layouts["r{ri}m{mode}"]`` are the gather
+    buckets of every gather mode and fused residual.  Per entity ``ei``
+    with side features, ``feat["e{ei}"]`` holds its beta draw's arrays
+    (the dense X or the bucketed matvec, the column sums, and the
+    solver's: the eigenbasis of XX' and G, the Nystrom factors, or X'X),
+    and ``feat_seconds["e{ei}"]`` the seconds each took to build."""
 
     def __init__(self, rd: RelationData, config: MacauConfig,
                  device: torch.device):
@@ -189,9 +273,11 @@ class CompiledProblem:
         self.residual_nnzs: List[int] = []
         self.layouts, self.acc_plan, self.padded_nnz = {}, {}, []
         self.test, self.train = {}, {}
-        self.layout_seconds = self.plan_seconds = 0.0
+        self.layout_seconds = 0.0
         self._host_inst: Dict[str, List[np.ndarray]] = {}
         t0 = time.perf_counter()
+        self.plan = plan = plan_gramians(rd, config)
+        self.dense_plans = plan.dense_plans
         for ri, rel in enumerate(rd.relations):
             mean_value = float(rel.data.vals.mean()) if rel.data.nnz else 0.0
             rs = RelationSpec(
@@ -201,7 +287,7 @@ class CompiledProblem:
                 alpha_sample=resolved_alpha_sample(rel, config),
                 mean_value=mean_value, class_cut=rel.class_cut)
             self.rel_specs.append(rs)
-            self._build_relation(ri, rel, mean_value, config, device)
+            self._build_relation(ri, rel, mean_value, config, device, plan)
             if rel.test_idx.shape[0]:
                 self.test[f"r{ri}"] = {
                     "idx": torch.from_numpy(rel.test_idx.astype(np.int64))
@@ -217,7 +303,7 @@ class CompiledProblem:
                     "vals": torch.from_numpy(rel.data.vals - mean_value)
                     .to(device, dtype)}
         self.tri = (dg.tri_index(config.num_latent, device)
-                    if set(self.kinds) - {"gather"} else None)
+                    if self.dense_plans else None)
         if config.accumulation == "planned":
             self._build_acc_plans(config, device)
         del self._host_inst
@@ -240,10 +326,10 @@ class CompiledProblem:
     def flops_per_sweep(self) -> float:
         """The matmul work of one sweep (JAX ``flops_per_sweep``
         :410-449), for an effective rate over a measured ms/sweep; no
-        engine decision reads it.  A dense (pair or fused) relation counts
-        its full contraction, 2 * prod(dims) * (C + K) a mode, padded
-        cells included; a gather relation 2 * nnz * (K^2 + K) a mode (a
-        fused relation's residual is not counted, as in JAX); an entity
+        engine decision reads it.  A dense (pair or fused) mode counts its
+        relation's full contraction, 2 * prod(dims) * (C + K); a gather
+        mode 2 * nnz * (K^2 + K) (a fused relation's residual is not
+        counted, as in JAX); an entity
         with features its beta solver's products (CG: the right-hand side
         and uhat only, its iterations depend on the data)."""
         K = self.config.num_latent
@@ -253,7 +339,7 @@ class CompiledProblem:
         for ri, rs in enumerate(self.rel_specs):
             total = float(np.prod([counts[e] for e in rs.entity_ids]))
             for mode in range(rs.arity):
-                if self.kinds[ri] != "gather":
+                if (ri, mode) in self.dense_plans:
                     f += 2.0 * total * (C + K)
                 else:
                     f += 2.0 * rs.nnz * (K * K + K)
@@ -337,36 +423,25 @@ class CompiledProblem:
             self.entity_specs[ei], num_features=nf, use_ff=use_ff,
             feat_nnz=F.nnz, solver=solver)
 
-    def _build_relation(self, ri, rel, mean_value, config, device):
-        """Relation ``ri``'s store or bucket layouts.  The gather path for
-        every relation under ``dense_gram=False``, and for one without
-        observations (JAX ``plan_dense_modes`` skips those); else the
-        fused store where ``dense_fused`` asks and the planner encodes the
-        relation; else the pair: int8 where asked for and eligible (JAX
-        engine :113-118), else the float pair in the JAX store dtype
-        (:109-112)."""
+    def _build_relation(self, ri, rel, mean_value, config, device, plan):
+        """Relation ``ri``'s store and bucket layouts, as ``plan`` says
+        (JAX engine :163-300): the fused store where the plan puts the
+        relation on it; else, where any of its modes is dense, the pair
+        (stored once for all its modes: int8 where ``plan.pair_i8``, else
+        the float pair in the JAX store dtype, engine :109-118) and the
+        gather layouts of its other modes; else the gather layouts of every
+        mode."""
         store, pair_i8, fused_i8, resid = None, False, False, 0
-        plan = None
-        if config.dense_gram is not False and rel.data.nnz:
-            t0 = time.perf_counter()
-            plan = _plan_fused(rel, config)
-            self.plan_seconds += time.perf_counter() - t0
-        if config.dense_gram is False or not rel.data.nnz:
-            kind = "gather"
-            self._build_layouts(ri, rel, mean_value, config, device)
-        elif plan is not None:
+        gather = [m for m in range(rel.arity)
+                  if (ri, m) not in self.dense_plans]
+        if ri in plan.fused:
             kind = "fused"
             store, fused_i8, resid = self._build_fused(
-                ri, rel, mean_value, config, device, *plan)
-        else:
+                ri, rel, mean_value, config, device, *plan.fused[ri])
+        elif len(gather) < rel.arity:
             kind = "pair"
             centered = rel.data.vals - mean_value
-            pair_i8 = bool(config.dense_int8 and dg.int8_pair_ok(
-                rel.data.idx, rel.data.shape))
-            if pair_i8 and rel.arity > 3:
-                raise NotImplementedError(
-                    "not ported yet: the int8 pair at arity >= 4 (ROADMAP "
-                    "M12); dense_int8=False takes the float pair")
+            pair_i8 = plan.pair_i8[ri]
             if pair_i8:
                 store = dg.build_int8_pair(rel.data.idx, centered,
                                            rel.data.shape,
@@ -376,6 +451,12 @@ class CompiledProblem:
                     rel.data.idx, centered, rel.data.shape,
                     getattr(torch, config.gram_dtype or config.dtype),
                     device)
+            if gather:
+                self._build_layouts(ri, rel, mean_value, config, device,
+                                    modes=gather)
+        else:
+            kind = "gather"
+            self._build_layouts(ri, rel, mean_value, config, device)
         self.kinds.append(kind)
         self.stores.append(store)
         self.pair_i8s.append(pair_i8)
@@ -403,19 +484,20 @@ class CompiledProblem:
             self._build_layouts(ri, rel, mean_value, config, device, rows)
         return store, fused_i8, resid
 
-    def _build_layouts(self, ri, rel, mean_value, config, device, rows=None):
+    def _build_layouts(self, ri, rel, mean_value, config, device, rows=None,
+                       modes=None):
         """The gather path's device arrays for relation ``ri`` (JAX engine
         :277-300): per mode ``layouts["r{ri}m{mode}"]``, a list of buckets
         (``inst`` and ``part`` int32, ``val`` and ``mask`` in the compute
         dtype).  Adds the seconds to build and upload them to
         ``layout_seconds`` and the padded observation count of each mode to
         ``padded_nnz``.  ``rows`` selects the observations (the fused
-        path's residual); None takes all."""
+        path's residual), ``modes`` the modes; None takes all."""
         idx, centered = rel.data.idx, rel.data.vals - mean_value
         if rows is not None:
             idx, centered = idx[rows], centered[rows]
         t0 = time.perf_counter()
-        for mode in range(rel.arity):
+        for mode in (range(rel.arity) if modes is None else modes):
             ml = build_mode_layout(
                 idx, centered, mode, rel.entities[mode].count,
                 widths=config.bucket_widths, row_pad=config.row_pad,
@@ -552,7 +634,7 @@ class MacauEngine:
                     partners = [ents[rs.entity_ids[d]]["U"]
                                 for d in range(rs.arity) if d != mode]
                     alpha = rels[ri]["alpha"]
-                    if prob.kinds[ri] != "gather":
+                    if (ri, mode) in prob.dense_plans:
                         dense.append((ri, mode, partners, alpha))
                     for ba in prob.layouts.get(f"r{ri}m{mode}", ()):
                         contribs.append((alpha, partners, ba))

@@ -3,15 +3,20 @@ arity, and the fused single array of a 2-ary one.
 
 Port of the dense paths of ``bayesiandatafusion_jl_tpu/ops/dense_gram.py``.
 
+The planner (JAX :47-239): ``estimate_times``, ``plan_dense_modes`` and
+``plan_fused_rels`` decide, from relation statistics and a byte budget,
+which (relation, mode) contracts against a dense store and which rides the
+gather path, on constants measured on the card.
+
 The pairs: the host side (``int8_pair_ok`` :1073, and the stores that
 ``build_dense_pair`` :263 and ``quantize_dense_pair`` :1114 make, built
 over the observed cells only) and the per-sweep side
 (``dense_gram_contrib`` :1236).  One stored pair per relation, M the
 observation counts and W the sums of the centered values; arity 2 keeps
-[N0, N1] and contracts it along either axis; arity 3 keeps its modes in
-``store_order`` (the largest first, the second largest last).  The
-outputs are packed in the transposed [C, N] layout (C = K(K+1)/2) or
-unpacked to [N, K, K].
+[N0, N1] and contracts it along either axis; arity 3 and up keeps its
+modes in ``store_order`` (the largest first, the second largest last, the
+rest between).  The outputs are packed in the transposed [C, N] layout
+(C = K(K+1)/2) or unpacked to [N, K, K].
 
 The int8 pair (the s8 branch, :1319-1430): M8 the counts, W8 the values
 quantized on one static scale w_scale = max|W| / 127.  Per sweep and per
@@ -26,11 +31,11 @@ Y8/U8 are its and U's per-row int8 quantizations.  The int8 x int8 ->
 int32 products are exact (``int8_pair_ok`` bounds them below 2^31) and run
 on K6 (``ops/pair_contract.py``), which reads the one store along either
 axis, with the dequant in its epilogue (float32) or after it (float64).
-At arity 3 that is the first of two steps: the largest partner (the first
-or the last store axis) contracted on K6 with the store read as a 2-D
+At arity 3 and up that is the first of two steps: the largest partner (the
+first or the last store axis) contracted on K6 with the store read as a 2-D
 array, then the dequantized sums reduced against the other partners'
-float tables (the Hadamard context factorizes: (z o w)(z o w)^T =
-zz^T o ww^T, and the packed triangle commutes with it).
+float tables in one einsum (the Hadamard context factorizes:
+(z o w)(z o w)^T = zz^T o ww^T, and the packed triangle commutes with it).
 
 The float pair (the float branch, :1431-1463): M and W in the store dtype
 (bfloat16 under ``gram_dtype="bfloat16"``, else the compute dtype), and per
@@ -86,15 +91,199 @@ def tri_maps(K: int) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
 
 
 # ---------------------------------------------------------------------------
+# the planner (host side): which Gramian path each (relation, mode) takes
+# ---------------------------------------------------------------------------
+
+# The planner's machine constants, measured on one NVIDIA H100 80GB HBM3 at
+# a 700 W limit by chip_smoke.py, which prints them as each run measures
+# them (PERF.md §6).  They only steer the choice between paths that give
+# the same numbers.  The JAX package's are a TPU's: its one matmul rate
+# (``_MXU_FLOPS`` 3e14) stands here for the two pair paths and its fused
+# one (``_BF16_FLOPS`` 1.1e14) for the two fused paths, because on the
+# card each path runs at a rate of its own.  The rates are the ones that
+# make ``estimate_times`` give the kernel's measured time of one mode.
+_GATHER_S_PER_OBS = 1.2e-9    # the gather path's sweep outside the sampler
+                              # per observation and mode (ML-10M, K = 32)
+_PAIR_I8_OPS = 8.3e14         # K6 on the int8 pair (ML-10M, K = 32)
+_PAIR_FLOAT_FLOPS = 4.2e13    # the float32 pair's torch.matmul (ditto)
+_FUSED_S8_OPS = 7.0e14        # K8a, the fused store's s8 kernel (Netflix)
+_FUSED_FLOAT_FLOPS = 3.9e14   # K8c with a bfloat16 table (Netflix)
+_HBM_BPS = 3.35e12            # the card's memory rate (data sheet)
+# below this many observations a relation stays on the gather path unless
+# a flag forces a dense one (the JAX package's floor, kept so that small
+# problems take the same path in both packages)
+_AUTO_MIN_NNZ = 50_000
+
+
+class DenseModePlan:
+    """How one (relation, mode) contracts against a dense store (JAX
+    ``DenseModePlan`` :61).
+
+    kind: "canonical" — the relation's one stored pair, shared by its modes
+          "copy"      — a focus-leading copy of the pair for this mode (a
+                        sharded engine: each mode's pair sharded by its own
+                        focus axis; ``plan_dense_modes(per_mode_pairs=True)``)
+          "fused"     — the relation's fused store (``plan_fused_rels``)
+    """
+
+    def __init__(self, kind: str, n_focus: int,
+                 partner_counts: Tuple[int, ...]):
+        self.kind = kind
+        self.n_focus = n_focus
+        self.partner_counts = partner_counts
+
+
+def estimate_times(n_focus: int, np_comb: int, nnz: int, K: int,
+                   itemsize: int, mxu_rate: Optional[float] = None
+                   ) -> Tuple[float, float]:
+    """(dense_seconds, gather_seconds) of one mode's update (JAX
+    ``estimate_times`` :78).  The dense contraction touches every cell once
+    against the K(K+1)/2-column packed triangle at ``mxu_rate`` (None: the
+    pair's, K6's for an int8 store and the float matmul's otherwise), or
+    streams M once if that is slower, then streams W once more.  The gather
+    path costs ``_GATHER_S_PER_OBS`` an observation at K = 32, scaled by
+    (K / 32)^2 above it."""
+    if mxu_rate is None:
+        mxu_rate = _PAIR_I8_OPS if itemsize == 1 else _PAIR_FLOAT_FLOPS
+    flops = 2.0 * n_focus * np_comb * (K * (K + 1) // 2)
+    bytes_mw = n_focus * np_comb * itemsize                # each of M, W
+    dense = (max(flops / mxu_rate, bytes_mw / _HBM_BPS)
+             + bytes_mw / _HBM_BPS)
+    gather = nnz * _GATHER_S_PER_OBS * max(1.0, (K / 32.0) ** 2)
+    return dense, gather
+
+
+def _declined(what: str, need: float, budget_bytes: float) -> None:
+    """The stderr line of a dense store the budget declines (no silent
+    caps: the relation's modes then ride the much slower gather path)."""
+    import sys
+    print(f"# dense_gram: {what} declined by budget ({need / 1e9:.2f} GB > "
+          f"{budget_bytes / 1e9:.2f} GB) — gather path", file=sys.stderr)
+
+
+def plan_dense_modes(shapes: Sequence[Tuple[int, ...]], nnzs: Sequence[int],
+                     K: int, dense_gram: Optional[bool], budget_bytes: float,
+                     itemsize, per_mode_pairs: bool = False):
+    """Which (relation, mode) pairs run dense (JAX ``plan_dense_modes``
+    :101), from relation statistics alone: true extents, observation
+    counts, K, the pair's itemsize (an int, or one per relation: 1 for an
+    int8 pair) and the byte budget.
+
+    ``dense_gram=False`` plans nothing; True every mode of every relation
+    with observations; None those whose dense time is predicted below 0.7
+    x the gather path's (``estimate_times``), from ``_AUTO_MIN_NNZ``
+    observations.  The candidates are taken greedily by predicted saving
+    while their stores fit ``budget_bytes``: the pair (M and W) charged
+    once per relation ("canonical"), or once per mode with
+    ``per_mode_pairs`` ("copy", for a sharded engine).  A declined mode
+    prints a line on stderr.
+
+    Returns (plans: {(ri, mode): DenseModePlan}, the set of relations
+    that store the canonical pair, the list of (ri, mode) that store a
+    copy)."""
+    plans: Dict[Tuple[int, int], DenseModePlan] = {}
+    canonical: set = set()
+    copies = []
+    if dense_gram is False:
+        return plans, canonical, copies
+
+    def its_of(ri):
+        return itemsize if np.isscalar(itemsize) else itemsize[ri]
+    spent = 0.0
+    cands = []
+    for ri, shape in enumerate(shapes):
+        nnz = nnzs[ri]
+        if nnz == 0 or (dense_gram is None and nnz < _AUTO_MIN_NNZ):
+            continue
+        its = its_of(ri)
+        total = int(np.prod([int(s) for s in shape], dtype=np.int64))
+        for mode in range(len(shape)):
+            n_focus = int(shape[mode])
+            dense_t, gather_t = estimate_times(n_focus, total // n_focus,
+                                               nnz, K, its)
+            if dense_gram is None and dense_t > 0.7 * gather_t:
+                continue
+            cands.append((gather_t - dense_t, ri, mode, total))
+    # greedy by predicted saving (stable on ties), within the budget
+    cands.sort(key=lambda c: -c[0])
+    for _, ri, mode, total in cands:
+        pair_bytes = 2.0 * total * its_of(ri)           # M + W
+        need = pair_bytes if (per_mode_pairs or ri not in canonical) else 0.0
+        if spent + need > budget_bytes:
+            _declined(f"relation {ri} mode {mode}", spent + need,
+                      budget_bytes)
+            continue
+        spent += need
+        if per_mode_pairs:
+            copies.append((ri, mode))
+        else:
+            canonical.add(ri)
+        shape = shapes[ri]
+        plans[(ri, mode)] = DenseModePlan(
+            "copy" if per_mode_pairs else "canonical", int(shape[mode]),
+            tuple(int(s) for d, s in enumerate(shape) if d != mode))
+    return plans, canonical, copies
+
+
+def plan_fused_rels(shapes: Sequence[Tuple[int, ...]], nnzs: Sequence[int],
+                    K: int, dense_gram: Optional[bool],
+                    dense_fused: Optional[bool], fused_enc: Sequence,
+                    pair_itemsize: Sequence[int], budget_bytes: float):
+    """The relations that take the fused single-array store (JAX
+    ``plan_fused_rels`` :183), from relation statistics alone.
+
+    ``dense_fused=True`` takes every 2-ary relation with an encoding
+    (``fused_enc[ri]``, ``fused_pair_plan``'s (s, m), or None); None takes
+    one from ``_AUTO_MIN_NNZ`` observations whose pair (at
+    ``pair_itemsize``) does not fit ``budget_bytes`` and whose dense
+    contraction is predicted below 0.7 x the gather path's in both modes
+    (K8a's rate where the pair would be int8, K8c's otherwise); False, or
+    ``dense_gram=False``, takes none.  Each store (one byte a cell) must
+    fit what is left of the budget, else a line on stderr.  The
+    encoding and the itemsize are read only where the rule needs them, so
+    ``fused_enc`` and ``pair_itemsize`` may compute them on demand.
+
+    Returns ({ri: (s, m)}, the bytes the stores take)."""
+    out = {}
+    spent = 0.0
+    if dense_fused is False or dense_gram is False:
+        return out, spent
+    for ri, shape in enumerate(shapes):
+        nnz = nnzs[ri]
+        if len(shape) != 2 or (dense_fused is None
+                               and nnz < _AUTO_MIN_NNZ):
+            continue
+        total = float(int(shape[0]) * int(shape[1]))
+        if dense_fused is None:
+            its = pair_itemsize[ri]
+            if 2.0 * total * its <= budget_bytes:
+                continue                # the pair fits: it is the faster
+            rate = _FUSED_S8_OPS if its == 1 else _FUSED_FLOAT_FLOPS
+            if not all(d < 0.7 * g for d, g in (
+                    estimate_times(int(shape[m]), int(shape[1 - m]), nnz, K,
+                                   1, mxu_rate=rate) for m in range(2))):
+                continue
+        enc = fused_enc[ri]
+        if enc is None:
+            continue
+        if spent + total > budget_bytes:
+            _declined(f"relation {ri} fused path", spent + total,
+                      budget_bytes)
+            continue
+        out[ri] = enc
+        spent += total
+    return out, spent
+
+
+# ---------------------------------------------------------------------------
 # host side (numpy)
 # ---------------------------------------------------------------------------
 
 # The JAX package's constants of the dense-versus-bucketed choice of the
-# side features' operand (its ``use_dense_feat``), copied so that both
-# packages choose alike.  They are the JAX package's decision constants,
-# not measurements of this port's card.
-_HBM_BPS = 7.0e11
-_AUTO_MIN_NNZ = 50_000
+# side features' operand (its ``use_dense_feat``): a TPU's memory rate and
+# bucketed matvec cost, copied as they are and not yet measured on the
+# card (ROADMAP M11), so both packages choose alike for now.
+_FEAT_HBM_BPS = 7.0e11
 _SPMM_S_PER_NNZ = 6.2e-9
 
 
@@ -121,7 +310,8 @@ def use_dense_feat(n: int, f: int, nnz: int, itemsize: int,
     if dense_gram is None:
         if nnz < _AUTO_MIN_NNZ:
             return False
-        return 2.0 * bytes_x / _HBM_BPS < 0.7 * 2.0 * nnz * _SPMM_S_PER_NNZ
+        return (2.0 * bytes_x / _FEAT_HBM_BPS
+                < 0.7 * 2.0 * nnz * _SPMM_S_PER_NNZ)
     return True
 
 
@@ -131,17 +321,20 @@ def int8_pair_ok(idx: np.ndarray, shape: Sequence[int]) -> bool:
     partner) axis can overflow 127 * 127 * fiber length."""
     arity = idx.shape[1]
     dims = [int(s) for s in shape]
+    seen = {}
 
     def max_mult(cols):
         if not cols:
             return idx.shape[0]
-        lin = np.zeros(idx.shape[0], np.int64)
-        for d in cols:
-            lin = lin * dims[d] + idx[:, d].astype(np.int64)
-        if lin.size == 0:
-            return 0
-        _, c = np.unique(lin, return_counts=True)
-        return int(c.max())
+        if len(cols) == 1:          # one column: a count, not a sort
+            return int(np.bincount(idx[:, cols[0]]).max(initial=0))
+        if tuple(cols) not in seen:     # two focus modes share a column set
+            lin = np.zeros(idx.shape[0], np.int64)
+            for d in cols:
+                lin = lin * dims[d] + idx[:, d].astype(np.int64)
+            seen[tuple(cols)] = (0 if lin.size == 0 else int(
+                np.unique(lin, return_counts=True)[1].max()))
+        return seen[tuple(cols)]
 
     if max_mult(list(range(arity))) > 127:
         return False
@@ -226,7 +419,7 @@ def build_int8_pair(idx: np.ndarray, centered: np.ndarray,
     Returns ``{"M8": M8, "W8": W8, "deg": [d_0, ...], "w_scale": float,
     "shape": (N_0, ...), "order": store_order(shape)}``: the counts and the
     quantized values, one array each with the modes in ``order`` (arity 2:
-    [N0p, N1p]; arity 3: [N_a p, N_c, N_b p]), the first and the last
+    [N0p, N1p]; arity 3 and up: [N_a p, ..., N_b p]), the first and the last
     extent padded to STORE_ALIGN with zero cells, stored once (K6
     contracts along either end); d_f the observation count of every
     (stored) row of mode f, for the PD ridge; ``shape`` the true extents in
@@ -386,9 +579,10 @@ def _tensor_int8_contrib(pair, tri, partners, mode, alpha, out_dtype,
     step 1 contracts the largest partner exactly in int32 on K6 against
     its quantized table, the store read as 2-D (``_step1_view``), and
     dequantizes (K6's epilogue in float32, after it otherwise); step 2
-    reduces the other partners against their float tables, made from the
-    float32 factors and rounded to ``op_dtype`` as the dequantized sums
-    are, and summed in ``out_dtype``."""
+    reduces the other partners, one or more, against their float tables in
+    one ``torch.einsum`` (as the JAX package's XLA einsum does), the tables
+    made from the float32 factors and rounded to ``op_dtype`` as the
+    dequantized sums are, and summed in ``out_dtype``."""
     M8, W8, order = pair["M8"], pair["W8"], pair["order"]
     true = pair["shape"]
     K = partners[0].shape[1]
@@ -440,14 +634,11 @@ def int8_pair_contrib(pair: Dict[str, object], tri,
     ``tri`` = ``tri_index(K)``, ``partners`` the other modes' factors
     [N_d, K] in mode order, cast to float32 before the tables and their
     quantization whatever ``out_dtype`` is, as the JAX package does.
-    Arity 2 is one contraction on K6; arity 3 two steps
+    Arity 2 is one contraction on K6; arity 3 and up two steps
     (``_tensor_int8_contrib``), the second with its operands rounded to
     ``op_dtype`` (the JAX package's ``gram_dtype``; default
-    ``out_dtype``).  Arity 4 and up is not ported (ROADMAP M12)."""
+    ``out_dtype``)."""
     arity = len(pair["shape"])
-    if arity > 3:
-        raise NotImplementedError(
-            "not ported yet: the int8 pair at arity >= 4 (ROADMAP M12)")
     n = pair["shape"][mode]
     K = partners[0].shape[1]
     C = K * (K + 1) // 2
@@ -723,24 +914,6 @@ def fused_int8_ok(emax: int, shape: Sequence[int],
         return 127.0 * worst < 2.0 ** 31 * 0.95
     n_c = max(int(d) for d in shape) + 8192
     return 127.0 * max(emax, 1) * n_c < 2.0 ** 31 * 0.95
-
-
-def plan_fused_rels(shapes: Sequence[Tuple[int, ...]],
-                    dense_gram: Optional[bool],
-                    dense_fused: Optional[bool],
-                    fused_enc: Sequence) -> Dict[int, Tuple[float, int]]:
-    """The relations that take the fused path (JAX :183): ri -> (s, m).
-
-    ``dense_fused=True`` takes every fused-encodable 2-ary relation.  The
-    JAX package's ``None`` is an auto rule on a TPU HBM budget
-    (``dense_gram_budget_gb``) and TPU-measured rates; the port has no
-    H100 planner yet (ROADMAP M6-rest), so ``None``, like
-    ``False``, keeps the pair: the float pair, or the int8 pair under
-    ``dense_int8``."""
-    if dense_fused is not True or dense_gram is False:
-        return {}
-    return {ri: enc for ri, (shape, enc) in enumerate(zip(shapes, fused_enc))
-            if enc is not None and len(shape) == 2}
 
 
 def build_fused_store(idx: np.ndarray, vals: np.ndarray,

@@ -1,12 +1,12 @@
 """Degree-bucketed observation layout for the gather path (numpy only).
 
 Port of ``bayesiandatafusion_jl_tpu/ops/layout.py``: ``Bucket``,
-``ModeLayout``, ``build_mode_layout`` and its NumPy builder
-``_build_mode_layout_numpy`` :150-227, which this module copies, so the
-layout equals the JAX package's bit for bit (same piece order, same
-observation order, same padding).  The JAX package's C++ builder
-(``native/layout.cpp``) produces the same layout faster; it is not ported
-yet (ROADMAP S5).
+``ModeLayout``, ``build_mode_layout`` :64-141, its C++ builder (the port's
+own copy of the JAX package's ``native/layout.cpp``, ``native/``) for
+float32 layouts and its NumPy builder ``_build_mode_layout_numpy``
+:150-227, the plain version, for the others.  Both give the JAX package's
+layout bit for bit (same piece order, same observation order, same
+padding).
 
 For one (relation, mode), the observations are grouped by focus instance
 and packed into fixed-width blocks ("buckets").  An instance whose degree
@@ -68,11 +68,85 @@ def build_mode_layout(
     widths: Sequence[int] = (8, 32, 128, 512, 2048),
     row_pad: int = 8,
     dtype=np.float32,
+    use_native: bool = True,
 ) -> ModeLayout:
     """Pack one relation's observations for sampling ``mode``'s entity:
     CSR by focus instance (stable sort), each instance's run cut into
     pieces of the widest width, each piece in the narrowest bucket that
-    holds it, each bucket's rows padded to a multiple of ``row_pad``."""
+    holds it, each bucket's rows padded to a multiple of ``row_pad``.
+
+    A float32 layout is built by the native library (``native.lib()``,
+    built at first use; a failed build raises), unless ``use_native`` is
+    False; any other dtype by the NumPy builder."""
+    if use_native and np.dtype(dtype) == np.float32:
+        return _build_mode_layout_native(idx, centered_vals, mode,
+                                         n_instances, widths, row_pad)
+    return _build_mode_layout_numpy(idx, centered_vals, mode, n_instances,
+                                    widths, row_pad, dtype)
+
+
+def _build_mode_layout_native(idx, centered_vals, mode, n_instances, widths,
+                              row_pad) -> ModeLayout:
+    """``build_mode_layout`` in float32 by the native library (JAX
+    ``_build_mode_layout_native`` :88): one pass to count each instance's
+    degree and each width's pieces, the buckets allocated zeroed here,
+    one pass to fill them."""
+    import ctypes
+
+    from .. import native
+    L = native.lib()
+    idx = np.ascontiguousarray(idx, np.int32)
+    vals = np.ascontiguousarray(centered_vals, np.float64)
+    nnz, D = idx.shape
+    if vals.shape != (nnz,):
+        raise ValueError(f"{vals.shape[0]} values for {nnz} observations")
+    widths = np.asarray(sorted(set(int(w) for w in widths)), np.int64)
+    nw = len(widths)
+    deg = np.zeros(n_instances, np.int64)
+    ppw = np.zeros(nw, np.int64)
+    p_i32 = ctypes.POINTER(ctypes.c_int32)
+    p_i64 = ctypes.POINTER(ctypes.c_int64)
+    p_f32 = ctypes.POINTER(ctypes.c_float)
+    p_f64 = ctypes.POINTER(ctypes.c_double)
+
+    def P(a, ty):
+        return a.ctypes.data_as(ty)
+
+    total = L.bdf_plan_layout(nnz, D, mode, n_instances, P(idx, p_i32),
+                              P(widths, p_i64), nw, P(deg, p_i64),
+                              P(ppw, p_i64))
+    if total < 0:
+        raise ValueError(f"an index of mode {mode} lies outside "
+                         f"[0, {n_instances})")
+    inst, part, val, mask = [], [], [], []
+    for c in range(nw):
+        rows = _round_up(int(ppw[c]), row_pad) if ppw[c] else 0
+        w = int(widths[c])
+        inst.append(np.zeros(rows, np.int32))
+        part.append([np.zeros((rows, w), np.int32) for _ in range(D - 1)])
+        val.append(np.zeros((rows, w), np.float32))
+        mask.append(np.zeros((rows, w), np.float32))
+    part_flat = [a for ps in part for a in ps]
+    rc = L.bdf_fill_layout(
+        nnz, D, mode, n_instances, P(idx, p_i32), P(vals, p_f64), 0.0,
+        P(widths, p_i64), nw, P(deg, p_i64),
+        (p_i32 * nw)(*[P(a, p_i32) for a in inst]),
+        (p_i32 * len(part_flat))(*[P(a, p_i32) for a in part_flat]),
+        (p_f32 * nw)(*[P(a, p_f32) for a in val]),
+        (p_f32 * nw)(*[P(a, p_f32) for a in mask]))
+    if rc != 0:
+        raise RuntimeError("the native layout fill failed")
+    buckets = [Bucket(width=int(widths[c]), inst=inst[c], part=part[c],
+                      val=val[c], mask=mask[c])
+               for c in range(nw) if ppw[c]]
+    return ModeLayout(buckets=buckets, n_instances=n_instances, arity=D,
+                      nnz=nnz)
+
+
+def _build_mode_layout_numpy(idx, centered_vals, mode, n_instances, widths,
+                             row_pad, dtype) -> ModeLayout:
+    """``build_mode_layout`` by NumPy (JAX ``_build_mode_layout_numpy``
+    :150), in any dtype: the plain version of the native builder."""
     idx = np.asarray(idx, np.int32)
     nnz, D = idx.shape
     widths = sorted(set(int(w) for w in widths))

@@ -4,8 +4,10 @@ Port of the host half of ``bayesiandatafusion_jl_tpu/ops/sparse.py``:
 ``SparseBinMatrix`` (:28-137), numpy only, and the COO products ``spmm`` /
 ``spmm_t`` (:139, :145) in torch.  The engine's feature products run on
 ``ops/spmv.bucketed_spmm`` or a dense [N, F] operand, not on these two.
-Then the file readers and writers (:161-263), by the JAX package's
-pure-Python branch, so a file written by either package is the same bytes:
+Then the file readers and writers (:161-263), so a file written by either
+package is the same bytes: SBM1 by the native library (the port's copy of
+the JAX package's ``native/layout.cpp``, ``native/``), the others by the
+JAX package's pure-Python branch:
 
 - SBM1 (``write_sparse_binary`` / ``read_sparse_binary``): the magic
   ``b"SBM1"``, nrow, ncol and nnz as little-endian int64, then the 0-based
@@ -19,6 +21,7 @@ pure-Python branch, so a file written by either package is the same bytes:
 from __future__ import annotations
 
 import dataclasses
+import os
 import struct
 from typing import Optional, Tuple
 
@@ -145,7 +148,47 @@ _MAGIC = b"SBM1"
 
 
 def write_sparse_binary(path: str, m: SparseBinMatrix) -> None:
-    """``m``'s pattern as an SBM1 file (its values, if any, are not kept)."""
+    """``m``'s pattern as an SBM1 file (its values, if any, are not kept),
+    by the native library (JAX ``write_sparse_binary`` :164)."""
+    import ctypes
+
+    from .. import native
+    p32 = ctypes.POINTER(ctypes.c_int32)
+    rows = np.ascontiguousarray(m.rows, np.int32)
+    cols = np.ascontiguousarray(m.cols, np.int32)
+    if native.lib().bdf_write_sbm(
+            os.fsencode(path), m.shape[0], m.shape[1], m.nnz,
+            rows.ctypes.data_as(p32), cols.ctypes.data_as(p32)) != 0:
+        raise OSError(f"{path}: could not write the SBM1 file")
+
+
+def read_sparse_binary(path: str) -> SparseBinMatrix:
+    """An SBM1 file as a binary ``SparseBinMatrix``, by the native library
+    (JAX ``read_sparse_binary`` :181)."""
+    import ctypes
+
+    from .. import native
+    if not os.path.isfile(path):
+        raise FileNotFoundError(path)
+    L = native.lib()
+    shape = np.zeros(2, np.int64)
+    p64 = ctypes.POINTER(ctypes.c_int64)
+    nnz = L.bdf_read_sbm_header(os.fsencode(path),
+                                shape.ctypes.data_as(p64))
+    if nnz < 0:
+        raise ValueError(f"{path}: not an SBM1 file")
+    rows = np.empty(nnz, np.int32)
+    cols = np.empty(nnz, np.int32)
+    p32 = ctypes.POINTER(ctypes.c_int32)
+    if L.bdf_read_sbm(os.fsencode(path), nnz, rows.ctypes.data_as(p32),
+                      cols.ctypes.data_as(p32)) != 0:
+        raise ValueError(f"{path}: truncated SBM1 file")
+    return SparseBinMatrix(rows, cols, (int(shape[0]), int(shape[1])))
+
+
+def _write_sparse_binary_plain(path: str, m: SparseBinMatrix) -> None:
+    """``write_sparse_binary`` in Python (the JAX package's pure-Python
+    branch): the plain version the tests hold the native writer to."""
     with open(path, "wb") as f:
         f.write(_MAGIC)
         f.write(struct.pack("<qqq", m.shape[0], m.shape[1], m.nnz))
@@ -153,8 +196,9 @@ def write_sparse_binary(path: str, m: SparseBinMatrix) -> None:
         f.write(m.cols.astype("<i4").tobytes())
 
 
-def read_sparse_binary(path: str) -> SparseBinMatrix:
-    """An SBM1 file as a binary ``SparseBinMatrix``."""
+def _read_sparse_binary_plain(path: str) -> SparseBinMatrix:
+    """``read_sparse_binary`` in Python: the native reader's plain
+    version."""
     with open(path, "rb") as f:
         if f.read(4) != _MAGIC:
             raise ValueError(f"{path}: not an SBM1 file")

@@ -1,11 +1,11 @@
 """Engine configuration (port of ``bayesiandatafusion_jl_tpu/utils/config.py``).
 
-The fields keep the JAX package's names, meanings and defaults.  The JAX
-options the port does not implement yet are not fields: passing one
-raises ``NotImplementedError`` naming its ROADMAP item, whether through
-``MacauConfig(...)`` or ``macau(**kwargs)``.
-The TPU-only knobs (``pallas``, ``dense_gram_budget_gb``) are absent
-altogether.
+The fields keep the JAX package's names, meanings and defaults, but for
+``dense_gram_budget_gb``, whose default is the card's.  The JAX options
+the port does not implement yet are not fields: passing one raises
+``NotImplementedError`` naming its ROADMAP item, whether through
+``MacauConfig(...)`` or ``macau(**kwargs)``.  The TPU-only knob
+``pallas`` is absent altogether.
 """
 from __future__ import annotations
 
@@ -17,7 +17,7 @@ import numpy as np
 
 # Fields of the JAX package's MacauConfig that the port has no counterpart
 # for yet, with their ROADMAP items: the sharded engine's.  The TPU-only
-# knobs are not listed: the port has no use for them.
+# knob (``pallas``) is not listed: the port has no use for it.
 UNPORTED_FIELDS = dict.fromkeys(("exchange_blocks", "head_split_degree"),
                                 "M11")
 
@@ -55,14 +55,21 @@ class MacauConfig:
     dtype: str = "float32"  # "float64" for the CPU parity tests
     chol_jitter: float = 0.0
 
-    # Gramian path: None or True = the dense pair (ops/dense_gram.py) for
-    # every relation with observations; False = every mode on the bucketed
-    # gather path (ops/layout.py, ops/gramian.py).  The JAX package's None
-    # is an auto planner on TPU-measured constants that can mix dense and
-    # gather modes; the engine takes such a mix (an entity sums dense and
-    # gather contributions), but the port has no H100 planner yet
-    # (ROADMAP M6-rest), so None keeps the pair.
+    # Gramian path of each (relation, mode) (ops/dense_gram.py's planner):
+    # None = plan it: from 50,000 observations a mode contracts against its
+    # relation's dense pair (ops/dense_gram.py) where that is predicted
+    # faster than 0.7 x the bucketed gather path (ops/layout.py,
+    # ops/gramian.py) on the card's measured rates and the pair fits the
+    # budget, else it rides the gather path; True = every mode dense, within
+    # the budget; False = every mode on the gather path
     dense_gram: Optional[bool] = None
+    # the bytes the dense stores (pairs, fused arrays) may take, in GB: a
+    # fixed number, not read from the device, so that a plan depends on the
+    # problem alone.  16 GB on an 80 GB H100 (the JAX package's 9.0 is a
+    # TPU's): under the Netflix-shaped int8 pair's 17.1 GB, which runs no
+    # faster than its 8.5 GB fused store (PERF.md §6), and leaving the
+    # sweep's transients 64 GB
+    dense_gram_budget_gb: float = 16.0
     # int8 operands on the dense paths: True stores the int8 pair (K6 and
     # K7) for a relation that passes ``int8_pair_ok`` and puts a fused
     # relation on the s8 kernels; False (the JAX default) stores the float
@@ -70,12 +77,12 @@ class MacauConfig:
     # relation on the float kernels.  The gather path does not read it.
     dense_int8: bool = False
     # the fused sparse regime (ops/dense_gram.py, second half): one stored
-    # int8 value array V8 instead of the pair, the mask derived on the fly.
-    # True = wherever ``fused_pair_plan`` encodes the relation (the pair
-    # otherwise); None or False = the pair.  The JAX package's
-    # None is an auto rule on a TPU HBM budget (``dense_gram_budget_gb``);
-    # the port has no H100 planner yet (ROADMAP M6-rest), as for
-    # ``dense_gram``.
+    # int8 value array V8 of a 2-ary relation instead of the pair, the mask
+    # derived on the fly.  True = wherever ``fused_pair_plan`` encodes the
+    # relation, within the budget; None = plan it: from 50,000 observations
+    # where the relation's pair does not fit ``dense_gram_budget_gb``, the
+    # one array does, and its contraction is predicted faster than 0.7 x
+    # the gather path; False = never
     dense_fused: Optional[bool] = None
     # bounded-error grids for continuous values: admit the finest uniform
     # int8 grid whose rounding error s/2 <= dense_fused_tol (None = exact

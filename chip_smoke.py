@@ -11,7 +11,8 @@ Phases, each fatal on failure (nonzero exit, no result line):
    and ptxas serializes no ``wgmma`` (no C75xx line in its log); the
    sampler kernels' build lines (K1-K5: registers, spills), failing on any
    spill in float32 or float64, and K7's (both passes), failing on any
-   spill;
+   spill; then the native host builder (``native/layout.cpp``: the gather
+   path's bucketed layouts, the SBM1 files) by the host C++ compiler;
 3. kernels vs plain: each sampler kernel against its plain torch version
    on random SPD problems at the main paths' shapes, float32 and float64,
    both held against the float64 plain version: K1 (packed, K <= 32), K2
@@ -41,7 +42,11 @@ Phases, each fatal on failure (nonzero exit, no result line):
 4. int8 contraction: the plain versions' ``torch._int_mm`` equals a
    float64 matmul of the same codes exactly, at ML-10M shapes;
 5. main paths: ML-10M-shaped synthetic BPMF (71,567 x 10,681, 10,000,054
-   ratings, float32), made once, through ``MacauEngine.benchmark``:
+   ratings, float32), made once, through ``MacauEngine.benchmark``; first
+   the plan of bench.py's configuration as written (``plan_gramians``,
+   its Gramian options BENCH_GRAM, the default dense_gram, dense_fused
+   and budget): every mode on the int8 pair, as each path that follows
+   prints its own plan and its seconds:
    - the int8 pair path at K = 32, 64, 96 and 128, the pair stored in one
      orientation.  Every sweep must contract both modes through K6, with
      the table quantized by K7, and sample both entities
@@ -97,7 +102,9 @@ Phases, each fatal on failure (nonzero exit, no result line):
    one stored 8.5 GB int8 array, the JAX bench's protocol (8 sweeps a
    window, 3 timed windows), rmse_sample@8 in the JAX chain's band and a
    ``torch.profiler`` split for each:
-   - the s8 path: K8a and K7 twice a sweep, K1 for both entities; K8a
+   - the s8 path, bench.py's configuration as written (the planner must
+     choose the fused store: the int8 pair's 17.1 GB exceed the budget):
+     K8a and K7 twice a sweep, K1 for both entities; K8a
      bitwise against its plain version at this shape in both modes, and
      the library's ``torch._int_mm`` on the materialized mask, both modes
      (mode 1 on transposed copies);
@@ -107,7 +114,12 @@ Phases, each fatal on failure (nonzero exit, no result line):
      both modes;
    - ``netflix_cont``: the stars jittered by +-0.45, no exact grid: the
      planner's uniform grid within ``dense_fused_tol=0.0125``, on the s8
-     path;
+     path (bench.py's options as written, as for ``netflix_dup``: the
+     planner must choose the fused store);
+   - ``netflix_gather`` (bench.py:422-472): the same data with
+     ``dense_gram=False``, a bfloat16 gather, the bench's ladder, its
+     layouts built by the native builder, K3 for both entities, the build
+     seconds and rmse_sample@8 in the Netflix band;
    - ``netflix_dup``: every 67th rating a second time (1,499,710 more
      observations), which the one array cannot hold: they ride the gather
      path as a residual, added into the s8 contribution in the packed
@@ -125,14 +137,21 @@ Phases, each fatal on failure (nonzero exit, no result line):
      ``ic50`` in the JAX band; K6 held against its plain version on each
      pair's store, both focus modes; then one window with every alpha
      sampled, the alphas finite, positive and moving;
-   - ``tensor_big``: 200,000 x 20,000 x 8, 30M cells, the gather path at
-     arity 3 (K3), 8-sweep windows, rmse_sample@8 in the JAX band, layout
-     seconds and peak memory;
+   - ``tensor_big``: 200,000 x 20,000 x 8, 30M cells, bench.py's options
+     as written (the default dense_gram): the planner must send every
+     mode to the gather path at arity 3 (K3), 8-sweep windows,
+     rmse_sample@8 in the JAX band, layout seconds and peak memory;
    - K9 at tensor_big's shape (the 200,000-row entity's factors, the
      observations sorted by its id), held bit for bit and timed beside
      ``index_select`` in bfloat16 and float32.  No engine path runs K9
      (as in JAX): every path holds its launches to 0, and its row in the
-     kernels line says 0.
+     kernels line says 0;
+   - ``tensor4``: tensor's relation with a fourth mode of 4 (30,000 x
+     2,000 x 16 x 4, 5M cells, made from a seed), K = 32, the int8 pair at
+     arity 4 (``dense_gram=True``, ``dense_int8=True``: one store [30000,
+     16, 4, 2000], K6 for each mode's first step, K7, K1) and the gather
+     path on the same data; their rmse_avg within RMSE_BAND of each other;
+     K6 held against its plain version on the store's two 2-D views.
 8. the ChEMBL Macau paths (``bench.py:165-189`` on the port: 15,000
    compounds x 346 targets, 300,000 activities, ``class_cut``
    log10(200), 15,000 x 32,000 binary fingerprint features; K = 32,
@@ -159,6 +178,10 @@ Phases, each fatal on failure (nonzero exit, no result line):
    installs around each run) must not run, and the RMSEs must lie in the
    JAX chain's bands where the JAX package has one (at K = 128, the port's own chain's).
    Each phase prints its seconds.
+9. the planner's constants (``ops/dense_gram.py``) as this run measured
+   them, beside the module's: the gather path's seconds per observation
+   and mode, and the rates that reproduce K6's, the float pair's, K8a's
+   and K8c's times through ``estimate_times``' model.
 
 The last lines are the card's ``nvidia-smi`` name and power limit, a JSON
 object describing the kernels (with each one's bound on this card) and
@@ -265,6 +288,12 @@ FLOAT_PAIR_TOL = 1e-4
 TENSOR_RUN, TENSOR_ANCHOR = (15, 3), 0.4375
 FUSION_RUN, FUSION_ANCHOR = (15, 3), 0.4406
 TENSOR_BIG_RUN, TENSOR_BIG_ANCHOR = (8, 1), 0.4420
+# tensor's relation with a fourth mode of 4 (tensor4_synthetic, seed 12):
+# the int8 pair at arity 4 (dense_gram=True, dense_int8=True) and the
+# gather path on the same data, tensor's protocol; their rmse_avg within
+# RMSE_BAND of each other
+TENSOR4_SHAPE, TENSOR4_NNZ, TENSOR4_RANK = (30_000, 2_000, 16, 4), \
+    5_000_000, 32
 GRAPH_OPTS = dict(gram_dtype="bfloat16", bucket_widths=BENCH_WIDTHS)
 # The ChEMBL Macau paths (bench.py:165-189): the data, its test split and
 # the config (float32, K = 32, gram_dtype="bfloat16", use_ff=False,
@@ -1136,13 +1165,14 @@ def zero_counts():
 
 def graph_kernels(prob, K):
     """{counter: launches per sweep} of the kernels a sweep must run, from
-    its compiled problem: per (relation, mode) of an int8 pair K6 once, of
-    a fused store its K8 variant once (by operand type and layout), and on
-    either s8 kind, up to K = 128, K7 once (the largest partner's table);
-    per entity, up to K = 96, the packed sampler (K1, K2) where it has a
-    dense contribution, else the full-P one (K3, K4), and above K = 96 K5
-    twice (the blocked sampler).  The float pair and the gather path
-    launch no kernel of their own."""
+    its compiled problem: per dense (relation, mode) of its plan
+    (``dense_plans``) on an int8 pair K6 once, on a fused store its K8
+    variant once (by operand type and layout), and on either s8 kind, up to
+    K = 128, K7 once (the largest partner's table); per entity, up to K =
+    96, the packed sampler (K1, K2) where it has a dense contribution, else
+    the full-P one (K3, K4), and above K = 96 K5 twice (the blocked
+    sampler).  The float pair and the gather path launch no kernel of their
+    own."""
     from bayesiandatafusion_jl_tpu_torch.ops import ytab
     want = {}
 
@@ -1153,8 +1183,8 @@ def graph_kernels(prob, K):
         dense = False
         for ri, rs in enumerate(prob.rel_specs):
             kind = prob.kinds[ri]
-            for e in rs.entity_ids:
-                if e != ei or kind == "gather":
+            for mode, e in enumerate(rs.entity_ids):
+                if e != ei or (ri, mode) not in prob.dense_plans:
                     continue
                 dense = True
                 i8 = (prob.fused_i8s if kind == "fused" else
@@ -1203,12 +1233,22 @@ def counted(fn):
     return out, counts
 
 
+def store_text(store, kind, i8):
+    """A relation's store as ``run_path`` prints it: its array's shape,
+    its kind and its mode order (the kind alone without a store)."""
+    if store is None:
+        return kind
+    arr = store["V8"] if kind == "fused" else store["M8" if i8 else "M"]
+    return f"{tuple(arr.shape)} {kind} order {store.get('order')}"
+
+
 def run_path(rd, K, sweeps, repeats, anchor_s, anchor_avg, name="ML-10M",
              clamp=(1.0, 5.0), graph=False, **opts):
     """One main path: the benchmark protocol at rank K (``opts`` select the
-    gather or the fused path), with the kernels' counts set to 0 just
-    before it and read just after.  ``graph``: a graph of several
-    relations or a tensor, labelled by its relations.  Every ``bench.py``
+    gather or the fused path, or leave it to the planner), with the
+    kernels' counts set to 0 just before it and read just after.
+    ``graph``: a graph of several relations or a tensor, labelled by its
+    relations.  Every ``bench.py``
     configuration dispatches a window's sweeps at once
     (``sweeps_per_dispatch`` = its window: ``bench.py:133, 179, 215, 273,
     318, 415``), and so does every path here unless ``opts`` say
@@ -1220,22 +1260,23 @@ def run_path(rd, K, sweeps, repeats, anchor_s, anchor_avg, name="ML-10M",
     cfg = MacauConfig(num_latent=K, burnin=sweeps, psamples=0,
                       clamp=clamp, verbose=False, dtype="float32",
                       seed=42, **{"sweeps_per_dispatch": sweeps, **opts})
-    gather = cfg.dense_gram is False
-    fused = bool(cfg.dense_fused)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     eng = MacauEngine(rd, cfg, device="cuda")
     build_s = time.perf_counter() - t0
     prob = eng.problem
-    require(fused == (prob.kinds[0] == "fused"),
-            f"{name} K={K}: the fused store was {'not ' if fused else ''}"
-            f"built")
+    gather = not prob.dense_plans
+    fused = prob.kinds[0] == "fused"
+    require(fused or not cfg.dense_fused,
+            f"{name} K={K}: the fused store was not built")
+    require(gather or cfg.dense_gram is not False,
+            f"{name} K={K}: dense modes under dense_gram=False")
     require(not fused or prob.fused_i8s[0] == cfg.dense_int8,
             f"{name} K={K}: the fused path's s8 decision is "
             f"{prob.fused_i8s[0]}")
     pair_i8 = prob.pair_i8s[0]
-    require(gather or fused or pair_i8 == cfg.dense_int8,
+    require(prob.kinds[0] != "pair" or pair_i8 == cfg.dense_int8,
             f"{name} K={K}: the pair's int8 decision is {pair_i8}")
     if graph:
         rels = []
@@ -1267,12 +1308,14 @@ def run_path(rd, K, sweeps, repeats, anchor_s, anchor_avg, name="ML-10M",
                  f"{prob.padded_nnz}")
     elif graph:
         built = "stores " + ", ".join(
-            f"{tuple(st['M8' if i8 else 'M'].shape)} order {st['order']}"
-            for st, i8 in zip(prob.stores, prob.pair_i8s))
+            store_text(st, kind, i8)
+            for st, kind, i8 in zip(prob.stores, prob.kinds, prob.pair_i8s))
+        if prob.layouts:
+            built += (f", layouts {prob.layout_seconds:.1f} s of "
+                      f"{sorted(prob.layouts)}")
     elif fused:
-        built = (f"fused_pair_plan {prob.plan_seconds:.1f} s, V8 build "
-                 f"{prob.build_seconds - prob.plan_seconds:.1f} s, V8 "
-                 f"{tuple(prob.stores[0]['V8'].shape)}")
+        built = (f"V8 build {prob.build_seconds - prob.plan.seconds:.1f} s, "
+                 f"V8 {tuple(prob.stores[0]['V8'].shape)}")
         if prob.residual_nnzs[0]:
             rows = [sum(ba["inst"].shape[0] for ba in prob.layouts[k])
                     for k in ("r0m0", "r0m1")]
@@ -1289,8 +1332,8 @@ def run_path(rd, K, sweeps, repeats, anchor_s, anchor_avg, name="ML-10M",
           f"rows/s {n_rows / med * 1e3:.1f}; rmse_sample@{sweeps} "
           f"{out['rmse_at_sweeps']:.4f}; rmse_avg {m['r0.rmse_avg']:.4f}; "
           f"peak memory {peak_gb:.2f} GB; counts {counts}; engine build "
-          f"{build_s:.1f} s ({built}); benchmark {bench_s:.1f} s with its "
-          f"warm window", flush=True)
+          f"{build_s:.1f} s (plan {prob.plan.seconds:.1f} s, {built}); "
+          f"benchmark {bench_s:.1f} s with its warm window", flush=True)
     total_sweeps = sweeps * (repeats + 1)
     want = {k: 0 for k in counts}
     for tag, per_sweep in graph_kernels(prob, K).items():
@@ -1309,6 +1352,54 @@ def run_path(rd, K, sweeps, repeats, anchor_s, anchor_avg, name="ML-10M",
                 f"{label}: rmse_avg {m['r0.rmse_avg']} outside "
                 f"{anchor_avg} +- {RMSE_BAND}")
     return eng, counts, out
+
+
+# every bench.py configuration's Gramian options (bench.py:131-133,
+# :176-180, :213-216, :271-273, :316-319, :413-421): the int8 pair where
+# eligible, a bfloat16 gather and float table, dense_gram, dense_fused and
+# the budget left to their defaults (netflix_gather: dense_gram=False)
+BENCH_GRAM = dict(dense_int8=True, gram_dtype="bfloat16")
+
+
+def plan_paths(rd, plan):
+    """{(relation, mode): path} of ``plan_gramians``' plan: "pair int8",
+    "pair float", "fused" or "gather"."""
+    out = {}
+    for ri, rel in enumerate(rd.relations):
+        for mode in range(rel.arity):
+            p = plan.dense_plans.get((ri, mode))
+            out[(ri, mode)] = (
+                "gather" if p is None else "fused" if p.kind == "fused"
+                else "pair int8" if plan.pair_i8[ri] else "pair float")
+    return out
+
+
+def print_plan(label, rd, plan, want):
+    """Print a plan per (relation, mode), its path and its store's bytes
+    (a gather mode: its relation's observations), and require every mode
+    on ``want``."""
+    paths = plan_paths(rd, plan)
+    parts = []
+    for (ri, mode), path in paths.items():
+        rel = rd.relations[ri]
+        size = (f"{rel.data.nnz} observations" if path == "gather"
+                else f"store {plan.store_bytes[ri] / 1e9:.3f} GB")
+        parts.append(f"{rel.name} mode {mode} ({rel.entities[mode].count} "
+                     f"rows): {path}, {size}")
+    print(f"# plan of {label}: {'; '.join(parts)}; planner "
+          f"{plan.seconds:.2f} s", flush=True)
+    require(set(paths.values()) == {want},
+            f"{label}: the plan {paths}, want every mode on {want}")
+
+
+def bench_plan(rd, **opts):
+    """``plan_gramians`` of ``rd`` under bench.py's Gramian options
+    (BENCH_GRAM, K = 32), ``opts`` added."""
+    from bayesiandatafusion_jl_tpu_torch.models.engine import plan_gramians
+    from bayesiandatafusion_jl_tpu_torch.utils.config import MacauConfig
+    return plan_gramians(rd, MacauConfig(num_latent=32, verbose=False,
+                                         dtype="float32", seed=42,
+                                         **BENCH_GRAM, **opts))
 
 
 # kernel-name fragments of each part of a gather sweep (torch.profiler);
@@ -1627,30 +1718,65 @@ def run_driver_checks(eng, label, tally, timing=False):
 
 
 def tensor_pair_views(pair):
-    """The arity-3 int8 store as K6 reads it: (pair, focus) of its 2-D view
-    [(a, c), b] (focus 0: mode a's first step, contracting b) and of its
-    view [a, (c, b)] (focus 1: modes b and c, contracting a), each with the
-    extents K6 writes (the true a rows; every column of the second)."""
+    """An int8 store of arity 3 or more as K6 reads it: (pair, focus) of
+    its 2-D view [(a, ...), b] (focus 0: mode a's first step, contracting
+    b) and of its view [a, (..., b)] (focus 1: every other mode,
+    contracting a), each with the extents K6 writes (the true a rows;
+    every column of the second)."""
     M8, W8 = pair["M8"], pair["W8"]
     na = pair["shape"][pair["order"][0]]
     nb = pair["shape"][pair["order"][-1]]
-    rows = M8.shape[0] * M8.shape[1]
-    return [({"M8": M8.view(rows, -1), "W8": W8.view(rows, -1),
-              "shape": (na * M8.shape[1], nb)}, 0),
+    mid = math.prod(M8.shape[1:-1])
+    return [({"M8": M8.view(-1, M8.shape[-1]), "W8": W8.view(-1, W8.shape[-1]),
+              "shape": (na * mid, nb)}, 0),
             ({"M8": M8.view(M8.shape[0], -1), "W8": W8.view(W8.shape[0], -1),
-              "shape": (na, M8.shape[1] * M8.shape[2])}, 1)]
+              "shape": (na, mid * M8.shape[-1])}, 1)]
+
+
+def tensor4_synthetic(seed=12):
+    """``tensor``'s relation (bench.py:194-223) with a fourth mode:
+    TENSOR4_SHAPE, TENSOR4_NNZ distinct cells drawn uniformly (sorted),
+    values TENSOR4_RANK * sum_k of the four factors' products + 0.4 N(0, 1)
+    from Gaussian factors of scale 1 / sqrt(rank) (the signal's spread is
+    tensor's, 1 / sqrt(rank)), made from ``seed`` a chunk of observations
+    at a time."""
+    import numpy as np
+    from bayesiandatafusion_jl_tpu_torch.models.data import IndexedDF
+    shape, nnz, r = TENSOR4_SHAPE, TENSOR4_NNZ, TENSOR4_RANK
+    rng = np.random.default_rng(seed)
+    key = np.unique(rng.integers(0, math.prod(shape), int(nnz * 1.1),
+                                 dtype=np.int64))
+    key = np.sort(key[rng.permutation(key.size)[:nnz]])
+    idx = np.stack(np.unravel_index(key, shape), 1).astype(np.int32)
+    del key
+    Us = [rng.standard_normal((n, r)) / np.sqrt(r) for n in shape]
+    vals = np.empty(nnz)
+    for a in range(0, nnz, 1 << 20):
+        b = min(a + (1 << 20), nnz)
+        prod = Us[0][idx[a:b, 0]]
+        for d in range(1, 4):
+            prod = prod * Us[d][idx[a:b, d]]
+        vals[a:b] = r * prod.sum(axis=1)
+    vals += 0.4 * rng.standard_normal(nnz)
+    return IndexedDF(idx, vals, shape)
 
 
 def run_graph_paths(tally):
-    """The graph paths, each built as the JAX bench builds it: ``tensor``
-    (int8 pair at arity 3: K6 for each mode's first step, K7 for each
-    largest partner's table, K1), ``fusion`` (three int8 pairs on one
-    compound entity: K6 and K7 six times a sweep, K1), the same graph with
-    every alpha sampled (one window), ``tensor_big`` (the gather path at
-    arity 3, K3) and K9 at tensor_big's shape, which no engine path runs
-    (as in JAX): held bitwise against its plain version and timed beside
-    ``index_select``.  K6 is held against its plain version on the stores
-    of ``tensor`` and ``fusion``.  Returns K9's checks by label."""
+    """The graph paths, each built as the JAX bench builds it, each
+    printing its plan: ``tensor`` (int8 pair at arity 3: K6 for each
+    mode's first step, K7 for each largest partner's table, K1),
+    ``fusion`` (three int8 pairs on one compound entity: K6 and K7 six
+    times a sweep, K1), the same graph with every alpha sampled (one
+    window), ``tensor_big`` (its bench options as written: the planner
+    sends every mode to the gather path at arity 3, K3) and K9 at
+    tensor_big's shape, which no engine path runs (as in JAX): held
+    bitwise against its plain version and timed beside ``index_select``;
+    then ``tensor4`` (tensor4_synthetic: the int8 pair at arity 4, K6 for
+    each mode's first step on the store read as a matrix, the other
+    partners in one einsum, and the gather path on the same data, their
+    rmse_avg within RMSE_BAND).  K6 is held against its plain version on
+    the stores of ``tensor``, ``fusion`` and ``tensor4``.  Returns K9's
+    checks by label."""
     import torch
     from bayesiandatafusion_jl_tpu_torch.models.data import RelationData
     from bayesiandatafusion_jl_tpu_torch.models.datasets import (
@@ -1675,6 +1801,7 @@ def run_graph_paths(tally):
                               name="tensor", clamp=None, graph=True,
                               dense_int8=True, **GRAPH_OPTS)
     tally(counts)
+    print_plan("tensor, bench.py:194-223", rd, eng.problem.plan, "pair int8")
     pair = eng.problem.stores[0]
     require(tuple(pair["M8"].shape) == (30_000, 16, 2_000),
             f"tensor: store {tuple(pair['M8'].shape)}")
@@ -1700,6 +1827,7 @@ def run_graph_paths(tally):
                               name="fusion", clamp=None, graph=True,
                               dense_int8=True, **GRAPH_OPTS)
     tally(counts)
+    print_plan("fusion, bench.py:287-326", rd, eng.problem.plan, "pair int8")
     print_profile("fusion K=32", profile_split(eng, split=PAIR_SPLIT))
     stores = eng.problem.stores
     del eng
@@ -1743,7 +1871,8 @@ def run_graph_paths(tally):
     torch.cuda.empty_cache()
     phase_done("fusion paths")
 
-    # -- tensor_big: 200,000 x 20,000 x 8, 30M cells, the gather path -----
+    # -- tensor_big: 200,000 x 20,000 x 8, 30M cells, as bench.py writes it:
+    # the planner sends every mode to the gather path ----------------------
     t0 = time.perf_counter()
     rd = RelationData.from_indexed_df(tensor_big_synthetic(),
                                       relation_name="tensor")
@@ -1752,8 +1881,10 @@ def run_graph_paths(tally):
           f"test split", flush=True)
     eng, counts, _ = run_path(rd, 32, *TENSOR_BIG_RUN, TENSOR_BIG_ANCHOR,
                               None, name="tensor_big", clamp=None,
-                              graph=True, dense_gram=False, **GRAPH_OPTS)
+                              graph=True, dense_int8=True, **GRAPH_OPTS)
     tally(counts)
+    print_plan("tensor_big, bench.py:226-285", rd, eng.problem.plan,
+               "gather")
     print_profile("tensor_big K=32", profile_split(eng, warm=1, sweeps=2))
     del eng
     torch.cuda.empty_cache()
@@ -1771,6 +1902,48 @@ def run_graph_paths(tally):
         torch.cuda.empty_cache()
     del part, rd
     phase_done("K9 at tensor_big")
+
+    # -- tensor4: the int8 pair at arity 4 against the gather path ---------
+    t0 = time.perf_counter()
+    rd = RelationData.from_indexed_df(tensor4_synthetic(),
+                                      relation_name="tensor4")
+    rd.assign_to_test(0, 100_000, seed=7)
+    print(f"# tensor4 data: {time.perf_counter() - t0:.1f} s with the test "
+          f"split", flush=True)
+    eng, counts, pair_out = run_path(rd, 32, *TENSOR_RUN, None, None,
+                                     name="tensor4", clamp=None, graph=True,
+                                     dense_gram=True, dense_int8=True,
+                                     **GRAPH_OPTS)
+    tally(counts)
+    pair = eng.problem.stores[0]
+    require(pair["order"] == (0, 2, 3, 1)
+            and tuple(pair["M8"].shape) == (30_000, 16, 4, 2_000),
+            f"tensor4: store {tuple(pair['M8'].shape)} order "
+            f"{pair['order']}")
+    print_profile("tensor4 int8 pair K=32",
+                  profile_split(eng, split=PAIR_SPLIT))
+    del eng
+    torch.cuda.empty_cache()
+    for view, focus in tensor_pair_views(pair):
+        r = check_pair_contract(view, 32, focus, timing=False)
+        print_pair_check("tensor4 view", r)
+        require(r["ok"], f"K6 disagrees with its plain version: {r}")
+        torch.cuda.empty_cache()
+    del pair
+    eng, counts, gather_out = run_path(rd, 32, *TENSOR_RUN, None, None,
+                                       name="tensor4", clamp=None,
+                                       graph=True, dense_gram=False,
+                                       **GRAPH_OPTS)
+    tally(counts)
+    rmse = [o["metrics"]["r0.rmse_avg"] for o in (pair_out, gather_out)]
+    print(f"# tensor4: rmse_avg int8 pair {rmse[0]:.4f}, gather path "
+          f"{rmse[1]:.4f}", flush=True)
+    require(abs(rmse[0] - rmse[1]) <= RMSE_BAND,
+            f"tensor4: the int8 pair's rmse_avg {rmse[0]} outside the "
+            f"gather path's {rmse[1]} +- {RMSE_BAND}")
+    del eng, rd
+    torch.cuda.empty_cache()
+    phase_done("tensor4 paths")
     return checks
 
 
@@ -1964,6 +2137,7 @@ def run_chembl_paths(tally):
                                 name="chembl", clamp=None, graph=True,
                                 **CHEMBL_OPTS)
     tally(counts)
+    print_plan("chembl, bench.py:165-189", rd, eng.problem.plan, "pair int8")
     m = report(eng, counts, out, "chembl", CHEMBL_RUN)
     require(eng.problem.entity_specs[0].solver == "dual"
             and "dense_X" in eng.problem.feat["e0"],
@@ -2061,7 +2235,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    from bayesiandatafusion_jl_tpu_torch import kernels
+    from bayesiandatafusion_jl_tpu_torch import kernels, native
     from bayesiandatafusion_jl_tpu_torch.models.data import (IndexedDF,
                                                              RelationData)
     from bayesiandatafusion_jl_tpu_torch.models.datasets import (
@@ -2099,6 +2273,11 @@ def main() -> int:
     serialized = [line for line in rep["log"].splitlines() if "C75" in line]
     require(not serialized, f"wgmma serialized: {serialized}")
     check_sampler_builds()
+    if os.path.exists(native.LIB_PATH):
+        os.remove(native.LIB_PATH)           # build from this checkout
+    native.lib()
+    print(f"# native host builder: {native.build_seconds():.1f} s (the "
+          f"host C++ compiler, native/layout.cpp)", flush=True)
     phase_done("build")
 
     # -- kernels vs plain ---------------------------------------------------
@@ -2218,7 +2397,9 @@ def main() -> int:
     df = load_movielens("10m", seed=0)
     rd = RelationData.from_indexed_df(df, relation_name="ratings")
     rd.assign_to_test(0, min(100_000, df.nnz // 10), seed=7)
+    ml_train_nnz, ml_shape = rd.relations[0].data.nnz, df.shape
     print(f"# data: nnz={df.nnz}, shape={df.shape}", flush=True)
+    print_plan("ML-10M, bench.py:101-162", rd, bench_plan(rd), "pair int8")
     phase_done("ML-10M data")
     # K9 at the ML-10M gather shape: the users' factors, the training
     # observations sorted by user id
@@ -2275,6 +2456,7 @@ def main() -> int:
     del eng
     torch.cuda.empty_cache()
     phase_done("driver loop")
+    float_pair_ms = {}
     for store in FLOAT_PAIR_STORES:
         eng, counts, _ = run_path(rd, FLOAT_PAIR_K, 40, 1,
                                   PATHS[FLOAT_PAIR_K][2], None,
@@ -2282,6 +2464,7 @@ def main() -> int:
                                   dense_fused=False, gram_dtype=store)
         tally(counts)
         for r in check_float_pair_contrib(eng):
+            float_pair_ms[(store, r["mode"])] = r["ms"]
             print(f"# float pair {store or 'float32'} K={FLOAT_PAIR_K} mode "
                   f"{r['mode']}: the contribution (table, two torch.matmul "
                   f"with float32 sums, alpha) ok {r['ok']} (max |diff| "
@@ -2292,6 +2475,7 @@ def main() -> int:
         del eng
         torch.cuda.empty_cache()
     phase_done("ML-10M float pair paths")
+    gather_prof = {}
     for K, acc, sweeps, repeats in GATHER_PATHS:
         anchor_s, anchor_avg = PATHS[K][2:]
         eng, counts, _ = run_path(rd, K, sweeps, repeats, anchor_s,
@@ -2302,6 +2486,7 @@ def main() -> int:
         tally(counts)
         prof = profile_split(eng)
         print_profile(f"gather {acc} K={K}", prof)
+        gather_prof[(K, acc)] = prof
         for mode, (n, ms) in enumerate(time_gathers(eng, K)):
             print(f"# gather alone, gather {acc} K={K} mode {mode}: {n} "
                   f"rows in {ms:.3f} ms ({n / ms * 1e3:.4g} rows/s)",
@@ -2376,14 +2561,18 @@ def main() -> int:
     gen_s = time.perf_counter() - t0
     rd = RelationData.from_indexed_df(df, relation_name="ratings")
     rd.assign_to_test(0, 100_000, seed=7)
+    nf_shape = df.shape
     print(f"# netflix data: generation {gen_s:.1f} s, with the test split "
           f"{time.perf_counter() - t0:.1f} s (nnz={df.nnz}, shape={df.shape})",
           flush=True)
     phase_done("Netflix data")
+    # bench.py's options as written: the planner puts the relation on the
+    # fused store (its int8 pair, 17.1 GB, past the budget)
     eng, counts, _ = run_path(rd, 32, NETFLIX_SWEEPS, NETFLIX_WINDOWS,
                               NETFLIX_ANCHOR, None, name="Netflix",
-                              dense_fused=True, dense_int8=True)
+                              **BENCH_GRAM, bucket_widths=BENCH_WIDTHS)
     tally(counts)
+    print_plan("netflix, bench.py:329-421", rd, eng.problem.plan, "fused")
     phase_done("Netflix path")
     prof = profile_split(eng, split=FUSED_SPLIT)
     print_profile("Netflix fused K=32", prof)
@@ -2438,9 +2627,23 @@ def main() -> int:
               flush=True)
         lib_float_ms.append(ms)
         torch.cuda.empty_cache()
-    del st, rd
+    del st
     torch.cuda.empty_cache()
     phase_done("Netflix float fused path")
+
+    # -- netflix_gather: the same data on the gather path -------------------
+    eng, counts, _ = run_path(rd, 32, NETFLIX_SWEEPS, NETFLIX_WINDOWS,
+                              NETFLIX_ANCHOR, None, name="netflix_gather",
+                              dense_gram=False, **BENCH_GRAM,
+                              bucket_widths=BENCH_WIDTHS)
+    tally(counts)
+    print_plan("netflix_gather, bench.py:422-472", rd, eng.problem.plan,
+               "gather")
+    print_profile("netflix_gather K=32",
+                  profile_split(eng, warm=1, sweeps=2))
+    del eng, rd
+    torch.cuda.empty_cache()
+    phase_done("netflix_gather path")
 
     # -- netflix_cont: continuous values on a bounded-error grid ------------
     t0 = time.perf_counter()
@@ -2455,11 +2658,11 @@ def main() -> int:
           f"test split", flush=True)
     eng, counts, _ = run_path(rd, 32, NETFLIX_SWEEPS, NETFLIX_WINDOWS,
                               NETFLIX_CONT_ANCHOR, None, name="netflix_cont",
-                              dense_fused=True, dense_int8=True,
-                              gram_dtype="bfloat16",
-                              dense_fused_tol=NETFLIX_CONT_TOL,
+                              **BENCH_GRAM, dense_fused_tol=NETFLIX_CONT_TOL,
                               bucket_widths=BENCH_WIDTHS)
     tally(counts)
+    print_plan("netflix_cont, bench.py:388-405", rd, eng.problem.plan,
+               "fused")
     st = eng.problem.stores[0]
     print(f"# netflix_cont took the s8 fused path on the grid of step "
           f"{st['scale']:.6f} (rounding error <= {st['scale'] / 2:.6f}), "
@@ -2484,10 +2687,10 @@ def main() -> int:
     del df, dsel
     eng, counts, _ = run_path(rd, 32, NETFLIX_SWEEPS, NETFLIX_WINDOWS,
                               NETFLIX_DUP_ANCHOR, None, name="netflix_dup",
-                              dense_fused=True, dense_int8=True,
-                              gram_dtype="bfloat16",
-                              bucket_widths=BENCH_WIDTHS)
+                              **BENCH_GRAM, bucket_widths=BENCH_WIDTHS)
     tally(counts)
+    print_plan("netflix_dup, bench.py:382-385", rd, eng.problem.plan,
+               "fused")
     require(eng.problem.residual_nnzs[0] > 1_400_000,
             f"netflix_dup: residual of {eng.problem.residual_nnzs[0]}")
     prof = profile_split(eng, split=FUSED_SPLIT)
@@ -2502,6 +2705,12 @@ def main() -> int:
 
     # -- the ChEMBL Macau paths ---------------------------------------------
     run_chembl_paths(tally)
+
+    print_planner_readout(
+        gather_prof[(32, "segment")], ml_train_nnz,
+        [pair_checks[(32, f)] for f in (0, 1)],
+        [float_pair_ms[(None, f)] for f in (0, 1)], ml_shape,
+        nf_checks[0], nf_float[0], nf_shape)
 
     src = "bayesiandatafusion_jl_tpu_torch/csrc/"
     jax_src = "bayesiandatafusion_jl_tpu/ops/pallas_chol.py:"
@@ -2591,6 +2800,43 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def dense_rate(ms, cells, itemsize, K=32):
+    """The contraction rate ``estimate_times`` needs to predict ``ms`` for
+    one mode over ``cells`` stored cells of ``itemsize`` bytes at rank K:
+    ms = max(flops / rate, bytes / HBM) + bytes / HBM, solved for the rate
+    (NaN when the time is the bytes' alone)."""
+    flops = 2.0 * cells * (K * (K + 1) // 2)
+    rest = ms * 1e-3 - cells * itemsize / HBM_BYTES_S
+    return (flops / rest if rest > cells * itemsize / HBM_BYTES_S
+            else float("nan"))
+
+
+def print_planner_readout(gather_prof, nnz, k6, float_ms, ml_shape, k8a,
+                          k8c, nf_shape):
+    """The planner's constants (ops/dense_gram.py) as this run measures
+    them, beside the module's: the gather path's device time outside the
+    sampler a sweep at ML-10M K = 32 per training observation and mode;
+    the rates that reproduce K6's mean mode time and the float32 pair's
+    (both modes, ML-10M K = 32), K8a's and K8c's (bfloat16 table) mode-0
+    time at Netflix, through ``estimate_times``' model (``dense_rate``)."""
+    from bayesiandatafusion_jl_tpu_torch.ops import dense_gram as dg
+    ml_cells = ml_shape[0] * ml_shape[1]
+    nf_cells = nf_shape[0] * nf_shape[1]
+    got = {
+        "_GATHER_S_PER_OBS": (gather_prof["device_ms"]
+                              - gather_prof["split_ms"]["sampler"])
+        * 1e-3 / (2 * nnz),
+        "_PAIR_I8_OPS": dense_rate(sum(r["kernel_ms"] for r in k6) / 2,
+                                   ml_cells, 1),
+        "_PAIR_FLOAT_FLOPS": dense_rate(sum(float_ms) / 2, ml_cells, 4),
+        "_FUSED_S8_OPS": dense_rate(k8a["kernel_ms"], nf_cells, 1),
+        "_FUSED_FLOAT_FLOPS": dense_rate(k8c["kernel_ms"], nf_cells, 1)}
+    print("# planner constants measured in this run (ops/dense_gram.py's "
+          "in parentheses): " + "; ".join(
+              f"{k} {v:.4g} ({getattr(dg, k):.4g})" for k, v in got.items()),
+          flush=True)
 
 
 def print_profile(label, prof):

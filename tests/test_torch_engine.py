@@ -471,8 +471,8 @@ def test_fused_f32_chain_matches_pair_chain():
         rd.assign_to_test(0, 1_000, seed=7)
         eng = bt.MacauEngine(rd, bt.MacauConfig(
             num_latent=8, dtype="float32", seed=5, verbose=False,
-            clamp=(1.0, 5.0), dense_fused=fused, dense_int8=True),
-            device="cpu")
+            clamp=(1.0, 5.0), dense_gram=True, dense_fused=fused,
+            dense_int8=True), device="cpu")
         assert (eng.problem.kinds[0] == "fused") == fused
         state = eng.init_state()
         rng = np.random.default_rng(999)
@@ -578,7 +578,8 @@ def test_macau_runs_and_reports():
     seen = []
     eng = bt.MacauEngine(rd, bt.MacauConfig(num_latent=4, burnin=3,
                                             psamples=3, clamp=(1, 5),
-                                            verbose=False, dense_int8=True),
+                                            verbose=False, dense_gram=True,
+                                            dense_int8=True),
                          device="cpu")
     assert eng.problem.pair_i8s[0]
     res = eng.run(callback=lambda s, phase, m, dt: seen.append(phase))
@@ -621,12 +622,14 @@ def test_unported_macau_kwargs_raise(kwargs, item):
 
 
 def test_config_fields_cover_jax_config():
-    """Every JAX config field is ported, listed as unported, or one of the
-    TPU-only knobs the port has no use for; the gather path's and the
-    fused path's fields keep the JAX defaults and validation."""
+    """Every JAX config field is ported, listed as unported, or the
+    TPU-only knob the port has no use for; the gather path's and the
+    fused path's fields keep the JAX defaults and validation; the dense
+    stores' budget is a field, with the card's default."""
     jax_f = {f.name for f in dataclasses.fields(MacauConfig)}
     port_f = {f.name for f in dataclasses.fields(bt.MacauConfig)}
-    tpu_only = {"pallas", "dense_gram_budget_gb"}
+    tpu_only = {"pallas"}
+    assert "dense_gram_budget_gb" in port_f
     gather = {"dense_gram", "accumulation", "gram_dtype", "bucket_widths",
               "row_pad"}
     fused = {"dense_fused", "dense_fused_tol"}
@@ -649,15 +652,18 @@ def test_config_fields_cover_jax_config():
 
 
 def test_unported_data_raises():
-    """The int8 pair of a relation of arity 4 or more (M12) raises."""
+    """The int8 pair of a relation of arity 4 (M12, ported): the (5, 4, 3,
+    2) relation that raised before runs on the int8 pair in both engines,
+    3 float64 sweeps to 1e-8 (the JAX samplers in XLA)."""
     rng = np.random.default_rng(0)
     idx = np.unique(np.stack([rng.integers(0, n, 80) for n in (5, 4, 3, 2)],
                              1), axis=0)
-    rd = bt.RelationData.from_indexed_df(
-        bt.IndexedDF(idx, rng.standard_normal(len(idx)), (5, 4, 3, 2)))
-    with pytest.raises(NotImplementedError, match="M12"):
-        bt.MacauEngine(rd, bt.MacauConfig(num_latent=3, verbose=False,
-                                          dense_int8=True), device="cpu")
+    vals = rng.standard_normal(len(idx))
+    ej, et = _engines(idx, vals, (5, 4, 3, 2), 8, "float64", K=3,
+                      pallas="off")
+    assert et.problem.kinds == ["pair"] and et.problem.pair_i8s == [True]
+    assert len(et.problem.dense_plans) == 4
+    _run_both(ej, et, 3, "float64")
 
 
 @pytest.mark.parametrize("metrics", [

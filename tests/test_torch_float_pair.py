@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+import bayesiandatafusion_jl_tpu as bdf
 from bayesiandatafusion_jl_tpu.models import engine as jax_engine_mod
 from bayesiandatafusion_jl_tpu.ops import dense_gram as jdg
 from bayesiandatafusion_jl_tpu.utils.config import MacauConfig
@@ -205,7 +206,7 @@ def test_float_pair_f32_chain_matches_int8_pair(gram_dtype):
         rd.assign_to_test(0, 1_000, seed=7)
         eng = bt.MacauEngine(rd, bt.MacauConfig(
             num_latent=8, dtype="float32", seed=5, verbose=False,
-            clamp=(1.0, 5.0), dense_int8=int8,
+            clamp=(1.0, 5.0), dense_gram=True, dense_int8=int8,
             gram_dtype=None if int8 else gram_dtype), device="cpu")
         assert eng.problem.pair_i8s[0] == int8
         state = eng.init_state()
@@ -223,15 +224,22 @@ def test_float_pair_f32_chain_matches_int8_pair(gram_dtype):
 
 def test_config_defaults_match_jax():
     """Every field both MacauConfigs have has the same default (ROADMAP
-    F6: ``dense_int8`` was True in the port), so a call with default
-    settings takes the same path in both packages: the float pair."""
+    F6: ``dense_int8`` was True in the port) but the dense stores' budget,
+    which is the card's, so a call with default settings takes the same
+    path in both packages: on 200 observations, under the planner's floor,
+    the gather path."""
     jax_cfg, port_cfg = MacauConfig(), bt.MacauConfig()
     common = ({f.name for f in dataclasses.fields(MacauConfig)}
               & {f.name for f in dataclasses.fields(bt.MacauConfig)})
     assert "dense_int8" in common and len(common) >= 20
-    for name in sorted(common):
+    for name in sorted(common - {"dense_gram_budget_gb"}):
         assert getattr(port_cfg, name) == getattr(jax_cfg, name), name
-    rd = bt.RelationData.from_indexed_df(synthetic_ratings(30, 20, 200))
-    eng = bt.MacauEngine(rd, bt.MacauConfig(num_latent=4, verbose=False),
+    df = synthetic_ratings(30, 20, 200)
+    eng = bt.MacauEngine(bt.RelationData.from_indexed_df(df),
+                         bt.MacauConfig(num_latent=4, verbose=False),
                          device="cpu")
-    assert not eng.problem.pair_i8s[0] and eng.problem.kinds[0] != "fused"
+    ej = jax_engine_mod.MacauEngine(bdf.RelationData.from_indexed_df(
+        bdf.IndexedDF(df.idx, df.vals, df.shape)),
+        MacauConfig(num_latent=4, verbose=False))
+    assert not ej.problem.dense_plans and not eng.problem.dense_plans
+    assert not eng.problem.pair_i8s[0] and eng.problem.kinds[0] == "gather"

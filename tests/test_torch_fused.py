@@ -146,12 +146,18 @@ def test_fused_int8_ok_matches_jax():
 
 
 def test_plan_fused_rels():
-    """True takes the encodable 2-ary relations; None and False keep the
-    int8 pair, as does dense_gram=False."""
+    """True takes the encodable 2-ary relations within the budget; None
+    (under the floor, or where the pair fits) and False keep the pair, as
+    does dense_gram=False; a store past the budget is declined."""
     shapes, enc = [(5, 4), (5, 4), (5, 4, 3)], [(0.5, 1), None, (1.0, 0)]
-    assert tdg.plan_fused_rels(shapes, None, True, enc) == {0: (0.5, 1)}
+    nnzs, its = [20, 20, 60], [1, 1, 1]
+    assert tdg.plan_fused_rels(shapes, nnzs, 8, None, True, enc, its,
+                               1e9) == ({0: (0.5, 1)}, 20.0)
     for dg_, df_ in ((None, None), (None, False), (False, True)):
-        assert tdg.plan_fused_rels(shapes, dg_, df_, enc) == {}
+        assert tdg.plan_fused_rels(shapes, nnzs, 8, dg_, df_, enc, its,
+                                   1e9) == ({}, 0.0)
+    assert tdg.plan_fused_rels(shapes, nnzs, 8, None, True, enc, its,
+                               10.0) == ({}, 0.0)
 
 
 def test_build_fused_store_matches_jax():

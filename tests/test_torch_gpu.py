@@ -390,7 +390,8 @@ def test_engine_cuda_matches_cpu(cuda, monkeypatch, K, kernel, per_sweep):
         rd = bt.RelationData.from_indexed_df(df)
         rd.assign_to_test(0, 1_000, seed=7)
         cfg = bt.MacauConfig(num_latent=K, dtype="float64", verbose=False,
-                             clamp=(1.0, 5.0), seed=4, dense_int8=True)
+                             clamp=(1.0, 5.0), seed=4, dense_gram=True,
+                             dense_int8=True)
         engines[dev] = bt.MacauEngine(rd, cfg, device=dev)
         assert engines[dev].problem.pair_i8s[0]
     st = engines["cpu"].init_state()
@@ -426,9 +427,9 @@ def test_engine_cuda_matches_cpu(cuda, monkeypatch, K, kernel, per_sweep):
     (36, chol_packed.chol_sample_packed_tiled, 2),
     (100, chol_blocked.chol_inv, 4)])
 def test_float_pair_engine_cuda_matches_cpu(cuda, K, kernel, per_sweep):
-    """The float pair (``dense_int8=False``, the default), three float64
-    sweeps with injected randoms on the card and on the CPU: the products
-    on ``torch.matmul`` in float64, the sampler through K1 (K=8), K2
+    """The float pair (``dense_gram=True``, ``dense_int8=False``), three
+    float64 sweeps with injected randoms on the card and on the CPU: the
+    products on ``torch.matmul`` in float64, the sampler through K1 (K=8), K2
     (K=36) or K5 (K=100, two panels per entity), no K6 and no K7; the
     chains agree to float64 rounding (the sums in another order)."""
     df = synthetic_ratings(300, 200, 12_000, seed=3)
@@ -437,7 +438,7 @@ def test_float_pair_engine_cuda_matches_cpu(cuda, K, kernel, per_sweep):
         rd = bt.RelationData.from_indexed_df(df)
         rd.assign_to_test(0, 1_000, seed=7)
         cfg = bt.MacauConfig(num_latent=K, dtype="float64", verbose=False,
-                             clamp=(1.0, 5.0), seed=4)
+                             clamp=(1.0, 5.0), seed=4, dense_gram=True)
         engines[dev] = bt.MacauEngine(rd, cfg, device=dev)
         assert not engines[dev].problem.pair_i8s[0]
         assert engines[dev].problem.stores[0]["M"].dtype == torch.float64
@@ -656,7 +657,8 @@ def test_benchmark_on_cuda(cuda):
     rd.assign_to_test(0, 5_000, seed=7)
     eng = bt.MacauEngine(rd, bt.MacauConfig(num_latent=16, burnin=5,
                                             psamples=0, clamp=(1, 5),
-                                            verbose=False, dense_int8=True),
+                                            verbose=False, dense_gram=True,
+                                            dense_int8=True),
                          device="cuda")
     launches = pair_contract.pair_contract.launches
     out = eng.benchmark(5, repeats=2)
@@ -752,15 +754,17 @@ def _symmetric_graph():
 
 GRAPH_CASES = {
     # name: (graph, options, kernel launches a sweep on the card)
-    "tensor_int8": (_tensor_graph, dict(dense_int8=True),
+    "tensor_int8": (_tensor_graph, dict(dense_gram=True, dense_int8=True),
                     {"K1": 3, "K6": 3, "K7": 3}),
-    "tensor_float": (_tensor_graph, dict(), {"K1": 3}),
+    "tensor_float": (_tensor_graph, dict(dense_gram=True), {"K1": 3}),
     "tensor_gather": (_tensor_graph, dict(dense_gram=False), {"K3": 3}),
-    "fusion_int8": (_fusion_graph, dict(dense_int8=True),
+    "fusion_int8": (_fusion_graph, dict(dense_gram=True, dense_int8=True),
                     {"K1": 4, "K6": 6, "K7": 6}),
-    "fusion_alpha": (lambda: _fusion_graph(True), dict(dense_int8=True),
+    "fusion_alpha": (lambda: _fusion_graph(True),
+                     dict(dense_gram=True, dense_int8=True),
                      {"K1": 4, "K6": 6, "K7": 6}),
-    "symmetric_int8": (_symmetric_graph, dict(dense_int8=True),
+    "symmetric_int8": (_symmetric_graph,
+                       dict(dense_gram=True, dense_int8=True),
                        {"K1": 1, "K6": 2, "K7": 2}),
 }
 
@@ -976,7 +980,7 @@ def _driver_data(dup=False):
 
 
 DRIVER_CASES = {
-    "pair": dict(dense_int8=True),
+    "pair": dict(dense_gram=True, dense_int8=True),
     "gather_segment": dict(dense_gram=False, bucket_widths=(8, 16, 32, 64)),
     "gather_planned": dict(dense_gram=False, accumulation="planned",
                            bucket_widths=(8, 16, 32, 64)),
@@ -1083,3 +1087,108 @@ def test_window_waits_for_nothing_on_cuda(cuda, case):
         torch.cuda.set_sync_debug_mode("default")
     assert len(mstack) == 4
     assert all(np.isfinite(v) for m in eng._fetch(mstack) for v in m.values())
+
+
+def test_native_layout_equals_numpy_at_ml10m(cuda):
+    """The native layout builder on the card's host against the NumPy
+    builder at ML-10M (71,567 x 10,681, 9.9M training ratings, the bench's
+    25-width ladder), both modes, bit for bit; the native build is the
+    faster."""
+    import time
+
+    import chip_smoke
+    from bayesiandatafusion_jl_tpu_torch.models.datasets import \
+        load_movielens
+    from bayesiandatafusion_jl_tpu_torch.ops import layout
+    rd = bt.RelationData.from_indexed_df(load_movielens("10m", seed=0))
+    rd.assign_to_test(0, 100_000, seed=7)
+    data = rd.relations[0].data
+    cen = data.vals - data.vals.mean()
+    for mode in range(2):
+        args = (data.idx, cen, mode, data.shape[mode],
+                chip_smoke.BENCH_WIDTHS, 8)
+        t0 = time.perf_counter()
+        got = layout.build_mode_layout(*args)
+        t1 = time.perf_counter()
+        want = layout.build_mode_layout(*args, use_native=False)
+        t2 = time.perf_counter()
+        assert t1 - t0 < t2 - t1
+        assert len(got.buckets) == len(want.buckets) > 10
+        for x, y in zip(got.buckets, want.buckets):
+            assert x.width == y.width
+            np.testing.assert_array_equal(x.inst, y.inst)
+            np.testing.assert_array_equal(x.part[0], y.part[0])
+            np.testing.assert_array_equal(x.val.view(np.int32),
+                                          y.val.view(np.int32))
+            np.testing.assert_array_equal(x.mask, y.mask)
+
+
+@pytest.mark.parametrize("out_dtype, tol", [(torch.float32, 1e-5),
+                                            (torch.float64, 1e-12)])
+def test_int8_arity4_contrib_cuda_matches_plain(cuda, out_dtype, tol):
+    """The int8 pair at arity 4 (300 x 40 x 20 x 6, K = 32): every focus
+    mode's contribution on the card (K7 for the largest partner's table,
+    K6 on the store read as a matrix, the two small partners in one
+    einsum) against the CPU's plain versions on the same store and
+    factors, packed and unpacked, to ``tol`` of the largest entry; one K6
+    and one K7 launch a contribution."""
+    shape, K = (300, 40, 20, 6), 32
+    rng = np.random.default_rng(19)
+    cells = rng.choice(np.prod(shape), 40_000, replace=False)
+    idx = np.stack(np.unravel_index(cells, shape), 1)
+    cen = rng.standard_normal(len(idx))
+    pairs = {dev: dense_gram.build_int8_pair(idx, cen, shape, np.float32,
+                                             dev) for dev in ("cpu", cuda)}
+    assert pairs[cuda]["order"] == (0, 2, 3, 1)
+    assert torch.equal(pairs[cuda]["M8"].cpu(), pairs["cpu"]["M8"])
+    Us = [rng.standard_normal((n, K)) for n in shape]
+    alpha = 1.7
+    for mode in range(4):
+        for packed in (True, False):
+            out = {}
+            for dev in ("cpu", cuda):
+                parts = [torch.from_numpy(Us[d]).to(dev, torch.float32)
+                         for d in range(4) if d != mode]
+                before = (pair_contract.pair_contract.launches,
+                          ytab.ytab_quantize.launches)
+                out[dev] = dense_gram.int8_pair_contrib(
+                    pairs[dev], dense_gram.tri_index(K, dev), parts, mode,
+                    torch.tensor(alpha, device=dev), out_dtype,
+                    packed=packed)
+                if dev == cuda:
+                    assert (pair_contract.pair_contract.launches,
+                            ytab.ytab_quantize.launches) == (
+                                before[0] + 1, before[1] + 1)
+            for g, w in zip(out[cuda], out["cpu"]):
+                w = w.double()
+                assert g.shape == w.shape
+                assert float((g.cpu().double() - w).abs().max()) <= (
+                    tol * float(w.abs().max()))
+
+
+def test_planner_choices_at_bench_shapes(cuda):
+    """``plan_gramians`` on the ``tensor`` and ``chembl`` data as bench.py
+    builds them, with its Gramian options as written (dense_int8=True,
+    gram_dtype="bfloat16", default dense_gram, dense_fused and budget):
+    every mode on the int8 pair; the engine built on the card stores what
+    the plan says and contracts every mode on K6."""
+    import chip_smoke
+    from bayesiandatafusion_jl_tpu_torch.models.datasets import (
+        synthetic_chembl, tensor_synthetic)
+    from bayesiandatafusion_jl_tpu_torch.models.engine import plan_gramians
+    tensor = bt.RelationData.from_indexed_df(tensor_synthetic())
+    tensor.assign_to_test(0, 100_000, seed=7)
+    chembl = synthetic_chembl(**chip_smoke.CHEMBL_DATA)
+    chembl.assign_to_test(0, chip_smoke.CHEMBL_TEST, seed=7)
+    for rd in (tensor, chembl):
+        cfg = bt.MacauConfig(num_latent=32, verbose=False, dtype="float32",
+                             seed=42, dense_int8=True, gram_dtype="bfloat16")
+        plan = plan_gramians(rd, cfg)
+        arity = rd.relations[0].arity
+        assert set(plan.dense_plans) == {(0, m) for m in range(arity)}
+        assert plan.pair_i8 == {0: True} and not plan.fused
+    eng = bt.MacauEngine(chembl, cfg, device=cuda)
+    assert eng.problem.kinds == ["pair"] and eng.problem.pair_i8s == [True]
+    (_, _), counts = chip_smoke.counted(lambda: eng._sweep(
+        eng.init_state(), 0, 0.0))
+    assert counts["K6"] == 2 and counts["plain_pair"] == 0

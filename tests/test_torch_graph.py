@@ -426,20 +426,29 @@ def test_float_tensor_contrib_matches_jax():
                                            atol=1e-12 * np.abs(w).max())
 
 
-def test_int8_arity4_raises():
-    """The int8 pair stops at arity 3 (ROADMAP M12); the float pair and the
-    gather path take arity 4."""
-    idx, cen, _ = _tensor_data((4, 5, 3, 6), 2)
-    rd = bt.RelationData.from_indexed_df(bt.IndexedDF(idx, cen, (4, 5, 3, 6)))
-    with pytest.raises(NotImplementedError, match="M12"):
-        bt.MacauEngine(rd, bt.MacauConfig(num_latent=3, verbose=False,
-                                          dense_int8=True), device="cpu")
-    for opts in (dict(dense_int8=False), dict(dense_gram=False)):
-        res = bt.MacauEngine(rd, bt.MacauConfig(
-            num_latent=3, verbose=False, burnin=2, psamples=1, **opts),
-            device="cpu").run()
-        assert all(np.isfinite(e["U"].numpy()).all()
-                   for e in res["state"]["ent"])
+@pytest.mark.parametrize("path", ["gather", "float", "int8"])
+def test_int8_arity4_raises(xla_cpu_ridge, path):
+    """The (4, 5, 3, 6) tensor, K = 3, on the int8 pair (ROADMAP M12: it
+    raised before; one store [6, 4, 3, 5] for the four modes, each first
+    step on the store read as a matrix, the two other partners in one
+    einsum), the float pair and the gather path, against the JAX engine:
+    3 float64 sweeps to 1e-8."""
+    shape = (4, 5, 3, 6)
+    idx, cen, _ = _tensor_data(shape, 2)
+
+    def graph(pkg):
+        rd = pkg.RelationData.from_indexed_df(pkg.IndexedDF(idx, cen, shape))
+        rd.assign_to_test(0, 10, seed=7)
+        return rd
+    GRAPHS["arity4"] = graph
+    try:
+        ej, et = _engines("arity4", 3, **PATHS[path])
+    finally:
+        del GRAPHS["arity4"]
+    assert et.problem.pair_i8s == [path == "int8"]
+    if path != "gather":
+        assert et.problem.stores[0]["order"] == (3, 0, 2, 1)
+    _run_both(ej, et)
 
 
 def test_sample_alpha_matches_jax():
