@@ -61,10 +61,14 @@ kernel up to K = 32, K4 up to 96, the blocked sampler on K5 up to 128.
 With "segment" accumulation Lambda is left out of P and added by the
 sampler; with "planned" it is in the accumulator.  Every sum of a sweep
 adds in a fixed order (no scatter add with atomics), so a chain's bits
-depend on its seed alone.  Options outside the port raise
-``NotImplementedError`` naming their ROADMAP item.
+depend on its seed alone.  The sharded engine (parallel/sharded.py) runs
+these per-entity pieces (``_precision``, ``_draw_rows``, ``_beta_rhs``,
+``_solve_beta``, ``_store_contrib``) on one rank's rows, with its
+collectives in the hooks ``_allreduce``, ``_allgather`` and
+``_local_rows`` (identities here) and its own ``_fold_ghosts``.
 
-The driver (``MacauEngine.run``, JAX ``GibbsDriverMixin`` :492-689) runs
+The driver (``GibbsDriver.run``, JAX ``GibbsDriverMixin`` :492-689), which
+both engines run, runs
 the sweeps in windows dispatched back to back with no host read inside
 (``sweeps_per_dispatch``), reads the metrics the host needs at a window's
 end (``metrics_every``), and writes the jsonl log, the posterior-sample
@@ -174,7 +178,8 @@ class GramianPlan:
     seconds: float
 
 
-def plan_gramians(rd: RelationData, config: MacauConfig) -> GramianPlan:
+def plan_gramians(rd: RelationData, config: MacauConfig,
+                  per_mode_pairs: bool = False) -> GramianPlan:
     """The Gramian path of every (relation, mode) of ``rd`` (JAX engine
     :106-151), from relation statistics alone: the fused encodings of the
     2-ary relations (where ``dense_fused`` is True or a relation has
@@ -182,7 +187,11 @@ def plan_gramians(rd: RelationData, config: MacauConfig) -> GramianPlan:
     budget, then ``plan_dense_modes`` on what is left, with the pair's
     itemsize per relation: 1 where ``dense_int8`` and ``int8_pair_ok`` both
     hold, else the float store's (bfloat16 under ``gram_dtype``, else the
-    compute dtype)."""
+    compute dtype).  ``per_mode_pairs``: each dense mode stores a copy of
+    the pair led by its own focus axis ("copy" plans; the sharded engine,
+    JAX parallel/sharded.py:133-177), its bytes charged once per mode;
+    ``pair_i8`` and ``store_bytes`` then cover the relations with a
+    copy."""
     t0 = time.perf_counter()
     rels = rd.relations
     shapes = [tuple(int(e.count) for e in rel.entities) for rel in rels]
@@ -209,9 +218,10 @@ def plan_gramians(rd: RelationData, config: MacauConfig) -> GramianPlan:
     fused, spent = dg.plan_fused_rels(
         shapes, nnzs, config.num_latent, config.dense_gram,
         config.dense_fused, enc, pair_item, budget)
-    dense_plans, canonical, _ = dg.plan_dense_modes(
+    dense_plans, canonical, copies = dg.plan_dense_modes(
         shapes, [0 if ri in fused else n for ri, n in enumerate(nnzs)],
-        config.num_latent, config.dense_gram, budget - spent, pair_item)
+        config.num_latent, config.dense_gram, budget - spent, pair_item,
+        per_mode_pairs=per_mode_pairs)
     store_bytes = {}
     for ri in fused:
         store_bytes[ri] = float(shapes[ri][0]) * shapes[ri][1]
@@ -220,6 +230,10 @@ def plan_gramians(rd: RelationData, config: MacauConfig) -> GramianPlan:
                 "fused", shapes[ri][mode], (shapes[ri][1 - mode],))
     for ri in canonical:
         store_bytes[ri] = 2.0 * float(np.prod(shapes[ri])) * pair_item[ri]
+    for ri, _ in copies:
+        canonical.add(ri)
+        store_bytes[ri] = store_bytes.get(ri, 0.0) + 2.0 * float(
+            np.prod(shapes[ri])) * pair_item[ri]
     return GramianPlan(
         fused={ri: fused_plan[ri] for ri in fused}, dense_plans=dense_plans,
         pair_i8={ri: i8[ri] for ri in canonical}, store_bytes=store_bytes,
@@ -236,6 +250,100 @@ def _resolve_device(device) -> torch.device:
             "no CUDA device: the engine runs on the card by default; pass "
             "device='cpu' to run the plain versions on the CPU")
     return dev
+
+
+@dataclasses.dataclass(frozen=True)
+class RowShard:
+    """The rows of an entity one rank of the sharded engine holds:
+    ``local[i]`` the local row of original instance i (-1: another
+    rank's), ``ids`` the original ids of the local rows in order,
+    ``n_rows`` the local row count (padding after ``ids``), ``cols`` the
+    original id of each position of the permuted order (the dual G's
+    columns) and ``n_cols`` its padded count."""
+    local: np.ndarray
+    ids: np.ndarray
+    n_rows: int
+    cols: np.ndarray
+    n_cols: int
+
+
+def build_features(ent, config: MacauConfig, device,
+                   shard: Optional[RowShard] = None):
+    """An entity's beta-draw arrays and solver (JAX engine :310-385;
+    sharded.py:429-527): (feat, build seconds, use_ff, solver).  The dense
+    [N, F] X in the compute dtype where ``use_dense_feat`` picks it (at the
+    JAX package's operand size, ``feat_itemsize``), else the bucketed
+    matvec; the squared column sums (Jacobi); then by solver: "ff" (F <=
+    ff_threshold unless the entity or the config says otherwise) X'X;
+    "dual" (``use_dual``) the eigenbasis of XX', decomposed on ``device``,
+    and G; "cg" the Nystrom factors where the rank resolves nonzero and F
+    >= 4 x rank.  With ``shard`` the X (or matvec) and the dual solve's Q
+    and G hold that rank's rows only (G's columns in the permuted order);
+    the decisions, the eigendecomposition, the Nystrom factors and X'X are
+    the whole entity's."""
+    F, n, nf = ent.F, int(ent.count), ent.num_features
+    np_dt = config.np_dtype()
+    secs: Dict[str, float] = {}
+    t0 = time.perf_counter()
+    rows, cols, vals, n_rows = F.rows, F.cols, F.values(), n
+    if shard is not None:
+        loc = shard.local[F.rows]
+        own = loc >= 0
+        rows, cols, vals, n_rows = loc[own], cols[own], vals[own], \
+            shard.n_rows
+    feat: Dict[str, Any] = {"colcount": torch.from_numpy(
+        F.col_sq_sums().astype(np_dt)).to(device)}
+    itemsize = dg.feat_itemsize(F.is_binary, config.gram_dtype, np_dt)
+    if dg.use_dense_feat(n, nf, F.nnz, itemsize, config.dense_gram):
+        X = torch.zeros((n_rows, nf), dtype=getattr(torch, config.dtype),
+                        device=device)
+        cells = tuple(torch.from_numpy(a.astype(np.int64)).to(device)
+                      for a in (rows, cols))
+        X.index_put_(cells, torch.from_numpy(vals.astype(np_dt)).to(device),
+                     accumulate=True)
+        feat["dense_X"] = X
+    else:
+        feat["mv"] = build_bucketed_matvec(
+            rows, cols, (n_rows, nf), vals=None if F.is_binary else vals,
+            widths=config.bucket_widths, row_pad=config.row_pad,
+            dtype=np_dt, device=device)
+    secs["operand"] = time.perf_counter() - t0
+    pref = ent.use_ff if ent.use_ff is not None else config.use_ff
+    use_ff = (nf <= config.ff_threshold) if pref is None else bool(pref)
+    solver = "ff" if use_ff else "cg"
+    if not use_ff and use_dual(config.beta_solver, n, nf, np_dt.itemsize,
+                               config.dual_budget_gb):
+        solver = "dual"
+        Q, d, G = dual_eig_cached(F.rows, F.cols, F.values(), F.shape, np_dt,
+                                  config.dual_cache_dir, device,
+                                  timings=secs)
+        if shard is not None:
+            ids = shard.ids
+            Q_loc = Q.new_zeros((shard.n_rows, n))
+            Q_loc[:ids.size] = Q[torch.from_numpy(ids).to(device)]
+            G_loc = np.zeros((shard.n_rows, shard.n_cols), np_dt)
+            G_loc[:ids.size, :n] = G[np.ix_(ids, shard.cols)]
+            Q, G = Q_loc, G_loc
+        feat["dual_Q"], feat["dual_d"] = Q, d
+        feat["dual_G"] = torch.from_numpy(G.astype(np_dt)).to(device)
+        del G
+    rank = resolve_nystrom_rank(config.cg_nystrom_rank, nf)
+    if solver == "cg" and rank and nf >= 4 * rank:
+        t0 = time.perf_counter()
+        Un, dn = build_nystrom(F.rows, F.cols, F.values(), F.shape, rank,
+                               seed=config.seed)
+        feat["nys_U"] = torch.from_numpy(Un.astype(np_dt)).to(device)
+        feat["nys_d"] = torch.from_numpy(dn.astype(np_dt)).to(device)
+        secs["nystrom"] = time.perf_counter() - t0
+    if use_ff:
+        import scipy.sparse as sp
+        t0 = time.perf_counter()
+        X = sp.coo_matrix((F.values().astype(np_dt), (F.rows, F.cols)),
+                          shape=F.shape).tocsr()
+        feat["ftf"] = torch.from_numpy(
+            np.asarray((X.T @ X).todense(), np_dt)).to(device)
+        secs["ftf"] = time.perf_counter() - t0
+    return feat, secs, use_ff, solver
 
 
 class CompiledProblem:
@@ -359,69 +467,14 @@ class CompiledProblem:
         return f
 
     def _build_features(self, ei, ent, config, device):
-        """Entity ``ei``'s beta-draw arrays and solver (JAX engine
-        :310-385): the dense [N, F] X in the compute dtype where
-        ``use_dense_feat`` picks it (at the JAX package's operand size,
-        ``feat_itemsize``), else the bucketed matvec; the squared column
-        sums (Jacobi); then by solver: "ff" (F <= ff_threshold unless the
-        entity or the config says otherwise) X'X; "dual" (``use_dual``)
-        the eigenbasis of XX', decomposed on ``device``, and G; "cg" the
-        Nystrom factors where the rank resolves nonzero and F >= 4 x
-        rank."""
-        F, n, nf = ent.F, int(ent.count), ent.num_features
-        np_dt = config.np_dtype()
-        secs: Dict[str, float] = {}
-        t0 = time.perf_counter()
-        feat: Dict[str, Any] = {"colcount": torch.from_numpy(
-            F.col_sq_sums().astype(np_dt)).to(device)}
-        itemsize = dg.feat_itemsize(F.is_binary, config.gram_dtype, np_dt)
-        if dg.use_dense_feat(n, nf, F.nnz, itemsize, config.dense_gram):
-            X = torch.zeros((n, nf), dtype=getattr(torch, config.dtype),
-                            device=device)
-            cells = tuple(torch.from_numpy(a.astype(np.int64)).to(device)
-                          for a in (F.rows, F.cols))
-            X.index_put_(cells, torch.from_numpy(
-                F.values().astype(np_dt)).to(device), accumulate=True)
-            feat["dense_X"] = X
-        else:
-            feat["mv"] = build_bucketed_matvec(
-                F.rows, F.cols, F.shape, vals=F.vals,
-                widths=config.bucket_widths, row_pad=config.row_pad,
-                dtype=np_dt, device=device)
-        secs["operand"] = time.perf_counter() - t0
-        pref = ent.use_ff if ent.use_ff is not None else config.use_ff
-        use_ff = (nf <= config.ff_threshold) if pref is None else bool(pref)
-        solver = "ff" if use_ff else "cg"
-        if not use_ff and use_dual(config.beta_solver, n, nf,
-                                   np_dt.itemsize, config.dual_budget_gb):
-            solver = "dual"
-            Q, d, G = dual_eig_cached(F.rows, F.cols, F.values(), F.shape,
-                                      np_dt, config.dual_cache_dir, device,
-                                      timings=secs)
-            feat["dual_Q"], feat["dual_d"] = Q, d
-            feat["dual_G"] = torch.from_numpy(G.astype(np_dt)).to(device)
-            del G
-        rank = resolve_nystrom_rank(config.cg_nystrom_rank, nf)
-        if solver == "cg" and rank and nf >= 4 * rank:
-            t0 = time.perf_counter()
-            Un, dn = build_nystrom(F.rows, F.cols, F.values(), F.shape,
-                                   rank, seed=config.seed)
-            feat["nys_U"] = torch.from_numpy(Un.astype(np_dt)).to(device)
-            feat["nys_d"] = torch.from_numpy(dn.astype(np_dt)).to(device)
-            secs["nystrom"] = time.perf_counter() - t0
-        if use_ff:
-            import scipy.sparse as sp
-            t0 = time.perf_counter()
-            X = sp.coo_matrix((F.values().astype(np_dt), (F.rows, F.cols)),
-                              shape=F.shape).tocsr()
-            feat["ftf"] = torch.from_numpy(
-                np.asarray((X.T @ X).todense(), np_dt)).to(device)
-            secs["ftf"] = time.perf_counter() - t0
+        """Entity ``ei``'s beta-draw arrays and solver
+        (``build_features``), their build seconds and its spec."""
+        feat, secs, use_ff, solver = build_features(ent, config, device)
         self.feat[f"e{ei}"] = feat
         self.feat_seconds[f"e{ei}"] = secs
         self.entity_specs[ei] = dataclasses.replace(
-            self.entity_specs[ei], num_features=nf, use_ff=use_ff,
-            feat_nnz=F.nnz, solver=solver)
+            self.entity_specs[ei], num_features=ent.num_features,
+            use_ff=use_ff, feat_nnz=ent.F.nnz, solver=solver)
 
     def _build_relation(self, ri, rel, mean_value, config, device, plan):
         """Relation ``ri``'s store and bucket layouts, as ``plan`` says
@@ -528,7 +581,251 @@ class CompiledProblem:
             self.acc_plan[f"e{ei}"] = plan
 
 
-class MacauEngine:
+class GibbsDriver:
+    """The driver loop both engines run (JAX ``GibbsDriverMixin``
+    :492-689): ``run``, ``benchmark`` and their windows, metric reads,
+    jsonl log, trace, posterior-sample dumps and checkpoints.  An engine
+    supplies ``config``, ``device``, ``dtype``, ``problem`` (its
+    ``random_spec``, ``entity_specs`` and ``rel_specs``), ``init_state``,
+    ``_sweep_with_randoms``, ``_results``, ``_save_sample`` and
+    ``save_state``.  ``_writer`` says whether this process writes the log
+    (the sharded engine's rank 0 alone does), ``_trace_tag`` is added to
+    the trace file's name."""
+
+    _writer = True
+    _trace_tag = ""
+
+    def draw(self, sweep: int, seed: Optional[int] = None
+             ) -> Dict[str, torch.Tensor]:
+        """The randoms of sweep ``sweep`` (1-based) of the chain ``seed``
+        (the config's by default), on the device."""
+        return draw_all(self.config.seed if seed is None else seed, sweep,
+                        self.problem.random_spec, self.dtype, self.device)
+
+    def _sweep(self, state, s: int, accumulate: float,
+               seed: Optional[int] = None):
+        return self._sweep_with_randoms(state, self.draw(s + 1, seed),
+                                        accumulate)
+
+    # -- run loops (JAX ``GibbsDriverMixin`` :492-689) ----------------------
+    def run(self, state=None, seed: Optional[int] = None,
+            num_sweeps: Optional[int] = None, sweep_offset: int = 0,
+            callback: Optional[Callable] = None) -> Dict[str, Any]:
+        """Run burnin + psamples sweeps (or ``num_sweeps``) of the chain
+        ``seed`` (the config's by default: sweep s draws the randoms of
+        (seed, s + 1), the state starts from ``init_state`` seeded by it);
+        returns the reference-style results.
+
+        ``sweep_offset`` resumes the chain at that sweep, from ``state``
+        (``load_state``): the sweeps from there on draw and accumulate as
+        the run without interruption does, so its results are the same
+        bits.  The sweeps run in windows of up to ``sweeps_per_dispatch``,
+        dispatched back to back with no host read inside; a window ends where
+        ``_chunk_limit`` says.  At its end the metrics of the sweeps the
+        host needs (every ``metrics_every``-th, the last, and all under
+        verbose, a callback, a log file or the trace) are stacked and read
+        back at once; the other sweeps' history holds only "time", the
+        window's wall time over its sweeps.  ``callback(sweep, phase,
+        metrics, dt)`` runs after every sweep; then the jsonl line, the
+        posterior-sample dump and the checkpoint, where configured."""
+        cfg = self.config
+        if seed is None:
+            seed = cfg.seed
+        if state is None:
+            state = self.init_state(
+                torch.Generator(device=self.device).manual_seed(seed))
+        total = (cfg.burnin + cfg.psamples if num_sweeps is None
+                 else num_sweeps)
+        history: List[Dict[str, float]] = []
+        spd = max(cfg.sweeps_per_dispatch, 1)
+        every = max(cfg.metrics_every, 1)
+        log_f = (open(cfg.log_file, "a") if cfg.log_file and self._writer
+                 else None)
+        try:
+            s = sweep_offset
+            while s < total:
+                trace_this = (cfg.trace_dir is not None
+                              and s == min(2, total - 1))
+                n = 1 if trace_this else min(
+                    spd, self._chunk_limit(s, total) - s)
+                fetch_js = [
+                    j for j in range(n)
+                    if ((s + j + 1) % every == 0 or s + j == total - 1
+                        or cfg.verbose or callback is not None
+                        or cfg.log_file is not None or trace_this)]
+                t0 = time.perf_counter()
+                with (self._trace(s) if trace_this
+                      else contextlib.nullcontext()):
+                    state, mstack = self._window(state, seed, s, n)
+                    m_host = self._fetch([mstack[j] for j in fetch_js])
+                dt = (time.perf_counter() - t0) / n
+                fetched = dict(zip(fetch_js, m_host))
+                for j in range(n):
+                    i = s + j
+                    metrics = fetched.get(j, {})
+                    phase = "burnin" if i < cfg.burnin else "sample"
+                    metrics["time"] = dt
+                    history.append(metrics)
+                    if log_f is not None:
+                        log_f.write(json.dumps(
+                            {"sweep": i + 1, "phase": phase,
+                             **metrics}) + "\n")
+                        log_f.flush()
+                    if cfg.output_prefix is not None and i >= cfg.burnin:
+                        # windows are one sweep long in the psamples phase
+                        # under output_prefix (_chunk_limit), so ``state``
+                        # is sweep i's
+                        self._save_sample(cfg.output_prefix,
+                                          i - cfg.burnin, state)
+                    if (cfg.checkpoint_every and cfg.checkpoint_path
+                            and (i + 1) % cfg.checkpoint_every == 0):
+                        self.save_state(cfg.checkpoint_path, state, i + 1)
+                    if callback is not None:
+                        callback(i, phase, metrics, dt)
+                    if cfg.verbose and self._writer:
+                        self._print_sweep(i, phase, metrics)
+                s += n
+        finally:
+            if log_f is not None:
+                log_f.close()
+        return self._results(state, history)
+
+    def _window(self, state, seed: int, start: int, n: int):
+        """Sweeps [start, start + n), dispatched back to back: (state, each
+        sweep's metrics, still on the device)."""
+        burnin = self.config.burnin
+        mstack = []
+        for s in range(start, start + n):
+            state, m = self._sweep(state, s, 1.0 if s >= burnin else 0.0,
+                                   seed)
+            mstack.append(m)
+        return state, mstack
+
+    @staticmethod
+    def _fetch(metric_dicts) -> List[Dict[str, float]]:
+        """The metric dicts as host floats, their device values stacked and
+        read back by one copy (which waits for the device)."""
+        vals = [v for m in metric_dicts for v in m.values()
+                if torch.is_tensor(v)]
+        host = iter(torch.stack([v.reshape(()).to(torch.float64)
+                                 for v in vals]).tolist() if vals else ())
+        return [{k: next(host) if torch.is_tensor(v) else float(v)
+                 for k, v in m.items()} for m in metric_dicts]
+
+    @contextlib.contextmanager
+    def _trace(self, s: int):
+        """A ``torch.profiler`` trace of the sweep run inside, CPU and (on
+        the card) CUDA activity, written into ``trace_dir`` as a Chrome
+        trace.  On the card a trace without device activity (the profiler
+        could not reach CUPTI) raises rather than pass for a trace."""
+        from torch.profiler import ProfilerActivity, profile
+        acts = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            acts.append(ProfilerActivity.CUDA)
+        os.makedirs(self.config.trace_dir, exist_ok=True)
+        with profile(activities=acts) as prof:
+            yield
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+        if self.device.type == "cuda" and not any(
+                e.device_type == torch.autograd.DeviceType.CUDA
+                for e in prof.events()):
+            raise RuntimeError(
+                f"torch.profiler recorded no CUDA activity in sweep {s + 1}:"
+                f" it cannot trace the card here")
+        prof.export_chrome_trace(os.path.join(
+            self.config.trace_dir,
+            f"sweep{s + 1:04d}{self._trace_tag}.pt.trace.json"))
+
+    def _chunk_limit(self, s: int, total: int) -> int:
+        """The exclusive end of a window starting at sweep ``s`` (JAX
+        :646-664): a window must end at every sweep whose host work needs
+        that sweep's state (a checkpoint, a posterior-sample dump) and
+        before the traced sweep."""
+        cfg = self.config
+        end = total
+        if cfg.trace_dir is not None:
+            t = min(2, total - 1)
+            if t > s:
+                end = min(end, t)  # stop before the traced sweep
+        ce = cfg.checkpoint_every
+        if ce and cfg.checkpoint_path:
+            nxt = s + ((ce - ((s + 1) % ce)) % ce)  # first i>=s, (i+1)%ce==0
+            end = min(end, nxt + 1)
+        if cfg.output_prefix is not None:
+            # every sweep >= burnin dumps a posterior sample
+            end = min(end, cfg.burnin if s < cfg.burnin else s + 1)
+        return max(end, s + 1)
+
+    def benchmark(self, num_sweeps: int, repeats: int = 1
+                  ) -> Dict[str, Any]:
+        """Timing entry point, the JAX engine's protocol (:586-644): one
+        untimed warm window of ``num_sweeps`` sweeps, then ``repeats``
+        timed windows of ``num_sweeps`` each, continuing one chain; each
+        runs in sub-windows of ``sweeps_per_dispatch`` sweeps, as JAX's
+        ``run_window`` does, and ends with one device-to-host read of its
+        last metrics.
+
+        Returns ``{"ms_per_sweep": [per window], "metrics": {last sweep},
+        "rmse_at_sweeps": rmse_sample at sweep num_sweeps}`` (of the first
+        relation with a test split)."""
+        prob = self.problem
+        first = next((ri for ri, rs in enumerate(prob.rel_specs)
+                      if rs.n_test), None)
+        if first is None:
+            raise ValueError("benchmark needs a test split "
+                             "(RelationData.assign_to_test)")
+        cfg = self.config
+        state = self.init_state()
+        spd = max(cfg.sweeps_per_dispatch, 1)
+
+        def run_window(state, start):
+            t0 = time.perf_counter()
+            s = start
+            while s < start + num_sweeps:
+                c = min(spd, start + num_sweeps - s)
+                state, mstack = self._window(state, cfg.seed, s, c)
+                s += c
+            last = self._fetch(mstack[-1:])[0]   # waits for the window
+            return state, last, time.perf_counter() - t0
+
+        state, metrics, _ = run_window(state, 0)
+        rmse_at = metrics[f"r{first}.rmse_sample"]
+        windows = []
+        for r in range(repeats):
+            state, metrics, dt = run_window(state, (r + 1) * num_sweeps)
+            windows.append(dt * 1e3 / num_sweeps)
+        return {"ms_per_sweep": windows, "metrics": metrics,
+                "rmse_at_sweeps": rmse_at}
+
+    def _print_sweep(self, s, phase, metrics):
+        """The reference's verbose line (JAX engine :666): sweep, phase,
+        per relation its RMSEs (and AUC) and sampled alpha, per entity
+        the norms and CG iterations it has in ``metrics``, time."""
+        parts = [f"sweep {s + 1:4d} [{phase:6s}]"]
+        for ri, rs in enumerate(self.problem.rel_specs):
+            k = f"r{ri}.rmse_avg"
+            if k in metrics:
+                line = (f"{rs.name}: RMSE={metrics[k]:.4f} "
+                        f"(sample {metrics[f'r{ri}.rmse_sample']:.4f})")
+                if f"r{ri}.auc" in metrics:
+                    line += f" AUC={metrics[f'r{ri}.auc']:.4f}"
+                parts.append(line)
+            if f"r{ri}.alpha" in metrics:
+                parts.append(f"a{ri}={metrics[f'r{ri}.alpha']:.2f}")
+        for ei in range(len(self.problem.entity_specs)):
+            if f"e{ei}.unorm" in metrics:
+                parts.append(f"|U{ei}|={metrics[f'e{ei}.unorm']:.1f}")
+            if f"e{ei}.betanorm" in metrics:
+                parts.append(f"|b{ei}|={metrics[f'e{ei}.betanorm']:.2f}"
+                             f" lb={metrics[f'e{ei}.lambda_beta']:.3f}")
+            if f"e{ei}.cg_iters" in metrics:
+                parts.append(f"cg{ei}={metrics[f'e{ei}.cg_iters']:.0f}")
+        parts.append(f"{metrics['time']:.3f}s")
+        print("  ".join(parts), flush=True)
+
+
+class MacauEngine(GibbsDriver):
     """Gibbs engine for one RelationData graph on one device."""
 
     def __init__(self, rd: RelationData, config: MacauConfig,
@@ -579,18 +876,6 @@ class MacauEngine:
         return {"ent": ents, "rel": rels, "pred": preds}
 
     # -- one sweep -----------------------------------------------------------
-    def draw(self, sweep: int, seed: Optional[int] = None
-             ) -> Dict[str, torch.Tensor]:
-        """The randoms of sweep ``sweep`` (1-based) of the chain ``seed``
-        (the config's by default), on the device."""
-        return draw_all(self.config.seed if seed is None else seed, sweep,
-                        self.problem.random_spec, self.dtype, self.device)
-
-    def _sweep(self, state, s: int, accumulate: float,
-               seed: Optional[int] = None):
-        return self._sweep_with_randoms(state, self.draw(s + 1, seed),
-                                        accumulate)
-
     def _sweep_with_randoms(self, state, randoms, accumulate: float):
         """One Gibbs sweep (JAX engine :747-998): each entity in turn, then
         the alpha draws, then the predictions."""
@@ -698,18 +983,18 @@ class MacauEngine:
         return (lambda V: bucketed_spmm(mv["fwd"], es.n, V),
                 lambda V: bucketed_spmm(mv["t"], es.num_features, V))
 
-    def _beta_rhs(self, ei, ent, randoms):
+    def _beta_rhs(self, ei, ent, U, e1, e2):
         """The right-hand side X'(U - mu + E1) + sqrt(lambda_beta) E2 of
-        entity ``ei``'s beta draw, E1 [N, K] and E2 [F, K] rows ~ N(0,
-        Lambda^-1) from the sweep's normals (JAX :1054-1094)."""
+        entity ``ei``'s beta draw from its rows ``U`` and their normals
+        ``e1`` ([n, K]; the sharded engine passes its own rows) and ``e2``
+        [F, K], E1 and E2 rows ~ N(0, Lambda^-1) (JAX :1054-1094)."""
         L, _ = torch.linalg.cholesky_ex(ent["Lambda"])
 
         def colored(z):                      # L^-T z' per row
             return solve_triangular(L.mT, z.mT, upper=True).mT
-        resid = ent["U"] - ent["mu"][None, :] + colored(
-            randoms[f"e{ei}.beta_e1"])
+        resid = U - ent["mu"][None, :] + colored(e1)
         return (self._feat_ops(ei)[1](resid) + torch.sqrt(
-            ent["lambda_beta"]) * colored(randoms[f"e{ei}.beta_e2"]))
+            ent["lambda_beta"]) * colored(e2))
 
     def _solve_beta(self, ei, rhs, lam, beta0):
         """(beta, uhat, cg_diag) from (X'X + lam I) beta = rhs by entity
@@ -725,7 +1010,8 @@ class MacauEngine:
         if es.solver == "dual":
             beta, uhat = dual_solve_g(feat["dual_Q"], feat["dual_d"],
                                       feat["dual_G"], lam, rhs, fwd, t,
-                                      cfg.dual_refine)
+                                      cfg.dual_refine, reduce=self._allreduce,
+                                      gather=self._allgather)
             return beta, uhat, None
         cg_diag = None
         if es.solver == "ff":
@@ -749,13 +1035,38 @@ class MacauEngine:
     def _sample_beta(self, ei, ent, randoms):
         """Entity ``ei``'s noise-injected exact Gibbs draw of beta
         (``_beta_rhs``, then ``_solve_beta``)."""
-        return self._solve_beta(ei, self._beta_rhs(ei, ent, randoms),
-                                ent["lambda_beta"], ent["beta"])
+        rhs = self._beta_rhs(ei, ent, ent["U"], randoms[f"e{ei}.beta_e1"],
+                             randoms[f"e{ei}.beta_e2"])
+        return self._solve_beta(ei, rhs, ent["lambda_beta"], ent["beta"])
+
+    # the collectives of the pieces above and below: none on one device;
+    # the sharded engine sums over its ranks (``_allreduce``) and gathers
+    # its ranks' rows (``_allgather``)
+    @staticmethod
+    def _allreduce(t: torch.Tensor) -> torch.Tensor:
+        return t
+
+    @staticmethod
+    def _allgather(t: torch.Tensor) -> torch.Tensor:
+        return t
+
+    def _local_rows(self, ei) -> Tuple[int, int]:
+        """(rows this process samples of entity ``ei``, ghost rows after
+        them, which the sharded engine's ``_fold_ghosts`` folds): all of
+        them, and none, on one device."""
+        return self.problem.entity_specs[ei].n, 0
 
     def _sample(self, ei, ent, dense, contribs, xi, uhat=None):
-        """The draw of entity ``ei``'s rows from its ``dense``
-        contributions ((relation, mode, partners, alpha)) and its gather
-        buckets ``contribs`` ((alpha, partners, bucket)).
+        """The draw of entity ``ei``'s rows (``_precision``, then
+        ``_draw_rows``)."""
+        return self._draw_rows(self._precision(ei, ent, dense, contribs,
+                                               uhat), xi)
+
+    def _precision(self, ei, ent, dense, contribs, uhat=None):
+        """The conditional precision of entity ``ei``'s rows from its
+        ``dense`` contributions ((relation, mode, partners, alpha)) and its
+        gather buckets ``contribs`` ((alpha, partners, bucket)), for
+        ``_draw_rows``: (layout, P, b, Lambda for the sampler or None).
 
         K <= 96 with a dense contribution and "segment" accumulation keeps
         P packed (JAX engine :818-923): the dense contributions summed in
@@ -768,14 +1079,18 @@ class MacauEngine:
         the blocked one above K = 96); an entity with no contribution
         draws from its prior.  The prior term is Lambda (mu + uhat_i) for
         each row i of an entity with side features (``uhat`` [n, K]), else
-        Lambda mu."""
+        Lambda mu.  The rows are ``_local_rows``' (the sharded engine's
+        own); with ghost rows after them (head splitting) the buckets are
+        assembled over both, then ``_fold_ghosts`` folds the ghosts into
+        their owners' rows (JAX sharded.py:1248-1263)."""
         cfg = self.config
         K = cfg.num_latent
-        n = self.problem.entity_specs[ei].n
+        n, n_ghost = self._local_rows(ei)
         mu, Lambda = ent["mu"], ent["Lambda"]
         prior_mean = mu if uhat is None else mu + uhat
         gd = getattr(torch, cfg.gram_dtype) if cfg.gram_dtype else None
-        if K <= K2_MAX_K and dense and cfg.accumulation != "planned":
+        if (K <= K2_MAX_K and dense and cfg.accumulation != "planned"
+                and not n_ghost):
             P = b = None
             for ri, mode, partners, alpha in dense:
                 P_d, b_d = self._dense_contrib(ri, mode, partners, alpha,
@@ -789,11 +1104,15 @@ class MacauEngine:
                                     tri=self.problem.tri)
             b = (mu @ Lambda)[:, None] + b if uhat is None else \
                 (prior_mean @ Lambda).mT + b
-            return chol_sample_packed_dispatch(P, b, xi, Lambda,
-                                               cfg.chol_jitter,
-                                               transposed=True)
+            return "packed", P, b, Lambda
         lam = Lambda
-        if cfg.accumulation == "planned":
+        if n_ghost:
+            prior_ext = torch.cat([prior_mean.expand(n, K),
+                                   prior_mean.new_zeros((n_ghost, K))])
+            P, b = self._fold_ghosts(ei, *assemble_precision(
+                Lambda, prior_ext, contribs, n + n_ghost, gram_dtype=gd,
+                fuse_lambda=True))
+        elif cfg.accumulation == "planned":
             P, b = assemble_precision_planned(
                 Lambda, prior_mean, contribs, n,
                 self.problem.acc_plan[f"e{ei}"], gram_dtype=gd)
@@ -813,8 +1132,20 @@ class MacauEngine:
             P = P_d if P is None else P.add_(P_d)
             b = b + b_d
             del P_d
-        # P is fresh; the dispatch adds Lambda to it in place above K = 96
-        return chol_sample_dispatch(P, b, xi, lam, cfg.chol_jitter)
+        return "full", P, b, lam
+
+    def _draw_rows(self, prec, xi, rows=slice(None)):
+        """u ~ N(P'^-1 b, P'^-1) for the rows ``rows`` of ``_precision``'s
+        ``prec`` with their normals ``xi`` [rows, K]: the packed sampler
+        (K1, K2) or the full-P one (``chol_sample_dispatch``; P is fresh,
+        and the dispatch adds Lambda to it in place above K = 96)."""
+        layout, P, b, lam = prec
+        if layout == "packed":
+            return chol_sample_packed_dispatch(P[:, rows], b[:, rows], xi,
+                                               lam, self.config.chol_jitter,
+                                               transposed=True)
+        return chol_sample_dispatch(P[rows], b[rows], xi, lam,
+                                    self.config.chol_jitter)
 
     def _dense_contrib(self, ri, mode, partners, alpha, packed):
         """Relation ``ri``'s alpha-scaled contribution to focus ``mode``, in
@@ -824,9 +1155,15 @@ class MacauEngine:
         fused s8 store (K7 and K8; alpha folded) or the fused float store
         (the table in ``gram_dtype``, alpha multiplied after) (JAX engine
         :1000-1042)."""
+        return self._store_contrib(self.problem.stores[ri], ri, mode,
+                                   partners, alpha, packed)
+
+    def _store_contrib(self, store, ri, mode, partners, alpha, packed):
+        """``_dense_contrib`` from ``store``, relation ``ri``'s pair or
+        fused store or one rank's slab of it, for its focus ``mode``."""
         cfg = self.config
         prob = self.problem
-        store, dtype = prob.stores[ri], self.dtype
+        dtype = self.dtype
         gd = getattr(torch, cfg.gram_dtype) if cfg.gram_dtype else None
         if prob.kinds[ri] == "pair":
             if prob.pair_i8s[ri]:
@@ -847,221 +1184,6 @@ class MacauEngine:
         b *= alpha
         return P, b
 
-    # -- run loops (JAX ``GibbsDriverMixin`` :492-689) ----------------------
-    def run(self, state=None, seed: Optional[int] = None,
-            num_sweeps: Optional[int] = None, sweep_offset: int = 0,
-            callback: Optional[Callable] = None) -> Dict[str, Any]:
-        """Run burnin + psamples sweeps (or ``num_sweeps``) of the chain
-        ``seed`` (the config's by default: sweep s draws the randoms of
-        (seed, s + 1), the state starts from ``init_state`` seeded by it);
-        returns the reference-style results.
-
-        ``sweep_offset`` resumes the chain at that sweep, from ``state``
-        (``load_state``): the sweeps from there on draw and accumulate as
-        the run without interruption does, so its results are the same
-        bits.  The sweeps run in windows of up to ``sweeps_per_dispatch``,
-        dispatched back to back with no host read inside; a window ends where
-        ``_chunk_limit`` says.  At its end the metrics of the sweeps the
-        host needs (every ``metrics_every``-th, the last, and all under
-        verbose, a callback, a log file or the trace) are stacked and read
-        back at once; the other sweeps' history holds only "time", the
-        window's wall time over its sweeps.  ``callback(sweep, phase,
-        metrics, dt)`` runs after every sweep; then the jsonl line, the
-        posterior-sample dump and the checkpoint, where configured."""
-        cfg = self.config
-        if seed is None:
-            seed = cfg.seed
-        if state is None:
-            state = self.init_state(
-                torch.Generator(device=self.device).manual_seed(seed))
-        total = (cfg.burnin + cfg.psamples if num_sweeps is None
-                 else num_sweeps)
-        history: List[Dict[str, float]] = []
-        spd = max(cfg.sweeps_per_dispatch, 1)
-        every = max(cfg.metrics_every, 1)
-        log_f = open(cfg.log_file, "a") if cfg.log_file else None
-        try:
-            s = sweep_offset
-            while s < total:
-                trace_this = (cfg.trace_dir is not None
-                              and s == min(2, total - 1))
-                n = 1 if trace_this else min(
-                    spd, self._chunk_limit(s, total) - s)
-                fetch_js = [
-                    j for j in range(n)
-                    if ((s + j + 1) % every == 0 or s + j == total - 1
-                        or cfg.verbose or callback is not None
-                        or log_f is not None or trace_this)]
-                t0 = time.perf_counter()
-                with (self._trace(s) if trace_this
-                      else contextlib.nullcontext()):
-                    state, mstack = self._window(state, seed, s, n)
-                    m_host = self._fetch([mstack[j] for j in fetch_js])
-                dt = (time.perf_counter() - t0) / n
-                fetched = dict(zip(fetch_js, m_host))
-                for j in range(n):
-                    i = s + j
-                    metrics = fetched.get(j, {})
-                    phase = "burnin" if i < cfg.burnin else "sample"
-                    metrics["time"] = dt
-                    history.append(metrics)
-                    if log_f is not None:
-                        log_f.write(json.dumps(
-                            {"sweep": i + 1, "phase": phase,
-                             **metrics}) + "\n")
-                        log_f.flush()
-                    if cfg.output_prefix is not None and i >= cfg.burnin:
-                        # windows are one sweep long in the psamples phase
-                        # under output_prefix (_chunk_limit), so ``state``
-                        # is sweep i's
-                        self._save_sample(cfg.output_prefix,
-                                          i - cfg.burnin, state)
-                    if (cfg.checkpoint_every and cfg.checkpoint_path
-                            and (i + 1) % cfg.checkpoint_every == 0):
-                        self.save_state(cfg.checkpoint_path, state, i + 1)
-                    if callback is not None:
-                        callback(i, phase, metrics, dt)
-                    if cfg.verbose:
-                        self._print_sweep(i, phase, metrics)
-                s += n
-        finally:
-            if log_f is not None:
-                log_f.close()
-        return self._results(state, history)
-
-    def _window(self, state, seed: int, start: int, n: int):
-        """Sweeps [start, start + n), dispatched back to back: (state, each
-        sweep's metrics, still on the device)."""
-        burnin = self.config.burnin
-        mstack = []
-        for s in range(start, start + n):
-            state, m = self._sweep(state, s, 1.0 if s >= burnin else 0.0,
-                                   seed)
-            mstack.append(m)
-        return state, mstack
-
-    @staticmethod
-    def _fetch(metric_dicts) -> List[Dict[str, float]]:
-        """The metric dicts as host floats, their device values stacked and
-        read back by one copy (which waits for the device)."""
-        vals = [v for m in metric_dicts for v in m.values()
-                if torch.is_tensor(v)]
-        host = iter(torch.stack([v.reshape(()).to(torch.float64)
-                                 for v in vals]).tolist() if vals else ())
-        return [{k: next(host) if torch.is_tensor(v) else float(v)
-                 for k, v in m.items()} for m in metric_dicts]
-
-    @contextlib.contextmanager
-    def _trace(self, s: int):
-        """A ``torch.profiler`` trace of the sweep run inside, CPU and (on
-        the card) CUDA activity, written into ``trace_dir`` as a Chrome
-        trace.  On the card a trace without device activity (the profiler
-        could not reach CUPTI) raises rather than pass for a trace."""
-        from torch.profiler import ProfilerActivity, profile
-        acts = [ProfilerActivity.CPU]
-        if self.device.type == "cuda":
-            acts.append(ProfilerActivity.CUDA)
-        os.makedirs(self.config.trace_dir, exist_ok=True)
-        with profile(activities=acts) as prof:
-            yield
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
-        if self.device.type == "cuda" and not any(
-                e.device_type == torch.autograd.DeviceType.CUDA
-                for e in prof.events()):
-            raise RuntimeError(
-                f"torch.profiler recorded no CUDA activity in sweep {s + 1}:"
-                f" it cannot trace the card here")
-        prof.export_chrome_trace(os.path.join(
-            self.config.trace_dir, f"sweep{s + 1:04d}.pt.trace.json"))
-
-    def _chunk_limit(self, s: int, total: int) -> int:
-        """The exclusive end of a window starting at sweep ``s`` (JAX
-        :646-664): a window must end at every sweep whose host work needs
-        that sweep's state (a checkpoint, a posterior-sample dump) and
-        before the traced sweep."""
-        cfg = self.config
-        end = total
-        if cfg.trace_dir is not None:
-            t = min(2, total - 1)
-            if t > s:
-                end = min(end, t)  # stop before the traced sweep
-        ce = cfg.checkpoint_every
-        if ce and cfg.checkpoint_path:
-            nxt = s + ((ce - ((s + 1) % ce)) % ce)  # first i>=s, (i+1)%ce==0
-            end = min(end, nxt + 1)
-        if cfg.output_prefix is not None:
-            # every sweep >= burnin dumps a posterior sample
-            end = min(end, cfg.burnin if s < cfg.burnin else s + 1)
-        return max(end, s + 1)
-
-    def benchmark(self, num_sweeps: int, repeats: int = 1
-                  ) -> Dict[str, Any]:
-        """Timing entry point, the JAX engine's protocol (:586-644): one
-        untimed warm window of ``num_sweeps`` sweeps, then ``repeats``
-        timed windows of ``num_sweeps`` each, continuing one chain; each
-        runs in sub-windows of ``sweeps_per_dispatch`` sweeps, as JAX's
-        ``run_window`` does, and ends with one device-to-host read of its
-        last metrics.
-
-        Returns ``{"ms_per_sweep": [per window], "metrics": {last sweep},
-        "rmse_at_sweeps": rmse_sample at sweep num_sweeps}`` (of the first
-        relation with a test split)."""
-        prob = self.problem
-        first = next((ri for ri, rs in enumerate(prob.rel_specs)
-                      if rs.n_test), None)
-        if first is None:
-            raise ValueError("benchmark needs a test split "
-                             "(RelationData.assign_to_test)")
-        cfg = self.config
-        state = self.init_state()
-        spd = max(cfg.sweeps_per_dispatch, 1)
-
-        def run_window(state, start):
-            t0 = time.perf_counter()
-            s = start
-            while s < start + num_sweeps:
-                c = min(spd, start + num_sweeps - s)
-                state, mstack = self._window(state, cfg.seed, s, c)
-                s += c
-            last = self._fetch(mstack[-1:])[0]   # waits for the window
-            return state, last, time.perf_counter() - t0
-
-        state, metrics, _ = run_window(state, 0)
-        rmse_at = metrics[f"r{first}.rmse_sample"]
-        windows = []
-        for r in range(repeats):
-            state, metrics, dt = run_window(state, (r + 1) * num_sweeps)
-            windows.append(dt * 1e3 / num_sweeps)
-        return {"ms_per_sweep": windows, "metrics": metrics,
-                "rmse_at_sweeps": rmse_at}
-
-    def _print_sweep(self, s, phase, metrics):
-        """The reference's verbose line (JAX engine :666): sweep, phase,
-        per relation its RMSEs (and AUC) and sampled alpha, per entity
-        the norms and CG iterations it has in ``metrics``, time."""
-        parts = [f"sweep {s + 1:4d} [{phase:6s}]"]
-        for ri, rs in enumerate(self.problem.rel_specs):
-            k = f"r{ri}.rmse_avg"
-            if k in metrics:
-                line = (f"{rs.name}: RMSE={metrics[k]:.4f} "
-                        f"(sample {metrics[f'r{ri}.rmse_sample']:.4f})")
-                if f"r{ri}.auc" in metrics:
-                    line += f" AUC={metrics[f'r{ri}.auc']:.4f}"
-                parts.append(line)
-            if f"r{ri}.alpha" in metrics:
-                parts.append(f"a{ri}={metrics[f'r{ri}.alpha']:.2f}")
-        for ei in range(len(self.problem.entity_specs)):
-            if f"e{ei}.unorm" in metrics:
-                parts.append(f"|U{ei}|={metrics[f'e{ei}.unorm']:.1f}")
-            if f"e{ei}.betanorm" in metrics:
-                parts.append(f"|b{ei}|={metrics[f'e{ei}.betanorm']:.2f}"
-                             f" lb={metrics[f'e{ei}.lambda_beta']:.3f}")
-            if f"e{ei}.cg_iters" in metrics:
-                parts.append(f"cg{ei}={metrics[f'e{ei}.cg_iters']:.0f}")
-        parts.append(f"{metrics['time']:.3f}s")
-        print("  ".join(parts), flush=True)
-
     def _results(self, state, history) -> Dict[str, Any]:
         """Reference-style result dict (JAX engine :1179): per relation with
         a test split, under its name, the RMSE of the posterior mean and
@@ -1069,18 +1191,17 @@ class MacauEngine:
         ``class_cut``, the AUC and the accuracy of the posterior mean);
         relation 0's also at the top level."""
         out: Dict[str, Any] = {"state": state, "history": history}
+        preds = self._gathered_preds(state)
         for ri, rs in enumerate(self.problem.rel_specs):
             key = f"r{ri}"
-            if key not in state["pred"]:
+            if key not in preds:
                 continue
             pr = {k: v.detach().cpu().numpy() for k, v in
-                  state["pred"][key].items()}
+                  preds[key].items()}
             n = max(float(pr["n"]), 1.0)
             pmean = pr["sum"] / n
             pvar = np.maximum(pr["sum2"] / n - pmean ** 2, 0.0)
-            te = self.problem.test[key]
-            te_idx = te["idx"].cpu().numpy()
-            te_val = te["vals"].cpu().numpy()
+            te_idx, te_val = self._test_split(ri)
             rel_out = {"RMSE": float(np.sqrt(np.mean((pmean - te_val) ** 2))),
                        "predictions": {"idx": te_idx, "obs": te_val,
                                        "pred": pmean,
@@ -1094,6 +1215,15 @@ class MacauEngine:
             if ri == 0:
                 out.update(rel_out)
         return out
+
+    def _gathered_preds(self, state):
+        """Every relation's prediction sums over its whole test split."""
+        return state["pred"]
+
+    def _test_split(self, ri):
+        """(test tuples, test values) of relation ``ri`` as numpy."""
+        te = self.problem.test[f"r{ri}"]
+        return te["idx"].cpu().numpy(), te["vals"].cpu().numpy()
 
     # -- posterior samples and checkpoints (JAX :1166-1177, :1213-1224) ----
     def _save_sample(self, prefix: str, psample_idx: int, state) -> None:
@@ -1124,8 +1254,12 @@ class MacauEngine:
         """(state, sweep) from a ``save_state`` file of either package, the
         leaves on the engine's device in its dtype; resume with
         ``run(state=state, sweep_offset=sweep)``."""
+        return self._read_state(path, self.init_state())
+
+    def _read_state(self, path: str, template):
+        """(state, sweep) from a ``save_state`` file, in ``template``'s
+        structure, on the engine's device in its dtype."""
         z = np.load(path)
-        template = self.init_state()
         n = len(_leaves(template))
         if int(z["n_leaves"]) != n:
             raise ValueError(f"{path}: {int(z['n_leaves'])} leaves, this "
@@ -1135,12 +1269,14 @@ class MacauEngine:
         return _unflatten(template, leaves), int(z["sweep"])
 
 
-def auc_device(labels: torch.Tensor, scores: torch.Tensor) -> torch.Tensor:
+def auc_device(labels: torch.Tensor, scores: torch.Tensor,
+               weights: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Binary AUC by the midrank statistic, on the device (JAX
     ``engine.auc_device`` :1242): the labels sorted along with the scores,
     each tie group's first and last 1-based index found by running max /
     min scans over the group boundaries, ranks their mean, so tied scores
-    agree with the host ``_auc``."""
+    agree with the host ``_auc``.  ``weights`` (0/1) leave out padding
+    entries, whose scores must lie above every real score (+inf)."""
     dtype = scores.dtype
     n = scores.shape[0]
     s, order = torch.sort(scores, stable=True)
@@ -1152,8 +1288,14 @@ def auc_device(labels: torch.Tensor, scores: torch.Tensor) -> torch.Tensor:
     end = torch.flip(torch.cummin(torch.flip(
         torch.where(torch.cat([brk, one]), idx, n + 1), (0,)), 0)[0], (0,))
     ranks = 0.5 * (start + end).to(dtype)
-    n_pos = torch.sum(labels.to(dtype))
-    n_neg = n - n_pos
+    if weights is None:
+        n_pos = torch.sum(labels.to(dtype))
+        n_neg = n - n_pos
+    else:
+        w = weights.to(dtype)
+        lab = lab * w[order]
+        n_pos = torch.sum(labels.to(dtype) * w)
+        n_neg = torch.sum(w) - n_pos
     r_pos = torch.sum(ranks * lab)
     return ((r_pos - n_pos * (n_pos + 1) / 2.0)
             / torch.clamp_min(n_pos * n_neg, 1.0))

@@ -279,12 +279,17 @@ def plan_fused_rels(shapes: Sequence[Tuple[int, ...]], nnzs: Sequence[int],
 # host side (numpy)
 # ---------------------------------------------------------------------------
 
-# The JAX package's constants of the dense-versus-bucketed choice of the
-# side features' operand (its ``use_dense_feat``): a TPU's memory rate and
-# bucketed matvec cost, copied as they are and not yet measured on the
-# card (ROADMAP M11), so both packages choose alike for now.
-_FEAT_HBM_BPS = 7.0e11
-_SPMM_S_PER_NNZ = 6.2e-9
+# The constants of the dense-versus-bucketed choice of the side features'
+# operand (the JAX package's ``use_dense_feat`` rule; its values, 7e11 and
+# 6.2e-9, are a TPU's), measured on one NVIDIA H100 80GB HBM3 at a 700 W
+# limit by chip_smoke.py (``print_feat_readout``) at ChEMBL's shape (15,000
+# x 32,000 binary, 600,534 stored, K = 32): the rate that makes
+# n f itemsize / rate one pass of the dense float32 X (the rule's itemsize
+# is the JAX operand's, 1 byte there), and one bucketed pass a stored
+# feature.  On the card the bucketed matvec wins at that shape (1.37 ms
+# against 2.35 ms for the two passes, PERF.md §6).
+_FEAT_HBM_BPS = 4.1e11
+_SPMM_S_PER_NNZ = 1.14e-9
 
 
 def feat_itemsize(is_binary: bool, gram_dtype: Optional[str],
@@ -412,8 +417,9 @@ def _scatter(extents, cells, values, dtype, device) -> torch.Tensor:
 
 
 def build_int8_pair(idx: np.ndarray, centered: np.ndarray,
-                    shape: Sequence[int], store_dtype, device
-                    ) -> Dict[str, object]:
+                    shape: Sequence[int], store_dtype, device,
+                    order: Optional[Sequence[int]] = None,
+                    w_scale: Optional[float] = None) -> Dict[str, object]:
     """The stored int8 pair of one relation, on ``device``.
 
     Returns ``{"M8": M8, "W8": W8, "deg": [d_0, ...], "w_scale": float,
@@ -430,9 +436,15 @@ def build_int8_pair(idx: np.ndarray, centered: np.ndarray,
     scale max|W| / 127.  Here the same sums are taken over the observed
     cells only and the cells' codes are scattered into zeroed device
     arrays, so the bytes are the same.
+
+    ``order`` overrides ``store_order(shape)`` and ``w_scale`` the scale
+    of these observations' cells: a sharded engine stores one rank's rows
+    of a relation, focus first, on the scale of the whole relation
+    (``pair_w_scale``), as the JAX package quantizes the whole pair before
+    cutting it into slabs (sharded.py:361-365).
     """
     n = [int(s) for s in shape]
-    order = store_order(n)
+    order = store_order(n) if order is None else tuple(order)
     extents = [n[d] for d in order]
     extents[0] = -(-extents[0] // STORE_ALIGN) * STORE_ALIGN
     extents[-1] = -(-extents[-1] // STORE_ALIGN) * STORE_ALIGN
@@ -442,7 +454,8 @@ def build_int8_pair(idx: np.ndarray, centered: np.ndarray,
     if count.max(initial=0) > 127:
         raise ValueError("observation counts exceed int8 "
                          "(int8_pair_ok not consulted)")
-    w_scale = _w_scale(float(np.abs(wsum).max(initial=0.0)))
+    if w_scale is None:
+        w_scale = _w_scale(float(np.abs(wsum).max(initial=0.0)))
     M8 = _scatter(extents, cells, count.astype(np.int8), torch.int8, device)
     W8 = _scatter(extents, cells, _quantize_values(wsum, w_scale),
                   torch.int8, device)
@@ -453,8 +466,20 @@ def build_int8_pair(idx: np.ndarray, centered: np.ndarray,
             "shape": tuple(n), "order": order}
 
 
+def pair_w_scale(idx: np.ndarray, centered: np.ndarray,
+                 store_dtype) -> float:
+    """The int8 pair's value scale max|W| / 127 over every observed cell
+    of a relation (``build_int8_pair``'s, whatever rows a store holds)."""
+    acc = np.float64 if np.dtype(store_dtype) == np.float64 else np.float32
+    order = range(idx.shape[1])
+    extents = [int(idx[:, d].max(initial=0)) + 1 for d in order]
+    _, _, wsum = _observed_cells(idx, centered, order, extents, acc)
+    return _w_scale(float(np.abs(wsum).max(initial=0.0)))
+
+
 def build_dense_pair(idx: np.ndarray, centered: np.ndarray,
-                     shape: Sequence[int], store_dtype: torch.dtype, device
+                     shape: Sequence[int], store_dtype: torch.dtype, device,
+                     order: Optional[Sequence[int]] = None
                      ) -> Dict[str, object]:
     """The stored float pair of one relation, on ``device`` (JAX
     ``build_dense_pair`` :263 and the engine's store, engine.py:109-112,
@@ -464,9 +489,10 @@ def build_dense_pair(idx: np.ndarray, centered: np.ndarray,
     with the modes in ``store_order`` and no padding.  The sums are taken
     over the observed cells in the JAX package's accumulator (float64 for
     a float64 store, else float32), in order of appearance, then scattered
-    into zeroed device arrays and cast there."""
+    into zeroed device arrays and cast there.  ``order`` overrides
+    ``store_order(shape)``, as for ``build_int8_pair``."""
     n = [int(s) for s in shape]
-    order = store_order(n)
+    order = store_order(n) if order is None else tuple(order)
     extents = [n[d] for d in order]
     acc = np.float64 if store_dtype == torch.float64 else np.float32
     cells, count, wsum = _observed_cells(idx, centered, order, extents, acc)

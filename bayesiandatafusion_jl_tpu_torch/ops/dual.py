@@ -99,9 +99,14 @@ def _eig_or_load(G, rows, cols, vals, shape, dtype, cache_dir, device):
     return Q, d
 
 
-def _apply_inv(Q, d, lam, t):
-    """(G + lam I)^-1 t on the eigenbasis."""
-    return Q @ ((Q.mT @ t) / (d + lam)[:, None])
+def _same(t):
+    return t
+
+
+def _apply_inv(Q, d, lam, t, reduce=_same):
+    """(G + lam I)^-1 t on the eigenbasis; ``reduce`` sums Q't over the
+    ranks that each hold some of Q's rows."""
+    return Q @ (reduce(Q.mT @ t) / (d + lam)[:, None])
 
 
 def dual_solve(Q: torch.Tensor, d: torch.Tensor, lam, rhs: torch.Tensor,
@@ -116,18 +121,25 @@ def dual_solve_g(Q: torch.Tensor, d: torch.Tensor, G: torch.Tensor, lam,
                  rhs: torch.Tensor,
                  spmm_fwd: Callable[[torch.Tensor], torch.Tensor],
                  spmm_t: Callable[[torch.Tensor], torch.Tensor],
-                 n_refine: int) -> Tuple[torch.Tensor, torch.Tensor]:
+                 n_refine: int, reduce: Callable = _same,
+                 gather: Callable = _same
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(beta, uhat) with the refinement in the N-space dual system: solve
     (G + lam) z = X rhs on the eigenbasis, refine z ``n_refine`` times
     against the exact G, then
 
         beta = (rhs - X' z) / lam,   uhat = X beta = z
 
-    (X (X'X + lam)^-1 = (XX' + lam)^-1 X), so uhat costs no X pass."""
+    (X (X'X + lam)^-1 = (XX' + lam)^-1 X), so uhat costs no X pass.
+
+    Row-sharded (the sharded engine, JAX sharded.py:1454-1477): Q, G,
+    ``spmm_fwd``'s output and z hold one rank's rows, ``reduce`` sums Q't
+    over the ranks (``spmm_t`` sums its own), and ``gather`` assembles
+    every rank's z for the product with G's rows [n_loc, n_pad]."""
     t0 = spmm_fwd(rhs)                       # [N, K]
-    z = _apply_inv(Q, d, lam, t0)
+    z = _apply_inv(Q, d, lam, t0, reduce)
     for _ in range(n_refine):
-        z = z + _apply_inv(Q, d, lam, t0 - G @ z - lam * z)
+        z = z + _apply_inv(Q, d, lam, t0 - G @ gather(z) - lam * z, reduce)
     return (rhs - spmm_t(z)) / lam, z
 
 

@@ -1,25 +1,15 @@
 """Engine configuration (port of ``bayesiandatafusion_jl_tpu/utils/config.py``).
 
 The fields keep the JAX package's names, meanings and defaults, but for
-``dense_gram_budget_gb``, whose default is the card's.  The JAX options
-the port does not implement yet are not fields: passing one raises
-``NotImplementedError`` naming its ROADMAP item, whether through
-``MacauConfig(...)`` or ``macau(**kwargs)``.  The TPU-only knob
-``pallas`` is absent altogether.
+``dense_gram_budget_gb``, whose default is the card's.  Every JAX option
+is a field; the TPU-only knob ``pallas`` is absent altogether.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Sequence, Tuple
+from typing import Optional, Sequence, Tuple, Union
 
 import numpy as np
-
-
-# Fields of the JAX package's MacauConfig that the port has no counterpart
-# for yet, with their ROADMAP items: the sharded engine's.  The TPU-only
-# knob (``pallas``) is not listed: the port has no use for it.
-UNPORTED_FIELDS = dict.fromkeys(("exchange_blocks", "head_split_degree"),
-                                "M11")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -100,6 +90,20 @@ class MacauConfig:
     accumulation: str = "segment"
     row_pad: int = 8  # pad bucket rows to a multiple of this
 
+    # --- the sharded engine (parallel/sharded.py); the single-device engine
+    # ignores both ---
+    # sample and exchange each rank's rows in this many blocks, so that
+    # block b's all-gather overlaps block b+1's sampling.  None = auto (4
+    # blocks when the world has more than one rank and every shard holds
+    # 4096 rows or more: ``resolve_exchange_blocks``); 1 = off
+    exchange_blocks: Optional[int] = None
+    # instances whose gather-path degree exceeds this threshold have their
+    # observations dealt round-robin to every rank, into ghost slots whose
+    # Gramians are summed over the ranks (head-entity splitting).  "auto" =
+    # when one instance's degree exceeds a quarter of a rank's average
+    # gather work (``resolve_head_split``); None = off; an int = explicit
+    head_split_degree: Union[int, str, None] = "auto"
+
     # --- the beta draw of an entity with side features (ops/dual.py,
     # ops/cg.py, ops/precond.py) ---
     # the direct X'X path ("ff"): None = where F <= ff_threshold (an
@@ -149,13 +153,6 @@ class MacauConfig:
     # run(state=..., sweep_offset=...)
     checkpoint_every: int = 0
     checkpoint_path: Optional[str] = None
-
-    def __new__(cls, *args, **kwargs):
-        absent = [f"{k} (ROADMAP {UNPORTED_FIELDS[k]})" for k in kwargs
-                  if k in UNPORTED_FIELDS]
-        if absent:
-            raise NotImplementedError("not ported yet: " + "; ".join(absent))
-        return super().__new__(cls)
 
     def __post_init__(self):
         if self.dtype not in ("float32", "float64"):

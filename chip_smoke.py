@@ -69,6 +69,18 @@ Phases, each fatal on failure (nonzero exit, no result line):
      with CUDA sync debugging set to raise; the seconds of a checkpoint,
      a sample dump and a load; run()'s ms/sweep at metrics_every 1 and 20
      and the effective TOP/s of ``flops_per_sweep``;
+   - ``sharded1`` (``bench.py:101-145``): the sharded engine
+     (``parallel/sharded.py``) on an NCCL group of this process at world
+     size 1, ML-10M, K = 32, one int8 pair slab a mode, 40-sweep windows:
+     its plan, K6, K7 and K1 counted with no plain call, rmse_sample@40 in
+     the JAX band, a ``torch.profiler`` split (NCCL's kernels apart), the
+     host time of its collectives, one sweep from the single-device
+     engine's state and randoms within SHARDED_SWEEP_TOL (and
+     SHARDED_FIXED_TOL with the hyper draws fixed), two runs of one seed
+     and a resumed run bit for bit, its ms/sweep beside the single-device
+     engine's, its peak memory and build seconds; at world size 2 where
+     the host has two cards (one spawned process a card), else a line
+     saying why not;
    - the float pair (``dense_int8=False``, the JAX default) at K = 32, one
      timed window of 40 sweeps each with a float32 store and with a
      bfloat16 one (``gram_dtype="bfloat16"``, widened to float32 a slice
@@ -108,6 +120,10 @@ Phases, each fatal on failure (nonzero exit, no result line):
      bitwise against its plain version at this shape in both modes, and
      the library's ``torch._int_mm`` on the materialized mask, both modes
      (mode 1 on transposed copies);
+   - ``netflix_sharded1`` (``bench.py:474-495``): the sharded engine on
+     the same data, the fused s8 store's row slab, one sweep a dispatch:
+     K8a in both modes (mode 1 raw int32, reduce-scattered), K7 and K1,
+     with ``sharded1``'s checks and rmse_sample@8 in the Netflix band;
    - the float path (``dense_int8=False``, a bfloat16 table): K8c twice a
      sweep; K8c against its plain version at this shape in both modes,
      and the library's bfloat16 ``torch.matmul`` on the materialized mask,
@@ -181,7 +197,9 @@ Phases, each fatal on failure (nonzero exit, no result line):
 9. the planner's constants (``ops/dense_gram.py``) as this run measured
    them, beside the module's: the gather path's seconds per observation
    and mode, and the rates that reproduce K6's, the float pair's, K8a's
-   and K8c's times through ``estimate_times``' model.
+   and K8c's times through ``estimate_times``' model; and
+   ``use_dense_feat``'s two, from the passes of a dense X and a bucketed
+   matvec of ChEMBL's features (the paths use the one the rule picks).
 
 The last lines are the card's ``nvidia-smi`` name and power limit, a JSON
 object describing the kernels (with each one's bound on this card) and
@@ -1445,6 +1463,10 @@ PAIR_SPLIT = (("K6 mode 0", ("pair_contract_kernel<0",
               ("gemm", ("gemm", "gemv", "cutlass", "xmma", "sm90_")))
 
 
+# the sharded engine's collectives (NCCL's kernels)
+NCCL_SPLIT = (("NCCL", ("nccl",)),)
+
+
 def profile_split(eng, warm=2, sweeps=3, split=SPLIT):
     """Device milliseconds per sweep by part of the sweep (``split``, the
     rest under "rest"), the device idle share, the largest kernels and the
@@ -1715,6 +1737,284 @@ def run_driver_checks(eng, label, tally, timing=False):
     finally:
         eng.config = base
         shutil.rmtree(tmp)
+
+
+# bench.py's sharded configurations on the port's sharded engine
+# (parallel/sharded.py): ``sharded1`` (bench.py:101-145: ML-10M, K = 32,
+# the int8 pair, 40-sweep windows dispatched at once) and
+# ``netflix_sharded1`` (bench.py:474-495: the Netflix-shaped ratings, the
+# fused s8 store, one sweep a dispatch), each with its window, windows and
+# the JAX chain's anchor
+SHARDED_PATHS = {"sharded1": (40, 3, 40, PATHS[32][2]),
+                 "netflix_sharded1": (NETFLIX_SWEEPS, NETFLIX_WINDOWS, 1,
+                                      NETFLIX_ANCHOR)}
+# one float32 sweep of the sharded engine from the single-device engine's
+# state and randoms: U (original order) within this fraction of its
+# largest entry.  The Normal-Wishart moments add in another order, which
+# moves the first entity's draw by ~1e-7 of its scale; the next entity's
+# partner table is quantized to int8 from it (K7), and a value that close
+# to a rounding edge flips its code by one step, 1/127 of its column's
+# scale: 6e-4 to 1.3e-3 on the int8 paths (CPU, float32, PR 20), 4e-7 on
+# the gather path.  With the hyper draws fixed (the same mu and Lambda in
+# both engines) the sweep must agree to SHARDED_FIXED_TOL: the int8 sums
+# are exact in both (0.0 on the CPU, PR 20); only sums of float rows over
+# ranks or ghost rows may add in another order.
+SHARDED_SWEEP_TOL = 1e-2
+SHARDED_FIXED_TOL = 1e-5
+
+
+def sharded_group(world=1, rank=0, init=None):
+    """Join an NCCL group of ``world`` ranks (a file rendezvous in a
+    temporary folder unless ``init`` names one); returns the rendezvous."""
+    from bayesiandatafusion_jl_tpu_torch.parallel.mesh import \
+        initialize_distributed
+    if init is None:
+        init = "file://" + os.path.join(tempfile.mkdtemp(), "rendezvous")
+    initialize_distributed(init, world, rank, device="cuda")
+    return init
+
+
+def sharded_config(name, **opts):
+    """The MacauConfig of ``SHARDED_PATHS[name]``, as bench.py builds it."""
+    from bayesiandatafusion_jl_tpu_torch.utils.config import MacauConfig
+    sweeps, _, spd, _ = SHARDED_PATHS[name]
+    return MacauConfig(num_latent=32, burnin=sweeps, psamples=0,
+                       clamp=(1.0, 5.0), verbose=False, dtype="float32",
+                       seed=42, **BENCH_GRAM, bucket_widths=BENCH_WIDTHS,
+                       sweeps_per_dispatch=spd, **opts)
+
+
+def collective_host_us(eng, reps=200):
+    """Host microseconds a call of the sharded engine's collectives (its
+    group, this card), issued back to back: an all-reduce of K floats, an
+    all-gather of the largest entity's rows, and a launch of one small
+    torch op for comparison."""
+    import torch
+    K = eng.config.num_latent
+    n = max(m.n_loc for m in eng.problem.ent_meta)
+    small = torch.zeros(K, device=eng.device)
+    rows = torch.zeros((n, K), device=eng.device)
+    out = {}
+    for label, fn in (("all_reduce", lambda: eng._allreduce(small)),
+                      ("all_gather", lambda: eng._allgather(rows)),
+                      ("torch add", lambda: small + small)):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        out[label] = round((time.perf_counter() - t0) * 1e6 / reps, 1)
+        torch.cuda.synchronize()
+    return out
+
+
+def one_sweep_error(single, eng, fixed):
+    """max |U - U_single| / max |U_single| per entity after one sweep of
+    the sharded engine ``eng`` and of ``single`` from the same state and
+    randoms (``eng.init_state()`` is ``single.init_state()`` sharded, its
+    draws the same); ``fixed``: with both engines' Normal-Wishart draws
+    replaced by mu = 0, Lambda = I.  A rank without ``single`` (None) takes
+    part in the sharded sweep and returns None."""
+    import torch
+    from bayesiandatafusion_jl_tpu_torch.models import engine as em
+    from bayesiandatafusion_jl_tpu_torch.parallel import sharded as shm
+    saved = em.normal_wishart_update, shm.normal_wishart_from_moments
+
+    def fixed_nw(*a, **kw):
+        t = next(x for x in a if torch.is_tensor(x))
+        K = t.shape[-1]
+        return (t.new_zeros(K),
+                torch.eye(K, dtype=t.dtype, device=t.device))
+    if fixed:
+        em.normal_wishart_update = shm.normal_wishart_from_moments = fixed_nw
+    try:
+        randoms = eng.draw(1)
+        ss, _ = eng._sweep_with_randoms(eng.init_state(), randoms, 0.0)
+        if single is not None:
+            s1, _ = single._sweep_with_randoms(single.init_state(), randoms,
+                                               0.0)
+    finally:
+        em.normal_wishart_update, shm.normal_wishart_from_moments = saved
+    if single is None:
+        return None
+    got = eng.factors_original_order(ss)
+    return [float((s1["ent"][ei]["U"].cpu() - torch.from_numpy(got[ei]))
+                  .abs().max() / s1["ent"][ei]["U"].abs().max())
+            for ei in range(len(got))]
+
+
+def run_sharded_path(name, rd, single, single_ms, want, split):
+    """One of bench.py's sharded configurations on this process's NCCL
+    group: its plan (every mode on ``want``), the benchmark protocol with
+    the kernels' counts set to 0 just before and read just after (the
+    path's kernels each sweep, no plain version), rmse_sample in the JAX
+    chain's band, peak memory and build seconds; one sweep from
+    ``single``'s (the single-device engine on the same data) state and
+    randoms within SHARDED_SWEEP_TOL of its U; at world size 1, two runs of
+    one seed and a run resumed from a checkpoint equal bit for bit.
+    Prints its ms/sweep beside ``single_ms`` (the single-device engine's
+    on this data).  Returns (counts, median ms/sweep)."""
+    import dataclasses
+
+    import torch
+    from bayesiandatafusion_jl_tpu_torch.parallel.sharded import \
+        ShardedMacauEngine
+    sweeps, repeats, _, anchor = SHARDED_PATHS[name]
+    cfg = sharded_config(name)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng = ShardedMacauEngine(rd, cfg, device="cuda")
+    build_s = time.perf_counter() - t0
+    prob = eng.problem
+    print_plan(f"{name} (sharded, world {eng.world})", rd, prob.plan, want)
+    stores = {k: tuple((v["V8"] if "V8" in v else v["M8"]).shape)
+              for k, v in prob.stores.items()}
+    print(f"# {name}: world {eng.world}, rank {eng.rank}; n_pad / n_loc "
+          f"per entity {[(m.n_pad, m.n_loc) for m in prob.ent_meta]}; "
+          f"heads {[m.n_head for m in prob.ent_meta]}; exchange blocks "
+          f"{prob.exchange_blocks}; this rank's slabs {stores}; engine "
+          f"build {build_s:.1f} s (plan {prob.plan.seconds:.1f} s)",
+          flush=True)
+    out, counts = counted(lambda: eng.benchmark(sweeps, repeats=repeats))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    wins = out["ms_per_sweep"]
+    med = sorted(wins)[len(wins) // 2]
+    total = sweeps * (repeats + 1)
+    want_counts = {k: 0 for k in counts}
+    for tag, per_sweep in graph_kernels(prob, 32).items():
+        want_counts[tag] = per_sweep * total
+    print(f"# path {name}: ms/sweep per window {wins}, median {med:.3f} "
+          f"(the single-device engine on this data {single_ms:.3f}); "
+          f"rmse_sample@{sweeps} {out['rmse_at_sweeps']:.4f}; peak memory "
+          f"{peak_gb:.2f} GB; counts {counts}", flush=True)
+    require(counts == want_counts, f"{name}: counts {counts} for {total} "
+                                   f"sweeps, want {want_counts}")
+    require(abs(out["rmse_at_sweeps"] - anchor) <= RMSE_BAND,
+            f"{name}: rmse_sample@{sweeps} {out['rmse_at_sweeps']} outside "
+            f"{anchor} +- {RMSE_BAND}")
+    prof = profile_split(eng, split=split)
+    print_profile(f"{name} world {eng.world}", prof)
+    host = collective_host_us(eng)
+    print(f"# {name}: host microseconds a call at world {eng.world}, "
+          f"{host}", flush=True)
+    # one sweep from the single-device engine's state and randoms, as it is
+    # and with the hyper draws fixed
+    for fixed, tol in ((False, SHARDED_SWEEP_TOL), (True, SHARDED_FIXED_TOL)):
+        err = one_sweep_error(single, eng, fixed)
+        print(f"# {name}: one sweep from the single-device engine's state "
+              f"and randoms{' with mu, Lambda fixed' if fixed else ''}, "
+              f"max |U - U_single| / max |U_single| per entity {err} "
+              f"(tolerance {tol})", flush=True)
+        require(max(err) <= tol, f"{name}: one sweep off by {err}")
+    if eng.world == 1:
+        same_seed_runs(eng, f"{name} world 1")
+        base = dataclasses.replace(cfg, burnin=2, psamples=2,
+                                   sweeps_per_dispatch=1)
+        eng.config = base
+        full = eng.run()
+        ck = os.path.join(tempfile.mkdtemp(), "ck.npz")
+        eng.config = dataclasses.replace(base, checkpoint_every=2,
+                                         checkpoint_path=ck)
+        eng.run(num_sweeps=2)
+        st, sweep = eng.load_state(ck)
+        resumed = eng.run(state=st, sweep_offset=sweep)
+        same = equal_states(resumed["state"], full["state"])
+        print(f"# {name} world 1: resumed from its sweep-{sweep} checkpoint,"
+              f" equal bit for bit {same}", flush=True)
+        require(same, f"{name}: the resumed chain differs")
+    del eng
+    torch.cuda.empty_cache()
+    return counts, med
+
+
+def _sharded_rank(rank, world, init, name, result_dir):
+    """One rank of a multi-card sharded run: its card, the NCCL group, the
+    data made as the main script makes it, the benchmark protocol; rank 0
+    writes its result."""
+    import torch
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    torch.cuda.set_device(rank)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from bayesiandatafusion_jl_tpu_torch.models.data import RelationData
+    from bayesiandatafusion_jl_tpu_torch.models.datasets import (
+        load_movielens, netflix_synthetic)
+    from bayesiandatafusion_jl_tpu_torch.parallel.sharded import \
+        ShardedMacauEngine
+    sharded_group(world, rank, init)
+    df = (load_movielens("10m", seed=0) if name == "sharded1"
+          else netflix_synthetic())
+    rd = RelationData.from_indexed_df(df, relation_name="ratings")
+    rd.assign_to_test(0, min(100_000, df.nnz // 10), seed=7)
+    sweeps, repeats, _, anchor = SHARDED_PATHS[name]
+    t0 = time.perf_counter()
+    eng = ShardedMacauEngine(rd, sharded_config(name), device="cuda")
+    build_s = time.perf_counter() - t0
+    out, counts = counted(lambda: eng.benchmark(sweeps, repeats=repeats))
+    want = {k: 0 for k in counts}
+    for tag, per_sweep in graph_kernels(eng.problem, 32).items():
+        want[tag] = per_sweep * sweeps * (repeats + 1)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    # one sweep against the single-device engine, built on rank 0's card
+    single = None
+    if rank == 0:
+        from bayesiandatafusion_jl_tpu_torch.models.engine import MacauEngine
+        single = MacauEngine(rd, eng.config, device="cuda")
+    err = {fixed: one_sweep_error(single, eng, fixed)
+           for fixed in (False, True)}
+    if rank == 0:
+        with open(os.path.join(result_dir, f"{name}.json"), "w") as f:
+            json.dump({"ms": out["ms_per_sweep"],
+                       "rmse": out["rmse_at_sweeps"], "counts": counts,
+                       "want": want, "build_s": build_s, "peak_gb": peak_gb,
+                       "exchange_blocks": eng.problem.exchange_blocks,
+                       "n_loc": [m.n_loc for m in eng.problem.ent_meta],
+                       "err": err[False], "err_fixed": err[True]}, f)
+    import torch.distributed as dist
+    dist.destroy_process_group()
+
+
+def run_sharded_world(name, world, tally):
+    """``name`` at ``world`` ranks, one process a card (spawned), on NCCL:
+    the benchmark protocol, the kernels' counts, the anchor and one sweep
+    against the single-device engine (``one_sweep_error``)."""
+    import torch.multiprocessing as mp
+    result_dir = tempfile.mkdtemp()
+    init = "file://" + os.path.join(result_dir, "rendezvous")
+    mp.start_processes(_sharded_rank, args=(world, init, name, result_dir),
+                       nprocs=world, join=True, start_method="spawn")
+    with open(os.path.join(result_dir, f"{name}.json")) as f:
+        r = json.load(f)
+    med = sorted(r["ms"])[len(r["ms"]) // 2]
+    print(f"# path {name} at world {world} (one process a card): ms/sweep "
+          f"per window {r['ms']}, median {med:.3f}; rmse_sample "
+          f"{r['rmse']:.4f}; rank 0's peak memory {r['peak_gb']:.2f} GB, "
+          f"build {r['build_s']:.1f} s, rows a rank {r['n_loc']}, exchange "
+          f"blocks {r['exchange_blocks']}; rank 0's counts {r['counts']}; "
+          f"one sweep against the single-device engine {r['err']} (hyper "
+          f"draws fixed {r['err_fixed']})", flush=True)
+    require(max(r["err"]) <= SHARDED_SWEEP_TOL
+            and max(r["err_fixed"]) <= SHARDED_FIXED_TOL,
+            f"{name} world {world}: one sweep off by {r['err']}, "
+            f"{r['err_fixed']}")
+    require(r["counts"] == r["want"], f"{name} world {world}: counts "
+                                      f"{r['counts']}, want {r['want']}")
+    require(abs(r["rmse"] - SHARDED_PATHS[name][3]) <= RMSE_BAND,
+            f"{name} world {world}: rmse_sample {r['rmse']}")
+    tally(r["counts"])
+    return med
+
+
+def run_sharded_worlds(name, tally):
+    """``name`` at world size 2 where there are two cards or more (the
+    world-1 run is in-process), else a line saying why not."""
+    import torch
+    n = torch.cuda.device_count()
+    if n < 2:
+        print(f"# {name} at world 2: not run, this host has {n} card "
+              f"(one process a card needs two)", flush=True)
+        return None
+    return run_sharded_world(name, 2, tally)
 
 
 def tensor_pair_views(pair):
@@ -2004,13 +2304,71 @@ def beta_stream_split(eng, warm=2, sweeps=5):
             "cg_resid": [float(d[1]) for d in diags]}
 
 
-def dual_residual(eng, sweeps=3):
+def dense_features(F):
+    """The side features F as the dense float32 [N, F] X on the card."""
+    import numpy as np
+    import torch
+    X = torch.zeros(F.shape, dtype=torch.float32, device="cuda")
+    X.index_put_(tuple(torch.from_numpy(a.astype(np.int64)).cuda()
+                       for a in (F.rows, F.cols)),
+                 torch.from_numpy(F.values().astype(np.float32)).cuda(),
+                 accumulate=True)
+    return X
+
+
+def feat_pass_ms(F, reps=20):
+    """{"dense": (X @ V, X' @ U) device ms on the dense float32 X,
+    "sparse": the same on the bucketed matvec} of side features F, K = 32,
+    CUDA events: the two operands ``use_dense_feat`` chooses between."""
+    import numpy as np
+    import torch
+    from bayesiandatafusion_jl_tpu_torch.ops.spmv import (
+        bucketed_spmm, build_bucketed_matvec)
+    n, f = F.shape
+    g = torch.Generator(device="cuda").manual_seed(0)
+    V = torch.randn((f, 32), generator=g, device="cuda")
+    U = torch.randn((n, 32), generator=g, device="cuda")
+    X = dense_features(F)
+    dense = (cuda_ms(lambda: X @ V, reps), cuda_ms(lambda: X.mT @ U, reps))
+    del X
+    mv = build_bucketed_matvec(F.rows, F.cols, F.shape, vals=F.vals,
+                               dtype=np.float32, device="cuda")
+    sparse = (cuda_ms(lambda: bucketed_spmm(mv["fwd"], n, V), reps),
+              cuda_ms(lambda: bucketed_spmm(mv["t"], f, U), reps))
+    torch.cuda.empty_cache()
+    return {"dense": dense, "sparse": sparse}
+
+
+def print_feat_readout(feat_ms):
+    """``use_dense_feat``'s constants (ops/dense_gram.py) as this run
+    measures them, beside the module's: the rate that makes n f itemsize /
+    rate one pass of the dense float32 X (itemsize the JAX operand's, which
+    the rule is given: ``feat_itemsize``) and a bucketed pass's seconds per
+    stored feature, each the mean of the X @ V and X' @ U passes on
+    ChEMBL's features (``feat_pass_ms``: both operands built and timed,
+    whichever the paths use)."""
+    from bayesiandatafusion_jl_tpu_torch.ops import dense_gram as dg
+    n, f, nnz, itemsize = feat_ms["shape"]
+    dense_s = sum(feat_ms["dense"]) / 2e3
+    sparse_s = sum(feat_ms["sparse"]) / 2e3
+    got = {"_FEAT_HBM_BPS": n * f * itemsize / dense_s,
+           "_SPMM_S_PER_NNZ": sparse_s / nnz}
+    print(f"# use_dense_feat constants measured in this run (ops/"
+          f"dense_gram.py's in parentheses): " + "; ".join(
+              f"{k} {v:.4g} ({getattr(dg, k):.4g})" for k, v in got.items())
+          + f"; dense X passes {feat_ms['dense']} ms, bucketed passes "
+          f"{feat_ms['sparse']} ms at {n} x {f}, {nnz} stored, itemsize "
+          f"{itemsize}", flush=True)
+
+
+def dual_residual(eng, X, sweeps=3):
     """The dual solve on the card after ``sweeps`` sweeps of the chain: the
     next sweep's right-hand side (``_beta_rhs``) solved by
     ``dual_solve_g`` with the engine's refinement and without, each
     solution's true relative residual ||rhs - (X'X + lam I) beta|| /
     ||rhs|| (largest over the K columns) and ||uhat - X beta|| / ||X
-    beta||, both computed in float64 on the card from the float32 X."""
+    beta||, both computed in float64 on the card from the float32 X (the
+    dense features, whichever operand the engine's draw reads)."""
     import torch
     from bayesiandatafusion_jl_tpu_torch.ops.dual import dual_solve_g
     state = eng.init_state()
@@ -2018,9 +2376,10 @@ def dual_residual(eng, sweeps=3):
         state, _ = eng._sweep(state, s, 0.0)
     ent = state["ent"][0]
     feat = eng.problem.feat["e0"]
-    rhs = eng._beta_rhs(0, ent, eng.draw(sweeps + 1))
+    randoms = eng.draw(sweeps + 1)
+    rhs = eng._beta_rhs(0, ent, ent["U"], randoms["e0.beta_e1"],
+                        randoms["e0.beta_e2"])
     lam = ent["lambda_beta"]
-    X = feat["dense_X"]
     X64, rhs64, lam64 = X.double(), rhs.double(), lam.double()
     out = {"lambda_beta": float(lam)}
     for refine in sorted({eng.config.dual_refine, 0}):
@@ -2063,6 +2422,7 @@ def run_chembl_paths(tally):
     import torch
     from bayesiandatafusion_jl_tpu_torch.models.datasets import \
         synthetic_chembl
+    from bayesiandatafusion_jl_tpu_torch.ops import dense_gram as dg
     clock = [time.perf_counter()]
 
     def phase_done(name):
@@ -2131,6 +2491,10 @@ def run_chembl_paths(tally):
     print(f"# chembl data: {time.perf_counter() - t0:.1f} s with the test "
           f"split ({rd.relations[0].data.nnz} training activities, features "
           f"{F.shape} with {F.nnz} stored)", flush=True)
+    feat_ms = feat_pass_ms(F)
+    feat_ms["shape"] = (*F.shape, F.nnz, dg.feat_itemsize(
+        F.is_binary, CHEMBL_OPTS["gram_dtype"], "float32"))
+    dense_x = dg.use_dense_feat(*feat_ms["shape"], None)
 
     # -- chembl: the dual solve ------------------------------------------
     eng, counts, out = run_path(rd, 32, *CHEMBL_RUN, None, CHEMBL_RMSE_ANCHOR,
@@ -2140,12 +2504,13 @@ def run_chembl_paths(tally):
     print_plan("chembl, bench.py:165-189", rd, eng.problem.plan, "pair int8")
     m = report(eng, counts, out, "chembl", CHEMBL_RUN)
     require(eng.problem.entity_specs[0].solver == "dual"
-            and "dense_X" in eng.problem.feat["e0"],
-            "chembl: the dual solve on the dense X was not chosen")
+            and ("dense_X" in eng.problem.feat["e0"]) == dense_x,
+            f"chembl: not the dual solve on the operand use_dense_feat "
+            f"picks ({'dense X' if dense_x else 'bucketed matvec'})")
     require(abs(m["r0.auc"] - CHEMBL_AUC_ANCHOR) <= CHEMBL_AUC_BAND,
             f"chembl: AUC {m['r0.auc']} outside {CHEMBL_AUC_ANCHOR} +- "
             f"{CHEMBL_AUC_BAND}")
-    res = dual_residual(eng)
+    res = dual_residual(eng, dense_features(F))
     print(f"# chembl dual solve (lambda_beta {res['lambda_beta']:.4f}): "
           f"true relative residual {res[eng.config.dual_refine]['resid']:.3e}"
           f" with {eng.config.dual_refine} refinement, {res[0]['resid']:.3e}"
@@ -2227,11 +2592,13 @@ def run_chembl_paths(tally):
     del eng, rd
     torch.cuda.empty_cache()
     phase_done("chembl_ff path")
+    return feat_ms
 
 
 def main() -> int:
     import numpy as np
     import torch
+    import torch.distributed as dist
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -2413,6 +2780,7 @@ def main() -> int:
     launches = dict.fromkeys(("K1", "K2", "K3", "K4", "K5", "K6", "K7",
                               "K8a", "K8b", "K8c", "K8d", "K9"), 0)
     rmse_pair = {}
+    pair_ms = {}
     pair_checks = {}
 
     def tally(counts):
@@ -2424,6 +2792,8 @@ def main() -> int:
                                     anchor_avg, dense_int8=True)
         tally(counts)
         rmse_pair[K] = out["rmse_at_sweeps"]
+        pair_ms[K] = sorted(out["ms_per_sweep"])[len(out["ms_per_sweep"])
+                                                 // 2]
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         print(f"# int8 pair K={K}: peak memory {peak_gb:.2f} GB with one "
               f"stored orientation, {TWO_ORIENTATION_PEAK_GB[K]} GB with two",
@@ -2453,9 +2823,16 @@ def main() -> int:
                       device="cuda")
     require(eng.problem.pair_i8s[0], "driver loop: not the int8 pair")
     run_driver_checks(eng, "ML-10M int8 pair K=32", tally, timing=True)
+    phase_done("driver loop")
+    # -- sharded1: the sharded engine on ML-10M, NCCL ------------------------
+    sharded_group()
+    counts, _ = run_sharded_path("sharded1", rd, eng, pair_ms[32],
+                                 "pair int8", PAIR_SPLIT + NCCL_SPLIT)
+    tally(counts)
     del eng
     torch.cuda.empty_cache()
-    phase_done("driver loop")
+    run_sharded_worlds("sharded1", tally)
+    phase_done("sharded1")
     float_pair_ms = {}
     for store in FLOAT_PAIR_STORES:
         eng, counts, _ = run_path(rd, FLOAT_PAIR_K, 40, 1,
@@ -2568,14 +2945,21 @@ def main() -> int:
     phase_done("Netflix data")
     # bench.py's options as written: the planner puts the relation on the
     # fused store (its int8 pair, 17.1 GB, past the budget)
-    eng, counts, _ = run_path(rd, 32, NETFLIX_SWEEPS, NETFLIX_WINDOWS,
-                              NETFLIX_ANCHOR, None, name="Netflix",
-                              **BENCH_GRAM, bucket_widths=BENCH_WIDTHS)
+    eng, counts, out = run_path(rd, 32, NETFLIX_SWEEPS, NETFLIX_WINDOWS,
+                                NETFLIX_ANCHOR, None, name="Netflix",
+                                **BENCH_GRAM, bucket_widths=BENCH_WIDTHS)
     tally(counts)
     print_plan("netflix, bench.py:329-421", rd, eng.problem.plan, "fused")
     phase_done("Netflix path")
     prof = profile_split(eng, split=FUSED_SPLIT)
     print_profile("Netflix fused K=32", prof)
+    # -- netflix_sharded1: the sharded engine on the same data, NCCL -------
+    counts, _ = run_sharded_path(
+        "netflix_sharded1", rd, eng,
+        sorted(out["ms_per_sweep"])[len(out["ms_per_sweep"]) // 2],
+        "fused", FUSED_SPLIT + NCCL_SPLIT)
+    tally(counts)
+    phase_done("netflix_sharded1")
     st = eng.problem.stores[0]
     del eng
     nf_checks = []
@@ -2598,6 +2982,7 @@ def main() -> int:
     del st
     torch.cuda.empty_cache()
     phase_done("Netflix kernels")
+    run_sharded_worlds("netflix_sharded1", tally)
 
     # -- the Netflix float fused path ---------------------------------------
     eng, counts, _ = run_path(rd, 32, NETFLIX_SWEEPS, NETFLIX_WINDOWS,
@@ -2704,13 +3089,15 @@ def main() -> int:
     k9_checks = run_graph_paths(tally)
 
     # -- the ChEMBL Macau paths ---------------------------------------------
-    run_chembl_paths(tally)
+    feat_ms = run_chembl_paths(tally)
 
     print_planner_readout(
         gather_prof[(32, "segment")], ml_train_nnz,
         [pair_checks[(32, f)] for f in (0, 1)],
         [float_pair_ms[(None, f)] for f in (0, 1)], ml_shape,
         nf_checks[0], nf_float[0], nf_shape)
+    print_feat_readout(feat_ms)
+    dist.destroy_process_group()
 
     src = "bayesiandatafusion_jl_tpu_torch/csrc/"
     jax_src = "bayesiandatafusion_jl_tpu/ops/pallas_chol.py:"

@@ -205,10 +205,14 @@ def test_dual_eig_cache_roundtrip(tmp_path):
                                atol=1e-6)
 
 
-def test_choices_match_jax():
+def test_choices_match_jax(monkeypatch):
     """``use_dual``, ``resolve_nystrom_rank``, ``use_dense_feat`` (at the
-    JAX package's operand size, ``feat_itemsize``) and the config's M8
-    defaults equal the JAX package's, the ChEMBL bench shape included."""
+    JAX package's operand size, ``feat_itemsize``, and with its constants
+    set into the port's module: the port's are the card's) and the
+    config's M8 defaults equal the JAX package's, the ChEMBL bench shape
+    included."""
+    monkeypatch.setattr(dg, "_FEAT_HBM_BPS", jax_dg._HBM_BPS)
+    monkeypatch.setattr(dg, "_SPMM_S_PER_NNZ", jax_dg._SPMM_S_PER_NNZ)
     for args in [(None, 15_000, 32_000, 4, 4.0), (None, 15_000, 32_000, 8,
                                                    4.0),
                  (None, 5_000, 4_000, 4, 4.0), ("cg", 10, 5_000, 4, 4.0),
@@ -238,6 +242,19 @@ def test_choices_match_jax():
                  "beta_solver", "dual_budget_gb", "dual_cache_dir",
                  "dual_refine", "cg_tol", "cg_maxiter", "cg_nystrom_rank"):
         assert getattr(bt.MacauConfig(), name) == jax_f[name], name
+
+
+def test_use_dense_feat_card_constants():
+    """On the card's constants the ChEMBL bench shape (15,000 x 32,000
+    binary, ~600,000 stored) takes the bucketed matvec, which the card
+    runs faster there (PERF.md §6), where the TPU's took the dense X; a
+    dense enough X still takes the dense operand, and the flags decide
+    alone as before."""
+    assert not dg.use_dense_feat(15_000, 32_000, 600_534, 1, None)
+    assert dg.use_dense_feat(15_000, 4_096, 30_000_000, 1, None)
+    assert dg.use_dense_feat(15_000, 32_000, 600_534, 1, True)
+    assert not dg.use_dense_feat(15_000, 32_000, 60_000_000, 1, False)
+    assert not dg.use_dense_feat(100, 50, 1_000, 4, None)
 
 
 def test_sample_lambda_beta_and_chol_solve_match_jax():

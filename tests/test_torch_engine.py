@@ -35,7 +35,6 @@ from bayesiandatafusion_jl_tpu_torch.ops import (chol_blocked, chol_full,
 from bayesiandatafusion_jl_tpu_torch.ops import dense_gram as tdg
 from bayesiandatafusion_jl_tpu_torch.ops.hyper import normal_wishart_update
 from bayesiandatafusion_jl_tpu_torch.utils import rng as trng
-from bayesiandatafusion_jl_tpu_torch.utils.config import UNPORTED_FIELDS
 from bayesiandatafusion_jl_tpu_torch.utils.convert import (state_from_numpy,
                                                            state_to_numpy)
 from _torch_xla_order import xla_cpu_ridge_step
@@ -593,37 +592,58 @@ def test_macau_runs_and_reports():
     assert np.isfinite(out["rmse_at_sweeps"])
 
 
-@pytest.mark.parametrize("kwargs, item", [
-    (dict(exchange_blocks=4), "M11"),
-    (dict(head_split_degree="auto"), "M11"),
-])
-def test_unported_options_raise(kwargs, item):
-    """An option outside the port raises, naming its ROADMAP item, when
-    the config is made (options the port has no field for)."""
-    df = synthetic_ratings(30, 20, 200, seed=0)
-    rd = bt.RelationData.from_indexed_df(df)
-    with pytest.raises(NotImplementedError, match=item):
-        bt.MacauEngine(rd, bt.MacauConfig(
-            **{"num_latent": 4, "verbose": False, **kwargs}), device="cpu")
-
-
-@pytest.mark.parametrize("kwargs, item", [
-    (dict(exchange_blocks=4), "M11"),
-    (dict(head_split_degree=2), "M11"),
-])
-def test_unported_macau_kwargs_raise(kwargs, item):
-    """The JAX config's fields the port lacks raise, naming their item,
-    through macau() and through MacauConfig alike."""
+@pytest.mark.parametrize("field, value", [("exchange_blocks", 4),
+                                          ("head_split_degree", 2)])
+def test_sharded_options_accepted(field, value):
+    """The sharded engine's options are fields with the JAX package's
+    defaults, taken by MacauConfig and by macau(**kwargs) alike."""
+    assert getattr(bt.MacauConfig(), field) == getattr(MacauConfig(), field)
+    assert getattr(bt.MacauConfig(**{field: value}), field) == value
     rd = bt.RelationData.from_indexed_df(synthetic_ratings(30, 20, 200))
-    with pytest.raises(NotImplementedError, match=item):
-        bt.macau(rd, num_latent=4, verbose=False, device="cpu", **kwargs)
-    with pytest.raises(NotImplementedError, match=item):
-        bt.MacauConfig(num_latent=4, **kwargs)
+    rd.assign_to_test(0, 20, seed=7)
+    res = bt.macau(rd, num_latent=4, burnin=1, psamples=1, verbose=False,
+                   device="cpu", **{field: value})
+    assert np.isfinite(res["RMSE"])
+
+
+@pytest.mark.parametrize("kwargs", [dict(exchange_blocks=3),
+                                    dict(head_split_degree=2)])
+def test_sharded_options_leave_single_chain(kwargs):
+    """The single-device engine ignores the sharded engine's options: its
+    chain is the same, bit for bit, with them set."""
+    rd = bt.RelationData.from_indexed_df(synthetic_ratings(40, 30, 500))
+    rd.assign_to_test(0, 50, seed=7)
+    opts = dict(num_latent=4, burnin=2, psamples=2, verbose=False,
+                dtype="float64")
+    a = bt.MacauEngine(rd, bt.MacauConfig(**opts), device="cpu").run()
+    b = bt.MacauEngine(rd, bt.MacauConfig(**opts, **kwargs),
+                       device="cpu").run()
+    for x, y in zip(torch_engine_mod._leaves(a["state"]),
+                    torch_engine_mod._leaves(b["state"])):
+        assert torch.equal(x, y)
+
+
+def test_head_split_bogus_raises():
+    """An unknown head_split_degree raises ValueError where the JAX
+    package's does: when the sharded problem resolves it."""
+    from bayesiandatafusion_jl_tpu.parallel.sharded import \
+        resolve_head_split as jax_resolve
+    from bayesiandatafusion_jl_tpu_torch.parallel.sharded import (
+        ShardedProblem, resolve_head_split)
+    deg = np.array([1, 5, 3000])
+    for fn in (jax_resolve, resolve_head_split):
+        with pytest.raises(ValueError, match="head_split_degree"):
+            fn("bogus", deg, 2)
+    rd = bt.RelationData.from_indexed_df(synthetic_ratings(30, 20, 200))
+    with pytest.raises(ValueError, match="head_split_degree"):
+        ShardedProblem(rd, bt.MacauConfig(num_latent=4,
+                                          head_split_degree="bogus"),
+                       2, 0, torch.device("cpu"))
 
 
 def test_config_fields_cover_jax_config():
-    """Every JAX config field is ported, listed as unported, or the
-    TPU-only knob the port has no use for; the gather path's and the
+    """Every JAX config field is ported, or the TPU-only knob the port
+    has no use for; the gather path's and the
     fused path's fields keep the JAX defaults and validation; the dense
     stores' budget is a field, with the card's default."""
     jax_f = {f.name for f in dataclasses.fields(MacauConfig)}
@@ -647,8 +667,7 @@ def test_config_fields_cover_jax_config():
     with pytest.raises(ValueError, match="gram_dtype"):
         bt.MacauConfig(gram_dtype="float16")
     assert port_f <= jax_f
-    assert not set(UNPORTED_FIELDS) & port_f
-    assert jax_f == port_f | set(UNPORTED_FIELDS) | tpu_only
+    assert jax_f == port_f | tpu_only
 
 
 def test_unported_data_raises():

@@ -1192,3 +1192,105 @@ def test_planner_choices_at_bench_shapes(cuda):
     (_, _), counts = chip_smoke.counted(lambda: eng._sweep(
         eng.init_state(), 0, 0.0))
     assert counts["K6"] == 2 and counts["plain_pair"] == 0
+
+
+@pytest.fixture(scope="module")
+def nccl(tmp_path_factory):
+    """An NCCL process group of world size 1 in this process."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import torch.distributed as dist
+    from bayesiandatafusion_jl_tpu_torch.parallel.mesh import \
+        initialize_distributed
+    rdv = tmp_path_factory.mktemp("nccl") / "rendezvous"
+    initialize_distributed(f"file://{rdv}", 1, 0, device="cuda")
+    yield dist.get_backend()
+    dist.destroy_process_group()
+
+
+SHARDED_CASES = dict(DRIVER_CASES, gather_head=dict(
+    dense_gram=False, bucket_widths=(8, 16, 32, 64), head_split_degree=60,
+    exchange_blocks=2))
+
+
+def _sharded_pair(case):
+    """The single-device engine of ``case`` and the sharded engine on the
+    same data and config."""
+    from bayesiandatafusion_jl_tpu_torch.parallel.sharded import \
+        ShardedMacauEngine
+    single = _driver_engine("gather_segment" if case == "gather_head"
+                            else case)
+    if case == "gather_head":
+        import dataclasses
+        single.config = dataclasses.replace(single.config,
+                                            **SHARDED_CASES[case])
+    if case == "features":
+        from bayesiandatafusion_jl_tpu_torch.models.datasets import \
+            synthetic_chembl
+        data = synthetic_chembl(n_compounds=300, n_targets=20,
+                                n_features=500, nnz=3_000,
+                                feat_per_compound=12, seed=3)
+        data.assign_to_test(0, 300, seed=7)
+    else:
+        data = bt.RelationData.from_indexed_df(
+            _driver_data(dup=case == "fused_residual"))
+        data.assign_to_test(0, 5_000, seed=7)
+    return single, ShardedMacauEngine(data, single.config, device="cuda")
+
+
+@pytest.mark.parametrize("case", sorted(SHARDED_CASES))
+def test_sharded_world1_matches_single_on_cuda(cuda, nccl, case):
+    """The sharded engine on an NCCL group of one rank, float32 on the
+    card: one sweep from the single-device engine's state and randoms
+    gives its U (original order) within chip_smoke's SHARDED_SWEEP_TOL of
+    its largest entry (within SHARDED_FIXED_TOL with the hyper draws
+    fixed), mu and Lambda within 1e-3 (the float sums add in another
+    order); the path's store and head split are the ones the case is
+    for."""
+    import chip_smoke
+    assert nccl == "nccl"
+    single, eng = _sharded_pair(case)
+    assert eng.problem.kinds == single.problem.kinds
+    if case == "gather_head":
+        assert max(m.n_head for m in eng.problem.ent_meta) > 0
+        assert eng.problem.exchange_blocks == 2
+    for fixed, tol in ((False, chip_smoke.SHARDED_SWEEP_TOL),
+                       (True, chip_smoke.SHARDED_FIXED_TOL)):
+        err = chip_smoke.one_sweep_error(single, eng, fixed)
+        assert max(err) <= tol, (fixed, err)
+    state = single.init_state()
+    randoms = single.draw(1)
+    s1, m1 = single._sweep_with_randoms(state, randoms, 0.0)
+    ss, ms = eng._sweep_with_randoms(eng.shard_state(state), randoms, 0.0)
+    got = eng.unshard_state(ss)
+    for ei in range(len(s1["ent"])):
+        for key in ("U", "mu", "Lambda"):
+            a, b = s1["ent"][ei][key], got["ent"][ei][key]
+            scale = float(a.abs().max())
+            assert float((a - b).abs().max()) <= 1e-3 * scale, (ei, key)
+    assert abs(float(ms["r0.rmse_sample"]) - float(m1["r0.rmse_sample"])) \
+        <= 1e-3
+
+
+@pytest.mark.parametrize("case", ["pair", "fused_residual", "gather_head"])
+def test_sharded_resume_and_windows_on_cuda(cuda, nccl, tmp_path, case):
+    """At world size 1 on NCCL: a run from its sweep-4 checkpoint and a
+    run in windows of 4 sweeps each equal the run without interruption,
+    bit for bit."""
+    import dataclasses
+
+    import chip_smoke
+    _, eng = _sharded_pair(case)
+    base = eng.config
+    full = eng.run()
+    ck = str(tmp_path / "ck.npz")
+    eng.config = dataclasses.replace(base, checkpoint_every=4,
+                                     checkpoint_path=ck,
+                                     sweeps_per_dispatch=4)
+    windowed = eng.run()
+    assert chip_smoke.equal_states(windowed["state"], full["state"])
+    st, sweep = eng.load_state(ck)
+    assert sweep == 4
+    resumed = eng.run(state=st, sweep_offset=sweep)
+    assert chip_smoke.equal_states(resumed["state"], full["state"])
+    assert resumed["RMSE"] == full["RMSE"]

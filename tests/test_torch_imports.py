@@ -1,5 +1,6 @@
-"""The port, its GPU smoke script and its examples import neither jax nor
-the JAX package (nor its oracle, which imports jax)."""
+"""The port, its GPU smoke script, its examples and the helpers its test
+workers import use neither jax nor the JAX package (nor its oracle, which
+imports jax)."""
 import ast
 import os
 
@@ -12,7 +13,10 @@ FORBIDDEN = ("jax", "jaxlib", "bayesiandatafusion_jl_tpu", "oracle")
 
 
 def _sources():
-    out = [os.path.join(ROOT, "chip_smoke.py")]
+    # chip_smoke.py, and the helpers the port's worker processes import
+    out = [os.path.join(ROOT, "chip_smoke.py")] + [
+        os.path.join(ROOT, "tests", f) for f in ("_torch_sharded_worker.py",
+                                                 "_torch_xla_order.py")]
     for d, _, files in (*os.walk(PORT), *os.walk(EXAMPLES)):
         out += [os.path.join(d, f) for f in files if f.endswith(".py")]
     return sorted(out)
@@ -51,6 +55,8 @@ def test_scan_covers_the_port():
                  "bayesiandatafusion_jl_tpu_torch/ops/layout.py",
                  "bayesiandatafusion_jl_tpu_torch/ops/mvn.py",
                  "bayesiandatafusion_jl_tpu_torch/kernels.py",
+                 "bayesiandatafusion_jl_tpu_torch/parallel/mesh.py",
+                 "bayesiandatafusion_jl_tpu_torch/parallel/sharded.py",
                  "bayesiandatafusion_jl_tpu_torch/ops/sparse.py",
                  "examples_torch/movielens.py",
                  "examples_torch/chembl_macau.py",
