@@ -1181,7 +1181,7 @@ def zero_counts():
         setattr(f, a, 0)
 
 
-def graph_kernels(prob, K):
+def graph_kernels(prob, K, blocks=lambda ei: 1):
     """{counter: launches per sweep} of the kernels a sweep must run, from
     its compiled problem: per dense (relation, mode) of its plan
     (``dense_plans``) on an int8 pair K6 once, on a fused store its K8
@@ -1189,8 +1189,9 @@ def graph_kernels(prob, K):
     K = 128, K7 once (the largest partner's table); per entity, up to K =
     96, the packed sampler (K1, K2) where it has a dense contribution, else
     the full-P one (K3, K4), and above K = 96 K5 twice (the blocked
-    sampler).  The float pair and the gather path launch no kernel of their
-    own."""
+    sampler), each ``blocks(ei)`` times (the sharded engine draws an
+    entity's rows in its exchange blocks: ``sharded_blocks``).  The float
+    pair and the gather path launch no kernel of their own."""
     from bayesiandatafusion_jl_tpu_torch.ops import ytab
     want = {}
 
@@ -1215,11 +1216,22 @@ def graph_kernels(prob, K):
                 if i8 and K <= ytab.K7_MAX_K:
                     add("K7")
         if not packed:
-            add("K5", 2)
+            add("K5", 2 * blocks(ei))
         else:
             add(("K1" if K <= 32 else "K2") if dense else
-                ("K3" if K <= 32 else "K4"))
+                ("K3" if K <= 32 else "K4"), blocks(ei))
     return want
+
+
+def sharded_blocks(prob):
+    """The number of sampler calls a sweep makes for each entity of a
+    sharded problem: its exchange blocks where they divide its rows
+    (``ShardedMacauEngine._exchange``), else 1."""
+    def blocks(ei):
+        n_loc = prob.ent_meta[ei].n_loc
+        n_blk = max(1, min(prob.exchange_blocks, n_loc))
+        return n_blk if (n_loc // n_blk) * n_blk == n_loc else 1
+    return blocks
 
 
 def counted(fn):
@@ -1754,10 +1766,10 @@ SHARDED_PATHS = {"sharded1": (40, 3, 40, PATHS[32][2]),
 # moves the first entity's draw by ~1e-7 of its scale; the next entity's
 # partner table is quantized to int8 from it (K7), and a value that close
 # to a rounding edge flips its code by one step, 1/127 of its column's
-# scale: 6e-4 to 1.3e-3 on the int8 paths (CPU, float32, PR 20), 4e-7 on
+# scale: 6e-4 to 1.3e-3 on the int8 paths (CPU, float32), 4e-7 on
 # the gather path.  With the hyper draws fixed (the same mu and Lambda in
 # both engines) the sweep must agree to SHARDED_FIXED_TOL: the int8 sums
-# are exact in both (0.0 on the CPU, PR 20); only sums of float rows over
+# are exact in both (0.0 on the CPU); only sums of float rows over
 # ranks or ghost rows may add in another order.
 SHARDED_SWEEP_TOL = 1e-2
 SHARDED_FIXED_TOL = 1e-5
@@ -1882,7 +1894,8 @@ def run_sharded_path(name, rd, single, single_ms, want, split):
     med = sorted(wins)[len(wins) // 2]
     total = sweeps * (repeats + 1)
     want_counts = {k: 0 for k in counts}
-    for tag, per_sweep in graph_kernels(prob, 32).items():
+    for tag, per_sweep in graph_kernels(prob, 32,
+                                        sharded_blocks(prob)).items():
         want_counts[tag] = per_sweep * total
     print(f"# path {name}: ms/sweep per window {wins}, median {med:.3f} "
           f"(the single-device engine on this data {single_ms:.3f}); "
@@ -1952,7 +1965,8 @@ def _sharded_rank(rank, world, init, name, result_dir):
     build_s = time.perf_counter() - t0
     out, counts = counted(lambda: eng.benchmark(sweeps, repeats=repeats))
     want = {k: 0 for k in counts}
-    for tag, per_sweep in graph_kernels(eng.problem, 32).items():
+    for tag, per_sweep in graph_kernels(
+            eng.problem, 32, sharded_blocks(eng.problem)).items():
         want[tag] = per_sweep * sweeps * (repeats + 1)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     # one sweep against the single-device engine, built on rank 0's card
