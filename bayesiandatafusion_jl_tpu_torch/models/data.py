@@ -44,6 +44,10 @@ class IndexedDF:
     def arity(self) -> int:
         return len(self.shape)
 
+    def size(self, mode: Optional[int] = None):
+        """The shape, or the extent of mode ``mode``."""
+        return self.shape if mode is None else self.shape[mode]
+
     def degrees(self, mode: int) -> np.ndarray:
         return np.bincount(self.idx[:, mode], minlength=self.shape[mode])
 

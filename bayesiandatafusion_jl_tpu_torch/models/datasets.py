@@ -1,16 +1,20 @@
-"""Synthetic data sets (numpy only).
+"""Data sets (numpy only).
 
-Port of the synthetic branch of ``bayesiandatafusion_jl_tpu/models/
-datasets.py`` (MovieLens-shaped ratings; ML-10M shape: 71,567 users x
-10,681 movies, 10,000,054 ratings; the ChEMBL-shaped Macau problem with
-side features) and of the JAX bench's generators
-(``bench.py``: the Netflix-shaped ratings, the 3-way tensors and the fusion
-graph): the same generators, so the same seed gives the same data.
+Port of ``bayesiandatafusion_jl_tpu/models/datasets.py``: the MovieLens
+ratings-file parser and its landing pad under the repository's
+``.cache/`` (``find_real_ratings``), the MovieLens-shaped synthetic ratings
+(ML-10M shape: 71,567 users x 10,681 movies, 10,000,054 ratings) and the
+ChEMBL-shaped Macau problem with side features; and the JAX bench's
+generators (``bench.py``: the Netflix-shaped ratings, the 3-way tensors
+and the fusion graph).  The same generators, so the same seed gives the
+same data; the same parser, so the same file gives the same IndexedDF.
 """
 from __future__ import annotations
 
 import os
+import sys
 from concurrent.futures import ThreadPoolExecutor
+from typing import Optional
 
 import numpy as np
 
@@ -23,10 +27,98 @@ ML_SHAPES = {
 }
 
 
-def load_movielens(variant: str = "100k", seed: int = 0) -> IndexedDF:
-    """Synthetic MovieLens-shaped ratings (no real-file loader yet)."""
+# the file names that count as a real ratings file, checked in .cache/ and
+# one directory below it (ml-100k/u.data, ml-10M100K/ratings.dat, ...)
+_REAL_RATINGS_NAMES = ("ratings.dat", "u.data", "ratings.csv",
+                       "ratings.txt")
+
+
+def find_real_ratings(cache_dir: Optional[str] = None) -> Optional[str]:
+    """Path of a real MovieLens-family ratings file, or None: the first of
+    ``_REAL_RATINGS_NAMES`` at the top of ``cache_dir`` (default: the
+    repository's ``.cache/``), else in its subdirectories, in sorted
+    order, one level down."""
+    if cache_dir is None:
+        cache_dir = os.path.join(
+            os.path.dirname(os.path.dirname(os.path.dirname(
+                os.path.abspath(__file__)))), ".cache")
+    if not os.path.isdir(cache_dir):
+        return None
+    for name in _REAL_RATINGS_NAMES:
+        p = os.path.join(cache_dir, name)
+        if os.path.isfile(p):
+            return p
+    for sub in sorted(os.listdir(cache_dir)):
+        d = os.path.join(cache_dir, sub)
+        if not os.path.isdir(d):
+            continue
+        for name in _REAL_RATINGS_NAMES:
+            p = os.path.join(d, name)
+            if os.path.isfile(p):
+                return p
+    return None
+
+
+def load_movielens(variant: str = "100k", path: Optional[str] = None,
+                   seed: int = 0) -> IndexedDF:
+    """MovieLens ratings (user x movie): the file at ``path`` where it
+    exists (``_parse_movielens_file``), else the synthetic ratings of
+    ``variant``'s shape from ``seed``."""
+    if path is not None and os.path.exists(path):
+        return _parse_movielens_file(path)
     n_users, n_movies, nnz = ML_SHAPES[variant]
     return synthetic_ratings(n_users, n_movies, nnz, seed=seed)
+
+
+def _parse_movielens_file(path: str) -> IndexedDF:
+    """A MovieLens-family ratings file as an IndexedDF.
+
+    Each line's separator is read from the line itself (``::``, else a
+    tab, else a comma, else whitespace); blank lines are skipped; a line
+    with fewer than three fields, or whose first three do not read as
+    int, int, float (a header), is skipped and counted on stderr; extra
+    columns (timestamps) are ignored.  The user and movie ids, of any
+    base and with gaps, are densified in sorted order by ``np.unique``."""
+    users: list = []
+    movies: list = []
+    vals: list = []
+    bad = 0
+    with open(path) as f:
+        for line in f:
+            line = line.strip()
+            if not line:
+                continue
+            if "::" in line:
+                parts = line.split("::")
+            elif "\t" in line:
+                parts = line.split("\t")
+            elif "," in line:
+                parts = line.split(",")
+            else:
+                parts = line.split()
+            if len(parts) < 3:
+                bad += 1
+                continue
+            try:
+                u = int(parts[0])
+                m = int(parts[1])
+                v = float(parts[2])
+            except ValueError:
+                bad += 1
+                continue
+            users.append(u)
+            movies.append(m)
+            vals.append(v)
+    if bad:
+        print(f"# parse {path}: skipped {bad} non-data lines",
+              file=sys.stderr)
+    if not users:
+        raise ValueError(f"no ratings parsed from {path}")
+    _, u_arr = np.unique(np.asarray(users, np.int64), return_inverse=True)
+    _, m_arr = np.unique(np.asarray(movies, np.int64), return_inverse=True)
+    idx = np.stack([u_arr, m_arr], axis=1)
+    return IndexedDF(idx, np.asarray(vals, np.float64),
+                     (int(u_arr.max()) + 1, int(m_arr.max()) + 1))
 
 
 def synthetic_ratings(n_users: int, n_movies: int, nnz: int,

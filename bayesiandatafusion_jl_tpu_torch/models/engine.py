@@ -131,6 +131,37 @@ class EntitySpec:
         return self.num_features > 0
 
 
+def sweep_flops(prob, extents) -> float:
+    """``flops_per_sweep`` of a compiled or sharded problem whose entities
+    span ``extents`` rows in its dense stores: per dense mode 2 *
+    prod(extents) * (C + K), per gather mode 2 * nnz * (K^2 + K), per
+    entity with features its beta solver's products."""
+    K = prob.config.num_latent
+    C = K * (K + 1) // 2
+    f = 0.0
+    for ri, rs in enumerate(prob.rel_specs):
+        total = float(np.prod([extents[e] for e in rs.entity_ids]))
+        for mode in range(rs.arity):
+            if (ri, mode) in prob.dense_plans:
+                f += 2.0 * total * (C + K)
+            else:
+                f += 2.0 * rs.nnz * (K * K + K)
+    for es in prob.entity_specs:
+        if not es.has_features:
+            continue
+        N, F = float(es.n), float(es.num_features)
+        xpass = 2.0 * N * F * K          # one X @ / X' @ [., K] pass
+        f += xpass                       # the right-hand side, X' resid
+        if es.use_ff:
+            f += F ** 3 / 3.0 + 2.0 * F * F * K + xpass
+        elif es.solver == "dual":
+            r = float(prob.config.dual_refine)
+            f += 2.0 * xpass + (4.0 * (1.0 + r) + 2.0 * r) * N * N * K
+        else:
+            f += xpass                   # uhat
+    return f
+
+
 @dataclasses.dataclass(frozen=True)
 class RelationSpec:
     name: str
@@ -440,31 +471,7 @@ class CompiledProblem:
         counted, as in JAX); an entity
         with features its beta solver's products (CG: the right-hand side
         and uhat only, its iterations depend on the data)."""
-        K = self.config.num_latent
-        C = K * (K + 1) // 2
-        counts = [es.n for es in self.entity_specs]
-        f = 0.0
-        for ri, rs in enumerate(self.rel_specs):
-            total = float(np.prod([counts[e] for e in rs.entity_ids]))
-            for mode in range(rs.arity):
-                if (ri, mode) in self.dense_plans:
-                    f += 2.0 * total * (C + K)
-                else:
-                    f += 2.0 * rs.nnz * (K * K + K)
-        for es in self.entity_specs:
-            if not es.has_features:
-                continue
-            N, F = float(es.n), float(es.num_features)
-            xpass = 2.0 * N * F * K          # one X @ / X' @ [., K] pass
-            f += xpass                       # the right-hand side, X' resid
-            if es.use_ff:
-                f += F ** 3 / 3.0 + 2.0 * F * F * K + xpass
-            elif es.solver == "dual":
-                r = float(self.config.dual_refine)
-                f += 2.0 * xpass + (4.0 * (1.0 + r) + 2.0 * r) * N * N * K
-            else:
-                f += xpass                   # uhat
-        return f
+        return sweep_flops(self, [es.n for es in self.entity_specs])
 
     def _build_features(self, ei, ent, config, device):
         """Entity ``ei``'s beta-draw arrays and solver

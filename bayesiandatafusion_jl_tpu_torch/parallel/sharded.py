@@ -52,7 +52,7 @@ from ..models.data import (RelationData, resolved_alpha,
                            resolved_alpha_sample, resolved_lambda_beta)
 from ..models.engine import (EntitySpec, MacauEngine, RelationSpec, RowShard,
                              _resolve_device, auc_device, build_features,
-                             plan_gramians)
+                             plan_gramians, sweep_flops)
 from ..ops import dense_gram as dg
 from ..ops.gramian import plan_accumulation, predict_tuples
 from ..ops.hyper import (normal_wishart_from_moments, sample_alpha,
@@ -288,6 +288,14 @@ class ShardedProblem:
             config.resolved_nu0(), self.rel_specs, config.alpha_a0,
             [es.num_features for es in self.entity_specs],
             config.sample_lambda_beta, config.nu_beta)
+
+    def flops_per_sweep(self) -> float:
+        """The matmul work of one sweep over every rank (JAX
+        ``ShardedProblem.flops_per_sweep`` :643-672), with the single
+        engine's accounting, but a dense or fused mode counts its
+        relation's padded extents (``n_pad``), the work the slabs
+        execute; diagnostic only."""
+        return sweep_flops(self, [m.n_pad for m in self.ent_meta])
 
     def _valid_ids(self, ei) -> np.ndarray:
         """Original ids of this rank's valid positions, in position order

@@ -2,7 +2,8 @@
 
 The fields keep the JAX package's names, meanings and defaults, but for
 ``dense_gram_budget_gb``, whose default is the card's.  Every JAX option
-is a field; the TPU-only knob ``pallas`` is absent altogether.
+is a field; the TPU-only knob ``pallas`` is absent altogether (a JAX YAML
+file's ``pallas: auto`` is dropped on reading).
 """
 from __future__ import annotations
 
@@ -167,3 +168,33 @@ class MacauConfig:
 
     def resolved_nu0(self) -> float:
         return float(self.num_latent if self.nw_nu0 is None else self.nw_nu0)
+
+    # -- file-based config: the JAX package's YAML layout ------------------
+    @classmethod
+    def from_yaml(cls, path: str) -> "MacauConfig":
+        """The config a YAML file holds (``to_yaml``'s, or the JAX
+        package's).  A JAX file's TPU-only ``pallas`` key is dropped where
+        it holds its default, "auto", and refused otherwise; every other
+        key goes to the constructor as it is.  Needs PyYAML."""
+        import yaml
+        with open(path) as f:
+            data = yaml.safe_load(f) or {}
+        if "pallas" in data:
+            if data["pallas"] != "auto":
+                raise ValueError(f"pallas={data['pallas']!r} is a TPU "
+                                 f"option: the port runs no Pallas kernel")
+            del data["pallas"]
+        for k in ("clamp", "bucket_widths"):
+            if k in data and data[k] is not None:
+                data[k] = tuple(data[k])
+        return cls(**data)
+
+    def to_yaml(self, path: str) -> None:
+        """Write the config as YAML, every field, as the JAX package
+        writes its own.  Needs PyYAML."""
+        import yaml
+        d = dataclasses.asdict(self)
+        d["clamp"] = list(self.clamp) if self.clamp else None
+        d["bucket_widths"] = list(self.bucket_widths)
+        with open(path, "w") as f:
+            yaml.safe_dump(d, f, sort_keys=False)

@@ -47,6 +47,27 @@ Phases, each fatal on failure (nonzero exit, no result line):
    its Gramian options BENCH_GRAM, the default dense_gram, dense_fused
    and budget): every mode on the int8 pair, as each path that follows
    prints its own plan and its seconds:
+   - the MovieLens file branch (``models/datasets.py``): the same ratings
+     written as ML-10M ships them (``ml-10M100K/ratings.dat``,
+     ``UserID::MovieID::Rating::Timestamp``, user ids u + 1, movie ids
+     3 m + 7, seeded timestamps), found by ``find_real_ratings`` one level
+     down and parsed by ``load_movielens("10m", path=...)``: equal, bit
+     for bit, to the generator's data after the same ``np.unique``
+     (71,565 x 10,681: two users rate nothing), with the write and parse
+     seconds; then bench.py:101-162's configuration as written on the
+     parsed data (the plan: every mode on the int8 pair; K6, K7 and K1
+     counted), PATHS[32]'s protocol, rmse_sample@40 and rmse_avg in their
+     bands;
+   - ``ml100k`` (``bench.py:533-537``) from a written ``ml-100k/u.data``
+     (tabs, a timestamp column; every id occurs, so the parse must equal
+     the data as it is): the plan the planner picks, 200-sweep windows,
+     ms/sweep, rmse_avg within RMSE_BAND of the JAX chain's 0.6656 and
+     rmse_sample@200 printed beside its 0.7726;
+   - the long-chain gate (``tests/test_longchain.py``): 200 sweeps of the
+     int8 pair in float32 (K6, K7, K1) against 200 of the float64 gather
+     path (K3) on 943 x 1,682 ratings; the posterior-mean RMSEs within
+     0.01, the mean of the last four rmse_sample readings within 0.015,
+     the mean prediction stdev within 10%;
    - the int8 pair path at K = 32, 64, 96 and 128, the pair stored in one
      orientation.  Every sweep must contract both modes through K6, with
      the table quantized by K7, and sample both entities
@@ -354,6 +375,31 @@ DRIVER_RUN = dict(burnin=10, psamples=10, metrics_every=5,
                   sweeps_per_dispatch=5, checkpoint_every=10)
 DRIVER_GATHER = (32, "segment")
 DRIVER_TIMED = 100
+
+# The MovieLens file branch (models/datasets.py): a generator's ratings
+# written as MovieLens ships them (variant: directory, file, separator, the
+# movie ids of movie m; user ids are u + 1, ratings "3" or "3.5", the
+# timestamps drawn from FILE_SEED over 1995-2009), found by
+# find_real_ratings one level down and parsed by load_movielens(path=...)
+RATINGS_FILES = {"10m": ("ml-10M100K", "ratings.dat", "::",
+                         lambda m: 3 * m + 7),
+                 "100k": ("ml-100k", "u.data", "\t", lambda m: m + 1)}
+FILE_SEED = 11
+# ml100k (bench.py:533-537, bench_ml("100k", 200)): 200-sweep windows, 3
+# timed; rmse_avg held to the JAX chain's on the same data and protocol,
+# rmse_sample@200 (one draw) printed beside its figure
+# (docs/BENCH_R5_RUNS.md:18)
+ML100K_RUN = (200, 3)
+ML100K_AVG_ANCHOR, ML100K_SAMPLE_FIGURE = 0.6656, 0.7726
+# The long-chain gate (tests/test_longchain.py:21-61): 200 sweeps of the
+# int8 pair (float32, bfloat16 gram_dtype) against 200 of the float64
+# gather path on 943 x 1,682, 100,000 ratings (seed 5), 10,000 test
+# ratings (seed 7): the posterior-mean RMSE, the mean rmse_sample of the
+# last four readings and the mean prediction stdev (relative) must agree
+LONG_CHAIN = dict(num_latent=32, burnin=100, psamples=100, clamp=(1.0, 5.0),
+                  verbose=False, seed=42, sweeps_per_dispatch=25,
+                  metrics_every=25)
+LONG_RMSE_TOL, LONG_TRAJ_TOL, LONG_STDEV_REL = 0.01, 0.015, 0.10
 
 
 def require(cond, what):
@@ -1404,10 +1450,10 @@ def plan_paths(rd, plan):
     return out
 
 
-def print_plan(label, rd, plan, want):
+def print_plan(label, rd, plan, want=None):
     """Print a plan per (relation, mode), its path and its store's bytes
     (a gather mode: its relation's observations), and require every mode
-    on ``want``."""
+    on ``want`` (where given)."""
     paths = plan_paths(rd, plan)
     parts = []
     for (ri, mode), path in paths.items():
@@ -1418,7 +1464,7 @@ def print_plan(label, rd, plan, want):
                      f"rows): {path}, {size}")
     print(f"# plan of {label}: {'; '.join(parts)}; planner "
           f"{plan.seconds:.2f} s", flush=True)
-    require(set(paths.values()) == {want},
+    require(want is None or set(paths.values()) == {want},
             f"{label}: the plan {paths}, want every mode on {want}")
 
 
@@ -1897,10 +1943,13 @@ def run_sharded_path(name, rd, single, single_ms, want, split):
     for tag, per_sweep in graph_kernels(prob, 32,
                                         sharded_blocks(prob)).items():
         want_counts[tag] = per_sweep * total
+    flops = prob.flops_per_sweep()
     print(f"# path {name}: ms/sweep per window {wins}, median {med:.3f} "
           f"(the single-device engine on this data {single_ms:.3f}); "
           f"rmse_sample@{sweeps} {out['rmse_at_sweeps']:.4f}; peak memory "
-          f"{peak_gb:.2f} GB; counts {counts}", flush=True)
+          f"{peak_gb:.2f} GB; counts {counts}; flops_per_sweep "
+          f"{flops:.4e}, {flops / med * 1e-9:.2f} effective TOP/s",
+          flush=True)
     require(counts == want_counts, f"{name}: counts {counts} for {total} "
                                    f"sweeps, want {want_counts}")
     require(abs(out["rmse_at_sweeps"] - anchor) <= RMSE_BAND,
@@ -2609,6 +2658,216 @@ def run_chembl_paths(tally):
     return feat_ms
 
 
+def write_ratings(path, users, movies, vals, stamps, sep, chunk=1_000_000):
+    """Write one line ``user<sep>movie<sep>rating<sep>timestamp`` a rating,
+    as MovieLens files hold them (ids and timestamps non-negative integers,
+    ratings on the half-star grid written "3" or "3.5"), formatted by
+    numpy: ``chunk`` lines at a time, each field's digits a padded column
+    block, the padding masked out."""
+    import numpy as np
+    h = np.rint(np.asarray(vals) * 2).astype(np.int64)
+    require(np.array_equal(h / 2.0, vals) and (h >= 0).all(),
+            "write_ratings: a rating off the half-star grid")
+    cols = [np.asarray(x, np.int64) for x in (users, movies, h // 2, stamps)]
+    tails = [np.frombuffer(t, np.uint8) for t in (sep.encode(),) * 3
+             + (b"\n",)]
+    half = np.frombuffer(b".5", np.uint8)
+    with open(path, "wb") as f:
+        for s in range(0, h.size, chunk):
+            parts, keep = [], []
+            for i, x in enumerate(cols):
+                x = x[s:s + chunk]
+                p10 = 10 ** np.arange(len(str(int(cols[i].max()))) - 1, -1,
+                                      -1, dtype=np.int64)
+                parts.append((48 + x[:, None] // p10 % 10).astype(np.uint8))
+                keep.append((x[:, None] >= p10) | (p10 == 1))
+                if i == 2:
+                    parts.append(np.broadcast_to(half, (x.size, 2)))
+                    keep.append(np.broadcast_to(
+                        (h[s:s + chunk] % 2 == 1)[:, None], (x.size, 2)))
+                parts.append(np.broadcast_to(tails[i],
+                                             (x.size, tails[i].size)))
+                keep.append(np.ones((x.size, tails[i].size), bool))
+            f.write(np.hstack(parts)[np.hstack(keep)].tobytes())
+
+
+def densified(df):
+    """``df`` as a ratings file of its observations under ids in the same
+    order reads back (``_parse_movielens_file``): each mode's ids
+    renumbered by ``np.unique``, so that an id no rating uses drops out."""
+    import numpy as np
+    from bayesiandatafusion_jl_tpu_torch.models.data import IndexedDF
+    cols = [np.unique(df.idx[:, d], return_inverse=True)[1]
+            for d in range(2)]
+    return IndexedDF(np.stack(cols, axis=1), df.vals,
+                     tuple(int(c.max()) + 1 for c in cols))
+
+
+def ratings_file_round_trip(df, variant, tmp):
+    """Write ``df`` under ``tmp`` as MovieLens ships ``variant``
+    (RATINGS_FILES), require ``find_real_ratings(tmp)`` to find it, read it
+    with ``load_movielens(variant, path=...)`` and require the result to
+    equal ``densified(df)`` bit for bit.  Prints the write and parse
+    seconds; returns the parsed IndexedDF."""
+    import numpy as np
+    from bayesiandatafusion_jl_tpu_torch.models.datasets import (
+        find_real_ratings, load_movielens)
+    sub, name, sep, movie_id = RATINGS_FILES[variant]
+    path = os.path.join(tmp, sub, name)
+    os.makedirs(os.path.dirname(path))
+    stamps = np.random.default_rng(FILE_SEED).integers(
+        789_652_009, 1_262_304_000, df.nnz)
+    t0 = time.perf_counter()
+    write_ratings(path, df.idx[:, 0].astype(np.int64) + 1,
+                  movie_id(df.idx[:, 1].astype(np.int64)), df.vals, stamps,
+                  sep)
+    write_s = time.perf_counter() - t0
+    found = find_real_ratings(tmp)
+    require(found == path, f"find_real_ratings found {found}, not {path}")
+    t0 = time.perf_counter()
+    got = load_movielens(variant, path=path)
+    parse_s = time.perf_counter() - t0
+    want = densified(df)
+    same = (got.shape == want.shape and got.idx.dtype == want.idx.dtype
+            and got.vals.dtype == want.vals.dtype
+            and np.array_equal(got.idx, want.idx)
+            and np.array_equal(got.vals.view(np.int64),
+                               want.vals.view(np.int64)))
+    print(f"# ratings file {sub}/{name}: {df.nnz} lines, "
+          f"{os.path.getsize(path) / 1e6:.1f} MB written in {write_s:.2f} "
+          f"s; found by find_real_ratings; parsed in {parse_s:.2f} s "
+          f"({df.nnz / parse_s:.4g} rows/s), shape {got.shape} (the "
+          f"generator's {df.shape}); equal to the generator's data after "
+          f"np.unique, bit for bit: {same}", flush=True)
+    require(same, f"{variant}: the parsed file differs from the data")
+    return got
+
+
+def run_ml10m_file(df, tally):
+    """The ML-10M generator's ratings (``df``) through a ratings file
+    (``ml-10M100K/ratings.dat``), then bench.py:101-162's configuration as
+    written on the parsed data: the plan (every mode on the int8 pair),
+    PATHS[32]'s protocol and anchors, its kernels counted.  The file's
+    problem drops the users that rate nothing, so its chain is another
+    than the generator-fed path's on the same test ratings."""
+    from bayesiandatafusion_jl_tpu_torch.models.data import RelationData
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ml10m_") as tmp:
+        fd = ratings_file_round_trip(df, "10m", tmp)
+    rd = RelationData.from_indexed_df(fd, relation_name="ratings")
+    rd.assign_to_test(0, min(100_000, fd.nnz // 10), seed=7)
+    print_plan("ML-10M from ratings.dat, bench.py:101-162", rd,
+               bench_plan(rd), "pair int8")
+    sweeps, repeats, anchor_s, anchor_avg = PATHS[32]
+    _, counts, _ = run_path(rd, 32, sweeps, repeats, anchor_s, anchor_avg,
+                            name="ML-10M file", **BENCH_GRAM,
+                            bucket_widths=BENCH_WIDTHS)
+    tally(counts)
+
+
+def run_ml100k(tally):
+    """bench.py's ml100k (bench_ml("100k", 200), :533-537) fed from a
+    written ``ml-100k/u.data``: every id occurs, so the parse must equal
+    the generator's data as it is; the plan the planner picks, ML100K_RUN's
+    protocol, rmse_avg within RMSE_BAND of the JAX chain's and
+    rmse_sample@200 printed beside its figure."""
+    from bayesiandatafusion_jl_tpu_torch.models.data import RelationData
+    from bayesiandatafusion_jl_tpu_torch.models.datasets import \
+        load_movielens
+    df = load_movielens("100k")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ml100k_") as tmp:
+        fd = ratings_file_round_trip(df, "100k", tmp)
+    require(fd.shape == df.shape, f"ml100k: ids dropped, {fd.shape}")
+    rd = RelationData.from_indexed_df(fd, relation_name="ratings")
+    rd.assign_to_test(0, min(100_000, fd.nnz // 10), seed=7)
+    print_plan("ml100k from u.data, bench.py:533-537", rd, bench_plan(rd))
+    sweeps, repeats = ML100K_RUN
+    _, counts, out = run_path(rd, 32, sweeps, repeats, None,
+                              ML100K_AVG_ANCHOR, name="ml100k", **BENCH_GRAM,
+                              bucket_widths=BENCH_WIDTHS)
+    tally(counts)
+    wins = out["ms_per_sweep"]
+    med = sorted(wins)[len(wins) // 2]
+    print(f"# ml100k: {med:.4f} ms/sweep (median window); "
+          f"rmse_sample@{sweeps} {out['rmse_at_sweeps']:.4f} (the JAX "
+          f"chain's {ML100K_SAMPLE_FIGURE}, one draw: not required); "
+          f"rmse_avg {out['metrics']['r0.rmse_avg']:.4f} (the JAX chain's "
+          f"{ML100K_AVG_ANCHOR} +- {RMSE_BAND})", flush=True)
+
+
+def long_chain(label, tally, **opts):
+    """One chain of the long-chain gate: ``run()`` of LONG_CHAIN with
+    ``opts``, its kernels counted (every sweep the path's, no plain
+    version).  Returns the result, the rmse_sample readings and the
+    engine."""
+    import numpy as np
+    from bayesiandatafusion_jl_tpu_torch.models.data import RelationData
+    from bayesiandatafusion_jl_tpu_torch.models.datasets import \
+        synthetic_ratings
+    from bayesiandatafusion_jl_tpu_torch.models.engine import MacauEngine
+    from bayesiandatafusion_jl_tpu_torch.utils.config import MacauConfig
+    rd = RelationData.from_indexed_df(
+        synthetic_ratings(943, 1682, 100_000, seed=5),
+        relation_name="ratings")
+    rd.assign_to_test(0, 10_000, seed=7)
+    eng = MacauEngine(rd, MacauConfig(**LONG_CHAIN, **opts), device="cuda")
+    t0 = time.perf_counter()
+    res, counts = counted(eng.run)
+    secs = time.perf_counter() - t0
+    tally(counts)
+    total = LONG_CHAIN["burnin"] + LONG_CHAIN["psamples"]
+    want = {k: 0 for k in counts}
+    for tag, per_sweep in graph_kernels(eng.problem,
+                                        LONG_CHAIN["num_latent"]).items():
+        want[tag] = per_sweep * total
+    traj = np.asarray([h["r0.rmse_sample"] for h in res["history"]
+                       if "r0.rmse_sample" in h])
+    print(f"# long chain {label}: {total} sweeps in {secs:.2f} s "
+          f"({secs * 1e3 / total:.3f} ms/sweep with its reads); RMSE "
+          f"{res['RMSE']:.5f}; rmse_sample readings {np.round(traj, 4)}; "
+          f"mean prediction stdev {res['predictions']['stdev'].mean():.5f};"
+          f" counts {counts}", flush=True)
+    require(counts == want, f"long chain {label}: counts {counts} for "
+                            f"{total} sweeps, want {want}")
+    return res, traj, eng
+
+
+def run_long_chain_gate(tally):
+    """tests/test_longchain.py:21-61 on the card: chain A, float32 on the
+    int8 pair (K6, K7, K1), first required to have engaged it; chain B,
+    float64 on the gather path (K3 in float64).  Requires the three bounds
+    (LONG_RMSE_TOL, LONG_TRAJ_TOL, LONG_STDEV_REL); returns the
+    figures."""
+    res8, t8, eng = long_chain("A: float32 int8 pair", tally,
+                               dtype="float32", gram_dtype="bfloat16",
+                               dense_gram=True, dense_int8=True)
+    prob = eng.problem
+    require(prob.kinds[0] == "pair" and prob.pair_i8s[0]
+            and len(prob.dense_plans) == 2,
+            "long chain A: the int8 pair did not engage")
+    res64, t64, eng = long_chain("B: float64 gather", tally,
+                                 dtype="float64", dense_gram=False)
+    require(not eng.problem.dense_plans,
+            "long chain B: not on the gather path")
+    del eng
+    s8 = float(res8["predictions"]["stdev"].mean())
+    s64 = float(res64["predictions"]["stdev"].mean())
+    got = {"rmse": (res8["RMSE"], res64["RMSE"]),
+           "tail": (float(t8[-4:].mean()), float(t64[-4:].mean())),
+           "stdev": (s8, s64)}
+    diffs = {"rmse": abs(got["rmse"][0] - got["rmse"][1]),
+             "tail": abs(got["tail"][0] - got["tail"][1]),
+             "stdev": abs(s8 - s64) / s64}
+    bounds = {"rmse": LONG_RMSE_TOL, "tail": LONG_TRAJ_TOL,
+              "stdev": LONG_STDEV_REL}
+    print(f"# long-chain gate: (int8 pair, float64 gather) {got}; "
+          f"differences {diffs} (bounds {bounds}; stdev relative)",
+          flush=True)
+    for k, bound in bounds.items():
+        require(diffs[k] < bound, f"long-chain gate: {k} {got[k]} differ "
+                                  f"by {diffs[k]}, bound {bound}")
+    return got
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2782,6 +3041,21 @@ def main() -> int:
     print(f"# data: nnz={df.nnz}, shape={df.shape}", flush=True)
     print_plan("ML-10M, bench.py:101-162", rd, bench_plan(rd), "pair int8")
     phase_done("ML-10M data")
+    launches = dict.fromkeys(("K1", "K2", "K3", "K4", "K5", "K6", "K7",
+                              "K8a", "K8b", "K8c", "K8d", "K9"), 0)
+
+    def tally(counts):
+        for k in launches:
+            launches[k] += counts[k]
+
+    # -- the MovieLens file branch: ML-10M and ml100k from ratings files ---
+    run_ml10m_file(df, tally)
+    phase_done("ML-10M from a ratings file")
+    run_ml100k(tally)
+    phase_done("ml100k")
+    # -- the long-chain gate: the int8 pair against the float64 gather ----
+    run_long_chain_gate(tally)
+    phase_done("long-chain gate")
     # K9 at the ML-10M gather shape: the users' factors, the training
     # observations sorted by user id
     users = np.sort(rd.relations[0].data.idx[:, 0])
@@ -2791,15 +3065,9 @@ def main() -> int:
         require(r["ok"], f"K9 disagrees with its plain version: {r}")
         torch.cuda.empty_cache()
     del users
-    launches = dict.fromkeys(("K1", "K2", "K3", "K4", "K5", "K6", "K7",
-                              "K8a", "K8b", "K8c", "K8d", "K9"), 0)
     rmse_pair = {}
     pair_ms = {}
     pair_checks = {}
-
-    def tally(counts):
-        for k in launches:
-            launches[k] += counts[k]
 
     for K, (sweeps, repeats, anchor_s, anchor_avg) in PATHS.items():
         eng, counts, out = run_path(rd, K, sweeps, repeats, anchor_s,

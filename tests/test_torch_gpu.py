@@ -1294,3 +1294,20 @@ def test_sharded_resume_and_windows_on_cuda(cuda, nccl, tmp_path, case):
     resumed = eng.run(state=st, sweep_offset=sweep)
     assert chip_smoke.equal_states(resumed["state"], full["state"])
     assert resumed["RMSE"] == full["RMSE"]
+
+
+def test_long_chain_gate(cuda):
+    """tests/test_longchain.py on the card (``chip_smoke.run_long_chain_gate``):
+    200 sweeps of the int8 pair in float32 (K6, K7, K1) against 200 of the
+    float64 gather path (K3) on 943 x 1,682: the posterior-mean RMSE, the
+    mean of the last four rmse_sample readings and the mean prediction
+    stdev within the JAX gate's bounds, each chain's kernels counted."""
+    import chip_smoke
+    launches = {}
+
+    def tally(counts):
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+    got = chip_smoke.run_long_chain_gate(tally)
+    assert set(got) == {"rmse", "tail", "stdev"}
+    assert all(launches[k] == 400 for k in ("K1", "K3", "K6", "K7"))

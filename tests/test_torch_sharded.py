@@ -10,7 +10,8 @@ through the sharded engine's injection seam.  U in original order, mu,
 Lambda, beta, lambda_beta, alpha, the prediction sums and the last sweep's
 metrics must agree to 1e-8 (the contract of tests/test_oracle_equiv.py).
 The structural cases hold the port's ``ShardedProblem`` (built for each
-rank without a process group) to the JAX ``ShardedProblem`` at 4 devices.
+rank without a process group) to the JAX ``ShardedProblem`` at 4 devices,
+and its ``flops_per_sweep`` at 2 and 4.
 """
 import functools
 import os
@@ -223,6 +224,22 @@ def test_sharded_problem_matches_jax(name):
         assert [m.n_head for m in pj.ent_meta] == [8, 8]
     if name in ("int8_pair", "fused_s8_residual"):
         assert pj.dense_plans
+
+
+@pytest.mark.parametrize("world", WORLDS)
+@pytest.mark.parametrize("name", ["head_split", "int8_pair",
+                                  "fused_s8_residual", "tensor_alpha",
+                                  "macau_dual"])
+def test_sharded_flops_per_sweep_matches_jax(name, world):
+    """Every rank's ``flops_per_sweep`` equals the JAX ShardedProblem's at
+    ``world`` devices: dense and fused modes over the padded extents,
+    gather modes over the observations, the beta solvers' products."""
+    with jax_constants():
+        pj, pts = _problems(name, world)
+    want = pj.flops_per_sweep()
+    assert want > 0
+    for pt in pts:
+        assert pt.flops_per_sweep() == pytest.approx(want, rel=1e-12)
 
 
 @pytest.mark.parametrize("cfg_value, deg, n_dev", [
