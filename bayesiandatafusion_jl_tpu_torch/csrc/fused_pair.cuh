@@ -1,6 +1,6 @@
-// The "virtual column" map of the float32 / float64 fused kernel
-// (fused_pair_f.cu's FMA variant).  (The int8 and bfloat16 fused kernels
-// and the int8 pair contraction run TMA rings on hopper_ring.cuh.)
+// The "virtual column" map of the float64 fused kernel (fused_pair_f.cu's
+// FMA variant).  (The int8, bfloat16 and float32 fused kernels and the
+// int8 pair contraction run TMA rings on hopper_ring.cuh.)
 //
 // The virtual columns are [0, ckp) the mask columns (partner-table rows
 // 0 .. n_first-1, n_first = C + K, padded up to ckp) and [ckp, ckp + K)

@@ -32,7 +32,7 @@
 // written to shared memory twice, widened to bfloat16 as codes and as mask
 // (4x the bytes of one int8 copy), and mma.sync fed by 32-bit shared
 // loads.  This one runs on K8a/K8b's TMA ring (hopper_ring.cuh) at
-// 39-59% of it (PERF.md §6):
+// 39-59% of it (PERF.md §6), a float32 table at 67-70% of its own:
 //
 // - Loads: an asynchronous ring of STAGES = 4 stages of 128 contraction
 //   elements, each one TMA box of V8 (128 focus x 128 contraction bytes)
@@ -85,9 +85,39 @@
 //   rows along n_focus and the natural layout as 16-byte stores along
 //   C + K, all streaming stores.
 //
-// The float32 / float64 operands run a tiled FMA kernel (64 x 64 outputs a
-// CTA, 4 x 4 a thread, 16 contraction elements a step), no TF32: it is the
-// parity seam (compute dtype operands), not the fast path.
+// - A float32 table (the default configuration's, e.g. at Netflix scale)
+//   runs on the same ring as its three exact bfloat16 pieces: t = h + m +
+//   l, each piece the next 8 significant bits of t (h = t with its low 16
+//   bits cleared, m the same of t - h, l = t - h - m; all three exact for
+//   |t| >= 2^-110, never overflowing, unlike a rounded h near FLT_MAX).
+//   The codes and the mask are exact in bfloat16, so every product is
+//   exact in float32, and the sums meet the float32 tolerance where TF32
+//   (11 bits, 5e-4 a product) cannot.  A stage's V8 box is widened once
+//   into A registers and feeds the products with all three pieces: 3x the
+//   tensor work of a bfloat16 table (2.75 ms a mode at ML-10M K = 32, 30.7
+//   at Netflix), against 13.5 / 151 ms for the float32 FMA units.  Three
+//   pieces at two chunks would need 112 KB a stage, so a float32 tile is
+//   one chunk (128 focus rows x 64 columns) and a stage holds the V8 box
+//   and each half's three piece boxes (one 3-D TMA box a half), 64 KB, 3
+//   stages.  h adds into one accumulator set and m and l into a second: the
+//   truncation of a wgmma add is relative to its accumulator, so h's sums
+//   see the bfloat16 table's 1,024-element promotion error and m's and l's
+//   2^-7 of it; the two are added, smallest first, into the float32
+//   totals.  Over a one-sign 480,192-element contraction this reached
+//   2.7e-6 of the largest sum; one set for all three pieces reached
+//   1.15e-5 (promoted every 8 stages) or 4.4e-6 at 10-16% more time (every
+//   2), and two sets promoted every 32 stages 1.0e-5.  Against the simpler
+//   choice, the pieces through the bfloat16 ring in three launches and
+//   their sums added, it runs 1.5-1.6x faster at ML-10M K = 32 and
+//   1.2-1.3x at K = 128 (PERF.md §6).  The pieces are made by one
+//   elementwise pass (split_f32_kernel, 4 bytes read and 6 written an
+//   element).
+//
+// The float64 operands run a tiled FMA kernel (64 x 64 outputs a CTA, 4 x
+// 4 a thread, 16 contraction elements a step): float64 sums are what
+// float64 asks for, which no tensor-core type gives.  It is the card's
+// parity seam with the reference (float64 chains in the tests), on no
+// planned configuration, and was not redesigned.
 #include <algorithm>
 
 #include "fused_pair.cuh"
@@ -95,7 +125,7 @@
 
 namespace {
 
-// ---- bfloat16 operands: the TMA ring ----------------------------------
+// ---- bfloat16 products: the TMA ring ------------------------------------
 
 namespace ring {
 
@@ -104,21 +134,35 @@ using namespace hopper;
 constexpr int BM = 128;                  // focus rows (mode 1: columns) a tile
 constexpr int BK = 128;                  // contraction elements a stage
 constexpr int CH = 64;                   // virtual columns a chunk
-constexpr int STAGES = 4;
 constexpr int GROUP0 = 16, GROUP1 = 2;   // focus tiles a group, by mode
 constexpr int PROMOTE = 8;               // stages a partial sum spans
 constexpr int A_BYTES = BM * BK;         // the V8 box (int8)
 constexpr int B_BYTES = CH * 128;        // a chunk's YZT box: 64 elements
-constexpr int STAGE_BYTES = A_BYTES + 4 * B_BYTES;  // 2 halves x 2 chunks
 constexpr int STAGING = 64 * 64 * 4;     // a consumer's epilogue tile
-constexpr int SMEM = STAGES * STAGE_BYTES + 2 * STAGING + 2 * STAGES * 8 +
-                     1024;               // + alignment slack
 constexpr int NTHREADS = 384;            // producer warpgroup + 2 consumers
+
+// The ring of a table of NP bfloat16 pieces: 1 (a bfloat16 table: a tile
+// is two chunks, and a stage's half holds both chunks' boxes) or 3 (a
+// float32 table's pieces: a tile is one chunk, and a half holds its three
+// pieces' boxes)
+template <int NP>
+struct Ring {
+  static constexpr int NB = NP == 1 ? 2 : 3;     // YZT boxes a half-stage
+  static constexpr int PER = NP == 1 ? 2 : 1;    // chunks a tile
+  static constexpr int STAGES = NP == 1 ? 4 : 3;
+  static constexpr int STAGE_BYTES = A_BYTES + 2 * NB * B_BYTES;
+  static constexpr int SMEM = STAGES * STAGE_BYTES + 2 * STAGING +
+                              2 * STAGES * 8 + 1024;  // + alignment slack
+};
+
+// a tile's products: one bfloat16 chunk (N = 64), two (N = 128), or one
+// chunk of a float32 table's three pieces (3 x N = 64)
+enum { ONE = 0, TWO = 1, SPLIT = 2 };
 
 struct Args {
   long long nf;          // focus rows written (<= stored focus extent)
   int C, K, ck, ckp;     // ck = C + K; ckp: first value column
-  int nmask, mp, np;     // mask chunks, mask pairs, pairs (value pairs last)
+  int nmask, mp, np;     // mask chunks, mask tiles, tiles a focus tile
   int n_ft, nk;          // focus tiles, contraction stages
   long long tiles;       // n_ft * np
   float* pm;             // [C + K, nf], natural layout [nf, C + K]
@@ -126,7 +170,7 @@ struct Args {
 };
 
 // tile u in the grouped order: groups of G focus tiles (the last one
-// shorter), chunk pairs outer within a group
+// shorter), column tiles outer within a group
 template <int FOCUS>
 __device__ __forceinline__ void tile_of(const Args& a, long long u, int& ft,
                                         int& p) {
@@ -139,16 +183,17 @@ __device__ __forceinline__ void tile_of(const Args& a, long long u, int& ft,
   ft = grp * G + w % gs;
 }
 
-// Pair p of chunks, a tile's columns: the mask chunks two by two, then
-// the value chunks two by two, so no pair mixes the kinds.  Its first
-// chunk, its chunk count (1 or 2) and whether it holds value chunks.
-__device__ __forceinline__ void chunk_pair(const Args& a, int p, int& first,
-                                           int& count, bool& val) {
+// Column tile p, PER chunks at most: the mask chunks PER by PER, then the
+// value chunks PER by PER, so no tile mixes the kinds.  Its first chunk,
+// its chunk count and whether it holds value chunks.
+template <int PER>
+__device__ __forceinline__ void tile_chunks(const Args& a, int p, int& first,
+                                            int& count, bool& val) {
   val = p >= a.mp;
   const int q = val ? p - a.mp : p;
   const int n = val ? (a.K + CH - 1) / CH : a.nmask;
-  first = (val ? a.nmask : 0) + 2 * q;
-  count = min(2, n - 2 * q);
+  first = (val ? a.nmask : 0) + PER * q;
+  count = min(PER, n - PER * q);
 }
 
 __device__ __forceinline__ uint32_t lds16(const unsigned char* p) {
@@ -216,27 +261,34 @@ __device__ __forceinline__ void load_a(const unsigned char* sa, int s, int c,
 __device__ __forceinline__ void release(uint64_t* bar) { mbar_arrive(bar); }
 
 // k16 step S of a stage: acc += A . B^T, A the codes (VAL) or their mask
-// in registers, B the pair's YZT rows (WIDE: both chunks, N = 128) through
-// the descriptor of the stage's half S / 4.  The step's products run while
-// the next step's operand is made: `prev` stays untouched until they are
-// done.  In step 0 the previous stage `pend` is released once its last
-// products are done.
-template <int FOCUS, bool VAL, bool WIDE, int S>
+// in registers, B through the descriptor of the stage's half S / 4: the
+// tile's YZT rows (TWO: both chunks, N = 128), or the three pieces' rows
+// (SPLIT: h into acc[0], m and l into acc[1]).  The step's products run
+// while the next step's operand is made: `prev` stays untouched until
+// they are done.  In step 0 the previous stage `pend` is released once
+// its last products are done.
+template <int FOCUS, bool VAL, int KIND, int S>
 __device__ __forceinline__ void mma_step(float (&acc)[2][32],
                                          uint32_t (&cur)[4],
                                          uint32_t (&prev)[4],
                                          const unsigned char* st, uint64_t db,
                                          int c, int w, int g, int t,
                                          uint64_t* pend) {
+  constexpr int NB = Ring<KIND == SPLIT ? 3 : 1>::NB;
   load_a<FOCUS, VAL>(st, S, c, w, g, t, cur);
 #pragma unroll
   for (int i = 0; i < 4; ++i) fence_operand(cur[i]);
   wgmma_fence();
-  const uint64_t d = db + (S >> 2) * (2 * B_BYTES >> 4) + 2 * (S & 3);
-  if constexpr (WIDE)
+  const uint64_t d = db + (S >> 2) * (NB * B_BYTES >> 4) + 2 * (S & 3);
+  if constexpr (KIND == TWO) {
     wgmma_bf16_m64n128k16(acc[0], acc[1], cur, d);
-  else
+  } else if constexpr (KIND == ONE) {
     wgmma_bf16_m64n64k16(acc[0], cur, d);
+  } else {
+    wgmma_bf16_m64n64k16(acc[0], cur, d);
+    wgmma_bf16_m64n64k16(acc[1], cur, d + (B_BYTES >> 4));
+    wgmma_bf16_m64n64k16(acc[1], cur, d + 2 * (B_BYTES >> 4));
+  }
   wgmma_commit();
   wgmma_wait<1>();                       // the previous step's products
 #pragma unroll
@@ -247,10 +299,10 @@ __device__ __forceinline__ void mma_step(float (&acc)[2][32],
 // One tile's contraction stages [0, nk) for a consumer warpgroup, 8 k16
 // steps a stage alternating two operand sets, the partial sums `acc` added
 // into the float32 totals `tot` and set to zero every PROMOTE stages, once
-// their products are done (every product accumulates).  No product sits
-// in a branch: the kind (VAL) and width (WIDE) are template arguments,
-// chosen once a tile.
-template <int FOCUS, bool VAL, bool WIDE>
+// their products are done (every product accumulates; SPLIT: acc[1], the
+// smaller, first).  No product sits in a branch: the kind (VAL) and the
+// products (KIND) are template arguments, chosen once a tile.
+template <int FOCUS, bool VAL, int KIND>
 __device__ __forceinline__ void mainloop(float (&acc)[2][32],
                                          float (&tot)[2][32],
                                          uint32_t (&f0)[4], uint32_t (&f1)[4],
@@ -258,36 +310,34 @@ __device__ __forceinline__ void mainloop(float (&acc)[2][32],
                                          uint64_t* empty, int& stage,
                                          unsigned& phase, int nk, int c,
                                          int w, int g, int t) {
-  constexpr int NJ = WIDE ? 2 : 1;
+  using R = Ring<KIND == SPLIT ? 3 : 1>;
+  constexpr int NA = KIND == ONE ? 1 : 2;    // partial sum sets
+  constexpr int NT = KIND == TWO ? 2 : 1;    // total sets
 #pragma unroll
-  for (int j = 0; j < NJ; ++j)
+  for (int j = 0; j < NA; ++j)
 #pragma unroll
-    for (int e = 0; e < 32; ++e) tot[j][e] = acc[j][e] = 0.f;
+    for (int e = 0; e < 32; ++e) acc[j][e] = 0.f;
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 32; ++e) tot[j][e] = 0.f;
   for (int k0 = 0; k0 < nk; k0 += PROMOTE) {
     const int k1 = min(nk, k0 + PROMOTE);
     uint64_t* pend = nullptr;            // the stage to release
     for (int kt = k0; kt < k1; ++kt) {
       mbar_wait(&full[stage], phase);
-      const unsigned char* st = smem + stage * STAGE_BYTES;
+      const unsigned char* st = smem + stage * R::STAGE_BYTES;
       const uint64_t db = desc_sw128(st + A_BYTES);
-      mma_step<FOCUS, VAL, WIDE, 0>(acc, f0, f1, st, db, c, w, g, t,
-                                    pend);
-      mma_step<FOCUS, VAL, WIDE, 1>(acc, f1, f0, st, db, c, w, g, t,
-                                    pend);
-      mma_step<FOCUS, VAL, WIDE, 2>(acc, f0, f1, st, db, c, w, g, t,
-                                    pend);
-      mma_step<FOCUS, VAL, WIDE, 3>(acc, f1, f0, st, db, c, w, g, t,
-                                    pend);
-      mma_step<FOCUS, VAL, WIDE, 4>(acc, f0, f1, st, db, c, w, g, t,
-                                    pend);
-      mma_step<FOCUS, VAL, WIDE, 5>(acc, f1, f0, st, db, c, w, g, t,
-                                    pend);
-      mma_step<FOCUS, VAL, WIDE, 6>(acc, f0, f1, st, db, c, w, g, t,
-                                    pend);
-      mma_step<FOCUS, VAL, WIDE, 7>(acc, f1, f0, st, db, c, w, g, t,
-                                    pend);
+      mma_step<FOCUS, VAL, KIND, 0>(acc, f0, f1, st, db, c, w, g, t, pend);
+      mma_step<FOCUS, VAL, KIND, 1>(acc, f1, f0, st, db, c, w, g, t, pend);
+      mma_step<FOCUS, VAL, KIND, 2>(acc, f0, f1, st, db, c, w, g, t, pend);
+      mma_step<FOCUS, VAL, KIND, 3>(acc, f1, f0, st, db, c, w, g, t, pend);
+      mma_step<FOCUS, VAL, KIND, 4>(acc, f0, f1, st, db, c, w, g, t, pend);
+      mma_step<FOCUS, VAL, KIND, 5>(acc, f1, f0, st, db, c, w, g, t, pend);
+      mma_step<FOCUS, VAL, KIND, 6>(acc, f0, f1, st, db, c, w, g, t, pend);
+      mma_step<FOCUS, VAL, KIND, 7>(acc, f1, f0, st, db, c, w, g, t, pend);
       pend = &empty[stage];
-      if (++stage == STAGES) {
+      if (++stage == R::STAGES) {
         stage = 0;
         phase ^= 1;
       }
@@ -295,13 +345,18 @@ __device__ __forceinline__ void mainloop(float (&acc)[2][32],
     wgmma_wait<0>();
     release(pend);
 #pragma unroll
-    for (int j = 0; j < NJ; ++j)
+    for (int e = 0; e < 32; ++e) {
 #pragma unroll
-      for (int e = 0; e < 32; ++e) {
-        fence_operand(acc[j][e]);
-        tot[j][e] += acc[j][e];
-        acc[j][e] = 0.f;
+      for (int j = 0; j < NA; ++j) fence_operand(acc[j][e]);
+      if constexpr (KIND == SPLIT) {
+        tot[0][e] += acc[1][e] + acc[0][e];
+      } else {
+#pragma unroll
+        for (int j = 0; j < NT; ++j) tot[j][e] += acc[j][e];
       }
+#pragma unroll
+      for (int j = 0; j < NA; ++j) acc[j][e] = 0.f;
+    }
   }
 }
 
@@ -320,10 +375,10 @@ __device__ __forceinline__ int swn(int m) {
   return FOCUS == 0 ? m & 7 : (m >> 1) & 7;
 }
 
-// A consumer's 64 focus rows x (nj chunks) of totals, one chunk at a time
-// through its staging tile: flip_out as coalesced rows along n_focus, the
-// natural layout as 16-byte stores along C + K, streaming stores.
-template <int FOCUS, bool NAT>
+// A consumer's 64 focus rows x (nj <= NJ chunks) of totals, one chunk at a
+// time through its staging tile: flip_out as coalesced rows along n_focus,
+// the natural layout as 16-byte stores along C + K, streaming stores.
+template <int FOCUS, bool NAT, int NJ>
 __device__ __forceinline__ void epilogue(const Args& a, float (&tot)[2][32],
                                          float* stg, int c, int cg0, int nj,
                                          long long m0, int w, int lane) {
@@ -332,7 +387,7 @@ __device__ __forceinline__ void epilogue(const Args& a, float (&tot)[2][32],
   const int rows = static_cast<int>(
       max(0LL, min(64LL, a.nf - mc)));
 #pragma unroll
-  for (int j = 0; j < 2; ++j) {
+  for (int j = 0; j < NJ; ++j) {
     if (j >= nj) continue;
     named_barrier(1 + c, 128);           // the staging tile is free
 #pragma unroll
@@ -404,22 +459,25 @@ __device__ __forceinline__ void epilogue(const Args& a, float (&tot)[2][32],
   }
 }
 
-template <int FOCUS, bool NAT>
-__global__ void __launch_bounds__(NTHREADS, 1)
-fused_pair_bf16_kernel(__grid_constant__ const CUtensorMap v8map,
-                       __grid_constant__ const CUtensorMap yzmap,
-                       const Args a) {
+// The kernel body for a table of NP pieces (Ring<NP>).  yzmap reads YZT
+// [C + K, n_contract] bfloat16 as a byte matrix (NP = 1) or the pieces
+// [3, C + K, n_contract] as three (NP = 3).
+template <int FOCUS, bool NAT, int NP>
+__device__ __forceinline__ void ring_body(const CUtensorMap* v8map,
+                                          const CUtensorMap* yzmap,
+                                          const Args& a) {
+  using R = Ring<NP>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
   uint64_t* full = reinterpret_cast<uint64_t*>(
-      smem + STAGES * STAGE_BYTES + 2 * STAGING);
-  uint64_t* empty = full + STAGES;
+      smem + R::STAGES * R::STAGE_BYTES + 2 * STAGING);
+  uint64_t* empty = full + R::STAGES;
   // the warp index, read through a shuffle so the compiler knows it is
   // warp-uniform: the tensor-core products sit in branches on it
   const int tid = threadIdx.x, warp = __shfl_sync(0xffffffffu, tid >> 5, 0);
   if (tid == 0) {
-    for (int s = 0; s < STAGES; ++s) {
+    for (int s = 0; s < R::STAGES; ++s) {
       mbar_init(&full[s], 1);
       mbar_init(&empty[s], 256);         // one arrival per consumer thread
     }
@@ -436,35 +494,44 @@ fused_pair_bf16_kernel(__grid_constant__ const CUtensorMap v8map,
       int ft, p, first, count;
       bool val;
       tile_of<FOCUS>(a, u, ft, p);
-      chunk_pair(a, p, first, count, val);
+      tile_chunks<R::PER>(a, p, first, count, val);
       // the tile's YZT boxes, worked out once: chunk j reads YZT rows
       // row[j].. (a mask chunk v.., a value chunk C + (v - ckp)..), or
       // nothing (-1); the stage loop only issues loads
-      int row[2];
+      int row[R::PER];
 #pragma unroll
-      for (int j = 0; j < 2; ++j) {
+      for (int j = 0; j < R::PER; ++j) {
         const int v = (first + j) * CH;
         row[j] = j >= count ? -1 : v < a.ckp ? v : a.C + (v - a.ckp);
       }
-      const unsigned bytes = A_BYTES + 2 * count * B_BYTES;
+      const unsigned bytes = A_BYTES + 2 * count * NP * B_BYTES;
       const int m0 = ft * BM;
       for (int kt = 0; kt < a.nk; ++kt) {
         mbar_wait(&empty[stage], phase ^ 1);
-        unsigned char* st = smem + stage * STAGE_BYTES;
+        unsigned char* st = smem + stage * R::STAGE_BYTES;
         mbar_expect_tx(&full[stage], bytes);
         const int k0 = kt * BK;
-        if (FOCUS == 0) tma_load_2d(st, &v8map, k0, m0, &full[stage]);
-        else tma_load_2d(st, &v8map, m0, k0, &full[stage]);
-        // half h of the stage (elements k0 + 64h ..) of chunk j at box
-        // 2h + j: a half's two chunks are one 128-row operand
+        if (FOCUS == 0) tma_load_2d(st, v8map, k0, m0, &full[stage]);
+        else tma_load_2d(st, v8map, m0, k0, &full[stage]);
+        // half h of the stage (elements k0 + 64h ..): a bfloat16 table's
+        // chunk j at box 2h + j (a half's two chunks are one 128-row
+        // operand); a float32 table's pieces at boxes 3h .. 3h + 2, one
+        // 3-D box
 #pragma unroll
-        for (int h = 0; h < 2; ++h)
+        for (int h = 0; h < 2; ++h) {
+          unsigned char* dst = st + A_BYTES + h * R::NB * B_BYTES;
+          if constexpr (NP == 1) {
 #pragma unroll
-          for (int j = 0; j < 2; ++j)
-            if (row[j] >= 0)
-              tma_load_2d(st + A_BYTES + (2 * h + j) * B_BYTES, &yzmap,
-                          2 * (k0 + 64 * h), row[j], &full[stage]);
-        if (++stage == STAGES) {
+            for (int j = 0; j < 2; ++j)
+              if (row[j] >= 0)
+                tma_load_2d(dst + j * B_BYTES, yzmap, 2 * (k0 + 64 * h),
+                            row[j], &full[stage]);
+          } else {
+            tma_load_3d(dst, yzmap, 2 * (k0 + 64 * h), row[0], 0,
+                        &full[stage]);
+          }
+        }
+        if (++stage == R::STAGES) {
           stage = 0;
           phase ^= 1;
         }
@@ -477,7 +544,7 @@ fused_pair_bf16_kernel(__grid_constant__ const CUtensorMap v8map,
   setmaxnreg_inc<232>();
   const int c = warp >> 2, w = warp & 3, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
-  float* stg = reinterpret_cast<float*>(smem + STAGES * STAGE_BYTES +
+  float* stg = reinterpret_cast<float*>(smem + R::STAGES * R::STAGE_BYTES +
                                         c * STAGING);
   float acc[2][32], tot[2][32];          // partial sums, totals
   uint32_t f0[4] = {}, f1[4] = {};       // operands of alternate steps
@@ -487,33 +554,67 @@ fused_pair_bf16_kernel(__grid_constant__ const CUtensorMap v8map,
     int ft, p, cg0, nj;
     bool val;
     tile_of<FOCUS>(a, u, ft, p);
-    chunk_pair(a, p, cg0, nj, val);
-    if (nj == 2) {
-      if (val)
-        mainloop<FOCUS, true, true>(acc, tot, f0, f1, smem, full, empty,
-                                    stage, phase, a.nk, c, w, g, t);
-      else
-        mainloop<FOCUS, false, true>(acc, tot, f0, f1, smem, full, empty,
+    tile_chunks<R::PER>(a, p, cg0, nj, val);
+    const long long m0 = static_cast<long long>(ft) * BM;
+    if constexpr (NP == 1) {
+      if (nj == 2) {
+        if (val)
+          mainloop<FOCUS, true, TWO>(acc, tot, f0, f1, smem, full, empty,
                                      stage, phase, a.nk, c, w, g, t);
+        else
+          mainloop<FOCUS, false, TWO>(acc, tot, f0, f1, smem, full, empty,
+                                      stage, phase, a.nk, c, w, g, t);
+      } else {
+        if (val)
+          mainloop<FOCUS, true, ONE>(acc, tot, f0, f1, smem, full, empty,
+                                     stage, phase, a.nk, c, w, g, t);
+        else
+          mainloop<FOCUS, false, ONE>(acc, tot, f0, f1, smem, full, empty,
+                                      stage, phase, a.nk, c, w, g, t);
+      }
+      epilogue<FOCUS, NAT, 2>(a, tot, stg, c, cg0, nj, m0, w, lane);
     } else {
       if (val)
-        mainloop<FOCUS, true, false>(acc, tot, f0, f1, smem, full, empty,
+        mainloop<FOCUS, true, SPLIT>(acc, tot, f0, f1, smem, full, empty,
                                      stage, phase, a.nk, c, w, g, t);
       else
-        mainloop<FOCUS, false, false>(acc, tot, f0, f1, smem, full, empty,
+        mainloop<FOCUS, false, SPLIT>(acc, tot, f0, f1, smem, full, empty,
                                       stage, phase, a.nk, c, w, g, t);
+      epilogue<FOCUS, NAT, 1>(a, tot, stg, c, cg0, 1, m0, w, lane);
     }
-    epilogue<FOCUS, NAT>(a, tot, stg, c, cg0, nj,
-                         static_cast<long long>(ft) * BM, w, lane);
   }
 }
 
+// a bfloat16 table
 template <int FOCUS, bool NAT>
+__global__ void __launch_bounds__(NTHREADS, 1)
+fused_pair_bf16_kernel(__grid_constant__ const CUtensorMap v8map,
+                       __grid_constant__ const CUtensorMap yzmap,
+                       const Args a) {
+  ring_body<FOCUS, NAT, 1>(&v8map, &yzmap, a);
+}
+
+// a float32 table as its three bfloat16 pieces
+template <int FOCUS, bool NAT>
+__global__ void __launch_bounds__(NTHREADS, 1)
+fused_pair_f32x3_kernel(__grid_constant__ const CUtensorMap v8map,
+                        __grid_constant__ const CUtensorMap yzmap,
+                        const Args a) {
+  ring_body<FOCUS, NAT, 3>(&v8map, &yzmap, a);
+}
+
+// NP = 1: yzt is the bfloat16 table [C + K, n_contract]; NP = 3: the
+// float32 table's pieces [3, C + K, n_contract] bfloat16 (split_f32_kernel)
+template <int FOCUS, bool NAT, int NP>
 int launch(const void* v8, long long n0, long long n1, const void* yzt,
            int C, int K, long long nf, void* pm, void* bv, void* stream) {
-  auto kern = fused_pair_bf16_kernel<FOCUS, NAT>;
+  using R = Ring<NP>;
+  const auto kern = [] {
+    if constexpr (NP == 1) return fused_pair_bf16_kernel<FOCUS, NAT>;
+    else return fused_pair_f32x3_kernel<FOCUS, NAT>;
+  }();
   cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, R::SMEM);
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long n_focus = FOCUS == 0 ? n0 : n1;
   const long long n_contract = FOCUS == 0 ? n1 : n0;
@@ -531,12 +632,14 @@ int launch(const void* v8, long long n0, long long n1, const void* yzt,
   a.bv = static_cast<float*>(bv);
   CUtensorMap v8map, yzmap;
   if (!map_bytes_2d(&v8map, v8, n0, n1, 128) ||
-      !map_bytes_2d(&yzmap, yzt, a.ck, 2 * n_contract, CH))
+      !(NP == 1 ? map_bytes_2d(&yzmap, yzt, a.ck, 2 * n_contract, CH)
+                : map_bytes_3d(&yzmap, yzt, NP, a.ck, 2 * n_contract, CH,
+                               NP)))
     return static_cast<int>(cudaErrorInvalidValue);
   a.ckp = (a.ck + CH - 1) / CH * CH;
   a.nmask = a.ckp / CH;
-  a.mp = (a.nmask + 1) / 2;
-  a.np = a.mp + ((a.K + CH - 1) / CH + 1) / 2;
+  a.mp = (a.nmask + R::PER - 1) / R::PER;
+  a.np = a.mp + ((a.K + CH - 1) / CH + R::PER - 1) / R::PER;
   a.n_ft = static_cast<int>((nf + BM - 1) / BM);
   a.nk = static_cast<int>((n_contract + BK - 1) / BK);
   int dev = 0, sms = 0;
@@ -546,14 +649,46 @@ int launch(const void* v8, long long n0, long long n1, const void* yzt,
     return static_cast<int>(err);
   a.tiles = static_cast<long long>(a.n_ft) * a.np;
   const long long grid = std::min<long long>(sms, a.tiles);
-  kern<<<static_cast<unsigned>(grid), NTHREADS, SMEM,
+  kern<<<static_cast<unsigned>(grid), NTHREADS, R::SMEM,
          static_cast<cudaStream_t>(stream)>>>(v8map, yzmap, a);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace ring
 
-// ---- float32 / float64 operands: tiled FMA --------------------------------
+// ---- a float32 table's three bfloat16 pieces ------------------------------
+
+// t = h + m + l exactly (|t| >= 2^-110): h is t with its low 16 bits
+// cleared, m the same of r = t - h (exact), l = r - m (exact, at most 8
+// significant bits); each piece's bfloat16 is its high 16 bits.  Four
+// elements a thread: one 16-byte load, one 8-byte store a piece.
+__global__ void __launch_bounds__(256)
+split_f32_kernel(const float4* __restrict__ src, long long n4,
+                 uint2* __restrict__ dst) {
+  for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) +
+                     threadIdx.x;
+       i < n4; i += static_cast<long long>(gridDim.x) * blockDim.x) {
+    const float4 v = src[i];
+    const float x[4] = {v.x, v.y, v.z, v.w};
+    uint32_t q[3][4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const uint32_t h = __float_as_uint(x[j]) & 0xFFFF0000u;
+      const float r = x[j] - __uint_as_float(h);
+      const uint32_t m = __float_as_uint(r) & 0xFFFF0000u;
+      const float l = r - __uint_as_float(m);
+      q[0][j] = h >> 16;
+      q[1][j] = m >> 16;
+      q[2][j] = __float_as_uint(l) >> 16;
+    }
+#pragma unroll
+    for (int p = 0; p < 3; ++p)
+      dst[p * n4 + i] = make_uint2(q[p][0] | (q[p][1] << 16),
+                                   q[p][2] | (q[p][3] << 16));
+  }
+}
+
+// ---- float64 operands: tiled FMA ------------------------------------------
 
 using fused_pair::src_row;
 
@@ -666,12 +801,6 @@ int grid_for(const Args& a, int focus, int tile, dim3* grid) {
   return 0;
 }
 
-template <int FOCUS, bool NAT>
-int launch_bf16(const Args& a, void* stream) {
-  return ring::launch<FOCUS, NAT>(a.v8, a.n0, a.n1, a.yzt, a.C, a.K, a.nf,
-                                  a.pm, a.bv, stream);
-}
-
 template <typename T, int FOCUS, bool NAT>
 int launch_fma(Args a, void* stream) {
   a.ckp = (a.C + a.K + FT - 1) / FT * FT;
@@ -685,19 +814,26 @@ int launch_fma(Args a, void* stream) {
 
 template <int FOCUS, bool NAT>
 int launch_any(const Args& a, int dtype, void* stream) {
-  if (dtype == 0) return launch_bf16<FOCUS, NAT>(a, stream);
-  if (dtype == 1) return launch_fma<float, FOCUS, NAT>(a, stream);
+  if (dtype == 0)
+    return ring::launch<FOCUS, NAT, 1>(a.v8, a.n0, a.n1, a.yzt, a.C, a.K,
+                                       a.nf, a.pm, a.bv, stream);
+  if (dtype == 1)
+    return ring::launch<FOCUS, NAT, 3>(a.v8, a.n0, a.n1, a.yzt, a.C, a.K,
+                                       a.nf, a.pm, a.bv, stream);
   return launch_fma<double, FOCUS, NAT>(a, stream);
 }
 
 }  // namespace
 
-// Plain C entry point (loaded with ctypes).  v8 is contiguous [n0, n1] int8
-// with n0 and n1 multiples of 16; yzt is contiguous [C + K, n_contract]
-// (n_contract = n1 for focus 0, n0 for focus 1) of bfloat16 (dtype 0),
-// float32 (1) or float64 (2); nf <= the focus extent.  pm and bv are float32
-// (float64 for dtype 2): [C + K, nf] and [K, nf], or with nat = 1 [nf, C + K]
-// and [nf, K].  Returns the launch's CUDA error (0 on success).
+// Plain C entry points (loaded with ctypes).
+//
+// bdf_fused_pair_f: v8 is contiguous [n0, n1] int8 with n0 and n1
+// multiples of 16; yzt is contiguous: the table [C + K, n_contract]
+// (n_contract = n1 for focus 0, n0 for focus 1) in bfloat16 (dtype 0) or
+// float64 (2), or a float32 table's pieces [3, C + K, n_contract] bfloat16
+// (dtype 1, from bdf_split_f32); nf <= the focus extent.  pm and bv are
+// float32 (float64 for dtype 2): [C + K, nf] and [K, nf], or with nat = 1
+// [nf, C + K] and [nf, K].  Returns the launch's CUDA error (0 on success).
 extern "C" int bdf_fused_pair_f(const void* v8, long long n0, long long n1,
                                 int focus, const void* yzt, int dtype, int C,
                                 int K, long long nf, int nat, void* pm,
@@ -721,4 +857,21 @@ extern "C" int bdf_fused_pair_f(const void* v8, long long n0, long long n1,
                : launch_any<0, false>(a, dtype, stream);
   return nat ? launch_any<1, true>(a, dtype, stream)
              : launch_any<1, false>(a, dtype, stream);
+}
+
+// bdf_split_f32: the pieces [3, n] bfloat16 of the float32 array src [n]
+// (n a multiple of 4; both 16-byte aligned).  Returns the launch's CUDA
+// error (0 on success).
+extern "C" int bdf_split_f32(const void* src, long long n, void* dst,
+                             void* stream) {
+  if (n < 0 || n % 4 || reinterpret_cast<uintptr_t>(src) % 16 ||
+      reinterpret_cast<uintptr_t>(dst) % 16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (n == 0) return 0;
+  const long long n4 = n / 4;
+  const long long blocks = std::min<long long>((n4 + 255) / 256, 1 << 16);
+  split_f32_kernel<<<static_cast<unsigned>(blocks), 256, 0,
+                     static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float4*>(src), n4, static_cast<uint2*>(dst));
+  return static_cast<int>(cudaGetLastError());
 }

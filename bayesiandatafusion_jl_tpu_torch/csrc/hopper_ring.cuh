@@ -1,7 +1,7 @@
 // Hopper building blocks for a TMA-fed shared-memory ring (sm_90a): the
 // tensor-map encoder reached through the runtime (the kernel library links
-// no -lcuda), mbarriers, 2-D TMA loads, named barriers and the int8 and
-// bfloat16 wgmma with a register A operand.
+// no -lcuda), mbarriers, 2-D and 3-D TMA loads, named barriers and the
+// int8 and bfloat16 wgmma with a register A operand.
 #pragma once
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -48,6 +48,27 @@ inline bool map_bytes_2d(CUtensorMap* map, const void* base,
   const cuuint32_t box[2] = {128, box_rows};
   const cuuint32_t elem[2] = {1, 1};
   return enc(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(base),
+             dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// `depth` such matrices one after another, [depth, rows, cols] (each
+// `cols` a multiple of 16), read in boxes of box_depth x box_rows x 128
+// bytes: one box lands as box_depth [box_rows][128] tiles, back to back;
+// whatever it reads outside a matrix (rows past `rows`) arrives as zeros.
+inline bool map_bytes_3d(CUtensorMap* map, const void* base,
+                         unsigned long long depth, unsigned long long rows,
+                         unsigned long long cols, unsigned box_rows,
+                         unsigned box_depth) {
+  EncodeTiled enc = encode_tiled();
+  if (enc == nullptr || reinterpret_cast<uintptr_t>(base) % 16 || cols % 16)
+    return false;
+  const cuuint64_t dims[3] = {cols, rows, depth};
+  const cuuint64_t strides[2] = {cols, cols * rows};
+  const cuuint32_t box[3] = {128, box_rows, box_depth};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 3, const_cast<void*>(base),
              dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
              CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
@@ -116,6 +137,18 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
       "::bytes [%0], [%1, {%3, %4}], [%2];\n"
       :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
          "r"(smem_u32(bar)), "r"(x), "r"(y)
+      : "memory");
+}
+
+// ... and of a 3-D tensor map at (inner byte x, row y, matrix z)
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            int x, int y, int z,
+                                            uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+         "r"(smem_u32(bar)), "r"(x), "r"(y), "r"(z)
       : "memory");
 }
 

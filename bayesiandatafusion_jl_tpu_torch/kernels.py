@@ -118,6 +118,8 @@ def load() -> ctypes.CDLL:
         lib.bdf_fused_pair_f.restype = i
         lib.bdf_fused_pair_f.argtypes = [p, ll, ll, i, p, i, i, i, ll, i, p,
                                          p, p]
+        lib.bdf_split_f32.restype = i
+        lib.bdf_split_f32.argtypes = [p, ll, p, p]
         lib.bdf_pair_contract_i8.restype = i
         lib.bdf_pair_contract_i8.argtypes = [p, p, ll, ll, i, p, i, i, ll, i,
                                              p, p, p, p, p, p, p]

@@ -99,7 +99,7 @@ def tri_maps(K: int) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
 # them (PERF.md §6).  They only steer the choice between paths that give
 # the same numbers.  The JAX package's are a TPU's: its one matmul rate
 # (``_MXU_FLOPS`` 3e14) stands here for the two pair paths and its fused
-# one (``_BF16_FLOPS`` 1.1e14) for the two fused paths, because on the
+# one (``_BF16_FLOPS`` 1.1e14) for the three fused rates, because on the
 # card each path runs at a rate of its own.  The rates are the ones that
 # make ``estimate_times`` give the kernel's measured time of one mode.
 _GATHER_S_PER_OBS = 1.2e-9    # the gather path's sweep outside the sampler
@@ -108,6 +108,8 @@ _PAIR_I8_OPS = 8.3e14         # K6 on the int8 pair (ML-10M, K = 32)
 _PAIR_FLOAT_FLOPS = 4.2e13    # the float32 pair's torch.matmul (ditto)
 _FUSED_S8_OPS = 7.0e14        # K8a, the fused store's s8 kernel (Netflix)
 _FUSED_FLOAT_FLOPS = 3.9e14   # K8c with a bfloat16 table (Netflix)
+_FUSED_F32_FLOPS = 1.8e14     # K8c with a float32 table, its three
+                              # bfloat16 pieces (Netflix)
 _HBM_BPS = 3.35e12            # the card's memory rate (data sheet)
 # below this many observations a relation stays on the gather path unless
 # a flag forces a dense one (the JAX package's floor, kept so that small
@@ -237,7 +239,8 @@ def plan_fused_rels(shapes: Sequence[Tuple[int, ...]], nnzs: Sequence[int],
     one from ``_AUTO_MIN_NNZ`` observations whose pair (at
     ``pair_itemsize``) does not fit ``budget_bytes`` and whose dense
     contraction is predicted below 0.7 x the gather path's in both modes
-    (K8a's rate where the pair would be int8, K8c's otherwise); False, or
+    (K8a's rate where the pair would be int8, K8c's with a float32 table
+    where it would be float32, K8c's bfloat16 one otherwise); False, or
     ``dense_gram=False``, takes none.  Each store (one byte a cell) must
     fit what is left of the budget, else a line on stderr.  The
     encoding and the itemsize are read only where the rule needs them, so
@@ -258,7 +261,8 @@ def plan_fused_rels(shapes: Sequence[Tuple[int, ...]], nnzs: Sequence[int],
             its = pair_itemsize[ri]
             if 2.0 * total * its <= budget_bytes:
                 continue                # the pair fits: it is the faster
-            rate = _FUSED_S8_OPS if its == 1 else _FUSED_FLOAT_FLOPS
+            rate = (_FUSED_S8_OPS if its == 1 else _FUSED_F32_FLOPS
+                    if its == 4 else _FUSED_FLOAT_FLOPS)
             if not all(d < 0.7 * g for d, g in (
                     estimate_times(int(shape[m]), int(shape[1 - m]), nnz, K,
                                    1, mxu_rate=rate) for m in range(2))):

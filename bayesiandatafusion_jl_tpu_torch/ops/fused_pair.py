@@ -34,7 +34,13 @@ bit in every epilogue.
 A float table (bfloat16, float32 or float64) casts the 0/1 mask and the
 codes to its type (codes up to 127 are exact in bfloat16) and accumulates
 in float32 (float64 for a float64 table); kernel and plain version differ
-by the order of the sums.
+by the order of the sums.  On the card a bfloat16 table runs on the
+tensor cores (``wgmma``); a float32 table too, as its three exact bfloat16
+pieces (``split_f32``: t = h + m + l, 8 significant bits each), every
+product exact in float32, three times the bfloat16 table's tensor work;
+a float64 table runs on the float64 FMA units (the parity seam: float64
+sums, on no planned configuration).  The plain version takes the float32
+table itself.
 """
 from __future__ import annotations
 
@@ -139,7 +145,50 @@ def fused_pair_plain(V8: torch.Tensor, YZT: torch.Tensor, focus_axis: int,
 
 fused_pair_plain.calls = 0
 
-# the kernel's code for each float table dtype (csrc/fused_pair_f.cu)
+def split_f32_plain(T: torch.Tensor) -> torch.Tensor:
+    """The three bfloat16 pieces [3, *T.shape] of the float32 ``T``, with
+    h + m + l == T exactly wherever |T| >= 2^-110 (or T is 0): h is T with
+    its low 16 bits cleared, m the same of T - h, l = T - h - m; each
+    piece's bfloat16 is its high 16 bits (the kernel's arithmetic, so the
+    two agree bit for bit)."""
+    def high(x):
+        return (x.view(torch.int32) & -65536).view(torch.float32)
+    h = high(T)
+    r = T - h
+    m = high(r)
+    return torch.stack([h, m, high(r - m)]).to(torch.bfloat16)
+
+
+def split_f32(T: torch.Tensor) -> torch.Tensor:
+    """``split_f32_plain`` of a contiguous float32 ``T``, whose element
+    count is a multiple of 4 on the kernel path: the plain version on the
+    CPU, the kernel (``csrc/fused_pair_f.cu`` ``split_f32_kernel``) on the
+    current stream on CUDA, or raise.  ``split_f32.launches`` counts its
+    launches."""
+    if T.device.type == "cpu":
+        return split_f32_plain(T)
+    if T.device.type != "cuda":
+        raise RuntimeError(f"no kernel for device {T.device}")
+    if (T.dtype != torch.float32 or not T.is_contiguous()
+            or T.numel() % 4):
+        raise ValueError(f"split_f32 takes a contiguous float32 tensor of "
+                         f"4k elements, got {T.dtype} {tuple(T.shape)}")
+    out = torch.empty((3, *T.shape), dtype=torch.bfloat16, device=T.device)
+    lib = kernels.load()
+    with torch.cuda.device(T.device):
+        rc = lib.bdf_split_f32(T.data_ptr(), T.numel(), out.data_ptr(),
+                               torch.cuda.current_stream(T.device)
+                               .cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"split_f32 launch failed: CUDA error {rc}")
+    split_f32.launches += 1
+    return out
+
+
+split_f32.launches = 0
+
+# the kernel's code for each float table dtype (csrc/fused_pair_f.cu): a
+# float32 table goes in as its pieces (split_f32)
 _F_DTYPE = {torch.bfloat16: 0, torch.float32: 1, torch.float64: 2}
 
 
@@ -153,10 +202,14 @@ def fused_pair_contract(V8: torch.Tensor, YZT: torch.Tensor,
     n_contract = V8's other extent; outputs as ``fused_pair_plain``.
 
     CPU tensors run the plain version; CUDA tensors launch the kernel on
-    the current stream or raise — there is no fallback.
+    the current stream or raise — there is no fallback.  A float32 table
+    is split into its bfloat16 pieces first (``split_f32``, counted
+    there).
     ``fused_pair_contract.launches`` counts all launches, and
     ``launches_i8_flip`` (K8a), ``launches_i8_nat`` (K8b), ``launches_f_flip``
-    (K8c) and ``launches_f_nat`` (K8d) each variant's."""
+    (K8c) and ``launches_f_nat`` (K8d) each variant's; of the last two,
+    ``launches_f32_flip`` and ``launches_f32_nat`` those on a float32
+    table."""
     if V8.device.type == "cpu":
         return fused_pair_plain(V8, YZT, focus_axis, K, n_focus, dq,
                                 flip_out=flip_out)
@@ -194,13 +247,17 @@ def fused_pair_contract(V8: torch.Tensor, YZT: torch.Tensor,
     stream = torch.cuda.current_stream(dev).cuda_stream
     if not int8:
         outs = (out(CK), out(K))
+        table = split_f32(YZT) if YZT.dtype == torch.float32 else YZT
         with torch.cuda.device(dev):
             rc = lib.bdf_fused_pair_f(V8.data_ptr(), n0, n1, focus_axis,
-                                      YZT.data_ptr(), _F_DTYPE[YZT.dtype], C,
-                                      K, n_focus, int(not flip_out),
+                                      table.data_ptr(), _F_DTYPE[YZT.dtype],
+                                      C, K, n_focus, int(not flip_out),
                                       outs[0].data_ptr(), outs[1].data_ptr(),
                                       stream)
         variant = "launches_f_flip" if flip_out else "launches_f_nat"
+        if table is not YZT:
+            fused_pair_contract.launches_f32_flip += flip_out
+            fused_pair_contract.launches_f32_nat += not flip_out
     else:
         if dq is None:
             outs = (out(CK), out(K))
@@ -232,3 +289,5 @@ fused_pair_contract.launches_i8_flip = 0
 fused_pair_contract.launches_i8_nat = 0
 fused_pair_contract.launches_f_flip = 0
 fused_pair_contract.launches_f_nat = 0
+fused_pair_contract.launches_f32_flip = 0
+fused_pair_contract.launches_f32_nat = 0

@@ -10,8 +10,8 @@ Phases, each fatal on failure (nonzero exit, no result line):
 2. build: ``nvcc`` compiles the port's kernels for sm_90a from ``csrc/``,
    and ptxas serializes no ``wgmma`` (no C75xx line in its log); the
    sampler kernels' build lines (K1-K5: registers, spills), failing on any
-   spill in float32 or float64, and K7's (both passes), failing on any
-   spill; then the native host builder (``native/layout.cpp``: the gather
+   spill in float32 or float64, and K7's (both passes), K8c/K8d's float32
+   ring's and its split's, failing on any spill; then the native host builder (``native/layout.cpp``: the gather
    path's bucketed layouts, the SBM1 files) by the host C++ compiler;
 3. kernels vs plain: each sampler kernel against its plain torch version
    on random SPD problems at the main paths' shapes, float32 and float64,
@@ -28,8 +28,10 @@ Phases, each fatal on failure (nonzero exit, no result line):
    128), ragged, and on adversarial factors (quotients on half-integers,
    an ulp or two either side, at the +-127 clip edge, scales from FLT_MIN
    up), K8 on small ragged stores; K8c and K8d (float operands: bfloat16
-   on the tensor cores, float32 and float64 by FMA; flip_out and natural layout) within
-   FLOAT_TOL of the largest sum; K6 (the int8 pair contraction, both focus
+   on the tensor cores, float32 as its three bfloat16 pieces on the same
+   ring, float64 by FMA; flip_out and natural layout) within FLOAT_TOL of
+   the largest sum; the float32 table's split into its pieces bit for bit
+   against its plain version; K6 (the int8 pair contraction, both focus
    modes from one stored pair, raw int32 and the dequant epilogue) bit for
    bit against its plain version on small ragged stores, K = 4, 8, 15, 16,
    32, 33 and 160; the samplers and K7 also at the graph paths' shapes (K1 at
@@ -124,12 +126,14 @@ Phases, each fatal on failure (nonzero exit, no result line):
      blocked sampler on K5; a 20-sweep window); and off
      the s8 path
      (``dense_int8=False``): a bfloat16 table at K = 64 (K8c, K2) and
-     K = 128 (K8d, K5), a float32 table at K = 32 (K8c's FMA variant);
-     each variant (K8b, K8c, K8d) held against its plain version at the
-     path's store and timed beside the library's products on a
-     materialized mask and codes, both modes (mode 1 on transposed
-     copies); each timed bfloat16 line is followed by its kernel's build
-     lines (registers, spills, any C75xx note of a serialized wgmma);
+     K = 128 (K8d, K5), a float32 table at K = 32 (K8c on its three
+     bfloat16 pieces and their split); each variant (K8b, K8c, K8d) held
+     against its plain version at the path's store and timed beside the
+     library's products on a materialized mask and codes, both modes
+     (mode 1 on transposed copies), and at K = 128 K8d with a float32
+     table too; each timed bfloat16 or float32 line is followed by its
+     ring kernel's build lines (registers, spills, any C75xx note of a
+     serialized wgmma);
 6. the Netflix fused paths at full width: the JAX bench's Netflix-shaped
    ratings (480,189 x 17,770, 100,480,507 stars 1..5, seed 9), K = 32,
    one stored 8.5 GB int8 array, the JAX bench's protocol (8 sweeps a
@@ -149,6 +153,13 @@ Phases, each fatal on failure (nonzero exit, no result line):
      sweep; K8c against its plain version at this shape in both modes,
      and the library's bfloat16 ``torch.matmul`` on the materialized mask,
      both modes;
+   - ``netflix_f32``: the defaults (float32, ``dense_int8=False``, no
+     ``gram_dtype``, the planner deciding): the plan must take the fused
+     store with a float32 table; K8c on its three pieces and their split
+     twice a sweep; K8c against its plain version at this shape in both
+     modes, the split at mode 1's table (268.9M elements) bit for bit and
+     timed; the planner's float32 rate from this run's K8c times, under
+     which the defaults must still plan the fused store;
    - ``netflix_cont``: the stars jittered by +-0.45, no exact grid: the
      planner's uniform grid within ``dense_fused_tol=0.0125``, on the s8
      path (bench.py's options as written, as for ``netflix_dup``: the
@@ -218,7 +229,8 @@ Phases, each fatal on failure (nonzero exit, no result line):
 9. the planner's constants (``ops/dense_gram.py``) as this run measured
    them, beside the module's: the gather path's seconds per observation
    and mode, and the rates that reproduce K6's, the float pair's, K8a's
-   and K8c's times through ``estimate_times``' model; and
+   and K8c's (a bfloat16 and a float32 table) times through
+   ``estimate_times``' model; and
    ``use_dense_feat``'s two, from the passes of a dense X and a bucketed
    matvec of ChEMBL's features (the paths use the one the rule picks).
 
@@ -263,15 +275,17 @@ BENCH_WIDTHS = (8, 12, 16, 20, 24, 28, 32, 40, 48, 56, 64, 80, 96, 112, 128,
                 160, 192, 224, 256, 320, 384, 512, 768, 1024, 2048)
 KERNEL_ERR_FACTOR = 10.0     # kernel error <= 10x the f32 plain version's
 F64_KERNEL_TOL = 1e-9        # float64 kernel vs float64 plain version
-# the sampler kernels K1-K5 and K7's two passes (a piece of their mangled
-# names): their builds must not spill
+# the sampler kernels K1-K5, K7's two passes, K8c/K8d's float32 ring and
+# its split (a piece of their mangled names): their builds must not spill
 SAMPLER_KERNELS = (("K1", "chol_sample_packed_kernel"),
                    ("K2", "chol_sample_packed_slab_kernel"),
                    ("K3", "chol_sample_full_kernel"),
                    ("K4", "chol_sample_full_slab_kernel"),
                    ("K5", "chol_inv_kernel"),
                    ("K7 colmax", "ytab_colmax_kernel"),
-                   ("K7 quant", "ytab_quant_kernel"))
+                   ("K7 quant", "ytab_quant_kernel"),
+                   ("K8c/K8d float32", "fused_pair_f32x3_kernel"),
+                   ("split", "split_f32_kernel"))
 # K5's float64 W against the float64 plain version: both are exact to a
 # few ulps of W (|W| ~ 1 on these problems)
 K5_F64_TOL = 1e-12
@@ -302,8 +316,9 @@ FUSED_ML_PATHS = (32, 64)
 # ML-10M through the rest of the fused path, one timed window each: (K,
 # sweeps a window, options).  K = 128 takes the natural-layout kernels and
 # the full-P branch; dense_int8=False the float kernels, with a bfloat16
-# table or (gram_dtype None) a float32 one, the FMA variant.  K = 128 has
-# no JAX anchor: its rmse_sample is held to this run's int8 pair at K = 128.
+# table or (gram_dtype None) a float32 one, its three bfloat16 pieces.
+# K = 128 has no JAX anchor: its rmse_sample is held to this run's int8
+# pair at K = 128.
 # the int8 pair's peak device memory on these paths with the pair stored
 # in two orientations (PERF.md, PR 2: NVIDIA H100 80GB HBM3, 700 W); one
 # orientation must come in below it
@@ -923,7 +938,7 @@ def spills(lines):
 
 
 def check_sampler_builds():
-    """The sampler kernels' and K7's ptxas lines; fails on any spill."""
+    """The ptxas lines of SAMPLER_KERNELS; fails on any spill."""
     for tag, name in SAMPLER_KERNELS:
         print(f"# {tag} build ({name}):", flush=True)
         lines = print_ptxas(name)
@@ -932,6 +947,8 @@ def check_sampler_builds():
 
 
 BF16_FLOP_S = 989e12
+# a float32 table's rate: its three bfloat16 pieces, 3x the tensor work
+F32_PIECES_FLOP_S = BF16_FLOP_S / 3
 # a float variant's sums against the float64 sums of the same (rounded)
 # table: the rounding of the float32 accumulation only (exact products),
 # relative to the largest sum
@@ -992,14 +1009,15 @@ def check_fused_variant(V8, shape, K, focus, table, flip_out, timing=True,
             lambda: fused_pair_plain(V8, YZT, focus, K, nf,
                                      flip_out=flip_out), 2)
         C = K * (K + 1) // 2
-        rate = {"int8": INT8_OP_S, "bfloat16": BF16_FLOP_S}.get(table,
-                                                                F32_FLOP_S)
+        rate = {"int8": INT8_OP_S, "bfloat16": BF16_FLOP_S,
+                "float32": F32_PIECES_FLOP_S}.get(table, F32_FLOP_S)
         nbytes = (V8.numel() + YZT.numel() * YZT.element_size()
                   + 4 * (C + 2 * K) * nf)
         r["bound_ms"], r["bound_by"] = bound_ms(
             nbytes, 2 * count_observed(V8) * (C + 2 * K), rate=rate)
         dense = fused_pair_dense_ops(shape, K)
         r["dense_bound_ms"] = dense / rate * 1e3
+        r["fma_floor_ms"] = dense / F32_FLOP_S * 1e3
         r["tops"] = dense / r["kernel_ms"] * 1e-9
     return r
 
@@ -1017,11 +1035,55 @@ def print_variant_check(label, r):
                  f"TOP/s), plain {r['plain_ms']:.4f} ms, bound "
                  f"{r['bound_ms']:.4f} ms ({r['bound_by']}); the dense-MMA "
                  f"design's floor {r['dense_bound_ms']:.4f} ms")
+        if r["table"] == "float32":
+            line += (f" (three bfloat16 pieces; the float32 FMA units' "
+                     f"floor {r['fma_floor_ms']:.4f} ms)")
     print(line, flush=True)
-    if r["table"] == "bfloat16" and "kernel_ms" in r:
+    ring = {"bfloat16": "bf16", "float32": "f32x3"}.get(r["table"])
+    if ring and "kernel_ms" in r:
         # the build of this mode's and layout's ring kernel
-        print_ptxas(f"fused_pair_bf16_kernelILi{r['focus']}ELb"
+        print_ptxas(f"fused_pair_{ring}_kernelILi{r['focus']}ELb"
                     f"{int(not r['flip_out'])}E")
+
+
+def check_split(rows, n, timing=True, seed=0):
+    """A float32 table's split into its three bfloat16 pieces
+    (``split_f32``, the kernel) bit for bit against its plain version on a
+    random [rows, n] table (both signs, exponents 2^-20 .. 2^20, zeros),
+    the pieces summing to the table exactly; timed beside its bound, 4
+    bytes read and 6 written an element."""
+    import torch
+    from bayesiandatafusion_jl_tpu_torch.ops.fused_pair import (
+        split_f32, split_f32_plain)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    T = torch.randn((rows, n), generator=g, device="cuda") * torch.exp2(
+        torch.randint(-20, 21, (rows, n), generator=g, device="cuda")
+        .float())
+    T[:, ::97] = 0.0
+    kern = split_f32(T)
+    plain = split_f32_plain(T)
+    torch.cuda.synchronize()
+    r = {"shape": (rows, n),
+         "ok": (torch.equal(kern.view(torch.int16), plain.view(torch.int16))
+                and bool((kern[2].double() + kern[1].double()
+                          + kern[0].double() == T.double()).all().item())),
+         "max_abs_err": (kern.double() - plain.double()).abs().max().item()}
+    del kern, plain
+    if timing:
+        r["kernel_ms"] = cuda_ms(lambda: split_f32(T), 10)
+        r["plain_ms"] = cuda_ms(lambda: split_f32_plain(T), 3)
+        r["bound_ms"], r["bound_by"] = bound_ms(10 * T.numel(), 0)
+    return r
+
+
+def print_split_check(label, r):
+    line = (f"# split {label} {r['shape']}: bitwise {r['ok']} (max diff "
+            f"{r['max_abs_err']})")
+    if "kernel_ms" in r:
+        line += (f"; kernel {r['kernel_ms']:.4f} ms, plain "
+                 f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+                 f"({r['bound_by']})")
+    print(line, flush=True)
 
 
 def materialized(V8, focus, dt, rows=16_384):
@@ -1208,7 +1270,10 @@ def counters():
             "K8b": (fused_pair.fused_pair_contract, "launches_i8_nat"),
             "K8c": (fused_pair.fused_pair_contract, "launches_f_flip"),
             "K8d": (fused_pair.fused_pair_contract, "launches_f_nat"),
+            "K8c f32": (fused_pair.fused_pair_contract, "launches_f32_flip"),
+            "K8d f32": (fused_pair.fused_pair_contract, "launches_f32_nat"),
             "K9": (gather_expand.windowed_expand, "launches"),
+            "split_f32": (fused_pair.split_f32, "launches"),
             "plain_packed": (chol_packed.chol_sample_packed_plain, "calls"),
             "plain_full": (chol_full.chol_sample_full_plain, "calls"),
             "plain_inv": (chol_blocked.chol_inv_plain, "calls"),
@@ -1236,9 +1301,13 @@ def graph_kernels(prob, K, blocks=lambda ei: 1):
     96, the packed sampler (K1, K2) where it has a dense contribution, else
     the full-P one (K3, K4), and above K = 96 K5 twice (the blocked
     sampler), each ``blocks(ei)`` times (the sharded engine draws an
-    entity's rows in its exchange blocks: ``sharded_blocks``).  The float
-    pair and the gather path launch no kernel of their own."""
+    entity's rows in its exchange blocks: ``sharded_blocks``).  A fused
+    store's float32 table is split into its pieces once before its K8
+    (counted also as K8c f32 or K8d f32).
+    The float pair and the gather path launch no kernel of their own."""
     from bayesiandatafusion_jl_tpu_torch.ops import ytab
+    cfg = getattr(prob, "config", None)
+    f32 = cfg is not None and (cfg.gram_dtype or cfg.dtype) == "float32"
     want = {}
 
     def add(tag, n=1):
@@ -1257,6 +1326,9 @@ def graph_kernels(prob, K, blocks=lambda ei: 1):
                 if kind == "fused":
                     add(("K8a" if packed else "K8b") if i8 else
                         ("K8c" if packed else "K8d"))
+                    if not i8 and f32:
+                        add("K8c f32" if packed else "K8d f32")
+                        add("split_f32")
                 elif i8:
                     add("K6")
                 if i8 and K <= ytab.K7_MAX_K:
@@ -1489,17 +1561,19 @@ SPLIT = (("sampler", ("chol_sample", "chol_inv")),
 
 
 # ... and of a fused sweep: K8 per focus mode (the demangled or mangled
-# template argument), K7, the packed sampler
+# template argument), a float32 table's split into its pieces, K7, the
+# packed sampler
 FUSED_SPLIT = (("K8 mode 0", ("fused_pair_kernel<0", "fused_pair_kernelILi0",
                               "fused_pair_bf16_kernel<0",
                               "fused_pair_bf16_kernelILi0",
-                              "fused_pair_fma_kernel<float, 0",
-                              "fused_pair_fma_kernelIfLi0")),
+                              "fused_pair_f32x3_kernel<0",
+                              "fused_pair_f32x3_kernelILi0")),
                ("K8 mode 1", ("fused_pair_kernel<1", "fused_pair_kernelILi1",
                               "fused_pair_bf16_kernel<1",
                               "fused_pair_bf16_kernelILi1",
-                              "fused_pair_fma_kernel<float, 1",
-                              "fused_pair_fma_kernelIfLi1")),
+                              "fused_pair_f32x3_kernel<1",
+                              "fused_pair_f32x3_kernelILi1")),
+               ("K8 split", ("split_f32",)),
                ("K7", ("ytab_",)),
                ("K1/K2/K5", ("chol_sample_packed", "chol_inv")),
                # the residual's parts; the gathers are also the float
@@ -3001,6 +3075,10 @@ def main() -> int:
                 require(r["ok"], f"K8 variant disagrees with its plain "
                                  f"version: {r}")
         del V8
+    for rows, n in ((44, 1_040), (1, 4), (560, 17_776)):
+        r = check_split(rows, n, timing=False)
+        print_split_check("small", r)
+        require(r["ok"], f"the split disagrees with its plain version: {r}")
     # K6's column tiles: its mask pairs are odd in number at K = 4, 8, 15,
     # 32, 33 and 160 (one tile mixes the last mask pair with the first
     # value pair; at K = 15 and 160 that mask pair is full, at K = 160 the
@@ -3042,7 +3120,8 @@ def main() -> int:
     print_plan("ML-10M, bench.py:101-162", rd, bench_plan(rd), "pair int8")
     phase_done("ML-10M data")
     launches = dict.fromkeys(("K1", "K2", "K3", "K4", "K5", "K6", "K7",
-                              "K8a", "K8b", "K8c", "K8d", "K9"), 0)
+                              "K8a", "K8b", "K8c", "K8d", "K8c f32", "K8d f32",
+                              "K9", "split_f32"), 0)
 
     def tally(counts):
         for k in launches:
@@ -3197,6 +3276,16 @@ def main() -> int:
                              f"version: {r}")
             ml_checks[(table, K, focus)] = r
             torch.cuda.empty_cache()
+        # beside K8d in bfloat16: K8d with a float32 table (its three
+        # pieces), the natural layout at K = 128, both modes
+        for focus in (0, 1) if (table, K) == ("bfloat16", 128) else ():
+            r = check_fused_variant(st["V8"], st["shape"], K, focus,
+                                    "float32", flip_out=False)
+            print_variant_check("ML-10M", r)
+            require(r["ok"], f"K8d float32 disagrees with its plain "
+                             f"version: {r}")
+            ml_checks[("float32", K, focus)] = r
+            torch.cuda.empty_cache()
         # the library on the materialized mask, both modes
         for focus in (0, 1):
             ml_lib_ms, same = time_mask_library(st["V8"], K, table, focus)
@@ -3298,6 +3387,60 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_done("Netflix float fused path")
 
+    # -- netflix_f32: the defaults (float32, dense_int8=False, gram_dtype
+    # None, the planner deciding) plan the fused store with a float32
+    # table: K8c on its three bfloat16 pieces ------------------------------
+    eng, counts, _ = run_path(rd, 32, NETFLIX_SWEEPS, NETFLIX_WINDOWS,
+                              NETFLIX_ANCHOR, None, name="netflix_f32")
+    tally(counts)
+    prob = eng.problem
+    print_plan("netflix_f32, the defaults", rd, prob.plan, "fused")
+    require(not prob.fused_i8s[0] and eng.config.gram_dtype is None
+            and eng.config.dtype == "float32",
+            "netflix_f32: the fused store's table is not float32")
+    prof = profile_split(eng, split=FUSED_SPLIT)
+    print_profile("netflix_f32 fused float32 K=32", prof)
+    enc, nf_train = prob.plan.fused[0][:2], rd.relations[0].data.nnz
+    st = prob.stores[0]
+    del eng, prob
+    torch.cuda.empty_cache()
+    nf_f32 = []
+    for focus in (0, 1):
+        r = check_fused_variant(st["V8"], st["shape"], 32, focus, "float32",
+                                flip_out=True)
+        print_variant_check("Netflix", r)
+        require(r["ok"], f"K8c float32 disagrees with its plain version: "
+                         f"{r}")
+        nf_f32.append(r)
+        torch.cuda.empty_cache()
+    # the split at mode 1's table, [C + K, n0]
+    split_nf = check_split(32 * 33 // 2 + 32, st["V8"].shape[0])
+    print_split_check("Netflix mode 1", split_nf)
+    require(split_nf["ok"], f"the split disagrees with its plain version: "
+                            f"{split_nf}")
+    del st
+    torch.cuda.empty_cache()
+    # the planner under the rate this run measured (the slower mode's):
+    # the defaults must still plan the fused store
+    from bayesiandatafusion_jl_tpu_torch.ops import dense_gram as dg
+    f32_ms = max(r["kernel_ms"] for r in nf_f32)
+    f32_rate = dense_rate(f32_ms, nf_shape[0] * nf_shape[1], 1)
+    module_rate = dg._FUSED_F32_FLOPS
+    dg._FUSED_F32_FLOPS = f32_rate
+    try:
+        fused, _ = dg.plan_fused_rels(
+            [nf_shape], [nf_train], 32, None, None, [enc], [4],
+            MacauConfig().dense_gram_budget_gb * 1e9)
+    finally:
+        dg._FUSED_F32_FLOPS = module_rate
+    print(f"# netflix_f32: K8c float32 at {f32_ms:.4f} ms a mode gives "
+          f"_FUSED_F32_FLOPS {f32_rate:.4g} (the module's "
+          f"{module_rate:.4g}); under it the defaults plan "
+          f"{'the fused store' if fused else 'no fused store'}", flush=True)
+    require(fused, "netflix_f32: the measured float32 rate sends Netflix's "
+                   "defaults off the fused store")
+    phase_done("netflix_f32 path")
+
     # -- netflix_gather: the same data on the gather path -------------------
     eng, counts, _ = run_path(rd, 32, NETFLIX_SWEEPS, NETFLIX_WINDOWS,
                               NETFLIX_ANCHOR, None, name="netflix_gather",
@@ -3377,7 +3520,7 @@ def main() -> int:
         gather_prof[(32, "segment")], ml_train_nnz,
         [pair_checks[(32, f)] for f in (0, 1)],
         [float_pair_ms[(None, f)] for f in (0, 1)], ml_shape,
-        nf_checks[0], nf_float[0], nf_shape)
+        nf_checks[0], nf_float[0], nf_f32, nf_shape)
     print_feat_readout(feat_ms)
     dist.destroy_process_group()
 
@@ -3424,6 +3567,9 @@ def main() -> int:
                  "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
     fused_src = "bayesiandatafusion_jl_tpu/ops/pallas_fused.py:"
     # one row a kernel at its main shape, mode 0, and mode 1 beside it
+    # (K8c's and K8d's: their bfloat16 tables' launches)
+    launches["K8c"] -= launches["K8c f32"]
+    launches["K8d"] -= launches["K8d f32"]
     for tag, name, source, line, modes, lib in (
             ("K8a", "fused_pair_i8", "fused_pair_i8.cu", 127, nf_checks,
              lib_ms),
@@ -3448,6 +3594,39 @@ def main() -> int:
                                 "bound_ms": r1["bound_ms"],
                                 "bound_by": r1["bound_by"],
                                 "library_ms": lib[1]}})
+    # K8c/K8d with a float32 table, one kernel for both layouts: at
+    # Netflix (netflix_f32;
+    # no library time there: float32 copies of the mask and the codes
+    # take 68 GB), at ML-10M K = 32 beside the library and K = 128 in the
+    # natural layout (K8d)
+    def f32_modes(pair, lib=(None, None)):
+        return [{"max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"],
+                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                 "bound_by": r["bound_by"],
+                 "dense_floor_ms": r["dense_bound_ms"],
+                 "fma_floor_ms": r["fma_floor_ms"], "library_ms": lb}
+                for r, lb in zip(pair, lib)]
+    nf0, nf1 = f32_modes(nf_f32)
+    ml0, ml1 = f32_modes(
+        [ml_checks[("float32", 32, f)] for f in (0, 1)],
+        [ml_checks[("float32", 32, "library", f)] for f in (0, 1)])
+    nat0, nat1 = f32_modes([ml_checks[("float32", 128, f)] for f in (0, 1)])
+    rows.append({"name": "fused_pair_f32", "route": "cuda",
+                 "source": src + "fused_pair_f.cu",
+                 "replaces": fused_src + "252",
+                 "launches": launches["K8c f32"] + launches["K8d f32"],
+                 **nf0, "mode_1": nf1,
+                 "ml10m_k32": ml0 | {"mode_1": ml1},
+                 "natural_ml10m_k128": nat0 | {"mode_1": nat1}})
+    rows.append({"name": "split_f32", "route": "cuda",
+                 "source": src + "fused_pair_f.cu",
+                 "replaces": fused_src + "345",
+                 "launches": launches["split_f32"],
+                 "max_abs_err": split_nf["max_abs_err"],
+                 "ms": split_nf["kernel_ms"],
+                 "plain_ms": split_nf["plain_ms"],
+                 "bound_ms": split_nf["bound_ms"],
+                 "bound_by": split_nf["bound_by"], "library_ms": None})
     r = k9_checks[("tensor_big", "bfloat16")]
     rows.append({"name": "windowed_expand", "route": "cuda",
                  "source": src + "windowed_expand.cu",
@@ -3483,13 +3662,14 @@ def dense_rate(ms, cells, itemsize, K=32):
 
 
 def print_planner_readout(gather_prof, nnz, k6, float_ms, ml_shape, k8a,
-                          k8c, nf_shape):
+                          k8c, k8c_f32, nf_shape):
     """The planner's constants (ops/dense_gram.py) as this run measures
     them, beside the module's: the gather path's device time outside the
     sampler a sweep at ML-10M K = 32 per training observation and mode;
     the rates that reproduce K6's mean mode time and the float32 pair's
     (both modes, ML-10M K = 32), K8a's and K8c's (bfloat16 table) mode-0
-    time at Netflix, through ``estimate_times``' model (``dense_rate``)."""
+    time at Netflix and K8c's with a float32 table (its slower mode, the
+    split included), through ``estimate_times``' model (``dense_rate``)."""
     from bayesiandatafusion_jl_tpu_torch.ops import dense_gram as dg
     ml_cells = ml_shape[0] * ml_shape[1]
     nf_cells = nf_shape[0] * nf_shape[1]
@@ -3501,7 +3681,9 @@ def print_planner_readout(gather_prof, nnz, k6, float_ms, ml_shape, k8a,
                                    ml_cells, 1),
         "_PAIR_FLOAT_FLOPS": dense_rate(sum(float_ms) / 2, ml_cells, 4),
         "_FUSED_S8_OPS": dense_rate(k8a["kernel_ms"], nf_cells, 1),
-        "_FUSED_FLOAT_FLOPS": dense_rate(k8c["kernel_ms"], nf_cells, 1)}
+        "_FUSED_FLOAT_FLOPS": dense_rate(k8c["kernel_ms"], nf_cells, 1),
+        "_FUSED_F32_FLOPS": dense_rate(
+            max(r["kernel_ms"] for r in k8c_f32), nf_cells, 1)}
     print("# planner constants measured in this run (ops/dense_gram.py's "
           "in parentheses): " + "; ".join(
               f"{k} {v:.4g} ({getattr(dg, k):.4g})" for k, v in got.items()),

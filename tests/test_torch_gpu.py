@@ -276,6 +276,122 @@ def test_fused_pair_bf16_promotion(cuda, flip_out):
     assert err <= chip_smoke.FLOAT_TOL["bfloat16"] * big, (err, big)
 
 
+# K8c/K8d with a float32 table (its three bfloat16 pieces on the ring,
+# one 64-column chunk a tile): stores whose extents are multiples of 16
+# but not of 64 or 128 (a partial last focus tile, contraction stage and
+# chunk), K = 1 and 3 (one chunk of mask and one of values), 32 (nine mask
+# chunks, a ragged one) and 100 (80 mask chunks, two value chunks)
+F32_STORES = [(330, 200), (200, 1_035)]
+
+
+@pytest.mark.parametrize("flip_out", [True, False])
+@pytest.mark.parametrize("focus", [0, 1])
+@pytest.mark.parametrize("K", [1, 3, 32, 100])
+@pytest.mark.parametrize("true", F32_STORES)
+def test_fused_pair_f32_matches_plain(cuda, true, K, focus, flip_out):
+    """A float32 table launches the split and the three-piece ring once
+    each, and the sums are within chip_smoke.FLOAT_TOL["float32"] of the
+    largest float64 sum of the same table, in both modes and layouts."""
+    import chip_smoke
+    V8 = chip_smoke.random_store(true, seed=K + 7)
+    assert all(d % 16 == 0 and d % 64 for d in V8.shape)
+    contract = fused_pair.fused_pair_contract
+    layouts = (("launches_f_flip", "launches_f32_flip") if flip_out
+               else ("launches_f_nat", "launches_f32_nat"))
+
+    def counts():
+        return (fused_pair.split_f32.launches,
+                *(getattr(contract, a) for a in layouts))
+    before = counts()
+    r = chip_smoke.check_fused_variant(V8, true, K, focus, "float32",
+                                       flip_out, timing=False)
+    assert r["ok"], r
+    assert tuple(a - b for a, b in zip(counts(), before)) == (1, 1, 1)
+
+
+@pytest.mark.parametrize("flip_out", [True, False])
+def test_fused_pair_f32_one_sign_netflix_length(cuda, flip_out):
+    """The three-piece ring's float32 sums over Netflix's 480,189-element
+    contraction with every term of one sign (codes 1..127 in mode 1 of a
+    [480192, 16] store, the last 3 rows unobserved, against a positive
+    float32 table): truncation in the accumulator would bias them low;
+    they stay within chip_smoke.FLOAT_TOL["float32"] of the largest
+    float64 sum."""
+    import chip_smoke
+    K = 8
+    C = K * (K + 1) // 2
+    n0, n1, true0 = 480_192, 16, 480_189
+    rng = np.random.default_rng(13)
+    v = rng.integers(1, 128, (n0, n1), dtype=np.int8)
+    v[true0:] = 0
+    V8 = torch.from_numpy(v).to(cuda)
+    u = rng.standard_normal((C + K, n0)).astype(np.float32)
+    YZT = torch.from_numpy(u * u).to(cuda)
+    got = fused_pair.fused_pair_contract(V8, YZT, 1, K, n1,
+                                         flip_out=flip_out)
+    want = fused_pair.fused_pair_plain(V8, YZT.double(), 1, K, n1,
+                                       flip_out=flip_out)
+    torch.cuda.synchronize()
+    big = max(b.abs().max().item() for b in want)
+    err = max((a.double() - b).abs().max().item() for a, b in zip(got, want))
+    assert all(bool(torch.isfinite(a).all()) for a in got)
+    assert err <= chip_smoke.FLOAT_TOL["float32"] * big, (err, big)
+
+
+@pytest.mark.parametrize("flip_out", [True, False])
+@pytest.mark.parametrize("focus", [0, 1])
+def test_fused_pair_f64_runs_the_fma_kernel(cuda, focus, flip_out):
+    """A float64 table still launches the float64 FMA kernel (the parity
+    seam; no split, no ring) and gives float64 sums within
+    chip_smoke.FLOAT_TOL["float64"] of the largest plain float64 sum."""
+    import chip_smoke
+    from torch.profiler import ProfilerActivity, profile
+    true, K = (1_000, 777), 32
+    V8 = chip_smoke.random_store(true, seed=5)
+    contract = fused_pair.fused_pair_contract
+
+    def f32_counts():
+        return (fused_pair.split_f32.launches, contract.launches_f32_flip,
+                contract.launches_f32_nat)
+    before = f32_counts()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        r = chip_smoke.check_fused_variant(V8, true, K, focus, "float64",
+                                           flip_out, timing=False)
+        torch.cuda.synchronize()
+    assert r["ok"], r
+    assert f32_counts() == before
+    names = {e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA}
+    assert any("fused_pair_fma_kernel<double" in n for n in names), names
+    assert not any("f32x3" in n or "bf16_kernel" in n for n in names)
+
+
+def test_split_f32_kernel_matches_plain(cuda):
+    """The split kernel against its plain version bit for bit on random
+    float32 bit patterns (|t| >= 2^-110 or 0), edge values and both
+    signs; the pieces sum to the table exactly; a count of elements that
+    is not a multiple of 4 is refused."""
+    rng = np.random.default_rng(21)
+    words = rng.integers(0, 2 ** 32, 1 << 20, dtype=np.uint64)
+    t = words.astype(np.uint32).view(np.float32)
+    t = t[np.isfinite(t) & ((np.abs(t) >= 2.0 ** -110) | (t == 0))]
+    edges = np.float32([0.0, -0.0, 1.0, -1.0, np.finfo(np.float32).max,
+                        -np.finfo(np.float32).max, 2.0 ** -110, np.pi])
+    t = np.concatenate([edges, t])[:len(t) // 4 * 4]
+    T = torch.from_numpy(t).to(cuda).view(-1, 4)
+    before = fused_pair.split_f32.launches
+    got = fused_pair.split_f32(T)
+    want = fused_pair.split_f32_plain(T)
+    torch.cuda.synchronize()
+    assert fused_pair.split_f32.launches == before + 1
+    assert got.shape == (3, *T.shape) and got.dtype == torch.bfloat16
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+    assert torch.equal(got[2].double() + got[1].double() + got[0].double(),
+                       T.double())
+    with pytest.raises(ValueError, match="4k elements"):
+        fused_pair.split_f32(T.reshape(-1)[:7])
+
+
 # K6's column tiles (csrc/fused_pair_i8.cu: pairs of 64-column chunks, the
 # mask chunks [0, C rounded up to 64) against M8, then the value chunks
 # against W8): the mask pairs odd in number (one tile holds the last mask

@@ -34,7 +34,8 @@ JAX_CONSTANTS = {"_GATHER_S_PER_OBS": jdg._GATHER_S_PER_OBS,
                  "_PAIR_I8_OPS": jdg._MXU_FLOPS,
                  "_PAIR_FLOAT_FLOPS": jdg._MXU_FLOPS,
                  "_FUSED_S8_OPS": jdg._BF16_FLOPS,
-                 "_FUSED_FLOAT_FLOPS": jdg._BF16_FLOPS}
+                 "_FUSED_FLOAT_FLOPS": jdg._BF16_FLOPS,
+                 "_FUSED_F32_FLOPS": jdg._BF16_FLOPS}
 
 
 @contextlib.contextmanager
@@ -324,3 +325,27 @@ def test_bench_plans_on_card_constants(name):
               else "gather") for ri, s in enumerate(shapes)
              for m in range(len(s))}
     assert paths == {want}
+
+
+# the float32 FMA kernel's rate at Netflix (its ML-10M K = 32 times scaled
+# by the cells, ~470 ms a mode), which the three-piece kernel replaced
+FMA_F32_FLOPS = 1.9e13
+
+
+@pytest.mark.parametrize("rate, want", [(None, {0: (1.0, 0)}),
+                                        (FMA_F32_FLOPS, {})])
+def test_netflix_defaults_price_the_float32_table(monkeypatch, rate, want):
+    """The defaults (float32, ``dense_int8=False``, no ``gram_dtype``)
+    give the Netflix relation a float32 pair (68 GB, past the budget): the
+    fused store is then priced at the float32 table's own rate,
+    ``_FUSED_F32_FLOPS``.  On the card's constants it takes the fused
+    store; at the FMA kernel's rate it would not."""
+    if rate is not None:
+        monkeypatch.setattr(tdg, "_FUSED_F32_FLOPS", rate)
+    shapes, nnzs, _ = BENCH_RELATIONS["netflix"]
+    budget = bt.MacauConfig().dense_gram_budget_gb * 1e9
+    assert 2.0 * shapes[0][0] * shapes[0][1] * 4 > budget
+    fused, spent = tdg.plan_fused_rels(shapes, nnzs, 32, None, None,
+                                       [(1.0, 0)], [4], budget)
+    assert fused == want
+    assert spent == (shapes[0][0] * shapes[0][1] if want else 0.0)
