@@ -11,8 +11,9 @@ Phases, each fatal on failure (nonzero exit, no result line):
    and ptxas serializes no ``wgmma`` (no C75xx line in its log); the
    sampler kernels' build lines (K1-K5: registers, spills), failing on any
    spill in float32 or float64, and K7's (both passes), K8c/K8d's float32
-   ring's and its split's, failing on any spill; then the native host builder (``native/layout.cpp``: the gather
-   path's bucketed layouts, the SBM1 files) by the host C++ compiler;
+   ring's and its split's, failing on any spill; then the native host
+   builder (``native/layout.cpp``: the gather path's bucketed layouts, the
+   SBM1 files) by the host C++ compiler;
 3. kernels vs plain: each sampler kernel against its plain torch version
    on random SPD problems at the main paths' shapes, float32 and float64,
    both held against the float64 plain version: K1 (packed, K <= 32), K2
