@@ -14,8 +14,9 @@ import os
 import shutil
 import subprocess
 import tempfile
-import time
 from typing import List, Optional
+
+from .utils.spans import timed
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
@@ -74,15 +75,15 @@ def build() -> str:
         return LIB_PATH
     os.makedirs(BUILD_DIR, exist_ok=True)
     nvcc = _nvcc()
-    t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+    with timed("bdf.build.nvcc") as t, \
+            tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         objs = [os.path.join(tmp, os.path.basename(s) + ".o") for s in srcs]
         log = _run_all([[nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o", o,
                          s] for s, o in zip(srcs, objs)])
         lib = os.path.join(tmp, "lib.so")
         log += _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", lib, *objs]])
         os.replace(lib, LIB_PATH)
-    _report["seconds"] = time.perf_counter() - t0
+    _report["seconds"] = t.seconds
     _report["log"] = log
     return LIB_PATH
 

@@ -94,7 +94,6 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 from torch.linalg import solve_triangular
-from torch.profiler import record_function
 
 from ..ops import dense_gram as dg
 from ..ops.cg import block_cg
@@ -112,6 +111,7 @@ from ..ops.spmv import bucketed_spmm, build_bucketed_matvec
 from ..utils.config import MacauConfig
 from ..utils.convert import state_from_numpy, state_to_numpy
 from ..utils.rng import build_random_spec, draw_all
+from ..utils.spans import span, timed
 from .data import (RelationData, resolved_alpha, resolved_alpha_sample,
                    resolved_lambda_beta)
 
@@ -223,52 +223,53 @@ def plan_gramians(rd: RelationData, config: MacauConfig,
     JAX parallel/sharded.py:133-177), its bytes charged once per mode;
     ``pair_i8`` and ``store_bytes`` then cover the relations with a
     copy."""
-    t0 = time.perf_counter()
-    rels = rd.relations
-    shapes = [tuple(int(e.count) for e in rel.entities) for rel in rels]
-    nnzs = [rel.data.nnz for rel in rels]
-    base_item = (2 if config.gram_dtype == "bfloat16"
-                 else config.np_dtype().itemsize)
-    i8 = _OnDemand(len(rels), lambda ri: bool(
-        config.dense_int8 and dg.int8_pair_ok(rels[ri].data.idx,
-                                              shapes[ri])))
-    pair_item = _OnDemand(len(rels), lambda ri: 1 if i8[ri] else base_item)
+    with timed("bdf.build.plan") as t:
+        rels = rd.relations
+        shapes = [tuple(int(e.count) for e in rel.entities) for rel in rels]
+        nnzs = [rel.data.nnz for rel in rels]
+        base_item = (2 if config.gram_dtype == "bfloat16"
+                     else config.np_dtype().itemsize)
+        i8 = _OnDemand(len(rels), lambda ri: bool(
+            config.dense_int8 and dg.int8_pair_ok(rels[ri].data.idx,
+                                                  shapes[ri])))
+        pair_item = _OnDemand(len(rels), lambda ri: 1 if i8[ri] else base_item)
 
-    def encode(ri):
-        rel = rels[ri]
-        if (rel.arity != 2 or not rel.data.nnz
-                or not (config.dense_fused
-                        or rel.data.nnz >= dg._AUTO_MIN_NNZ)):
-            return None
-        return dg.fused_pair_plan(rel.data.idx, rel.data.vals, shapes[ri],
-                                  tol=config.dense_fused_tol)
-    fused_plan = _OnDemand(len(rels), encode)
-    enc = _OnDemand(len(rels), lambda ri: None if fused_plan[ri] is None
-                    else fused_plan[ri][:2])
-    budget = config.dense_gram_budget_gb * 1e9
-    fused, spent = dg.plan_fused_rels(
-        shapes, nnzs, config.num_latent, config.dense_gram,
-        config.dense_fused, enc, pair_item, budget)
-    dense_plans, canonical, copies = dg.plan_dense_modes(
-        shapes, [0 if ri in fused else n for ri, n in enumerate(nnzs)],
-        config.num_latent, config.dense_gram, budget - spent, pair_item,
-        per_mode_pairs=per_mode_pairs)
-    store_bytes = {}
-    for ri in fused:
-        store_bytes[ri] = float(shapes[ri][0]) * shapes[ri][1]
-        for mode in range(2):
-            dense_plans[(ri, mode)] = dg.DenseModePlan(
-                "fused", shapes[ri][mode], (shapes[ri][1 - mode],))
-    for ri in canonical:
-        store_bytes[ri] = 2.0 * float(np.prod(shapes[ri])) * pair_item[ri]
-    for ri, _ in copies:
-        canonical.add(ri)
-        store_bytes[ri] = store_bytes.get(ri, 0.0) + 2.0 * float(
-            np.prod(shapes[ri])) * pair_item[ri]
-    return GramianPlan(
-        fused={ri: fused_plan[ri] for ri in fused}, dense_plans=dense_plans,
-        pair_i8={ri: i8[ri] for ri in canonical}, store_bytes=store_bytes,
-        seconds=time.perf_counter() - t0)
+        def encode(ri):
+            rel = rels[ri]
+            if (rel.arity != 2 or not rel.data.nnz
+                    or not (config.dense_fused
+                            or rel.data.nnz >= dg._AUTO_MIN_NNZ)):
+                return None
+            return dg.fused_pair_plan(rel.data.idx, rel.data.vals, shapes[ri],
+                                      tol=config.dense_fused_tol)
+        fused_plan = _OnDemand(len(rels), encode)
+        enc = _OnDemand(len(rels), lambda ri: None if fused_plan[ri] is None
+                        else fused_plan[ri][:2])
+        budget = config.dense_gram_budget_gb * 1e9
+        fused, spent = dg.plan_fused_rels(
+            shapes, nnzs, config.num_latent, config.dense_gram,
+            config.dense_fused, enc, pair_item, budget)
+        dense_plans, canonical, copies = dg.plan_dense_modes(
+            shapes, [0 if ri in fused else n for ri, n in enumerate(nnzs)],
+            config.num_latent, config.dense_gram, budget - spent, pair_item,
+            per_mode_pairs=per_mode_pairs)
+        store_bytes = {}
+        for ri in fused:
+            store_bytes[ri] = float(shapes[ri][0]) * shapes[ri][1]
+            for mode in range(2):
+                dense_plans[(ri, mode)] = dg.DenseModePlan(
+                    "fused", shapes[ri][mode], (shapes[ri][1 - mode],))
+        for ri in canonical:
+            store_bytes[ri] = 2.0 * float(np.prod(shapes[ri])) * pair_item[ri]
+        for ri, _ in copies:
+            canonical.add(ri)
+            store_bytes[ri] = store_bytes.get(ri, 0.0) + 2.0 * float(
+                np.prod(shapes[ri])) * pair_item[ri]
+        decided = dict(fused={ri: fused_plan[ri] for ri in fused},
+                       dense_plans=dense_plans,
+                       pair_i8={ri: i8[ri] for ri in canonical},
+                       store_bytes=store_bytes)
+    return GramianPlan(**decided, seconds=t.seconds)
 
 
 def _resolve_device(device) -> torch.device:
@@ -315,30 +316,31 @@ def build_features(ent, config: MacauConfig, device,
     F, n, nf = ent.F, int(ent.count), ent.num_features
     np_dt = config.np_dtype()
     secs: Dict[str, float] = {}
-    t0 = time.perf_counter()
-    rows, cols, vals, n_rows = F.rows, F.cols, F.values(), n
-    if shard is not None:
-        loc = shard.local[F.rows]
-        own = loc >= 0
-        rows, cols, vals, n_rows = loc[own], cols[own], vals[own], \
-            shard.n_rows
-    feat: Dict[str, Any] = {"colcount": torch.from_numpy(
-        F.col_sq_sums().astype(np_dt)).to(device)}
-    itemsize = dg.feat_itemsize(F.is_binary, config.gram_dtype, np_dt)
-    if dg.use_dense_feat(n, nf, F.nnz, itemsize, config.dense_gram):
-        X = torch.zeros((n_rows, nf), dtype=getattr(torch, config.dtype),
-                        device=device)
-        cells = tuple(torch.from_numpy(a.astype(np.int64)).to(device)
-                      for a in (rows, cols))
-        X.index_put_(cells, torch.from_numpy(vals.astype(np_dt)).to(device),
-                     accumulate=True)
-        feat["dense_X"] = X
-    else:
-        feat["mv"] = build_bucketed_matvec(
-            rows, cols, (n_rows, nf), vals=None if F.is_binary else vals,
-            widths=config.bucket_widths, row_pad=config.row_pad,
-            dtype=np_dt, device=device)
-    secs["operand"] = time.perf_counter() - t0
+    with timed("bdf.build.operand") as t:
+        rows, cols, vals, n_rows = F.rows, F.cols, F.values(), n
+        if shard is not None:
+            loc = shard.local[F.rows]
+            own = loc >= 0
+            rows, cols, vals, n_rows = loc[own], cols[own], vals[own], \
+                shard.n_rows
+        feat: Dict[str, Any] = {"colcount": torch.from_numpy(
+            F.col_sq_sums().astype(np_dt)).to(device)}
+        itemsize = dg.feat_itemsize(F.is_binary, config.gram_dtype, np_dt)
+        if dg.use_dense_feat(n, nf, F.nnz, itemsize, config.dense_gram):
+            X = torch.zeros((n_rows, nf), dtype=getattr(torch, config.dtype),
+                            device=device)
+            cells = tuple(torch.from_numpy(a.astype(np.int64)).to(device)
+                          for a in (rows, cols))
+            X.index_put_(cells,
+                         torch.from_numpy(vals.astype(np_dt)).to(device),
+                         accumulate=True)
+            feat["dense_X"] = X
+        else:
+            feat["mv"] = build_bucketed_matvec(
+                rows, cols, (n_rows, nf), vals=None if F.is_binary else vals,
+                widths=config.bucket_widths, row_pad=config.row_pad,
+                dtype=np_dt, device=device)
+    secs["operand"] = t.seconds
     pref = ent.use_ff if ent.use_ff is not None else config.use_ff
     use_ff = (nf <= config.ff_threshold) if pref is None else bool(pref)
     solver = "ff" if use_ff else "cg"
@@ -360,20 +362,20 @@ def build_features(ent, config: MacauConfig, device,
         del G
     rank = resolve_nystrom_rank(config.cg_nystrom_rank, nf)
     if solver == "cg" and rank and nf >= 4 * rank:
-        t0 = time.perf_counter()
-        Un, dn = build_nystrom(F.rows, F.cols, F.values(), F.shape, rank,
-                               seed=config.seed)
-        feat["nys_U"] = torch.from_numpy(Un.astype(np_dt)).to(device)
-        feat["nys_d"] = torch.from_numpy(dn.astype(np_dt)).to(device)
-        secs["nystrom"] = time.perf_counter() - t0
+        with timed("bdf.build.nystrom") as t:
+            Un, dn = build_nystrom(F.rows, F.cols, F.values(), F.shape, rank,
+                                   seed=config.seed)
+            feat["nys_U"] = torch.from_numpy(Un.astype(np_dt)).to(device)
+            feat["nys_d"] = torch.from_numpy(dn.astype(np_dt)).to(device)
+        secs["nystrom"] = t.seconds
     if use_ff:
         import scipy.sparse as sp
-        t0 = time.perf_counter()
-        X = sp.coo_matrix((F.values().astype(np_dt), (F.rows, F.cols)),
-                          shape=F.shape).tocsr()
-        feat["ftf"] = torch.from_numpy(
-            np.asarray((X.T @ X).todense(), np_dt)).to(device)
-        secs["ftf"] = time.perf_counter() - t0
+        with timed("bdf.build.ftf") as t:
+            X = sp.coo_matrix((F.values().astype(np_dt), (F.rows, F.cols)),
+                              shape=F.shape).tocsr()
+            feat["ftf"] = torch.from_numpy(
+                np.asarray((X.T @ X).todense(), np_dt)).to(device)
+        secs["ftf"] = t.seconds
     return feat, secs, use_ff, solver
 
 
@@ -414,44 +416,46 @@ class CompiledProblem:
         self.test, self.train = {}, {}
         self.layout_seconds = 0.0
         self._host_inst: Dict[str, List[np.ndarray]] = {}
-        t0 = time.perf_counter()
-        self.plan = plan = plan_gramians(rd, config)
-        self.dense_plans = plan.dense_plans
-        for ri, rel in enumerate(rd.relations):
-            mean_value = float(rel.data.vals.mean()) if rel.data.nnz else 0.0
-            rs = RelationSpec(
-                name=rel.name, arity=rel.arity,
-                entity_ids=tuple(ent_index[id(e)] for e in rel.entities),
-                nnz=rel.data.nnz, n_test=len(rel.test_vals),
-                alpha_sample=resolved_alpha_sample(rel, config),
-                mean_value=mean_value, class_cut=rel.class_cut)
-            self.rel_specs.append(rs)
-            self._build_relation(ri, rel, mean_value, config, device, plan)
-            if rel.test_idx.shape[0]:
-                self.test[f"r{ri}"] = {
-                    "idx": torch.from_numpy(rel.test_idx.astype(np.int64))
-                    .to(device),
-                    "vals": torch.from_numpy(rel.test_vals).to(device,
-                                                               dtype)}
-            if rs.alpha_sample:
-                # the training tuples and centered values, for the SSE of
-                # the alpha draw (JAX engine :344-347)
-                self.train[f"r{ri}"] = {
-                    "idx": torch.from_numpy(rel.data.idx.astype(np.int64))
-                    .to(device),
-                    "vals": torch.from_numpy(rel.data.vals - mean_value)
-                    .to(device, dtype)}
-        self.tri = (dg.tri_index(config.num_latent, device)
-                    if self.dense_plans else None)
-        if config.accumulation == "planned":
-            self._build_acc_plans(config, device)
-        del self._host_inst
-        for ei, ent in enumerate(rd.entities):
-            if ent.has_features:
-                self._build_features(ei, ent, config, device)
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-        self.build_seconds = time.perf_counter() - t0
+        with timed("bdf.build") as build:
+            self.plan = plan = plan_gramians(rd, config)
+            self.dense_plans = plan.dense_plans
+            for ri, rel in enumerate(rd.relations):
+                mean_value = (float(rel.data.vals.mean()) if rel.data.nnz
+                              else 0.0)
+                rs = RelationSpec(
+                    name=rel.name, arity=rel.arity,
+                    entity_ids=tuple(ent_index[id(e)] for e in rel.entities),
+                    nnz=rel.data.nnz, n_test=len(rel.test_vals),
+                    alpha_sample=resolved_alpha_sample(rel, config),
+                    mean_value=mean_value, class_cut=rel.class_cut)
+                self.rel_specs.append(rs)
+                self._build_relation(ri, rel, mean_value, config, device, plan)
+                if rel.test_idx.shape[0]:
+                    self.test[f"r{ri}"] = {
+                        "idx": torch.from_numpy(rel.test_idx.astype(np.int64))
+                        .to(device),
+                        "vals": torch.from_numpy(rel.test_vals).to(device,
+                                                                   dtype)}
+                if rs.alpha_sample:
+                    # the training tuples and centered values, for the SSE of
+                    # the alpha draw (JAX engine :344-347)
+                    self.train[f"r{ri}"] = {
+                        "idx": torch.from_numpy(rel.data.idx.astype(np.int64))
+                        .to(device),
+                        "vals": torch.from_numpy(rel.data.vals - mean_value)
+                        .to(device, dtype)}
+            self.tri = (dg.tri_index(config.num_latent, device)
+                        if self.dense_plans else None)
+            if config.accumulation == "planned":
+                with timed("bdf.build.acc_plan"):
+                    self._build_acc_plans(config, device)
+            del self._host_inst
+            for ei, ent in enumerate(rd.entities):
+                if ent.has_features:
+                    self._build_features(ei, ent, config, device)
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+        self.build_seconds = build.seconds
         self.init_alpha = [resolved_alpha(rel, config)
                            for rel in rd.relations]
         self.init_lambda_beta = [resolved_lambda_beta(e, config)
@@ -476,7 +480,8 @@ class CompiledProblem:
     def _build_features(self, ei, ent, config, device):
         """Entity ``ei``'s beta-draw arrays and solver
         (``build_features``), their build seconds and its spec."""
-        feat, secs, use_ff, solver = build_features(ent, config, device)
+        with timed("bdf.build.features"):
+            feat, secs, use_ff, solver = build_features(ent, config, device)
         self.feat[f"e{ei}"] = feat
         self.feat_seconds[f"e{ei}"] = secs
         self.entity_specs[ei] = dataclasses.replace(
@@ -502,15 +507,16 @@ class CompiledProblem:
             kind = "pair"
             centered = rel.data.vals - mean_value
             pair_i8 = plan.pair_i8[ri]
-            if pair_i8:
-                store = dg.build_int8_pair(rel.data.idx, centered,
-                                           rel.data.shape,
-                                           config.np_dtype(), device)
-            else:
-                store = dg.build_dense_pair(
-                    rel.data.idx, centered, rel.data.shape,
-                    getattr(torch, config.gram_dtype or config.dtype),
-                    device)
+            with timed("bdf.build.store"):
+                if pair_i8:
+                    store = dg.build_int8_pair(rel.data.idx, centered,
+                                               rel.data.shape,
+                                               config.np_dtype(), device)
+                else:
+                    store = dg.build_dense_pair(
+                        rel.data.idx, centered, rel.data.shape,
+                        getattr(torch, config.gram_dtype or config.dtype),
+                        device)
             if gather:
                 self._build_layouts(ri, rel, mean_value, config, device,
                                     modes=gather)
@@ -532,10 +538,12 @@ class CompiledProblem:
         idx, vals = rel.data.idx, rel.data.vals
         if not keep.all():
             idx, vals = idx[keep], vals[keep]
-        fused_i8 = bool(config.dense_int8 and dg.fused_int8_ok(
-            dg.fused_code_bound(vals, s, m), rel.data.shape, idx=idx,
-            abs_codes=dg.fused_abs_codes(vals, s, m)))
-        store = dg.build_fused_store(idx, vals, rel.data.shape, s, m, device)
+        with timed("bdf.build.store"):
+            fused_i8 = bool(config.dense_int8 and dg.fused_int8_ok(
+                dg.fused_code_bound(vals, s, m), rel.data.shape, idx=idx,
+                abs_codes=dg.fused_abs_codes(vals, s, m)))
+            store = dg.build_fused_store(idx, vals, rel.data.shape, s, m,
+                                         device)
         del idx, vals
         resid = 0
         if not keep.all():
@@ -556,22 +564,22 @@ class CompiledProblem:
         idx, centered = rel.data.idx, rel.data.vals - mean_value
         if rows is not None:
             idx, centered = idx[rows], centered[rows]
-        t0 = time.perf_counter()
-        for mode in (range(rel.arity) if modes is None else modes):
-            ml = build_mode_layout(
-                idx, centered, mode, rel.entities[mode].count,
-                widths=config.bucket_widths, row_pad=config.row_pad,
-                dtype=config.np_dtype())
-            key = f"r{ri}m{mode}"
-            self._host_inst[key] = [b.inst for b in ml.buckets]
-            self.padded_nnz.append(ml.padded_nnz)
-            self.layouts[key] = [
-                {"inst": torch.from_numpy(b.inst).to(device),
-                 "part": [torch.from_numpy(p).to(device) for p in b.part],
-                 "val": torch.from_numpy(b.val).to(device),
-                 "mask": torch.from_numpy(b.mask).to(device)}
-                for b in ml.buckets]
-        self.layout_seconds += time.perf_counter() - t0
+        with timed("bdf.build.layouts") as t:
+            for mode in (range(rel.arity) if modes is None else modes):
+                ml = build_mode_layout(
+                    idx, centered, mode, rel.entities[mode].count,
+                    widths=config.bucket_widths, row_pad=config.row_pad,
+                    dtype=config.np_dtype())
+                key = f"r{ri}m{mode}"
+                self._host_inst[key] = [b.inst for b in ml.buckets]
+                self.padded_nnz.append(ml.padded_nnz)
+                self.layouts[key] = [
+                    {"inst": torch.from_numpy(b.inst).to(device),
+                     "part": [torch.from_numpy(p).to(device) for p in b.part],
+                     "val": torch.from_numpy(b.val).to(device),
+                     "mask": torch.from_numpy(b.mask).to(device)}
+                    for b in ml.buckets]
+        self.layout_seconds += t.seconds
 
     def _build_acc_plans(self, config, device):
         """Per entity ``acc_plan["e{ei}"]``, the "planned" accumulation's
@@ -611,8 +619,10 @@ class GibbsDriver:
 
     def _sweep(self, state, s: int, accumulate: float,
                seed: Optional[int] = None):
-        return self._sweep_with_randoms(state, self.draw(s + 1, seed),
-                                        accumulate)
+        with span("bdf.randoms", s + 1):
+            randoms = self.draw(s + 1, seed)
+        with span("bdf.sweep", s + 1):
+            return self._sweep_with_randoms(state, randoms, accumulate)
 
     # -- run loops (JAX ``GibbsDriverMixin`` :492-689) ----------------------
     def run(self, state=None, seed: Optional[int] = None,
@@ -702,22 +712,24 @@ class GibbsDriver:
         sweep's metrics, still on the device)."""
         burnin = self.config.burnin
         mstack = []
-        for s in range(start, start + n):
-            state, m = self._sweep(state, s, 1.0 if s >= burnin else 0.0,
-                                   seed)
-            mstack.append(m)
+        with span("bdf.window", start + 1):
+            for s in range(start, start + n):
+                state, m = self._sweep(state, s,
+                                       1.0 if s >= burnin else 0.0, seed)
+                mstack.append(m)
         return state, mstack
 
     @staticmethod
     def _fetch(metric_dicts) -> List[Dict[str, float]]:
         """The metric dicts as host floats, their device values stacked and
         read back by one copy (which waits for the device)."""
-        vals = [v for m in metric_dicts for v in m.values()
-                if torch.is_tensor(v)]
-        host = iter(torch.stack([v.reshape(()).to(torch.float64)
-                                 for v in vals]).tolist() if vals else ())
-        return [{k: next(host) if torch.is_tensor(v) else float(v)
-                 for k, v in m.items()} for m in metric_dicts]
+        with span("bdf.fetch"):
+            vals = [v for m in metric_dicts for v in m.values()
+                    if torch.is_tensor(v)]
+            host = iter(torch.stack([v.reshape(()).to(torch.float64)
+                                     for v in vals]).tolist() if vals else ())
+            return [{k: next(host) if torch.is_tensor(v) else float(v)
+                     for k, v in m.items()} for m in metric_dicts]
 
     @contextlib.contextmanager
     def _trace(self, s: int):
@@ -898,7 +910,7 @@ class MacauEngine(GibbsDriver):
             uhat = None
             if es.has_features:
                 # beta first, with the current Lambda (JAX :765-778)
-                with record_function(f"beta_e{ei}"):
+                with span(f"bdf.e{ei}.beta"):
                     ent["beta"], ent["uhat"], cg_diag = self._sample_beta(
                         ei, ent, randoms)
                     if cg_diag is not None:
@@ -910,10 +922,11 @@ class MacauEngine(GibbsDriver):
                             randoms[f"e{ei}.lb_g"], cfg.nu_beta,
                             cfg.lambda_beta_mean)
                 uhat = ent["uhat"]
-            mu, Lambda = normal_wishart_update(
-                ent["U"] if uhat is None else ent["U"] - uhat, cfg.nw_b0,
-                nu0, 2.0 * randoms[f"e{ei}.nw_g"],
-                randoms[f"e{ei}.nw_tri"], randoms[f"e{ei}.nw_mu"])
+            with span(f"bdf.e{ei}.hyper"):
+                mu, Lambda = normal_wishart_update(
+                    ent["U"] if uhat is None else ent["U"] - uhat, cfg.nw_b0,
+                    nu0, 2.0 * randoms[f"e{ei}.nw_g"],
+                    randoms[f"e{ei}.nw_tri"], randoms[f"e{ei}.nw_mu"])
             ent["mu"], ent["Lambda"] = mu, Lambda
             # every (relation, mode) this entity fills, the partners read
             # from the current state (the entity's own U too, in a relation
@@ -941,14 +954,15 @@ class MacauEngine(GibbsDriver):
         for ri, rs in enumerate(prob.rel_specs):
             if not rs.alpha_sample:
                 continue
-            tr = prob.train[f"r{ri}"]
-            pred_c = predict_tuples([ents[e]["U"] for e in rs.entity_ids],
-                                    tr["idx"], 0.0)
-            sse = torch.sum((tr["vals"] - pred_c) ** 2)
-            del pred_c
-            rels[ri] = {"alpha": sample_alpha(
-                sse, rs.nnz, randoms[f"r{ri}.alpha_g"], cfg.alpha_a0,
-                cfg.alpha_b0)}
+            with span(f"bdf.r{ri}.alpha"):
+                tr = prob.train[f"r{ri}"]
+                pred_c = predict_tuples([ents[e]["U"] for e in rs.entity_ids],
+                                        tr["idx"], 0.0)
+                sse = torch.sum((tr["vals"] - pred_c) ** 2)
+                del pred_c
+                rels[ri] = {"alpha": sample_alpha(
+                    sse, rs.nnz, randoms[f"r{ri}.alpha_g"], cfg.alpha_a0,
+                    cfg.alpha_b0)}
             metrics[f"r{ri}.alpha"] = rels[ri]["alpha"]
 
         # prediction and the posterior mean (JAX engine :967-998)
@@ -957,25 +971,26 @@ class MacauEngine(GibbsDriver):
             key = f"r{ri}"
             if key not in preds:
                 continue
-            te = prob.test[key]
-            p = predict_tuples([ents[e]["U"] for e in rs.entity_ids],
-                               te["idx"], rs.mean_value)
-            if cfg.clamp is not None:
-                p = torch.clamp(p, cfg.clamp[0], cfg.clamp[1])
-            pr = preds[key]
-            pr = {"sum": pr["sum"] + accumulate * p,
-                  "sum2": pr["sum2"] + accumulate * p * p,
-                  "n": pr["n"] + accumulate}
-            preds[key] = pr
-            metrics[f"{key}.rmse_sample"] = torch.sqrt(
-                torch.mean((p - te["vals"]) ** 2))
-            pmean = pr["sum"] / torch.clamp_min(pr["n"], 1.0)
-            metrics[f"{key}.rmse_avg"] = torch.sqrt(
-                torch.mean((pmean - te["vals"]) ** 2))
-            if rs.class_cut is not None:
-                # the AUC of the running posterior mean (JAX :991-996)
-                labels = (te["vals"] < rs.class_cut).to(self.dtype)
-                metrics[f"{key}.auc"] = auc_device(labels, -pmean)
+            with span(f"bdf.r{ri}.predict"):
+                te = prob.test[key]
+                p = predict_tuples([ents[e]["U"] for e in rs.entity_ids],
+                                   te["idx"], rs.mean_value)
+                if cfg.clamp is not None:
+                    p = torch.clamp(p, cfg.clamp[0], cfg.clamp[1])
+                pr = preds[key]
+                pr = {"sum": pr["sum"] + accumulate * p,
+                      "sum2": pr["sum2"] + accumulate * p * p,
+                      "n": pr["n"] + accumulate}
+                preds[key] = pr
+                metrics[f"{key}.rmse_sample"] = torch.sqrt(
+                    torch.mean((p - te["vals"]) ** 2))
+                pmean = pr["sum"] / torch.clamp_min(pr["n"], 1.0)
+                metrics[f"{key}.rmse_avg"] = torch.sqrt(
+                    torch.mean((pmean - te["vals"]) ** 2))
+                if rs.class_cut is not None:
+                    # the AUC of the running posterior mean (JAX :991-996)
+                    labels = (te["vals"] < rs.class_cut).to(self.dtype)
+                    metrics[f"{key}.auc"] = auc_device(labels, -pmean)
         return {"ent": ents, "rel": rels, "pred": preds}, metrics
 
     def _feat_ops(self, ei):
@@ -1066,8 +1081,10 @@ class MacauEngine(GibbsDriver):
     def _sample(self, ei, ent, dense, contribs, xi, uhat=None):
         """The draw of entity ``ei``'s rows (``_precision``, then
         ``_draw_rows``)."""
-        return self._draw_rows(self._precision(ei, ent, dense, contribs,
-                                               uhat), xi)
+        with span(f"bdf.e{ei}.precision"):
+            prec = self._precision(ei, ent, dense, contribs, uhat)
+        with span(f"bdf.e{ei}.draw"):
+            return self._draw_rows(prec, xi)
 
     def _precision(self, ei, ent, dense, contribs, uhat=None):
         """The conditional precision of entity ``ei``'s rows from its
@@ -1100,15 +1117,17 @@ class MacauEngine(GibbsDriver):
                 and not n_ghost):
             P = b = None
             for ri, mode, partners, alpha in dense:
-                P_d, b_d = self._dense_contrib(ri, mode, partners, alpha,
-                                               packed=True)
-                # the first contribution is a fresh output, summed into
-                P, b = (P_d, b_d) if P is None else (P.add_(P_d),
-                                                     b.add_(b_d))
+                with span(f"bdf.r{ri}m{mode}.dense"):
+                    P_d, b_d = self._dense_contrib(ri, mode, partners, alpha,
+                                                   packed=True)
+                    # the first contribution is a fresh output, summed into
+                    P, b = (P_d, b_d) if P is None else (P.add_(P_d),
+                                                         b.add_(b_d))
             if contribs:
-                packed_bucket_accum(contribs, n, K, gram_dtype=gd,
-                                    transposed=True, out=(P, b),
-                                    tri=self.problem.tri)
+                with span(f"bdf.e{ei}.buckets"):
+                    packed_bucket_accum(contribs, n, K, gram_dtype=gd,
+                                        transposed=True, out=(P, b),
+                                        tri=self.problem.tri)
             b = (mu @ Lambda)[:, None] + b if uhat is None else \
                 (prior_mean @ Lambda).mT + b
             return "packed", P, b, Lambda
@@ -1116,17 +1135,20 @@ class MacauEngine(GibbsDriver):
         if n_ghost:
             prior_ext = torch.cat([prior_mean.expand(n, K),
                                    prior_mean.new_zeros((n_ghost, K))])
-            P, b = self._fold_ghosts(ei, *assemble_precision(
-                Lambda, prior_ext, contribs, n + n_ghost, gram_dtype=gd,
-                fuse_lambda=True))
+            with span(f"bdf.e{ei}.buckets"):
+                P, b = self._fold_ghosts(ei, *assemble_precision(
+                    Lambda, prior_ext, contribs, n + n_ghost, gram_dtype=gd,
+                    fuse_lambda=True))
         elif cfg.accumulation == "planned":
-            P, b = assemble_precision_planned(
-                Lambda, prior_mean, contribs, n,
-                self.problem.acc_plan[f"e{ei}"], gram_dtype=gd)
+            with span(f"bdf.e{ei}.buckets"):
+                P, b = assemble_precision_planned(
+                    Lambda, prior_mean, contribs, n,
+                    self.problem.acc_plan[f"e{ei}"], gram_dtype=gd)
             lam = None
         elif contribs or not dense:
-            P, b = assemble_precision(Lambda, prior_mean, contribs, n,
-                                      gram_dtype=gd, fuse_lambda=True)
+            with span(f"bdf.e{ei}.buckets"):
+                P, b = assemble_precision(Lambda, prior_mean, contribs, n,
+                                          gram_dtype=gd, fuse_lambda=True)
         else:
             # dense contributions alone: the first one's fresh [n, K, K]
             # output is the accumulator, which saves an [n, K, K] buffer
@@ -1134,11 +1156,12 @@ class MacauEngine(GibbsDriver):
             P = None
             b = prior_mean @ Lambda
         for ri, mode, partners, alpha in dense:
-            P_d, b_d = self._dense_contrib(ri, mode, partners, alpha,
-                                           packed=False)
-            P = P_d if P is None else P.add_(P_d)
-            b = b + b_d
-            del P_d
+            with span(f"bdf.r{ri}m{mode}.dense"):
+                P_d, b_d = self._dense_contrib(ri, mode, partners, alpha,
+                                               packed=False)
+                P = P_d if P is None else P.add_(P_d)
+                b = b + b_d
+                del P_d
         return "full", P, b, lam
 
     def _draw_rows(self, prec, xi, rows=slice(None)):

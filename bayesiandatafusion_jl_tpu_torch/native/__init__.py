@@ -18,8 +18,9 @@ import os
 import shutil
 import subprocess
 import tempfile
-import time
 from typing import Optional
+
+from ..utils.spans import timed
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -55,21 +56,21 @@ def build(src: str = SOURCE, out: str = LIB_PATH) -> str:
             and os.path.getmtime(out) >= os.path.getmtime(src)):
         return out
     os.makedirs(os.path.dirname(out), exist_ok=True)
-    t0 = time.perf_counter()
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=os.path.dirname(out))
-    os.close(fd)
-    try:
-        proc = subprocess.run([_cxx(), *CXX_FLAGS, "-o", tmp, src],
-                              stdout=subprocess.PIPE,
-                              stderr=subprocess.STDOUT, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"the native builder's source {src} did not "
-                               f"compile:\n{proc.stdout}")
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-    _report["seconds"] = time.perf_counter() - t0
+    with timed("bdf.build.native") as t:
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=os.path.dirname(out))
+        os.close(fd)
+        try:
+            proc = subprocess.run([_cxx(), *CXX_FLAGS, "-o", tmp, src],
+                                  stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+            if proc.returncode != 0:
+                raise RuntimeError(f"the native builder's source {src} did "
+                                   f"not compile:\n{proc.stdout}")
+            os.replace(tmp, out)
+        finally:
+            if os.path.exists(tmp):
+                os.remove(tmp)
+    _report["seconds"] = t.seconds
     return out
 
 

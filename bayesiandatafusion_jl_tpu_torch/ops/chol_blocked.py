@@ -17,6 +17,7 @@ import torch
 from torch.linalg import solve_triangular
 
 from .. import kernels
+from ..utils import spans
 
 # the K range of the kernel (panel width)
 K5_MAX_K = 64
@@ -33,6 +34,7 @@ def chol_inv_plain(P: torch.Tensor) -> torch.Tensor:
 
 
 chol_inv_plain.calls = 0
+spans.counter(chol_inv_plain, "calls")
 
 
 def chol_inv(P: torch.Tensor) -> torch.Tensor:
@@ -74,6 +76,7 @@ def chol_inv(P: torch.Tensor) -> torch.Tensor:
 
 
 chol_inv.launches = 0
+spans.counter(chol_inv, "launches")
 
 
 def _mv(A: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -115,28 +118,32 @@ def chol_sample_blocked(P: torch.Tensor, b: torch.Tensor, xi: torch.Tensor,
     L = {}   # off-diagonal panels (i > j)
     W = {}   # inverted diagonal factors
     for j in range(nb):
-        S = blk(j, j)
-        for k in range(j):
-            S = S - L[j, k] @ L[j, k].mT
-        W[j] = chol_inv(S)   # the first panel is read in place
-        for i in range(j + 1, nb):
-            Sij = blk(i, j)
+        with spans.span("bdf.panels"):
+            S = blk(j, j)
             for k in range(j):
-                Sij = Sij - L[i, k] @ L[j, k].mT
-            L[i, j] = Sij @ W[j].mT
+                S = S - L[j, k] @ L[j, k].mT
+        with spans.span("bdf.k5"):
+            W[j] = chol_inv(S)   # the first panel is read in place
+        with spans.span("bdf.panels"):
+            for i in range(j + 1, nb):
+                Sij = blk(i, j)
+                for k in range(j):
+                    Sij = Sij - L[i, k] @ L[j, k].mT
+                L[i, j] = Sij @ W[j].mT
 
-    bs = [b[:, i * block:(i + 1) * block] for i in range(nb)]
-    xs = [xi[:, i * block:(i + 1) * block] for i in range(nb)]
-    y = [None] * nb
-    for i in range(nb):
-        s = bs[i]
-        for k in range(i):
-            s = s - _mv(L[i, k], y[k])
-        y[i] = _mv(W[i], s)
-    u = [None] * nb
-    for i in range(nb - 1, -1, -1):
-        s = y[i] + xs[i]
-        for k in range(i + 1, nb):
-            s = s - _mv(L[k, i].mT, u[k])
-        u[i] = _mv(W[i].mT, s)
-    return torch.cat(u, dim=1)[:, :K]
+    with spans.span("bdf.solves"):
+        bs = [b[:, i * block:(i + 1) * block] for i in range(nb)]
+        xs = [xi[:, i * block:(i + 1) * block] for i in range(nb)]
+        y = [None] * nb
+        for i in range(nb):
+            s = bs[i]
+            for k in range(i):
+                s = s - _mv(L[i, k], y[k])
+            y[i] = _mv(W[i], s)
+        u = [None] * nb
+        for i in range(nb - 1, -1, -1):
+            s = y[i] + xs[i]
+            for k in range(i + 1, nb):
+                s = s - _mv(L[k, i].mT, u[k])
+            u[i] = _mv(W[i].mT, s)
+        return torch.cat(u, dim=1)[:, :K]

@@ -24,6 +24,7 @@ import torch
 from torch.linalg import solve_triangular
 
 from .. import kernels
+from ..utils import spans
 
 # the K range of each kernel
 K3_MAX_K = 32
@@ -50,6 +51,7 @@ def chol_sample_full_plain(P: torch.Tensor, b: torch.Tensor,
 
 
 chol_sample_full_plain.calls = 0
+spans.counter(chol_sample_full_plain, "calls")
 
 
 def _launch(name, k_min, k_max, P, b, xi, Lambda, jitter):
@@ -110,6 +112,7 @@ def chol_sample_full(P: torch.Tensor, b: torch.Tensor, xi: torch.Tensor,
 
 
 chol_sample_full.launches = 0
+spans.counter(chol_sample_full, "launches")
 
 
 def chol_sample_full_tiled(P: torch.Tensor, b: torch.Tensor,
@@ -128,3 +131,4 @@ def chol_sample_full_tiled(P: torch.Tensor, b: torch.Tensor,
 
 
 chol_sample_full_tiled.launches = 0
+spans.counter(chol_sample_full_tiled, "launches")

@@ -24,6 +24,7 @@ import torch
 from torch.linalg import solve_triangular
 
 from .. import kernels
+from ..utils import spans
 from .dense_gram import tri_maps
 
 # the K range of each kernel
@@ -78,6 +79,7 @@ def chol_sample_packed_plain(Pp: torch.Tensor, b: torch.Tensor,
 
 
 chol_sample_packed_plain.calls = 0
+spans.counter(chol_sample_packed_plain, "calls")
 
 
 def _launch(name, k_min, k_max, Pp, b, xi, Lambda, jitter, transposed):
@@ -145,6 +147,7 @@ def chol_sample_packed(Pp: torch.Tensor, b: torch.Tensor, xi: torch.Tensor,
 
 
 chol_sample_packed.launches = 0
+spans.counter(chol_sample_packed, "launches")
 
 
 def chol_sample_packed_tiled(Pp: torch.Tensor, b: torch.Tensor,
@@ -164,6 +167,7 @@ def chol_sample_packed_tiled(Pp: torch.Tensor, b: torch.Tensor,
 
 
 chol_sample_packed_tiled.launches = 0
+spans.counter(chol_sample_packed_tiled, "launches")
 
 
 def chol_sample_packed_dispatch(Pp: torch.Tensor, b: torch.Tensor,

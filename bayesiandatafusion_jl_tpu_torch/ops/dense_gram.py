@@ -66,6 +66,7 @@ from typing import Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..utils.spans import span
 from . import fused_pair
 from .pair_contract import pair_contract
 
@@ -563,6 +564,18 @@ def _contract_dq(M8, W8, YZ8T, mode, K, n, sY, sU, w_scale, alpha,
     return PM.to(out_dtype) * syz[:, None], BV.to(out_dtype) * sz[:, None]
 
 
+def _pair_ridge(P: torch.Tensor, pair: Dict[str, object], sY: torch.Tensor,
+                mode: int, K: int, dc: torch.Tensor, alpha: torch.Tensor,
+                out_dtype: torch.dtype) -> None:
+    """The PD safety ridge in place on the diagonal entries ``dc`` of P
+    [C, n] (JAX dense_gram.py:1391-1414): ~1.7 sigma of the per-row
+    quantization noise, mean(sY) * sqrt(K) / 2 * alpha * sqrt(deg)."""
+    n = pair["shape"][mode]
+    step = ridge_step(sY, K).to(out_dtype) * alpha
+    rdeg = torch.sqrt(pair["deg"][mode][:n]).to(out_dtype)
+    P[dc] += (rdeg * step)[None, :]
+
+
 def _step1_view(A: torch.Tensor, order: Sequence[int], big: int):
     """The store A (modes ``order``) as the 2-D array whose one axis is the
     ``big`` partner's: (view, the focus axis of that view, the store axes
@@ -605,7 +618,7 @@ def _step2(S: torch.Tensor, axes: Sequence[int], extents: Sequence[int],
 def _tensor_int8_contrib(pair, tri, partners, mode, alpha, out_dtype,
                          op_dtype):
     """(P [C, n], b [K, n]) of focus ``mode`` from an arity >= 3 int8
-    store, alpha folded in, without the ridge (JAX dense_gram.py:1320-1390):
+    store, alpha folded in, the ridge added (JAX dense_gram.py:1320-1414):
     step 1 contracts the largest partner exactly in int32 on K6 against
     its quantized table, the store read as 2-D (``_step1_view``), and
     dequantizes (K6's epilogue in float32, after it otherwise); step 2
@@ -629,24 +642,28 @@ def _tensor_int8_contrib(pair, tri, partners, mode, alpha, out_dtype,
         # the focus side leads: only the true rows of its first axis
         n_focus = n_focus // extents[0] * true[order[0]]
         extents[0] = true[order[0]]
-    YZ8T, _, s_yz, sU = fused_quantize(factor[big],
-                                       pad_rows=M2.shape[1 - k6_mode],
-                                       tri=tri)
+    with span("bdf.ytab"):
+        YZ8T, _, s_yz, sU = fused_quantize(factor[big],
+                                           pad_rows=M2.shape[1 - k6_mode],
+                                           tri=tri)
     sY = s_yz[:C]
-    SP, Sb = _contract_dq(M2, W2, YZ8T, k6_mode, K, n_focus, sY, sU,
-                          pair["w_scale"], alpha, out_dtype)
-    del YZ8T
 
     def rounded(t):
         return t if op_dtype == out_dtype else t.to(op_dtype).to(out_dtype)
-    small = {d: U.to(torch.float32) for d, U in factor.items() if d != big}
-    P = _step2(rounded(SP), axes, extents, order, true, mode,
-               {d: rounded(Uf[:, iu] * Uf[:, ju]).to(out_dtype)
-                for d, Uf in small.items()})
-    del SP
-    b = _step2(rounded(Sb), axes, extents, order, true, mode,
-               {d: rounded(Uf).to(out_dtype) for d, Uf in small.items()})
-    return P, b, sY
+    with span("bdf.contract"):
+        SP, Sb = _contract_dq(M2, W2, YZ8T, k6_mode, K, n_focus, sY, sU,
+                              pair["w_scale"], alpha, out_dtype)
+        del YZ8T
+        small = {d: U.to(torch.float32) for d, U in factor.items()
+                 if d != big}
+        P = _step2(rounded(SP), axes, extents, order, true, mode,
+                   {d: rounded(Uf[:, iu] * Uf[:, ju]).to(out_dtype)
+                    for d, Uf in small.items()})
+        del SP
+        b = _step2(rounded(Sb), axes, extents, order, true, mode,
+                   {d: rounded(Uf).to(out_dtype) for d, Uf in small.items()})
+        _pair_ridge(P, pair, sY, mode, K, tri[2], alpha, out_dtype)
+    return P, b
 
 
 def int8_pair_contrib(pair: Dict[str, object], tri,
@@ -672,31 +689,29 @@ def int8_pair_contrib(pair: Dict[str, object], tri,
     n = pair["shape"][mode]
     K = partners[0].shape[1]
     C = K * (K + 1) // 2
-    dc, expand = tri[2], tri[3]
+    expand = tri[3]
     alpha = alpha.to(out_dtype)
     if arity > 2:
-        P, b, sY = _tensor_int8_contrib(pair, tri, partners, mode, alpha,
-                                        out_dtype, op_dtype or out_dtype)
+        P, b = _tensor_int8_contrib(pair, tri, partners, mode, alpha,
+                                    out_dtype, op_dtype or out_dtype)
     else:
         M8, W8 = pair["M8"], pair["W8"]
-        YZ8T, _, s_yz, sU = fused_quantize(partners[0],
-                                           pad_rows=M8.shape[1 - mode],
-                                           tri=tri)
+        with span("bdf.ytab"):
+            YZ8T, _, s_yz, sU = fused_quantize(partners[0],
+                                               pad_rows=M8.shape[1 - mode],
+                                               tri=tri)
         sY = s_yz[:C]
-        P, b = _contract_dq(M8, W8, YZ8T, mode, K, n, sY, sU,
-                            pair["w_scale"], alpha, out_dtype)
-        del YZ8T
-    # PD safety ridge (JAX dense_gram.py:1391-1414): ~1.7 sigma of the
-    # per-row quantization noise, mean(sY) * sqrt(K) / 2 * alpha * sqrt(deg),
-    # on the diagonal entries
-    step = ridge_step(sY, K).to(out_dtype) * alpha
-    rdeg = torch.sqrt(pair["deg"][mode][:n]).to(out_dtype)
-    P[dc] += (rdeg * step)[None, :]
+        with span("bdf.contract"):
+            P, b = _contract_dq(M8, W8, YZ8T, mode, K, n, sY, sU,
+                                pair["w_scale"], alpha, out_dtype)
+            del YZ8T
+            _pair_ridge(P, pair, sY, mode, K, tri[2], alpha, out_dtype)
     if packed:
         return P, b
-    Pt = P.mT.contiguous()                            # [n, C]
-    del P     # free the packed copy before the expand allocates [n, K*K]
-    return Pt[:, expand].view(n, K, K), b.mT
+    with span("bdf.expand"):
+        Pt = P.mT.contiguous()                        # [n, C]
+        del P  # free the packed copy before the expand allocates [n, K*K]
+        return Pt[:, expand].view(n, K, K), b.mT
 
 
 def _contract(T: torch.Tensor, A: torch.Tensor, mode: int,
@@ -745,29 +760,31 @@ def float_pair_contrib(pair: Dict[str, object], tri,
     factor = {d: U.to(M.dtype).mT for d, U in zip(
         [d for d in range(len(true)) if d != mode], partners)}  # [K, N_d]
     alpha = alpha.to(out_dtype)
-    if len(true) == 2:
-        UT = factor[1 - mode]
-        b = _contract(UT, W, mode, out_dtype)             # [K, n]
-        P = _contract(UT[iu] * UT[ju], M, mode, out_dtype)
-    else:
-        big = big_partner(true, mode)
-        M2, k2_mode, axes = _step1_view(M, order, big)
-        W2 = W.view(M2.shape)
-        extents = [M.shape[ax] for ax in axes]
-        UT = factor[big]
-        small = {d: t for d, t in factor.items() if d != big}
-        b = _step2(_contract(UT, W2, k2_mode, out_dtype), axes, extents,
-                   order, true, mode,
-                   {d: t.mT.to(out_dtype) for d, t in small.items()})
-        P = _step2(_contract(UT[iu] * UT[ju], M2, k2_mode, out_dtype), axes,
-                   extents, order, true, mode,
-                   {d: (t[iu] * t[ju]).mT.to(out_dtype)
-                    for d, t in small.items()})
-    b *= alpha
-    P *= alpha
+    with span("bdf.contract"):
+        if len(true) == 2:
+            UT = factor[1 - mode]
+            b = _contract(UT, W, mode, out_dtype)             # [K, n]
+            P = _contract(UT[iu] * UT[ju], M, mode, out_dtype)
+        else:
+            big = big_partner(true, mode)
+            M2, k2_mode, axes = _step1_view(M, order, big)
+            W2 = W.view(M2.shape)
+            extents = [M.shape[ax] for ax in axes]
+            UT = factor[big]
+            small = {d: t for d, t in factor.items() if d != big}
+            b = _step2(_contract(UT, W2, k2_mode, out_dtype), axes, extents,
+                       order, true, mode,
+                       {d: t.mT.to(out_dtype) for d, t in small.items()})
+            P = _step2(_contract(UT[iu] * UT[ju], M2, k2_mode, out_dtype),
+                       axes, extents, order, true, mode,
+                       {d: (t[iu] * t[ju]).mT.to(out_dtype)
+                        for d, t in small.items()})
+        b *= alpha
+        P *= alpha
     if packed:
         return P, b
-    return _expand(P.mT, expand, K), b.mT
+    with span("bdf.expand"):
+        return _expand(P.mT, expand, K), b.mT
 
 
 # ---------------------------------------------------------------------------
@@ -1128,28 +1145,34 @@ def fused_gram_contrib_i8(store: Dict[str, object], tri,
     dc, expand = tri[2], tri[3]
     deg = store["deg"][mode][:n_f]
     scale, shift = store["scale"], store["shift"]
-    YZ8T, _, s_yz, s_z = fused_quantize(partner, pad_rows=V8.shape[1 - mode],
-                                        tri=tri)
+    with span("bdf.ytab"):
+        YZ8T, _, s_yz, s_z = fused_quantize(
+            partner, pad_rows=V8.shape[1 - mode], tri=tri)
     f64 = out_dtype == torch.float64
-    if packed and out_dtype == torch.float32:
-        af = alpha.to(torch.float32)
-        syz_e, sz_e = s_yz * af, s_z * af
-        Pt, PMm, BVf = fused_pair_contract_i8(V8, YZ8T, mode, K, n_f,
-                                              dq=(syz_e, sz_e))
-        c1, c0 = _b_consts(scale, shift, mean, out_dtype, V8.device)
-        b = c1 * BVf + c0 * PMm
-        _add_ridge(Pt, syz_e[:C], K, deg, dc)
+    with span("bdf.contract"):
+        if packed and out_dtype == torch.float32:
+            af = alpha.to(torch.float32)
+            syz_e, sz_e = s_yz * af, s_z * af
+            Pt, PMm, BVf = fused_pair_contract_i8(V8, YZ8T, mode, K, n_f,
+                                                  dq=(syz_e, sz_e))
+            c1, c0 = _b_consts(scale, shift, mean, out_dtype, V8.device)
+            b = c1 * BVf + c0 * PMm
+            _add_ridge(Pt, syz_e[:C], K, deg, dc)
+            return Pt, b
+        PM, BV = fused_pair_contract_i8(V8, YZ8T, mode, K, n_f,
+                                        flip_out=packed)
+        del YZ8T
+        Pt, b = fused_finish_i8(PM, BV, s_yz, s_z, K, out_dtype, scale,
+                                shift, mean, dc, deg, pre_transposed=packed,
+                                alpha=None if f64 else alpha)
+        del PM, BV  # the int32 sums, before the expand allocates [n, K*K]
+        if f64:
+            alpha = alpha.to(out_dtype)
+            Pt, b = alpha * Pt, alpha * b
+    if packed:
         return Pt, b
-    PM, BV = fused_pair_contract_i8(V8, YZ8T, mode, K, n_f, flip_out=packed)
-    del YZ8T
-    Pt, b = fused_finish_i8(PM, BV, s_yz, s_z, K, out_dtype, scale, shift,
-                            mean, dc, deg, pre_transposed=packed,
-                            alpha=None if f64 else alpha)
-    del PM, BV      # the int32 sums, before the expand allocates [n, K*K]
-    if f64:
-        alpha = alpha.to(out_dtype)
-        Pt, b = alpha * Pt, alpha * b
-    return (Pt, b) if packed else (_expand(Pt, expand, K), b)
+    with span("bdf.expand"):
+        return _expand(Pt, expand, K), b
 
 
 def fused_table(partner: torch.Tensor, op_dtype: torch.dtype, n_rows: int,
@@ -1187,14 +1210,19 @@ def fused_gram_contrib(store: Dict[str, object], tri, partner: torch.Tensor,
     n_f = store["shape"][mode]
     K = partner.shape[1]
     C = K * (K + 1) // 2
-    YZT = fused_table(partner, op_dtype, V8.shape[1 - mode], tri)
-    PM, BV = fused_pair.fused_pair_contract(V8, YZT, mode, K, n_f,
-                                            flip_out=transposed)
-    del YZT
-    PM, BV = PM.to(out_dtype), BV.to(out_dtype)
-    c1, c0 = _b_consts(store["scale"], store["shift"], mean, out_dtype,
-                       V8.device)
-    if transposed:
-        return PM[:C], c1 * BV + c0 * PM[C:]
-    Pt, b = PM[:, :C], c1 * BV + c0 * PM[:, C:]
-    return (Pt, b) if packed else (_expand(Pt, tri[3], K), b)
+    with span("bdf.ytab"):
+        YZT = fused_table(partner, op_dtype, V8.shape[1 - mode], tri)
+    with span("bdf.contract"):
+        PM, BV = fused_pair.fused_pair_contract(V8, YZT, mode, K, n_f,
+                                                flip_out=transposed)
+        del YZT
+        PM, BV = PM.to(out_dtype), BV.to(out_dtype)
+        c1, c0 = _b_consts(store["scale"], store["shift"], mean, out_dtype,
+                           V8.device)
+        if transposed:
+            return PM[:C], c1 * BV + c0 * PM[C:]
+        Pt, b = PM[:, :C], c1 * BV + c0 * PM[:, C:]
+    if packed:
+        return Pt, b
+    with span("bdf.expand"):
+        return _expand(Pt, tri[3], K), b

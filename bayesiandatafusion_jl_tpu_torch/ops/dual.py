@@ -23,11 +23,12 @@ so matmul rounding is amplified by ~||X'X|| / lam.
 """
 from __future__ import annotations
 
-import time
 from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
+
+from ..utils.spans import timed
 
 
 def build_dual_gram(rows: np.ndarray, cols: np.ndarray, vals: np.ndarray,
@@ -63,15 +64,15 @@ def dual_eig_cached(rows, cols, vals, shape, dtype, cache_dir, device,
     ``timings`` gets the seconds of the G build ("gram") and of the
     decomposition or the load ("eigh")."""
     timings = {} if timings is None else timings
-    t0 = time.perf_counter()
-    G = build_dual_gram(rows, cols, vals, shape)
-    timings["gram"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    Q, d = _eig_or_load(G, rows, cols, vals, shape, dtype, cache_dir,
-                        device)
-    if Q.is_cuda:
-        torch.cuda.synchronize(Q.device)
-    timings["eigh"] = time.perf_counter() - t0
+    with timed("bdf.build.gram") as t:
+        G = build_dual_gram(rows, cols, vals, shape)
+    timings["gram"] = t.seconds
+    with timed("bdf.build.eigh") as t:
+        Q, d = _eig_or_load(G, rows, cols, vals, shape, dtype, cache_dir,
+                            device)
+        if Q.is_cuda:
+            torch.cuda.synchronize(Q.device)
+    timings["eigh"] = t.seconds
     return Q, d, G
 
 

@@ -49,6 +49,7 @@ from typing import Optional, Tuple
 import torch
 
 from .. import kernels
+from ..utils import spans
 
 
 def int8_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -144,6 +145,7 @@ def fused_pair_plain(V8: torch.Tensor, YZT: torch.Tensor, focus_axis: int,
 
 
 fused_pair_plain.calls = 0
+spans.counter(fused_pair_plain, "calls")
 
 def split_f32_plain(T: torch.Tensor) -> torch.Tensor:
     """The three bfloat16 pieces [3, *T.shape] of the float32 ``T``, with
@@ -186,6 +188,7 @@ def split_f32(T: torch.Tensor) -> torch.Tensor:
 
 
 split_f32.launches = 0
+spans.counter(split_f32, "launches")
 
 # the kernel's code for each float table dtype (csrc/fused_pair_f.cu): a
 # float32 table goes in as its pieces (split_f32)
@@ -291,3 +294,6 @@ fused_pair_contract.launches_f_flip = 0
 fused_pair_contract.launches_f_nat = 0
 fused_pair_contract.launches_f32_flip = 0
 fused_pair_contract.launches_f32_nat = 0
+spans.counter(fused_pair_contract, "launches", "launches_i8_flip",
+              "launches_i8_nat", "launches_f_flip", "launches_f_nat",
+              "launches_f32_flip", "launches_f32_nat")

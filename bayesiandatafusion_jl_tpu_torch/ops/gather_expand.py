@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from .. import kernels
+from ..utils import spans
 
 BS = 1024       # slots per block
 WIN = 128       # factor rows per window
@@ -85,6 +86,7 @@ def windowed_expand_plain(U: torch.Tensor, lanes: torch.Tensor,
 
 
 windowed_expand_plain.calls = 0
+spans.counter(windowed_expand_plain, "calls")
 
 
 def windowed_expand(U: torch.Tensor, lanes: torch.Tensor,
@@ -135,3 +137,4 @@ def windowed_expand(U: torch.Tensor, lanes: torch.Tensor,
 
 
 windowed_expand.launches = 0
+spans.counter(windowed_expand, "launches")

@@ -30,6 +30,7 @@ from typing import Optional, Tuple
 import torch
 
 from .. import kernels
+from ..utils import spans
 from .fused_pair import int8_matmul
 
 
@@ -69,6 +70,7 @@ def pair_contract_plain(M8: torch.Tensor, W8: torch.Tensor,
 
 
 pair_contract_plain.calls = 0
+spans.counter(pair_contract_plain, "calls")
 
 
 def pair_contract(M8: torch.Tensor, W8: torch.Tensor, YZ8T: torch.Tensor,
@@ -139,3 +141,4 @@ def pair_contract(M8: torch.Tensor, W8: torch.Tensor, YZ8T: torch.Tensor,
 
 
 pair_contract.launches = 0
+spans.counter(pair_contract, "launches")

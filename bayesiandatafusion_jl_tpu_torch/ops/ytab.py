@@ -20,6 +20,7 @@ from typing import Optional, Tuple
 import torch
 
 from .. import kernels
+from ..utils import spans
 from . import dense_gram as dg
 
 # the kernel's K range: the largest rank the engine runs (its quant block
@@ -58,6 +59,7 @@ def ytab_quantize_plain(U: torch.Tensor, n_valid: Optional[int] = None,
 
 
 ytab_quantize_plain.calls = 0
+spans.counter(ytab_quantize_plain, "calls")
 
 
 def ytab_quantize(U: torch.Tensor, n_valid: Optional[int] = None,
@@ -105,3 +107,4 @@ def ytab_quantize(U: torch.Tensor, n_valid: Optional[int] = None,
 
 
 ytab_quantize.launches = 0
+spans.counter(ytab_quantize, "launches")

@@ -40,13 +40,11 @@ samples are written (rank 0 writes, every rank reads).
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.distributed as dist
-from torch.profiler import record_function
 
 from ..models.data import (RelationData, resolved_alpha,
                            resolved_alpha_sample, resolved_lambda_beta)
@@ -61,6 +59,7 @@ from ..ops.layout import build_mode_layout
 from ..ops.spmv import bucketed_spmm
 from ..utils.config import MacauConfig
 from ..utils.rng import build_random_spec
+from ..utils.spans import span, timed
 from .mesh import backend_for, data_group, instance_permutation
 
 
@@ -130,7 +129,12 @@ class ShardedProblem:
 
     def __init__(self, rd: RelationData, config: MacauConfig, world: int,
                  rank: int, device: torch.device):
-        t0 = time.perf_counter()
+        with timed("bdf.build") as build:
+            self._build(rd, config, world, rank, device)
+        self.build_seconds = build.seconds
+
+    def _build(self, rd: RelationData, config: MacauConfig, world: int,
+               rank: int, device: torch.device):
         self.config, self.world, self.rank = config, world, rank
         dtype = getattr(torch, config.dtype)
         np_dt = config.np_dtype()
@@ -209,28 +213,34 @@ class ShardedProblem:
             if ri in plan.fused:
                 kind = "fused"
                 s_, m_, keep = plan.fused[ri]
-                fused_i8 = self._build_fused_slab(ri, rel, eids, idx_p,
-                                                  s_, m_, keep, device)
+                with timed("bdf.build.store"):
+                    fused_i8 = self._build_fused_slab(ri, rel, eids, idx_p,
+                                                      s_, m_, keep, device)
                 if not keep.all():
                     resid_sel = np.nonzero(~keep)[0]
             elif any((ri, m) in self.dense_plans for m in range(rel.arity)):
                 kind = "pair"
                 pair_i8 = plan.pair_i8[ri]
                 if pair_i8:
-                    w_scale = dg.pair_w_scale(rel.data.idx, centered, np_dt)
+                    with timed("bdf.build.store"):
+                        w_scale = dg.pair_w_scale(rel.data.idx, centered,
+                                                  np_dt)
             for mode in range(rel.arity):
                 if kind == "fused" and resid_sel is None:
                     continue
                 if kind == "pair" and (ri, mode) in self.dense_plans:
-                    self._build_pair_slab(ri, mode, eids, idx_p, centered,
-                                          pair_i8, w_scale, device)
+                    with timed("bdf.build.store"):
+                        self._build_pair_slab(ri, mode, eids, idx_p,
+                                              centered, pair_i8, w_scale,
+                                              device)
                     continue
-                t1 = time.perf_counter()
-                g_idx = idx_p if resid_sel is None else idx_p[resid_sel]
-                g_cen = centered if resid_sel is None else centered[resid_sel]
-                host_inst[f"r{ri}m{mode}"] = self._build_layout(
-                    ri, mode, eids[mode], g_idx, g_cen, device)
-                self.layout_seconds += time.perf_counter() - t1
+                with timed("bdf.build.layouts") as t:
+                    g_idx = idx_p if resid_sel is None else idx_p[resid_sel]
+                    g_cen = (centered if resid_sel is None
+                             else centered[resid_sel])
+                    host_inst[f"r{ri}m{mode}"] = self._build_layout(
+                        ri, mode, eids[mode], g_idx, g_cen, device)
+                self.layout_seconds += t.seconds
             self.kinds.append(kind)
             self.pair_i8s.append(pair_i8)
             self.fused_i8s.append(fused_i8)
@@ -264,22 +274,24 @@ class ShardedProblem:
                                     dtype=torch.int64).to(device)
                     for j, k in enumerate(("ghost", "slot"))}
             if ent.has_features:
-                self._build_features(ei, ent, device)
+                with timed("bdf.build.features"):
+                    self._build_features(ei, ent, device)
         if config.accumulation == "planned":
-            for ei, meta in enumerate(self.ent_meta):
-                insts = [a for ri, rs in enumerate(self.rel_specs)
-                         for mode, e in enumerate(rs.entity_ids) if e == ei
-                         for a in host_inst.get(f"r{ri}m{mode}", ())]
-                acc = {k: torch.from_numpy(v).to(device)
-                       for k, v in plan_accumulation(insts,
-                                                     meta.n_ext).items()}
-                acc["has"] = acc["has"].to(dtype)
-                self.acc_plan[f"e{ei}"] = acc
+            with timed("bdf.build.acc_plan"):
+                for ei, meta in enumerate(self.ent_meta):
+                    insts = [a for ri, rs in enumerate(self.rel_specs)
+                             for mode, e in enumerate(rs.entity_ids)
+                             if e == ei
+                             for a in host_inst.get(f"r{ri}m{mode}", ())]
+                    acc = {k: torch.from_numpy(v).to(device)
+                           for k, v in plan_accumulation(
+                               insts, meta.n_ext).items()}
+                    acc["has"] = acc["has"].to(dtype)
+                    self.acc_plan[f"e{ei}"] = acc
         self.tri = (dg.tri_index(config.num_latent, device)
                     if self.dense_plans else None)
         if device.type == "cuda":
             torch.cuda.synchronize(device)
-        self.build_seconds = time.perf_counter() - t0
         self.init_alpha = [resolved_alpha(r, config) for r in rd.relations]
         self.init_lambda_beta = [resolved_lambda_beta(e, config)
                                  for e in rd.entities]
@@ -706,7 +718,7 @@ class ShardedMacauEngine(MacauEngine):
             w_row = prob.rowmask[f"e{ei}"][:, None]
             uhat_loc = None
             if es.has_features:
-                with record_function(f"beta_e{ei}"):
+                with span(f"bdf.e{ei}.beta"):
                     rhs = self._beta_rhs(
                         ei, ent, U_loc,
                         self._local(randoms[f"e{ei}.beta_e1"], ei),
@@ -723,13 +735,14 @@ class ShardedMacauEngine(MacauEngine):
                             randoms[f"e{ei}.lb_g"], cfg.nu_beta,
                             cfg.lambda_beta_mean)
             # Normal-Wishart from moments summed over the ranks
-            S = U_loc if uhat_loc is None else U_loc - uhat_loc
-            Sbar = self._allreduce(torch.sum(S * w_row, dim=0)) / es.n
-            Sc = (S - Sbar) * w_row
-            mu, Lambda = normal_wishart_from_moments(
-                es.n, Sbar, self._allreduce(Sc.mT @ Sc), cfg.nw_b0, nu0,
-                2.0 * randoms[f"e{ei}.nw_g"], randoms[f"e{ei}.nw_tri"],
-                randoms[f"e{ei}.nw_mu"])
+            with span(f"bdf.e{ei}.hyper"):
+                S = U_loc if uhat_loc is None else U_loc - uhat_loc
+                Sbar = self._allreduce(torch.sum(S * w_row, dim=0)) / es.n
+                Sc = (S - Sbar) * w_row
+                mu, Lambda = normal_wishart_from_moments(
+                    es.n, Sbar, self._allreduce(Sc.mT @ Sc), cfg.nw_b0, nu0,
+                    2.0 * randoms[f"e{ei}.nw_g"], randoms[f"e{ei}.nw_tri"],
+                    randoms[f"e{ei}.nw_mu"])
             ent["mu"], ent["Lambda"] = mu, Lambda
             dense, contribs = [], []
             for ri, rs in enumerate(prob.rel_specs):
@@ -743,7 +756,8 @@ class ShardedMacauEngine(MacauEngine):
                         dense.append((ri, mode, partners, alpha))
                     for ba in prob.layouts.get(f"r{ri}m{mode}", ()):
                         contribs.append((alpha, partners, ba))
-            prec = self._precision(ei, ent, dense, contribs, uhat_loc)
+            with span(f"bdf.e{ei}.precision"):
+                prec = self._precision(ei, ent, dense, contribs, uhat_loc)
             ent["U"] = self._exchange(
                 ei, prec, self._local(randoms[f"e{ei}.xi"], ei))
             del prec
@@ -756,14 +770,15 @@ class ShardedMacauEngine(MacauEngine):
         for ri, rs in enumerate(prob.rel_specs):
             if not rs.alpha_sample:
                 continue
-            tr = prob.train[f"r{ri}"]
-            pred_c = predict_tuples([ents[e]["U"] for e in rs.entity_ids],
-                                    tr["idx"], 0.0)
-            sse = self._allreduce(torch.sum(tr["w"]
-                                            * (tr["vals"] - pred_c) ** 2))
-            rels[ri] = {"alpha": sample_alpha(
-                sse, rs.nnz, randoms[f"r{ri}.alpha_g"], cfg.alpha_a0,
-                cfg.alpha_b0)}
+            with span(f"bdf.r{ri}.alpha"):
+                tr = prob.train[f"r{ri}"]
+                pred_c = predict_tuples([ents[e]["U"] for e in rs.entity_ids],
+                                        tr["idx"], 0.0)
+                sse = self._allreduce(torch.sum(
+                    tr["w"] * (tr["vals"] - pred_c) ** 2))
+                rels[ri] = {"alpha": sample_alpha(
+                    sse, rs.nnz, randoms[f"r{ri}.alpha_g"], cfg.alpha_a0,
+                    cfg.alpha_b0)}
             metrics[f"r{ri}.alpha"] = rels[ri]["alpha"]
 
         preds = dict(state["pred"])
@@ -771,33 +786,34 @@ class ShardedMacauEngine(MacauEngine):
             key = f"r{ri}"
             if key not in preds:
                 continue
-            te = prob.test[key]
-            w = te["w"]
-            p = predict_tuples([ents[e]["U"] for e in rs.entity_ids],
-                               te["idx"], rs.mean_value)
-            if cfg.clamp is not None:
-                p = torch.clamp(p, cfg.clamp[0], cfg.clamp[1])
-            pr = preds[key]
-            pr = {"sum": pr["sum"] + accumulate * p * w,
-                  "sum2": pr["sum2"] + accumulate * p * p * w,
-                  "n": pr["n"] + accumulate}
-            preds[key] = pr
-            pmean = pr["sum"] / torch.clamp_min(pr["n"], 1.0)
-            sq = self._allreduce(torch.stack([
-                torch.sum(w * (p - te["vals"]) ** 2),
-                torch.sum(w * (pmean - te["vals"]) ** 2)]))
-            metrics[f"{key}.rmse_sample"] = torch.sqrt(sq[0] / rs.n_test)
-            metrics[f"{key}.rmse_avg"] = torch.sqrt(sq[1] / rs.n_test)
-            if rs.class_cut is not None:
-                # the AUC over every rank's block: padding entries score
-                # +inf with weight 0 (JAX :1380-1391)
-                pm, v, wg = self._allgather(torch.stack(
-                    [pmean, te["vals"], w])).view(self.world, 3, -1) \
-                    .transpose(0, 1).reshape(3, -1)
-                labels = (v < rs.class_cut).to(self.dtype) * wg
-                scores = torch.where(wg > 0, -pm, torch.inf)
-                metrics[f"{key}.auc"] = auc_device(labels, scores,
-                                                   weights=wg)
+            with span(f"bdf.r{ri}.predict"):
+                te = prob.test[key]
+                w = te["w"]
+                p = predict_tuples([ents[e]["U"] for e in rs.entity_ids],
+                                   te["idx"], rs.mean_value)
+                if cfg.clamp is not None:
+                    p = torch.clamp(p, cfg.clamp[0], cfg.clamp[1])
+                pr = preds[key]
+                pr = {"sum": pr["sum"] + accumulate * p * w,
+                      "sum2": pr["sum2"] + accumulate * p * p * w,
+                      "n": pr["n"] + accumulate}
+                preds[key] = pr
+                pmean = pr["sum"] / torch.clamp_min(pr["n"], 1.0)
+                sq = self._allreduce(torch.stack([
+                    torch.sum(w * (p - te["vals"]) ** 2),
+                    torch.sum(w * (pmean - te["vals"]) ** 2)]))
+                metrics[f"{key}.rmse_sample"] = torch.sqrt(sq[0] / rs.n_test)
+                metrics[f"{key}.rmse_avg"] = torch.sqrt(sq[1] / rs.n_test)
+                if rs.class_cut is not None:
+                    # the AUC over every rank's block: padding entries score
+                    # +inf with weight 0 (JAX :1380-1391)
+                    pm, v, wg = self._allgather(torch.stack(
+                        [pmean, te["vals"], w])).view(self.world, 3, -1) \
+                        .transpose(0, 1).reshape(3, -1)
+                    labels = (v < rs.class_cut).to(self.dtype) * wg
+                    scores = torch.where(wg > 0, -pm, torch.inf)
+                    metrics[f"{key}.auc"] = auc_device(labels, scores,
+                                                       weights=wg)
         return ({"ent": ents, "rel": rels, "uhat": uhat, "pred": preds},
                 metrics)
 
@@ -812,11 +828,14 @@ class ShardedMacauEngine(MacauEngine):
         n_blk = max(1, min(self.problem.exchange_blocks, meta.n_loc))
         blk = meta.n_loc // n_blk
         if n_blk == 1 or blk * n_blk != meta.n_loc:
-            return self._allgather(self._draw_rows(prec, xi))
+            with span(f"bdf.e{ei}.draw"):
+                u = self._draw_rows(prec, xi)
+            return self._allgather(u)
         works = []
         for c in range(n_blk):
             rows = slice(c * blk, (c + 1) * blk)
-            u = self._draw_rows(prec, xi[rows], rows).contiguous()
+            with span(f"bdf.e{ei}.draw"):
+                u = self._draw_rows(prec, xi[rows], rows).contiguous()
             out = u.new_empty((self.world * blk, u.shape[1]))
             works.append((dist.all_gather_into_tensor(
                 out, u, group=self.group, async_op=True), out))

@@ -147,7 +147,8 @@ class MacauConfig:
     # prediction (``predict_out_of_matrix``): {prefix}-sampleNNNN.npz
     output_prefix: Optional[str] = None
     # a torch.profiler trace (Chrome format) of one sweep, min(2, total - 1),
-    # written into this directory; None = off
+    # with the port's spans (utils/spans.py), written into this directory;
+    # None = off
     trace_dir: Optional[str] = None
     # every N sweeps save the state to checkpoint_path (the JAX package's
     # npz layout); 0 = off.  Resume with MacauEngine.load_state and

@@ -207,7 +207,7 @@ Phases, each fatal on failure (nonzero exit, no result line):
    float32, the int8 pair: K6 and K7 for both modes, K1 for both
    entities), each with its build seconds (G, eigh, Nystrom, X'X), the
    kernels' launches a sweep, peak memory and the beta draw's share of
-   the sweep (``record_function`` ranges under ``torch.profiler``, and
+   the sweep (its ``bdf.e{i}.beta`` spans under ``torch.profiler``, and
    CUDA events around the draw):
    - ``chembl``: the dual solve (XX' decomposed in float32 on the card),
      the bench's protocol (20-sweep windows); rmse_avg 0.4998 +- 0.02 and
@@ -1605,8 +1605,8 @@ def profile_split(eng, warm=2, sweeps=3, split=SPLIT):
     rest under "rest"), the device idle share, the largest kernels and the
     largest of "rest" (ms per sweep, and launches in the trace, to show a
     lost event), from a ``torch.profiler`` trace of ``sweeps`` sweeps
-    after ``warm``.  The engine's ``record_function`` ranges of the beta
-    draw ("beta_e{i}"), where the trace carries them on the device's
+    after ``warm``.  The engine's spans of the beta draw
+    ("bdf.e{i}.beta"), where the trace carries them on the device's
     timeline, give ``beta_span_ms`` (their device span a sweep) and
     ``beta_busy_ms`` (the kernel time inside them); None without them."""
     import torch
@@ -1629,8 +1629,8 @@ def profile_split(eng, warm=2, sweeps=3, split=SPLIT):
             continue
         interval = (e.time_range.start, e.time_range.end)
         if (getattr(e, "is_user_annotation", False)
-                or e.name.startswith("beta_e")):
-            if e.name.startswith("beta_e"):
+                or e.name.startswith("bdf.")):
+            if e.name.startswith("bdf.e") and e.name.endswith(".beta"):
                 spans.append(interval)
             continue
         kernels.append(interval)
@@ -3699,7 +3699,7 @@ def print_profile(label, prof):
     print(f"# profile {label}: the largest kernels of no named part (ms a "
           f"sweep, launches in the trace) {prof['rest_top']}", flush=True)
     if prof["beta_span_ms"] is not None:
-        print(f"# profile {label}: the beta draw's record_function ranges "
+        print(f"# profile {label}: the beta draw's spans (bdf.e{{i}}.beta) "
               f"on the device: span {prof['beta_span_ms']:.3f} ms a sweep, "
               f"kernels inside {prof['beta_busy_ms']:.3f} ms; the rest of "
               f"the sweep's kernels "
