@@ -126,6 +126,9 @@ def load() -> ctypes.CDLL:
                                              p, p, p, p, p, p, p]
         lib.bdf_windowed_expand.restype = i
         lib.bdf_windowed_expand.argtypes = [p, ll, i, p, p, ll, p, p]
+        lib.bdf_gather_gram.restype = i
+        lib.bdf_gather_gram.argtypes = [p, ll, p, ll, i, i, p, p, p, p, ll, i,
+                                        i, p, p, p, p]
         _lib = lib
     return _lib
 

@@ -11,12 +11,15 @@ entity rows i with observations o,
     b_i = Lambda mu  + sum_r alpha_r sum_o (v_o - mean_r) z_o
 
 where z_o is the product of the other modes' latent rows.  Per bucket of
-the layout (ops/layout.py) the partner rows are gathered into a
-[rows, W, K] block and contracted into per-row Gramians by batched matrix
-products (the JAX package's XLA einsums); the rows then reduce into the
-instances by one segment sum (``_segment_sum``) or by the compile-time plan.
-The layout's index arrays stay int32 on the device: ``index_select`` and
-the segment sum's sort take them as they are.
+the layout (ops/layout.py) each row's partner rows are contracted into its
+Gramian: for a bfloat16 gather on the card by the gather-Gramian kernel
+(``gather_gram``, ``csrc/gather_gram.cu``: the rows gathered into shared
+memory and contracted on the tensor cores in one pass), else by torch code
+that gathers them into a [rows, W, K] block and contracts it by batched
+matrix products (the JAX package's XLA einsums); the rows then reduce into
+the instances by one segment sum (``_segment_sum``) or by the compile-time
+plan.  The layout's index arrays stay int32 on the device: the kernel,
+``index_select`` and the segment sum's sort take them as they are.
 
 Every segment sum here adds in one fixed order, the same on every run: the
 rows sorted stably by instance, then each instance's rows summed in that
@@ -34,12 +37,35 @@ from typing import Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import kernels
+from ..utils import spans
+
 # Gathered-block transient budget in bytes (rows * W * K * itemsize per
-# partner table).  A bucket over it is processed in row chunks; each row's
-# W-reduction stays inside one chunk, so chunking gives the same bits as
-# one pass.  ML-10M's largest bucket set at K = 64 in bfloat16 (~1.45 GB a
-# mode) stays on the one-pass path.
+# partner table) of the torch code.  A bucket over it is processed in row
+# chunks; each row's W-reduction stays inside one chunk, so chunking gives
+# the same bits as one pass.  ML-10M's largest bucket set at K = 64 in
+# bfloat16 (~1.45 GB a mode) stays on the one-pass path.
 _GATHER_CHUNK_BYTES = 4e9
+
+# The gather-Gramian kernel (csrc/gather_gram.cu) takes K a multiple of 16
+# up to 64, one or two partner tables (arity 2 or 3).  Above K = 64 a
+# warp's accumulators of P would not fit its registers.
+GATHER_GRAM_KS = (16, 32, 48, 64)
+# the kernel's slots a step, and the steps a warp walks at most (a few
+# narrow rows, or one wide row, in one pipeline)
+_GG_STEP = 16
+_GG_WARP_STEPS = 32
+
+
+def gather_gram_takes(device_type: str, gram_dtype, val_dtype, K: int,
+                      arity: int) -> bool:
+    """The dispatch rule of ``bucket_gramian``: the gather-Gramian kernel
+    for a bfloat16 gather of float32 values on a CUDA device at K in
+    ``GATHER_GRAM_KS`` and arity 2 or 3; the torch code for everything
+    else (float32 and float64 gathers, the CPU, other K and arities)."""
+    return (device_type == "cuda" and gram_dtype == torch.bfloat16
+            and val_dtype == torch.float32 and K in GATHER_GRAM_KS
+            and arity in (2, 3))
 
 
 def bucket_gramian(
@@ -49,18 +75,39 @@ def bucket_gramian(
     mask: torch.Tensor,                       # [rows, W]
     gram_dtype=None,
     max_gather_bytes: float = None,
+    alpha=None,
+    out=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Per-row Gramian and rhs contribution of one bucket (without alpha):
-    (P [rows, K, K], b [rows, K]) in ``val``'s dtype.
+    """Per-row Gramian and rhs contribution of one bucket: (P [rows, K, K],
+    b [rows, K]) in ``val``'s dtype, times ``alpha`` where given (a number
+    or a one-element tensor); with ``out`` = (P [rows, K*K], b [rows, K])
+    written there and returned.
 
     With ``gram_dtype=torch.bfloat16`` the partner rows (and the values)
     are gathered and masked in bfloat16, then contracted in ``val``'s dtype:
     a product of two bfloat16 values is exact in float32, so this is the
     JAX package's bf16 contraction with float32 accumulation and output,
-    up to the order of the sums."""
-    out_dtype = val.dtype
+    up to the order of the sums.  Where ``gather_gram_takes`` (a CUDA
+    device, float32 values, K in ``GATHER_GRAM_KS``, arity 2 or 3) it runs
+    the gather-Gramian kernel (``gather_gram``), else the torch code."""
     if gram_dtype is not None:
         partner_factors = [U.to(gram_dtype) for U in partner_factors]
+    if gather_gram_takes(val.device.type, gram_dtype, val.dtype,
+                         partner_factors[0].shape[-1],
+                         len(partner_factors) + 1):
+        return gather_gram(partner_factors, part, val, mask, alpha=alpha,
+                           out=out)
+    return _bucket_gramian_torch(partner_factors, part, val, mask,
+                                 max_gather_bytes, alpha, out)
+
+
+def _bucket_gramian_torch(partner_factors, part, val, mask,
+                          max_gather_bytes, alpha, out):
+    """``bucket_gramian`` in torch operations, the partner tables already
+    in the gather's dtype: each row's partner rows gathered into a [rows,
+    W, K] block (in row chunks over ``max_gather_bytes``), masked, then
+    contracted by batched matrix products in ``val``'s dtype."""
+    out_dtype = val.dtype
     budget = (_GATHER_CHUNK_BYTES if max_gather_bytes is None
               else max_gather_bytes)
     rows, W = val.shape
@@ -84,15 +131,131 @@ def bucket_gramian(
         return P, b
 
     if transient <= budget or rows <= 1:
-        return block(part, val, mask)
-    n_chunks = min(int(np.ceil(transient / budget)), rows)
-    cr = -(-rows // n_chunks)
-    P = torch.empty((rows, K, K), dtype=out_dtype, device=val.device)
-    b = torch.empty((rows, K), dtype=out_dtype, device=val.device)
-    for start in range(0, rows, cr):
-        sl = slice(start, min(start + cr, rows))
-        P[sl], b[sl] = block([p[sl] for p in part], val[sl], mask[sl])
+        P, b = block(part, val, mask)
+    else:
+        n_chunks = min(int(np.ceil(transient / budget)), rows)
+        cr = -(-rows // n_chunks)
+        P = torch.empty((rows, K, K), dtype=out_dtype, device=val.device)
+        b = torch.empty((rows, K), dtype=out_dtype, device=val.device)
+        for start in range(0, rows, cr):
+            sl = slice(start, min(start + cr, rows))
+            P[sl], b[sl] = block([p[sl] for p in part], val[sl], mask[sl])
+    if out is not None:
+        scale = 1.0 if alpha is None else alpha
+        torch.mul(P.view(out[0].shape), scale, out=out[0])
+        torch.mul(b, scale, out=out[1])
+        return out
+    if alpha is not None:
+        P, b = P.mul_(alpha), b.mul_(alpha)
     return P, b
+
+
+def gather_gram_plain(partner_factors, part, val, mask, alpha=None,
+                      out=None):
+    """The plain torch version of ``gather_gram``: the torch code of
+    ``bucket_gramian`` with the partner rows in bfloat16.  Runs on any
+    device; ``gather_gram_plain.calls`` counts its calls."""
+    gather_gram_plain.calls += 1
+    return _bucket_gramian_torch([U.to(torch.bfloat16)
+                                  for U in partner_factors], part, val, mask,
+                                 None, alpha, out)
+
+
+gather_gram_plain.calls = 0
+spans.counter(gather_gram_plain, "calls")
+
+
+def gather_gram(partner_factors, part, val, mask, alpha=None, out=None):
+    """One bucket's per-row alpha * P [rows, K, K] and alpha * b [rows, K]
+    (float32) from a bfloat16 gather: the partner tables ``partner_factors``
+    (one or two [N_d, K] bfloat16, K in ``GATHER_GRAM_KS``), the indices
+    ``part`` (as many [rows, W] int32), ``val`` and ``mask`` ([rows, W]
+    float32), ``alpha`` a number or a one-element tensor (default 1).  With
+    ``out`` = (P [rows, K*K] or [rows, K, K], b [rows, K]), contiguous
+    float32, the results go there.
+
+    CPU tensors run the plain version; CUDA tensors launch the kernel
+    (``csrc/gather_gram.cu``) on the current stream or raise — there is no
+    fallback.  The kernel reads nothing outside a table: an index outside
+    it, like a slot with mask 0, reads as a zero row.
+    ``gather_gram.launches`` counts the launches."""
+    dev = val.device
+    if dev.type == "cpu":
+        return gather_gram_plain(partner_factors, part, val, mask, alpha,
+                                 out)
+    if dev.type != "cuda":
+        raise RuntimeError(f"no kernel for device {dev}")
+    nt = len(partner_factors)
+    if nt not in (1, 2) or len(part) != nt:
+        raise ValueError(f"the kernel takes one or two partner tables with "
+                         f"an index array each, got {nt} and {len(part)}")
+    K = partner_factors[0].shape[-1]
+    if K not in GATHER_GRAM_KS:
+        raise ValueError(f"the kernel takes K in {GATHER_GRAM_KS}, got {K}")
+    for U in partner_factors:
+        if (U.dim() != 2 or U.shape[1] != K or U.shape[0] < 1
+                or U.dtype != torch.bfloat16 or not U.is_contiguous()
+                or U.data_ptr() % 16 or U.device != dev):
+            raise ValueError(f"a partner table must be a nonempty, "
+                             f"contiguous, 16-byte aligned [n, {K}] bfloat16 "
+                             f"tensor on {dev}, got {U.dtype} "
+                             f"{tuple(U.shape)} on {U.device}")
+    if val.dim() != 2:
+        raise ValueError(f"val must be [rows, W], got {tuple(val.shape)}")
+    rows, W = val.shape
+    for name, t, dt in (*((f"part[{d}]", p, torch.int32)
+                          for d, p in enumerate(part)),
+                        ("val", val, torch.float32),
+                        ("mask", mask, torch.float32)):
+        if (t.dtype != dt or tuple(t.shape) != (rows, W)
+                or not t.is_contiguous() or t.device != dev):
+            raise ValueError(f"{name} must be contiguous {dt} [{rows}, {W}] "
+                             f"on {dev}, got {t.dtype} {tuple(t.shape)}")
+    if torch.is_tensor(alpha):
+        if alpha.numel() != 1:
+            raise ValueError("alpha must hold one value")
+        a = alpha.to(device=dev, dtype=torch.float32).reshape(())
+    else:
+        a = torch.full((), 1.0 if alpha is None else float(alpha),
+                       dtype=torch.float32, device=dev)
+    if out is None:
+        out = (torch.empty((rows, K, K), dtype=torch.float32, device=dev),
+               torch.empty((rows, K), dtype=torch.float32, device=dev))
+    for name, t, numel in (("P", out[0], rows * K * K),
+                           ("b", out[1], rows * K)):
+        if (t.dtype != torch.float32 or t.numel() != numel
+                or t.shape[0] != rows or not t.is_contiguous()
+                or t.data_ptr() % 16 or t.device != dev):
+            raise ValueError(f"out {name} must be contiguous, 16-byte "
+                             f"aligned float32 with {numel} entries on "
+                             f"{dev}")
+    if rows == 0:
+        return out
+    # a warp takes up to _GG_WARP_STEPS steps' rows, fewer where the bucket
+    # has too few rows for 32 warps a SM
+    n_steps = -(-W // _GG_STEP)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    rows_per_warp = max(1, min(max(1, _GG_WARP_STEPS // n_steps),
+                               -(-rows // (32 * sms))))
+    U1, p1 = partner_factors[-1], part[-1]
+    lib = kernels.load()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        rc = lib.bdf_gather_gram(
+            partner_factors[0].data_ptr(), partner_factors[0].shape[0],
+            U1.data_ptr(), U1.shape[0], K, nt, part[0].data_ptr(),
+            p1.data_ptr(), val.data_ptr(), mask.data_ptr(), rows, W,
+            rows_per_warp, a.data_ptr(), out[0].data_ptr(),
+            out[1].data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"gather-Gramian kernel launch failed: CUDA "
+                           f"error {rc}")
+    gather_gram.launches += 1
+    return out
+
+
+gather_gram.launches = 0
+spans.counter(gather_gram, "launches")
 
 
 def _gramian_rows(contribs, K: int, gram_dtype):
@@ -113,12 +276,11 @@ def _gramian_rows(contribs, K: int, gram_dtype):
 
     off = 0
     for alpha, partner_factors, ba in contribs:
-        P, b = bucket_gramian([to_gram(U) for U in partner_factors],
-                              ba["part"], ba["val"], ba["mask"],
-                              gram_dtype=gram_dtype)
-        r = P.shape[0]
-        torch.mul(P.view(r, K * K), alpha, out=P_cat[off:off + r])
-        torch.mul(b, alpha, out=b_cat[off:off + r])
+        r = ba["inst"].shape[0]
+        bucket_gramian([to_gram(U) for U in partner_factors], ba["part"],
+                       ba["val"], ba["mask"], gram_dtype=gram_dtype,
+                       alpha=alpha,
+                       out=(P_cat[off:off + r], b_cat[off:off + r]))
         off += r
     return P_cat, b_cat
 
@@ -193,12 +355,26 @@ def assemble_precision(
 
 
 # Transient budget of the packed accumulation, in bytes of the larger of a
-# chunk's [rows, K, K] Gramian block and its [rows, W, K] gather: a bucket
-# over it accumulates in row chunks, each segment-summed into the persistent
+# chunk's [rows, K, K] Gramian block and, on the torch code, its [rows, W,
+# K] gather (the gather-Gramian kernel builds no such block): a bucket over
+# it accumulates in row chunks, each segment-summed into the persistent
 # accumulator.  The Netflix-shaped residual (one duplicate rating for each
 # of ~460k users: 1.9 GB of [rows, 32, 32] float32 blocks at once) runs in
 # 4 chunks beside the 8.5 GB value array.
 _PACKED_CHUNK_BYTES = 5e8
+
+
+def packed_chunk_rows(rows: int, W: int, K: int, itemsize: int,
+                      gather_bytes: int) -> int:
+    """The rows of each chunk ``packed_bucket_accum`` takes from a bucket
+    of ``rows`` x ``W``: within ``_PACKED_CHUNK_BYTES`` of the chunk's
+    [rows, K, K] Gramian block of ``itemsize`` bytes an entry and its
+    gathered block of ``gather_bytes`` a slot (0 for the gather-Gramian
+    kernel, which builds none)."""
+    per_row = max(K * K * itemsize, W * gather_bytes)
+    n_chunks = max(1, min(int(np.ceil(float(rows) * per_row
+                                      / _PACKED_CHUNK_BYTES)), rows))
+    return -(-rows // n_chunks)
 
 
 def packed_bucket_accum(contribs, n: int, K: int, gram_dtype=None,
@@ -218,8 +394,8 @@ def packed_bucket_accum(contribs, n: int, K: int, gram_dtype=None,
     relations' exact-valued residual buckets.  ``bucket_gramian``'s P is
     symmetric bit for bit (commuting products, the same W-reduction), so
     its upper triangle is exact.  A bucket over ``_PACKED_CHUNK_BYTES``
-    runs in row chunks; that changes the order of the instance sums, not a
-    row's own Gramian.  Each chunk's rows are summed by instance in a
+    runs in row chunks (``packed_chunk_rows``); that changes the order of
+    the instance sums, not a row's own Gramian.  Each chunk's rows are summed by instance in a
     fixed order (``_run_sums``) before they are added.  Returns (None,
     None) for no contribs and no ``out``."""
     if not contribs:
@@ -245,22 +421,21 @@ def packed_bucket_accum(contribs, n: int, K: int, gram_dtype=None,
                     cast[id(U)] = U.to(gram_dtype)
             partner_factors = [cast[id(U)] for U in partner_factors]
         rows, W = ba["val"].shape
-        per_row = max(K * K * ba["val"].element_size(),
-                      W * K * partner_factors[0].element_size()
-                      * len(partner_factors))
-        n_chunks = max(1, min(int(np.ceil(float(rows) * per_row
-                                          / _PACKED_CHUNK_BYTES)), rows))
-        cr = -(-rows // n_chunks)
+        gather_bytes = (0 if gather_gram_takes(
+            dev.type, gram_dtype, dtype, K, len(partner_factors) + 1)
+            else K * partner_factors[0].element_size()
+            * len(partner_factors))
+        cr = packed_chunk_rows(rows, W, K, ba["val"].element_size(),
+                               gather_bytes)
         for start in range(0, rows, cr):
             sl = slice(start, min(start + cr, rows))
             P, b = bucket_gramian(partner_factors,
                                   [p[sl] for p in ba["part"]], ba["val"][sl],
-                                  ba["mask"][sl], gram_dtype=gram_dtype)
+                                  ba["mask"][sl], gram_dtype=gram_dtype,
+                                  alpha=alpha)
             Pp_rows = P.view(P.shape[0], K * K).index_select(1, sel)
             del P
-            Pp_rows *= alpha
-            inst, (Pp_rows, b) = _run_sums(ba["inst"][sl], Pp_rows,
-                                           b * alpha)
+            inst, (Pp_rows, b) = _run_sums(ba["inst"][sl], Pp_rows, b)
             if transposed:
                 Pp.index_add_(1, inst, Pp_rows.mT)
                 b_acc.index_add_(1, inst, b.mT)

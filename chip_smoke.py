@@ -11,7 +11,8 @@ Phases, each fatal on failure (nonzero exit, no result line):
    and ptxas serializes no ``wgmma`` (no C75xx line in its log); the
    sampler kernels' build lines (K1-K5: registers, spills), failing on any
    spill in float32 or float64, and K7's (both passes), K8c/K8d's float32
-   ring's and its split's, failing on any spill; then the native host
+   ring's, its split's and the gather-Gramian kernel's (GG), failing on
+   any spill; then the native host
    builder (``native/layout.cpp``: the gather path's bucketed layouts, the
    SBM1 files) by the host C++ compiler;
 3. kernels vs plain: each sampler kernel against its plain torch version
@@ -114,11 +115,18 @@ Phases, each fatal on failure (nonzero exit, no result line):
      this path lost most of its kernel events);
    - the gather path (``dense_gram=False``, bfloat16 gather, the bench's
      25-width bucket ladder) at K = 32 and 64 with "segment" accumulation
-     and at K = 32 with "planned".  Every sweep must sample both entities
+     and at K = 32 with "planned".  Every sweep must form every bucket's
+     Gramians by GG (one launch a bucket) and sample both entities
      through K3 (K = 32) or K4 (K = 64); each path also reports a
      ``torch.profiler`` split of a few sweeps, and two runs of the same
      seed must give the same U, bit for bit (every sum in a fixed order);
-     at K = 32 "segment" the driver loop's resume and window checks;
+     on the "segment" paths GG is held at every bucket of both modes
+     against its plain version (the torch chain, on the card) within two
+     float32 orders of the same exact products, P symmetric bit for bit
+     and a second launch the same bits, and a sweep's launches timed
+     beside the plain version's and the library's ``index_select`` of the
+     partner rows; at K = 32 "segment" the driver loop's resume and window
+     checks;
    - the fused path (``dense_fused=True``) at K = 32 and 64, one timed
      window of 40 sweeps and a ``torch.profiler`` split: K7 and K8a twice
      a sweep and the packed sampler (K1, K2), K8a held bitwise against its
@@ -167,12 +175,15 @@ Phases, each fatal on failure (nonzero exit, no result line):
      planner must choose the fused store);
    - ``netflix_gather`` (bench.py:422-472): the same data with
      ``dense_gram=False``, a bfloat16 gather, the bench's ladder, its
-     layouts built by the native builder, K3 for both entities, the build
-     seconds and rmse_sample@8 in the Netflix band;
+     layouts built by the native builder, GG for every bucket and K3 for
+     both entities, the build seconds and rmse_sample@8 in the Netflix
+     band; GG held and timed at its buckets as on the ML-10M gather paths
+     (its row in the kernels line);
    - ``netflix_dup``: every 67th rating a second time (1,499,710 more
      observations), which the one array cannot hold: they ride the gather
-     path as a residual, added into the s8 contribution in the packed
-     layout; two runs of one seed must give the same U, bit for bit.
+     path as a residual (GG once a row chunk), added into the s8
+     contribution in the packed layout; two runs of one seed must give
+     the same U, bit for bit.
 7. the graph paths, each built as its ``bench.py`` function builds it
    (float32, seed 42, ``gram_dtype="bfloat16"``, the 25-width ladder, no
    clamp), with a ``torch.profiler`` split:
@@ -188,8 +199,9 @@ Phases, each fatal on failure (nonzero exit, no result line):
      sampled, the alphas finite, positive and moving;
    - ``tensor_big``: 200,000 x 20,000 x 8, 30M cells, bench.py's options
      as written (the default dense_gram): the planner must send every
-     mode to the gather path at arity 3 (K3), 8-sweep windows,
-     rmse_sample@8 in the JAX band, layout seconds and peak memory;
+     mode to the gather path at arity 3 (GG, K3), 8-sweep windows,
+     rmse_sample@8 in the JAX band, layout seconds and peak memory; GG
+     held and timed at its buckets as on the ML-10M gather paths;
    - K9 at tensor_big's shape (the 200,000-row entity's factors, the
      observations sorted by its id), held bit for bit and timed beside
      ``index_select`` in bfloat16 and float32.  No engine path runs K9
@@ -199,7 +211,8 @@ Phases, each fatal on failure (nonzero exit, no result line):
      2,000 x 16 x 4, 5M cells, made from a seed), K = 32, the int8 pair at
      arity 4 (``dense_gram=True``, ``dense_int8=True``: one store [30000,
      16, 4, 2000], K6 for each mode's first step, K7, K1) and the gather
-     path on the same data; their rmse_avg within RMSE_BAND of each other;
+     path on the same data (at arity 4 the torch code: no GG); their
+     rmse_avg within RMSE_BAND of each other;
      K6 held against its plain version on the store's two 2-D views.
 8. the ChEMBL Macau paths (``bench.py:165-189`` on the port: 15,000
    compounds x 346 targets, 300,000 activities, ``class_cut``
@@ -276,8 +289,9 @@ BENCH_WIDTHS = (8, 12, 16, 20, 24, 28, 32, 40, 48, 56, 64, 80, 96, 112, 128,
                 160, 192, 224, 256, 320, 384, 512, 768, 1024, 2048)
 KERNEL_ERR_FACTOR = 10.0     # kernel error <= 10x the f32 plain version's
 F64_KERNEL_TOL = 1e-9        # float64 kernel vs float64 plain version
-# the sampler kernels K1-K5, K7's two passes, K8c/K8d's float32 ring and
-# its split (a piece of their mangled names): their builds must not spill
+# the sampler kernels K1-K5, K7's two passes, K8c/K8d's float32 ring, its
+# split and the gather-Gramian kernel GG (a piece of their mangled names):
+# their builds must not spill
 SAMPLER_KERNELS = (("K1", "chol_sample_packed_kernel"),
                    ("K2", "chol_sample_packed_slab_kernel"),
                    ("K3", "chol_sample_full_kernel"),
@@ -286,7 +300,8 @@ SAMPLER_KERNELS = (("K1", "chol_sample_packed_kernel"),
                    ("K7 colmax", "ytab_colmax_kernel"),
                    ("K7 quant", "ytab_quant_kernel"),
                    ("K8c/K8d float32", "fused_pair_f32x3_kernel"),
-                   ("split", "split_f32_kernel"))
+                   ("split", "split_f32_kernel"),
+                   ("GG", "gather_gram_kernel"))
 # K5's float64 W against the float64 plain version: both are exact to a
 # few ulps of W (|W| ~ 1 on these problems)
 K5_F64_TOL = 1e-12
@@ -1253,12 +1268,154 @@ def print_expand_check(label, r):
     print(line, flush=True)
 
 
+def gather_gram_bytes(buckets, tables, K):
+    """The bytes GG must move for ``buckets`` of one (relation, mode): read
+    each slot's layout once (an int32 index a partner table, the float32
+    value and mask), write alpha * P and alpha * b once and read each
+    partner table once (the rows it gathers again come from the L2)."""
+    nt = len(tables)
+    slots = sum(ba["val"].numel() for ba in buckets)
+    rows = sum(ba["val"].shape[0] for ba in buckets)
+    return (slots * (4 * nt + 8) + rows * (K * K + K) * 4
+            + sum(U.numel() * U.element_size() for U in tables))
+
+
+def gather_gram_tol(tables, part, val, mask, alpha, slots=2**20):
+    """The elementwise bound of |GG - its plain version| for one bucket
+    (``test_torch_gpu.py``'s): both sum the same exact products (bfloat16
+    operands, exact in float32) in float32 in two orders, each within
+    (W - 1) u sum|p| of the exact sum (u = 2^-24; the tensor cores' adds
+    truncate, 2^-23), then round the alpha product once: alpha (3 W u
+    sum|p| + 2 u |exact|), from float64 sums on the card, ``slots`` slots
+    of rows at a time.  Returns (tol_P [rows, K, K], tol_b [rows, K])."""
+    import torch
+    rows, W = val.shape
+    K = tables[0].shape[1]
+    u = 2.0 ** -24
+    cr = max(1, slots // max(W, K))
+    tol_P, tol_b = [], []
+    for r0 in range(0, rows, cr):
+        sl = slice(r0, r0 + cr)
+        z = tables[0][part[0][sl].long()]
+        if len(tables) == 2:
+            z = z * tables[1][part[1][sl].long()]
+        zm = (z * mask[sl, :, None].to(torch.bfloat16)).double()
+        del z
+        v = val[sl].to(torch.bfloat16).double()[..., None]
+        za = zm.abs()
+        tol_P.append(alpha * (3 * W * u * (za.mT @ za)
+                              + 2 * u * (zm.mT @ zm).abs()))
+        tol_b.append(alpha * (3 * W * u * (za.mT @ v.abs())[..., 0]
+                              + 2 * u * (zm.mT @ v)[..., 0].abs()))
+        del zm, za, v
+    return torch.cat(tol_P), torch.cat(tol_b)
+
+
+def check_gather_gram(eng, K, timing=True, seed=0, alpha=2.75):
+    """GG (the wrapper ``gather_gram``) against its plain version (the
+    torch chain, on the card) at every bucket of every gather (relation,
+    mode) of ``eng``'s problem, as a sweep launches them, on random partner
+    tables in bfloat16: within ``gather_gram_tol`` elementwise, P
+    symmetric bit for bit and a second launch the same bits.  Timing adds
+    a sweep's launches of GG (every bucket, written into preallocated
+    outputs as ``_gramian_rows`` does), of the plain version, the
+    library's ``index_select`` of every slot's partner row (the torch
+    chain's first step), and GG's bound (bytes, or the bfloat16 tensor
+    cores' operations)."""
+    import torch
+    from bayesiandatafusion_jl_tpu_torch.ops import gramian
+    prob = eng.problem
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    tabs = {}
+
+    def table(e):
+        if e not in tabs:
+            tabs[e] = torch.randn((prob.entity_specs[e].n, K), generator=g,
+                                  device="cuda").to(torch.bfloat16)
+        return tabs[e]
+    modes = []
+    for ri, rs in enumerate(prob.rel_specs):
+        for mode in range(rs.arity):
+            buckets = prob.layouts.get(f"r{ri}m{mode}", ())
+            if buckets:
+                modes.append(([table(rs.entity_ids[d]) for d in
+                               range(rs.arity) if d != mode], buckets))
+    require(modes, "GG check: the problem has no gather buckets")
+    err = worst = 0.0
+    ok = True
+    slots = rows = n_buckets = nbytes = 0
+    for tables, buckets in modes:
+        nbytes += gather_gram_bytes(buckets, tables, K)
+        for ba in buckets:
+            args = (tables, ba["part"], ba["val"], ba["mask"])
+            kP, kb = gramian.gather_gram(*args, alpha=alpha)
+            aP, ab = gramian.gather_gram(*args, alpha=alpha)
+            pP, pb = gramian.gather_gram_plain(*args, alpha=alpha)
+            tP, tb = gather_gram_tol(*args, alpha)
+            dP, db = (kP - pP).abs(), (kb - pb).abs()
+            ok = ok and bool(torch.equal(kP, kP.mT)
+                             and torch.equal(kP, aP) and torch.equal(kb, ab)
+                             and (dP <= tP).all() and (db <= tb).all())
+            err = max(err, float(dP.max()), float(db.max()))
+            worst = max(worst, float((dP / tP.clamp_min(1e-38)).max()),
+                        float((db / tb.clamp_min(1e-38)).max()))
+            slots += ba["val"].numel()
+            rows += ba["val"].shape[0]
+            n_buckets += 1
+            del kP, kb, aP, ab, pP, pb, tP, tb, dP, db
+    r = {"K": K, "modes": len(modes), "buckets": n_buckets, "rows": rows,
+         "slots": slots, "max_abs_err": err, "err_over_tol": worst,
+         "ok": ok}
+    if timing:
+        calls = [((tables, ba["part"], ba["val"], ba["mask"]),
+                  (torch.empty((ba["val"].shape[0], K * K), device="cuda"),
+                   torch.empty((ba["val"].shape[0], K), device="cuda")))
+                 for tables, buckets in modes for ba in buckets]
+        a = torch.tensor(alpha, device="cuda")
+        idx = [(tables[0], torch.cat([ba["part"][0].reshape(-1)
+                                      for ba in buckets]))
+               for tables, buckets in modes]
+
+        def kern():
+            for args, out in calls:
+                gramian.gather_gram(*args, alpha=a, out=out)
+
+        def plain():
+            for args, out in calls:
+                gramian.gather_gram_plain(*args, alpha=a, out=out)
+        r["kernel_ms"] = cuda_ms(kern, 10)
+        r["plain_ms"] = cuda_ms(plain, 2)
+        r["library_ms"] = cuda_ms(
+            lambda: [U.index_select(0, i) for U, i in idx], 3)
+        r["bound_ms"], r["bound_by"] = bound_ms(
+            nbytes, 2.0 * slots * (K * (K + 1) // 2 + K), BF16_FLOP_S)
+        del calls, idx
+    return r
+
+
+def print_gather_gram_check(label, r):
+    line = (f"# GG {label} K={r['K']}: {r['buckets']} buckets of "
+            f"{r['modes']} modes, {r['rows']} rows, {r['slots']} slots: "
+            f"within two float32 orders of the plain version, P symmetric "
+            f"and the same bits twice {r['ok']} (max diff "
+            f"{r['max_abs_err']:.3e}, {r['err_over_tol']:.3f} of the "
+            f"bound)")
+    if "kernel_ms" in r:
+        line += (f"; a sweep's launches: kernel {r['kernel_ms']:.4f} ms "
+                 f"({r['slots'] / r['kernel_ms'] * 1e3:.4g} slots/s), "
+                 f"plain (the torch chain) {r['plain_ms']:.4f} ms, library "
+                 f"(index_select of the partner rows alone) "
+                 f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+                 f"({r['bound_by']})")
+    print(line, flush=True)
+
+
 def counters():
     """(function, attribute) of each kernel wrapper's launch count and each
     plain version's call count, by name."""
     from bayesiandatafusion_jl_tpu_torch.ops import (chol_blocked, chol_full,
                                                      chol_packed, fused_pair,
-                                                     gather_expand,
+                                                     gather_expand, gramian,
                                                      pair_contract, ytab)
     return {"K1": (chol_packed.chol_sample_packed, "launches"),
             "K2": (chol_packed.chol_sample_packed_tiled, "launches"),
@@ -1275,13 +1432,15 @@ def counters():
             "K8d f32": (fused_pair.fused_pair_contract, "launches_f32_nat"),
             "K9": (gather_expand.windowed_expand, "launches"),
             "split_f32": (fused_pair.split_f32, "launches"),
+            "GG": (gramian.gather_gram, "launches"),
             "plain_packed": (chol_packed.chol_sample_packed_plain, "calls"),
             "plain_full": (chol_full.chol_sample_full_plain, "calls"),
             "plain_inv": (chol_blocked.chol_inv_plain, "calls"),
             "plain_ytab": (ytab.ytab_quantize_plain, "calls"),
             "plain_fused": (fused_pair.fused_pair_plain, "calls"),
             "plain_pair": (pair_contract.pair_contract_plain, "calls"),
-            "plain_expand": (gather_expand.windowed_expand_plain, "calls")}
+            "plain_expand": (gather_expand.windowed_expand_plain, "calls"),
+            "plain_gather_gram": (gramian.gather_gram_plain, "calls")}
 
 
 def read_counts():
@@ -1304,11 +1463,20 @@ def graph_kernels(prob, K, blocks=lambda ei: 1):
     sampler), each ``blocks(ei)`` times (the sharded engine draws an
     entity's rows in its exchange blocks: ``sharded_blocks``).  A fused
     store's float32 table is split into its pieces once before its K8
-    (counted also as K8c f32 or K8d f32).
-    The float pair and the gather path launch no kernel of their own."""
-    from bayesiandatafusion_jl_tpu_torch.ops import ytab
+    (counted also as K8c f32 or K8d f32).  Where ``gather_gram_takes``
+    (a bfloat16 gather of float32 values, K in ``GATHER_GRAM_KS``, arity 2
+    or 3), GG runs once per bucket of the entity's gather (relation, mode)s
+    (the layouts' buckets, the fused store's residual among them), or, in
+    the packed accumulation (K <= 96 beside a dense contribution,
+    "segment" accumulation, no ghost rows), once per row chunk
+    (``packed_chunk_rows``).  The float pair launches no kernel of its
+    own."""
+    import torch
+    from bayesiandatafusion_jl_tpu_torch.ops import gramian, ytab
     cfg = getattr(prob, "config", None)
     f32 = cfg is not None and (cfg.gram_dtype or cfg.dtype) == "float32"
+    gd = getattr(torch, cfg.gram_dtype) if cfg and cfg.gram_dtype else None
+    vd = getattr(torch, cfg.dtype) if cfg else None
     want = {}
 
     def add(tag, n=1):
@@ -1316,10 +1484,16 @@ def graph_kernels(prob, K, blocks=lambda ei: 1):
     packed = K <= 96
     for ei in range(len(prob.entity_specs)):
         dense = False
+        buckets = []
         for ri, rs in enumerate(prob.rel_specs):
             kind = prob.kinds[ri]
             for mode, e in enumerate(rs.entity_ids):
-                if e != ei or (ri, mode) not in prob.dense_plans:
+                if e != ei:
+                    continue
+                if gramian.gather_gram_takes("cuda", gd, vd, K, rs.arity):
+                    buckets += [ba for ba in prob.layouts.get(
+                        f"r{ri}m{mode}", ()) if ba["val"].shape[0]]
+                if (ri, mode) not in prob.dense_plans:
                     continue
                 dense = True
                 i8 = (prob.fused_i8s if kind == "fused" else
@@ -1334,6 +1508,14 @@ def graph_kernels(prob, K, blocks=lambda ei: 1):
                     add("K6")
                 if i8 and K <= ytab.K7_MAX_K:
                     add("K7")
+        ghosts = getattr(prob, "ent_meta", None) and prob.ent_meta[ei].n_head
+        if packed and dense and cfg.accumulation != "planned" and not ghosts:
+            for ba in buckets:
+                rows, W = ba["val"].shape
+                add("GG", -(-rows // gramian.packed_chunk_rows(
+                    rows, W, K, ba["val"].element_size(), 0)))
+        elif buckets:
+            add("GG", len(buckets))
         if not packed:
             add("K5", 2 * blocks(ei))
         else:
@@ -1555,6 +1737,7 @@ def bench_plan(rd, **opts):
 # the segment sum sorts the rows' instances, gathers the rows in that
 # order ("gather": an index_select) and sums each instance's run
 SPLIT = (("sampler", ("chol_sample", "chol_inv")),
+         ("gather-Gramian", ("gather_gram",)),
          ("gather", ("gather_kernel", "indexSelect")),
          ("segment sum", ("indexFunc", "segment_reduce", "radixSort",
                           "RadixSort", "searchsorted")),
@@ -1580,7 +1763,7 @@ FUSED_SPLIT = (("K8 mode 0", ("fused_pair_kernel<0", "fused_pair_kernelILi0",
                # the residual's parts; the gathers are also the float
                # table's and the expand's, the GEMM kernels also the hyper
                # draws' (a fused sweep without a residual shows how much)
-               ("gather", ("gather_kernel", "indexSelect")),
+               ("gather", ("gather_kernel", "indexSelect", "gather_gram")),
                ("segment sum", ("indexFunc", "index_add", "segment_reduce",
                                 "radixSort", "RadixSort", "searchsorted")),
                ("bmm and gemm", ("gemm", "gemv", "cutlass", "xmma", "sm90_")))
@@ -1703,22 +1886,6 @@ def check_float_pair_contrib(eng, seed=0):
         out.append({"mode": mode, "max_abs_err": err, "max_abs": big,
                     "ok": err <= FLOAT_PAIR_TOL * big, "ms": ms,
                     "tflops": 2 * n0 * n1 * (C + K) / ms * 1e-9})
-    return out
-
-
-def time_gathers(eng, K):
-    """CUDA-event time of the gather step alone: one bfloat16
-    ``index_select`` over all of a mode's partner indices, per mode."""
-    import torch
-    prob = eng.problem
-    out = []
-    for mode in range(2):
-        idx = torch.cat([ba["part"][0].reshape(-1)
-                         for ba in prob.layouts[f"r0m{mode}"]])
-        partner = prob.entity_specs[prob.rel_specs[0].entity_ids[1 - mode]]
-        U = torch.randn((partner.n, K), device="cuda").to(torch.bfloat16)
-        ms = cuda_ms(lambda: U.index_select(0, idx), 10)
-        out.append((idx.numel(), ms))
     return out
 
 
@@ -2213,8 +2380,9 @@ def run_graph_paths(tally):
     each mode's first step on the store read as a matrix, the other
     partners in one einsum, and the gather path on the same data, their
     rmse_avg within RMSE_BAND).  K6 is held against its plain version on
-    the stores of ``tensor``, ``fusion`` and ``tensor4``.  Returns K9's
-    checks by label."""
+    the stores of ``tensor``, ``fusion`` and ``tensor4``, GG at
+    tensor_big's buckets (arity 3).  Returns K9's checks and GG's by
+    label."""
     import torch
     from bayesiandatafusion_jl_tpu_torch.models.data import RelationData
     from bayesiandatafusion_jl_tpu_torch.models.datasets import (
@@ -2324,6 +2492,11 @@ def run_graph_paths(tally):
     print_plan("tensor_big, bench.py:226-285", rd, eng.problem.plan,
                "gather")
     print_profile("tensor_big K=32", profile_split(eng, warm=1, sweeps=2))
+    checks = {}
+    r = check_gather_gram(eng, 32)
+    print_gather_gram_check("tensor_big", r)
+    require(r["ok"], f"GG disagrees with its plain version: {r}")
+    checks[("GG", "tensor_big")] = r
     del eng
     torch.cuda.empty_cache()
     phase_done("tensor_big path")
@@ -2331,7 +2504,6 @@ def run_graph_paths(tally):
     # -- K9 at tensor_big's shape: no engine path runs it (as in JAX) ------
     part = rd.relations[0].data.idx[:, 0]
     n_table = rd.relations[0].data.shape[0]
-    checks = {}
     for dtype in ("bfloat16", "float32"):
         r = check_windowed_expand(part, n_table, 32, dtype)
         print_expand_check("tensor_big", r)
@@ -3122,7 +3294,7 @@ def main() -> int:
     phase_done("ML-10M data")
     launches = dict.fromkeys(("K1", "K2", "K3", "K4", "K5", "K6", "K7",
                               "K8a", "K8b", "K8c", "K8d", "K8c f32", "K8d f32",
-                              "K9", "split_f32"), 0)
+                              "K9", "split_f32", "GG"), 0)
 
     def tally(counts):
         for k in launches:
@@ -3226,10 +3398,11 @@ def main() -> int:
         prof = profile_split(eng)
         print_profile(f"gather {acc} K={K}", prof)
         gather_prof[(K, acc)] = prof
-        for mode, (n, ms) in enumerate(time_gathers(eng, K)):
-            print(f"# gather alone, gather {acc} K={K} mode {mode}: {n} "
-                  f"rows in {ms:.3f} ms ({n / ms * 1e3:.4g} rows/s)",
-                  flush=True)
+        if acc == "segment":
+            r = check_gather_gram(eng, K)
+            print_gather_gram_check(f"ML-10M gather K={K}", r)
+            require(r["ok"], f"GG disagrees with its plain version: {r}")
+            torch.cuda.empty_cache()
         same_seed_runs(eng, f"gather {acc} K={K}")
         if (K, acc) == DRIVER_GATHER:
             run_driver_checks(eng, f"gather {acc} K={K}", tally)
@@ -3452,6 +3625,9 @@ def main() -> int:
                "gather")
     print_profile("netflix_gather K=32",
                   profile_split(eng, warm=1, sweeps=2))
+    gg_nf = check_gather_gram(eng, 32)
+    print_gather_gram_check("netflix_gather", gg_nf)
+    require(gg_nf["ok"], f"GG disagrees with its plain version: {gg_nf}")
     del eng, rd
     torch.cuda.empty_cache()
     phase_done("netflix_gather path")
@@ -3628,6 +3804,24 @@ def main() -> int:
                  "plain_ms": split_nf["plain_ms"],
                  "bound_ms": split_nf["bound_ms"],
                  "bound_by": split_nf["bound_by"], "library_ms": None})
+    # GG at netflix_gather's buckets (K = 32, arity 2), and tensor_big's
+    # (arity 3) beside it
+    gg_tb = k9_checks[("GG", "tensor_big")]
+    rows.append({"name": "gather_gram", "route": "cuda",
+                 "source": src + "gather_gram.cu",
+                 "replaces": "bayesiandatafusion_jl_tpu/ops/gramian.py:38",
+                 "launches": launches["GG"],
+                 **{k: gg_nf[k] for k in ("max_abs_err", "err_over_tol")},
+                 "ms": gg_nf["kernel_ms"], "plain_ms": gg_nf["plain_ms"],
+                 "bound_ms": gg_nf["bound_ms"], "bound_by": gg_nf["bound_by"],
+                 "library_ms": gg_nf["library_ms"],
+                 "tensor_big": {"max_abs_err": gg_tb["max_abs_err"],
+                                "err_over_tol": gg_tb["err_over_tol"],
+                                "ms": gg_tb["kernel_ms"],
+                                "plain_ms": gg_tb["plain_ms"],
+                                "bound_ms": gg_tb["bound_ms"],
+                                "bound_by": gg_tb["bound_by"],
+                                "library_ms": gg_tb["library_ms"]}})
     r = k9_checks[("tensor_big", "bfloat16")]
     rows.append({"name": "windowed_expand", "route": "cuda",
                  "source": src + "windowed_expand.cu",

@@ -17,6 +17,7 @@ from bayesiandatafusion_jl_tpu_torch.ops import (chol_blocked, chol_full,
 from bayesiandatafusion_jl_tpu_torch.utils.convert import (state_from_numpy,
                                                            state_to_numpy)
 from bayesiandatafusion_jl_tpu_torch.utils.rng import draw_all_numpy
+from _torch_gather_bucket import NETFLIX_LADDER, gather_bucket
 from _torch_xla_order import xla_cpu_ridge_step
 
 pytestmark = pytest.mark.gpu
@@ -831,6 +832,114 @@ def test_windowed_expand_raises(cuda):
                  (torch.zeros((10, 8), device=cuda), lanes[:512])):
         with pytest.raises(ValueError):
             gather_expand.windowed_expand(U, L, wmap)
+
+
+
+# (K, arity) of the gather-Gramian kernel's checks: every K it takes, both
+# arities
+_GATHER_GRAM_KA = [(16, 2), (32, 2), (48, 2), (64, 2), (16, 3), (32, 3),
+                   (64, 3)]
+
+
+@pytest.mark.parametrize("W", NETFLIX_LADDER)
+@pytest.mark.parametrize("K, arity", _GATHER_GRAM_KA)
+def test_gather_gram_kernel_matches_plain(cuda, K, arity, W):
+    """The gather-Gramian kernel against its plain version (on the CPU) at
+    every width of the Netflix ladder, on full rows (chunked instances),
+    partly filled rows and padding rows, with alpha 2.75, written into a
+    slice of a larger buffer as ``_gramian_rows`` does.
+
+    Both sum the same exact products (bf16 values, their products exact in
+    float32) in float32, in two orders: each lies within (W - 1) u sum|p|
+    of the exact sum (u = 2^-24 rounding to nearest; the tensor cores'
+    adds truncate, u = 2^-23), then one rounding of the alpha product
+    each.  So |kernel - plain| <= alpha (3 W 2^-24 sum|p| + 2^-23 |P|),
+    elementwise, sum|p| from the bf16 operands in float64.  P is symmetric
+    bit for bit, and a second launch gives the same bits."""
+    from bayesiandatafusion_jl_tpu_torch.ops import gramian
+    rows = max(24, 120_000 // W)
+    tables, parts, val, mask = gather_bucket(W, K, arity, rows, 1_000 * K + W)
+    alpha = torch.tensor(2.75, device=cuda)
+    Pp, bp = gramian.gather_gram_plain(tables, parts, val, mask, alpha=2.75)
+    dev = [[t.to(cuda) for t in ts] for ts in (tables, parts)]
+    P_cat = torch.full((rows + 8, K * K), float("nan"), device=cuda)
+    b_cat = torch.full((rows + 8, K), float("nan"), device=cuda)
+    out = (P_cat[4:4 + rows], b_cat[4:4 + rows])
+    launches, calls = gramian.gather_gram.launches, \
+        gramian.gather_gram_plain.calls
+    gramian.gather_gram([t.to(torch.bfloat16) for t in dev[0]], dev[1],
+                        val.to(cuda), mask.to(cuda), alpha=alpha, out=out)
+    again = gramian.gather_gram([t.to(torch.bfloat16) for t in dev[0]],
+                                dev[1], val.to(cuda), mask.to(cuda),
+                                alpha=alpha)
+    torch.cuda.synchronize()
+    assert gramian.gather_gram.launches == launches + 2
+    assert gramian.gather_gram_plain.calls == calls
+    assert bool(P_cat[:4].isnan().all()) and bool(P_cat[-4:].isnan().all())
+    P, b = out[0].view(rows, K, K), out[1]
+    assert torch.equal(P, P.mT)
+    assert torch.equal(P, again[0]) and torch.equal(b, again[1])
+    z = tables[0].to(torch.bfloat16)[parts[0].long()]
+    if arity == 3:
+        z = z * tables[1].to(torch.bfloat16)[parts[1].long()]
+    zm = (z * mask[..., None].to(torch.bfloat16)).double()
+    v = val.to(torch.bfloat16).double()
+    exact = zm.mT @ zm
+    sum_p = zm.abs().mT @ zm.abs()
+    sum_b = (zm.abs().mT @ v.abs()[..., None])[..., 0]
+    u = 2.0 ** -24
+    tol_P = 2.75 * (3 * W * u * sum_p + 2 * u * exact.abs())
+    tol_b = 2.75 * (3 * W * u * sum_b
+                    + 2 * u * (zm.mT @ v[..., None])[..., 0].abs())
+    assert bool(((P.cpu().double() - Pp.double()).abs() <= tol_P).all())
+    assert bool(((b.cpu().double() - bp.double()).abs() <= tol_b).all())
+
+
+def test_gather_gram_raises(cuda):
+    """The wrapper refuses what the kernel does not take, on the card,
+    with no fallback."""
+    from bayesiandatafusion_jl_tpu_torch.ops import gramian
+    tables, parts, val, mask = gather_bucket(16, 32, 2, 10, 0)
+    U = tables[0].to(cuda, torch.bfloat16)
+    p, v, m = parts[0].to(cuda), val.to(cuda), mask.to(cuda)
+    bad = [([U[:, :8].contiguous()], [p], v, m),          # K = 8
+           ([U.float()], [p], v, m),                      # float32 table
+           ([U], [p.long()], v, m),                       # int64 indices
+           ([U], [p], v.double(), m),                     # float64 values
+           ([U], [p[:, :8]], v, m),                       # shapes differ
+           ([U], [p.mT.contiguous().mT], v, m),           # not contiguous
+           ([U, U, U], [p, p, p], v, m),                  # arity 4
+           ([U], [p, p], v, m)]                           # parts != tables
+    for args in bad:
+        with pytest.raises(ValueError):
+            gramian.gather_gram(*args, alpha=1.0)
+
+
+@pytest.mark.parametrize("graph, K", [("matrix", 32), ("tensor", 16)])
+def test_gather_engine_bf16_runs_the_kernel(cuda, graph, K):
+    """A small bf16 gather engine on the card (dense_gram=False, a narrow
+    ladder so that heavy rows are chunked; a matrix at K = 32 and a 3-way
+    tensor at K = 16): every bucket of every sweep through the
+    gather-Gramian kernel, none through its plain version, and the chain
+    sane."""
+    from bayesiandatafusion_jl_tpu_torch.ops import gramian
+    if graph == "matrix":
+        rd = bt.RelationData.from_indexed_df(
+            synthetic_ratings(2_000, 1_500, 60_000, seed=2))
+        rd.assign_to_test(0, 5_000, seed=7)
+    else:
+        rd = _tensor_graph()
+    eng = bt.MacauEngine(rd, bt.MacauConfig(
+        num_latent=K, burnin=4, psamples=4, verbose=False,
+        dense_gram=False, gram_dtype="bfloat16",
+        bucket_widths=(8, 12, 16, 32, 64)), device="cuda")
+    n_buckets = sum(len(v) for v in eng.problem.layouts.values())
+    launches, calls = gramian.gather_gram.launches, \
+        gramian.gather_gram_plain.calls
+    res = eng.run()
+    assert gramian.gather_gram.launches == launches + 8 * n_buckets
+    assert gramian.gather_gram_plain.calls == calls
+    assert np.isfinite(res["RMSE"]) and res["RMSE"] < 2.0
 
 
 def _tensor_graph():
