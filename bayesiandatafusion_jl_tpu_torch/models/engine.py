@@ -103,13 +103,14 @@ from ..ops.gramian import (assemble_precision, assemble_precision_planned,
                            packed_bucket_accum, plan_accumulation,
                            predict_tuples)
 from ..ops.layout import build_mode_layout
-from ..ops.hyper import (normal_wishart_update, sample_alpha,
-                         sample_lambda_beta)
+from ..ops.hyper import (normal_wishart_from_moments, normal_wishart_update,
+                         sample_alpha, sample_lambda_beta)
 from ..ops.mvn import chol_sample_dispatch, chol_solve
 from ..ops.precond import build_nystrom, nystrom_apply, resolve_nystrom_rank
 from ..ops.spmv import bucketed_spmm, build_bucketed_matvec
 from ..utils.config import MacauConfig
 from ..utils.convert import state_from_numpy, state_to_numpy
+from ..utils.graphs import Graphs
 from ..utils.rng import build_random_spec, draw_all
 from ..utils.spans import span, timed
 from .data import (RelationData, resolved_alpha, resolved_alpha_sample,
@@ -270,6 +271,25 @@ def plan_gramians(rd: RelationData, config: MacauConfig,
                        pair_i8={ri: i8[ri] for ri in canonical},
                        store_bytes=store_bytes)
     return GramianPlan(**decided, seconds=t.seconds)
+
+
+@contextlib.contextmanager
+def full_float32():
+    """Float32 matrix products in full float32 (no TF32) inside, the
+    caller's setting restored on the way out: both engines build and run
+    their windows inside.  The beta draw's dual solve needs it (its ``rhs -
+    X' z`` cancels almost completely, ops/dual.py), as do the Normal-Wishart
+    products and the blocked sampler's panels (the JAX package's
+    Precision.HIGHEST).  It sets the cuBLAS matmul precision by PyTorch's
+    own switch (``torch.backends.cuda.matmul.fp32_precision``), which reads
+    back whichever API the caller set it through."""
+    mm = torch.backends.cuda.matmul
+    before = mm.fp32_precision
+    mm.fp32_precision = "ieee"
+    try:
+        yield
+    finally:
+        mm.fp32_precision = before
 
 
 def _resolve_device(device) -> torch.device:
@@ -712,7 +732,7 @@ class GibbsDriver:
         sweep's metrics, still on the device)."""
         burnin = self.config.burnin
         mstack = []
-        with span("bdf.window", start + 1):
+        with full_float32(), span("bdf.window", start + 1):
             for s in range(start, start + n):
                 state, m = self._sweep(state, s,
                                        1.0 if s >= burnin else 0.0, seed)
@@ -851,13 +871,19 @@ class MacauEngine(GibbsDriver):
                  device="cuda"):
         self.config = config
         self.device = _resolve_device(device)
-        if self.device.type == "cuda":
-            # the Normal-Wishart products (K x K, [K, N] @ [N, K]) and the
-            # prior term run in full float32, as on the JAX package's
-            # reference path; this is also PyTorch's default
-            torch.backends.cuda.matmul.allow_tf32 = False
         self.dtype = getattr(torch, config.dtype)
-        self.problem = CompiledProblem(rd, config, self.device)
+        with full_float32():
+            self.problem = CompiledProblem(rd, config, self.device)
+        # the sweep's short phases of small operations (the beta draw, the
+        # Normal-Wishart draws' K x K part, the AUC) replayed from CUDA
+        # graphs on the card (``utils/graphs.py``), where a dual-solve beta
+        # draw (some 130 operations a sweep, on a relation whose other
+        # phases are short) puts the host's time over the card's; their
+        # capture stream's cuBLAS workspace (32 MiB) is not spent on an
+        # engine without one.  ``graphs.enabled = False`` runs them eagerly
+        self.graphs = Graphs(enabled=any(
+            es.has_features and es.solver == "dual"
+            for es in self.problem.entity_specs))
 
     # -- state ---------------------------------------------------------------
     def init_state(self, generator: Optional[torch.Generator] = None
@@ -911,22 +937,18 @@ class MacauEngine(GibbsDriver):
             if es.has_features:
                 # beta first, with the current Lambda (JAX :765-778)
                 with span(f"bdf.e{ei}.beta"):
-                    ent["beta"], ent["uhat"], cg_diag = self._sample_beta(
-                        ei, ent, randoms)
-                    if cg_diag is not None:
-                        metrics[f"e{ei}.cg_iters"] = cg_diag[0]
-                        metrics[f"e{ei}.cg_resid"] = cg_diag[1]
-                    if cfg.sample_lambda_beta:
-                        ent["lambda_beta"] = sample_lambda_beta(
-                            ent["beta"], ent["Lambda"],
-                            randoms[f"e{ei}.lb_g"], cfg.nu_beta,
-                            cfg.lambda_beta_mean)
+                    (ent["beta"], ent["uhat"], ent["lambda_beta"],
+                     cg_diag) = self._sample_beta(ei, ent, randoms)
+                if cg_diag is not None:
+                    metrics[f"e{ei}.cg_iters"] = cg_diag[0]
+                    metrics[f"e{ei}.cg_resid"] = cg_diag[1]
                 uhat = ent["uhat"]
             with span(f"bdf.e{ei}.hyper"):
                 mu, Lambda = normal_wishart_update(
                     ent["U"] if uhat is None else ent["U"] - uhat, cfg.nw_b0,
                     nu0, 2.0 * randoms[f"e{ei}.nw_g"],
-                    randoms[f"e{ei}.nw_tri"], randoms[f"e{ei}.nw_mu"])
+                    randoms[f"e{ei}.nw_tri"], randoms[f"e{ei}.nw_mu"],
+                    self._graphed_from_moments(ei))
             ent["mu"], ent["Lambda"] = mu, Lambda
             # every (relation, mode) this entity fills, the partners read
             # from the current state (the entity's own U too, in a relation
@@ -989,9 +1011,23 @@ class MacauEngine(GibbsDriver):
                     torch.mean((pmean - te["vals"]) ** 2))
                 if rs.class_cut is not None:
                     # the AUC of the running posterior mean (JAX :991-996)
-                    labels = (te["vals"] < rs.class_cut).to(self.dtype)
-                    metrics[f"{key}.auc"] = auc_device(labels, -pmean)
+                    def auc(pm, vals=te["vals"], cut=rs.class_cut):
+                        labels = (vals < cut).to(self.dtype)
+                        return (auc_device(labels, -pm),)
+                    metrics[f"{key}.auc"], = self.graphs(("auc", ri), auc,
+                                                         pmean)
         return {"ent": ents, "rel": rels, "pred": preds}, metrics
+
+    def _graphed_from_moments(self, ei):
+        """``normal_wishart_from_moments`` of entity ``ei``, its K x K
+        draw replayed from a graph (``utils/graphs.py``)."""
+        def from_moments(N, Sbar, scatter, b0, nu0, chi2, tri, mu_normals):
+            def draw(*a):
+                return normal_wishart_from_moments(N, a[0], a[1], b0, nu0,
+                                                   *a[2:])
+            return self.graphs(("hyper", ei), draw, Sbar, scatter, chi2,
+                               tri, mu_normals)
+        return from_moments
 
     def _feat_ops(self, ei):
         """Entity ``ei``'s (X @ V, X' @ U): on the dense X by
@@ -1010,13 +1046,14 @@ class MacauEngine(GibbsDriver):
         entity ``ei``'s beta draw from its rows ``U`` and their normals
         ``e1`` ([n, K]; the sharded engine passes its own rows) and ``e2``
         [F, K], E1 and E2 rows ~ N(0, Lambda^-1) (JAX :1054-1094)."""
-        L, _ = torch.linalg.cholesky_ex(ent["Lambda"])
+        with span("bdf.beta_rhs"):
+            L, _ = torch.linalg.cholesky_ex(ent["Lambda"])
 
-        def colored(z):                      # L^-T z' per row
-            return solve_triangular(L.mT, z.mT, upper=True).mT
-        resid = U - ent["mu"][None, :] + colored(e1)
-        return (self._feat_ops(ei)[1](resid) + torch.sqrt(
-            ent["lambda_beta"]) * colored(e2))
+            def colored(z):                      # L^-T z' per row
+                return solve_triangular(L.mT, z.mT, upper=True).mT
+            resid = U - ent["mu"][None, :] + colored(e1)
+            return (self._feat_ops(ei)[1](resid) + torch.sqrt(
+                ent["lambda_beta"]) * colored(e2))
 
     def _solve_beta(self, ei, rhs, lam, beta0):
         """(beta, uhat, cg_diag) from (X'X + lam I) beta = rhs by entity
@@ -1030,36 +1067,70 @@ class MacauEngine(GibbsDriver):
         feat = self.problem.feat[f"e{ei}"]
         fwd, t = self._feat_ops(ei)
         if es.solver == "dual":
-            beta, uhat = dual_solve_g(feat["dual_Q"], feat["dual_d"],
-                                      feat["dual_G"], lam, rhs, fwd, t,
-                                      cfg.dual_refine, reduce=self._allreduce,
-                                      gather=self._allgather)
+            with span("bdf.beta_solve"):
+                beta, uhat = dual_solve_g(
+                    feat["dual_Q"], feat["dual_d"], feat["dual_G"], lam, rhs,
+                    fwd, t, cfg.dual_refine, reduce=self._allreduce,
+                    gather=self._allgather)
             return beta, uhat, None
         cg_diag = None
-        if es.solver == "ff":
-            A = feat["ftf"] + lam * torch.eye(
-                es.num_features, dtype=self.dtype, device=self.device)
-            beta = chol_solve(A, rhs)
-        else:
-            tol = (cfg.cg_tol if self.dtype == torch.float64
-                   else max(cfg.cg_tol, 1e-5))
-            precond = None
-            if "nys_U" in feat:
-                Un, dn = feat["nys_U"], feat["nys_d"]
-                precond = lambda r: nystrom_apply(Un, dn, lam, r)  # noqa: E731
-            beta, it, resid = block_cg(
-                lambda V: t(fwd(V)) + lam * V, rhs, beta0, tol=tol,
-                maxiter=cfg.cg_maxiter,
-                precond_diag=feat["colcount"] + lam, precond=precond)
-            cg_diag = (it, resid)
-        return beta, fwd(beta), cg_diag
+        with span("bdf.beta_solve"):
+            if es.solver == "ff":
+                A = feat["ftf"] + lam * torch.eye(
+                    es.num_features, dtype=self.dtype, device=self.device)
+                beta = chol_solve(A, rhs)
+            else:
+                tol = (cfg.cg_tol if self.dtype == torch.float64
+                       else max(cfg.cg_tol, 1e-5))
+                precond = None
+                if "nys_U" in feat:
+                    Un, dn = feat["nys_U"], feat["nys_d"]
+                    precond = lambda r: nystrom_apply(  # noqa: E731
+                        Un, dn, lam, r)
+                beta, it, resid = block_cg(
+                    lambda V: t(fwd(V)) + lam * V, rhs, beta0, tol=tol,
+                    maxiter=cfg.cg_maxiter,
+                    precond_diag=feat["colcount"] + lam, precond=precond)
+                cg_diag = (it, resid)
+        with span("bdf.beta_fwd"):
+            return beta, fwd(beta), cg_diag
+
+    def _draw_lambda_beta(self, ei, beta, Lambda, randoms):
+        """Entity ``ei``'s lambda_beta | beta, Lambda (the Lambda entering
+        the sweep: it is drawn before the Normal-Wishart)."""
+        with span("bdf.lambda_beta"):
+            cfg = self.config
+            return sample_lambda_beta(beta, Lambda, randoms[f"e{ei}.lb_g"],
+                                      cfg.nu_beta, cfg.lambda_beta_mean)
 
     def _sample_beta(self, ei, ent, randoms):
         """Entity ``ei``'s noise-injected exact Gibbs draw of beta
-        (``_beta_rhs``, then ``_solve_beta``)."""
-        rhs = self._beta_rhs(ei, ent, ent["U"], randoms[f"e{ei}.beta_e1"],
-                             randoms[f"e{ei}.beta_e2"])
-        return self._solve_beta(ei, rhs, ent["lambda_beta"], ent["beta"])
+        (``_beta_rhs``, then ``_solve_beta``), then lambda_beta's
+        (``_draw_lambda_beta``, else it stays): (beta, uhat = X beta,
+        lambda_beta, cg_diag).  The dual solve's draw reads nothing back
+        to the host, so it replays from a graph (``utils/graphs.py``);
+        CG reads its stopping test every iteration and runs eagerly."""
+        names = ["beta_e1", "beta_e2"] + (
+            ["lb_g"] if self.config.sample_lambda_beta else [])
+
+        def draw(U, mu, Lambda, lam, beta0, *r):
+            rnd = {f"e{ei}.{k}": v for k, v in zip(names, r)}
+            rhs = self._beta_rhs(ei, {"mu": mu, "Lambda": Lambda,
+                                      "lambda_beta": lam}, U,
+                                 rnd[f"e{ei}.beta_e1"], rnd[f"e{ei}.beta_e2"])
+            beta, uhat, cg_diag = self._solve_beta(ei, rhs, lam, beta0)
+            if self.config.sample_lambda_beta:
+                lam = self._draw_lambda_beta(ei, beta, Lambda, rnd)
+            return beta, uhat, lam, cg_diag
+
+        args = [ent["U"], ent["mu"], ent["Lambda"], ent["lambda_beta"]]
+        r = [randoms[f"e{ei}.{k}"] for k in names]
+        if self.problem.entity_specs[ei].solver != "dual":
+            return draw(*args, ent["beta"], *r)
+        # the dual solve reads no warm start
+        return (*self.graphs(("beta", ei),
+                             lambda *a: draw(*a[:4], None, *a[4:])[:3],
+                             *args, *r), None)
 
     # the collectives of the pieces above and below: none on one device;
     # the sharded engine sums over its ranks (``_allreduce``) and gathers

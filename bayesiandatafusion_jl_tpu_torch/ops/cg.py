@@ -16,6 +16,8 @@ from typing import Callable, Optional, Tuple
 
 import torch
 
+from ..utils import spans
+
 
 def block_cg(matvec: Callable[[torch.Tensor], torch.Tensor],
              rhs: torch.Tensor,        # [F, K]
@@ -31,7 +33,10 @@ def block_cg(matvec: Callable[[torch.Tensor], torch.Tensor],
     largest over the columns of ``||rhs - A x|| / ||rhs||``, recomputed at
     exit by one more matvec (the loop tests the recursive residual, which
     drifts from the true one in float32).  ``precond`` (e.g. Nystrom,
-    ops/precond.py) applies M^-1; else ``precond_diag`` gives Jacobi's."""
+    ops/precond.py) applies M^-1; else ``precond_diag`` gives Jacobi's.
+    ``block_cg.calls`` counts its calls and ``block_cg.iterations`` their
+    iterations."""
+    block_cg.calls += 1
     dtype = rhs.dtype
     rhs_nrm2 = torch.clamp_min(torch.sum(rhs * rhs, dim=0), 1e-30)   # [K]
     tol2 = float(torch.tensor(tol * tol, dtype=dtype))   # JAX's, rounded
@@ -63,7 +68,13 @@ def block_cg(matvec: Callable[[torch.Tensor], torch.Tensor],
         p = z + b * p
         rz = rz_new
         it += 1
+    block_cg.iterations += it
     r_true = rhs - matvec(x)
     resid = torch.sqrt(torch.max(torch.sum(r_true * r_true, dim=0)
                                  / rhs_nrm2))
     return x, it, resid
+
+
+block_cg.calls = 0
+block_cg.iterations = 0
+spans.counter(block_cg, "calls", "iterations")

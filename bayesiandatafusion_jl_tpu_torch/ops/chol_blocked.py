@@ -9,7 +9,8 @@ Port of ``bayesiandatafusion_jl_tpu/ops/pallas_chol.py`` :389-522:
 device and runs the plain version, ``chol_inv_plain``, for tensors on the
 CPU.  The rest of the recursion is batched matrix products, which the JAX
 package runs outside Pallas at Precision.HIGHEST; here they are torch
-matmuls in full precision (the engine turns TF32 off on CUDA).
+matmuls in full precision (the engines pin it for their windows,
+``models/engine.full_float32``).
 """
 from __future__ import annotations
 

@@ -17,9 +17,10 @@ diag(1/(d + lam)) Q' does not depend on the eigenvectors' signs or on the
 basis chosen inside a repeated eigenvalue.  In float32 the eigenbasis
 carries a backward error ~eps * kappa; ``dual_refine`` steps of
 refinement against the exact stored G bring the solve back below CG's
-float32 floor.  Every product here must run in full float32 (no TF32): the
-final ``rhs - X' z`` cancels almost completely along the data directions,
-so matmul rounding is amplified by ~||X'X|| / lam.
+float32 floor.  Every product here must run in full float32 (no TF32; the
+engines pin it, ``models/engine.full_float32``): the final ``rhs - X' z``
+cancels almost completely along the data directions, so matmul rounding
+is amplified by ~||X'X|| / lam.
 """
 from __future__ import annotations
 
@@ -28,6 +29,7 @@ from typing import Callable, Optional, Tuple
 import numpy as np
 import torch
 
+from ..utils import spans
 from ..utils.spans import timed
 
 
@@ -114,7 +116,10 @@ def dual_solve(Q: torch.Tensor, d: torch.Tensor, lam, rhs: torch.Tensor,
                spmm_fwd: Callable[[torch.Tensor], torch.Tensor],
                spmm_t: Callable[[torch.Tensor], torch.Tensor]
                ) -> torch.Tensor:
-    """(X'X + lam I)^-1 rhs on the cached dual eigendecomposition."""
+    """(X'X + lam I)^-1 rhs on the cached dual eigendecomposition.
+    ``dual_solve.calls`` counts the dual solves, of this form and of
+    ``dual_solve_g``."""
+    dual_solve.calls += 1
     return (rhs - spmm_t(_apply_inv(Q, d, lam, spmm_fwd(rhs)))) / lam
 
 
@@ -137,11 +142,16 @@ def dual_solve_g(Q: torch.Tensor, d: torch.Tensor, G: torch.Tensor, lam,
     ``spmm_fwd``'s output and z hold one rank's rows, ``reduce`` sums Q't
     over the ranks (``spmm_t`` sums its own), and ``gather`` assembles
     every rank's z for the product with G's rows [n_loc, n_pad]."""
+    dual_solve.calls += 1
     t0 = spmm_fwd(rhs)                       # [N, K]
     z = _apply_inv(Q, d, lam, t0, reduce)
     for _ in range(n_refine):
         z = z + _apply_inv(Q, d, lam, t0 - G @ gather(z) - lam * z, reduce)
     return (rhs - spmm_t(z)) / lam, z
+
+
+dual_solve.calls = 0
+spans.counter(dual_solve, "calls")
 
 
 def use_dual(beta_solver, n: int, num_features: int, itemsize: int,

@@ -4,12 +4,12 @@ with side features and the noise precision alpha of a relation.
 
 Wishart sampling by the Bartlett decomposition on K x K matrices; every
 random number comes from the sweep's randoms dict (utils/rng.py).  Float32
-products here run in full float32: the engine turns TF32 off for CUDA
-matmuls.
+products here run in full float32: the engines pin it for their windows
+(``models/engine.full_float32``).
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 from torch.linalg import solve_triangular
@@ -28,16 +28,19 @@ def bartlett_wishart(chi2: torch.Tensor, normals: torch.Tensor,
 
 def normal_wishart_update(S: torch.Tensor, b0: float, nu0: float,
                           chi2: torch.Tensor, tri_normals: torch.Tensor,
-                          mu_normals: torch.Tensor
+                          mu_normals: torch.Tensor,
+                          from_moments: Optional[Callable] = None
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One Normal-Wishart conditional draw from the residual rows S [N, K]
-    (mu0 = 0, W0 = I).  Returns (mu, Lambda)."""
+    (mu0 = 0, W0 = I).  Returns (mu, Lambda).  ``from_moments`` stands in
+    for ``normal_wishart_from_moments`` (the engine replays it from a CUDA
+    graph)."""
     N = S.shape[0]
     Sbar = S.mean(dim=0)
     Sc = S - Sbar
     scatter = Sc.mT @ Sc
-    return normal_wishart_from_moments(N, Sbar, scatter, b0, nu0, chi2,
-                                       tri_normals, mu_normals)
+    return (from_moments or normal_wishart_from_moments)(
+        N, Sbar, scatter, b0, nu0, chi2, tri_normals, mu_normals)
 
 
 def normal_wishart_from_moments(N: int, Sbar: torch.Tensor,

@@ -9,6 +9,7 @@ from typing import Optional
 import torch
 from torch.linalg import solve_triangular
 
+from ..utils import spans
 from .chol_blocked import chol_sample_blocked
 from .chol_full import (K3_MAX_K, K4_MAX_K, chol_sample_full,
                         chol_sample_full_tiled)
@@ -35,13 +36,19 @@ def chol_sample(P: torch.Tensor, b: torch.Tensor, xi: torch.Tensor,
 def chol_solve(P: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """P^-1 b by Cholesky, batched; b [..., K] or [..., K, M] (JAX
     ``mvn.chol_solve`` :93).  No host read of the factorization's flag: a
-    P that is not positive definite gives NaN, as in the JAX package."""
+    P that is not positive definite gives NaN, as in the JAX package.
+    ``chol_solve.calls`` counts its calls."""
+    chol_solve.calls += 1
     L, _ = torch.linalg.cholesky_ex(P)
     vec = b.ndim == P.ndim - 1
     bb = b[..., None] if vec else b
     y = solve_triangular(L, bb, upper=False)
     x = solve_triangular(L.mT, y, upper=True)
     return x[..., 0] if vec else x
+
+
+chol_solve.calls = 0
+spans.counter(chol_solve, "calls")
 
 
 def chol_sample_dispatch(P: torch.Tensor, b: torch.Tensor, xi: torch.Tensor,

@@ -21,6 +21,7 @@ from typing import Dict, List, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..utils import spans
 from .layout import build_mode_layout
 
 
@@ -76,7 +77,9 @@ def _levels(inst: Sequence[np.ndarray], real: Sequence[np.ndarray]
 
 def bucketed_spmm(mv: dict, n_out: int, v: torch.Tensor) -> torch.Tensor:
     """y[i] = sum_j x_ij v[j] for one direction's layout ``mv`` (from
-    ``build_bucketed_matvec``): v [n_in, K] -> y [n_out, K]."""
+    ``build_bucketed_matvec``): v [n_in, K] -> y [n_out, K].
+    ``bucketed_spmm.calls`` counts its calls."""
+    bucketed_spmm.calls += 1
     K = v.shape[1]
     y = torch.zeros((n_out, K), dtype=v.dtype, device=v.device)
     if not mv["buckets"]:
@@ -93,3 +96,7 @@ def bucketed_spmm(mv: dict, n_out: int, v: torch.Tensor) -> torch.Tensor:
             piece = y.index_select(0, out_rows) + piece
         y.index_copy_(0, out_rows, piece)
     return y
+
+
+bucketed_spmm.calls = 0
+spans.counter(bucketed_spmm, "calls")

@@ -50,11 +50,10 @@ from ..models.data import (RelationData, resolved_alpha,
                            resolved_alpha_sample, resolved_lambda_beta)
 from ..models.engine import (EntitySpec, MacauEngine, RelationSpec, RowShard,
                              _resolve_device, auc_device, build_features,
-                             plan_gramians, sweep_flops)
+                             full_float32, plan_gramians, sweep_flops)
 from ..ops import dense_gram as dg
 from ..ops.gramian import plan_accumulation, predict_tuples
-from ..ops.hyper import (normal_wishart_from_moments, sample_alpha,
-                         sample_lambda_beta)
+from ..ops.hyper import normal_wishart_from_moments, sample_alpha
 from ..ops.layout import build_mode_layout
 from ..ops.spmv import bucketed_spmm
 from ..utils.config import MacauConfig
@@ -466,18 +465,15 @@ class ShardedMacauEngine(MacauEngine):
             raise RuntimeError(f"a {self.device.type} engine needs the "
                                f"{backend_for(self.device)} backend, the "
                                f"process group has {backend}")
-        if self.device.type == "cuda":
-            if self.device.index is None:
-                self.device = torch.device("cuda",
-                                           torch.cuda.current_device())
-            # full float32 products, as in the single-device engine
-            torch.backends.cuda.matmul.allow_tf32 = False
+        if self.device.type == "cuda" and self.device.index is None:
+            self.device = torch.device("cuda", torch.cuda.current_device())
         self.rank = dist.get_rank(self.group)
         self._writer = self.rank == 0
         self._trace_tag = f".rank{self.rank}" if self.world > 1 else ""
         self.dtype = getattr(torch, config.dtype)
-        self.problem = ShardedProblem(rd, config, self.world, self.rank,
-                                      self.device)
+        with full_float32():
+            self.problem = ShardedProblem(rd, config, self.world, self.rank,
+                                          self.device)
         self._perm_t = [torch.from_numpy(p).to(self.device)
                         for p in self.problem.perms]
 
@@ -730,10 +726,8 @@ class ShardedMacauEngine(MacauEngine):
                         metrics[f"e{ei}.cg_iters"] = cg_diag[0]
                         metrics[f"e{ei}.cg_resid"] = cg_diag[1]
                     if cfg.sample_lambda_beta:
-                        ent["lambda_beta"] = sample_lambda_beta(
-                            ent["beta"], ent["Lambda"],
-                            randoms[f"e{ei}.lb_g"], cfg.nu_beta,
-                            cfg.lambda_beta_mean)
+                        ent["lambda_beta"] = self._draw_lambda_beta(
+                            ei, ent["beta"], ent["Lambda"], randoms)
             # Normal-Wishart from moments summed over the ranks
             with span(f"bdf.e{ei}.hyper"):
                 S = U_loc if uhat_loc is None else U_loc - uhat_loc

@@ -20,11 +20,18 @@ emitted or recorded as ``span`` is.  The phases of the newest set-up stay
 readable after it without a recording (``setup_seconds``).
 
 The kernel wrappers' ``.launches`` and the plain versions' ``.calls``
-counters register here (``counter``); a ``Record`` holds their change over
-the recorded stretch beside the recorded spans' entry counts.
+counters register here (``counter``), as do the beta draw's
+(``bucketed_spmm.calls``, ``dual_solve.calls``, ``block_cg.calls`` and
+``.iterations``, ``chol_solve.calls``); a ``Record`` holds their change
+over the recorded stretch beside the recorded spans' entry counts.  A
+phase replayed from a CUDA graph (``utils/graphs.py``) runs no Python:
+the spans inside it are entered at its capture alone, and its replays
+advance the counters by what the capture counted (``advance``).
 
 The names: ``bdf.window``, ``bdf.fetch``, ``bdf.randoms``, ``bdf.sweep``;
-per entity ``bdf.e{i}.beta``, ``.hyper``, ``.precision`` (with
+per entity ``bdf.e{i}.beta`` (inside it ``bdf.beta_rhs``,
+``bdf.beta_solve``, ``bdf.beta_fwd`` where the solver does not return X
+beta, and ``bdf.lambda_beta``), ``.hyper``, ``.precision`` (with
 ``bdf.r{ri}m{m}.dense`` for each dense contribution, inside it
 ``bdf.ytab``, ``bdf.contract`` and ``bdf.expand``, and ``bdf.e{i}.buckets``
 for the gather assembly) and ``.draw`` (above K = 96 with ``bdf.k5``,
@@ -193,6 +200,15 @@ def counter(obj, *attrs: str) -> None:
 def counts() -> Dict[str, int]:
     """Every registered counter's value now."""
     return {k: getattr(o, a) for k, (o, a) in _counters.items()}
+
+
+def advance(change: Dict[str, int]) -> None:
+    """Add ``change`` ({counter: n}) to the registered counters: a phase
+    replayed from a CUDA graph (``utils/graphs.py``) runs no Python, so
+    its replay advances them by what its capture counted."""
+    for k, n in change.items():
+        o, a = _counters[k]
+        setattr(o, a, getattr(o, a) + n)
 
 
 @contextlib.contextmanager

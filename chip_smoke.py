@@ -2575,7 +2575,7 @@ def beta_draws(eng, timed=False):
         out = orig(*a, **kw)
         if timed:
             ev[1].record()
-        draws.append((out[2], ev))
+        draws.append((out[3], ev))
         return out
     eng._sample_beta = wrapped
     try:

@@ -1536,3 +1536,100 @@ def test_long_chain_gate(cuda):
     got = chip_smoke.run_long_chain_gate(tally)
     assert set(got) == {"rmse", "tail", "stdev"}
     assert all(launches[k] == 400 for k in ("K1", "K3", "K6", "K7"))
+
+
+def _tf32_on(api):
+    """Turn TF32 on for float32 matmuls by one of PyTorch's switches."""
+    if api == "set_float32_matmul_precision":
+        torch.set_float32_matmul_precision("high")
+    elif api == "allow_tf32":
+        torch.backends.cuda.matmul.allow_tf32 = True
+    else:
+        torch.backends.cuda.matmul.fp32_precision = "tf32"
+
+
+@pytest.mark.parametrize("api", ["allow_tf32", "fp32_precision",
+                                 "set_float32_matmul_precision"])
+def test_tf32_after_the_build_leaves_a_macau_sweep_bitwise(cuda, api):
+    """TF32 turned on after the build (by each of PyTorch's switches): one
+    float32 Macau window (the int8 pair, the dual solve on the dense X,
+    lambda_beta sampled) gives the bits it gives with TF32 off,
+    and the caller's setting is on again after it; the same sweep outside
+    the engine's window, with TF32 on, does not."""
+    from bayesiandatafusion_jl_tpu_torch.models.datasets import \
+        synthetic_chembl
+    import chip_smoke
+    rd = synthetic_chembl(n_compounds=2_000, n_targets=60, n_features=6_000,
+                          nnz=30_000, seed=3)
+    rd.assign_to_test(0, 2_000, seed=7)
+    eng = bt.MacauEngine(rd, bt.MacauConfig(
+        num_latent=32, burnin=1, psamples=1, verbose=False, seed=5,
+        dense_gram=True, dense_int8=True, gram_dtype="bfloat16",
+        use_ff=False))
+    assert eng.problem.entity_specs[0].solver == "dual"
+    state = eng.init_state()
+
+    def window():
+        st, ms = eng._window(state, 5, 0, 1)
+        eng._fetch(ms)
+        return st
+    off = window()
+    assert chip_smoke.equal_states(window(), off)
+    try:
+        _tf32_on(api)
+        on = window()
+        assert torch.backends.cuda.matmul.fp32_precision == "tf32"
+        bare, _ = eng._sweep_with_randoms(state, eng.draw(1, 5), 0.0)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    assert chip_smoke.equal_states(on, off)
+    assert not chip_smoke.equal_states(bare, off)
+
+
+@pytest.mark.parametrize("dense_gram", [False, True])
+def test_graph_replay_gives_the_eager_bits(cuda, dense_gram):
+    """A Macau chain (the gather path and the bucketed matvec, or the int8
+    pair and the dense X; the dual solve, lambda_beta sampled, the AUC of
+    a class cut) with its short phases replayed from CUDA
+    graphs (the beta draw, both Normal-Wishart draws, the AUC) gives the
+    bits and metrics of the same chain run eagerly, window by window, and
+    the beta draw's counters advance as they do eagerly."""
+    from bayesiandatafusion_jl_tpu_torch.models.datasets import \
+        synthetic_chembl
+    from bayesiandatafusion_jl_tpu_torch.utils import spans
+    import chip_smoke
+    rd = synthetic_chembl(n_compounds=2_000, n_targets=60, n_features=6_000,
+                          nnz=30_000, seed=3)
+    rd.assign_to_test(0, 2_000, seed=7)
+
+    def engine(graphs):
+        eng = bt.MacauEngine(rd, bt.MacauConfig(
+            num_latent=32, burnin=2, psamples=1, verbose=False, seed=5,
+            dense_gram=dense_gram, dense_int8=True, gram_dtype="bfloat16",
+            use_ff=False))
+        eng.graphs.enabled = graphs
+        return eng
+    on, off = engine(True), engine(False)
+    assert on.problem.entity_specs[0].solver == "dual"
+    s_on, s_off = on.init_state(), off.init_state()
+    for start in (0, 2, 4):
+        with spans.recording() as r_on:
+            s_on, m_on = on._window(s_on, 5, start, 2)
+            m_on = on._fetch(m_on)
+        with spans.recording() as r_off:
+            s_off, m_off = off._window(s_off, 5, start, 2)
+            m_off = off._fetch(m_off)
+        assert chip_smoke.equal_states(s_on, s_off), start
+        assert m_on == m_off, start
+        for c in ("bucketed_spmm.calls", "dual_solve.calls"):
+            assert r_on.counters[c] == r_off.counters[c], (start, c)
+    assert r_on.counters["dual_solve.calls"] == 2
+    assert on.graphs.captured() == 4 and off.graphs.captured() == 0
+    # an engine without a dual beta draw keeps them off
+    rd_b = synthetic_chembl(n_compounds=2_000, n_targets=60,
+                            n_features=6_000, nnz=30_000, seed=3)
+    eng = bt.MacauEngine(bt.RelationData.from_indexed_df(
+        rd_b.relations[0].data), bt.MacauConfig(
+            num_latent=32, burnin=1, psamples=1, verbose=False, seed=5,
+            dense_gram=dense_gram, dense_int8=True))
+    assert not eng.graphs.enabled

@@ -146,11 +146,67 @@ def test_profiled_macau_sweep_holds_the_beta_and_alpha_spans(tmp_path):
     assert eng.problem.entity_specs[0].solver == "dual"
     ranges = _traced_spans(lambda: _window(eng), tmp_path)
     _assert_nested(ranges, SWEEP + [("bdf.e0.beta", "bdf.sweep"),
+                                    ("bdf.beta_rhs", "bdf.e0.beta"),
+                                    ("bdf.beta_solve", "bdf.e0.beta"),
+                                    ("bdf.lambda_beta", "bdf.e0.beta"),
                                     ("bdf.r0.alpha", "bdf.sweep")])
     names = [r[0] for r in ranges]
     assert "bdf.e1.beta" not in names
+    # the dual solve returns X beta itself
+    assert "bdf.beta_fwd" not in names
     # the beta draw comes before the hyper draw of its entity
     assert names.index("bdf.e0.beta") < names.index("bdf.e0.hyper")
+
+
+# per solver: (engine options, the beta draw's spans a sweep, its
+# counters a sweep; None: at least one)
+BETA = {
+    "dual": (dict(beta_solver="dual", use_ff=False),
+             {"bdf.beta_rhs": 1, "bdf.beta_solve": 1, "bdf.beta_fwd": 0,
+              "bdf.lambda_beta": 1},
+             {"dual_solve.calls": 1, "bucketed_spmm.calls": 3,
+              "block_cg.calls": 0, "block_cg.iterations": 0,
+              "chol_solve.calls": 0}),
+    "cg": (dict(beta_solver="cg", use_ff=False),
+           {"bdf.beta_rhs": 1, "bdf.beta_solve": 1, "bdf.beta_fwd": 1,
+            "bdf.lambda_beta": 1},
+           {"dual_solve.calls": 0, "block_cg.calls": 1,
+            "block_cg.iterations": None, "chol_solve.calls": 0}),
+    "ff": (dict(use_ff=True),
+           {"bdf.beta_rhs": 1, "bdf.beta_solve": 1, "bdf.beta_fwd": 1,
+            "bdf.lambda_beta": 1},
+           {"dual_solve.calls": 0, "block_cg.calls": 0,
+            "chol_solve.calls": 1, "bucketed_spmm.calls": 2}),
+}
+
+
+@pytest.mark.parametrize("solver", sorted(BETA))
+def test_recording_counts_the_beta_draw_by_solver(solver):
+    opts, want_spans, want_counts = BETA[solver]
+    eng = _engine(_macau(), **opts)
+    assert eng.problem.entity_specs[0].solver == solver
+    assert "mv" in eng.problem.feat["e0"]       # the bucketed matvec
+    sweeps = 3
+    with spans.recording() as rec:
+        state, ms = eng._window(eng.init_state(), eng.config.seed, 0, sweeps)
+        m = eng._fetch(ms)
+    got = {k: rec.counters.get(k, 0) / sweeps
+           for k in list(want_spans) + list(want_counts)}
+    for k, v in {**want_spans, **want_counts}.items():
+        assert got[k] >= 1 if v is None else got[k] == v, (k, got[k])
+    if solver == "cg":
+        # the iterations counted are those the sweep reports
+        assert rec.counters["block_cg.iterations"] == sum(
+            x["e0.cg_iters"] for x in m)
+        # one rhs pass, two a matvec (the start, each iteration, the
+        # exit's true residual) and X beta
+        assert rec.counters["bucketed_spmm.calls"] == sum(
+            2 * (x["e0.cg_iters"] + 2) + 2 for x in m)
+    # the spans nest in the entity's beta span
+    names = [s.name for s in rec.spans]
+    for sp in rec.spans:
+        if sp.name in want_spans:
+            assert names[sp.parent] in ("bdf.e0.beta", "bdf.beta_solve")
 
 
 def test_profiled_sharded_sweep_holds_the_spans(tmp_path):
@@ -289,3 +345,34 @@ def test_timed_measures_with_nothing_listening():
     assert spans.setup_seconds() == {"bdf.build.plan": inner.seconds,
                                      "bdf.build": outer.seconds}
     assert not math.isnan(outer.seconds)
+
+
+def test_graphs_run_eagerly_off_the_card_and_replays_advance_counters():
+    """Off the card a graphed phase runs its Python every call; a replay's
+    captured counter change is added by ``spans.advance``."""
+    from bayesiandatafusion_jl_tpu_torch.utils.graphs import Graphs
+    calls = []
+
+    def phase(a):
+        calls.append(1)
+        return (2 * a,)
+    g, x = Graphs(), torch.arange(3.0)
+    for _ in range(3):
+        out, = g("phase", phase, x)
+    assert len(calls) == 3 and g.captured() == 0
+    assert torch.equal(out, 2 * x)
+    before = spans.counts()["dual_solve.calls"]
+    spans.advance({"dual_solve.calls": 2})
+    assert spans.counts()["dual_solve.calls"] == before + 2
+    spans.advance({"dual_solve.calls": -2})
+    assert spans.counts()["dual_solve.calls"] == before
+
+
+@pytest.mark.parametrize("solver", sorted(BETA))
+def test_only_a_dual_beta_draw_turns_the_graphs_on(solver):
+    """An engine replays its short phases from graphs where a featured
+    entity draws beta on the dual solve, and not on CG, FF or without
+    side features (their capture stream would cost cuBLAS a workspace)."""
+    eng = _engine(_macau(), **BETA[solver][0])
+    assert eng.graphs.enabled == (solver == "dual")
+    assert not _engine(_ratings(), **PACKED).graphs.enabled
