@@ -45,7 +45,13 @@
 //    and one for z^T v with v in column 0 of B;
 //  - at a row's last step the warp stages its accumulators in shared
 //    memory, both (i, j) and (j, i) from i <= j, and writes alpha * P and
-//    alpha * b in 16-byte stores, while the next row's loads are in flight.
+//    alpha * b in 16-byte stores, while the next row's loads are in flight:
+//    at the row's own index, or, with a destination map (``dest``, built
+//    once from the layout), at its instance's row of the [n, K*K] output
+//    or at a slot of the overflow after it, so that no per-sweep pass
+//    reorders the rows into instances (ops/gramian.py
+//    ``assemble_precision``).  The map is a template flag, so that the
+//    kernel without it runs the code it ran before the map.
 // Measured at Netflix's buckets (PERF.md; NVIDIA H100 80GB HBM3, 700 W, one
 // process, builds in turns, the same bits): the step counters in place of
 // a division by the row's steps took the kernel from 5.47 to 4.40 ms a
@@ -145,7 +151,7 @@ __device__ __forceinline__ uint32_t pack_bf16x2(float2 v) {
   return *reinterpret_cast<uint32_t*>(&x);
 }
 
-template <int K, int NT>
+template <int K, int NT, bool kDest>
 __global__ void __launch_bounds__(kWarps * 32)
 gather_gram_kernel(const __nv_bfloat16* __restrict__ u0, long long n0,
                    const __nv_bfloat16* __restrict__ u1, long long n1,
@@ -153,7 +159,8 @@ gather_gram_kernel(const __nv_bfloat16* __restrict__ u0, long long n0,
                    const float* __restrict__ val, const float* __restrict__ mask,
                    long long rows, int W, int rows_per_warp,
                    const float* __restrict__ alpha, float* __restrict__ P,
-                   float* __restrict__ b) {
+                   float* __restrict__ b, const int* __restrict__ dest,
+                   long long out_rows) {
   using L = Layout<K, NT>;
   constexpr int kGroups = K / 16;     // 16-latent groups: mma row tiles
   constexpr int kCols = K / 8;        // 8-latent column tiles
@@ -298,6 +305,10 @@ gather_gram_kernel(const __nv_bfloat16* __restrict__ u0, long long n0,
     const long long row = r0 + c_row;
     ++c_row;
     c_left = n_steps;
+    // the output row: the row itself, or its destination (none outside
+    // [0, out_rows))
+    long long o = row;
+    if constexpr (kDest) o = __ldg(dest + row);
     float* sb = stage + K * L::kLd;
 #pragma unroll
     for (int mi = 0; mi < kGroups; ++mi) {
@@ -322,30 +333,33 @@ gather_gram_kernel(const __nv_bfloat16* __restrict__ u0, long long n0,
       for (int e = 0; e < 4; ++e) accv[mi][e] = 0.0f;
     }
     __syncwarp();
-    float4* po = reinterpret_cast<float4*>(P + row * (K * K));
+    if (!kDest || (o >= 0 && o < out_rows)) {
+      float4* po = reinterpret_cast<float4*>(P + o * (K * K));
 #pragma unroll
-    for (int q = lane; q < K * K / 4; q += 32) {
-      const int i = q / (K / 4), j = 4 * (q % (K / 4));
-      float4 x = *reinterpret_cast<const float4*>(stage + i * L::kLd + j);
-      x.x *= a; x.y *= a; x.z *= a; x.w *= a;
-      po[q] = x;
-    }
-    if (lane < K / 4) {
-      float4 x = reinterpret_cast<const float4*>(sb)[lane];
-      x.x *= a; x.y *= a; x.z *= a; x.w *= a;
-      reinterpret_cast<float4*>(b + row * K)[lane] = x;
+      for (int q = lane; q < K * K / 4; q += 32) {
+        const int i = q / (K / 4), j = 4 * (q % (K / 4));
+        float4 x = *reinterpret_cast<const float4*>(stage + i * L::kLd + j);
+        x.x *= a; x.y *= a; x.z *= a; x.w *= a;
+        po[q] = x;
+      }
+      if (lane < K / 4) {
+        float4 x = reinterpret_cast<const float4*>(sb)[lane];
+        x.x *= a; x.y *= a; x.z *= a; x.w *= a;
+        reinterpret_cast<float4*>(b + o * K)[lane] = x;
+      }
     }
   }
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
-template <int K, int NT>
+template <int K, int NT, bool kDest>
 int launch(const void* u0, long long n0, const void* u1, long long n1,
            const void* part0, const void* part1, const void* val,
            const void* mask, long long rows, int W, int rows_per_warp,
-           const void* alpha, void* P, void* b, cudaStream_t stream) {
+           const void* alpha, void* P, void* b, const void* dest,
+           long long out_rows, cudaStream_t stream) {
   const int smem = kWarps * Layout<K, NT>::kWarp;
-  auto kern = gather_gram_kernel<K, NT>;
+  auto kern = gather_gram_kernel<K, NT, kDest>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -358,28 +372,34 @@ int launch(const void* u0, long long n0, const void* u1, long long n1,
       static_cast<const int*>(part0), static_cast<const int*>(part1),
       static_cast<const float*>(val), static_cast<const float*>(mask), rows, W,
       rows_per_warp, static_cast<const float*>(alpha),
-      static_cast<float*>(P), static_cast<float*>(b));
+      static_cast<float*>(P), static_cast<float*>(b),
+      static_cast<const int*>(dest), out_rows);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int NT>
+template <int NT, bool kDest>
 int launch_k(int K, const void* u0, long long n0, const void* u1, long long n1,
              const void* part0, const void* part1, const void* val,
              const void* mask, long long rows, int W, int rows_per_warp,
-             const void* alpha, void* P, void* b, cudaStream_t st) {
+             const void* alpha, void* P, void* b, const void* dest,
+             long long out_rows, cudaStream_t st) {
   switch (K) {
     case 16:
-      return launch<16, NT>(u0, n0, u1, n1, part0, part1, val, mask, rows, W,
-                            rows_per_warp, alpha, P, b, st);
+      return launch<16, NT, kDest>(u0, n0, u1, n1, part0, part1, val, mask,
+                                   rows, W, rows_per_warp, alpha, P, b, dest,
+                                   out_rows, st);
     case 32:
-      return launch<32, NT>(u0, n0, u1, n1, part0, part1, val, mask, rows, W,
-                            rows_per_warp, alpha, P, b, st);
+      return launch<32, NT, kDest>(u0, n0, u1, n1, part0, part1, val, mask,
+                                   rows, W, rows_per_warp, alpha, P, b, dest,
+                                   out_rows, st);
     case 48:
-      return launch<48, NT>(u0, n0, u1, n1, part0, part1, val, mask, rows, W,
-                            rows_per_warp, alpha, P, b, st);
+      return launch<48, NT, kDest>(u0, n0, u1, n1, part0, part1, val, mask,
+                                   rows, W, rows_per_warp, alpha, P, b, dest,
+                                   out_rows, st);
     case 64:
-      return launch<64, NT>(u0, n0, u1, n1, part0, part1, val, mask, rows, W,
-                            rows_per_warp, alpha, P, b, st);
+      return launch<64, NT, kDest>(u0, n0, u1, n1, part0, part1, val, mask,
+                                   rows, W, rows_per_warp, alpha, P, b, dest,
+                                   out_rows, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -390,26 +410,41 @@ int launch_k(int K, const void* u0, long long n0, const void* u1, long long n1,
 // Plain C entry point (loaded with ctypes).  u0 [n0, K] (and, with nt = 2,
 // u1 [n1, K]) contiguous bfloat16 partner tables, 16-byte aligned; part0
 // (part1) int32, val and mask float32, each contiguous [rows, W]; alpha one
-// float32 on the device; P [rows, K * K] and b [rows, K] contiguous float32,
-// 16-byte aligned.  K is 16, 32, 48 or 64; an index outside its table reads
-// as a zero row.  Returns the launch's CUDA error (0 on success).
+// float32 on the device; P [out_rows, K * K] and b [out_rows, K] contiguous
+// float32, 16-byte aligned.  Without dest (null) row r goes to output row r
+// (out_rows = rows); with dest (int32 [rows] on the device) to output row
+// dest[r], and nowhere where dest[r] is outside [0, out_rows).  K is 16,
+// 32, 48 or 64; an index outside its table reads as a zero row.  Returns
+// the launch's CUDA error (0 on success).
 extern "C" int bdf_gather_gram(const void* u0, long long n0, const void* u1,
                                long long n1, int K, int nt, const void* part0,
                                const void* part1, const void* val,
                                const void* mask, long long rows, int W,
                                int rows_per_warp, const void* alpha, void* P,
-                               void* b, void* stream) {
+                               void* b, const void* dest, long long out_rows,
+                               void* stream) {
   if (rows < 1 || W < 1 || rows_per_warp < 1 || n0 < 1 ||
+      (dest == nullptr && out_rows != rows) ||
       (nt == 2 && n1 < 1) ||
       static_cast<long long>(rows_per_warp) *
               ((W + kStep - 1) / kStep) > 0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (nt == 1 && dest == nullptr)
+    return launch_k<1, false>(K, u0, n0, u0, n0, part0, part0, val, mask,
+                              rows, W, rows_per_warp, alpha, P, b, dest,
+                              out_rows, st);
+  if (nt == 2 && dest == nullptr)
+    return launch_k<2, false>(K, u0, n0, u1, n1, part0, part1, val, mask,
+                              rows, W, rows_per_warp, alpha, P, b, dest,
+                              out_rows, st);
   if (nt == 1)
-    return launch_k<1>(K, u0, n0, u0, n0, part0, part0, val, mask, rows, W,
-                       rows_per_warp, alpha, P, b, st);
+    return launch_k<1, true>(K, u0, n0, u0, n0, part0, part0, val, mask, rows,
+                             W, rows_per_warp, alpha, P, b, dest, out_rows,
+                             st);
   if (nt == 2)
-    return launch_k<2>(K, u0, n0, u1, n1, part0, part1, val, mask, rows, W,
-                       rows_per_warp, alpha, P, b, st);
+    return launch_k<2, true>(K, u0, n0, u1, n1, part0, part1, val, mask, rows,
+                             W, rows_per_warp, alpha, P, b, dest, out_rows,
+                             st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -128,7 +128,7 @@ def load() -> ctypes.CDLL:
         lib.bdf_windowed_expand.argtypes = [p, ll, i, p, p, ll, p, p]
         lib.bdf_gather_gram.restype = i
         lib.bdf_gather_gram.argtypes = [p, ll, p, ll, i, i, p, p, p, p, ll, i,
-                                        i, p, p, p, p]
+                                        i, p, p, p, p, ll, p]
         _lib = lib
     return _lib
 

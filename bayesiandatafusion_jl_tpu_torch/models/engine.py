@@ -56,7 +56,9 @@ entity with a dense contribution keeps P packed up to K = 96 under
 "segment" accumulation ([K(K+1)/2, N], ops/chol_packed.py: the K1 kernel
 up to K = 32, K2 above; its gather buckets are accumulated in that layout).
 Otherwise P is a full [N, K, K] (dense contributions expanded, buckets
-through ``assemble_precision``) for ops/mvn.chol_sample_dispatch: the K3
+through ``assemble_precision``, under "segment" accumulation each row
+written at its instance's row by the entity's destination map, made with
+the layouts) for ops/mvn.chol_sample_dispatch: the K3
 kernel up to K = 32, K4 up to 96, the blocked sampler on K5 up to 128.
 With "segment" accumulation Lambda is left out of P and added by the
 sampler; with "planned" it is in the accumulator.  Every sum of a sweep
@@ -100,8 +102,8 @@ from ..ops.cg import block_cg
 from ..ops.chol_packed import K2_MAX_K, chol_sample_packed_dispatch
 from ..ops.dual import dual_eig_cached, dual_solve_g, use_dual
 from ..ops.gramian import (assemble_precision, assemble_precision_planned,
-                           packed_bucket_accum, plan_accumulation,
-                           predict_tuples)
+                           build_dest_map, packed_bucket_accum,
+                           plan_accumulation, predict_tuples)
 from ..ops.layout import build_mode_layout
 from ..ops.hyper import (normal_wishart_from_moments, normal_wishart_update,
                          sample_alpha, sample_lambda_beta)
@@ -411,7 +413,10 @@ class CompiledProblem:
     ``fused_i8s[ri]``, with a gather-path residual where
     ``residual_nnzs[ri]``) or "gather" (none); ``stores[ri]`` holds the
     pair or the fused store.  ``layouts["r{ri}m{mode}"]`` are the gather
-    buckets of every gather mode and fused residual.  Per entity ``ei``
+    buckets of every gather mode and fused residual; under "segment"
+    accumulation ``dest_maps["e{ei}"]`` is the destination map of entity
+    ``ei``'s buckets (``ops/gramian.build_dest_map``), under "planned"
+    ``acc_plan["e{ei}"]`` its plan.  Per entity ``ei``
     with side features, ``feat["e{ei}"]`` holds its beta draw's arrays
     (the dense X or the bucketed matvec, the column sums, and the
     solver's: the eigenbasis of XX' and G, the Nystrom factors, or X'X),
@@ -433,6 +438,7 @@ class CompiledProblem:
         self.fused_i8s: List[bool] = []
         self.residual_nnzs: List[int] = []
         self.layouts, self.acc_plan, self.padded_nnz = {}, {}, []
+        self.dest_maps: Dict[str, dict] = {}
         self.test, self.train = {}, {}
         self.layout_seconds = 0.0
         self._host_inst: Dict[str, List[np.ndarray]] = {}
@@ -469,6 +475,9 @@ class CompiledProblem:
             if config.accumulation == "planned":
                 with timed("bdf.build.acc_plan"):
                     self._build_acc_plans(config, device)
+            elif self._host_inst:
+                with timed("bdf.build.dest_map"):
+                    self._build_dest_maps(device)
             del self._host_inst
             for ei, ent in enumerate(rd.entities):
                 if ent.has_features:
@@ -601,15 +610,33 @@ class CompiledProblem:
                     for b in ml.buckets]
         self.layout_seconds += t.seconds
 
+    def _entity_insts(self, ei) -> List[np.ndarray]:
+        """The host ``inst`` arrays of entity ``ei``'s gather buckets in the
+        sweep's order: relations, then modes."""
+        return [a for ri, rs in enumerate(self.rel_specs)
+                for mode, e in enumerate(rs.entity_ids) if e == ei
+                for a in self._host_inst.get(f"r{ri}m{mode}", ())]
+
+    def _build_dest_maps(self, device):
+        """Per entity with gather buckets, ``dest_maps["e{ei}"]``: the
+        "segment" accumulation's destination map (``build_dest_map``), its
+        arrays on the device, its counts on the host."""
+        for ei, es in enumerate(self.entity_specs):
+            insts = self._entity_insts(ei)
+            if not insts:
+                continue
+            dm = build_dest_map(insts, es.n, f"bdf.e{ei}.overflow")
+            for k in ("dest", "ov_inst", "ov_len", "empty"):
+                dm[k] = torch.from_numpy(dm[k]).to(device)
+            self.dest_maps[f"e{ei}"] = dm
+
     def _build_acc_plans(self, config, device):
         """Per entity ``acc_plan["e{ei}"]``, the "planned" accumulation's
         static gather and overflow (JAX engine :420-432), over its gather
         buckets in the sweep's order: relations, then modes."""
         dtype = getattr(torch, config.dtype)
         for ei, es in enumerate(self.entity_specs):
-            insts = [a for ri, rs in enumerate(self.rel_specs)
-                     for mode, e in enumerate(rs.entity_ids) if e == ei
-                     for a in self._host_inst.get(f"r{ri}m{mode}", ())]
+            insts = self._entity_insts(ei)
             plan = {k: torch.from_numpy(v).to(device)
                     for k, v in plan_accumulation(insts, es.n).items()}
             plan["has"] = plan["has"].to(dtype)
@@ -1168,7 +1195,8 @@ class MacauEngine(GibbsDriver):
         the transposed [C, n] layout, the buckets added into it
         (``packed_bucket_accum``), then the packed sampler (K1, K2).
         Otherwise (JAX :924-951) P is full: the buckets through
-        ``assemble_precision`` (Lambda left to the sampler) or
+        ``assemble_precision`` (Lambda left to the sampler; through the
+        entity's destination map where the problem has one) or
         ``assemble_precision_planned`` (Lambda in P), the dense
         contributions unpacked and added, then the full-P sampler (K3, K4,
         the blocked one above K = 96); an entity with no contribution
@@ -1218,8 +1246,10 @@ class MacauEngine(GibbsDriver):
             lam = None
         elif contribs or not dense:
             with span(f"bdf.e{ei}.buckets"):
-                P, b = assemble_precision(Lambda, prior_mean, contribs, n,
-                                          gram_dtype=gd, fuse_lambda=True)
+                P, b = assemble_precision(
+                    Lambda, prior_mean, contribs, n, gram_dtype=gd,
+                    fuse_lambda=True,
+                    dest_map=self.problem.dest_maps.get(f"e{ei}"))
         else:
             # dense contributions alone: the first one's fresh [n, K, K]
             # output is the accumulator, which saves an [n, K, K] buffer

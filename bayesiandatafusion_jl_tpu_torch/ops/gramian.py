@@ -16,19 +16,25 @@ Gramian: for a bfloat16 gather on the card by the gather-Gramian kernel
 (``gather_gram``, ``csrc/gather_gram.cu``: the rows gathered into shared
 memory and contracted on the tensor cores in one pass), else by torch code
 that gathers them into a [rows, W, K] block and contracts it by batched
-matrix products (the JAX package's XLA einsums); the rows then reduce into
-the instances by one segment sum (``_segment_sum``) or by the compile-time
-plan.  The layout's index arrays stay int32 on the device: the kernel,
-``index_select`` and the segment sum's sort take them as they are.
+matrix products (the JAX package's XLA einsums).  The rows then reach the
+instances through the entity's destination map (``build_dest_map``, made
+once from the layouts): each row is written at its instance's row, or,
+for an instance's further rows, at an overflow slot whose sum is added in
+(``assemble_precision`` with ``dest_map``); without a map by one segment
+sum (``_segment_sum``); or by the compile-time plan.  The layout's index
+arrays stay int32 on the device: the kernel, ``index_select`` and the
+segment sum's sort take them as they are.
 
-Every segment sum here adds in one fixed order, the same on every run: the
+Every sum of rows here adds in one fixed order, the same on every run: an
+instance's overflow slots in layout order, summed over their static
+lengths (``torch.segment_reduce``) and added to its first row once; or the
 rows sorted stably by instance, then each instance's rows summed in that
-order (``torch.segment_reduce``), into a fresh [n, ...] output
-(``_segment_sum``) or, for an existing accumulator, as one nonzero row an
-instance that ``index_add_`` adds in (``_run_sums``).  A scatter add of the
-rows themselves would add with atomics on CUDA, whose order changes from
-run to run, so two runs of one seed would not give the same bits, and a
-resumed chain would not equal the one without interruption.
+order, into a fresh [n, ...] output (``_segment_sum``) or, for an existing
+accumulator, as one nonzero row an instance that ``index_add_`` adds in
+(``_run_sums``).  A scatter add of the rows themselves would add with
+atomics on CUDA, whose order changes from run to run, so two runs of one
+seed would not give the same bits, and a resumed chain would not equal the
+one without interruption.
 """
 from __future__ import annotations
 
@@ -77,11 +83,17 @@ def bucket_gramian(
     max_gather_bytes: float = None,
     alpha=None,
     out=None,
+    dest=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-row Gramian and rhs contribution of one bucket: (P [rows, K, K],
     b [rows, K]) in ``val``'s dtype, times ``alpha`` where given (a number
     or a one-element tensor); with ``out`` = (P [rows, K*K], b [rows, K])
-    written there and returned.
+    written there and returned.  With ``dest`` (int32 [rows] on the
+    device, distinct output rows) as well, ``out`` = (P [N, K*K], b [N,
+    K]) of any N and row r goes to output row ``dest[r]``; the kernel
+    stores nothing where ``dest[r]`` is outside [0, N), the torch code
+    takes only destinations inside it (it moves the rows by
+    ``index_copy_``; on the CPU it drops the others).
 
     With ``gram_dtype=torch.bfloat16`` the partner rows (and the values)
     are gathered and masked in bfloat16, then contracted in ``val``'s dtype:
@@ -96,17 +108,19 @@ def bucket_gramian(
                          partner_factors[0].shape[-1],
                          len(partner_factors) + 1):
         return gather_gram(partner_factors, part, val, mask, alpha=alpha,
-                           out=out)
+                           out=out, dest=dest)
     return _bucket_gramian_torch(partner_factors, part, val, mask,
-                                 max_gather_bytes, alpha, out)
+                                 max_gather_bytes, alpha, out, dest)
 
 
 def _bucket_gramian_torch(partner_factors, part, val, mask,
-                          max_gather_bytes, alpha, out):
+                          max_gather_bytes, alpha, out, dest=None):
     """``bucket_gramian`` in torch operations, the partner tables already
     in the gather's dtype: each row's partner rows gathered into a [rows,
     W, K] block (in row chunks over ``max_gather_bytes``), masked, then
-    contracted by batched matrix products in ``val``'s dtype."""
+    contracted by batched matrix products in ``val``'s dtype; with
+    ``dest``, the alpha-scaled rows moved into ``out`` by ``index_copy_``
+    (the same bits as without it)."""
     out_dtype = val.dtype
     budget = (_GATHER_CHUNK_BYTES if max_gather_bytes is None
               else max_gather_bytes)
@@ -140,39 +154,53 @@ def _bucket_gramian_torch(partner_factors, part, val, mask,
         for start in range(0, rows, cr):
             sl = slice(start, min(start + cr, rows))
             P[sl], b[sl] = block([p[sl] for p in part], val[sl], mask[sl])
-    if out is not None:
+    if out is not None and dest is None:
         scale = 1.0 if alpha is None else alpha
         torch.mul(P.view(out[0].shape), scale, out=out[0])
         torch.mul(b, scale, out=out[1])
         return out
     if alpha is not None:
         P, b = P.mul_(alpha), b.mul_(alpha)
-    return P, b
+    if dest is None:
+        return P, b
+    d = dest.long()
+    if d.device.type == "cpu":
+        keep = (d >= 0) & (d < out[0].shape[0])
+        if not bool(keep.all()):
+            d, P, b = d[keep], P[keep], b[keep]
+    out[0].view(-1, P.shape[-2] * P.shape[-1]).index_copy_(
+        0, d, P.view(-1, P.shape[-2] * P.shape[-1]))
+    out[1].index_copy_(0, d, b)
+    return out
 
 
 def gather_gram_plain(partner_factors, part, val, mask, alpha=None,
-                      out=None):
+                      out=None, dest=None):
     """The plain torch version of ``gather_gram``: the torch code of
     ``bucket_gramian`` with the partner rows in bfloat16.  Runs on any
     device; ``gather_gram_plain.calls`` counts its calls."""
     gather_gram_plain.calls += 1
     return _bucket_gramian_torch([U.to(torch.bfloat16)
                                   for U in partner_factors], part, val, mask,
-                                 None, alpha, out)
+                                 None, alpha, out, dest)
 
 
 gather_gram_plain.calls = 0
 spans.counter(gather_gram_plain, "calls")
 
 
-def gather_gram(partner_factors, part, val, mask, alpha=None, out=None):
+def gather_gram(partner_factors, part, val, mask, alpha=None, out=None,
+                dest=None):
     """One bucket's per-row alpha * P [rows, K, K] and alpha * b [rows, K]
     (float32) from a bfloat16 gather: the partner tables ``partner_factors``
     (one or two [N_d, K] bfloat16, K in ``GATHER_GRAM_KS``), the indices
     ``part`` (as many [rows, W] int32), ``val`` and ``mask`` ([rows, W]
     float32), ``alpha`` a number or a one-element tensor (default 1).  With
     ``out`` = (P [rows, K*K] or [rows, K, K], b [rows, K]), contiguous
-    float32, the results go there.
+    float32, the results go there.  With ``dest`` (contiguous int32
+    [rows]) too, ``out`` may have any number N of rows, and row r goes to
+    output row ``dest[r]``, nowhere where that is outside [0, N): the same
+    bits as without ``dest``, moved.
 
     CPU tensors run the plain version; CUDA tensors launch the kernel
     (``csrc/gather_gram.cu``) on the current stream or raise — there is no
@@ -182,7 +210,7 @@ def gather_gram(partner_factors, part, val, mask, alpha=None, out=None):
     dev = val.device
     if dev.type == "cpu":
         return gather_gram_plain(partner_factors, part, val, mask, alpha,
-                                 out)
+                                 out, dest)
     if dev.type != "cuda":
         raise RuntimeError(f"no kernel for device {dev}")
     nt = len(partner_factors)
@@ -219,12 +247,24 @@ def gather_gram(partner_factors, part, val, mask, alpha=None, out=None):
         a = torch.full((), 1.0 if alpha is None else float(alpha),
                        dtype=torch.float32, device=dev)
     if out is None:
+        if dest is not None:
+            raise ValueError("dest needs out")
         out = (torch.empty((rows, K, K), dtype=torch.float32, device=dev),
                torch.empty((rows, K), dtype=torch.float32, device=dev))
-    for name, t, numel in (("P", out[0], rows * K * K),
-                           ("b", out[1], rows * K)):
+    n_out = out[0].shape[0]
+    if dest is None and n_out != rows:
+        raise ValueError(f"out must have {rows} rows without dest, got "
+                         f"{n_out}")
+    if dest is not None and (dest.dtype != torch.int32
+                             or tuple(dest.shape) != (rows,)
+                             or not dest.is_contiguous()
+                             or dest.device != dev):
+        raise ValueError(f"dest must be contiguous int32 [{rows}] on {dev}, "
+                         f"got {dest.dtype} {tuple(dest.shape)}")
+    for name, t, numel in (("P", out[0], n_out * K * K),
+                           ("b", out[1], n_out * K)):
         if (t.dtype != torch.float32 or t.numel() != numel
-                or t.shape[0] != rows or not t.is_contiguous()
+                or t.shape[0] != n_out or not t.is_contiguous()
                 or t.data_ptr() % 16 or t.device != dev):
             raise ValueError(f"out {name} must be contiguous, 16-byte "
                              f"aligned float32 with {numel} entries on "
@@ -246,7 +286,8 @@ def gather_gram(partner_factors, part, val, mask, alpha=None, out=None):
             U1.data_ptr(), U1.shape[0], K, nt, part[0].data_ptr(),
             p1.data_ptr(), val.data_ptr(), mask.data_ptr(), rows, W,
             rows_per_warp, a.data_ptr(), out[0].data_ptr(),
-            out[1].data_ptr(), stream)
+            out[1].data_ptr(), None if dest is None else dest.data_ptr(),
+            n_out, stream)
     if rc != 0:
         raise RuntimeError(f"gather-Gramian kernel launch failed: CUDA "
                            f"error {rc}")
@@ -258,13 +299,17 @@ gather_gram.launches = 0
 spans.counter(gather_gram, "launches")
 
 
-def _gramian_rows(contribs, K: int, gram_dtype):
-    """Every bucket's alpha-scaled per-row Gramians and rhs, concatenated
-    in contribs order: (P_cat [R, K*K], b_cat [R, K])."""
+def _gramian_rows(contribs, K: int, gram_dtype, dest=None, n_out=None):
+    """Every bucket's alpha-scaled per-row Gramians and rhs: concatenated
+    in contribs order, (P_cat [R, K*K], b_cat [R, K]); or with ``dest``
+    (int32 [R], a destination map's, in contribs order), row r at row
+    ``dest[r]`` of (P [n_out, K*K], b [n_out, K])."""
     R = sum(ba["inst"].shape[0] for _, _, ba in contribs)
     val0 = contribs[0][2]["val"]
-    P_cat = torch.empty((R, K * K), dtype=val0.dtype, device=val0.device)
-    b_cat = torch.empty((R, K), dtype=val0.dtype, device=val0.device)
+    rows_out = R if dest is None else n_out
+    P_cat = torch.empty((rows_out, K * K), dtype=val0.dtype,
+                        device=val0.device)
+    b_cat = torch.empty((rows_out, K), dtype=val0.dtype, device=val0.device)
     cast = {}     # each partner table converted to gram_dtype once
 
     def to_gram(U):
@@ -277,10 +322,13 @@ def _gramian_rows(contribs, K: int, gram_dtype):
     off = 0
     for alpha, partner_factors, ba in contribs:
         r = ba["inst"].shape[0]
+        if dest is None:
+            out, d = (P_cat[off:off + r], b_cat[off:off + r]), None
+        else:
+            out, d = (P_cat, b_cat), dest[off:off + r]
         bucket_gramian([to_gram(U) for U in partner_factors], ba["part"],
                        ba["val"], ba["mask"], gram_dtype=gram_dtype,
-                       alpha=alpha,
-                       out=(P_cat[off:off + r], b_cat[off:off + r]))
+                       alpha=alpha, out=out, dest=d)
         off += r
     return P_cat, b_cat
 
@@ -294,11 +342,16 @@ def _segment_sum(rows: torch.Tensor, seg: torch.Tensor, n: int
     ``searchsorted`` finds.  Everything stays on the device (``unsafe``
     skips ``segment_reduce``'s checks, which would read the offsets
     back)."""
+    _segment_sum.calls += 1
     s, order = torch.sort(seg, stable=True)
     offsets = torch.searchsorted(
         s, torch.arange(n + 1, dtype=s.dtype, device=s.device))
     return torch.segment_reduce(rows.index_select(0, order), "sum",
                                 offsets=offsets, unsafe=True)
+
+
+_segment_sum.calls = 0
+spans.counter(_segment_sum, "calls")
 
 
 def _run_sums(seg: torch.Tensor, *rows: torch.Tensor):
@@ -332,12 +385,21 @@ def assemble_precision(
     n: int,
     gram_dtype=None,
     fuse_lambda: bool = False,  # leave Lambda out of P: the sampler adds it
+    dest_map=None,              # build_dest_map's, on the device
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """P [n, K, K] and b [n, K] by ONE segment sum over all buckets' rows,
-    in the flat [rows, K*K] layout.  A bucket is a dict of device tensors:
-    ``inst`` [rows] int32, ``part`` list of [rows, W] int32, ``val`` and
-    ``mask`` [rows, W]."""
+    """P [n, K, K] and b [n, K] from all buckets' rows, in the flat [rows,
+    K*K] layout.  A bucket is a dict of device tensors: ``inst`` [rows]
+    int32, ``part`` list of [rows, W] int32, ``val`` and ``mask`` [rows,
+    W].
+
+    With ``dest_map`` (the entity's, over these contribs in this order)
+    each row is written at its destination (``_assemble_mapped``); without
+    it (the JAX signature, the sharded engine) the rows are reduced by ONE
+    segment sum."""
     K = Lambda.shape[-1]
+    if dest_map is not None and contribs:
+        return _assemble_mapped(Lambda, prior_mean, contribs, n, gram_dtype,
+                                fuse_lambda, dest_map)
     if fuse_lambda:
         P_acc = torch.zeros((n, K * K), dtype=Lambda.dtype,
                             device=Lambda.device)
@@ -352,6 +414,81 @@ def assemble_precision(
         P_acc = segP if fuse_lambda else P_acc + segP
         b_acc = b_acc + _segment_sum(b_cat, inst, n)
     return P_acc.reshape(n, K, K).contiguous(), b_acc.contiguous()
+
+
+assemble_precision.direct_rows = 0
+assemble_precision.overflow_rows = 0
+spans.counter(assemble_precision, "direct_rows", "overflow_rows")
+
+
+def _assemble_mapped(Lambda, prior_mean, contribs, n, gram_dtype,
+                     fuse_lambda, dm):
+    """``assemble_precision`` through the destination map ``dm``: every
+    bucket's rows written into one [n + R_ov, ...] buffer, each instance's
+    first row at the instance's row, its other rows at its overflow slots
+    after them; the rows no bucket reaches zeroed; then each instance's
+    overflow slots summed (``segment_reduce`` over the static run lengths)
+    and that one sum added into its row; then the prior term (and Lambda
+    unless ``fuse_lambda``).
+
+    An instance of one row gets that row's bits (+0.0 for -0.0); one of
+    several rows sums its first row + (the others, in layout order): a
+    fixed order, the same on every run.  ``assemble_precision``'s
+    ``direct_rows`` and ``overflow_rows`` count the rows of each kind (from
+    the map, on the host)."""
+    K = Lambda.shape[-1]
+    n_ov = dm["overflow_rows"]
+    buf_P, buf_b = _gramian_rows(contribs, K, gram_dtype, dest=dm["dest"],
+                                 n_out=n + n_ov)
+    P, b = buf_P[:n], buf_b[:n]
+    if dm["empty"].numel():
+        P.index_fill_(0, dm["empty"], 0.0)
+        b.index_fill_(0, dm["empty"], 0.0)
+    if n_ov:
+        with spans.span(dm["span"]):
+            for acc, buf in ((P, buf_P), (b, buf_b)):
+                acc.index_add_(0, dm["ov_inst"], torch.segment_reduce(
+                    buf[n:], "sum", lengths=dm["ov_len"], unsafe=True))
+    assemble_precision.direct_rows += dm["direct_rows"]
+    assemble_precision.overflow_rows += n_ov
+    b = b.add_(_prior_term(prior_mean, Lambda, n))
+    if not fuse_lambda:
+        P = P.add_(Lambda.reshape(1, K * K))
+    return P.view(n, K, K), b
+
+
+def build_dest_map(inst_arrays: Sequence[np.ndarray], n: int,
+                   span: str = "bdf.overflow") -> dict:
+    """The destination map of one entity's bucket rows (host-side NumPy),
+    from ``plan_accumulation``'s arrays, over the rows of ``inst_arrays``
+    concatenated (contribs order): ``dest`` [R] int32, each instance's
+    first row (``first``, where ``has``) mapped to the instance's row of
+    the [n, ...] output, every other row (``plan_accumulation``'s overflow:
+    an instance's chunk rows after its first, every row of instance 0,
+    whose rows include the buckets' padding) to n + its overflow slot,
+    slots in instance order and, within an instance, in layout order;
+    ``ov_inst`` int64 and ``ov_len`` int64, the instances with overflow
+    slots and each one's number of slots; ``empty`` int64, the instances
+    with no first row (zeroed before the overflow is added);
+    ``direct_rows`` and ``overflow_rows``, the counts; ``span``, the name
+    of the overflow's span."""
+    plan = plan_accumulation(inst_arrays, n)
+    R = sum(len(a) for a in inst_arrays)
+    real = plan["ov_inst"] < n    # drop the padding aimed at segment n
+    ov_rows, ov_inst = plan["ov_rows"][real], plan["ov_inst"][real]
+    order = np.argsort(ov_inst, kind="stable")
+    ov_rows, ov_inst = ov_rows[order], ov_inst[order]
+    has = plan["has"] > 0
+    direct = np.nonzero(has)[0]
+    dest = np.empty(R, np.int32)
+    dest[plan["first"][direct]] = direct
+    dest[ov_rows] = n + np.arange(len(ov_rows), dtype=np.int32)
+    u, lens = np.unique(ov_inst, return_counts=True)
+    return {"dest": dest, "ov_inst": u.astype(np.int64),
+            "ov_len": lens.astype(np.int64),
+            "empty": np.nonzero(~has)[0].astype(np.int64),
+            "direct_rows": int(len(direct)),
+            "overflow_rows": int(len(ov_rows)), "span": span}
 
 
 # Transient budget of the packed accumulation, in bytes of the larger of a

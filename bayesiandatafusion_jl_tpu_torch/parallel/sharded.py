@@ -152,6 +152,8 @@ class ShardedProblem:
         self.train: Dict[str, dict] = {}
         self.feat: Dict[str, dict] = {}
         self.acc_plan: Dict[str, dict] = {}
+        # no destination maps: a rank's rows reduce by the segment sum
+        self.dest_maps: Dict[str, dict] = {}
         self.layout_seconds = 0.0
         host_inst: Dict[str, List[np.ndarray]] = {}
 

@@ -20,13 +20,16 @@ emitted or recorded as ``span`` is.  The phases of the newest set-up stay
 readable after it without a recording (``setup_seconds``).
 
 The kernel wrappers' ``.launches`` and the plain versions' ``.calls``
-counters register here (``counter``), as do the beta draw's
-(``bucketed_spmm.calls``, ``dual_solve.calls``, ``block_cg.calls`` and
-``.iterations``, ``chol_solve.calls``); a ``Record`` holds their change
-over the recorded stretch beside the recorded spans' entry counts.  A
-phase replayed from a CUDA graph (``utils/graphs.py``) runs no Python:
-the spans inside it are entered at its capture alone, and its replays
-advance the counters by what the capture counted (``advance``).
+counters register here (``counter``), as do the gather assembly's
+(``assemble_precision.direct_rows`` and ``.overflow_rows``, the rows a
+destination map stores at their instance and through the overflow, and
+``_segment_sum.calls``) and the beta draw's (``bucketed_spmm.calls``,
+``dual_solve.calls``, ``block_cg.calls`` and ``.iterations``,
+``chol_solve.calls``); a ``Record`` holds their change over the recorded
+stretch beside the recorded spans' entry counts.  A phase replayed from a
+CUDA graph (``utils/graphs.py``) runs no Python: the spans inside it are
+entered at its capture alone, and its replays advance the counters by what
+the capture counted (``advance``).
 
 The names: ``bdf.window``, ``bdf.fetch``, ``bdf.randoms``, ``bdf.sweep``;
 per entity ``bdf.e{i}.beta`` (inside it ``bdf.beta_rhs``,
@@ -34,12 +37,14 @@ per entity ``bdf.e{i}.beta`` (inside it ``bdf.beta_rhs``,
 beta, and ``bdf.lambda_beta``), ``.hyper``, ``.precision`` (with
 ``bdf.r{ri}m{m}.dense`` for each dense contribution, inside it
 ``bdf.ytab``, ``bdf.contract`` and ``bdf.expand``, and ``bdf.e{i}.buckets``
-for the gather assembly) and ``.draw`` (above K = 96 with ``bdf.k5``,
-``bdf.panels`` and ``bdf.solves``); per relation ``bdf.r{ri}.alpha`` and
-``bdf.r{ri}.predict``; the set-up's under ``bdf.build``: ``.plan``,
-``.store``, ``.layouts``, ``.acc_plan``, ``.features`` (its ``.operand``,
-``.gram``, ``.eigh``, ``.nystrom``, ``.ftf``), and ``.nvcc`` and
-``.native`` where they compile.  Spans are entered from one thread.
+for the gather assembly, inside it ``bdf.e{i}.overflow`` where a
+destination map sums overflow slots) and ``.draw`` (above K = 96 with
+``bdf.k5``, ``bdf.panels`` and ``bdf.solves``); per relation
+``bdf.r{ri}.alpha`` and ``bdf.r{ri}.predict``; the set-up's under
+``bdf.build``: ``.plan``, ``.store``, ``.layouts``, ``.acc_plan``,
+``.dest_map``, ``.features`` (its ``.operand``, ``.gram``, ``.eigh``,
+``.nystrom``, ``.ftf``), and ``.nvcc`` and ``.native`` where they compile.
+Spans are entered from one thread.
 """
 from __future__ import annotations
 

@@ -915,6 +915,134 @@ def test_gather_gram_raises(cuda):
             gramian.gather_gram(*args, alpha=1.0)
 
 
+@pytest.mark.parametrize("W", [8, 160, 2048])
+@pytest.mark.parametrize("K, arity", [(K, a) for K in (16, 32, 48, 64)
+                                      for a in (2, 3)])
+def test_gather_gram_dest_moves_the_rows(cuda, K, arity, W):
+    """The kernel with a destination map: each output row the bits of the
+    kernel's row without it, moved by ``index_copy_``; rows whose
+    destination is outside the output stored nowhere, every other output
+    row untouched."""
+    from bayesiandatafusion_jl_tpu_torch.ops import gramian
+    rows = max(24, 60_000 // W)
+    tables, parts, val, mask = gather_bucket(W, K, arity, rows, 77 * K + W)
+    args = ([t.to(cuda, torch.bfloat16) for t in tables],
+            [p.to(cuda) for p in parts], val.to(cuda), mask.to(cuda))
+    alpha = torch.tensor(1.25, device=cuda)
+    P, b = gramian.gather_gram(*args, alpha=alpha)
+    n_out = rows + 37
+    g = torch.Generator().manual_seed(W)
+    dest = torch.randperm(n_out, generator=g)[:rows].to(torch.int32)
+    dest[::7] = -1
+    dest[3] = n_out
+    d = dest.to(cuda)
+    out = (torch.full((n_out, K * K), -3.0, device=cuda),
+           torch.full((n_out, K), -3.0, device=cuda))
+    launches = gramian.gather_gram.launches
+    gramian.gather_gram(*args, alpha=alpha, out=out, dest=d)
+    torch.cuda.synchronize()
+    assert gramian.gather_gram.launches == launches + 1
+    keep = ((dest >= 0) & (dest < n_out)).to(cuda)
+    want_P = torch.full_like(out[0], -3.0).index_copy_(
+        0, d[keep].long(), P.reshape(rows, K * K)[keep])
+    want_b = torch.full_like(out[1], -3.0).index_copy_(0, d[keep].long(),
+                                                       b[keep])
+    assert torch.equal(out[0].view(torch.int32), want_P.view(torch.int32))
+    assert torch.equal(out[1].view(torch.int32), want_b.view(torch.int32))
+
+
+def test_gather_gram_dest_past_32_bit_offsets(cuda):
+    """Destinations whose offsets pass 2^31 floats (Netflix's rows x K*K
+    at K = 64): the rows at the output's last index and near it carry the
+    kernel's bits."""
+    from bayesiandatafusion_jl_tpu_torch.ops import gramian
+    K, rows, n_out = 64, 40, 530_000          # 2.17e9 floats of P
+    tables, parts, val, mask = gather_bucket(32, K, 2, rows, 5)
+    args = ([t.to(cuda, torch.bfloat16) for t in tables],
+            [p.to(cuda) for p in parts], val.to(cuda), mask.to(cuda))
+    P, b = gramian.gather_gram(*args, alpha=0.5)
+    dest = torch.arange(n_out - rows, n_out, dtype=torch.int32,
+                        device=cuda).flip(0)
+    dest[1] = 0
+    out = (torch.empty((n_out, K * K), device=cuda),
+           torch.empty((n_out, K), device=cuda))
+    gramian.gather_gram(*args, alpha=0.5, out=out, dest=dest)
+    torch.cuda.synchronize()
+    d = dest.long()
+    assert torch.equal(out[0][d].view(torch.int32),
+                       P.reshape(rows, K * K).view(torch.int32))
+    assert torch.equal(out[1][d].view(torch.int32), b.view(torch.int32))
+    del out
+
+
+@pytest.mark.parametrize("K, gram_dtype", [(32, None), (128, "bfloat16"),
+                                           (36, "bfloat16")])
+def test_gather_gram_dest_torch_code_on_cuda(cuda, K, gram_dtype):
+    """The torch code on the card (a float32 gather; K the kernel does not
+    take) with a destination map: its rows, moved."""
+    from bayesiandatafusion_jl_tpu_torch.ops import gramian
+    rows = 40
+    tables, parts, val, mask = gather_bucket(24, K, 2, rows, K)
+    gd = getattr(torch, gram_dtype) if gram_dtype else None
+    args = ([t.to(cuda) for t in tables], [p.to(cuda) for p in parts],
+            val.to(cuda), mask.to(cuda))
+    P, b = gramian.bucket_gramian(*args, gram_dtype=gd, alpha=2.0)
+    n_out = 64
+    dest = torch.randperm(n_out, device=cuda)[:rows].to(torch.int32)
+    out = (torch.full((n_out, K * K), -3.0, device=cuda),
+           torch.full((n_out, K), -3.0, device=cuda))
+    launches = gramian.gather_gram.launches
+    gramian.bucket_gramian(*args, gram_dtype=gd, alpha=2.0, out=out,
+                           dest=dest)
+    assert gramian.gather_gram.launches == launches
+    d = dest.long()
+    assert torch.equal(out[0][d].view(torch.int32),
+                       P.reshape(rows, K * K).view(torch.int32))
+    assert torch.equal(out[1][d].view(torch.int32), b.view(torch.int32))
+    rest = torch.ones(n_out, dtype=torch.bool, device=cuda)
+    rest[d] = False
+    assert bool((out[0][rest] == -3.0).all())
+
+
+def test_gather_gram_dest_engine_chain(cuda):
+    """A bf16 gather engine on the card ("segment"): every bucket through
+    the kernel into its map's destinations, no segment sum, the same bits
+    twice; one sweep from the chain's end with the same randoms, without
+    the maps (the segment sum), ends within float32 rounding of the sums'
+    order."""
+    from bayesiandatafusion_jl_tpu_torch.utils import spans
+    rd = bt.RelationData.from_indexed_df(
+        synthetic_ratings(2_000, 1_500, 60_000, seed=2))
+    rd.assign_to_test(0, 5_000, seed=7)
+    eng = bt.MacauEngine(rd, bt.MacauConfig(
+        num_latent=32, burnin=4, psamples=4, verbose=False,
+        dense_gram=False, gram_dtype="bfloat16",
+        bucket_widths=(8, 12, 16, 32, 64)), device="cuda")
+    prob = eng.problem
+    assert sorted(prob.dest_maps) == ["e0", "e1"]
+    R = sum(len(ba["inst"]) for v in prob.layouts.values() for ba in v)
+    n_buckets = sum(len(v) for v in prob.layouts.values())
+    with spans.recording() as rec:
+        a = eng.run()
+    b = eng.run()
+    c = rec.counters
+    assert c["_segment_sum.calls"] == 0
+    assert c["gather_gram.launches"] == 8 * n_buckets
+    assert c["gather_gram_plain.calls"] == 0
+    assert (c["assemble_precision.direct_rows"]
+            + c["assemble_precision.overflow_rows"]) == 8 * R
+    assert c["assemble_precision.overflow_rows"] > 0
+    for x, y in zip(a["state"]["ent"], b["state"]["ent"]):
+        assert torch.equal(x["U"], y["U"])
+    randoms = eng.draw(9)
+    mapped, _ = eng._sweep_with_randoms(a["state"], randoms, 0.0)
+    prob.dest_maps.clear()
+    seg, _ = eng._sweep_with_randoms(a["state"], randoms, 0.0)
+    for x, y in zip(mapped["ent"], seg["ent"]):
+        scale = float(y["U"].abs().max())
+        assert float((x["U"] - y["U"]).abs().max()) <= 1e-4 * scale
+
+
 @pytest.mark.parametrize("graph, K", [("matrix", 32), ("tensor", 16)])
 def test_gather_engine_bf16_runs_the_kernel(cuda, graph, K):
     """A small bf16 gather engine on the card (dense_gram=False, a narrow

@@ -266,11 +266,13 @@ def test_recording_gives_the_tree_sweeps_and_counters():
             pass
 
 
-@pytest.mark.parametrize("case", ["pair", "gather_planned", "fused",
-                                  "macau_dual", "macau_ff"])
+@pytest.mark.parametrize("case", ["pair", "gather_planned",
+                                  "gather_segment", "fused", "macau_dual",
+                                  "macau_ff"])
 def test_setup_attributes_equal_their_spans(case):
     opts = {"pair": PACKED, "gather_planned": dict(
         dense_gram=False, accumulation="planned"),
+        "gather_segment": dict(dense_gram=False, accumulation="segment"),
         "fused": dict(dense_fused=True, dense_int8=True),
         "macau_dual": dict(beta_solver="dual", use_ff=False),
         "macau_ff": dict(use_ff=True)}[case]
@@ -294,6 +296,7 @@ def test_setup_attributes_equal_their_spans(case):
     assert set(setup) == set(by_name)
     expect = {"pair": {"bdf.build.store"},
               "gather_planned": {"bdf.build.layouts", "bdf.build.acc_plan"},
+              "gather_segment": {"bdf.build.layouts", "bdf.build.dest_map"},
               "fused": {"bdf.build.store"},
               "macau_dual": {"bdf.build.features", "bdf.build.operand",
                              "bdf.build.gram", "bdf.build.eigh"},
