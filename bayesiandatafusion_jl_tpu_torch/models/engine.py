@@ -25,10 +25,11 @@ planner of ops/dense_gram.py on the card's measured rates; JAX engine
   otherwise.  Observations the one array cannot hold (a second rating of a
   cell, the zero-code level) ride the gather path as an exact-valued
   residual beside it;
-- the bucketed gather path (ops/layout.py and ops/gramian.py), with
-  ``accumulation`` "segment" or "planned": every mode the plan leaves
-  undense, among them every mode under ``dense_gram=False`` and, by
-  default, every mode of a relation under 50,000 observations.
+- the bucketed gather path (ops/layout.py and ops/gramian.py), each
+  bucket row written at its instance's row by the entity's destination
+  map, made with the layouts: every mode the plan leaves undense, among
+  them every mode under ``dense_gram=False`` and, by default, every mode
+  of a relation under 50,000 observations.
 
 Each sweep, for each entity in turn (JAX engine :760-951):
 
@@ -56,15 +57,14 @@ entity with a dense contribution keeps P packed up to K = 96 under
 "segment" accumulation ([K(K+1)/2, N], ops/chol_packed.py: the K1 kernel
 up to K = 32, K2 above; its gather buckets are accumulated in that layout).
 Otherwise P is a full [N, K, K] (dense contributions expanded, buckets
-through ``assemble_precision``, under "segment" accumulation each row
-written at its instance's row by the entity's destination map, made with
-the layouts) for ops/mvn.chol_sample_dispatch: the K3
-kernel up to K = 32, K4 up to 96, the blocked sampler on K5 up to 128.
-With "segment" accumulation Lambda is left out of P and added by the
-sampler; with "planned" it is in the accumulator.  Every sum of a sweep
-adds in a fixed order (no scatter add with atomics), so a chain's bits
-depend on its seed alone.  The sharded engine (parallel/sharded.py) runs
-these per-entity pieces (``_precision``, ``_draw_rows``, ``_beta_rhs``,
+through ``assemble_precision`` and the destination map) for
+ops/mvn.chol_sample_dispatch: the K3 kernel up to K = 32, K4 up to 96,
+the blocked sampler on K5 up to 128.  With "segment" accumulation Lambda
+is left out of P and added by the sampler; with "planned" it is in the
+accumulator.  Every sum of a sweep adds in a fixed order (no scatter add
+with atomics), so a chain's bits depend on its seed alone.  The sharded
+engine (parallel/sharded.py) runs these per-entity pieces
+(``_contributions``, ``_precision``, ``_draw_rows``, ``_beta_rhs``,
 ``_solve_beta``, ``_store_contrib``) on one rank's rows, with its
 collectives in the hooks ``_allreduce``, ``_allgather`` and
 ``_local_rows`` (identities here) and its own ``_fold_ghosts``.
@@ -101,9 +101,8 @@ from ..ops import dense_gram as dg
 from ..ops.cg import block_cg
 from ..ops.chol_packed import K2_MAX_K, chol_sample_packed_dispatch
 from ..ops.dual import dual_eig_cached, dual_solve_g, use_dual
-from ..ops.gramian import (assemble_precision, assemble_precision_planned,
-                           build_dest_map, packed_bucket_accum,
-                           plan_accumulation, predict_tuples)
+from ..ops.gramian import (assemble_precision, build_dest_maps,
+                           packed_bucket_accum, predict_tuples)
 from ..ops.layout import build_mode_layout
 from ..ops.hyper import (normal_wishart_from_moments, normal_wishart_update,
                          sample_alpha, sample_lambda_beta)
@@ -413,10 +412,9 @@ class CompiledProblem:
     ``fused_i8s[ri]``, with a gather-path residual where
     ``residual_nnzs[ri]``) or "gather" (none); ``stores[ri]`` holds the
     pair or the fused store.  ``layouts["r{ri}m{mode}"]`` are the gather
-    buckets of every gather mode and fused residual; under "segment"
-    accumulation ``dest_maps["e{ei}"]`` is the destination map of entity
-    ``ei``'s buckets (``ops/gramian.build_dest_map``), under "planned"
-    ``acc_plan["e{ei}"]`` its plan.  Per entity ``ei``
+    buckets of every gather mode and fused residual, ``dest_maps["e{ei}"]``
+    the destination map of entity ``ei``'s buckets
+    (``ops/gramian.build_dest_maps``).  Per entity ``ei``
     with side features, ``feat["e{ei}"]`` holds its beta draw's arrays
     (the dense X or the bucketed matvec, the column sums, and the
     solver's: the eigenbasis of XX' and G, the Nystrom factors, or X'X),
@@ -437,7 +435,7 @@ class CompiledProblem:
         self.pair_i8s: List[bool] = []
         self.fused_i8s: List[bool] = []
         self.residual_nnzs: List[int] = []
-        self.layouts, self.acc_plan, self.padded_nnz = {}, {}, []
+        self.layouts, self.padded_nnz = {}, []
         self.dest_maps: Dict[str, dict] = {}
         self.test, self.train = {}, {}
         self.layout_seconds = 0.0
@@ -472,12 +470,11 @@ class CompiledProblem:
                         .to(device, dtype)}
             self.tri = (dg.tri_index(config.num_latent, device)
                         if self.dense_plans else None)
-            if config.accumulation == "planned":
-                with timed("bdf.build.acc_plan"):
-                    self._build_acc_plans(config, device)
-            elif self._host_inst:
+            if self._host_inst:
                 with timed("bdf.build.dest_map"):
-                    self._build_dest_maps(device)
+                    self.dest_maps = build_dest_maps(
+                        self.rel_specs, self._host_inst,
+                        [es.n for es in self.entity_specs], device)
             del self._host_inst
             for ei, ent in enumerate(rd.entities):
                 if ent.has_features:
@@ -609,38 +606,6 @@ class CompiledProblem:
                      "mask": torch.from_numpy(b.mask).to(device)}
                     for b in ml.buckets]
         self.layout_seconds += t.seconds
-
-    def _entity_insts(self, ei) -> List[np.ndarray]:
-        """The host ``inst`` arrays of entity ``ei``'s gather buckets in the
-        sweep's order: relations, then modes."""
-        return [a for ri, rs in enumerate(self.rel_specs)
-                for mode, e in enumerate(rs.entity_ids) if e == ei
-                for a in self._host_inst.get(f"r{ri}m{mode}", ())]
-
-    def _build_dest_maps(self, device):
-        """Per entity with gather buckets, ``dest_maps["e{ei}"]``: the
-        "segment" accumulation's destination map (``build_dest_map``), its
-        arrays on the device, its counts on the host."""
-        for ei, es in enumerate(self.entity_specs):
-            insts = self._entity_insts(ei)
-            if not insts:
-                continue
-            dm = build_dest_map(insts, es.n, f"bdf.e{ei}.overflow")
-            for k in ("dest", "ov_inst", "ov_len", "empty"):
-                dm[k] = torch.from_numpy(dm[k]).to(device)
-            self.dest_maps[f"e{ei}"] = dm
-
-    def _build_acc_plans(self, config, device):
-        """Per entity ``acc_plan["e{ei}"]``, the "planned" accumulation's
-        static gather and overflow (JAX engine :420-432), over its gather
-        buckets in the sweep's order: relations, then modes."""
-        dtype = getattr(torch, config.dtype)
-        for ei, es in enumerate(self.entity_specs):
-            insts = self._entity_insts(ei)
-            plan = {k: torch.from_numpy(v).to(device)
-                    for k, v in plan_accumulation(insts, es.n).items()}
-            plan["has"] = plan["has"].to(dtype)
-            self.acc_plan[f"e{ei}"] = plan
 
 
 class GibbsDriver:
@@ -977,21 +942,7 @@ class MacauEngine(GibbsDriver):
                     randoms[f"e{ei}.nw_tri"], randoms[f"e{ei}.nw_mu"],
                     self._graphed_from_moments(ei))
             ent["mu"], ent["Lambda"] = mu, Lambda
-            # every (relation, mode) this entity fills, the partners read
-            # from the current state (the entity's own U too, in a relation
-            # where it fills two modes) (JAX engine :792-806)
-            dense, contribs = [], []
-            for ri, rs in enumerate(prob.rel_specs):
-                for mode, e in enumerate(rs.entity_ids):
-                    if e != ei:
-                        continue
-                    partners = [ents[rs.entity_ids[d]]["U"]
-                                for d in range(rs.arity) if d != mode]
-                    alpha = rels[ri]["alpha"]
-                    if (ri, mode) in prob.dense_plans:
-                        dense.append((ri, mode, partners, alpha))
-                    for ba in prob.layouts.get(f"r{ri}m{mode}", ()):
-                        contribs.append((alpha, partners, ba))
+            dense, contribs = self._contributions(ei, ents, rels)
             ent["U"] = self._sample(ei, ent, dense, contribs,
                                     randoms[f"e{ei}.xi"], uhat)
             metrics[f"e{ei}.unorm"] = torch.linalg.norm(ent["U"])
@@ -1044,6 +995,28 @@ class MacauEngine(GibbsDriver):
                     metrics[f"{key}.auc"], = self.graphs(("auc", ri), auc,
                                                          pmean)
         return {"ent": ents, "rel": rels, "pred": preds}, metrics
+
+    def _contributions(self, ei, ents, rels):
+        """Entity ``ei``'s contributions from every (relation, mode) it
+        fills, the partners read from the current state ``ents`` (the
+        entity's own U too, in a relation where it fills two modes) (JAX
+        engine :792-806): (dense, contribs), (relation, mode, partners,
+        alpha) of each dense mode and (alpha, partners, bucket) of each
+        gather bucket, in the order of the entity's destination map."""
+        prob = self.problem
+        dense, contribs = [], []
+        for ri, rs in enumerate(prob.rel_specs):
+            for mode, e in enumerate(rs.entity_ids):
+                if e != ei:
+                    continue
+                partners = [ents[rs.entity_ids[d]]["U"]
+                            for d in range(rs.arity) if d != mode]
+                alpha = rels[ri]["alpha"]
+                if (ri, mode) in prob.dense_plans:
+                    dense.append((ri, mode, partners, alpha))
+                for ba in prob.layouts.get(f"r{ri}m{mode}", ()):
+                    contribs.append((alpha, partners, ba))
+        return dense, contribs
 
     def _graphed_from_moments(self, ei):
         """``normal_wishart_from_moments`` of entity ``ei``, its K x K
@@ -1195,12 +1168,11 @@ class MacauEngine(GibbsDriver):
         the transposed [C, n] layout, the buckets added into it
         (``packed_bucket_accum``), then the packed sampler (K1, K2).
         Otherwise (JAX :924-951) P is full: the buckets through
-        ``assemble_precision`` (Lambda left to the sampler; through the
-        entity's destination map where the problem has one) or
-        ``assemble_precision_planned`` (Lambda in P), the dense
-        contributions unpacked and added, then the full-P sampler (K3, K4,
-        the blocked one above K = 96); an entity with no contribution
-        draws from its prior.  The prior term is Lambda (mu + uhat_i) for
+        ``assemble_precision`` and the entity's destination map (Lambda left
+        to the sampler, or in P under "planned"), the dense contributions
+        unpacked and added, then the full-P sampler (K3, K4, the blocked one
+        above K = 96); an entity with no contribution draws from its
+        prior.  The prior term is Lambda (mu + uhat_i) for
         each row i of an entity with side features (``uhat`` [n, K]), else
         Lambda mu.  The rows are ``_local_rows``' (the sharded engine's
         own); with ghost rows after them (head splitting) the buckets are
@@ -1230,26 +1202,22 @@ class MacauEngine(GibbsDriver):
             b = (mu @ Lambda)[:, None] + b if uhat is None else \
                 (prior_mean @ Lambda).mT + b
             return "packed", P, b, Lambda
-        lam = Lambda
+        dest_map = self.problem.dest_maps.get(f"e{ei}")
+        # Lambda in P under "planned", but for ghost rows, which are folded
+        # into their owners' rows after the assembly
+        fuse = cfg.accumulation != "planned" or bool(n_ghost)
         if n_ghost:
             prior_ext = torch.cat([prior_mean.expand(n, K),
                                    prior_mean.new_zeros((n_ghost, K))])
             with span(f"bdf.e{ei}.buckets"):
                 P, b = self._fold_ghosts(ei, *assemble_precision(
                     Lambda, prior_ext, contribs, n + n_ghost, gram_dtype=gd,
-                    fuse_lambda=True))
-        elif cfg.accumulation == "planned":
-            with span(f"bdf.e{ei}.buckets"):
-                P, b = assemble_precision_planned(
-                    Lambda, prior_mean, contribs, n,
-                    self.problem.acc_plan[f"e{ei}"], gram_dtype=gd)
-            lam = None
-        elif contribs or not dense:
+                    fuse_lambda=True, dest_map=dest_map))
+        elif contribs or not dense or not fuse:
             with span(f"bdf.e{ei}.buckets"):
                 P, b = assemble_precision(
                     Lambda, prior_mean, contribs, n, gram_dtype=gd,
-                    fuse_lambda=True,
-                    dest_map=self.problem.dest_maps.get(f"e{ei}"))
+                    fuse_lambda=fuse, dest_map=dest_map)
         else:
             # dense contributions alone: the first one's fresh [n, K, K]
             # output is the accumulator, which saves an [n, K, K] buffer
@@ -1263,7 +1231,7 @@ class MacauEngine(GibbsDriver):
                 P = P_d if P is None else P.add_(P_d)
                 b = b + b_d
                 del P_d
-        return "full", P, b, lam
+        return "full", P, b, Lambda if fuse else None
 
     def _draw_rows(self, prec, xi, rows=slice(None)):
         """u ~ N(P'^-1 b, P'^-1) for the rows ``rows`` of ``_precision``'s

@@ -2,9 +2,11 @@
 (the gather path), and test-tuple prediction.
 
 Port of ``bayesiandatafusion_jl_tpu/ops/gramian.py``: ``bucket_gramian``
-:38, ``assemble_precision`` :118, ``packed_bucket_accum`` :175,
-``plan_accumulation`` :253,
-``assemble_precision_planned`` :296 and ``predict_tuples`` :333.  For
+:38, ``packed_bucket_accum`` :175, ``plan_accumulation`` :253 and
+``predict_tuples`` :333.  The one ``assemble_precision`` gives what both
+JAX assemblies give, up to the order of the sums: its
+``assemble_precision`` :118 (Lambda in P or, with ``fuse_lambda``, left to
+the sampler) and ``assemble_precision_planned`` :296 (Lambda in P).  For
 entity rows i with observations o,
 
     P_i = Lambda + sum_r alpha_r sum_{o in Omega_i^r} z_o z_o^T
@@ -18,23 +20,21 @@ memory and contracted on the tensor cores in one pass), else by torch code
 that gathers them into a [rows, W, K] block and contracts it by batched
 matrix products (the JAX package's XLA einsums).  The rows then reach the
 instances through the entity's destination map (``build_dest_map``, made
-once from the layouts): each row is written at its instance's row, or,
-for an instance's further rows, at an overflow slot whose sum is added in
-(``assemble_precision`` with ``dest_map``); without a map by one segment
-sum (``_segment_sum``); or by the compile-time plan.  The layout's index
-arrays stay int32 on the device: the kernel, ``index_select`` and the
-segment sum's sort take them as they are.
+once from the layouts, on the device by ``build_dest_maps``): each row is
+written at its instance's row, or, for an instance's further rows, at an
+overflow slot whose sum is added in (``assemble_precision``).  The
+layout's index arrays stay int32 on the device: the kernel and
+``index_select`` take them as they are.
 
 Every sum of rows here adds in one fixed order, the same on every run: an
 instance's overflow slots in layout order, summed over their static
-lengths (``torch.segment_reduce``) and added to its first row once; or the
-rows sorted stably by instance, then each instance's rows summed in that
-order, into a fresh [n, ...] output (``_segment_sum``) or, for an existing
-accumulator, as one nonzero row an instance that ``index_add_`` adds in
-(``_run_sums``).  A scatter add of the rows themselves would add with
-atomics on CUDA, whose order changes from run to run, so two runs of one
-seed would not give the same bits, and a resumed chain would not equal the
-one without interruption.
+lengths (``torch.segment_reduce``) and added to its first row once; or,
+for the packed accumulator, the rows sorted stably by instance and each
+instance's rows summed in that order, one nonzero row an instance that
+``index_add_`` adds in (``_run_sums``).  A scatter add of the rows
+themselves would add with atomics on CUDA, whose order changes from run
+to run, so two runs of one seed would not give the same bits, and a
+resumed chain would not equal the one without interruption.
 """
 from __future__ import annotations
 
@@ -299,17 +299,14 @@ gather_gram.launches = 0
 spans.counter(gather_gram, "launches")
 
 
-def _gramian_rows(contribs, K: int, gram_dtype, dest=None, n_out=None):
-    """Every bucket's alpha-scaled per-row Gramians and rhs: concatenated
-    in contribs order, (P_cat [R, K*K], b_cat [R, K]); or with ``dest``
-    (int32 [R], a destination map's, in contribs order), row r at row
-    ``dest[r]`` of (P [n_out, K*K], b [n_out, K])."""
-    R = sum(ba["inst"].shape[0] for _, _, ba in contribs)
+def _gramian_rows(contribs, K: int, gram_dtype, dest: torch.Tensor,
+                  n_out: int):
+    """Every bucket's alpha-scaled per-row Gramians and rhs, the rows in
+    contribs order, row r at row ``dest[r]`` (int32 [R], a destination
+    map's) of (P [n_out, K*K], b [n_out, K])."""
     val0 = contribs[0][2]["val"]
-    rows_out = R if dest is None else n_out
-    P_cat = torch.empty((rows_out, K * K), dtype=val0.dtype,
-                        device=val0.device)
-    b_cat = torch.empty((rows_out, K), dtype=val0.dtype, device=val0.device)
+    P_out = torch.empty((n_out, K * K), dtype=val0.dtype, device=val0.device)
+    b_out = torch.empty((n_out, K), dtype=val0.dtype, device=val0.device)
     cast = {}     # each partner table converted to gram_dtype once
 
     def to_gram(U):
@@ -322,36 +319,12 @@ def _gramian_rows(contribs, K: int, gram_dtype, dest=None, n_out=None):
     off = 0
     for alpha, partner_factors, ba in contribs:
         r = ba["inst"].shape[0]
-        if dest is None:
-            out, d = (P_cat[off:off + r], b_cat[off:off + r]), None
-        else:
-            out, d = (P_cat, b_cat), dest[off:off + r]
         bucket_gramian([to_gram(U) for U in partner_factors], ba["part"],
                        ba["val"], ba["mask"], gram_dtype=gram_dtype,
-                       alpha=alpha, out=out, dest=d)
+                       alpha=alpha, out=(P_out, b_out),
+                       dest=dest[off:off + r])
         off += r
-    return P_cat, b_cat
-
-
-def _segment_sum(rows: torch.Tensor, seg: torch.Tensor, n: int
-                 ) -> torch.Tensor:
-    """out[s] = sum of rows[r] with seg[r] == s, for s < n (JAX
-    ``segment_sum``; rows of a segment >= n are dropped), each segment's
-    rows added in their order: the rows sorted stably by segment, then
-    each segment summed by ``segment_reduce`` between the offsets that
-    ``searchsorted`` finds.  Everything stays on the device (``unsafe``
-    skips ``segment_reduce``'s checks, which would read the offsets
-    back)."""
-    _segment_sum.calls += 1
-    s, order = torch.sort(seg, stable=True)
-    offsets = torch.searchsorted(
-        s, torch.arange(n + 1, dtype=s.dtype, device=s.device))
-    return torch.segment_reduce(rows.index_select(0, order), "sum",
-                                offsets=offsets, unsafe=True)
-
-
-_segment_sum.calls = 0
-spans.counter(_segment_sum, "calls")
+    return P_out, b_out
 
 
 def _run_sums(seg: torch.Tensor, *rows: torch.Tensor):
@@ -385,51 +358,21 @@ def assemble_precision(
     n: int,
     gram_dtype=None,
     fuse_lambda: bool = False,  # leave Lambda out of P: the sampler adds it
-    dest_map=None,              # build_dest_map's, on the device
+    dest_map=None,              # the entity's, from build_dest_maps
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """P [n, K, K] and b [n, K] from all buckets' rows, in the flat [rows,
-    K*K] layout.  A bucket is a dict of device tensors: ``inst`` [rows]
-    int32, ``part`` list of [rows, W] int32, ``val`` and ``mask`` [rows,
-    W].
+    """P [n, K, K] and b [n, K] from all buckets' rows.  A bucket is a dict
+    of device tensors: ``inst`` [rows] int32, ``part`` list of [rows, W]
+    int32, ``val`` and ``mask`` [rows, W].
 
-    With ``dest_map`` (the entity's, over these contribs in this order)
-    each row is written at its destination (``_assemble_mapped``); without
-    it (the JAX signature, the sharded engine) the rows are reduced by ONE
-    segment sum."""
-    K = Lambda.shape[-1]
-    if dest_map is not None and contribs:
-        return _assemble_mapped(Lambda, prior_mean, contribs, n, gram_dtype,
-                                fuse_lambda, dest_map)
-    if fuse_lambda:
-        P_acc = torch.zeros((n, K * K), dtype=Lambda.dtype,
-                            device=Lambda.device)
-    else:
-        P_acc = Lambda.reshape(1, K * K).expand(n, K * K)
-    b_acc = _prior_term(prior_mean, Lambda, n)
-    if contribs:
-        P_cat, b_cat = _gramian_rows(contribs, K, gram_dtype)
-        inst = torch.cat([ba["inst"] for _, _, ba in contribs])
-        segP = _segment_sum(P_cat, inst, n)
-        del P_cat
-        P_acc = segP if fuse_lambda else P_acc + segP
-        b_acc = b_acc + _segment_sum(b_cat, inst, n)
-    return P_acc.reshape(n, K, K).contiguous(), b_acc.contiguous()
-
-
-assemble_precision.direct_rows = 0
-assemble_precision.overflow_rows = 0
-spans.counter(assemble_precision, "direct_rows", "overflow_rows")
-
-
-def _assemble_mapped(Lambda, prior_mean, contribs, n, gram_dtype,
-                     fuse_lambda, dm):
-    """``assemble_precision`` through the destination map ``dm``: every
-    bucket's rows written into one [n + R_ov, ...] buffer, each instance's
-    first row at the instance's row, its other rows at its overflow slots
-    after them; the rows no bucket reaches zeroed; then each instance's
-    overflow slots summed (``segment_reduce`` over the static run lengths)
-    and that one sum added into its row; then the prior term (and Lambda
-    unless ``fuse_lambda``).
+    The rows go through the destination map ``dest_map`` (the entity's,
+    over these contribs in this order; a map is needed where there are
+    rows): every bucket's rows written into one [n + R_ov, ...] buffer,
+    each instance's first row at the instance's row, its other rows at its
+    overflow slots after them; the rows no bucket reaches zeroed; then each
+    instance's overflow slots summed (``segment_reduce`` over the static
+    run lengths) and that one sum added into its row; then the prior term,
+    and Lambda unless ``fuse_lambda``.  Without contribs P is Lambda (or
+    zeros) and b the prior term.
 
     An instance of one row gets that row's bits (+0.0 for -0.0); one of
     several rows sums its first row + (the others, in layout order): a
@@ -437,9 +380,16 @@ def _assemble_mapped(Lambda, prior_mean, contribs, n, gram_dtype,
     ``direct_rows`` and ``overflow_rows`` count the rows of each kind (from
     the map, on the host)."""
     K = Lambda.shape[-1]
+    if not contribs:
+        P = (torch.zeros((n, K, K), dtype=Lambda.dtype, device=Lambda.device)
+             if fuse_lambda else Lambda.expand(n, K, K).contiguous())
+        return P, _prior_term(prior_mean, Lambda, n).contiguous()
+    if dest_map is None:
+        raise ValueError("bucket rows need their entity's destination map")
+    dm = dest_map
     n_ov = dm["overflow_rows"]
-    buf_P, buf_b = _gramian_rows(contribs, K, gram_dtype, dest=dm["dest"],
-                                 n_out=n + n_ov)
+    buf_P, buf_b = _gramian_rows(contribs, K, gram_dtype, dm["dest"],
+                                 n + n_ov)
     P, b = buf_P[:n], buf_b[:n]
     if dm["empty"].numel():
         P.index_fill_(0, dm["empty"], 0.0)
@@ -455,6 +405,49 @@ def _assemble_mapped(Lambda, prior_mean, contribs, n, gram_dtype,
     if not fuse_lambda:
         P = P.add_(Lambda.reshape(1, K * K))
     return P.view(n, K, K), b
+
+
+assemble_precision.direct_rows = 0
+assemble_precision.overflow_rows = 0
+spans.counter(assemble_precision, "direct_rows", "overflow_rows")
+
+
+def plan_accumulation(inst_arrays: Sequence[np.ndarray], n: int):
+    """The static plan of an entity's bucket rows (host-side NumPy; the JAX
+    package's planned assembly's), from which ``build_dest_map`` makes its
+    map.
+
+    An instance owns exactly one Gramian row per (relation, mode), plus
+    extra chunk rows only when its degree exceeds the widest bucket.  So
+    the [rows] -> [n] reduction is a static gather of each instance's first
+    row plus a small overflow segment sum.  Padded bucket rows carry
+    inst = 0 with all-zero contributions; so as never to take one of them
+    as instance 0's first row, all of instance 0's rows go through the
+    overflow.
+
+    Returns numpy arrays: first [n] int32 (concatenated row id of the first
+    contributing row; 0 if none), has [n] float32 (0/1), ov_rows [R_ex]
+    int32 and ov_inst [R_ex] int32, padded to a multiple of 8 with row 0
+    aimed at the sentinel segment n.
+    """
+    inst_cat = np.concatenate([np.asarray(a) for a in inst_arrays]) \
+        if inst_arrays else np.zeros(0, np.int32)
+    rowids = np.arange(len(inst_cat), dtype=np.int64)
+    nz = inst_cat != 0
+    u, fpos = np.unique(inst_cat[nz], return_index=True)
+    first = np.zeros(n, np.int32)
+    has = np.zeros(n, np.float32)
+    first[u] = rowids[nz][fpos].astype(np.int32)
+    has[u] = 1.0
+    is_first = np.zeros(len(inst_cat), bool)
+    is_first[rowids[nz][fpos]] = True
+    ov_rows = rowids[~is_first].astype(np.int32)
+    ov_inst = inst_cat[~is_first].astype(np.int32)
+    pad = (-len(ov_rows)) % 8 or 8
+    ov_rows = np.concatenate([ov_rows, np.zeros(pad, np.int32)])
+    ov_inst = np.concatenate([ov_inst, np.full(pad, n, np.int32)])
+    return {"first": first, "has": has, "ov_rows": ov_rows,
+            "ov_inst": ov_inst}
 
 
 def build_dest_map(inst_arrays: Sequence[np.ndarray], n: int,
@@ -489,6 +482,29 @@ def build_dest_map(inst_arrays: Sequence[np.ndarray], n: int,
             "empty": np.nonzero(~has)[0].astype(np.int64),
             "direct_rows": int(len(direct)),
             "overflow_rows": int(len(ov_rows)), "span": span}
+
+
+def build_dest_maps(rel_specs, host_inst, ns: Sequence[int],
+                    device) -> dict:
+    """``{"e{ei}": map}`` for each entity ``ei`` with gather buckets: its
+    destination map (``build_dest_map``'s) over ``ns[ei]`` output rows, the
+    arrays on ``device`` and the counts on the host, its overflow's span
+    ``bdf.e{ei}.overflow``.  The rows are the entity's buckets' in the
+    sweep's order, relations (``rel_specs``' ``entity_ids``), then modes;
+    ``host_inst["r{ri}m{mode}"]`` holds a mode's buckets' host ``inst``
+    arrays."""
+    maps = {}
+    for ei, n in enumerate(ns):
+        insts = [a for ri, rs in enumerate(rel_specs)
+                 for mode, e in enumerate(rs.entity_ids) if e == ei
+                 for a in host_inst.get(f"r{ri}m{mode}", ())]
+        if not insts:
+            continue
+        dm = build_dest_map(insts, n, f"bdf.e{ei}.overflow")
+        for k in ("dest", "ov_inst", "ov_len", "empty"):
+            dm[k] = torch.from_numpy(dm[k]).to(device)
+        maps[f"e{ei}"] = dm
+    return maps
 
 
 # Transient budget of the packed accumulation, in bytes of the larger of a
@@ -580,72 +596,6 @@ def packed_bucket_accum(contribs, n: int, K: int, gram_dtype=None,
                 Pp.index_add_(0, inst, Pp_rows)
                 b_acc.index_add_(0, inst, b)
     return Pp, b_acc
-
-
-def plan_accumulation(inst_arrays: Sequence[np.ndarray], n: int):
-    """Compile-time plan replacing the segment sum (host-side NumPy).
-
-    An instance owns exactly one Gramian row per (relation, mode), plus
-    extra chunk rows only when its degree exceeds the widest bucket.  So
-    the [rows] -> [n] reduction is a static gather of each instance's first
-    row plus a small overflow segment sum.  Padded bucket rows carry
-    inst = 0 with all-zero contributions; so as never to take one of them
-    as instance 0's first row, all of instance 0's rows go through the
-    overflow.
-
-    Returns numpy arrays: first [n] int32 (concatenated row id of the first
-    contributing row; 0 if none), has [n] float32 (0/1), ov_rows [R_ex]
-    int32 and ov_inst [R_ex] int32, padded to a multiple of 8 with row 0
-    aimed at the sentinel segment n.
-    """
-    inst_cat = np.concatenate([np.asarray(a) for a in inst_arrays]) \
-        if inst_arrays else np.zeros(0, np.int32)
-    rowids = np.arange(len(inst_cat), dtype=np.int64)
-    nz = inst_cat != 0
-    u, fpos = np.unique(inst_cat[nz], return_index=True)
-    first = np.zeros(n, np.int32)
-    has = np.zeros(n, np.float32)
-    first[u] = rowids[nz][fpos].astype(np.int32)
-    has[u] = 1.0
-    is_first = np.zeros(len(inst_cat), bool)
-    is_first[rowids[nz][fpos]] = True
-    ov_rows = rowids[~is_first].astype(np.int32)
-    ov_inst = inst_cat[~is_first].astype(np.int32)
-    pad = (-len(ov_rows)) % 8 or 8
-    ov_rows = np.concatenate([ov_rows, np.zeros(pad, np.int32)])
-    ov_inst = np.concatenate([ov_inst, np.full(pad, n, np.int32)])
-    return {"first": first, "has": has, "ov_rows": ov_rows,
-            "ov_inst": ov_inst}
-
-
-def assemble_precision_planned(
-    Lambda: torch.Tensor,
-    prior_mean: torch.Tensor,
-    contribs,
-    n: int,
-    plan: dict,                # plan_accumulation's arrays, on the device
-    gram_dtype=None,
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """P [n, K, K] (Lambda included) and b [n, K] with the compile-time
-    plan: a static gather of each instance's first row plus the overflow
-    segment sum (the sentinel segment n takes the padding)."""
-    K = Lambda.shape[-1]
-    P_acc = Lambda.reshape(1, K * K).expand(n, K * K)
-    b_acc = _prior_term(prior_mean, Lambda, n)
-    if not contribs:
-        return P_acc.reshape(n, K, K).contiguous(), b_acc.contiguous()
-    P_cat, b_cat = _gramian_rows(contribs, K, gram_dtype)
-    has = plan["has"][:, None]
-    first = plan["first"]
-    P_acc = P_acc + P_cat.index_select(0, first) * has
-    b_acc = b_acc + b_cat.index_select(0, first) * has
-
-    def overflow(rows_cat):     # the sentinel segment n is dropped
-        return _segment_sum(rows_cat.index_select(0, plan["ov_rows"]),
-                            plan["ov_inst"], n)
-
-    return ((P_acc + overflow(P_cat)).reshape(n, K, K),
-            b_acc + overflow(b_cat))
 
 
 def predict_tuples(factors: Sequence[torch.Tensor], idx: torch.Tensor,

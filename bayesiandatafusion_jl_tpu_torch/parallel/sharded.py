@@ -52,7 +52,7 @@ from ..models.engine import (EntitySpec, MacauEngine, RelationSpec, RowShard,
                              _resolve_device, auc_device, build_features,
                              full_float32, plan_gramians, sweep_flops)
 from ..ops import dense_gram as dg
-from ..ops.gramian import plan_accumulation, predict_tuples
+from ..ops.gramian import build_dest_maps, predict_tuples
 from ..ops.hyper import normal_wishart_from_moments, sample_alpha
 from ..ops.layout import build_mode_layout
 from ..ops.spmv import bucketed_spmm
@@ -119,7 +119,9 @@ class ShardedProblem:
     the fused store's rows [n_loc0, n_pad1], with mode 1's ridge degrees
     for this rank's columns.  ``layouts["r{ri}m{mode}"]`` are the gather
     buckets of this rank's observations (with the head observations dealt
-    round-robin to ghost rows n_loc..), ``test`` / ``train`` this rank's
+    round-robin to ghost rows n_loc..), ``dest_maps["e{ei}"]`` the
+    destination map of entity ``ei``'s buckets over its n_ext rows (its
+    own, then the ghosts), ``test`` / ``train`` this rank's
     block of the tuples (``idx``, ``vals``, weights ``w``), ``feat`` the
     beta draw's arrays of this rank's rows (the dense X or the bucketed
     matvec, the dual Q and G) and the replicated ones (the column sums,
@@ -151,8 +153,6 @@ class ShardedProblem:
         self.test_meta: Dict[int, dict] = {}
         self.train: Dict[str, dict] = {}
         self.feat: Dict[str, dict] = {}
-        self.acc_plan: Dict[str, dict] = {}
-        # no destination maps: a rank's rows reduce by the segment sum
         self.dest_maps: Dict[str, dict] = {}
         self.layout_seconds = 0.0
         host_inst: Dict[str, List[np.ndarray]] = {}
@@ -277,18 +277,12 @@ class ShardedProblem:
             if ent.has_features:
                 with timed("bdf.build.features"):
                     self._build_features(ei, ent, device)
-        if config.accumulation == "planned":
-            with timed("bdf.build.acc_plan"):
-                for ei, meta in enumerate(self.ent_meta):
-                    insts = [a for ri, rs in enumerate(self.rel_specs)
-                             for mode, e in enumerate(rs.entity_ids)
-                             if e == ei
-                             for a in host_inst.get(f"r{ri}m{mode}", ())]
-                    acc = {k: torch.from_numpy(v).to(device)
-                           for k, v in plan_accumulation(
-                               insts, meta.n_ext).items()}
-                    acc["has"] = acc["has"].to(dtype)
-                    self.acc_plan[f"e{ei}"] = acc
+        if host_inst:
+            # over the rank's rows and its ghost rows after them
+            with timed("bdf.build.dest_map"):
+                self.dest_maps = build_dest_maps(
+                    self.rel_specs, host_inst,
+                    [m.n_ext for m in self.ent_meta], device)
         self.tri = (dg.tri_index(config.num_latent, device)
                     if self.dense_plans else None)
         if device.type == "cuda":
@@ -387,7 +381,7 @@ class ShardedProblem:
         (JAX :386-414): those whose focus row it owns, and, for a head
         instance, every world-th of its observations, into the head's ghost
         row n_loc + (its rank among the heads).  Returns the buckets'
-        instance arrays (for the planned accumulation)."""
+        instance arrays (for the destination maps)."""
         cfg = self.config
         meta = self.ent_meta[em]
         focus = g_idx[:, mode]
@@ -740,18 +734,7 @@ class ShardedMacauEngine(MacauEngine):
                     2.0 * randoms[f"e{ei}.nw_g"], randoms[f"e{ei}.nw_tri"],
                     randoms[f"e{ei}.nw_mu"])
             ent["mu"], ent["Lambda"] = mu, Lambda
-            dense, contribs = [], []
-            for ri, rs in enumerate(prob.rel_specs):
-                for mode, e in enumerate(rs.entity_ids):
-                    if e != ei:
-                        continue
-                    partners = [ents[rs.entity_ids[d]]["U"]
-                                for d in range(rs.arity) if d != mode]
-                    alpha = rels[ri]["alpha"]
-                    if (ri, mode) in prob.dense_plans:
-                        dense.append((ri, mode, partners, alpha))
-                    for ba in prob.layouts.get(f"r{ri}m{mode}", ()):
-                        contribs.append((alpha, partners, ba))
+            dense, contribs = self._contributions(ei, ents, rels)
             with span(f"bdf.e{ei}.precision"):
                 prec = self._precision(ei, ent, dense, contribs, uhat_loc)
             ent["U"] = self._exchange(

@@ -86,8 +86,10 @@ class MacauConfig:
     gram_dtype: Optional[str] = None
     bucket_widths: Sequence[int] = (8, 16, 32, 64, 128, 256, 512, 1024,
                                     2048)
-    # Gramian-row accumulation: "segment" = one segment sum over all
-    # buckets' rows; "planned" = static first-row gather + overflow sum
+    # Gramian-row accumulation, with the JAX package's names and branches:
+    # "segment" leaves Lambda to the sampler (P packed where a dense mode
+    # and K allow); "planned" puts Lambda into a full P.  Both sum the
+    # gather rows through the entity's destination map
     accumulation: str = "segment"
     row_pad: int = 8  # pad bucket rows to a multiple of this
 

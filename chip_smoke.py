@@ -1318,7 +1318,7 @@ def check_gather_gram(eng, K, timing=True, seed=0, alpha=2.75):
     tables in bfloat16: within ``gather_gram_tol`` elementwise, P
     symmetric bit for bit and a second launch the same bits.  Timing adds
     a sweep's launches of GG (every bucket, written into preallocated
-    outputs as ``_gramian_rows`` does), of the plain version, the
+    outputs), of the plain version, the
     library's ``index_select`` of every slot's partner row (the torch
     chain's first step), and GG's bound (bytes, or the bfloat16 tensor
     cores' operations)."""
@@ -1734,8 +1734,7 @@ def bench_plan(rd, **opts):
 
 
 # kernel-name fragments of each part of a gather sweep (torch.profiler);
-# the segment sum sorts the rows' instances, gathers the rows in that
-# order ("gather": an index_select) and sums each instance's run
+# "segment sum" holds the destination map's overflow sums and their adds
 SPLIT = (("sampler", ("chol_sample", "chol_inv")),
          ("gather-Gramian", ("gather_gram",)),
          ("gather", ("gather_kernel", "indexSelect")),

@@ -11,7 +11,8 @@ once per world size:
   - a parity case loads the JAX engine's initial state (a ``save_state``
     file) and three sweeps of numpy randoms, runs them through
     ``_sweep_with_randoms`` and writes the state in the single-device
-    layout and the last sweep's metrics;
+    layout, the last sweep's metrics and, for each rank, whether every
+    entity with gather buckets there has its destination map;
   - the "driver" case (world 2) runs the chain of ``driver_case`` through
     ``run()``: without interruption, from its sweep-3 checkpoint, in
     windows of 3 sweeps, and on rank 0 at world 1 (a one-rank group).
@@ -167,6 +168,12 @@ def _run_case(name, world, in_dir, out_dir, bt, eng_cls):
         state, m = eng._sweep_with_randoms(state, randoms,
                                            1.0 if s >= 1 else 0.0)
     st = eng.unshard_state(state)
+    prob = eng.problem
+    gather = {rs.entity_ids[m] for ri, rs in enumerate(prob.rel_specs)
+              for m in range(rs.arity) if prob.layouts.get(f"r{ri}m{m}")}
+    mapped = [None] * world
+    torch.distributed.all_gather_object(mapped, bool(gather) and all(
+        f"e{ei}" in prob.dest_maps for ei in gather))
     if eng.rank == 0:
         out = {f"m/{k}": float(v) for k, v in m.items()}
         for ei, ent in enumerate(st["ent"]):
@@ -181,6 +188,7 @@ def _run_case(name, world, in_dir, out_dir, bt, eng_cls):
         out["solvers"] = np.array([es.solver if es.has_features else ""
                                    for es in eng.problem.entity_specs])
         out["residual_nnzs"] = np.array(eng.problem.residual_nnzs)
+        out["mapped"] = np.array(mapped)
         np.savez(os.path.join(out_dir, f"{name}.w{world}.npz"), **out)
 
 

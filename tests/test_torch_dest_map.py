@@ -3,10 +3,11 @@ the assembly through it (``assemble_precision(..., dest_map=...)``), on the
 CPU: the map on random layouts (every row once, each instance's first row
 at the instance, the other rows in overflow slots by instance and layout
 order, instance 0 and the padding, the empty instances, several relations
-for one entity); the mapped assembly against the segment sum; the torch
-code's ``dest`` against its rows without it; and a small gather engine's
-chain with and without its maps.  The kernel's ``dest`` runs only on the
-card (``tests/test_torch_gpu.py -k gather_gram_dest``).  Jax-free."""
+for one entity); the mapped assembly against a float64 sum of the same
+rows; the torch code's ``dest`` against its rows without it; and a small
+gather engine's chain under both accumulations.  The kernel's ``dest``
+runs only on the card (``tests/test_torch_gpu.py -k gather_gram_dest``).
+Jax-free."""
 import numpy as np
 import pytest
 import torch
@@ -151,10 +152,12 @@ def _bits(t):
 @pytest.mark.parametrize("case", ["one", "two_relations", "tensor"])
 def test_assemble_precision_with_and_without_the_map(case, gram_dtype,
                                                      fuse_lambda):
-    """Instances of one row equal the segment sum's bit for bit (up to the
-    sign of zero); the others within float32's rounding of their sum in
-    another order, m u sum|row| for m rows; the same bits twice; the
-    counters: every row once, no segment sum."""
+    """The mapped assembly against the plain sum of the same rows (each
+    bucket's ``bucket_gramian``, summed by ``index_add_`` in float64):
+    instances of one row get that row's bits (plus Lambda and the prior
+    term in float32); the others are within float32's rounding of their
+    sum, m u sum|row| for m rows; the same bits twice; the counters: every
+    row once."""
     layouts = _layouts(case)
     gen = torch.Generator().manual_seed(3)
     contribs = _contribs(layouts, gen)
@@ -162,7 +165,6 @@ def test_assemble_precision_with_and_without_the_map(case, gram_dtype,
     Lam = A @ A.T / K + torch.eye(K)
     mu = torch.randn((N, K), generator=gen)
     kw = dict(gram_dtype=gram_dtype, fuse_lambda=fuse_lambda)
-    P0, b0 = tgr.assemble_precision(Lam, mu, contribs, N, **kw)
     insts = _insts(layouts)
     dm = _device_map(insts)
     before = spans.counts()
@@ -174,22 +176,38 @@ def test_assemble_precision_with_and_without_the_map(case, gram_dtype,
     assert torch.equal(_bits(P1), _bits(P2)) and torch.equal(_bits(b1),
                                                              _bits(b2))
     R = sum(len(a) for a in insts)
-    assert after["_segment_sum.calls"] == before["_segment_sum.calls"]
     assert (after["assemble_precision.direct_rows"]
             - before["assemble_precision.direct_rows"]
             + after["assemble_precision.overflow_rows"]
             - before["assemble_precision.overflow_rows"]) == R
+    # the rows, bucket by bucket, and their sums in float64
+    rows = [tgr.bucket_gramian(parts, ba["part"], ba["val"], ba["mask"],
+                               gram_dtype=gram_dtype, alpha=alpha)
+            for alpha, parts, ba in contribs]
+    P_cat = torch.cat([P.reshape(-1, K * K) for P, _ in rows])
+    b_cat = torch.cat([b for _, b in rows])
     cat = torch.from_numpy(np.concatenate(insts)).long()
+    P_ref = torch.zeros((N, K * K), dtype=torch.float64).index_add_(
+        0, cat, P_cat.double()).view(N, K, K)
+    b_ref = torch.zeros((N, K), dtype=torch.float64).index_add_(
+        0, cat, b_cat.double()) + (mu @ Lam).double()
+    if not fuse_lambda:
+        P_ref = P_ref + Lam.double()
     count = torch.bincount(cat, minlength=N)
     single = (count == 1)
     single[0] = False
     # with two relations every instance has a row in each
     assert (int(single.sum()) == 0 if case == "two_relations"
             else int(single.sum()) > 10)
-    assert torch.equal(P1[single], P0[single])
-    assert torch.equal(b1[single], b0[single])
+    assert bool((count > 1).any())
+    pos = torch.nonzero(single[cat])[:, 0]   # the one-row instances' rows
+    one = cat[pos]
+    P_one = P_cat[pos].view(-1, K, K)
+    if not fuse_lambda:
+        P_one = P_one + Lam
+    assert torch.equal(P1[one], P_one)
+    assert torch.equal(b1[one], b_cat[pos] + (mu @ Lam)[one])
     # the rounding bound of each instance's sum, from its rows' magnitudes
-    P_cat, b_cat = tgr._gramian_rows(contribs, K, gram_dtype)
     absP = torch.zeros((N, K * K), dtype=torch.float64).index_add_(
         0, cat, P_cat.double().abs()).view(N, K, K)
     absb = torch.zeros((N, K), dtype=torch.float64).index_add_(
@@ -199,9 +217,8 @@ def test_assemble_precision_with_and_without_the_map(case, gram_dtype,
     extra_P = 0.0 if fuse_lambda else Lam.double().abs()
     tol_P = 2 * m[:, None, None] * u * (absP + extra_P) + 1e-30
     tol_b = 2 * m[:, None] * u * (absb + (mu @ Lam).double().abs()) + 1e-30
-    assert bool(((P1.double() - P0.double()).abs() <= tol_P).all())
-    assert bool(((b1.double() - b0.double()).abs() <= tol_b).all())
-    assert not torch.equal(P1, P0)           # the multi-row sums moved
+    assert bool(((P1.double() - P_ref).abs() <= tol_P).all())
+    assert bool(((b1.double() - b_ref).abs() <= tol_b).all())
 
 
 @pytest.mark.parametrize("path", ["torch_f32", "torch_bf16", "plain"])
@@ -239,7 +256,7 @@ def test_bucket_gramian_dest_moves_the_rows(path, arity):
     assert torch.equal(_bits(out[1]), _bits(want_b))
 
 
-def _chain(graph, dtype):
+def _chain(graph, dtype, accumulation="segment"):
     if graph == "matrix":
         rd = bt.RelationData.from_indexed_df(
             synthetic_ratings(300, 200, 12_000, seed=4))
@@ -251,18 +268,18 @@ def _chain(graph, dtype):
         rd.assign_to_test("ic50", 500, seed=7)
     return bt.MacauEngine(rd, bt.MacauConfig(
         num_latent=K, burnin=6, psamples=6, verbose=False, dtype=dtype,
-        dense_gram=False, accumulation="segment", bucket_widths=(8, 16, 32),
-        seed=3), device="cpu")
+        dense_gram=False, accumulation=accumulation,
+        bucket_widths=(8, 16, 32), seed=3), device="cpu")
 
 
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
 @pytest.mark.parametrize("graph", ["matrix", "fusion"])
 def test_gather_chain_with_and_without_the_maps(graph, dtype):
     """A small gather engine ("segment"): every entity with buckets has a
-    map; two runs give the same bits; no segment sum runs, the overflow
-    span sits in the buckets' span; one sweep from the chain's end with
-    the same randoms, without the maps (the segment sum), ends within the
-    rounding of the sums' order."""
+    map; two runs give the same bits; every row goes through the map once
+    a sweep, the overflow span sits in the buckets' span; one sweep from
+    the chain's end with the same randoms under "planned" (Lambda in P,
+    through the same maps) ends within the rounding of the sums' order."""
     eng = _chain(graph, dtype)
     prob = eng.problem
     n_ent = len(prob.entity_specs)
@@ -273,7 +290,6 @@ def test_gather_chain_with_and_without_the_maps(graph, dtype):
     for x, y in zip(a["state"]["ent"], b["state"]["ent"]):
         assert torch.equal(x["U"], y["U"])
     c = rec.counters
-    assert c["_segment_sum.calls"] == 0
     R = sum(len(ba["inst"]) for v in prob.layouts.values() for ba in v)
     assert (c["assemble_precision.direct_rows"]
             + c["assemble_precision.overflow_rows"]) == 12 * R
@@ -281,12 +297,15 @@ def test_gather_chain_with_and_without_the_maps(graph, dtype):
     ov = [s for s in rec.spans if s.name.endswith(".overflow")]
     assert ov and all(names[s.parent].endswith(".buckets") for s in ov)
     randoms = eng.draw(13)
-    mapped, _ = eng._sweep_with_randoms(a["state"], randoms, 0.0)
-    prob.dest_maps.clear()
+    seg, _ = eng._sweep_with_randoms(a["state"], randoms, 0.0)
+    planned = _chain(graph, dtype, accumulation="planned")
+    assert sorted(planned.problem.dest_maps) == sorted(prob.dest_maps)
     with spans.recording() as rec2:
-        seg, _ = eng._sweep_with_randoms(a["state"], randoms, 0.0)
-    assert rec2.counters["_segment_sum.calls"] == 2 * n_ent
+        pl, _ = planned._sweep_with_randoms(a["state"], randoms, 0.0)
+    c2 = rec2.counters
+    assert (c2["assemble_precision.direct_rows"]
+            + c2["assemble_precision.overflow_rows"]) == R
     tol = 1e-12 if dtype == "float64" else 1e-5
-    for x, y in zip(mapped["ent"], seg["ent"]):
+    for x, y in zip(pl["ent"], seg["ent"]):
         scale = float(y["U"].abs().max())
         assert float((x["U"] - y["U"]).abs().max()) <= tol * scale

@@ -85,20 +85,25 @@ def _spies(monkeypatch, targets):
 @pytest.fixture
 def gather_branches(monkeypatch):
     """Records the non-packed branch of each engine: its accumulation
-    ("segment" or "planned"), its full-P dispatch and the sampler it chose
-    (JAX: its K3 kernel function, at trace time; the port: its K3 and K4
-    wrappers)."""
-    return _spies(monkeypatch, [
+    ("segment" or "planned"; the port's one ``assemble_precision`` by its
+    ``fuse_lambda``: Lambda left to the sampler or in P), its full-P
+    dispatch and the sampler it chose (JAX: its K3 kernel function, at
+    trace time; the port: its K3 and K4 wrappers)."""
+    seen = _spies(monkeypatch, [
         (jax_engine_mod, "assemble_precision", ("jax", "segment")),
         (jax_engine_mod, "assemble_precision_planned", ("jax", "planned")),
         (jax_engine_mod, "chol_sample_dispatch", ("jax", "full")),
         (jax_pallas_chol, "chol_sample_pallas", ("jax", "K3")),
-        (torch_engine_mod, "assemble_precision", ("port", "segment")),
-        (torch_engine_mod, "assemble_precision_planned",
-         ("port", "planned")),
         (torch_engine_mod, "chol_sample_dispatch", ("port", "full")),
         (mvn, "chol_sample_full", ("port", "K3")),
         (mvn, "chol_sample_full_tiled", ("port", "K4"))])
+    assemble = torch_engine_mod.assemble_precision
+
+    def labelled(*a, **kw):
+        seen.append(("port", "segment" if kw["fuse_lambda"] else "planned"))
+        return assemble(*a, **kw)
+    monkeypatch.setattr(torch_engine_mod, "assemble_precision", labelled)
+    return seen
 
 
 @pytest.fixture
@@ -499,7 +504,8 @@ def test_gather_macau_runs_and_reports():
     eng = bt.MacauEngine(rd, bt.MacauConfig(num_latent=4, verbose=False,
                                             dense_gram=False), device="cpu")
     prob = eng.problem
-    assert prob.kinds == ["gather"] and prob.acc_plan == {}
+    assert prob.kinds == ["gather"]
+    assert sorted(prob.dest_maps) == ["e0", "e1"]
     assert sum(prob.padded_nnz) >= 2 * (df.nnz - 300)
     assert all(ba["inst"].dtype == torch.int32
                for ba in prob.layouts["r0m0"])

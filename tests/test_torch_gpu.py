@@ -847,7 +847,7 @@ def test_gather_gram_kernel_matches_plain(cuda, K, arity, W):
     """The gather-Gramian kernel against its plain version (on the CPU) at
     every width of the Netflix ladder, on full rows (chunked instances),
     partly filled rows and padding rows, with alpha 2.75, written into a
-    slice of a larger buffer as ``_gramian_rows`` does.
+    slice of a larger buffer.
 
     Both sum the same exact products (bf16 values, their products exact in
     float32) in float32, in two orders: each lies within (W - 1) u sum|p|
@@ -1006,18 +1006,21 @@ def test_gather_gram_dest_torch_code_on_cuda(cuda, K, gram_dtype):
 
 def test_gather_gram_dest_engine_chain(cuda):
     """A bf16 gather engine on the card ("segment"): every bucket through
-    the kernel into its map's destinations, no segment sum, the same bits
-    twice; one sweep from the chain's end with the same randoms, without
-    the maps (the segment sum), ends within float32 rounding of the sums'
+    the kernel into its map's destinations, the same bits twice; one sweep
+    from the chain's end with the same randoms under "planned" (Lambda in
+    P, through the same maps) ends within float32 rounding of the sums'
     order."""
     from bayesiandatafusion_jl_tpu_torch.utils import spans
     rd = bt.RelationData.from_indexed_df(
         synthetic_ratings(2_000, 1_500, 60_000, seed=2))
     rd.assign_to_test(0, 5_000, seed=7)
-    eng = bt.MacauEngine(rd, bt.MacauConfig(
-        num_latent=32, burnin=4, psamples=4, verbose=False,
-        dense_gram=False, gram_dtype="bfloat16",
-        bucket_widths=(8, 12, 16, 32, 64)), device="cuda")
+
+    def engine(accumulation):
+        return bt.MacauEngine(rd, bt.MacauConfig(
+            num_latent=32, burnin=4, psamples=4, verbose=False,
+            dense_gram=False, gram_dtype="bfloat16", accumulation=accumulation,
+            bucket_widths=(8, 12, 16, 32, 64)), device="cuda")
+    eng = engine("segment")
     prob = eng.problem
     assert sorted(prob.dest_maps) == ["e0", "e1"]
     R = sum(len(ba["inst"]) for v in prob.layouts.values() for ba in v)
@@ -1026,7 +1029,6 @@ def test_gather_gram_dest_engine_chain(cuda):
         a = eng.run()
     b = eng.run()
     c = rec.counters
-    assert c["_segment_sum.calls"] == 0
     assert c["gather_gram.launches"] == 8 * n_buckets
     assert c["gather_gram_plain.calls"] == 0
     assert (c["assemble_precision.direct_rows"]
@@ -1035,10 +1037,11 @@ def test_gather_gram_dest_engine_chain(cuda):
     for x, y in zip(a["state"]["ent"], b["state"]["ent"]):
         assert torch.equal(x["U"], y["U"])
     randoms = eng.draw(9)
-    mapped, _ = eng._sweep_with_randoms(a["state"], randoms, 0.0)
-    prob.dest_maps.clear()
     seg, _ = eng._sweep_with_randoms(a["state"], randoms, 0.0)
-    for x, y in zip(mapped["ent"], seg["ent"]):
+    planned = engine("planned")
+    assert sorted(planned.problem.dest_maps) == ["e0", "e1"]
+    pl, _ = planned._sweep_with_randoms(a["state"], randoms, 0.0)
+    for x, y in zip(pl["ent"], seg["ent"]):
         scale = float(y["U"].abs().max())
         assert float((x["U"] - y["U"]).abs().max()) <= 1e-4 * scale
 
@@ -1389,40 +1392,13 @@ def test_driver_resume_and_windows_on_cuda(cuda, tmp_path, case):
                                   "fused_residual"])
 def test_same_seed_runs_bitwise_on_cuda(cuda, case):
     """Two runs of one seed give the same U, bit for bit, on the paths
-    that sum gather rows into instances (the segment sum, the planned
-    overflow, the fused path's residual)."""
+    that sum gather rows into instances (the destination map's overflow
+    under both accumulations, the fused path's residual)."""
     eng = _driver_engine(case)
     a = eng.run()["state"]
     b = eng.run()["state"]
     assert all(torch.equal(x["U"], y["U"])
                for x, y in zip(a["ent"], b["ent"]))
-
-
-@pytest.mark.parametrize("n, rows, width", [(1_000, 20_000, 1_024),
-                                            (71_567, 90_000, 528),
-                                            (7, 5_000, 32)])
-def test_segment_sum_on_cuda(cuda, n, rows, width):
-    """The gather path's segment sum on the card, float32: within the
-    recursive-summation bound of a float64 sum, (m - 1) eps32 sum |x| for
-    a segment of m rows, elementwise; the same bits on a second call, and
-    the same as the CPU's (the same adds in the same order)."""
-    from bayesiandatafusion_jl_tpu_torch.ops.gramian import _segment_sum
-    g = torch.Generator().manual_seed(n)
-    seg = torch.randint(0, n, (rows,), generator=g, dtype=torch.int32)
-    x = torch.randn((rows, width), generator=g, dtype=torch.float64)
-    got = _segment_sum(x.float().to(cuda), seg.to(cuda), n)
-    again = _segment_sum(x.float().to(cuda), seg.to(cuda), n)
-    assert torch.equal(got, again)
-    assert torch.equal(got.cpu(), _segment_sum(x.float(), seg, n))
-    x32 = x.float().double()
-    want = torch.zeros((n, width), dtype=torch.float64).index_add_(
-        0, seg.long(), x32)
-    absum = torch.zeros((n, width), dtype=torch.float64).index_add_(
-        0, seg.long(), x32.abs())
-    m = torch.bincount(seg.long(), minlength=n).double()[:, None]
-    bound = (m - 1).clamp_min(0) * 2.0 ** -24 * absum * 1.01
-    assert got.shape == (n, width)
-    assert bool(((got.cpu().double() - want).abs() <= bound).all())
 
 
 @pytest.mark.parametrize("case", sorted(DRIVER_CASES))

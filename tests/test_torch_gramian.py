@@ -1,9 +1,9 @@
 """The port's gather-path Gramian (ops/gramian.py) against the JAX
-package's: per-bucket Gramians (one pass and row-chunked), the segment-sum
-assembly with and without Lambda, the packed accumulation of the fused
-path's residual, the accumulation plan and the planned assembly, in float64
-to 1e-12; the bfloat16 gather against JAX's bfloat16
-contraction at float32 tolerance."""
+package's: per-bucket Gramians (one pass and row-chunked), the assembly
+through the destination map with and without Lambda (against JAX's segment
+sum and its planned assembly), the packed accumulation of the fused path's
+residual and the accumulation plan, in float64 to 1e-12; the bfloat16
+gather against JAX's bfloat16 contraction at float32 tolerance."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -55,6 +55,15 @@ def _contribs(ml, U, alpha, lib):
             for b in ml.buckets]
 
 
+def _dest_map(ml, n):
+    """The destination map of one layout's buckets (``build_dest_map``),
+    its arrays as tensors."""
+    dm = tgr.build_dest_map([b.inst for b in ml.buckets], n)
+    for k in ("dest", "ov_inst", "ov_len", "empty"):
+        dm[k] = torch.from_numpy(dm[k])
+    return dm
+
+
 def test_layout_input_matches_jax():
     idx, vals, ml, *_ = _problem(np.float64)
     want = jax_build_mode_layout(idx, vals, 0, SHAPE[0], widths=WIDTHS,
@@ -98,7 +107,8 @@ def test_assemble_precision_matches_jax(mode, fuse_lambda):
         n, fuse_lambda=fuse_lambda)
     Pt, bt = tgr.assemble_precision(
         torch.from_numpy(Lam), torch.from_numpy(mu),
-        _contribs(ml, U, 2.5, "torch"), n, fuse_lambda=fuse_lambda)
+        _contribs(ml, U, 2.5, "torch"), n, fuse_lambda=fuse_lambda,
+        dest_map=_dest_map(ml, n))
     assert tuple(Pt.shape) == (n, K, K) and tuple(bt.shape) == (n, K)
     np.testing.assert_allclose(Pt.numpy(), np.asarray(Pj), rtol=1e-12,
                                atol=1e-12)
@@ -176,30 +186,52 @@ def test_plan_accumulation_equal(mode):
 
 @pytest.mark.parametrize("mode", [0, 1])
 def test_assemble_precision_planned_matches_jax(mode):
-    """The planned assembly against JAX's, and against the segment sum
-    (Lambda included) to rounding."""
+    """The assembly with Lambda in P (``fuse_lambda=False``, what "planned"
+    takes) against JAX's planned assembly, and against JAX's segment sum
+    with Lambda, to rounding."""
     _, _, ml, U, Lam, mu = _problem(np.float64, mode=mode, seed=3)
     n = SHAPE[mode]
     plan = tgr.plan_accumulation([b.inst for b in ml.buckets], n)
+    prior = jnp.asarray(np.broadcast_to(mu, (n, K)))
     Pj, bj = jgr.assemble_precision_planned(
-        jnp.asarray(Lam), jnp.asarray(np.broadcast_to(mu, (n, K))),
-        _contribs(ml, U, 2.5, "jax"), n,
+        jnp.asarray(Lam), prior, _contribs(ml, U, 2.5, "jax"), n,
         {k: jnp.asarray(v) for k, v in plan.items()})
-    tplan = {k: torch.from_numpy(v) for k, v in plan.items()}
-    tplan["has"] = tplan["has"].double()
-    Pt, bt = tgr.assemble_precision_planned(
+    Pt, bt = tgr.assemble_precision(
         torch.from_numpy(Lam), torch.from_numpy(mu),
-        _contribs(ml, U, 2.5, "torch"), n, tplan)
+        _contribs(ml, U, 2.5, "torch"), n, fuse_lambda=False,
+        dest_map=_dest_map(ml, n))
     np.testing.assert_allclose(Pt.numpy(), np.asarray(Pj), rtol=1e-12,
                                atol=1e-12)
     np.testing.assert_allclose(bt.numpy(), np.asarray(bj), rtol=1e-12,
                                atol=1e-12)
-    Ps, bs = tgr.assemble_precision(
-        torch.from_numpy(Lam), torch.from_numpy(mu),
-        _contribs(ml, U, 2.5, "torch"), n)
-    np.testing.assert_allclose(Pt.numpy(), Ps.numpy(), rtol=1e-12,
+    Ps, bs = jgr.assemble_precision(
+        jnp.asarray(Lam), prior, _contribs(ml, U, 2.5, "jax"), n)
+    np.testing.assert_allclose(Pt.numpy(), np.asarray(Ps), rtol=1e-12,
                                atol=1e-12)
-    np.testing.assert_allclose(bt.numpy(), bs.numpy(), rtol=1e-12,
+    np.testing.assert_allclose(bt.numpy(), np.asarray(bs), rtol=1e-12,
+                               atol=1e-12)
+
+
+@pytest.mark.parametrize("fuse_lambda", [False, True])
+def test_assemble_precision_needs_the_map(fuse_lambda):
+    """Bucket rows without their destination map raise; with no buckets
+    there is nothing to map: P is Lambda (or zeros with ``fuse_lambda``)
+    and b the prior term, as JAX's assembly of no contributions."""
+    _, _, ml, U, Lam, mu = _problem(np.float64)
+    n = SHAPE[0]
+    with pytest.raises(ValueError, match="destination map"):
+        tgr.assemble_precision(torch.from_numpy(Lam), torch.from_numpy(mu),
+                               _contribs(ml, U, 2.5, "torch"), n,
+                               fuse_lambda=fuse_lambda)
+    Pj, bj = jgr.assemble_precision(
+        jnp.asarray(Lam), jnp.asarray(np.broadcast_to(mu, (n, K))), [], n,
+        fuse_lambda=fuse_lambda)
+    Pt, bt = tgr.assemble_precision(torch.from_numpy(Lam),
+                                    torch.from_numpy(mu), [], n,
+                                    fuse_lambda=fuse_lambda)
+    assert Pt.is_contiguous() and bt.is_contiguous()
+    np.testing.assert_array_equal(Pt.numpy(), np.asarray(Pj))
+    np.testing.assert_allclose(bt.numpy(), np.asarray(bj), rtol=1e-12,
                                atol=1e-12)
 
 
@@ -213,9 +245,11 @@ def test_bf16_gram_dtype_matches_jax():
     Pj, bj = jgr.assemble_precision(
         jnp.asarray(Lam), jnp.asarray(np.broadcast_to(mu, (n, K))),
         _contribs(ml, U, 2.5, "jax"), n, gram_dtype=jnp.bfloat16)
+    dm = _dest_map(ml, n)
     Pt, bt = tgr.assemble_precision(
         torch.from_numpy(Lam), torch.from_numpy(mu),
-        _contribs(ml, U, 2.5, "torch"), n, gram_dtype=torch.bfloat16)
+        _contribs(ml, U, 2.5, "torch"), n, gram_dtype=torch.bfloat16,
+        dest_map=dm)
     assert Pt.dtype == torch.float32 and np.asarray(Pj).dtype == np.float32
     np.testing.assert_allclose(Pt.numpy(), np.asarray(Pj), rtol=2e-6,
                                atol=2e-5)
@@ -224,5 +258,5 @@ def test_bf16_gram_dtype_matches_jax():
     # and it is not the float32 gather: bf16 rounding is far above that
     P32, _ = tgr.assemble_precision(
         torch.from_numpy(Lam), torch.from_numpy(mu),
-        _contribs(ml, U, 2.5, "torch"), n)
+        _contribs(ml, U, 2.5, "torch"), n, dest_map=dm)
     assert float((P32 - Pt).abs().max()) > 1e-3

@@ -118,6 +118,9 @@ def test_sharded_matches_jax_engine(jax_runs, launches, world, name):
     want = {"int8_pair": "pair", "float_pair": "pair", "tensor_int8": "pair",
             "fused_s8_residual": "fused"}.get(name, "gather")
     assert z["kinds"][0] == want
+    if want == "gather":
+        # every rank's gather rows reach their instances by its maps
+        assert z["mapped"].tolist() == [True] * world
     if name == "head_split":
         assert z["exchange_blocks"] == 2 and z["n_head"].tolist() == [8, 8]
     if name == "macau_dual":

@@ -35,13 +35,20 @@ def xla_cpu_ridge(monkeypatch):
 @pytest.fixture
 def port_branches(monkeypatch):
     """The port's sampler calls by name, in order: its packed and full-P
-    dispatches, the planned accumulation and the kernels' wrappers (K1,
-    K2, K3, K4, the blocked sampler)."""
+    dispatches, the planned accumulation (``assemble_precision`` with Lambda
+    in P) and the kernels' wrappers (K1, K2, K3, K4, the blocked
+    sampler)."""
     seen = []
+    assemble = torch_engine_mod.assemble_precision
+
+    def planned(*a, **kw):
+        if not kw["fuse_lambda"]:
+            seen.append("planned")
+        return assemble(*a, **kw)
+    monkeypatch.setattr(torch_engine_mod, "assemble_precision", planned)
     for mod, name, tag in (
             (torch_engine_mod, "chol_sample_packed_dispatch", "packed"),
             (torch_engine_mod, "chol_sample_dispatch", "full"),
-            (torch_engine_mod, "assemble_precision_planned", "planned"),
             (chol_packed, "chol_sample_packed", "K1"),
             (chol_packed, "chol_sample_packed_tiled", "K2"),
             (mvn, "chol_sample_full", "K3"),
@@ -91,8 +98,8 @@ def test_packed_k2_matches_jax(port_branches):
     (8, "segment", "K3"), (36, "segment", "K4"), (8, "planned", "K3")])
 def test_gather_full_matches_jax(port_branches, K, accumulation, kernel):
     """The gather path (dense_gram=False): P full, the prior term through
-    ``assemble_precision`` (Lambda left to the sampler) or
-    ``assemble_precision_planned`` (Lambda in P), and the bucketed feature
+    ``assemble_precision`` (Lambda left to the sampler, or in P under
+    "planned"), and the bucketed feature
     matvec; the compound entity on FF with real-valued features."""
     rng = np.random.default_rng(52 + K)
     F = features(rng, 22, 9, "real")

@@ -295,7 +295,7 @@ def test_setup_attributes_equal_their_spans(case):
         assert setup[name] == sum(s.seconds for s in group), name
     assert set(setup) == set(by_name)
     expect = {"pair": {"bdf.build.store"},
-              "gather_planned": {"bdf.build.layouts", "bdf.build.acc_plan"},
+              "gather_planned": {"bdf.build.layouts", "bdf.build.dest_map"},
               "gather_segment": {"bdf.build.layouts", "bdf.build.dest_map"},
               "fused": {"bdf.build.store"},
               "macau_dual": {"bdf.build.features", "bdf.build.operand",
